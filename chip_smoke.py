@@ -16,12 +16,27 @@ Builds the port's CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
 4. the slice: ``build_bert_trainer(bert_base_config(), optimizer=lamb())``
    on the card (bf16, 12 x 768, vocab 30528, S = 512, B = 64), a warm-up
    step and timed steps; every kernel's launch count must rise by exactly
-   its per-step count; tokens/s, ms/step, peak memory and MFU;
+   its per-step count (0 for the batch-norm kernels); tokens/s, ms/step,
+   peak memory and MFU;
 5. whole-step parity: one f32 step at full widths (B = 2) through the
    kernels on the card and through the plain versions on the CPU, from the
-   same weights and batch: the loss and every gradient leaf;
-6. times: each kernel, its plain version and the library call that
-   computes the same function, with CUDA events, beside the kernel's bound.
+   same weights and batch: the loss and every gradient leaf; then the
+   times of each kernel, its plain version and the library call that
+   computes the same function, with CUDA events, beside the kernel's bound;
+6. the batch-norm kernels against their plain versions at ResNet-50's
+   largest bottleneck shape and its widest one, bf16 and f32, a ragged row
+   count, and ``fused_bn_train`` / ``fused_scale_shift`` through autograd
+   against the same functions on the CPU;
+7. the ResNet slice: ``build_resnet_trainer(resnet50_config(fuse_bn=True),
+   optimizer=momentum(0.9))`` on the card (bf16, 224 x 224, B = 128,
+   lr 1e-2), a warm-up step and timed steps; each batch-norm kernel's launch
+   count must rise by exactly 53 a step and the others not at all;
+   images/s, ms/step, peak memory and MFU;
+8. ResNet whole-step parity: one f32 ResNet-50 step at 224, B = 2, through
+   the kernels on the card and the plain versions on the CPU, from the same
+   weights and batch: the loss, every gradient leaf and the new BN state;
+9. times of the batch-norm kernels at both shapes, beside their plain
+   versions and library calls, as in 5.
 
 TF32 is switched off for matrix products and convolutions, so the f32
 phases compare f32 with f32.  The last two lines are the kernels' JSON
@@ -40,11 +55,20 @@ import torch
 
 # published peaks by card name: (bf16 dense tensor-core FLOP/s, device
 # memory bytes/s).  MFU and every kernel's bound read the same entry.
-CARD_PEAKS = {"H100 80GB HBM3": (989e12, 3.35e12)}      # H100 SXM
+# The third entry is the f32 rate of the CUDA cores (no tensor cores), the
+# peak of the batch-norm kernels' elementwise arithmetic.
+CARD_PEAKS = {"H100 80GB HBM3": (989e12, 3.35e12, 67e12)}      # H100 SXM
 B, S = 64, 512                      # bench.py's BERT-base shapes
 TIMED_STEPS = 5
 PER_STEP = {"layer_norm_fwd": 24, "layer_norm_bwd": 24,
             "flash_attention_fwd": 12, "flash_attention_bwd": 12}
+B_RN, IMAGE = 128, 224              # bench.py's ResNet-50 shapes
+RN_PER_STEP = {"bn_stats": 53, "bn_scale_shift": 53, "bn_bwd_reduce": 53,
+               "bn_dx": 53}         # one of each for every one of 53 BNs
+RESNET50_FLOPS_PER_IMAGE = 3 * 4.09e9   # bench.py:259: fwd 4.09 GFLOP, train 3x
+# [M, C] views timed and compared: the largest bottleneck BN (s0 conv3 /
+# projection output at B = 128) and the fewest rows, widest channels (s3)
+BN_SHAPES = ((401408, 256), (6272, 2048))
 SOURCES = {
     "layer_norm_fwd": ("paddle_tpu_torch/kernels/csrc/layer_norm.cu",
                        "paddle_tpu/kernels/layer_norm.py:36"),
@@ -54,6 +78,14 @@ SOURCES = {
                             "paddle_tpu/kernels/flash_attention.py:57"),
     "flash_attention_bwd": ("paddle_tpu_torch/kernels/csrc/flash_attention.cu",
                             "paddle_tpu/kernels/flash_attention.py:239"),
+    "bn_stats": ("paddle_tpu_torch/kernels/csrc/fused_bn.cu",
+                 "paddle_tpu/kernels/fused_bn.py:80"),
+    "bn_scale_shift": ("paddle_tpu_torch/kernels/csrc/fused_bn.cu",
+                       "paddle_tpu/kernels/fused_bn.py:92"),
+    "bn_bwd_reduce": ("paddle_tpu_torch/kernels/csrc/fused_bn.cu",
+                      "paddle_tpu/kernels/fused_bn.py:97"),
+    "bn_dx": ("paddle_tpu_torch/kernels/csrc/fused_bn.cu",
+              "paddle_tpu/kernels/fused_bn.py:112"),
 }
 # tolerances on max|kernel - plain| / max|plain|: bf16 outputs carry a
 # rounding of 2^-9 relative and the kernels round p and ds to bf16 where the
@@ -63,6 +95,19 @@ TOL_BF16, TOL_F32 = 2e-2, 1e-4
 # gradients (the vocab-loss gradient is rounded to bf16 on both sides, and a
 # value on a rounding edge may round apart: rare elements move by 2^-8)
 TOL_LOSS, TOL_GRAD = 1e-5, 1e-3
+# ResNet-50 whole-step parity (f32, B = 2).  The forward is well conditioned:
+# on the CPU the port's f32 loss and BN state sit within 1e-6 of a float64
+# run.  Its gradients are not: a few pre-activations lie within f32 rounding
+# of 0, and where two f32 implementations (cuDNN and oneDNN convolutions)
+# round them apart their ReLU masks differ; through every BN's channel-wide
+# mean terms each such flip moves the gradients of all earlier layers.  On
+# the CPU the f32 gradients sit 3.8e-2 (all leaves, relative L2) and up to
+# 5.2e-2 (worst leaf) from float64 for that reason, while the fused and
+# unfused f32 paths, which round the forward alike, agree to 1.5e-5.  A wrong
+# pad, stride or backward formula moves them by O(1).  The kernels' own
+# accuracy is held in the compare phase.
+TOL_RN_LOSS, TOL_RN_STATE = 1e-5, 1e-4
+TOL_RN_GRAD_ALL, TOL_RN_GRAD_LEAF = 0.1, 0.25
 
 
 def emit(obj):
@@ -82,6 +127,14 @@ def card_peaks(name):
         if key in name:
             return peaks
     raise RuntimeError("no published peaks known for %r" % name)
+
+
+def bound_ms(device_name, flops, nbytes, peak="bf16"):
+    """(operations, bytes) lower bounds in ms: flops over the card's bf16
+    tensor-core or f32 CUDA-core peak, bytes over its memory rate."""
+    bf16, rate, f32 = card_peaks(device_name)
+    return (flops / (bf16 if peak == "bf16" else f32) * 1e3,
+            nbytes / rate * 1e3)
 
 
 def rel_err(got, want):
@@ -129,7 +182,7 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi.splitlines()[0], flush=True)
-    peak_flops, peak_bytes = card_peaks(name)
+    peak_flops, peak_bytes, _ = card_peaks(name)
     emit({"phase": "device", "name": name, "count": torch.cuda.device_count(),
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "peak_bf16_flops": peak_flops,
@@ -147,7 +200,7 @@ def phase_build():
         if "Compiling entry function" in line:
             # a short name from the mangled one: kernel<dtype, DMAX>
             mangled = line.split("'")[1]
-            m = re.search(r"\d((?:flash|ln)_\w+?_kernel)", mangled)
+            m = re.search(r"\d((?:flash|ln|bn)_\w+?_kernel)", mangled)
             base = m.group(1) if m else mangled
             dmax = re.search(r"Li(\d+)E", mangled)
             kernel = "%s<%s%s>" % (base, "bf16" if "bfloat16" in mangled else "f32",
@@ -230,8 +283,31 @@ def phase_compare():
     return errs
 
 
-def phase_slice(device_name):
+def timed_steps(trainer, batches, lr, per_step):
+    """Counts set to 0, a warm-up step, then the timed steps; every count
+    must end at exactly its per-step count times the steps run (0 for a
+    kernel the path does not run).  Returns (seconds, losses, counts)."""
     from paddle_tpu_torch.kernels import _common
+
+    _common.reset_launches()
+    trainer.step(batches[0], lr)                   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [trainer.step(b, lr) for b in batches[1:]]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(_common.launches)
+
+    losses = [float(l) for l in losses]
+    if not all(math.isfinite(l) for l in losses):
+        raise AssertionError("non-finite loss: %s" % losses)
+    want = {k: per_step.get(k, 0) * len(batches) for k in counts}
+    if counts != want:
+        raise AssertionError("launch counts %s, expected %s" % (counts, want))
+    return dt, losses, counts
+
+
+def phase_slice(device_name):
     from paddle_tpu_torch.models import bert
     from paddle_tpu_torch.parallel import optim
     from paddle_tpu_torch.parallel.train import stack_batches
@@ -242,23 +318,7 @@ def phase_slice(device_name):
                            trainer.device, bert.batch_specs())
     batches = [{k: v[i] for k, v in staged.items()} for i in range(TIMED_STEPS + 1)]
     torch.cuda.reset_peak_memory_stats()
-
-    _common.reset_launches()
-    trainer.step(batches[0], 1e-4)                 # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    losses = [trainer.step(b, 1e-4) for b in batches[1:]]
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    counts = dict(_common.launches)
-
-    losses = [float(l) for l in losses]
-    if not all(math.isfinite(l) for l in losses):
-        raise AssertionError("non-finite loss: %s" % losses)
-    steps = TIMED_STEPS + 1
-    want = {k: n * steps for k, n in PER_STEP.items()}
-    if counts != want:
-        raise AssertionError("launch counts %s, expected %s" % (counts, want))
+    dt, losses, counts = timed_steps(trainer, batches, 1e-4, PER_STEP)
     tok_s = B * S * TIMED_STEPS / dt
     peak_flops = card_peaks(device_name)[0]
     emit({"phase": "slice", "config": "bert_base", "batch": B, "seq": S,
@@ -267,7 +327,7 @@ def phase_slice(device_name):
           "mfu": tok_s * model_flops_per_token(cfg, S) / peak_flops,
           "peak_bf16_flops": peak_flops,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
-          "losses": losses, "launches": counts, "launches_expected": want})
+          "losses": losses, "launches": counts})
     del trainer, staged, batches
     torch.cuda.empty_cache()
     return {k: counts[k] for k in PER_STEP}
@@ -314,12 +374,10 @@ def phase_times(errs, launches, device_name):
     from paddle_tpu_torch.kernels import layer_norm as ln
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    peak_flops, peak_bytes = card_peaks(device_name)
     out = []
 
     def record(name, ms, plain_ms, library_ms, nbytes, flops):
-        t_bytes = nbytes / peak_bytes * 1e3
-        t_ops = flops / peak_flops * 1e3
+        t_ops, t_bytes = bound_ms(device_name, flops, nbytes)
         src, rep = SOURCES[name]
         rec = {"name": name, "route": "cuda", "source": src, "replaces": rep,
                "launches": launches[name], "max_abs_err": errs[name],
@@ -372,6 +430,195 @@ def phase_times(errs, launches, device_name):
     return out
 
 
+# -- ResNet-50 phases -----------------------------------------------------------
+
+def _bn_inputs(gen, M, C, dtype):
+    mk = lambda: (torch.randn(M, C, generator=gen, device="cuda") * 2 + 1).to(dtype)
+    x, dy = mk(), mk()
+    a = (torch.rand(C, generator=gen, device="cuda") + 0.5).to(dtype)
+    b = torch.randn(C, generator=gen, device="cuda").to(dtype)
+    coefs = torch.randn(3, C, generator=gen, device="cuda")
+    return x, dy, a, b, coefs
+
+
+def phase_compare_bn():
+    """Each BN kernel against its plain version on the same inputs: the two
+    timed shapes in bf16 and f32 and a ragged row count; then the autograd
+    round trip against the same functions on the CPU."""
+    from paddle_tpu_torch.kernels import fused_bn as fbn
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    errs = dict.fromkeys(RN_PER_STEP, 0.0)
+    cases = [(M, C, dt) for M, C in BN_SHAPES
+             for dt in (torch.bfloat16, torch.float32)]
+    cases.append((100003, 512, torch.bfloat16))          # ragged rows
+    for M, C, dt in cases:
+        x, dy, a, b, coefs = _bn_inputs(gen, M, C, dt)
+        tol = TOL_BF16 if dt == torch.bfloat16 else TOL_F32
+        tag = ":%dx%d:%s" % (M, C, str(dt).replace("torch.", ""))
+        s, q = fbn.stats2(x)
+        s_p, q_p = fbn.bn_stats_plain(x)
+        errs["bn_stats"] = max(errs["bn_stats"], check("bn_stats" + tag, [
+            ("sum", s, s_p, TOL_F32), ("sumsq", q, q_p, TOL_F32)]))
+        errs["bn_scale_shift"] = max(errs["bn_scale_shift"], check(
+            "bn_scale_shift" + tag, [("y", fbn.scale_shift2(x, a, b),
+                                      fbn.scale_shift_plain(x, a, b), tol)]))
+        s1, s2 = fbn.bwd_reduce2(dy, x)
+        s1_p, s2_p = fbn.bwd_reduce_plain(dy, x)
+        errs["bn_bwd_reduce"] = max(errs["bn_bwd_reduce"], check(
+            "bn_bwd_reduce" + tag, [("sum_dy", s1, s1_p, TOL_F32),
+                                    ("sum_dy_x", s2, s2_p, TOL_F32)]))
+        errs["bn_dx"] = max(errs["bn_dx"], check("bn_dx" + tag, [
+            ("dx", fbn.dx2(dy, x, coefs), fbn.dx_plain(dy, x, coefs), tol)]))
+        del x, dy, s, q, s1, s2
+    # fused_bn_train then fused_scale_shift through autograd, f32, at the
+    # widest timed shape: the kernels on the card against the plain
+    # versions behind the same autograd functions on the CPU
+    M, C = BN_SHAPES[1]
+    x, w, _, _, _ = _bn_inputs(gen, M, C, torch.float32)
+    x, w = x.view(2, -1, 7, C), w.view(2, -1, 7, C)
+    scale = torch.rand(C, generator=gen, device="cuda") + 0.5
+    bias = torch.randn(C, generator=gen, device="cuda")
+    outs = []
+    for dev in ("cuda", "cpu"):
+        leaves = [t.to(dev).detach().requires_grad_() for t in (x, scale, bias)]
+        y, m, v = fbn.fused_bn_train(*leaves)
+        z = fbn.fused_scale_shift(y, leaves[1], leaves[2])
+        (z * w.to(dev)).sum().backward()
+        outs.append([t.detach().cpu() for t in (z, m, v)]
+                    + [t.grad.cpu() for t in leaves])
+    check("fused_bn_train+fused_scale_shift:autograd", [
+        (n, got, want, TOL_F32) for n, got, want in zip(
+            ("y", "mean", "var", "dx", "dscale", "dbias"), *outs)])
+    torch.cuda.synchronize()
+    return errs
+
+
+def phase_resnet_slice(device_name):
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.parallel import optim
+    from paddle_tpu_torch.parallel.train import stack_batches
+
+    cfg = resnet.resnet50_config(dtype="bfloat16", fuse_bn=True, image_size=IMAGE)
+    trainer = resnet.build_resnet_trainer(cfg, optimizer=optim.momentum(0.9),
+                                          seed=0)
+    # images staged in bf16, as bench.py stages them on the chip
+    staged = stack_batches(resnet.synthetic_batches(cfg, TIMED_STEPS + 1, B_RN),
+                           trainer.device, {"image": torch.bfloat16})
+    batches = [{k: v[i] for k, v in staged.items()} for i in range(TIMED_STEPS + 1)]
+    torch.cuda.reset_peak_memory_stats()
+    dt, losses, counts = timed_steps(trainer, batches, 1e-2, RN_PER_STEP)
+    img_s = B_RN * TIMED_STEPS / dt
+    peak_flops = card_peaks(device_name)[0]
+    emit({"phase": "slice", "config": "resnet50", "batch": B_RN,
+          "image": IMAGE, "steps_timed": TIMED_STEPS,
+          "ms_per_step": dt / TIMED_STEPS * 1e3, "images_per_sec": img_s,
+          "mfu": img_s * RESNET50_FLOPS_PER_IMAGE / peak_flops,
+          "peak_bf16_flops": peak_flops,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "losses": losses, "launches": counts})
+    del trainer, staged, batches
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in RN_PER_STEP}
+
+
+def phase_resnet_parity():
+    from paddle_tpu_torch._tree import tree_leaves, tree_map
+    from paddle_tpu_torch.models import resnet
+
+    cfg = resnet.resnet50_config(dtype="float32", fuse_bn=True, image_size=IMAGE)
+    params, state = resnet.init_resnet_params(torch.Generator().manual_seed(1),
+                                              cfg, "cpu")
+    batch = resnet.synthetic_batches(cfg, 1, 2, seed=1)[0]
+    loss_fn = resnet.make_loss_fn(cfg)
+
+    def run(device):
+        p = tree_map(lambda t: t.to(device).requires_grad_(True), params)
+        s = tree_map(lambda t: t.to(device), state)
+        loss, new_state = loss_fn({"params": p, "_bn": s},
+                                  {k: torch.from_numpy(v).to(device)
+                                   for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        return (float(loss.detach()), [g.detach().cpu() for g in grads],
+                [t.cpu() for t in tree_leaves(new_state)])
+
+    loss_k, grads_k, state_k = run("cuda")
+    loss_p, grads_p, state_p = run("cpu")
+    rel = lambda a, b: float((a - b).norm() / b.norm().clamp_min(1e-30))
+    leaf = [rel(a, b) for a, b in zip(grads_k, grads_p)]
+    every = float(math.sqrt(sum(float((a - b).square().sum())
+                                for a, b in zip(grads_k, grads_p))
+                            / sum(float(b.square().sum()) for b in grads_p)))
+    states = [rel(a, b) for a, b in zip(state_k, state_p)]
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    ok = (loss_rel <= TOL_RN_LOSS and max(states) <= TOL_RN_STATE
+          and every <= TOL_RN_GRAD_ALL and max(leaf) <= TOL_RN_GRAD_LEAF)
+    emit({"phase": "parity", "config": "resnet50 f32", "batch": 2,
+          "image": IMAGE, "loss_kernels": loss_k, "loss_plain_cpu": loss_p,
+          "loss_rel_err": loss_rel, "tol_loss": TOL_RN_LOSS,
+          "grad_rel_l2_all_leaves": every, "tol_grad_all": TOL_RN_GRAD_ALL,
+          "grad_rel_l2_max": max(leaf),
+          "grad_rel_l2_median": sorted(leaf)[len(leaf) // 2],
+          "tol_grad_leaf": TOL_RN_GRAD_LEAF, "bn_state_rel_l2_max": max(states),
+          "tol_bn_state": TOL_RN_STATE, "leaves": len(leaf),
+          "bn_state_leaves": len(states), "ok": ok})
+    if not ok:
+        raise AssertionError("ResNet whole-step parity failed")
+
+
+def phase_times_bn(errs, launches, device_name):
+    """Each BN kernel at both shapes (bf16), with its plain version and the
+    PyTorch call that computes the same function (or the nearest one)."""
+    from paddle_tpu_torch.kernels import fused_bn as fbn
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows = {k: [] for k in RN_PER_STEP}
+    for M, C in BN_SHAPES:
+        x, dy, a, b, coefs = _bn_inputs(gen, M, C, torch.bfloat16)
+        weight = torch.rand(C, generator=gen, device="cuda") + 0.5
+        mean, invstd = torch.batch_norm_stats(x, 1e-5)
+        sum_dy, sum_dy_xmu, _, _ = torch.batch_norm_backward_reduce(
+            dy, x, mean, invstd, weight, True, True, True)
+        count = torch.full((1,), M, dtype=torch.int32, device="cuda")
+        el = M * C
+        # (name, kernel, plain, library, bytes, flops): bytes read once and
+        # written once; f32 CUDA-core operations per element
+        for name, fn, plain, lib, nbytes, flops in (
+                ("bn_stats", lambda: fbn.stats2(x), lambda: fbn.bn_stats_plain(x),
+                 lambda: torch.batch_norm_stats(x, 1e-5),
+                 2 * el + 2 * C * 4, 3 * el),
+                ("bn_scale_shift", lambda: fbn.scale_shift2(x, a, b),
+                 lambda: fbn.scale_shift_plain(x, a, b),
+                 lambda: torch.addcmul(b, x, a), 4 * el + 2 * C * 2, 2 * el),
+                ("bn_bwd_reduce", lambda: fbn.bwd_reduce2(dy, x),
+                 lambda: fbn.bwd_reduce_plain(dy, x),
+                 lambda: torch.batch_norm_backward_reduce(
+                     dy, x, mean, invstd, weight, True, False, False),
+                 4 * el + 2 * C * 4, 3 * el),
+                ("bn_dx", lambda: fbn.dx2(dy, x, coefs),
+                 lambda: fbn.dx_plain(dy, x, coefs),
+                 lambda: torch.batch_norm_backward_elemt(
+                     dy, x, mean, invstd, weight, sum_dy, sum_dy_xmu, count),
+                 6 * el + 3 * C * 4, 5 * el)):
+            t_ops, t_bytes = bound_ms(device_name, flops, nbytes, peak="f32")
+            row = {"shape": [M, C], "ms": cuda_time(fn),
+                   "plain_ms": cuda_time(plain), "library_ms": cuda_time(lib),
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "bytes": nbytes, "flops": flops}
+            emit({"phase": "times", "name": name, **row})
+            rows[name].append(row)
+        del x, dy, mean, invstd, sum_dy, sum_dy_xmu
+    out = []
+    for name, (first, *others) in rows.items():
+        src, rep = SOURCES[name]
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": rep, "launches": launches[name],
+                    "max_abs_err": errs[name], **first,
+                    "other_shapes": others})
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -391,6 +638,10 @@ def main():
     launches = phase_slice(name)
     phase_parity()
     kernels = phase_times(errs, launches, name)
+    bn_errs = phase_compare_bn()
+    bn_launches = phase_resnet_slice(name)
+    phase_resnet_parity()
+    kernels += phase_times_bn(bn_errs, bn_launches, name)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -3,11 +3,12 @@
 The JAX package ``paddle_tpu`` stays the reference; this package keeps its
 module names so each counterpart is easy to find:
 
-- ``kernels``: the hand-written CUDA kernels (LayerNorm, flash attention)
-  with their launch counters and plain PyTorch versions;
+- ``kernels``: the hand-written CUDA kernels (LayerNorm, flash attention,
+  fused batch norm) with their launch counters and plain PyTorch versions;
 - ``parallel``: transformer blocks, optimizers and the train step at one
   device;
-- ``models.bert``: the BERT pretraining trainer;
+- ``models.bert``, ``models.resnet``: the BERT pretraining and ResNet
+  training trainers;
 - ``convert``: parameter trees to and from the JAX package's numpy form.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

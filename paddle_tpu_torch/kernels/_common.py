@@ -60,6 +60,10 @@ launches = {
     "layer_norm_bwd": 0,
     "flash_attention_fwd": 0,
     "flash_attention_bwd": 0,
+    "bn_stats": 0,
+    "bn_scale_shift": 0,
+    "bn_bwd_reduce": 0,
+    "bn_dx": 0,
 }
 
 
@@ -176,6 +180,15 @@ _SIGNATURES = {
     # B, H, Sq, Sk, D, scale, causal, dtype, stream
     "ptt_flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    # x, partial, sum, sumsq, M, C, tx, rows_per_block, nblk, vec, dtype, stream
+    "ptt_bn_stats": [_P, _P, _P, _P, _L, _I, _I, _L, _I, _I, _I, _P],
+    # x, a, b, y, M, C, tx, nblk, vec, dtype, stream
+    "ptt_bn_scale_shift": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
+    # dy, x, partial, sum_dy, sum_dyx, M, C, tx, rows_per_block, nblk, vec,
+    # dtype, stream
+    "ptt_bn_bwd_reduce": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _I, _I, _I, _P],
+    # dy, x, coefs, dx, M, C, tx, nblk, vec, dtype, stream
+    "ptt_bn_dx": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -16,7 +16,7 @@ import torch
 
 from .._tree import tree_leaves, tree_map
 
-__all__ = ["sgd", "lamb"]
+__all__ = ["sgd", "momentum", "lamb"]
 
 
 def _tree_zeros(params):
@@ -32,6 +32,30 @@ def sgd():
     @torch.no_grad()
     def update(grads, state, params, lr):
         tree_map(lambda p, g: p.sub_(lr * g.to(p.dtype)), params, grads)
+        return params, state
+
+    return init, update
+
+
+def momentum(mu=0.9, use_nesterov=False):
+    """Parity: operators/optimizers/momentum_op.h.  The velocity is
+    ``zeros_like(params)`` (bf16 for bf16 leaves) and updates in that dtype:
+    ``mu * v + g`` and ``lr * v`` keep v's dtype, as a Python scalar (JAX's
+    weakly typed ``mu``, and the ``lr`` a step is called with) does in JAX."""
+
+    def init(params):
+        return {"velocity": _tree_zeros(params)}
+
+    @torch.no_grad()
+    def update(grads, state, params, lr):
+        def upd(p, g, v):
+            v.mul_(mu).add_(g)
+            if use_nesterov:
+                p.sub_(lr * (g + mu * v))
+            else:
+                p.sub_(lr * v)
+
+        tree_map(upd, params, grads, state["velocity"])
         return params, state
 
     return init, update

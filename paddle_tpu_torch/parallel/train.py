@@ -10,7 +10,7 @@ import torch
 
 from .._tree import tree_leaves, tree_map
 
-__all__ = ["TrainState", "make_train_step", "stack_batches"]
+__all__ = ["TrainState", "grads_of", "make_train_step", "stack_batches"]
 
 
 class TrainState(dict):
@@ -22,6 +22,23 @@ class TrainState(dict):
         return {"params": params, "opt": init(params)}
 
 
+def grads_of(loss_fn, params, *args):
+    """``(out, grads)``: ``out = loss_fn(params, *args)``, the scalar loss or
+    a ``(loss, aux)`` pair, and the loss's gradients as a tree shaped like
+    ``params`` (``jax.value_and_grad``, with ``has_aux`` read from ``out``)."""
+    leaves = tree_leaves(params)
+    with torch.enable_grad():
+        for p in leaves:
+            p.requires_grad_(True)
+        out = loss_fn(params, *args)
+        loss = out[0] if isinstance(out, tuple) else out
+        flat = torch.autograd.grad(loss, leaves)
+    for p in leaves:
+        p.requires_grad_(False)
+    grads_by_id = {id(p): g for p, g in zip(leaves, flat)}
+    return out, tree_map(lambda p: grads_by_id[id(p)], params)
+
+
 def make_train_step(loss_fn, optimizer):
     """loss_fn(params, batch) -> scalar loss.  Returns ``build``:
     ``build(state)`` gives ``step(state, batch, lr) -> (state, loss)`` and
@@ -30,18 +47,8 @@ def make_train_step(loss_fn, optimizer):
     _, opt_update = optimizer
 
     def step(state, batch, lr):
-        params = state["params"]
-        leaves = tree_leaves(params)
-        with torch.enable_grad():
-            for p in leaves:
-                p.requires_grad_(True)
-            loss = loss_fn(params, batch)
-            flat = torch.autograd.grad(loss, leaves)
-        for p in leaves:
-            p.requires_grad_(False)
-        grads_by_id = {id(p): g for p, g in zip(leaves, flat)}
-        grads = tree_map(lambda p: grads_by_id[id(p)], params)
-        new_params, new_opt = opt_update(grads, state["opt"], params, lr)
+        loss, grads = grads_of(loss_fn, state["params"], batch)
+        new_params, new_opt = opt_update(grads, state["opt"], state["params"], lr)
         return {"params": new_params, "opt": new_opt}, loss.detach()
 
     def build(state_template):

@@ -57,6 +57,18 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     assert trainer.device.type == "cpu"
 
 
+def test_resnet_entry_point_raises_without_a_card(monkeypatch):
+    from paddle_tpu_torch.models import resnet
+
+    cfg = resnet.resnet_tiny_config()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resnet.build_resnet_trainer(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resnet.build_resnet_trainer(cfg, device="cuda")
+    assert resnet.build_resnet_trainer(cfg, device="cpu").device.type == "cpu"
+
+
 def test_default_device_is_cuda(monkeypatch):
     from paddle_tpu_torch import resolve_device
 

@@ -8,15 +8,18 @@ where only PyTorch is installed:
 
 Tolerances: f32 kernels against f32 plain versions at the reference tests'
 own (LayerNorm forward 1e-5, gradients 2e-4; attention forward 2e-6/1e-5,
-gradients 5e-5/1e-4); bf16 kernels against the plain versions on the same
-bf16 inputs to 2e-2 (a few bf16 roundings of 2^-9)."""
+gradients 5e-5/1e-4; batch norm 1e-5 forward, 1e-4 gradients); bf16 kernels
+against the plain versions on the same bf16 inputs to 2e-2 (a few bf16
+roundings of 2^-9)."""
 
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch._tree import tree_leaves
 from paddle_tpu_torch.kernels import _common
 from paddle_tpu_torch.kernels import flash_attention as fa
+from paddle_tpu_torch.kernels import fused_bn as fbn
 from paddle_tpu_torch.kernels import layer_norm as ln
 
 pytestmark = pytest.mark.cuda
@@ -125,10 +128,15 @@ def test_each_wrapper_counts_one_launch(cuda_device):
     ln.layer_norm_bwd(x, s, torch.ones_like(x), mu, rstd)
     o, lse = fa.flash_fwd(q, q, q, 2, 0.125, False)
     fa.flash_bwd(q, q, q, o, lse, torch.ones_like(q), 2, 0.125, False)
+    fbn.stats2(x)
+    fbn.scale_shift2(x, s, b)
+    fbn.bwd_reduce2(x, x)
+    fbn.dx2(x, x, torch.ones(3, 32, device=cuda_device))
     torch.cuda.synchronize()
     assert {k: _common.launches[k] - before[k] for k in before} == {
         "layer_norm_fwd": 1, "layer_norm_bwd": 1,
-        "flash_attention_fwd": 1, "flash_attention_bwd": 1}
+        "flash_attention_fwd": 1, "flash_attention_bwd": 1,
+        "bn_stats": 1, "bn_scale_shift": 1, "bn_bwd_reduce": 1, "bn_dx": 1}
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
@@ -143,6 +151,154 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     q = torch.randn(1, 16, 64, device=cuda_device)
     with pytest.raises(ValueError):
         fa.flash_fwd(q, q, q.cpu(), 2, 0.1, False)
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,C", [
+    (401408, 256),     # ResNet-50's largest bottleneck BN at B = 128
+    (6272, 2048),      # its fewest rows and widest channels
+    (1001, 64),        # a ragged row count
+    (777, 12),         # C no 16-byte vector divides: one channel a thread
+])
+def test_bn_kernels_match_plain(cuda_device, dtype, M, C):
+    """Each BN kernel against its plain version on the same inputs: f32
+    outputs (the sums, and every f32 kernel) to 1e-5 of the largest value,
+    bf16 outputs to 2e-2."""
+    g = torch.Generator(device=cuda_device).manual_seed(M + C)
+    mk = lambda: (torch.randn(M, C, generator=g, device=cuda_device) + 0.5).to(dtype)
+    x, dy = mk(), mk()
+    a = (torch.rand(C, generator=g, device=cuda_device) + 0.5).to(dtype)
+    b = torch.randn(C, generator=g, device=cuda_device).to(dtype)
+    coefs = torch.randn(3, C, generator=g, device=cuda_device)
+    pairs = [(fbn.stats2(x), fbn.bn_stats_plain(x)),
+             ((fbn.scale_shift2(x, a, b),), (fbn.scale_shift_plain(x, a, b),)),
+             (fbn.bwd_reduce2(dy, x), fbn.bwd_reduce_plain(dy, x)),
+             ((fbn.dx2(dy, x, coefs),), (fbn.dx_plain(dy, x, coefs),))]
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        for gt, wt in zip(got, want):
+            assert gt.dtype == wt.dtype and gt.shape == wt.shape
+            assert _rel(gt, wt) <= (2e-2 if gt.dtype == torch.bfloat16 else 1e-5)
+
+
+def test_bn_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
+    x = torch.randn(8, 32, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        fbn.stats2(torch.randn(32, 8, device=cuda_device).t())
+    with pytest.raises(TypeError):
+        fbn.stats2(x.half())
+    with pytest.raises(ValueError):
+        fbn.scale_shift2(x, torch.ones(32, device=cuda_device).bfloat16(),
+                         torch.zeros(32, device=cuda_device))
+    with pytest.raises(ValueError):
+        fbn.bwd_reduce2(x, x.cpu())
+    with pytest.raises(ValueError, match="channels_last"):
+        fbn.fused_bn_train(torch.randn(2, 32, 3, 3, device=cuda_device).permute(0, 2, 3, 1),
+                           torch.ones(32, device=cuda_device),
+                           torch.zeros(32, device=cuda_device))
+
+
+def test_fused_bn_autograd_on_card_matches_cpu(cuda_device):
+    """fused_bn_train and fused_scale_shift through autograd (f32): the
+    kernels on the card against the plain versions on the CPU."""
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy(rng.randn(4, 9, 9, 40).astype("f4") + 1.0)
+    s = torch.from_numpy(rng.rand(40).astype("f4") + 0.5)
+    b = torch.from_numpy(rng.randn(40).astype("f4"))
+    w = torch.from_numpy(rng.randn(4, 9, 9, 40).astype("f4"))
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        leaves = [t.to(dev).detach().requires_grad_() for t in (x, s, b)]
+        y, m, v = fbn.fused_bn_train(*leaves)
+        z = fbn.fused_scale_shift(y, leaves[1], leaves[2])
+        (z * w.to(dev)).sum().backward()
+        outs[str(dev)] = [t.detach().cpu() for t in (y, m, v)] + [
+            t.grad.cpu() for t in leaves]
+    for name, got, want in zip(("y", "mean", "var", "dx", "dscale", "dbias"),
+                               outs[str(cuda_device)], outs["cpu"]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4, msg=name)
+
+
+def test_resnet_activations_stay_channels_last(cuda_device):
+    """Every activation of a block is channels-last, so the BN kernels'
+    [M, C] views are views; a fused train step on the card then runs (a
+    gradient that arrived in another layout would raise)."""
+    from paddle_tpu_torch.models import resnet
+
+    cfg = resnet.resnet_tiny_config(depth=50, fuse_bn=True, image_size=32)
+    params, state = resnet.init_resnet_params(torch.Generator().manual_seed(0),
+                                              cfg, cuda_device)
+    cl = lambda t: t.is_contiguous(memory_format=torch.channels_last)
+    # stage 1's first bottleneck: 1x1, 3x3 stride 2 (padded (0, 1)), 1x1,
+    # and the stride-2 projection
+    blk, sblk, upd = params["s1_b0"], state["s1_b0"], {}
+    x = torch.rand(2, 8, 8, blk["conv1"].shape[2],
+                   device=cuda_device).permute(0, 3, 1, 2)
+    assert cl(x)
+    y = x
+    for conv, bn, stride in (("conv1", "bn1", 1), ("conv2", "bn2", 2),
+                             ("conv3", "bn3", 1)):
+        y = resnet._conv(y, blk[conv], stride)
+        assert cl(y), conv
+        y = resnet._bn(y, blk[bn], sblk[bn], cfg, True, upd, bn)
+        assert cl(y), bn
+    sc = resnet._bn(resnet._conv(x, blk["proj"], 2), blk["bnp"], sblk["bnp"],
+                    cfg, True, upd, "bnp")
+    assert cl(sc) and sc.shape == y.shape
+    trainer = resnet.build_resnet_trainer(cfg, device=cuda_device)
+    batch = {"image": torch.rand(4, 32, 32, 3, device=cuda_device),
+             "label": torch.zeros(4, dtype=torch.int32, device=cuda_device)}
+    before = _common.launches["bn_dx"]
+    assert torch.isfinite(trainer.step(batch, 1e-2))
+    assert _common.launches["bn_dx"] - before == 53
+
+
+def test_resnet_tiny_steps_on_card_match_cpu(cuda_device):
+    """Two momentum steps of the tiny ResNet (f32, fused) through the
+    kernels on the card and through the plain versions on the CPU, from the
+    same weights; TF32 off so both sides convolve in f32."""
+    from paddle_tpu_torch.convert import params_to_numpy
+    from paddle_tpu_torch.models import resnet
+
+    cfg = resnet.resnet_tiny_config(fuse_bn=True, image_size=16)
+    params, state = (params_to_numpy(t) for t in resnet.init_resnet_params(
+        torch.Generator().manual_seed(0), cfg, "cpu"))
+    batches = resnet.synthetic_batches(cfg, 2, 16, seed=1)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        on_card = resnet.build_resnet_trainer(cfg, device=cuda_device,
+                                              params=params, bn_state=state)
+        on_cpu = resnet.build_resnet_trainer(cfg, device="cpu", params=params,
+                                             bn_state=state)
+        before = _common.launches["bn_stats"]
+        for bt in batches:
+            tb = {k: torch.from_numpy(v) for k, v in bt.items()}
+            lc = on_card.step({k: v.to(cuda_device) for k, v in tb.items()}, 1e-2)
+            lp = on_cpu.step(tb, 1e-2)
+            np.testing.assert_allclose(float(lc), float(lp), rtol=1e-5)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert _common.launches["bn_stats"] - before == 2 * 20
+    for a, b in zip(tree_leaves(on_card.state["params"]),
+                    tree_leaves(on_cpu.state["params"])):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=1e-5)
+
+
+def test_resnet_trainer_refuses_sync_bn_and_dp(cuda_device):
+    from paddle_tpu_torch.models import resnet
+
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        resnet.build_resnet_trainer(resnet.resnet_tiny_config(sync_bn=True),
+                                    device=cuda_device)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        resnet.build_resnet_trainer(resnet.resnet_tiny_config(),
+                                    device=cuda_device, dp=2)
 
 
 def test_non_flash_attention_raises_on_card(cuda_device):

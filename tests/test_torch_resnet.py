@@ -1,0 +1,334 @@
+"""The port's ResNet training slice against the JAX package on the CPU.  Both
+sides start from the JAX package's initial parameters and BN state, carried
+over with ``convert.params_from_numpy``; the JAX side runs its Pallas
+kernels in interpret mode, jitted.
+
+- depth 18 (``resnet_tiny_config``: width 8, 10 classes, f32) at image 16,
+  B = 16, with ``fuse_bn`` on and off: the loss, all 62 gradient leaves and
+  the new BN state, then two momentum steps (params and velocity after
+  each).  Image 16 runs every asymmetric "SAME" pad: the 7x7/2 conv0
+  (2, 3), the max pool (0, 1) and the stride-2 3x3 convs (0, 1).
+- depth 50 at width 8, image 32, B = 8: the bottleneck blocks, all four
+  stages and their projections; the loss, all 161 gradient leaves and the
+  new BN state.
+
+Tolerances.  Loss rtol 1e-5 and gradients atol = rtol = 1e-4, the
+reference's own (tests/test_fused_bn.py).  They hold where the f32 problem
+is well conditioned, which is why depth 18 runs at B = 16: at B = 4 every
+f32 implementation, JAX's fused and unfused paths included, sits up to
+1e-3 (of a leaf's largest gradient) from the float64 values, and JAX's two
+paths disagree with each other by 8e-4.  At B = 16 each is within 2.2e-5.
+Depth 50 at width 8 is ill-conditioned in f32 for most seeds and batches:
+the float64 gradients of the two frameworks agree to 2e-7 while their f32
+gradients stray from them by up to 40% on some leaves (measured at image 32
+with B = 4, 8, 16 and 32 and at image 64).  For this seed (1) and
+B = 8 both frameworks' f32 gradients are within 7e-4 of float64, and the
+port is held to JAX at 2e-3 of each leaf's largest gradient, loss rtol
+1e-4.  BN state atol 1e-5 at depth 18 and 1e-4 at depth 50 (the running
+statistics take 0.1 of the batch statistics)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+from jax import lax
+
+from paddle_tpu.models import resnet as jres
+from paddle_tpu.parallel import optim as joptim
+from paddle_tpu_torch import convert
+from paddle_tpu_torch._tree import tree_leaves
+from paddle_tpu_torch.kernels import _common
+from paddle_tpu_torch.models import resnet as pres
+from paddle_tpu_torch.parallel import optim as poptim
+from paddle_tpu_torch.parallel.train import stack_batches
+
+LOSS_TOL = dict(rtol=1e-5, atol=0)
+GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
+STATE_TOL = dict(atol=1e-5, rtol=1e-5)
+TINY = dict(depth=18, image_size=16)
+B_TINY = 16
+DEEP = dict(depth=50, image_size=32)
+B_DEEP, SEED_DEEP = 8, 1
+LR = 1e-2                           # bench.py's ResNet-50 learning rate
+
+
+def _leaf_names(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in _leaf_names(tree[k], prefix + "/" + k)]
+    return [prefix]
+
+
+def _batch(cfg, B, seed):
+    rng = np.random.RandomState(seed)
+    return {"image": rng.rand(B, cfg.image_size, cfg.image_size, 3).astype("f4"),
+            "label": rng.randint(0, cfg.num_classes, (B,)).astype(np.int32)}
+
+
+def _torch_batch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+_JAX_FNS = {}
+
+
+def _jax_step(cfg, params, bn_state, batch):
+    """(loss, new_bn_state, grads) of the JAX package as numpy trees; one
+    jitted value_and_grad per configuration."""
+    key = (cfg.depth, cfg.image_size, cfg.fuse_bn, batch["image"].shape)
+    if key not in _JAX_FNS:
+        lf = jres.make_loss_fn(cfg)
+        _JAX_FNS[key] = jax.jit(jax.value_and_grad(
+            lambda p, s, b: lf({"params": p, "_bn": s}, b), has_aux=True))
+    (loss, new_bn), grads = _JAX_FNS[key](params, bn_state, batch)
+    to_np = lambda t: jax.tree.map(np.asarray, t)
+    return float(loss), to_np(new_bn), to_np(grads)
+
+
+def _port_step(cfg, params, bn_state, batch):
+    tp = convert.params_from_numpy(params, "cpu")
+    ts = convert.params_from_numpy(bn_state, "cpu")
+    leaves = tree_leaves(tp)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, new_bn = pres.make_loss_fn(cfg)({"params": tp, "_bn": ts},
+                                          _torch_batch(batch))
+    grads = torch.autograd.grad(loss, leaves)
+    return (float(loss.detach()), convert.params_to_numpy(new_bn),
+            [g.numpy() for g in grads])
+
+
+def _init(cfg, seed=0):
+    return jax.tree.map(np.asarray,
+                        jres.init_resnet_params(jax.random.PRNGKey(seed), cfg))
+
+
+def _compare_state(got, want, tol):
+    for name, g, w in zip(_leaf_names(want), tree_leaves(got), tree_leaves(want)):
+        np.testing.assert_allclose(g, w, err_msg=name, **tol)
+
+
+@pytest.mark.parametrize("fuse_bn", [True, False], ids=["fused", "unfused"])
+def test_tiny_loss_grads_and_bn_state_match_jax(fuse_bn):
+    jcfg = jres.resnet_tiny_config(fuse_bn=fuse_bn, **TINY)
+    params, state = _init(jcfg)
+    batch = _batch(jcfg, B_TINY, 1)
+    want_loss, want_bn, want = _jax_step(jcfg, params, state, batch)
+    before = dict(_common.launches)
+    got_loss, got_bn, got = _port_step(
+        pres.resnet_tiny_config(fuse_bn=fuse_bn, **TINY), params, state, batch)
+    assert _common.launches == before           # the CPU path launches nothing
+    np.testing.assert_allclose(got_loss, want_loss, **LOSS_TOL)
+    names = _leaf_names(params)
+    assert len(names) == len(got) == 62
+    for name, g, w in zip(names, got, tree_leaves(want)):
+        np.testing.assert_allclose(g, w, err_msg=name, **GRAD_TOL)
+    _compare_state(got_bn, want_bn, STATE_TOL)
+
+
+def test_bottleneck_depth50_matches_jax():
+    jcfg = jres.resnet_tiny_config(fuse_bn=True, **DEEP)
+    params, state = _init(jcfg, SEED_DEEP)
+    batch = _batch(jcfg, B_DEEP, SEED_DEEP)
+    want_loss, want_bn, want = _jax_step(jcfg, params, state, batch)
+    got_loss, got_bn, got = _port_step(
+        pres.resnet_tiny_config(fuse_bn=True, **DEEP), params, state, batch)
+    np.testing.assert_allclose(got_loss, want_loss, rtol=1e-4)
+    names = _leaf_names(params)
+    assert len(names) == len(got) == 161
+    for name, g, w in zip(names, got, tree_leaves(want)):
+        np.testing.assert_allclose(g, w, atol=2e-3 * np.abs(w).max(), rtol=0,
+                                   err_msg=name)
+    _compare_state(got_bn, want_bn, dict(atol=1e-4, rtol=1e-4))
+
+
+def test_momentum_trajectory_matches_jax():
+    """Two train steps (forward, backward, momentum 0.9 at lr 1e-2) through
+    ``build_resnet_trainer`` against the JAX loss, gradients and
+    ``optim.momentum`` update: loss, params, velocity and BN state after
+    each step."""
+    jcfg = jres.resnet_tiny_config(fuse_bn=True, **TINY)
+    params, state = _init(jcfg)
+    batches = [_batch(jcfg, B_TINY, 1 + i) for i in range(2)]
+    j_init, j_update = joptim.momentum(0.9)
+    jp, jbn = params, state
+    jopt = j_init(jax.tree.map(jnp.asarray, jp))
+    trainer = pres.build_resnet_trainer(
+        pres.resnet_tiny_config(fuse_bn=True, **TINY), device="cpu",
+        params=params, bn_state=state)
+    names = _leaf_names(params)
+    for b in batches:
+        jloss, jbn, g = _jax_step(jcfg, jp, jbn, b)
+        jp, jopt = j_update(jax.tree.map(jnp.asarray, g), jopt,
+                            jax.tree.map(jnp.asarray, jp), LR)
+        jp = jax.tree.map(np.asarray, jp)
+        loss = trainer.step(_torch_batch(b), LR)
+        np.testing.assert_allclose(float(loss), jloss, **LOSS_TOL)
+        got = tree_leaves(convert.params_to_numpy(trainer.state["params"]))
+        vel = tree_leaves(convert.params_to_numpy(trainer.state["opt"]["velocity"]))
+        for name, p, w, v, wv in zip(names, got, tree_leaves(jp), vel,
+                                     tree_leaves(jax.tree.map(np.asarray,
+                                                              jopt["velocity"]))):
+            np.testing.assert_allclose(p, w, atol=1e-5, rtol=1e-5, err_msg=name)
+            np.testing.assert_allclose(v, wv, err_msg=name, **GRAD_TOL)
+        _compare_state(convert.params_to_numpy(trainer.bn_state), jbn, STATE_TOL)
+
+
+def test_eval_forward_matches_jax():
+    """train=False: the fused apply from the running statistics, which the
+    new state leaves as they were."""
+    jcfg = jres.resnet_tiny_config(fuse_bn=True, **TINY)
+    params, state = _init(jcfg)
+    rng = np.random.RandomState(7)
+    state = jax.tree.map(lambda a: (a + rng.rand(*a.shape)).astype("f4"), state)
+    images = _batch(jcfg, 4, 2)["image"]
+    want, _ = jax.jit(lambda p, s, x: jres.resnet_forward(p, s, x, jcfg, train=False))(
+        params, state, images)
+    ts = convert.params_from_numpy(state, "cpu")
+    got, new_state = pres.resnet_forward(
+        convert.params_from_numpy(params, "cpu"), ts, torch.from_numpy(images),
+        pres.resnet_tiny_config(fuse_bn=True, **TINY), train=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)
+    assert all(a is b for a, b in zip(tree_leaves(new_state), tree_leaves(ts)))
+
+
+@pytest.mark.parametrize("H,k,stride", [(16, 7, 2), (8, 3, 2), (7, 3, 2),
+                                        (4, 1, 2), (1, 3, 2), (5, 3, 1)])
+def test_conv_pads_as_xla_same(H, k, stride):
+    """XLA's "SAME" pads low (total // 2) and high (the rest); PyTorch's
+    symmetric padding gives other numbers on a stride-2 conv over an even
+    size."""
+    rng = np.random.RandomState(H + k)
+    x = rng.randn(2, H, H + 1, 3).astype("f4")
+    w = rng.randn(k, k, 3, 4).astype("f4")
+    want = lax.conv_general_dilated(x, w, (stride, stride), "SAME",
+                                    dimension_numbers=("NHWC", "HWIO", "NHWC"))
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    got = pres._conv(xt, torch.from_numpy(w), stride)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(want),
+                               atol=1e-5, rtol=1e-5)
+    if k == 3 and stride == 2 and H % 2 == 0:
+        sym = F.conv2d(xt, torch.from_numpy(w).permute(3, 2, 0, 1), stride=2,
+                       padding=1)
+        assert np.abs(sym.permute(0, 2, 3, 1).numpy() - np.asarray(want)).max() > 0.1
+
+
+@pytest.mark.parametrize("H", [8, 7, 2, 1])
+def test_max_pool_pads_as_xla_same(H):
+    x = np.random.RandomState(H).randn(2, H, H, 5).astype("f4")
+    want = lax.reduce_window(x, -jnp.inf, lax.max, (1, 3, 3, 1), (1, 2, 2, 1),
+                             "SAME")
+    got = pres._max_pool_3x3_s2(torch.from_numpy(x).permute(0, 3, 1, 2))
+    np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("depth,dtype", [(18, "float32"), (50, "bfloat16")])
+def test_param_tree_matches_jax(depth, dtype):
+    """Same leaves, shapes and dtypes (HWIO conv weights, f32 BN params and
+    state, fc in the model dtype)."""
+    jcfg = jres.resnet_tiny_config(depth=depth, dtype=dtype)
+    want_p, want_s = _init(jcfg)
+    got_p, got_s = pres.init_resnet_params(
+        torch.Generator().manual_seed(0),
+        pres.resnet_tiny_config(depth=depth, dtype=dtype), "cpu")
+    for got, want in ((got_p, want_p), (got_s, want_s)):
+        assert _leaf_names(got) == _leaf_names(want)
+        for name, g, w in zip(_leaf_names(want), tree_leaves(got), tree_leaves(want)):
+            assert tuple(g.shape) == w.shape, name
+            assert str(g.dtype).replace("torch.", "") == w.dtype.name, name
+    # MSRA: std sqrt(2 / fan_in)
+    w = got_p["s0_b0"]["conv2"].float()
+    assert abs(float(w.std()) / (2.0 / (3 * 3 * w.shape[2])) ** 0.5 - 1) < 0.2
+
+
+def test_convert_roundtrip_keeps_params_and_bn_state():
+    params, state = _init(jres.resnet_tiny_config(depth=50, dtype="bfloat16"))
+    for tree in (params, state):
+        back = convert.params_to_numpy(convert.params_from_numpy(tree, "cpu"))
+        assert _leaf_names(back) == _leaf_names(tree)
+        for a, b in zip(tree_leaves(back), tree_leaves(tree)):
+            np.testing.assert_array_equal(a, b.astype("f4"))
+
+
+@pytest.mark.parametrize("nesterov", [False, True])
+def test_momentum_matches_jax_in_bf16_and_f32(nesterov):
+    """The velocity is zeros_like(params): bf16 for bf16 leaves, f32 for f32
+    ones, updating in that dtype as JAX's weakly typed mu and lr keep it."""
+    rng = np.random.RandomState(3)
+    p32 = {"w": rng.randn(16, 8).astype("f4"), "bn": rng.randn(8).astype("f4")}
+    dtypes = {"w": (jnp.bfloat16, torch.bfloat16), "bn": (jnp.float32, torch.float32)}
+    grads = [{k: rng.randn(*v.shape).astype("f4") for k, v in p32.items()}
+             for _ in range(3)]
+    j_init, j_update = joptim.momentum(0.9, use_nesterov=nesterov)
+    jp = {k: jnp.asarray(v).astype(dtypes[k][0]) for k, v in p32.items()}
+    jopt = j_init(jp)
+    p_init, p_update = poptim.momentum(0.9, use_nesterov=nesterov)
+    tp = {k: torch.from_numpy(v).to(dtypes[k][1]) for k, v in p32.items()}
+    topt = p_init(tp)
+    for g in grads:
+        jp, jopt = j_update({k: jnp.asarray(v).astype(dtypes[k][0])
+                             for k, v in g.items()}, jopt, jp, LR)
+        tp, topt = p_update({k: torch.from_numpy(v).to(dtypes[k][1])
+                             for k, v in g.items()}, topt, tp, LR)
+        for k in p32:
+            assert tp[k].dtype == topt["velocity"][k].dtype == dtypes[k][1]
+            assert jp[k].dtype == dtypes[k][0]
+            tol = dict(atol=1e-2, rtol=1e-2) if k == "w" else dict(atol=1e-6, rtol=1e-6)
+            np.testing.assert_allclose(tp[k].float().numpy(),
+                                       np.asarray(jp[k], dtype="f4"), err_msg=k, **tol)
+            np.testing.assert_allclose(topt["velocity"][k].float().numpy(),
+                                       np.asarray(jopt["velocity"][k], dtype="f4"),
+                                       err_msg=k, **tol)
+
+
+def test_run_steps_matches_single_steps():
+    cfg = pres.resnet_tiny_config(fuse_bn=True, **TINY)
+    params, state = _init(jres.resnet_tiny_config(**TINY))
+    batches = [_batch(cfg, 4, 20 + i) for i in range(2)]
+    a = pres.build_resnet_trainer(cfg, device="cpu", params=params, bn_state=state)
+    b = pres.build_resnet_trainer(cfg, device="cpu", params=params, bn_state=state)
+    single = [float(a.step(_torch_batch(bt), LR)) for bt in batches]
+    multi = b.run_steps(stack_batches(batches, "cpu"), LR)
+    np.testing.assert_array_equal(multi.numpy(), np.array(single, "f4"))
+    for x, y in zip(tree_leaves(a.bn_state), tree_leaves(b.bn_state)):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+def test_synthetic_batches_are_bench_batches():
+    """The images and labels of bench.py's bench_resnet50: one numpy stream,
+    rand images then randint labels per batch."""
+    cfg = pres.resnet_tiny_config(**TINY)
+    got = pres.synthetic_batches(cfg, 2, 3, seed=0)
+    rng = np.random.RandomState(0)
+    for b in got:
+        np.testing.assert_array_equal(b["image"], rng.rand(3, 16, 16, 3).astype("f4"))
+        np.testing.assert_array_equal(b["label"], rng.randint(0, 10, (3,)).astype(np.int32))
+        assert b["label"].dtype == np.int32
+
+
+def test_unsupported_settings_raise():
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        pres.build_resnet_trainer(pres.resnet_tiny_config(sync_bn=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        pres.build_resnet_trainer(pres.resnet_tiny_config(), device="cpu", dp=2)
+
+
+@pytest.mark.parametrize("depth,image", [(18, 16), (50, 32)])
+def test_profile_step_bn_shapes_are_the_models(monkeypatch, depth, image):
+    """tools/profile_step.py computes the BN byte bound from bn_shapes: the
+    [M, C] view of every statistics call a fused forward makes, in order."""
+    from paddle_tpu_torch.kernels import fused_bn
+    from paddle_tpu_torch.tools import profile_step
+
+    seen = []
+    stats2 = fused_bn.stats2
+    monkeypatch.setattr(fused_bn, "stats2",
+                        lambda x2: seen.append(tuple(x2.shape)) or stats2(x2))
+    cfg = pres.resnet_tiny_config(depth=depth, image_size=image, fuse_bn=True)
+    params, state = pres.init_resnet_params(torch.Generator().manual_seed(0),
+                                            cfg, "cpu")
+    pres.resnet_forward(params, state, torch.rand(3, image, image, 3), cfg)
+    assert seen == profile_step.bn_shapes(cfg, 3)
+    assert len(seen) == {18: 20, 50: 53}[depth]
