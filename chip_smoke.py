@@ -16,8 +16,8 @@ Builds the port's CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
 4. the slice: ``build_bert_trainer(bert_base_config(), optimizer=lamb())``
    on the card (bf16, 12 x 768, vocab 30528, S = 512, B = 64), a warm-up
    step and timed steps; every kernel's launch count must rise by exactly
-   its per-step count (0 for the batch-norm kernels); tokens/s, ms/step,
-   peak memory and MFU;
+   its per-step count (0 for the batch-norm, segment and wgrad kernels);
+   tokens/s, ms/step, peak memory and MFU;
 5. whole-step parity: one f32 step at full widths (B = 2) through the
    kernels on the card and through the plain versions on the CPU, from the
    same weights and batch: the loss and every gradient leaf; then the
@@ -36,7 +36,34 @@ Builds the port's CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
    the kernels on the card and the plain versions on the CPU, from the same
    weights and batch: the loss, every gradient leaf and the new BN state;
 9. times of the batch-norm kernels at both shapes, beside their plain
-   versions and library calls, as in 5.
+   versions and library calls, as in 5;
+10. the segment-sum kernel against its plain version at the DeepFM step's
+    shape (N = 8192 x 39 ids, D = 11), f32 and bf16, in four cases: ids
+    uniform in [0, 1M), heavy duplicates, one id N times, 20 ids out of
+    range; row ids must be exactly equal;
+11. the DeepFM slice: ``build_deepfm_trainer(DeepFMConfig(),
+    variant="segment")`` on the card (f32, 1M features, 39 fields, embed 10,
+    MLP 400-400-400, B = 8192, SGD lr 1e-3), a warm-up step and timed steps;
+    the segment kernel's count must rise by exactly 1 a step and the others
+    not at all; examples/s, ms/step, peak memory and MFU of the MLP; then
+    all four step variants timed by ``autotune_step``;
+12. DeepFM parity: one f32 ``segment`` step at full width through the
+    kernel on the card and the plain versions on the CPU, from the same
+    weights and batch (the loss, the touched table rows, the head); the
+    four variants on the card against ``dense`` after one step; the
+    synthetic AUC on the card;
+13. ``conv2d``: its wgrad kernel against ``wgrad_plain`` at ResNet-50's
+    eligible 3 x 3 shapes (B = 128, bf16), an f32 case and a k = 4 case;
+    the entry's forward and backward at both shapes on the card with the
+    counts set to 0 (one wgrad launch per eligible backward, none for a
+    stride-2 convolution); the autograd round trip against the CPU;
+14. the flash backward at S = 1024 (B = 8, 12 heads, D = 64, bf16, causal
+    and not), where the TPU takes its two-sweep backward, against its
+    plain version;
+15. times of the segment kernel, the wgrad kernel at both shapes, and the
+    flash backward's dk/dv and dq kernels at S = 1024 (split by
+    ``torch.profiler``), beside their plain versions, library calls and
+    bounds.
 
 TF32 is switched off for matrix products and convolutions, so the f32
 phases compare f32 with f32.  The last two lines are the kernels' JSON
@@ -69,6 +96,13 @@ RESNET50_FLOPS_PER_IMAGE = 3 * 4.09e9   # bench.py:259: fwd 4.09 GFLOP, train 3x
 # [M, C] views timed and compared: the largest bottleneck BN (s0 conv3 /
 # projection output at B = 128) and the fewest rows, widest channels (s3)
 BN_SHAPES = ((401408, 256), (6272, 2048))
+DFM_B, DFM_LR = 8192, 1e-3         # bench.py:969-974's DeepFM shapes
+DFM_PER_STEP = {"segment_sum": 1}
+AUTOTUNE_ITERS = 10
+# conv2d's wgrad: ResNet-50's eligible 3x3 convolutions at B = 128, the
+# widest-image (s0) and the widest-channel (s3) one: (B, H, W, C, K, k, pad)
+CONV_SHAPES = ((128, 56, 56, 64, 64, 3, 1), (128, 7, 7, 512, 512, 3, 1))
+FLASH_LONG = (8, 1024, 12, 64)      # B, S, heads, head dim
 SOURCES = {
     "layer_norm_fwd": ("paddle_tpu_torch/kernels/csrc/layer_norm.cu",
                        "paddle_tpu/kernels/layer_norm.py:36"),
@@ -86,6 +120,14 @@ SOURCES = {
                       "paddle_tpu/kernels/fused_bn.py:97"),
     "bn_dx": ("paddle_tpu_torch/kernels/csrc/fused_bn.cu",
               "paddle_tpu/kernels/fused_bn.py:112"),
+    "flash_attention_bwd_dq": ("paddle_tpu_torch/kernels/csrc/flash_attention.cu",
+                               "paddle_tpu/kernels/flash_attention.py:334"),
+    "flash_attention_bwd_dkv": ("paddle_tpu_torch/kernels/csrc/flash_attention.cu",
+                                "paddle_tpu/kernels/flash_attention.py:376"),
+    "segment_sum": ("paddle_tpu_torch/kernels/csrc/segment_update.cu",
+                    "paddle_tpu/kernels/segment_update.py:59"),
+    "conv_wgrad": ("paddle_tpu_torch/kernels/csrc/conv_wgrad.cu",
+                   "paddle_tpu/kernels/conv.py:55"),
 }
 # tolerances on max|kernel - plain| / max|plain|: bf16 outputs carry a
 # rounding of 2^-9 relative and the kernels round p and ds to bf16 where the
@@ -108,6 +150,22 @@ TOL_LOSS, TOL_GRAD = 1e-5, 1e-3
 # accuracy is held in the compare phase.
 TOL_RN_LOSS, TOL_RN_STATE = 1e-5, 1e-4
 TOL_RN_GRAD_ALL, TOL_RN_GRAD_LEAF = 0.1, 0.25
+# DeepFM parity (f32, lr 1): the loss; the update (new - old) of the
+# touched table rows and of each head leaf, as a relative L2 distance.  At
+# the bench's lr 1e-3 an update is 1e-5 to 1e-7 of its weight, so f32's
+# rounding of the new weight hides it; at lr 1 what is left is the f32
+# gradients' own error (the MLP biases' gradients sum 8192 terms of both
+# signs), which the phase prints as the CPU f32 step's distance from a
+# float64 step on the same weights.  A wrong formula moves these by O(1).
+# The variants against dense, on the card at lr 1 too: the new weights to
+# the reference's own 1e-5 absolute (tests/test_segment_update.py), and,
+# since at B = 8192 a table row moves by less than that even at lr 1, each
+# update (the touched rows', each head leaf's) as a relative L2 distance.
+# The variants merge duplicate ids in other orders, which moves an update
+# by f32 rounding; a lost or mis-merged update moves it by O(0.1) or more.
+TOL_DFM_LOSS, TOL_DFM_TABLE, TOL_DFM_HEAD, TOL_DFM_VARIANTS = 1e-5, 1e-3, 1e-2, 1e-5
+TOL_DFM_VARIANTS_UPD = 1e-4
+DFM_PARITY_LR = 1.0
 
 
 def emit(obj):
@@ -200,7 +258,8 @@ def phase_build():
         if "Compiling entry function" in line:
             # a short name from the mangled one: kernel<dtype, DMAX>
             mangled = line.split("'")[1]
-            m = re.search(r"\d((?:flash|ln|bn)_\w+?_kernel)", mangled)
+            m = re.search(r"\d((?:flash|ln|bn|segsum)_\w+?_kernel|"
+                          r"wgrad(?:_fold)?_kernel)", mangled)
             base = m.group(1) if m else mangled
             dmax = re.search(r"Li(\d+)E", mangled)
             kernel = "%s<%s%s>" % (base, "bf16" if "bfloat16" in mangled else "f32",
@@ -619,6 +678,416 @@ def phase_times_bn(errs, launches, device_name):
     return out
 
 
+# -- DeepFM and conv2d phases ---------------------------------------------------
+
+def _kernel_record(name, launches, err, **rec):
+    src, rep = SOURCES[name]
+    return {"name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches, "max_abs_err": err, **rec}
+
+
+def _bound(device_name, flops, nbytes, peak):
+    t_ops, t_bytes = bound_ms(device_name, flops, nbytes, peak=peak)
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def _segment_ids(gen, case):
+    """The DeepFM step's N = 8192 x 39 ids in one of the compared cases."""
+    from paddle_tpu_torch.models import deepfm
+
+    N, V = DFM_B * 39, deepfm.DeepFMConfig().num_features
+    if case == "one_id":
+        return torch.full((N,), 7, dtype=torch.int32, device="cuda"), V
+    hi = 100 if case == "dups" else V
+    ids = torch.randint(0, hi, (N,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    if case == "out_of_range":
+        pos = torch.randperm(N, generator=gen, device="cuda")[:20]
+        ids[pos] = V + torch.arange(20, device="cuda", dtype=torch.int32)
+    return ids, V
+
+
+def phase_compare_segment():
+    """The segment kernel against its plain version: row ids exactly equal,
+    values to TOL_F32 / TOL_BF16 of the largest."""
+    from paddle_tpu_torch.kernels import segment_update as seg
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    err = 0.0
+    for case in ("bench", "dups", "one_id", "out_of_range"):
+        for dt in (torch.float32, torch.bfloat16):
+            ids, V = _segment_ids(gen, case)
+            vals = torch.randn(ids.shape[0], 11, generator=gen,
+                               device="cuda").to(dt)
+            rows, out = seg.dedup_segment_sum(ids, vals, V)
+            rows_p, out_p = seg.segsum_plain(ids, vals, V)
+            same = bool(torch.equal(rows, rows_p))
+            emit({"phase": "compare", "kernel": "segment_sum:%s:%s" % (
+                case, str(dt).replace("torch.", "")), "out_rows_equal": same})
+            if not same:
+                raise AssertionError("segment_sum: out_rows differ (%s)" % case)
+            err = max(err, check("segment_sum:%s" % case, [
+                ("values", out, out_p,
+                 TOL_BF16 if dt == torch.bfloat16 else TOL_F32)]))
+            del ids, vals, rows, out, rows_p, out_p
+    torch.cuda.synchronize()
+    return err
+
+
+def phase_deepfm_slice(device_name):
+    from paddle_tpu_torch.models import deepfm
+
+    cfg = deepfm.DeepFMConfig()
+    trainer = deepfm.build_deepfm_trainer(cfg, variant="segment", seed=0)
+    batch = {k: torch.from_numpy(v).to(trainer.device)
+             for k, v in deepfm.synthetic_batch(cfg, DFM_B).items()}
+    torch.cuda.reset_peak_memory_stats()
+    # the bench's one batch, taken every step
+    dt, losses, counts = timed_steps(trainer, [batch] * (TIMED_STEPS + 1),
+                                     DFM_LR, DFM_PER_STEP)
+    ex_s = DFM_B * TIMED_STEPS / dt
+    peak_flops = card_peaks(device_name)[0]
+    emit({"phase": "slice", "config": "deepfm", "batch": DFM_B,
+          "variant": "segment", "steps_timed": TIMED_STEPS,
+          "ms_per_step": dt / TIMED_STEPS * 1e3, "examples_per_sec": ex_s,
+          "mfu": ex_s / DFM_B * deepfm.mlp_train_flops(cfg, DFM_B) / peak_flops,
+          "mlp_train_flops_per_step": deepfm.mlp_train_flops(cfg, DFM_B),
+          "peak_bf16_flops": peak_flops,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "losses": losses, "launches": counts})
+    variants = deepfm.make_step_variants(cfg, DFM_LR)
+    winner, _, timings = deepfm.autotune_step(variants, trainer.state["params"],
+                                              batch, AUTOTUNE_ITERS)
+    emit({"phase": "autotune", "config": "deepfm", "batch": DFM_B,
+          "iters": AUTOTUNE_ITERS, "autotune_step_ms": timings,
+          "winner": winner})
+    del trainer, batch, variants
+    torch.cuda.empty_cache()
+    return counts["segment_sum"]
+
+
+def phase_deepfm_parity():
+    from paddle_tpu_torch._tree import tree_leaves, tree_map
+    from paddle_tpu_torch.models import deepfm
+    from paddle_tpu_torch.models.parity import deepfm_synthetic_auc
+
+    cfg = deepfm.DeepFMConfig()
+    params = deepfm.init_deepfm_params(torch.Generator().manual_seed(1), cfg,
+                                       "cpu")
+    batch = deepfm.synthetic_batch(cfg, DFM_B, seed=1)
+    step = deepfm.make_step_variants(cfg, DFM_PARITY_LR)["segment"]
+
+    def run(device, dtype=torch.float32):
+        p = tree_map(lambda t: t.to(device, dtype), params)
+        new, loss = step(p, {k: torch.from_numpy(v).to(device)
+                             for k, v in batch.items()})
+        return float(loss), tree_map(lambda t: t.cpu().double(), new)
+
+    loss_k, new_k = run("cuda")
+    loss_p, new_p = run("cpu")
+    _, new_64 = run("cpu", torch.float64)
+    p0 = tree_map(lambda t: t.double(), params)
+    touched = torch.unique(torch.from_numpy(batch["feat_ids"])).long()
+    untouched = torch.ones(cfg.num_features, dtype=torch.bool)
+    untouched[touched] = False
+    f0 = deepfm.fuse_tables(p0)
+    fk, fp, f64 = (deepfm.fuse_tables(t) for t in (new_k, new_p, new_64))
+    rel = lambda a, b: float((a - b).norm() / b.norm().clamp_min(1e-300))
+    upd = lambda f: f[touched] - f0[touched]
+    head = lambda t: tree_leaves({"mlp": t["mlp"], "bias": t["bias"]})
+    head_upd = lambda t: [a - b for a, b in zip(head(t), head(p0))]
+    table_rel, table_floor = rel(upd(fk), upd(fp)), rel(upd(fp), upd(f64))
+    head_rel = [rel(a, b) for a, b in zip(head_upd(new_k), head_upd(new_p))]
+    head_floor = [rel(a, b) for a, b in zip(head_upd(new_p), head_upd(new_64))]
+    untouched_same = bool(torch.equal(fk[untouched], f0[untouched])
+                          and torch.equal(fp[untouched], f0[untouched]))
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    ok = (loss_rel <= TOL_DFM_LOSS and table_rel <= TOL_DFM_TABLE
+          and max(head_rel) <= TOL_DFM_HEAD and untouched_same)
+    emit({"phase": "parity", "config": "deepfm f32 segment step",
+          "batch": DFM_B, "lr": DFM_PARITY_LR, "loss_kernels": loss_k,
+          "loss_plain_cpu": loss_p, "loss_rel_err": loss_rel,
+          "tol_loss": TOL_DFM_LOSS, "touched_rows": int(touched.numel()),
+          "table_max_abs_err": float((fk[touched] - fp[touched]).abs().max()),
+          "table_update_rel_l2": table_rel, "tol_table": TOL_DFM_TABLE,
+          "table_update_rel_l2_cpu_f32_vs_f64": table_floor,
+          "head_update_rel_l2": head_rel, "tol_head": TOL_DFM_HEAD,
+          "head_update_rel_l2_cpu_f32_vs_f64": head_floor,
+          "untouched_rows_unchanged": untouched_same, "ok": ok})
+    if not ok:
+        raise AssertionError("DeepFM whole-step parity failed")
+    del new_k, new_p, new_64, fk, fp, f64, f0, p0
+
+    # the four variants on the card against dense, one step from one tree
+    variants = deepfm.make_step_variants(cfg, DFM_PARITY_LR)
+    pc = tree_map(lambda t: t.cuda(), params)
+    bc = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    ref, loss_ref = variants["dense"](pc, bc)
+    tc = touched.cuda()
+    step_upd = lambda t: [deepfm.fuse_tables(t)[tc] - deepfm.fuse_tables(pc)[tc]
+                          ] + [a - b for a, b in zip(head(t), head(pc))]
+    ref_upd = step_upd(ref)
+    errs, upd_errs = {}, {}
+    for name in ("fused", "rows", "segment"):
+        out, loss = variants[name](pc, bc)
+        errs[name] = max([abs(float(loss) - float(loss_ref))] + [
+            float((a - b).abs().max()) for a, b in zip(tree_leaves(out),
+                                                      tree_leaves(ref))])
+        upd_errs[name] = max(rel(a.double(), b.double()) for a, b in
+                             zip(step_upd(out), ref_upd))
+        del out
+    auc = deepfm_synthetic_auc(device="cuda")
+    ok = (max(errs.values()) <= TOL_DFM_VARIANTS
+          and max(upd_errs.values()) <= TOL_DFM_VARIANTS_UPD and auc > 0.95)
+    emit({"phase": "parity", "config": "deepfm variants vs dense (card)",
+          "lr": DFM_PARITY_LR, "max_abs_err": errs, "tol": TOL_DFM_VARIANTS,
+          "update_rel_l2": upd_errs, "tol_update": TOL_DFM_VARIANTS_UPD,
+          "synthetic_auc": auc, "auc_threshold": 0.95, "ok": ok})
+    if not ok:
+        raise AssertionError("DeepFM variants or AUC failed")
+    del pc, ref
+    torch.cuda.empty_cache()
+
+
+def phase_compare_conv():
+    """conv_wgrad against wgrad_plain; the conv2d entry at ResNet-50's
+    shapes with the counts set to 0; the autograd round trip vs the CPU.
+    Returns (max abs err, conv_wgrad launches of the entry's run)."""
+    from paddle_tpu_torch.kernels import _common
+    from paddle_tpu_torch.kernels import conv as pconv
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    mk = lambda *shape, dt: torch.randn(*shape, generator=gen,
+                                        device="cuda").to(dt)
+    err = 0.0
+    cases = [(s, torch.bfloat16) for s in CONV_SHAPES] + [
+        ((32, 28, 28, 128, 128, 3, 1), torch.float32),
+        ((32, 14, 14, 64, 64, 4, 2), torch.bfloat16)]
+    for (B_, H, W, C, K, k, pad), dt in cases:
+        x, dy = mk(B_, H, W, C, dt=dt), mk(B_, H, W, K, dt=dt)
+        # both sides sum the same (bf16) products in f32
+        err = max(err, check("conv_wgrad:%dx%dx%dx%d->%d:k%d:%s" % (
+            B_, H, W, C, K, k, str(dt).replace("torch.", "")), [
+                ("dw", pconv.conv_wgrad(x, dy, k, pad),
+                 pconv.wgrad_plain(x, dy, k, pad), TOL_F32)]))
+        del x, dy
+
+    # the entry at full width: forward and backward of each eligible
+    # ResNet-50 shape, then a stride-2 3x3 (ineligible: no wgrad launch)
+    ins = []
+    for B_, H, W, C, K, k, _ in CONV_SHAPES:
+        ins.append((mk(B_, H, W, C, dt=torch.bfloat16).requires_grad_(),
+                    (mk(k, k, C, K, dt=torch.float32) * 0.05).bfloat16()
+                    .requires_grad_(), 1))
+    ins.append((ins[0][0], mk(3, 3, 64, 64, dt=torch.bfloat16).requires_grad_(),
+                2))
+    _common.reset_launches()
+    for x, w, stride in ins:
+        y = pconv.conv2d(x, w, stride, "SAME")
+        gx, gw = torch.autograd.grad(y, (x, w), torch.ones_like(y))
+        if not (torch.isfinite(gx).all() and torch.isfinite(gw).all()):
+            raise AssertionError("conv2d: non-finite gradients")
+    torch.cuda.synchronize()
+    counts = dict(_common.launches)
+    want = {k: (len(CONV_SHAPES) if k == "conv_wgrad" else 0) for k in counts}
+    emit({"phase": "conv2d", "shapes": [list(s) for s in CONV_SHAPES],
+          "ineligible": "stride 2", "launches": counts})
+    if counts != want:
+        raise AssertionError("conv2d launch counts %s, expected %s"
+                             % (counts, want))
+    del ins, y, gx, gw
+
+    # autograd round trip, f32 (TF32 off): the card against the CPU
+    rng = torch.Generator().manual_seed(8)
+    for shape, pad in (((4, 16, 16, 64, 48, 3), "SAME"),
+                       ((2, 12, 12, 32, 40, 4), ((2, 1), (2, 1)))):
+        B_, H, W, C, K, k = shape
+        x = torch.randn(B_, H, W, C, generator=rng)
+        w = torch.randn(k, k, C, K, generator=rng) * 0.1
+        dy = torch.randn(B_, H, W, K, generator=rng)
+        outs = []
+        for dev in ("cuda", "cpu"):
+            xs, ws = (t.to(dev).requires_grad_() for t in (x, w))
+            y = pconv.conv2d(xs, ws, 1, pad)
+            dx, dw = torch.autograd.grad(y, (xs, ws), dy.to(dev))
+            outs.append([t.detach().cpu() for t in (y, dx, dw)])
+        check("conv2d:autograd:k%d" % k, [
+            (n, a, b, TOL_F32) for n, a, b in zip(("y", "dx", "dw"), *outs)])
+    torch.cuda.synchronize()
+    return err, counts["conv_wgrad"]
+
+
+def phase_compare_flash_long():
+    """The flash kernels at S = 1024, where the TPU runs its two-sweep
+    backward, against their plain versions."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    Bl, Sl, H, D = FLASH_LONG
+    err = 0.0
+    for causal in (False, True):
+        q, k, v, do = _qkv(gen, (Bl, Sl, H * D))
+        sc = D ** -0.5
+        tag = ":S%d%s" % (Sl, "_causal" if causal else "")
+        o, lse = fa.flash_fwd(q, k, v, H, sc, causal)
+        f32 = [t.float() for t in (q, k, v)]
+        o_p, lse_p = fa.flash_fwd_plain(*f32, H, sc, causal)
+        check("flash_attention_fwd" + tag, [("o", o, o_p, TOL_BF16),
+                                            ("lse", lse, lse_p, TOL_F32)])
+        grads = fa.flash_bwd(q, k, v, o, lse, do, H, sc, causal)
+        grads_p = fa.flash_bwd_plain(*f32, o.float(), lse, do.float(), H, sc,
+                                     causal)
+        err = max(err, check("flash_attention_bwd" + tag, [
+            (n, g, gp, TOL_BF16) for n, g, gp in zip(("dq", "dk", "dv"),
+                                                     grads, grads_p)]))
+        del q, k, v, do, o, lse, f32, o_p, lse_p, grads, grads_p
+    torch.cuda.empty_cache()
+    return err
+
+
+def _device_ms_by_kernel(fn, calls, keys):
+    """Device ms per call of each kernel whose name holds one of ``keys``,
+    from torch.profiler over ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(keys, 0.0)
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for k in keys:
+                if k in e.key:
+                    out[k] += e.self_device_time_total / 1e3 / calls
+    if not all(out.values()):
+        raise AssertionError("the profiler recorded no device time for %s"
+                             % [k for k, t in out.items() if not t])
+    return out
+
+
+def phase_times_new(errs, launches, device_name):
+    """Times of the segment kernel (the DeepFM step's shape, f32), the
+    wgrad kernel (both ResNet-50 shapes, bf16) and the flash backward's
+    two sweeps at S = 1024 (bf16), beside plain versions, library calls and
+    bounds (bytes read once and written once)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import conv as pconv
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import segment_update as seg
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    out = []
+
+    # segment sum: the kernel on pre-sorted ids; the sort on its own
+    ids, V = _segment_ids(gen, "bench")
+    N, Dv = ids.shape[0], 11
+    vals = torch.randn(N, Dv, generator=gen, device="cuda")
+    keys, order = torch.sort(ids, stable=True)
+    first = torch.ones(N, dtype=torch.bool, device="cuda")
+    first[1:] = keys[1:] != keys[:-1]
+    pos = torch.arange(N, device="cuda")
+    start = torch.where(first, pos, 0).cummax(0).values
+    at_first = torch.empty_like(start).scatter_(0, order, start)
+    lengths = torch.unique_consecutive(keys, return_counts=True)[1]
+    sorted_vals = vals[order]
+    one_keys = torch.full_like(keys, 7)
+    rec = {"shape": [N, Dv],
+           "ms": cuda_time(lambda: seg._segsum_sorted(keys, order, vals, V)),
+           "plain_ms": cuda_time(lambda: seg.segsum_plain(ids, vals, V)),
+           # index_add_ of every value into its run's first sorted position:
+           # the same output values in one PyTorch call
+           "library_ms": cuda_time(
+               lambda: torch.zeros_like(vals).index_add_(0, at_first, vals)),
+           "sort_ms": cuda_time(lambda: torch.sort(ids, stable=True)),
+           # torch.segment_reduce: the compacted layout, a different
+           # function, from values already sorted
+           "segment_reduce_ms": cuda_time(
+               lambda: torch.segment_reduce(sorted_vals, "sum",
+                                            lengths=lengths)),
+           "one_id_ms": cuda_time(
+               lambda: seg._segsum_sorted(one_keys, pos, vals, V)),
+           **_bound(device_name, N * Dv, 4 * N + 8 * N + 2 * 4 * N * Dv + 4 * N,
+                    "f32")}
+    emit({"phase": "times", "name": "segment_sum", **rec})
+    out.append(_kernel_record("segment_sum", launches["segment_sum"],
+                              errs["segment_sum"], **rec))
+    del ids, vals, keys, order, first, pos, start, at_first, sorted_vals
+
+    # conv wgrad, bf16 in, f32 dw; the library call is cuDNN's wgrad alone
+    rows = []
+    for B_, H, W, C, K, k, pad in CONV_SHAPES:
+        x = torch.randn(B_, H, W, C, generator=gen, device="cuda").bfloat16()
+        dy = torch.randn(B_, H, W, K, generator=gen, device="cuda").bfloat16()
+        wt = torch.zeros(K, C, k, k, device="cuda", dtype=torch.bfloat16
+                         ).contiguous(memory_format=torch.channels_last)
+        xt, dyt = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+        lib = lambda: torch.ops.aten.convolution_backward(
+            dyt, xt, wt, None, [1, 1], [pad, pad], [1, 1], False, [0, 0], 1,
+            [False, True, False])
+        row = {"shape": [B_, H, W, C, K, k],
+               "ms": cuda_time(lambda: pconv.conv_wgrad(x, dy, k, pad)),
+               "plain_ms": cuda_time(lambda: pconv.wgrad_plain(x, dy, k, pad),
+                                     iters=5),
+               "library_ms": cuda_time(lib),
+               **_bound(device_name, 2 * B_ * H * W * C * K * k * k,
+                        2 * B_ * H * W * (C + K) + 4 * k * k * C * K, "bf16")}
+        emit({"phase": "times", "name": "conv_wgrad", **row})
+        rows.append(row)
+        del x, dy, wt, xt, dyt
+    out.append(_kernel_record("conv_wgrad", launches["conv_wgrad"],
+                              errs["conv_wgrad"], **rows[0],
+                              other_shapes=rows[1:]))
+
+    # the flash backward at S = 1024: its dk/dv and dq sweeps, split by the
+    # profiler; the plain and SDPA times cover the whole backward
+    Bl, Sl, H, D = FLASH_LONG
+    q, k_, v, do = _qkv(gen, (Bl, Sl, H * D))
+    sc = D ** -0.5
+    o, lse = fa.flash_fwd(q, k_, v, H, sc, False)
+    bwd = lambda: fa.flash_bwd(q, k_, v, o, lse, do, H, sc, False)
+    split = _device_ms_by_kernel(bwd, 5, ("flash_bwd_dkv_kernel",
+                                          "flash_bwd_dq_kernel",
+                                          "flash_delta_kernel"))
+    heads = [t.view(Bl, Sl, H, D).transpose(1, 2) for t in (q, k_, v)]
+    lq, lk, lv = (t.detach().requires_grad_() for t in heads)
+    lo = F.scaled_dot_product_attention(lq, lk, lv)
+    ldo = do.view(Bl, Sl, H, D).transpose(1, 2)
+    whole = {"seq": Sl, "batch": Bl, "heads": H, "head_dim": D,
+             "bwd_ms": cuda_time(bwd),
+             "delta_ms": split["flash_delta_kernel"],
+             "plain_ms": cuda_time(lambda: fa.flash_bwd_plain(
+                 q, k_, v, o, lse, do, H, sc, False), iters=5),
+             "library_ms": cuda_time(lambda: torch.autograd.grad(
+                 lo, (lq, lk, lv), ldo, retain_graph=True)),
+             "sdpa_fwd_ms": cuda_time(
+                 lambda: F.scaled_dot_product_attention(*heads)),
+             "note": "plain_ms and library_ms (SDPA's backward) are of the "
+                     "whole backward; ms is this kernel's own device time"}
+    io, rowsz = Bl * Sl * H * D * 2, Bl * H * Sl * 4
+    s2 = Bl * H * Sl * Sl * D
+    for name, key, flops, nbytes in (
+            # dq: recompute s, dp = do v^T, dq = ds k; reads q k v do lse
+            # delta, writes dq
+            ("flash_attention_bwd_dq", "flash_bwd_dq_kernel", 6 * s2,
+             5 * io + 2 * rowsz),
+            # dk/dv: recompute s, dp, dv = p^T do, dk = ds^T q; reads q k v
+            # do lse delta, writes dk dv
+            ("flash_attention_bwd_dkv", "flash_bwd_dkv_kernel", 8 * s2,
+             6 * io + 2 * rowsz)):
+        rec = {**whole, "ms": split[key],
+               **_bound(device_name, flops, nbytes, "bf16")}
+        emit({"phase": "times", "name": name, **rec})
+        out.append(_kernel_record(name, launches["flash_attention_bwd"],
+                                  errs["flash_attention_bwd_long"], **rec))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -642,6 +1111,13 @@ def main():
     bn_launches = phase_resnet_slice(name)
     phase_resnet_parity()
     kernels += phase_times_bn(bn_errs, bn_launches, name)
+    new_errs = {"segment_sum": phase_compare_segment()}
+    new_launches = {"segment_sum": phase_deepfm_slice(name),
+                    "flash_attention_bwd": launches["flash_attention_bwd"]}
+    phase_deepfm_parity()
+    new_errs["conv_wgrad"], new_launches["conv_wgrad"] = phase_compare_conv()
+    new_errs["flash_attention_bwd_long"] = phase_compare_flash_long()
+    kernels += phase_times_new(new_errs, new_launches, name)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -4,11 +4,14 @@ The JAX package ``paddle_tpu`` stays the reference; this package keeps its
 module names so each counterpart is easy to find:
 
 - ``kernels``: the hand-written CUDA kernels (LayerNorm, flash attention,
-  fused batch norm) with their launch counters and plain PyTorch versions;
+  fused batch norm, the segment sum of sparse rows, the conv filter
+  gradient) with their launch counters and plain PyTorch versions;
 - ``parallel``: transformer blocks, optimizers and the train step at one
   device;
-- ``models.bert``, ``models.resnet``: the BERT pretraining and ResNet
-  training trainers;
+- ``models.bert``, ``models.resnet``, ``models.deepfm``: the BERT
+  pretraining, ResNet and DeepFM CTR training trainers; ``models.parity``
+  the DeepFM learning criterion;
+- ``sparse``: SelectedRows and ``merge_rows``;
 - ``convert``: parameter trees to and from the JAX package's numpy form.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

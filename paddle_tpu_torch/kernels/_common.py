@@ -24,8 +24,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["resolve_device", "launches", "reset_launches", "count_launch",
-           "stream_ptr",
+__all__ = ["resolve_device", "same_pads", "launches", "reset_launches",
+           "count_launch", "stream_ptr",
            "load_library", "build_info", "check_status", "dtype_code"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -52,6 +52,13 @@ def resolve_device(device=None):
     return device
 
 
+def same_pads(size, k, stride):
+    """XLA's "SAME" padding of one spatial axis: (low, high)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
 # -- launch counts ---------------------------------------------------------
 # One count per kernel wrapper, raised where the wrapper launches its CUDA
 # kernel and nowhere else: a run can show the main path went through it.
@@ -64,6 +71,8 @@ launches = {
     "bn_scale_shift": 0,
     "bn_bwd_reduce": 0,
     "bn_dx": 0,
+    "segment_sum": 0,
+    "conv_wgrad": 0,
 }
 
 
@@ -189,6 +198,14 @@ _SIGNATURES = {
     "ptt_bn_bwd_reduce": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _I, _I, _I, _P],
     # dy, x, coefs, dx, M, C, tx, nblk, vec, dtype, stream
     "ptt_bn_dx": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
+    # keys, order, values, out, out_rows, partial, own, spill, N, D, height,
+    # key64, dtype, stream
+    "ptt_segment_sum": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I,
+                        _P],
+    # x, dy, partial, dw, B, H, W, C, K, k, pad, splits, per_split, dtype,
+    # stream
+    "ptt_conv_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _L,
+                       _I, _P],
 }
 
 

@@ -1,0 +1,321 @@
+"""DeepFM CTR training at one device (counterpart of
+``paddle_tpu/models/deepfm.py`` and of ``bench.py``'s DeepFM step variants;
+BASELINE config 5: sparse embedding lookup + SGD).
+
+The parameter tree is the JAX package's: ``w_linear`` [V, 1] and ``embed``
+[V, D] (the first- and second-order tables), ``bias`` [1], and ``mlp``, a
+list of ``{"w", "b"}`` layers ending in a [., 1] logit layer.  A batch is
+``feat_ids`` int32 [B, F] and ``label`` f32 [B].
+
+``make_step_variants(cfg, lr)`` gives the bench's four SGD steps, the same
+update through four table-update plumbings:
+
+- ``dense``: gradients of the whole tree (two [V, *] dense table
+  gradients);
+- ``fused``: one [V, D+1] table (``fuse_tables``), one gather, one dense
+  table gradient;
+- ``rows``: the fused table, differentiated with respect to the gathered
+  rows (the SelectedRows discipline), merged by ``sparse.merge_rows(via=
+  "xla")`` (compacted unique rows) and added back once per unique row;
+- ``segment``: as ``rows``, with the merge done by the segment-sum kernel
+  (``kernels/segment_update.py``; unique rows at their first sorted
+  position) — the trainer's default and the slice's main path.
+
+The steps are functional, as the reference's are: they return a new
+parameter tree and leave the values they were given untouched, so the
+autotune can time every variant from the same parameters.  Table updates
+drop out-of-range rows without a host sync (``scatter_rows_drop``).
+"""
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .._tree import tree_leaves, tree_map
+from ..convert import params_from_numpy
+from ..kernels._common import resolve_device
+from ..kernels.segment_update import dedup_segment_sum, scatter_rows_drop
+from ..parallel.train import TrainState, grads_of
+from ..sparse import merge_rows
+
+__all__ = ["DeepFMConfig", "deepfm_tiny_config", "init_deepfm_params",
+           "deepfm_forward", "deepfm_loss", "fuse_tables", "split_tables",
+           "deepfm_loss_from_rows", "deepfm_loss_fused", "deepfm_param_specs",
+           "deepfm_forward_sharded", "deepfm_loss_sharded",
+           "make_step_variants", "autotune_step", "synthetic_batch",
+           "mlp_train_flops", "DeepFMTrainer", "build_deepfm_trainer"]
+
+_SHARDED = ("%s: the port runs at one device so far; row-sharded tables "
+            "are ROADMAP.md Queue 1 item 11 (multi-GPU engine)")
+
+
+@dataclasses.dataclass
+class DeepFMConfig:
+    num_features: int = 1000000     # total sparse feature ids
+    num_fields: int = 39            # slots per example (criteo-style)
+    embed_dim: int = 10
+    mlp_dims: tuple = (400, 400, 400)
+    dtype: str = "float32"
+
+    @property
+    def torch_dtype(self):
+        return getattr(torch, self.dtype)
+
+
+def deepfm_tiny_config(**kw):
+    d = dict(num_features=1000, num_fields=8, embed_dim=4, mlp_dims=(16, 8))
+    d.update(kw)
+    return DeepFMConfig(**d)
+
+
+def init_deepfm_params(gen, cfg, device):
+    """The JAX package's tree, shapes, dtypes and scales on ``device``;
+    ``gen`` is a CPU ``torch.Generator``."""
+    dt = cfg.torch_dtype
+    randn = lambda *shape: torch.randn(*shape, generator=gen)
+    params = {
+        "w_linear": (randn(cfg.num_features, 1) * 0.01).to(dt),
+        "embed": (randn(cfg.num_features, cfg.embed_dim) * 0.01).to(dt),
+        "bias": torch.zeros(1, dtype=dt),
+        "mlp": [],
+    }
+    din = cfg.num_fields * cfg.embed_dim
+    for d in tuple(cfg.mlp_dims) + (1,):
+        params["mlp"].append({"w": (randn(din, d) / din ** 0.5).to(dt),
+                              "b": torch.zeros(d, dtype=dt)})
+        din = d
+    return tree_map(lambda t: t.to(device), params)
+
+
+def _deepfm_head(params, emb, lin):
+    """FM + MLP + logit head: emb [B, F, D], lin [B, F] -> logits [B] f32."""
+    # FM second-order: 0.5 * ((sum v)^2 - sum v^2)
+    s = emb.sum(dim=1)                                  # [B, D]
+    fm = 0.5 * (s.square() - emb.square().sum(dim=1)).sum(dim=-1)
+    x = emb.reshape(emb.shape[0], -1)
+    for layer in params["mlp"][:-1]:
+        x = F.relu(x @ layer["w"] + layer["b"])
+    deep = (x @ params["mlp"][-1]["w"] + params["mlp"][-1]["b"])[:, 0]
+    return (lin.sum(dim=1) + fm + deep + params["bias"][0]).float()
+
+
+def _sigmoid_xent(logits, label):
+    """Mean sigmoid cross-entropy in the reference's stable form."""
+    y = label.float()
+    loss = (torch.clamp_min(logits, 0) - logits * y
+            + torch.log1p(torch.exp(-logits.abs())))
+    return loss.mean()
+
+
+def deepfm_forward(params, feat_ids, cfg):
+    """feat_ids: [B, num_fields] int.  Returns logits [B]."""
+    emb = params["embed"][feat_ids]                     # [B, F, D] gather
+    lin = params["w_linear"][feat_ids][..., 0]          # [B, F]
+    return _deepfm_head(params, emb, lin)
+
+
+def deepfm_loss(params, batch, cfg):
+    """Sigmoid cross-entropy on click labels."""
+    return _sigmoid_xent(deepfm_forward(params, batch["feat_ids"], cfg),
+                         batch["label"])
+
+
+def fuse_tables(params):
+    """[V, D+1] fused table: embedding columns ‖ first-order weight, so one
+    gather serves the FM/deep inputs and the wide term."""
+    return torch.cat([params["embed"], params["w_linear"]], dim=1)
+
+
+def split_tables(params, fused):
+    """Inverse of fuse_tables: the canonical tree with ``embed`` and
+    ``w_linear`` as column views of ``fused``."""
+    d = params["embed"].shape[1]
+    out = dict(params)
+    out["embed"] = fused[:, :d]
+    out["w_linear"] = fused[:, d:]
+    return out
+
+
+def deepfm_loss_from_rows(params, rows, label, cfg):
+    """Loss from pre-gathered fused rows [B, F, D+1]; its gradient with
+    respect to ``rows`` is the per-occurrence row gradient."""
+    emb = rows[..., :cfg.embed_dim]
+    lin = rows[..., cfg.embed_dim]
+    return _sigmoid_xent(_deepfm_head(params, emb, lin), label)
+
+
+def deepfm_loss_fused(params, fused, batch, cfg):
+    """deepfm_loss computed through the fused table (one gather)."""
+    return deepfm_loss_from_rows(params, fused[batch["feat_ids"]],
+                                 batch["label"], cfg)
+
+
+def deepfm_param_specs(cfg, axis="dp"):
+    raise NotImplementedError(_SHARDED % "deepfm_param_specs")
+
+
+def deepfm_forward_sharded(params, feat_ids_local, cfg, axis="dp"):
+    raise NotImplementedError(_SHARDED % "deepfm_forward_sharded")
+
+
+def deepfm_loss_sharded(params, batch, cfg, axis="dp"):
+    raise NotImplementedError(_SHARDED % "deepfm_loss_sharded")
+
+
+# -- the step variants (bench.py _deepfm_step_variants) ------------------------
+
+def make_step_variants(cfg, lr):
+    """``{"dense", "fused", "rows", "segment"}`` -> ``step(params, batch)
+    -> (new_params, loss)``: SGD at ``lr``, the same update through four
+    table-update plumbings (module docstring)."""
+    D = cfg.embed_dim
+
+    def _head_side(params):
+        return {"mlp": params["mlp"], "bias": params["bias"]}
+
+    def _sgd(tree, grads):
+        return tree_map(lambda p, g: p - lr * g.to(p.dtype), tree, grads)
+
+    def _with_head(params, out, g_head):
+        upd = _sgd(_head_side(params), g_head)
+        out["mlp"], out["bias"] = upd["mlp"], upd["bias"]
+        return out
+
+    def dense(params, batch):
+        loss, g = grads_of(lambda p: deepfm_loss(p, batch, cfg), params)
+        return _sgd(params, g), loss.detach()
+
+    def fused(params, batch):
+        f = fuse_tables(params)
+        loss, (g_f, g_head) = grads_of(
+            lambda t: deepfm_loss_fused(t[1], t[0], batch, cfg),
+            [f, _head_side(params)])
+        out = split_tables(params, f - lr * g_f.to(f.dtype))
+        return _with_head(params, out, g_head), loss.detach()
+
+    def _row_grads(params, batch):
+        f = fuse_tables(params)
+        ids = batch["feat_ids"].reshape(-1)
+        shape3 = tuple(batch["feat_ids"].shape) + (D + 1,)
+        # differentiate with respect to the gathered rows [N, D+1]
+        loss, (g_rows, g_head) = grads_of(
+            lambda t: deepfm_loss_from_rows(t[1], t[0].reshape(shape3),
+                                            batch["label"], cfg),
+            [f[ids], _head_side(params)])
+        return f, ids, g_rows.contiguous(), g_head, loss.detach()
+
+    def rows(params, batch):
+        f, ids, g_rows, g_head, loss = _row_grads(params, batch)
+        # the compacted, sorted layout of the XLA lowering
+        mrows, mvals = merge_rows(ids, g_rows, f.shape[0], via="xla")
+        scatter_rows_drop(f, mrows, (-lr * mvals).to(f.dtype))
+        return _with_head(params, split_tables(params, f), g_head), loss
+
+    def segment(params, batch):
+        f, ids, g_rows, g_head, loss = _row_grads(params, batch)
+        # the kernel's layout: unique rows at their first sorted position
+        mrows, mvals = dedup_segment_sum(ids, g_rows, f.shape[0])
+        scatter_rows_drop(f, mrows, (-lr * mvals).to(f.dtype))
+        return _with_head(params, split_tables(params, f), g_head), loss
+
+    return {"dense": dense, "fused": fused, "rows": rows, "segment": segment}
+
+
+def _sync(params):
+    dev = tree_leaves(params)[0].device
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def autotune_step(variants, params, batch, iters):
+    """Time ``iters`` steps of each variant from ``params`` (after one
+    warm-up step) and return ``(name, step_fn, {name: ms per step})`` for
+    the fastest.  A variant that fails raises: it is a fault, not a loser."""
+    timings, best = {}, None
+    for name, step in variants.items():
+        p, _ = step(params, batch)                       # warm-up
+        _sync(p)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            p, loss = step(p, batch)
+        _sync(p)
+        dt = (time.perf_counter() - t0) / iters
+        if not torch.isfinite(loss):
+            raise RuntimeError("deepfm step variant %r: loss %s" % (name, loss))
+        timings[name] = dt * 1e3
+        if best is None or dt < best[2]:
+            best = (name, step, dt)
+        del p
+    return best[0], best[1], timings
+
+
+def synthetic_batch(cfg, batch, seed=0):
+    """One host batch as ``bench.py`` makes it: ids uniform in
+    ``[0, num_features)`` then labels in {0, 1}, from one numpy stream."""
+    rng = np.random.RandomState(seed)
+    feat_ids = rng.randint(0, cfg.num_features,
+                           (batch, cfg.num_fields)).astype(np.int32)
+    label = rng.randint(0, 2, (batch,)).astype(np.float32)
+    return {"feat_ids": feat_ids, "label": label}
+
+
+def mlp_train_flops(cfg, batch):
+    """The MLP's matmul FLOPs in one training step (forward, and twice that
+    backward): 3 x 2 x B x sum(din x dout)."""
+    dims = (cfg.num_fields * cfg.embed_dim,) + tuple(cfg.mlp_dims) + (1,)
+    return 3 * 2 * batch * sum(a * b for a, b in zip(dims, dims[1:]))
+
+
+@dataclasses.dataclass
+class DeepFMTrainer:
+    """``state``: ``{"params": tree}`` for a step variant (plain SGD), or
+    ``{"params", "opt"}`` for a dense step with an optimizer."""
+    cfg: DeepFMConfig
+    device: torch.device
+    variant: str
+    state: dict
+    optimizer: object = None
+    _steps: dict = dataclasses.field(default_factory=dict)
+
+    def step(self, batch, lr):
+        if self.optimizer is not None:
+            loss, grads = grads_of(lambda p, b: deepfm_loss(p, b, self.cfg),
+                                   self.state["params"], batch)
+            _, update = self.optimizer
+            self.state["params"], self.state["opt"] = update(
+                grads, self.state["opt"], self.state["params"], lr)
+            return loss.detach()
+        if lr not in self._steps:
+            self._steps[lr] = make_step_variants(self.cfg, lr)[self.variant]
+        self.state["params"], loss = self._steps[lr](self.state["params"],
+                                                     batch)
+        return loss
+
+
+def build_deepfm_trainer(cfg, variant="segment", optimizer=None, seed=0,
+                         device=None, params=None):
+    """Params on ``device`` (``cuda`` unless named) and the train step.
+    Without ``optimizer`` each step is the bench's SGD step ``variant``
+    (``segment`` runs the segment-sum kernel); with one (``adam`` ...) it is
+    the dense step through that optimizer, and ``variant`` must be
+    ``dense``.  ``params``: a tree to start from instead of a seeded init —
+    torch tensors, or numpy arrays as ``jax.tree.map(np.asarray, tree)``
+    gives them from the JAX package."""
+    if variant not in ("dense", "fused", "rows", "segment"):
+        raise ValueError("unknown DeepFM step variant %r" % (variant,))
+    if optimizer is not None and variant != "dense":
+        raise ValueError("an optimizer runs the dense step; the %r variant "
+                         "is plain SGD" % variant)
+    device = resolve_device(device)
+    if params is None:
+        params = init_deepfm_params(torch.Generator().manual_seed(seed), cfg,
+                                    device)
+    else:
+        params = params_from_numpy(params, device)
+    state = (TrainState.create(params, optimizer) if optimizer is not None
+             else {"params": params})
+    return DeepFMTrainer(cfg=cfg, device=device, variant=variant, state=state,
+                         optimizer=optimizer)

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from .._tree import tree_map
 from ..convert import params_from_numpy
 from ..kernels import fused_bn as fbn
-from ..kernels._common import resolve_device
+from ..kernels._common import resolve_device, same_pads
 from ..parallel import optim
 from ..parallel.train import TrainState, grads_of
 
@@ -137,19 +137,12 @@ def init_resnet_params(gen, cfg, device):
 
 # -- forward -------------------------------------------------------------------
 
-def _same_pads(size, k, stride):
-    """XLA's "SAME" padding of one spatial axis: (low, high)."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + k - size, 0)
-    return total // 2, total - total // 2
-
-
 def _pad_same(x, k, stride, value=0.0):
     """"SAME" padding of x for a k x k window: ``(x, (ph, pw))`` for the op
     to pad itself where each axis pads both sides alike, else ``(x padded
     with value, (0, 0))``."""
-    ph = _same_pads(x.shape[2], k, stride)
-    pw = _same_pads(x.shape[3], k, stride)
+    ph = same_pads(x.shape[2], k, stride)
+    pw = same_pads(x.shape[3], k, stride)
     if ph[0] == ph[1] and pw[0] == pw[1]:
         return x, (ph[0], pw[0])
     return F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=value), (0, 0)

@@ -16,7 +16,7 @@ import torch
 
 from .._tree import tree_leaves, tree_map
 
-__all__ = ["sgd", "momentum", "lamb"]
+__all__ = ["sgd", "momentum", "adam", "adamw", "lamb"]
 
 
 def _tree_zeros(params):
@@ -61,6 +61,57 @@ def momentum(mu=0.9, use_nesterov=False):
     return init, update
 
 
+def _bias_corrections(step, beta1, beta2):
+    """``beta ** step`` for both betas as f32 0-d tensors (the step count's
+    powers are f32 arrays in the reference)."""
+    stepf = step.float()
+    f32 = dict(dtype=torch.float32, device=stepf.device)
+    return (torch.tensor(beta1, **f32) ** stepf,
+            torch.tensor(beta2, **f32) ** stepf)
+
+
+def adam(beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=None):
+    """Parity: operators/optimizers/adam_op.h (bias-corrected).  The moments
+    are ``zeros_like(params)`` and update in the parameter dtype; the step
+    is ``scale * m / (sqrt(v) + eps)`` with the f32 0-d
+    ``scale = lr * sqrt(1 - b2t) / (1 - b1t)``.  ``weight_decay`` (adamw)
+    then subtracts ``lr * weight_decay * p`` of the old parameter."""
+
+    def init(params):
+        return {
+            "m": _tree_zeros(params),
+            "v": _tree_zeros(params),
+            "step": torch.zeros((), dtype=torch.int32, device=tree_leaves(params)[0].device),
+        }
+
+    @torch.no_grad()
+    def update(grads, state, params, lr):
+        step = state["step"] + 1
+        b1t, b2t = _bias_corrections(step, beta1, beta2)
+        scale = lr * torch.sqrt(1 - b2t) / (1 - b1t)
+
+        def upd(p, g, m_, v_):
+            m_.mul_(beta1).add_((1 - beta1) * g)
+            v_.mul_(beta2).add_((1 - beta2) * g * g)
+            decay = None if weight_decay is None else (lr * weight_decay) * p
+            # f32, as an f32 0-d array over a bf16 array promotes in JAX
+            p.sub_((scale * m_.float() / (torch.sqrt(v_) + eps).float())
+                   .to(p.dtype))
+            if decay is not None:
+                p.sub_(decay)
+
+        tree_map(upd, params, grads, state["m"], state["v"])
+        state["step"] = step
+        return params, state
+
+    return init, update
+
+
+def adamw(beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01):
+    """Decoupled weight decay variant (the AMP/BERT recipe)."""
+    return adam(beta1, beta2, eps, weight_decay=weight_decay)
+
+
 def lamb(beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=0.01):
     """Layer-adaptive large-batch optimizer (parity:
     operators/optimizers/lamb_op.h) — the BERT-pretraining optimizer.  The
@@ -77,9 +128,7 @@ def lamb(beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=0.01):
     @torch.no_grad()
     def update(grads, state, params, lr):
         step = state["step"] + 1
-        stepf = step.float()
-        b1t = torch.tensor(beta1, dtype=torch.float32, device=stepf.device) ** stepf
-        b2t = torch.tensor(beta2, dtype=torch.float32, device=stepf.device) ** stepf
+        b1t, b2t = _bias_corrections(step, beta1, beta2)
 
         def upd(p, g, m_, v_):
             m_.mul_(beta1).add_((1 - beta1) * g)                    # p.dtype

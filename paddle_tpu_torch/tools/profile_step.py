@@ -1,18 +1,20 @@
 """Where a training step's device time goes.
 
-    python -m paddle_tpu_torch.tools.profile_step [--model bert|resnet50] [--trace out.json]
+    python -m paddle_tpu_torch.tools.profile_step [--model bert|resnet50|deepfm] [--trace out.json]
 
 Builds the same trainer and batches as ``chip_smoke.py``'s slice phases
 (bf16 BERT-base with LAMB at B = 64, S = 512; bf16 ResNet-50 with fused
-batch norm and momentum at B = 128, 224 x 224; seed 0), takes a warm-up
-step, then traces two steps with ``torch.profiler`` (CPU and CUDA
-activities).  Without ``--model`` it profiles both.  Prints one JSON line
-per kernel group (the port's kernels by name, cuBLAS products or cuDNN
-convolutions, everything else) with device milliseconds per step and share,
-the top kernels by device time, and the device's busy and idle share of the
-traced wall time; for ResNet-50 also the port's batch-norm kernels' summed
-device time per step beside their byte bound.  Needs a CUDA card; fails
-rather than reading a CPU run as device time.
+batch norm and momentum at B = 128, 224 x 224; f32 DeepFM, the ``segment``
+SGD step at B = 8192, lr 1e-3; seed 0), takes a warm-up step, then traces
+two steps with ``torch.profiler`` (CPU and CUDA activities).  Without
+``--model`` it profiles all three.  Prints one JSON line per kernel group
+(the port's kernels by name, cuBLAS products or cuDNN convolutions, for
+DeepFM the gathers, the id sort and the row scatters, everything else) with
+device milliseconds per step and share, the top kernels by device time, and
+the device's busy and idle share of the traced wall time; for ResNet-50
+also the port's batch-norm kernels' summed device time per step beside
+their byte bound.  Needs a CUDA card; fails rather than reading a CPU run
+as device time.
 """
 
 import argparse
@@ -26,6 +28,7 @@ from torch.profiler import ProfilerActivity, profile
 STEPS, SEED = 2, 0
 BERT_BATCH, BERT_SEQ = 64, 512          # chip_smoke.py's slices
 RN_BATCH, RN_IMAGE = 128, 224
+DEEPFM_BATCH = 8192
 HBM_BYTES_PER_S = 3.35e12               # H100 SXM (chip_smoke.py CARD_PEAKS)
 GROUPS = {
     "bert": (
@@ -44,6 +47,14 @@ GROUPS = {
         ("convolution (cuDNN)", ("conv", "xmma", "cudnn", "implicit", "fprop",
                                  "dgrad", "wgrad", "cutlass", "sm90_", "nvjet",
                                  "gemm")),
+    ),
+    "deepfm": (
+        ("port:segment_sum", ("segsum_",)),
+        ("sort (ids)", ("radixsort", "sort", "onesweep")),
+        ("scatter (row update)", ("index_add", "indexfunc", "scatter")),
+        ("gather (table rows)", ("index_elementwise", "gather", "indexselect",
+                                 "index_kernel")),
+        ("MLP (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")),
     ),
 }
 
@@ -85,6 +96,20 @@ def _resnet50():
                                    "bn_byte_bound_ms": bn_byte_bound_ms(cfg)}
 
 
+def _deepfm():
+    from paddle_tpu_torch.models import deepfm
+    from paddle_tpu_torch.parallel.train import stack_batches
+
+    cfg = deepfm.DeepFMConfig()
+    trainer = deepfm.build_deepfm_trainer(cfg, variant="segment", seed=SEED)
+    # the bench's one batch, taken every step
+    staged = stack_batches([deepfm.synthetic_batch(cfg, DEEPFM_BATCH, SEED)]
+                           * (STEPS + 1), trainer.device)
+    return trainer, staged, 1e-3, {
+        "batch": DEEPFM_BATCH,
+        "mlp_train_flops_per_step": deepfm.mlp_train_flops(cfg, DEEPFM_BATCH)}
+
+
 def bn_shapes(cfg, batch):
     """The [M, C] view of every batch norm in a ResNet forward, in order."""
     side = lambda n, s: -(-n // s)
@@ -119,7 +144,8 @@ def bn_byte_bound_ms(cfg):
 
 
 def profile_model(model, card, trace=None):
-    trainer, staged, lr, extra = {"bert": _bert, "resnet50": _resnet50}[model]()
+    trainer, staged, lr, extra = {"bert": _bert, "resnet50": _resnet50,
+                                  "deepfm": _deepfm}[model]()
     batches = [{k: v[i] for k, v in staged.items()} for i in range(STEPS + 1)]
     trainer.step(batches[0], lr)
     torch.cuda.synchronize()
@@ -169,7 +195,7 @@ def profile_model(model, card, trace=None):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", choices=sorted(GROUPS), default=None,
-                    help="profile one model (default: both)")
+                    help="profile one model (default: all three)")
     ap.add_argument("--trace", default=None,
                     help="write the chrome trace here (with --model)")
     args = ap.parse_args(argv)
@@ -180,7 +206,7 @@ def main(argv=None):
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    for model in [args.model] if args.model else ["bert", "resnet50"]:
+    for model in [args.model] if args.model else ["bert", "resnet50", "deepfm"]:
         profile_model(model, card, args.trace)
 
 

@@ -5,6 +5,7 @@ on the card or raise, never quietly on the CPU."""
 import ast
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -75,3 +76,31 @@ def test_default_device_is_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     assert resolve_device().type == "cuda"
+
+
+def test_deepfm_entry_point_raises_without_a_card(monkeypatch):
+    from paddle_tpu_torch.models import deepfm
+
+    cfg = deepfm.deepfm_tiny_config()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        deepfm.build_deepfm_trainer(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        deepfm.build_deepfm_trainer(cfg, device="cuda")
+    trainer = deepfm.build_deepfm_trainer(cfg, device="cpu")
+    assert trainer.device.type == "cpu"
+    assert trainer.variant == "segment"
+
+
+def test_tree_walks_lists_in_index_order_and_dicts_by_key():
+    from paddle_tpu_torch._tree import tree_leaves, tree_map
+    from paddle_tpu_torch.convert import params_from_numpy, params_to_numpy
+
+    tree = {"b": [1, {"y": 2, "x": 3}], "a": 4, "mlp": [[5], 6]}
+    assert tree_leaves(tree) == [4, 1, 3, 2, 5, 6]
+    doubled = tree_map(lambda v, w: v + w, tree, tree)
+    assert doubled == {"b": [2, {"y": 4, "x": 6}], "a": 8, "mlp": [[10], 12]}
+    assert isinstance(doubled["b"], list)
+    back = params_to_numpy(params_from_numpy(
+        {"mlp": [{"w": np.ones((2, 3), np.float32)}]}, "cpu"))
+    assert isinstance(back["mlp"], list) and back["mlp"][0]["w"].shape == (2, 3)

@@ -8,9 +8,10 @@ where only PyTorch is installed:
 
 Tolerances: f32 kernels against f32 plain versions at the reference tests'
 own (LayerNorm forward 1e-5, gradients 2e-4; attention forward 2e-6/1e-5,
-gradients 5e-5/1e-4; batch norm 1e-5 forward, 1e-4 gradients); bf16 kernels
-against the plain versions on the same bf16 inputs to 2e-2 (a few bf16
-roundings of 2^-9)."""
+gradients 5e-5/1e-4; batch norm 1e-5 forward, 1e-4 gradients; segment sums
+and the conv filter gradient 1e-5 / 1e-4 of the largest value, row ids
+exactly); bf16 kernels against the plain versions on the same bf16 inputs
+to 2e-2 (a few bf16 roundings of 2^-9)."""
 
 import numpy as np
 import pytest
@@ -18,9 +19,11 @@ import torch
 
 from paddle_tpu_torch._tree import tree_leaves
 from paddle_tpu_torch.kernels import _common
+from paddle_tpu_torch.kernels import conv as pconv
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import fused_bn as fbn
 from paddle_tpu_torch.kernels import layer_norm as ln
+from paddle_tpu_torch.kernels import segment_update as seg
 
 pytestmark = pytest.mark.cuda
 
@@ -132,11 +135,14 @@ def test_each_wrapper_counts_one_launch(cuda_device):
     fbn.scale_shift2(x, s, b)
     fbn.bwd_reduce2(x, x)
     fbn.dx2(x, x, torch.ones(3, 32, device=cuda_device))
+    seg.dedup_segment_sum(torch.arange(16, device=cuda_device) % 5, x, 5)
+    pconv.conv_wgrad(x.view(1, 4, 4, 32), x.view(1, 4, 4, 32), 3, 1)
     torch.cuda.synchronize()
     assert {k: _common.launches[k] - before[k] for k in before} == {
         "layer_norm_fwd": 1, "layer_norm_bwd": 1,
         "flash_attention_fwd": 1, "flash_attention_bwd": 1,
-        "bn_stats": 1, "bn_scale_shift": 1, "bn_bwd_reduce": 1, "bn_dx": 1}
+        "bn_stats": 1, "bn_scale_shift": 1, "bn_bwd_reduce": 1, "bn_dx": 1,
+        "segment_sum": 1, "conv_wgrad": 1}
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
@@ -337,3 +343,136 @@ def test_bert_tiny_steps_on_card_match_cpu(cuda_device):
         lp = on_cpu.step(bt, 1e-3)
         np.testing.assert_allclose(float(lc), float(lp), rtol=1e-5)
     assert _common.launches["flash_attention_bwd"] - before == 2 * cfg.n_layers
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    (319488, 1000000, 11),   # the DeepFM step: B = 8192 x 39 fields, D + 1
+    (50000, 100, 11),        # heavy duplicates: runs across many tiles
+    (70000, 1, 11),          # one id repeated N times: one run, 274 tiles
+    (3001, 20000, 40),       # few duplicates, D above one register chunk
+    (257, 3, 1),             # a ragged last tile, D = 1
+    (1, 10, 2),              # a single element
+])
+def test_segment_kernel_matches_plain(cuda_device, dtype, case):
+    """Row ids exactly equal (both sort stably), values to 1e-5 (f32) or
+    2e-2 (bf16) of the largest; ids out of range keep their id."""
+    N, vocab, D = case
+    g = torch.Generator(device=cuda_device).manual_seed(N + D)
+    ids = torch.randint(0, vocab, (N,), generator=g, device=cuda_device,
+                        dtype=torch.int32)
+    if N > 20:
+        ids[torch.randperm(N, generator=g, device=cuda_device)[:20]] = (
+            vocab + torch.arange(20, device=cuda_device, dtype=torch.int32))
+    vals = torch.randn(N, D, generator=g, device=cuda_device).to(dtype)
+    rows, out = seg.dedup_segment_sum(ids, vals, vocab)
+    rows_p, out_p = seg.segsum_plain(ids, vals, vocab)
+    torch.cuda.synchronize()
+    assert rows.dtype == ids.dtype and out.dtype == dtype
+    assert torch.equal(rows, rows_p)
+    assert _rel(out, out_p) <= (2e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+def test_segment_kernel_int64_ids_and_apply(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    ids = torch.randint(0, 300, (9000,), generator=g, device=cuda_device)
+    vals = torch.randn(9000, 2, 3, generator=g, device=cuda_device)
+    rows, out = seg.dedup_segment_sum(ids, vals, 300)
+    rows_p, out_p = seg.segsum_plain(ids, vals, 300)
+    assert rows.dtype == torch.int64 and out.shape == (9000, 2, 3)
+    assert torch.equal(rows, rows_p) and _rel(out, out_p) <= 1e-5
+    table = torch.randn(300, 6, generator=g, device=cuda_device)
+    got = seg.apply_rows_update(table.clone(), ids, vals.view(9000, 6), -0.5)
+    want = table.index_add(0, ids, -0.5 * vals.view(9000, 6))
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+
+
+def test_segment_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
+    ids = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        seg.dedup_segment_sum(ids, torch.randn(4, 8, device=cuda_device).t(), 4)
+    with pytest.raises(TypeError):
+        seg.dedup_segment_sum(ids, torch.randn(8, 4, device=cuda_device).half(), 4)
+    with pytest.raises(ValueError):
+        seg.dedup_segment_sum(ids.cpu(), torch.randn(8, 4, device=cuda_device), 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (2, 8, 8, 32, 48, 3, 1),
+    (2, 5, 7, 32, 32, 3, 1),
+    (1, 9, 9, 32, 32, 5, 2),
+    (2, 8, 8, 32, 32, 4, 2),
+    (2, 8, 8, 32, 32, 4, 1),
+    (4, 14, 14, 96, 80, 3, 1),     # ragged channel tiles
+    (8, 28, 28, 64, 64, 3, 1),     # a split contraction with a fold
+])
+def test_conv_wgrad_kernel_matches_plain(cuda_device, dtype, shape):
+    B, H, W, C, K, k, pad = shape
+    g = torch.Generator(device=cuda_device).manual_seed(B * H + C + k)
+    x = torch.randn(B, H, W, C, generator=g, device=cuda_device).to(dtype)
+    dy = torch.randn(B, H, W, K, generator=g, device=cuda_device).to(dtype)
+    dw = pconv.conv_wgrad(x, dy, k, pad)
+    want = pconv.wgrad_plain(x, dy, k, pad)
+    torch.cuda.synchronize()
+    assert dw.dtype == torch.float32 and dw.shape == (k, k, C, K)
+    assert _rel(dw, want) <= 1e-5
+
+
+def test_conv2d_autograd_on_card_matches_cpu(cuda_device):
+    """conv2d's backward (kernel wgrad, library dgrad) on the card against
+    the plain versions on the CPU, f32 with TF32 off; one wgrad launch per
+    eligible backward and none for a stride-2 conv."""
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(2, 8, 8, 32).astype("f4"))
+    w = torch.from_numpy((rng.randn(4, 4, 32, 24) * 0.1).astype("f4"))
+    pad = ((2, 1), (2, 1))
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        outs = {}
+        for dev in ("cpu", cuda_device):
+            xs, ws = (t.to(dev).requires_grad_() for t in (x, w))
+            y = pconv.conv2d(xs, ws, 1, pad)
+            before = _common.launches["conv_wgrad"]
+            dx, dw = torch.autograd.grad(y, (xs, ws), torch.ones_like(y))
+            outs[str(dev)] = [t.detach().cpu() for t in (y, dx, dw)]
+            assert _common.launches["conv_wgrad"] - before == (
+                0 if dev == "cpu" else 1)
+        for got, want in zip(outs[str(cuda_device)], outs["cpu"]):
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        xs = x.to(cuda_device).requires_grad_()
+        before = _common.launches["conv_wgrad"]
+        pconv.conv2d(xs, w[:3, :3].to(cuda_device), 2).sum().backward()
+        assert _common.launches["conv_wgrad"] == before
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+@pytest.mark.parametrize("variant", ["segment", "rows"])
+def test_deepfm_tiny_steps_on_card_match_cpu(cuda_device, variant):
+    """Three SGD steps of the tiny DeepFM (f32) on the card and on the CPU
+    from the same weights; the segment kernel launches once a step on the
+    card's ``segment`` variant and never on ``rows``."""
+    from paddle_tpu_torch.convert import params_to_numpy
+    from paddle_tpu_torch.models import deepfm
+
+    cfg = deepfm.deepfm_tiny_config()
+    params = params_to_numpy(deepfm.init_deepfm_params(
+        torch.Generator().manual_seed(0), cfg, "cpu"))
+    batch = {k: torch.from_numpy(v)
+             for k, v in deepfm.synthetic_batch(cfg, 64, seed=3).items()}
+    on_card = deepfm.build_deepfm_trainer(cfg, variant=variant,
+                                          device=cuda_device, params=params)
+    on_cpu = deepfm.build_deepfm_trainer(cfg, variant=variant, device="cpu",
+                                         params=params)
+    before = _common.launches["segment_sum"]
+    for _ in range(3):
+        lc = on_card.step({k: v.to(cuda_device) for k, v in batch.items()}, 1e-2)
+        lp = on_cpu.step(batch, 1e-2)
+        np.testing.assert_allclose(float(lc), float(lp), rtol=1e-5)
+    assert _common.launches["segment_sum"] - before == (
+        3 if variant == "segment" else 0)
+    for a, b in zip(tree_leaves(on_card.state["params"]),
+                    tree_leaves(on_cpu.state["params"])):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-6, rtol=1e-5)
