@@ -8,11 +8,16 @@ Builds the port's CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
 
 1. device: the card's name and count, and ``nvidia-smi``'s name and power
    limit;
-2. build: seconds, and each kernel's registers and shared memory;
+2. build: seconds; each kernel's registers, shared memory, stack and
+   spills; the HMMA (tensor-core) instructions in each kernel's SASS, from
+   ``cuobjdump -sass`` (the run fails unless every instantiation of the
+   tensor-core kernels, ``TENSOR_CORE_KERNELS``, holds some);
 3. every kernel against its plain PyTorch version at the BERT-base shapes
-   (the plain version in f32 on the card, from the same bf16 inputs), and
-   the ``[B, S, H, D]`` entry at D = 128 through autograd, with the error
-   beside the stated tolerance;
+   (the plain version in f32 on the card, from the same bf16 inputs; the
+   flash forward's f32 route too), and the ``[B, S, H, D]`` entry at
+   D = 128 through autograd, with the error beside the stated tolerance and,
+   for the two kernels with two routes, the route that ran ("mma" tensor
+   cores for bf16, "fma" f32 FMAs);
 4. the slice: ``build_bert_trainer(bert_base_config(), optimizer=lamb())``
    on the card (bf16, 12 x 768, vocab 30528, S = 512, B = 64), a warm-up
    step and timed steps; every kernel's launch count must rise by exactly
@@ -22,7 +27,8 @@ Builds the port's CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
    kernels on the card and through the plain versions on the CPU, from the
    same weights and batch: the loss and every gradient leaf; then the
    times of each kernel, its plain version and the library call that
-   computes the same function, with CUDA events, beside the kernel's bound;
+   computes the same function, with CUDA events, beside the kernel's bound
+   (the flash forward's bf16 route and its f32 route at the same shape);
 6. the batch-norm kernels against their plain versions at ResNet-50's
    largest bottleneck shape and its widest one, bf16 and f32, a ragged row
    count, and ``fused_bn_train`` / ``fused_scale_shift`` through autograd
@@ -53,17 +59,18 @@ Builds the port's CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
     four variants on the card against ``dense`` after one step; the
     synthetic AUC on the card;
 13. ``conv2d``: its wgrad kernel against ``wgrad_plain`` at ResNet-50's
-    eligible 3 x 3 shapes (B = 128, bf16), an f32 case and a k = 4 case;
+    eligible 3 x 3 shapes (B = 128, bf16), an f32 case, a k = 4 case, a
+    k = 5 case at C, K = 72, 136 and a bf16 case at C = 36 (FMA route);
     the entry's forward and backward at both shapes on the card with the
     counts set to 0 (one wgrad launch per eligible backward, none for a
     stride-2 convolution); the autograd round trip against the CPU;
 14. the flash backward at S = 1024 (B = 8, 12 heads, D = 64, bf16, causal
     and not), where the TPU takes its two-sweep backward, against its
     plain version;
-15. times of the segment kernel, the wgrad kernel at both shapes, and the
-    flash backward's dk/dv and dq kernels at S = 1024 (split by
-    ``torch.profiler``), beside their plain versions, library calls and
-    bounds.
+15. times of the segment kernel, the wgrad kernel at both shapes (and its
+    f32 route at 56 x 56), and the flash backward's dk/dv and dq kernels
+    at S = 1024 (split by ``torch.profiler``), beside their plain versions,
+    library calls and bounds.
 
 TF32 is switched off for matrix products and convolutions, so the f32
 phases compare f32 with f32.  The last two lines are the kernels' JSON
@@ -74,6 +81,7 @@ without them.  Nothing here imports JAX or the JAX package.
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -103,6 +111,9 @@ AUTOTUNE_ITERS = 10
 # widest-image (s0) and the widest-channel (s3) one: (B, H, W, C, K, k, pad)
 CONV_SHAPES = ((128, 56, 56, 64, 64, 3, 1), (128, 7, 7, 512, 512, 3, 1))
 FLASH_LONG = (8, 1024, 12, 64)      # B, S, heads, head dim
+# the tensor-core kernels: the build phase fails unless the SASS of every
+# instantiation of each holds HMMA instructions
+TENSOR_CORE_KERNELS = ("flash_fwd_mma_kernel", "wgrad_mma_kernel")
 SOURCES = {
     "layer_norm_fwd": ("paddle_tpu_torch/kernels/csrc/layer_norm.cu",
                        "paddle_tpu/kernels/layer_norm.py:36"),
@@ -201,8 +212,10 @@ def rel_err(got, want):
     return err, err / max(float(want.abs().max()), 1e-30)
 
 
-def check(name, pairs):
-    """pairs: (label, got, want, tol).  Prints and raises on a miss."""
+def check(name, pairs, route=None):
+    """pairs: (label, got, want, tol).  Prints and raises on a miss.
+    ``route``: which of a kernel's two routes ran ("mma" tensor cores,
+    "fma" f32 FMAs), where it has two."""
     worst = 0.0
     rows = []
     for label, got, want, tol in pairs:
@@ -210,7 +223,10 @@ def check(name, pairs):
         worst = max(worst, err)
         rows.append({"out": label, "max_abs_err": err, "max_rel_err": rel,
                      "tol": tol, "ok": rel <= tol})
-    emit({"phase": "compare", "kernel": name, "outputs": rows})
+    rec = {"phase": "compare", "kernel": name, "outputs": rows}
+    if route:
+        rec["route"] = route
+    emit(rec)
     bad = [r["out"] for r in rows if not r["ok"]]
     if bad:
         raise AssertionError("%s disagrees with its plain version: %s"
@@ -248,26 +264,57 @@ def phase_device():
     return name, smi.splitlines()[0]
 
 
+def _kernel_name(mangled):
+    """A short name from a mangled one: kernel<dtype, template ints>."""
+    m = re.search(r"\d((?:flash|ln|bn|segsum|wgrad)_\w+?_kernel|wgrad_kernel)",
+                  mangled)
+    base = m.group(1) if m else mangled
+    return "%s<%s>" % (base, ", ".join(
+        ["bf16" if "bfloat16" in mangled else "f32"]
+        + re.findall(r"Li(\d+)E", mangled)))
+
+
+def _hmma_counts(path):
+    """HMMA (tensor-core) instructions in each kernel's SASS."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            kernel = _kernel_name(m.group(1))
+            counts[kernel] = 0
+        elif kernel and re.search(r"\bHMMA\b", line):
+            counts[kernel] += 1
+    return counts
+
+
 def phase_build():
     from paddle_tpu_torch.kernels import _common
 
     t0 = time.perf_counter()
     _common.load_library()
-    summary, kernel = [], None
+    summary, kernel, spills = [], None, None
     for line in _common.build_info["ptxas"]:
         if "Compiling entry function" in line:
-            # a short name from the mangled one: kernel<dtype, DMAX>
-            mangled = line.split("'")[1]
-            m = re.search(r"\d((?:flash|ln|bn|segsum)_\w+?_kernel|"
-                          r"wgrad(?:_fold)?_kernel)", mangled)
-            base = m.group(1) if m else mangled
-            dmax = re.search(r"Li(\d+)E", mangled)
-            kernel = "%s<%s%s>" % (base, "bf16" if "bfloat16" in mangled else "f32",
-                                   ", %s" % dmax.group(1) if dmax else "")
+            kernel, spills = _kernel_name(line.split("'")[1]), None
+        elif "spill stores" in line:
+            spills = line
         elif kernel and "Used" in line:
-            summary.append({"kernel": kernel, "ptxas": line.split(":", 1)[1].strip()})
+            summary.append({"kernel": kernel, "ptxas": line.split(":", 1)[1].strip(),
+                            "stack_and_spills": spills})
+    hmma = _hmma_counts(_common.build_info["path"])
+    for name, n in sorted(hmma.items()):
+        print("HMMA %5d  %s" % (n, name), flush=True)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": _common.build_info["seconds"], "kernels": summary})
+          "nvcc_seconds": _common.build_info["seconds"], "kernels": summary,
+          "hmma": hmma})
+    for base in TENSOR_CORE_KERNELS:
+        inst = {n: c for n, c in hmma.items() if n.startswith(base + "<")}
+        if not inst or not all(inst.values()):
+            raise AssertionError("%s: no HMMA instruction in its SASS (%s)"
+                                 % (base, inst))
 
 
 def _ln_inputs(gen):
@@ -305,6 +352,7 @@ def phase_compare():
 
     fwd_err = bwd_err = 0.0
     # the kernel wrappers on the main path's packed case and a causal case
+    # (bf16: the tensor-core forward, whose lse feeds the backward)
     for label, shape, H, causal in (("packed", (B, S, 768), 12, False),
                                     ("packed_causal", (8, S, 768), 12, True)):
         q, k, v, do = _qkv(gen, shape)
@@ -313,14 +361,24 @@ def phase_compare():
         f32 = [t.float() for t in (q, k, v)]
         o_p, lse_p = fa.flash_fwd_plain(*f32, H, scale_, causal)
         fwd_err = max(fwd_err, check("flash_attention_fwd:" + label, [
-            ("o", o, o_p, TOL_BF16), ("lse", lse, lse_p, TOL_F32)]))
+            ("o", o, o_p, TOL_BF16), ("lse", lse, lse_p, TOL_F32)],
+            route=fa._fwd_route(q.dtype)))
         grads = fa.flash_bwd(q, k, v, o, lse, do, H, scale_, causal)
         grads_p = fa.flash_bwd_plain(*f32, o.float(), lse, do.float(), H,
                                      scale_, causal)
         bwd_err = max(bwd_err, check("flash_attention_bwd:" + label, [
             (n, g, gp, TOL_BF16) for n, g, gp in zip(("dq", "dk", "dv"),
-                                                     grads, grads_p)]))
+                                                     grads, grads_p)],
+            route="fma"))
         del q, k, v, do, o, lse, grads, grads_p, f32
+    # the f32 forward (FMA route) at the main path's widths, B = 8
+    q, k, v, _ = (t.float() for t in _qkv(gen, (8, S, 768)))
+    o, lse = fa.flash_fwd(q, k, v, 12, 64 ** -0.5, False)
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, 12, 64 ** -0.5, False)
+    fwd_err = max(fwd_err, check("flash_attention_fwd:packed_f32", [
+        ("o", o, o_p, TOL_F32), ("lse", lse, lse_p, TOL_F32)],
+        route=fa._fwd_route(q.dtype)))
+    del q, k, v, o, lse, o_p, lse_p
     # the [B, S, H, D] entry at D = 128, through autograd
     Bd, H, D = 8, 6, 128
     q, k, v, do = _qkv(gen, (Bd, S, H, D))
@@ -332,10 +390,11 @@ def phase_compare():
     grads_p = fa.flash_bwd_plain(*packed[:3], o_p, lse_p, packed[3], H,
                                  D ** -0.5, False)
     fwd_err = max(fwd_err, check("flash_attention_fwd:bshd_d128", [
-        ("o", o.reshape(Bd, S, H * D), o_p, TOL_BF16)]))
+        ("o", o.reshape(Bd, S, H * D), o_p, TOL_BF16)],
+        route=fa._fwd_route(q.dtype)))
     bwd_err = max(bwd_err, check("flash_attention_bwd:bshd_d128", [
         (n, g.reshape(Bd, S, H * D), gp, TOL_BF16)
-        for n, g, gp in zip(("dq", "dk", "dv"), grads, grads_p)]))
+        for n, g, gp in zip(("dq", "dk", "dv"), grads, grads_p)], route="fma"))
     del q, k, v, do, leaves, o, grads, packed, o_p, grads_p
     errs["flash_attention_fwd"], errs["flash_attention_bwd"] = fwd_err, bwd_err
     torch.cuda.synchronize()
@@ -435,14 +494,15 @@ def phase_times(errs, launches, device_name):
     gen = torch.Generator(device="cuda").manual_seed(2)
     out = []
 
-    def record(name, ms, plain_ms, library_ms, nbytes, flops):
+    def record(name, ms, plain_ms, library_ms, nbytes, flops, **extra):
         t_ops, t_bytes = bound_ms(device_name, flops, nbytes)
         src, rep = SOURCES[name]
         rec = {"name": name, "route": "cuda", "source": src, "replaces": rep,
                "launches": launches[name], "max_abs_err": errs[name],
                "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "library_ms": library_ms, "bytes": nbytes, "flops": flops}
+               "library_ms": library_ms, "bytes": nbytes, "flops": flops,
+               **extra}
         emit({"phase": "times", **rec})
         out.append(rec)
 
@@ -471,11 +531,22 @@ def phase_times(errs, launches, device_name):
     o, lse = fa.flash_fwd(q, k, v, H, sc, False)
     heads = [t.view(B, S, H, D).transpose(1, 2) for t in (q, k, v)]
     io = B * S * H * D * 2
-    record("flash_attention_fwd",
-           cuda_time(lambda: fa.flash_fwd(q, k, v, H, sc, False)),
+    fwd_flops = 4 * B * H * S * S * D
+    # the main path's bf16 route (tensor cores), and the f32 route (FMAs) at
+    # the same shape against its own bound
+    ms = cuda_time(lambda: fa.flash_fwd(q, k, v, H, sc, False))
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    fma = {"ms": cuda_time(lambda: fa.flash_fwd(q32, k32, v32, H, sc, False),
+                           iters=5),
+           **_bound(device_name, fwd_flops, 2 * (4 * io) + B * H * S * 4, "f32")}
+    del q32, k32, v32
+    record("flash_attention_fwd", ms,
            cuda_time(lambda: fa.flash_fwd_plain(q, k, v, H, sc, False), iters=5),
            cuda_time(lambda: F.scaled_dot_product_attention(*heads)),
-           nbytes=4 * io + B * H * S * 4, flops=4 * B * H * S * S * D)
+           nbytes=4 * io + B * H * S * 4, flops=fwd_flops,
+           kernel_route=fa._fwd_route(q.dtype),
+           tensor_core_share=fwd_flops / (ms * 1e-3) / card_peaks(device_name)[0],
+           fma_f32=fma)
     lq, lk, lv = (t.detach().requires_grad_() for t in heads)
     lo = F.scaled_dot_product_attention(lq, lk, lv)
     ldo = do.view(B, S, H, D).transpose(1, 2)
@@ -864,14 +935,17 @@ def phase_compare_conv():
     err = 0.0
     cases = [(s, torch.bfloat16) for s in CONV_SHAPES] + [
         ((32, 28, 28, 128, 128, 3, 1), torch.float32),
-        ((32, 14, 14, 64, 64, 4, 2), torch.bfloat16)]
+        ((32, 14, 14, 64, 64, 4, 2), torch.bfloat16),
+        ((16, 15, 13, 72, 136, 5, 2), torch.bfloat16),   # ragged tiles
+        ((16, 14, 14, 36, 64, 3, 1), torch.bfloat16)]    # C % 8: FMA route
     for (B_, H, W, C, K, k, pad), dt in cases:
         x, dy = mk(B_, H, W, C, dt=dt), mk(B_, H, W, K, dt=dt)
-        # both sides sum the same (bf16) products in f32
+        # both sides sum the same (bf16) products in f32, in other orders
         err = max(err, check("conv_wgrad:%dx%dx%dx%d->%d:k%d:%s" % (
             B_, H, W, C, K, k, str(dt).replace("torch.", "")), [
                 ("dw", pconv.conv_wgrad(x, dy, k, pad),
-                 pconv.wgrad_plain(x, dy, k, pad), TOL_F32)]))
+                 pconv.wgrad_plain(x, dy, k, pad), TOL_F32)],
+            route=pconv._wgrad_route(dt, C, K)))
         del x, dy
 
     # the entry at full width: forward and backward of each eligible
@@ -935,13 +1009,15 @@ def phase_compare_flash_long():
         f32 = [t.float() for t in (q, k, v)]
         o_p, lse_p = fa.flash_fwd_plain(*f32, H, sc, causal)
         check("flash_attention_fwd" + tag, [("o", o, o_p, TOL_BF16),
-                                            ("lse", lse, lse_p, TOL_F32)])
+                                            ("lse", lse, lse_p, TOL_F32)],
+              route=fa._fwd_route(q.dtype))
         grads = fa.flash_bwd(q, k, v, o, lse, do, H, sc, causal)
         grads_p = fa.flash_bwd_plain(*f32, o.float(), lse, do.float(), H, sc,
                                      causal)
         err = max(err, check("flash_attention_bwd" + tag, [
             (n, g, gp, TOL_BF16) for n, g, gp in zip(("dq", "dk", "dv"),
-                                                     grads, grads_p)]))
+                                                     grads, grads_p)],
+            route="fma"))
         del q, k, v, do, o, lse, f32, o_p, lse_p, grads, grads_p
     torch.cuda.empty_cache()
     return err
@@ -1030,13 +1106,26 @@ def phase_times_new(errs, launches, device_name):
         lib = lambda: torch.ops.aten.convolution_backward(
             dyt, xt, wt, None, [1, 1], [pad, pad], [1, 1], False, [0, 0], 1,
             [False, True, False])
+        flops = 2 * B_ * H * W * C * K * k * k
         row = {"shape": [B_, H, W, C, K, k],
+               "kernel_route": pconv._wgrad_route(x.dtype, C, K),
                "ms": cuda_time(lambda: pconv.conv_wgrad(x, dy, k, pad)),
                "plain_ms": cuda_time(lambda: pconv.wgrad_plain(x, dy, k, pad),
                                      iters=5),
                "library_ms": cuda_time(lib),
-               **_bound(device_name, 2 * B_ * H * W * C * K * k * k,
+               **_bound(device_name, flops,
                         2 * B_ * H * W * (C + K) + 4 * k * k * C * K, "bf16")}
+        row["tensor_core_share"] = flops / (row["ms"] * 1e-3) / card_peaks(
+            device_name)[0]
+        if not rows:
+            # the f32 route (FMAs) at the first shape, against its own bound
+            x32, dy32 = x.float(), dy.float()
+            row["fma_f32"] = {
+                "ms": cuda_time(lambda: pconv.conv_wgrad(x32, dy32, k, pad),
+                                iters=5),
+                **_bound(device_name, flops,
+                         4 * B_ * H * W * (C + K) + 4 * k * k * C * K, "f32")}
+            del x32, dy32
         emit({"phase": "times", "name": "conv_wgrad", **row})
         rows.append(row)
         del x, dy, wt, xt, dyt

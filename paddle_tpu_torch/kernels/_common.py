@@ -26,7 +26,8 @@ import torch
 
 __all__ = ["resolve_device", "same_pads", "launches", "reset_launches",
            "count_launch", "stream_ptr",
-           "load_library", "build_info", "check_status", "dtype_code"]
+           "load_library", "build_info", "check_status", "dtype_code",
+           "ROUTE_CODES"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(os.environ.get(
@@ -148,9 +149,11 @@ def _build(out_path):
 
 
 def _ptxas_summary(log):
-    """The ``ptxas info`` lines: registers and shared memory per kernel."""
+    """The ``ptxas info`` lines: registers and shared memory per kernel, and
+    each kernel's stack and spill line."""
     return [ln.strip() for ln in log.splitlines()
-            if "ptxas info" in ln and ("Used" in ln or "Compiling" in ln)]
+            if ("ptxas info" in ln and ("Used" in ln or "Compiling" in ln))
+            or "spill stores" in ln]
 
 
 def load_library():
@@ -183,7 +186,7 @@ _SIGNATURES = {
     # N, E, rows_per_block, n_blocks, dtype, stream
     "ptt_layer_norm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _L, _I, _I, _I, _I, _P],
-    # q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal, dtype, stream
+    # q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal, route, stream
     "ptt_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     # q, k, v, o, do, lse, delta, dq, dk, dv,
     # B, H, Sq, Sk, D, scale, causal, dtype, stream
@@ -203,9 +206,11 @@ _SIGNATURES = {
     "ptt_segment_sum": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I,
                         _P],
     # x, dy, partial, dw, B, H, W, C, K, k, pad, splits, per_split, dtype,
-    # stream
+    # route, stream
     "ptt_conv_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _L,
-                       _I, _P],
+                       _I, _I, _P],
+    # route
+    "ptt_conv_wgrad_blocks_per_sm": [_I],
 }
 
 
@@ -224,6 +229,9 @@ def check_status(name, status):
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# a kernel's two routes, as its C entry numbers them: f32 FMAs on the CUDA
+# cores, or bf16 products on the tensor cores
+ROUTE_CODES = {"fma": 0, "mma": 1}
 
 
 def dtype_code(dtype, what):

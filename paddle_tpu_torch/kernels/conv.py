@@ -14,8 +14,10 @@ the reference), and the filter gradient
     dw[i, j, ci, co] = sum_{b,h,w} xp[b, h+i, w+j, ci] * dy[b, h, w, co]
 
 comes from the CUDA kernel ``csrc/conv_wgrad.cu`` in f32, returned in
-``w.dtype``.  Other convolutions take autograd of the plain convolution.
-No model calls this entry (as in the reference).
+``w.dtype``: bf16 with C and K multiples of 8 on the tensor cores, f32 and
+other widths on f32 FMAs (``_wgrad_route``).  Other convolutions take
+autograd of the plain convolution.  No model calls this entry (as in the
+reference).
 
 On a CPU tensor ``conv_wgrad`` runs ``wgrad_plain`` below; on a CUDA
 tensor it launches the kernel or raises.
@@ -28,7 +30,7 @@ from . import _common
 
 __all__ = ["conv2d", "conv_wgrad", "wgrad_plain"]
 
-_TM = 32        # positions a block stages per step (csrc/conv_wgrad.cu kTM)
+_TM = 48        # positions a split is rounded to (csrc/conv_wgrad.cu kMT)
 _TILE = 64      # channels per tile on both sides (kTC, kTK)
 
 
@@ -91,6 +93,30 @@ def wgrad_plain(x, dy, k, pad):
         for i in range(k)])
 
 
+def _wgrad_route(dtype, C, K):
+    """The kernel a CUDA call takes: "mma" (tensor cores) for bf16 with C
+    and K multiples of 8, the 16-byte copies' width; else "fma" (f32 FMAs:
+    f32 on the tensor cores would be TF32, another result)."""
+    if dtype == torch.bfloat16 and C % 8 == 0 and K % 8 == 0:
+        return "mma"
+    return "fma"
+
+
+def _splits(tiles, M, slots):
+    """Splits of the B*H*W contraction: as many as fill the card's ``slots``
+    resident blocks in one wave (a block more would start a second wave),
+    with at least 8 staging steps a block; 1 when the tiles alone fill it."""
+    return max(1, min(slots // tiles, M // (8 * _TM), 65535))
+
+
+def _slots(lib, device, route):
+    """Blocks of the route's kernel the whole card holds at once."""
+    n = lib.ptt_conv_wgrad_blocks_per_sm(_common.ROUTE_CODES[route])
+    if n <= 0:
+        raise RuntimeError("conv_wgrad: occupancy query failed (%d)" % n)
+    return n * torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _check(x, dy, k, pad):
     if x.dim() != 4 or dy.dim() != 4 or dy.shape[:3] != x.shape[:3]:
         raise ValueError("conv_wgrad: x must be [B, H, W, C] and dy "
@@ -117,23 +143,25 @@ def conv_wgrad(x, dy, k, pad):
     code = _common.dtype_code(x.dtype, "conv_wgrad")
     B, H, W, C = x.shape
     K = dy.shape[3]
+    route = _wgrad_route(x.dtype, C, K)
+    if route == "mma" and (x.data_ptr() % 16 or dy.data_ptr() % 16):
+        raise ValueError("conv_wgrad: the tensor-core kernel needs x and dy "
+                         "on 16-byte boundaries")
     dw = torch.empty(k, k, C, K, device=x.device, dtype=torch.float32)
     M = B * H * W
     if M == 0 or C == 0 or K == 0:
         return dw.zero_()
-    # split the B*H*W contraction so that about four blocks sit on each SM,
-    # with at least 8 staging steps a block
+    lib = _common.load_library()
     tiles = _cdiv(C, _TILE) * _cdiv(K, _TILE) * k * k
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = max(1, min(_cdiv(4 * sms, tiles), M // (8 * _TM), 65535))
+    splits = _splits(tiles, M, _slots(lib, x.device, route))
     per_split = _cdiv(_cdiv(M, splits), _TM) * _TM
     splits = _cdiv(M, per_split)
     partial = (torch.empty(splits, k, k, C, K, device=x.device,
                            dtype=torch.float32) if splits > 1 else dw)
-    lib = _common.load_library()
     _common.check_status("conv_wgrad", lib.ptt_conv_wgrad(
         x.data_ptr(), dy.data_ptr(), partial.data_ptr(), dw.data_ptr(),
         B, H, W, C, K, k, pad, splits, per_split, code,
+        _common.ROUTE_CODES[route],
         _common.stream_ptr(x.device)))
     _common.count_launch("conv_wgrad")
     return dw

@@ -8,30 +8,46 @@
 // Bound on the H100: at BERT-base (B=64, H=12, S=512, D=64) the forward does
 // 4*B*H*S*S*D = 51.5 GFLOP against ~200 MB of q, k, v, o, so at the
 // tensor-core rate it is byte-bound (~61 us); the backward does 2.5 times
-// the products.  This first version multiplies with f32 FMAs on the CUDA
-// cores (67 TFLOP/s peak), so it is bound by its shared-memory reads and FMA
-// issue rate, well above those floors; tensor cores (mma/wgmma) and TMA are
-// the next step.
+// the products.
+//
+// Two forward routes, chosen by dtype (kernels/flash_attention.py
+// _fwd_route): bf16 runs flash_fwd_mma_kernel on the tensor cores; f32 runs
+// flash_fwd_kernel, f32 FMAs on the CUDA cores (f32 on tensor cores would be
+// TF32, another result).  The backward is still f32 FMAs for both dtypes.
 //
 // Design:
 // - q, k, v, o are [B, S, H*D] row-major ("packed"; a contiguous
 //   [B, S, H, D] tensor has the same layout): a block reads its head's D
 //   columns in place through row stride H*D and column offset h*D, so no
 //   transpose ever touches device memory.
-// - Forward: one block per (64-row q tile, b*h), looping over 64-row kv
-//   tiles held in shared memory with an online softmax in f32 (running max
-//   m from -1e30, running sum l, o = acc / max(l, 1e-30), lse = m + log l).
-//   p is rounded to the input dtype before p.v, as the reference does.
+// - Tensor-core forward (FA2-style, mma.sync m16n8k16, bf16 in, f32 sums):
+//   one block per (q tile of 16 rows a warp, b*h).  Q is copied once into
+//   shared memory and from there into registers (ldmatrix); 64-row K and V
+//   tiles stream through a two-stage cp.async ring (16-byte copies, rows past
+//   Sk and columns past D zero-filled), swizzled so ldmatrix reads are free
+//   of bank conflicts.  S = Q K^T takes K through plain ldmatrix; the online
+//   softmax runs in registers in the log2 domain (each row's max and sum over
+//   the four lanes that hold it; masks only on the tiles that need them);
+//   p is rounded to bf16 straight from the
+//   accumulator layout into the A operand of P V (the reference's
+//   p.astype(v.dtype)), which takes V through ldmatrix.trans.  o goes out
+//   through the warp's own Q rows in shared memory as 16-byte stores.
+// - FMA forward: one block per (64-row q tile, b*h), looping over 64-row kv
+//   tiles held in shared memory as f32.
+// - Both: running max m from -1e30, running sum l, o = acc / max(l, 1e-30),
+//   lse = m + log l; p rounded to the input dtype before p.v.
 // - Backward: delta = rowsum(do * o) by one warp per row; then a dk/dv kernel
 //   (one block per kv tile, looping over q tiles) and a dq kernel (one block
 //   per q tile, looping over kv tiles), each recomputing p = exp(s - lse).
 //   ds = p * (do.v^T - delta) * scale is rounded to the input dtype before
 //   ds.k and ds^T.q.  Accumulation is f32 throughout; no atomics.
-// - Causal masking writes -1e30 and skips tiles entirely in the future.
+// - Causal masking writes -1e30 and skips tiles entirely in the future;
+//   positions past Sk score -inf.
 
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -198,6 +214,213 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (tid < kBQ && q0 + tid < Sq)
     lse[(long long)bh * Sq + q0 + tid] = m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
+}
+
+constexpr float kLn2 = 0.69314718055994531f;
+
+// bf16 forward on the tensor cores; kMmaWarps warps of 16 q rows each, DP =
+// D rounded up to 64 or 128 (columns past D are zero in every tile).  With
+// 4 warps, D <= 64 takes about 165 registers, so three blocks share an SM; a
+// 128-row tile of 8 warps fits one block an SM and ran slower.  scale2
+// is scale * log2(e): the softmax runs in the log2 domain (p = 2^(s - m)
+// on the special-function unit), so m, and the masking values, are
+// log2-scaled scores.
+constexpr int kMmaWarps = 4;
+
+template <int DP>
+__global__ void __launch_bounds__(kMmaWarps * 32)
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                     int H, int Sq, int Sk, int D, float scale2, int causal) {
+  constexpr int BQ = kMmaWarps * 16;  // q rows a block
+  constexpr int CH = DP / 8;          // 16-byte chunks a row
+  constexpr int NT = kMmaWarps * 32;
+  constexpr int NS = kBK / 8;   // n8 tiles of a score row
+  constexpr int ND = DP / 8;    // n8 tiles of an output row
+  using bf16 = __nv_bfloat16;
+  constexpr uint32_t kTile = kBK * DP * 2;  // bytes of one K or V tile
+  extern __shared__ uint4 fwd_mma_smem[];
+  const uint32_t sQ = ptt::smem_addr(fwd_mma_smem);  // [BQ][DP] bf16
+  const uint32_t sK = sQ + BQ * DP * 2;              // [2][kBK][DP]
+  const uint32_t sV = sK + 2 * kTile;                // [2][kBK][DP]
+
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int q0 = blockIdx.x * BQ;
+  const int rs = H * D;  // offsets inside one batch row of q, k, v fit in
+                         // 32 bits: S * H * D < 2^31 (checked by the caller)
+  const bf16* qb = q + (long long)b * Sq * rs + h * D;
+  const bf16* kb = k + (long long)b * Sk * rs + h * D;
+  const bf16* vb = v + (long long)b * Sk * rs + h * D;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp * 16;     // the warp's first row in the tile
+  const int dch = D / 8;        // chunks that hold data
+
+  for (int idx = tid; idx < BQ * CH; idx += NT) {
+    const int r = idx / CH, c = idx % CH;
+    const bool ok = q0 + r < Sq && c < dch;
+    ptt::cp_async16(sQ + ptt::swz<CH>(r, c), qb + (ok ? (q0 + r) * rs + c * 8 : 0), ok);
+  }
+  auto load_kv = [&](int stage, int k0) {
+    for (int idx = tid; idx < kBK * CH; idx += NT) {
+      const int r = idx / CH, c = idx % CH;
+      const bool ok = k0 + r < Sk && c < dch;
+      const int at = ok ? (k0 + r) * rs + c * 8 : 0;
+      const uint32_t dst = stage * kTile + ptt::swz<CH>(r, c);
+      ptt::cp_async16(sK + dst, kb + at, ok);
+      ptt::cp_async16(sV + dst, vb + at, ok);
+    }
+  };
+
+  const int kv_end = causal ? min(Sk, q0 + BQ) : Sk;
+  const int n_tiles = (kv_end + kBK - 1) / kBK;
+  ptt::cp_async_commit();  // Q
+  load_kv(0, 0);
+  ptt::cp_async_commit();  // the first K, V tile
+
+  // Q's fragments into registers once, while the first K, V tile lands
+  uint32_t qf[DP / 16][4];
+  ptt::cp_async_wait<1>();
+  __syncthreads();
+#pragma unroll
+  for (int kc = 0; kc < DP / 16; ++kc)
+    ptt::ldmatrix_x4(qf[kc], sQ + ptt::swz<CH>(wr + (lane & 15), 2 * kc + (lane >> 4)));
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int stage = it & 1, k0 = it * kBK;
+    if (it + 1 < n_tiles) {
+      load_kv(stage ^ 1, k0 + kBK);
+      ptt::cp_async_commit();
+      ptt::cp_async_wait<1>();
+    } else {
+      ptt::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint32_t Kt = sK + stage * kTile, Vt = sV + stage * kTile;
+
+    // s = q k^T: a 16 x 64 tile a warp, n8 tile n holding keys k0 + 8n..
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < DP / 16; ++kc)
+#pragma unroll
+      for (int jp = 0; jp < NS / 2; ++jp) {
+        uint32_t bk[4];  // keys 16jp..16jp+15, columns 16kc..16kc+15
+        ptt::ldmatrix_x4(bk, Kt + ptt::swz<CH>(16 * jp + (lane & 7) + ((lane >> 4) << 3),
+                                               2 * kc + ((lane >> 3) & 1)));
+        ptt::mma_bf16_16816(s[2 * jp], qf[kc], bk[0], bk[1]);
+        ptt::mma_bf16_16816(s[2 * jp + 1], qf[kc], bk[2], bk[3]);
+      }
+
+    // scale; mask only the tiles that reach past Sk or, causal, past the
+    // warp's first row; e < 2 is row g, e >= 2 row g + 8
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] *= scale2;
+    if (k0 + kBK > Sk || (causal && k0 + kBK - 1 > q0 + wr)) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + 8 * n + 2 * t + (e & 1);
+          const int row = q0 + wr + g + 8 * (e >> 1);
+          if (col >= Sk) s[n][e] = -INFINITY;  // past the end: exp gives 0
+          else if (causal && col > row) s[n][e] = kNegInf;
+        }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_r[r], mx[r]);
+      alpha[r] = ptt::exp2_approx(m_r[r] - m_new);
+      m_r[r] = m_new;
+    }
+    // p, rounded to bf16 and packed as soon as it exists (the f32 scores
+    // die here): pp[n][0] holds row g's pair of n8 tile n, pp[n][1] row g + 8's
+    uint32_t pp[NS][2];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float p0 = ptt::exp2_approx(s[n][2 * r] - m_r[r]);
+        const float p1 = ptt::exp2_approx(s[n][2 * r + 1] - m_r[r]);
+        sum[r] += p0 + p1;
+        pp[n][r] = ptt::pack_bf16(p0, p1);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      l_r[r] = l_r[r] * alpha[r] + sum[r];
+    }
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+
+    // acc += p v: p's accumulator tiles 2kc, 2kc + 1 are the A operand of
+    // keys 16kc..16kc+15
+#pragma unroll
+    for (int kc = 0; kc < NS / 2; ++kc) {
+      const uint32_t pa[4] = {pp[2 * kc][0], pp[2 * kc][1], pp[2 * kc + 1][0],
+                              pp[2 * kc + 1][1]};
+#pragma unroll
+      for (int dp = 0; dp < ND / 2; ++dp) {
+        uint32_t bv[4];  // keys 16kc.., columns 16dp..16dp+15
+        ptt::ldmatrix_x4_trans(bv, Vt + ptt::swz<CH>(16 * kc + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                                     2 * dp + (lane >> 4)));
+        ptt::mma_bf16_16816(acc[2 * dp], pa, bv[0], bv[1]);
+        ptt::mma_bf16_16816(acc[2 * dp + 1], pa, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();  // this stage's readers are done before it is refilled
+  }
+
+  // o = acc / l in bf16, through the warp's own (already consumed) Q rows
+  char* Qs = reinterpret_cast<char*>(fwd_mma_smem);
+  float l_c[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l_c[r] = fmaxf(l_r[r], 1e-30f);
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<uint32_t*>(Qs + ptt::swz<CH>(wr + g + 8 * r, n) + 4 * t) =
+          ptt::pack_bf16(acc[n][2 * r] / l_c[r], acc[n][2 * r + 1] / l_c[r]);
+  __syncwarp();
+  bf16* ob = o + (long long)b * Sq * rs + h * D;
+  for (int idx = lane; idx < 16 * CH; idx += 32) {
+    const int r = idx / CH, c = idx % CH;
+    if (q0 + wr + r < Sq && c < dch)
+      *reinterpret_cast<uint4*>(ob + (q0 + wr + r) * rs + c * 8) =
+          *reinterpret_cast<const uint4*>(Qs + ptt::swz<CH>(wr + r, c));
+  }
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + wr + g + 8 * r;
+      if (row < Sq) lse[(long long)bh * Sq + row] = m_r[r] * kLn2 + logf(l_c[r]);
+    }
+  }
 }
 
 // delta[b, h, s] = sum_d do * o, one warp per (b, s, h) row
@@ -440,6 +663,24 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   return (int)cudaGetLastError();
 }
 
+template <int DP>
+int launch_fwd_mma(const void* q, const void* k, const void* v, void* o,
+                   void* lse, int B, int H, int Sq, int Sk, int D, float scale,
+                   int causal, cudaStream_t s) {
+  constexpr int BQ = kMmaWarps * 16;
+  constexpr size_t smem = sizeof(__nv_bfloat16) * (BQ + 4 * kBK) * DP;
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_mma_kernel<DP>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((Sq + BQ - 1) / BQ, B * H);
+  flash_fwd_mma_kernel<DP><<<grid, kMmaWarps * 32, smem, s>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
+      (__nv_bfloat16*)o, (float*)lse, H, Sq, Sk, D, scale * 1.4426950408889634f,
+      causal);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int DMAX>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                const void* dout, const void* lse, void* delta, void* dq,
@@ -473,19 +714,21 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace
 
+// route 0: f32 on the CUDA cores; route 1: bf16 on the tensor cores
+// (S * H * D < 2^31)
 extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int B, int H, int Sq, int Sk,
-                             int D, float scale, int causal, int dtype,
+                             int D, float scale, int causal, int route,
                              void* stream) {
   if (B == 0 || H == 0 || Sq == 0) return 0;
   if (D % 8 != 0 || D > 128 || Sk == 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
+  if (route == 0)
     return D <= 64 ? launch_fwd<float, 64>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal, s)
                    : launch_fwd<float, 128>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal, s);
-  return D <= 64
-             ? launch_fwd<__nv_bfloat16, 64>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal, s)
-             : launch_fwd<__nv_bfloat16, 128>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal, s);
+  if ((long long)max(Sq, Sk) * H * D >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  return D <= 64 ? launch_fwd_mma<64>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal, s)
+                 : launch_fwd_mma<128>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal, s);
 }
 
 extern "C" int ptt_flash_bwd(const void* q, const void* k, const void* v,

@@ -9,7 +9,9 @@ that the backward uses to recompute the probabilities.  The kernels are in
 
 Numerics follow the reference kernel: f32 accumulation, ``p`` rounded to
 ``v.dtype`` before ``p.v``, ``ds`` rounded to ``q.dtype`` before ``ds.k`` and
-``ds^T.q``, ``l`` clamped at 1e-30, causal masking with -1e30.
+``ds^T.q``, ``l`` clamped at 1e-30, causal masking with -1e30.  The bf16
+forward runs on the tensor cores, the f32 one on f32 FMAs (``_fwd_route``);
+the backward runs on f32 FMAs for both.
 
 On a CPU tensor the wrappers run the plain PyTorch version below; on a CUDA
 tensor they launch the kernel or raise.
@@ -104,20 +106,31 @@ def _check_cuda(q, k, v, n_heads, what):
     return _common.dtype_code(q.dtype, what), B, Sq, k.shape[1], D
 
 
+def _fwd_route(dtype):
+    """The forward kernel a CUDA call takes: "mma" (tensor cores) for bf16,
+    "fma" (f32 FMAs) for f32, where the tensor cores would compute in TF32."""
+    return "mma" if dtype == torch.bfloat16 else "fma"
+
+
 def flash_fwd(q, k, v, n_heads, scale, causal):
     """Forward kernel on packed tensors: returns o and lse [B, H, Sq]."""
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, n_heads, scale, causal)
     if q.device.type != "cuda":
         raise ValueError("flash_fwd: unsupported device %s" % q.device)
-    code, B, Sq, Sk, D = _check_cuda(q, k, v, n_heads, "flash_fwd")
+    _, B, Sq, Sk, D = _check_cuda(q, k, v, n_heads, "flash_fwd")
+    route = _fwd_route(q.dtype)
+    if route == "mma" and (any(t.data_ptr() % 16 for t in (q, k, v))
+                           or max(Sq, Sk) * q.shape[2] >= 2 ** 31):
+        raise ValueError("flash_fwd: the tensor-core kernel needs q, k, v on "
+                         "16-byte boundaries and S * H * D < 2^31")
     lib = _common.load_library()
     o = torch.empty_like(q)
     lse = torch.empty(B, n_heads, Sq, device=q.device, dtype=torch.float32)
     _common.check_status("flash_fwd", lib.ptt_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), B, n_heads, Sq, Sk, D, float(scale), int(causal),
-        code, _common.stream_ptr(q.device)))
+        _common.ROUTE_CODES[route], _common.stream_ptr(q.device)))
     _common.count_launch("flash_attention_fwd")
     return o, lse
 

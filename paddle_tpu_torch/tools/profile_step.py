@@ -32,7 +32,7 @@ DEEPFM_BATCH = 8192
 HBM_BYTES_PER_S = 3.35e12               # H100 SXM (chip_smoke.py CARD_PEAKS)
 GROUPS = {
     "bert": (
-        ("port:flash_attention_fwd", ("flash_fwd_kernel",)),
+        ("port:flash_attention_fwd", ("flash_fwd_",)),   # both routes
         ("port:flash_attention_bwd", ("flash_bwd_", "flash_delta_kernel")),
         ("port:layer_norm_fwd", ("ln_fwd_kernel",)),
         ("port:layer_norm_bwd", ("ln_bwd_kernel", "ln_colsum_kernel")),

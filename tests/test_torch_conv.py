@@ -109,3 +109,27 @@ def test_eligibility_matches_the_reference():
         w = np.zeros(shape, np.float32)
         assert (pconv._eligible_pads(torch.from_numpy(w), stride, pad)
                 == jconv._eligible_pads(w, stride, pad)), (shape, stride, pad)
+
+
+@pytest.mark.parametrize("dtype,C,K,route", [
+    (torch.bfloat16, 64, 64, "mma"),      # ResNet-50's 3x3 at 56 x 56
+    (torch.bfloat16, 512, 512, "mma"),    # and at 7 x 7
+    (torch.bfloat16, 72, 136, "mma"),     # multiples of 8, ragged tiles
+    (torch.bfloat16, 36, 64, "fma"),      # C % 8: no 16-byte copies
+    (torch.bfloat16, 64, 44, "fma"),      # K % 8
+    (torch.float32, 64, 64, "fma"),       # f32 would be TF32 on tensor cores
+])
+def test_wgrad_route(dtype, C, K, route):
+    assert pconv._wgrad_route(dtype, C, K) == route
+
+
+@pytest.mark.parametrize("tiles,M,slots,splits", [
+    (9, 128 * 56 * 56, 660, 73),     # 56 x 56: fill one wave, no more
+    (576, 128 * 7 * 7, 660, 1),      # 7 x 7: the tiles alone fill it
+    (576, 128 * 7 * 7, 528, 1),      # more tiles than slots: no split
+    (9, 1000, 660, 2),               # at least 8 staging steps a block
+])
+def test_wgrad_splits_fill_one_wave(tiles, M, slots, splits):
+    got = pconv._splits(tiles, M, slots)
+    assert got == splits
+    assert got == 1 or tiles * got <= slots

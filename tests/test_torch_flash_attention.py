@@ -92,3 +92,11 @@ def test_bf16_rounds_p_like_the_reference():
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, atol=2e-2)
 
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "mma"),
+                                         (torch.float32, "fma")])
+def test_forward_route(dtype, route):
+    """bf16 takes the tensor-core forward; f32 the FMA one (on the tensor
+    cores f32 would be TF32, another result)."""
+    assert pfa._fwd_route(dtype) == route

@@ -11,7 +11,11 @@ own (LayerNorm forward 1e-5, gradients 2e-4; attention forward 2e-6/1e-5,
 gradients 5e-5/1e-4; batch norm 1e-5 forward, 1e-4 gradients; segment sums
 and the conv filter gradient 1e-5 / 1e-4 of the largest value, row ids
 exactly); bf16 kernels against the plain versions on the same bf16 inputs
-to 2e-2 (a few bf16 roundings of 2^-9)."""
+to 2e-2 (a few bf16 roundings of 2^-9).  The bf16 attention forward and
+the bf16 filter gradient at widths that are multiples of 8 run on the
+tensor cores; their f32 sums (lse, dw) are held to the same 1e-5 as the
+FMA kernels': bf16 products are exact in f32, so only the order of the f32
+additions differs from the plain version's."""
 
 import numpy as np
 import pytest
@@ -81,7 +85,12 @@ def test_fused_layer_norm_autograd_on_card(cuda_device):
     (2, 512, 512, 12, 64, False),    # the BERT-base head shape
     (2, 320, 320, 4, 64, True),      # a ragged last tile
     (1, 130, 70, 2, 128, True),      # Sq != Sk, D = 128
-    (1, 64, 64, 4, 8, False),        # bert_tiny's D = 8
+    (1, 64, 64, 4, 8, False),        # bert_tiny's D = 8 (columns zero-filled)
+    # tensor-core tile edges: ragged q and kv tiles, D not a multiple of 16
+    (2, 200, 333, 3, 64, False),
+    (2, 333, 200, 3, 64, True),
+    (1, 129, 129, 2, 40, True),
+    (1, 64, 96, 2, 128, False),
 ])
 def test_flash_kernels_match_plain(cuda_device, dtype, B, Sq, Sk, H, D, causal):
     g = torch.Generator(device=cuda_device).manual_seed(Sq + Sk + D)
@@ -99,6 +108,21 @@ def test_flash_kernels_match_plain(cuda_device, dtype, B, Sq, Sk, H, D, causal):
     torch.testing.assert_close(lse, lse_ref, atol=1e-5, rtol=1e-5)
     for a, r in zip(grads, grads_ref):
         torch.testing.assert_close(a.float(), r.float(), **gtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scale", [-0.3, 0.0, 2.0])
+def test_flash_forward_takes_any_scale(cuda_device, dtype, scale):
+    """The softmax's max is taken over scaled scores, so a negative, zero or
+    large scale gives the plain version's o and lse on both routes."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    q, k, v = [(torch.randn(2, 100, 2 * 64, generator=g, device=cuda_device)
+                * 0.5).to(dtype) for _ in range(3)]
+    o, lse = fa.flash_fwd(q, k, v, 2, scale, True)
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, 2, scale, True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), o_ref.float(), **FA_TOL[dtype][0])
+    torch.testing.assert_close(lse, lse_ref, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("entry", ["bshd", "packed"])
@@ -406,6 +430,11 @@ def test_segment_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
     (2, 8, 8, 32, 32, 4, 1),
     (4, 14, 14, 96, 80, 3, 1),     # ragged channel tiles
     (8, 28, 28, 64, 64, 3, 1),     # a split contraction with a fold
+    # tensor-core tile edges: C, K not multiples of 64; B*H*W = 198 and 189,
+    # not multiples of the 64 positions a step stages; k = 5, pad 2
+    (2, 9, 11, 72, 136, 3, 1),
+    (3, 7, 9, 136, 72, 5, 2),
+    (2, 8, 8, 36, 40, 3, 1),       # C % 8 != 0: bf16 takes the FMA route
 ])
 def test_conv_wgrad_kernel_matches_plain(cuda_device, dtype, shape):
     B, H, W, C, K, k, pad = shape
