@@ -28,7 +28,8 @@ Builds the port's CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
    same weights and batch: the loss and every gradient leaf; then the
    times of each kernel, its plain version and the library call that
    computes the same function, with CUDA events, beside the kernel's bound
-   (the flash forward's bf16 route and its f32 route at the same shape);
+   (the flash forward's and backward's bf16 routes and their f32 routes at
+   the same shape);
 6. the batch-norm kernels against their plain versions at ResNet-50's
    largest bottleneck shape and its widest one, bf16 and f32, a ragged row
    count, and ``fused_bn_train`` / ``fused_scale_shift`` through autograd
@@ -69,8 +70,8 @@ Builds the port's CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
     plain version;
 15. times of the segment kernel, the wgrad kernel at both shapes (and its
     f32 route at 56 x 56), and the flash backward's dk/dv and dq kernels
-    at S = 1024 (split by ``torch.profiler``), beside their plain versions,
-    library calls and bounds.
+    at S = 1024 (split by ``torch.profiler``; both routes), beside their
+    plain versions, library calls and bounds.
 
 TF32 is switched off for matrix products and convolutions, so the f32
 phases compare f32 with f32.  The last two lines are the kernels' JSON
@@ -113,7 +114,8 @@ CONV_SHAPES = ((128, 56, 56, 64, 64, 3, 1), (128, 7, 7, 512, 512, 3, 1))
 FLASH_LONG = (8, 1024, 12, 64)      # B, S, heads, head dim
 # the tensor-core kernels: the build phase fails unless the SASS of every
 # instantiation of each holds HMMA instructions
-TENSOR_CORE_KERNELS = ("flash_fwd_mma_kernel", "wgrad_mma_kernel")
+TENSOR_CORE_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dkv_mma_kernel",
+                       "flash_bwd_dq_mma_kernel", "wgrad_mma_kernel")
 SOURCES = {
     "layer_norm_fwd": ("paddle_tpu_torch/kernels/csrc/layer_norm.cu",
                        "paddle_tpu/kernels/layer_norm.py:36"),
@@ -369,7 +371,7 @@ def phase_compare():
         bwd_err = max(bwd_err, check("flash_attention_bwd:" + label, [
             (n, g, gp, TOL_BF16) for n, g, gp in zip(("dq", "dk", "dv"),
                                                      grads, grads_p)],
-            route="fma"))
+            route=fa._bwd_route(q.dtype)))
         del q, k, v, do, o, lse, grads, grads_p, f32
     # the f32 forward (FMA route) at the main path's widths, B = 8
     q, k, v, _ = (t.float() for t in _qkv(gen, (8, S, 768)))
@@ -394,7 +396,8 @@ def phase_compare():
         route=fa._fwd_route(q.dtype)))
     bwd_err = max(bwd_err, check("flash_attention_bwd:bshd_d128", [
         (n, g.reshape(Bd, S, H * D), gp, TOL_BF16)
-        for n, g, gp in zip(("dq", "dk", "dv"), grads, grads_p)], route="fma"))
+        for n, g, gp in zip(("dq", "dk", "dv"), grads, grads_p)],
+        route=fa._bwd_route(q.dtype)))
     del q, k, v, do, leaves, o, grads, packed, o_p, grads_p
     errs["flash_attention_fwd"], errs["flash_attention_bwd"] = fwd_err, bwd_err
     torch.cuda.synchronize()
@@ -550,13 +553,26 @@ def phase_times(errs, launches, device_name):
     lq, lk, lv = (t.detach().requires_grad_() for t in heads)
     lo = F.scaled_dot_product_attention(lq, lk, lv)
     ldo = do.view(B, S, H, D).transpose(1, 2)
-    record("flash_attention_bwd",
-           cuda_time(lambda: fa.flash_bwd(q, k, v, o, lse, do, H, sc, False)),
+    # the bound counts the reference's 5 products; the kernels do 7 (dq
+    # recomputes s and dp rather than sum across blocks by atomics), which
+    # the tensor-core share counts
+    ms = cuda_time(lambda: fa.flash_bwd(q, k, v, o, lse, do, H, sc, False))
+    f32 = [t.float() for t in (q, k, v, o, do)]
+    fma = {"ms": cuda_time(lambda: fa.flash_bwd(*f32[:4], lse, f32[4], H, sc,
+                                                False), iters=5),
+           **_bound(device_name, 10 * B * H * S * S * D,
+                    2 * (8 * io) + B * H * S * 4, "f32")}
+    del f32
+    record("flash_attention_bwd", ms,
            cuda_time(lambda: fa.flash_bwd_plain(q, k, v, o, lse, do, H, sc, False),
                      iters=5),
            cuda_time(lambda: torch.autograd.grad(lo, (lq, lk, lv), ldo,
                                                  retain_graph=True)),
-           nbytes=8 * io + B * H * S * 4, flops=10 * B * H * S * S * D)
+           nbytes=8 * io + B * H * S * 4, flops=10 * B * H * S * S * D,
+           kernel_route=fa._bwd_route(q.dtype),
+           tensor_core_share=14 * B * H * S * S * D / (ms * 1e-3)
+           / card_peaks(device_name)[0],
+           fma_f32=fma)
     return out
 
 
@@ -1017,7 +1033,7 @@ def phase_compare_flash_long():
         err = max(err, check("flash_attention_bwd" + tag, [
             (n, g, gp, TOL_BF16) for n, g, gp in zip(("dq", "dk", "dv"),
                                                      grads, grads_p)],
-            route="fma"))
+            route=fa._bwd_route(q.dtype)))
         del q, k, v, do, o, lse, f32, o_p, lse_p, grads, grads_p
     torch.cuda.empty_cache()
     return err
@@ -1140,9 +1156,15 @@ def phase_times_new(errs, launches, device_name):
     sc = D ** -0.5
     o, lse = fa.flash_fwd(q, k_, v, H, sc, False)
     bwd = lambda: fa.flash_bwd(q, k_, v, o, lse, do, H, sc, False)
-    split = _device_ms_by_kernel(bwd, 5, ("flash_bwd_dkv_kernel",
-                                          "flash_bwd_dq_kernel",
+    split = _device_ms_by_kernel(bwd, 5, ("flash_bwd_dkv_mma_kernel",
+                                          "flash_bwd_dq_mma_kernel",
                                           "flash_delta_kernel"))
+    # the f32 route's two FMA kernels at the same shape
+    f32 = [t.float() for t in (q, k_, v, o, do)]
+    split32 = _device_ms_by_kernel(
+        lambda: fa.flash_bwd(*f32[:4], lse, f32[4], H, sc, False), 3,
+        ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"))
+    del f32
     heads = [t.view(Bl, Sl, H, D).transpose(1, 2) for t in (q, k_, v)]
     lq, lk, lv = (t.detach().requires_grad_() for t in heads)
     lo = F.scaled_dot_product_attention(lq, lk, lv)
@@ -1160,17 +1182,18 @@ def phase_times_new(errs, launches, device_name):
                      "whole backward; ms is this kernel's own device time"}
     io, rowsz = Bl * Sl * H * D * 2, Bl * H * Sl * 4
     s2 = Bl * H * Sl * Sl * D
-    for name, key, flops, nbytes in (
+    for name, key, flops, n_io in (
             # dq: recompute s, dp = do v^T, dq = ds k; reads q k v do lse
             # delta, writes dq
-            ("flash_attention_bwd_dq", "flash_bwd_dq_kernel", 6 * s2,
-             5 * io + 2 * rowsz),
+            ("flash_attention_bwd_dq", "flash_bwd_dq", 6 * s2, 5),
             # dk/dv: recompute s, dp, dv = p^T do, dk = ds^T q; reads q k v
             # do lse delta, writes dk dv
-            ("flash_attention_bwd_dkv", "flash_bwd_dkv_kernel", 8 * s2,
-             6 * io + 2 * rowsz)):
-        rec = {**whole, "ms": split[key],
-               **_bound(device_name, flops, nbytes, "bf16")}
+            ("flash_attention_bwd_dkv", "flash_bwd_dkv", 8 * s2, 6)):
+        rec = {**whole, "ms": split[key + "_mma_kernel"],
+               **_bound(device_name, flops, n_io * io + 2 * rowsz, "bf16"),
+               "fma_f32": {"ms": split32[key + "_kernel"],
+                           **_bound(device_name, flops,
+                                    2 * n_io * io + 2 * rowsz, "f32")}}
         emit({"phase": "times", "name": name, **rec})
         out.append(_kernel_record(name, launches["flash_attention_bwd"],
                                   errs["flash_attention_bwd_long"], **rec))

@@ -189,9 +189,9 @@ _SIGNATURES = {
     # q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal, route, stream
     "ptt_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     # q, k, v, o, do, lse, delta, dq, dk, dv,
-    # B, H, Sq, Sk, D, scale, causal, dtype, stream
+    # B, H, Sq, Sk, D, scale, causal, dtype, route, stream
     "ptt_flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _F, _I, _I, _P],
+                      _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     # x, partial, sum, sumsq, M, C, tx, rows_per_block, nblk, vec, dtype, stream
     "ptt_bn_stats": [_P, _P, _P, _P, _L, _I, _I, _L, _I, _I, _I, _P],
     # x, a, b, y, M, C, tx, nblk, vec, dtype, stream

@@ -1,5 +1,5 @@
 // Tensor-core building blocks for the port's bf16 kernels (sm_80+ PTX that
-// Hopper runs): 16-byte cp.async copies with zero-fill, ldmatrix (plain and
+// Hopper runs): 16- and 4-byte cp.async copies with zero-fill, ldmatrix (plain and
 // transposed), mma.sync m16n8k16 with bf16 operands and f32 accumulators,
 // and an XOR swizzle for [rows][chunks] tiles in shared memory.
 //
@@ -33,6 +33,15 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes (one f32) from global to shared memory, asynchronously, with the
+// same zero-fill: for per-row statistics whose rows need not be 16-byte
+// aligned
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
                : "memory");
 }
 

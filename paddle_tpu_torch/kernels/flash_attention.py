@@ -9,9 +9,10 @@ that the backward uses to recompute the probabilities.  The kernels are in
 
 Numerics follow the reference kernel: f32 accumulation, ``p`` rounded to
 ``v.dtype`` before ``p.v``, ``ds`` rounded to ``q.dtype`` before ``ds.k`` and
-``ds^T.q``, ``l`` clamped at 1e-30, causal masking with -1e30.  The bf16
-forward runs on the tensor cores, the f32 one on f32 FMAs (``_fwd_route``);
-the backward runs on f32 FMAs for both.
+``ds^T.q``, ``l`` clamped at 1e-30, causal masking with -1e30.  bf16 runs
+on the tensor cores both ways, f32 on f32 FMAs (``_fwd_route``,
+``_bwd_route``).  The backward sums dq inside the block that owns its rows,
+with no atomics, so two calls give the same bits.
 
 On a CPU tensor the wrappers run the plain PyTorch version below; on a CUDA
 tensor they launch the kernel or raise.
@@ -112,6 +113,18 @@ def _fwd_route(dtype):
     return "mma" if dtype == torch.bfloat16 else "fma"
 
 
+def _bwd_route(dtype):
+    """The backward kernels a CUDA call takes, as ``_fwd_route``."""
+    return "mma" if dtype == torch.bfloat16 else "fma"
+
+
+def _check_mma(route, tensors, S, width, what):
+    if route == "mma" and (any(t.data_ptr() % 16 for t in tensors)
+                           or S * width >= 2 ** 31):
+        raise ValueError("%s: the tensor-core kernels need their inputs on "
+                         "16-byte boundaries and S * H * D < 2^31" % what)
+
+
 def flash_fwd(q, k, v, n_heads, scale, causal):
     """Forward kernel on packed tensors: returns o and lse [B, H, Sq]."""
     if q.device.type == "cpu":
@@ -120,10 +133,7 @@ def flash_fwd(q, k, v, n_heads, scale, causal):
         raise ValueError("flash_fwd: unsupported device %s" % q.device)
     _, B, Sq, Sk, D = _check_cuda(q, k, v, n_heads, "flash_fwd")
     route = _fwd_route(q.dtype)
-    if route == "mma" and (any(t.data_ptr() % 16 for t in (q, k, v))
-                           or max(Sq, Sk) * q.shape[2] >= 2 ** 31):
-        raise ValueError("flash_fwd: the tensor-core kernel needs q, k, v on "
-                         "16-byte boundaries and S * H * D < 2^31")
+    _check_mma(route, (q, k, v), max(Sq, Sk), q.shape[2], "flash_fwd")
     lib = _common.load_library()
     o = torch.empty_like(q)
     lse = torch.empty(B, n_heads, Sq, device=q.device, dtype=torch.float32)
@@ -146,8 +156,11 @@ def flash_bwd(q, k, v, o, lse, do, n_heads, scale, causal):
     if o.shape != q.shape or do.shape != q.shape or do.dtype != q.dtype \
             or not o.is_contiguous():
         raise ValueError("flash_bwd: o and do must match q")
-    if lse.shape != (B, n_heads, Sq) or lse.dtype != torch.float32:
-        raise ValueError("flash_bwd: lse must be f32 [B, H, Sq]")
+    if lse.shape != (B, n_heads, Sq) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous():
+        raise ValueError("flash_bwd: lse must be a contiguous f32 [B, H, Sq]")
+    route = _bwd_route(q.dtype)
+    _check_mma(route, (q, k, v, o, do), max(Sq, Sk), q.shape[2], "flash_bwd")
     lib = _common.load_library()
     delta = torch.empty_like(lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -155,7 +168,8 @@ def flash_bwd(q, k, v, o, lse, do, n_heads, scale, causal):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, n_heads, Sq, Sk, D, float(scale),
-        int(causal), code, _common.stream_ptr(q.device)))
+        int(causal), code, _common.ROUTE_CODES[route],
+        _common.stream_ptr(q.device)))
     _common.count_launch("flash_attention_bwd")
     return dq, dk, dv
 

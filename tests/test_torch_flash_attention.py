@@ -100,3 +100,10 @@ def test_forward_route(dtype, route):
     """bf16 takes the tensor-core forward; f32 the FMA one (on the tensor
     cores f32 would be TF32, another result)."""
     assert pfa._fwd_route(dtype) == route
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "mma"),
+                                         (torch.float32, "fma")])
+def test_backward_route(dtype, route):
+    """bf16 takes the tensor-core dk/dv and dq kernels; f32 the FMA ones."""
+    assert pfa._bwd_route(dtype) == route

@@ -12,8 +12,8 @@ gradients 5e-5/1e-4; batch norm 1e-5 forward, 1e-4 gradients; segment sums
 and the conv filter gradient 1e-5 / 1e-4 of the largest value, row ids
 exactly); bf16 kernels against the plain versions on the same bf16 inputs
 to 2e-2 (a few bf16 roundings of 2^-9).  The bf16 attention forward and
-the bf16 filter gradient at widths that are multiples of 8 run on the
-tensor cores; their f32 sums (lse, dw) are held to the same 1e-5 as the
+backward and the bf16 filter gradient at widths that are multiples of 8 run
+on the tensor cores; their f32 sums (lse, dw) are held to the same 1e-5 as the
 FMA kernels': bf16 products are exact in f32, so only the order of the f32
 additions differs from the plain version's."""
 
@@ -91,6 +91,10 @@ def test_fused_layer_norm_autograd_on_card(cuda_device):
     (2, 333, 200, 3, 64, True),
     (1, 129, 129, 2, 40, True),
     (1, 64, 96, 2, 128, False),
+    # Sq < Sk causal (kv tiles past the last q row: dk, dv are 0 there);
+    # both lengths off the 64-row tile
+    (2, 200, 333, 3, 64, True),
+    (1, 70, 150, 2, 128, True),
 ])
 def test_flash_kernels_match_plain(cuda_device, dtype, B, Sq, Sk, H, D, causal):
     g = torch.Generator(device=cuda_device).manual_seed(Sq + Sk + D)
@@ -123,6 +127,36 @@ def test_flash_forward_takes_any_scale(cuda_device, dtype, scale):
     torch.cuda.synchronize()
     torch.testing.assert_close(o.float(), o_ref.float(), **FA_TOL[dtype][0])
     torch.testing.assert_close(lse, lse_ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scale", [-0.3, 0.0, 2.0])
+def test_flash_backward_takes_any_scale(cuda_device, dtype, scale):
+    """p = exp(s scale - lse) on both routes: a negative, zero or large
+    scale gives the plain version's dq, dk and dv."""
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    q, k, v, do = [(torch.randn(2, 100, 2 * 64, generator=g, device=cuda_device)
+                    * 0.5).to(dtype) for _ in range(4)]
+    o, lse = fa.flash_fwd(q, k, v, 2, scale, True)
+    grads = fa.flash_bwd(q, k, v, o, lse, do, 2, scale, True)
+    grads_ref = fa.flash_bwd_plain(q, k, v, o, lse, do, 2, scale, True)
+    torch.cuda.synchronize()
+    for a, r in zip(grads, grads_ref):
+        torch.testing.assert_close(a.float(), r.float(), **FA_TOL[dtype][1])
+
+
+def test_flash_backward_is_deterministic(cuda_device):
+    """dq is summed inside one block, with no atomics: two bf16 backward
+    calls give bit-identical dq, dk and dv."""
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    q, k, v, do = [(torch.randn(4, 333, 4 * 64, generator=g, device=cuda_device)
+                    * 0.5).bfloat16() for _ in range(4)]
+    o, lse = fa.flash_fwd(q, k, v, 4, 0.125, False)
+    first = fa.flash_bwd(q, k, v, o, lse, do, 4, 0.125, False)
+    second = fa.flash_bwd(q, k, v, o, lse, do, 4, 0.125, False)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("entry", ["bshd", "packed"])
@@ -181,6 +215,11 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     q = torch.randn(1, 16, 64, device=cuda_device)
     with pytest.raises(ValueError):
         fa.flash_fwd(q, q, q.cpu(), 2, 0.1, False)
+    # the tensor-core backward reads 16-byte chunks: a view 2 bytes in raises
+    qb = torch.randn(16 * 64 + 1, device=cuda_device).bfloat16()[1:].view(1, 16, 64)
+    lse = torch.zeros(1, 2, 16, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_bwd(qb, qb, qb, qb, lse, qb, 2, 0.1, False)
 
 
 def _rel(got, want):
