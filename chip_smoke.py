@@ -16,8 +16,11 @@ Builds the port's CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
    (the plain version in f32 on the card, from the same bf16 inputs; the
    flash forward's f32 route too), and the ``[B, S, H, D]`` entry at
    D = 128 through autograd, with the error beside the stated tolerance and,
-   for the two kernels with two routes, the route that ran ("mma" tensor
-   cores for bf16, "fma" f32 FMAs);
+   for the kernels with two routes, the route that ran ("mma" tensor
+   cores for bf16, "fma" f32 FMAs; for the LayerNorm backward "vec16"
+   16-byte vectors or "scalar");
+   the LayerNorm backward also at E = 100 (scalar route) and E = 1024, each
+   twice, which must give the same bits;
 4. the slice: ``build_bert_trainer(bert_base_config(), optimizer=lamb())``
    on the card (bf16, 12 x 768, vocab 30528, S = 512, B = 64), a warm-up
    step and timed steps; every kernel's launch count must rise by exactly
@@ -47,7 +50,10 @@ Builds the port's CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
 10. the segment-sum kernel against its plain version at the DeepFM step's
     shape (N = 8192 x 39 ids, D = 11), f32 and bf16, in four cases: ids
     uniform in [0, 1M), heavy duplicates, one id N times, 20 ids out of
-    range; row ids must be exactly equal;
+    range; then runs crossing several tiles from mid-tile (also at D = 8
+    and at D = 256, eight 32-column chunks), N = 1 and N off the 256-row
+    tile; row ids must be exactly equal and a second call give the same
+    bits;
 11. the DeepFM slice: ``build_deepfm_trainer(DeepFMConfig(),
     variant="segment")`` on the card (f32, 1M features, 39 fields, embed 10,
     MLP 400-400-400, B = 8192, SGD lr 1e-3), a warm-up step and timed steps;
@@ -68,10 +74,16 @@ Builds the port's CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
 14. the flash backward at S = 1024 (B = 8, 12 heads, D = 64, bf16, causal
     and not), where the TPU takes its two-sweep backward, against its
     plain version;
-15. times of the segment kernel, the wgrad kernel at both shapes (and its
-    f32 route at 56 x 56), and the flash backward's dk/dv and dq kernels
-    at S = 1024 (split by ``torch.profiler``; both routes), beside their
-    plain versions, library calls and bounds.
+15. the CUDA kernels one call of each kernel wrapper launches at the main
+    paths' shapes, counted by ``torch.profiler``, with each one's device
+    time: one for ``layer_norm_bwd`` and for the segment kernel, or the run
+    fails;
+16. times of the segment kernel (CUDA events, with the device time by
+    ``torch.profiler`` beside it and its library call's, since its wrapper
+    is host-bound back to back), the wgrad kernel at both
+    shapes (and its f32 route at 56 x 56), and the flash backward's dk/dv
+    and dq kernels at S = 1024 (split by ``torch.profiler``; both routes),
+    beside their plain versions, library calls and bounds.
 
 TF32 is switched off for matrix products and convolutions, so the f32
 phases compare f32 with f32.  The last two lines are the kernels' JSON
@@ -319,8 +331,7 @@ def phase_build():
                                  % (base, inst))
 
 
-def _ln_inputs(gen):
-    N, E = B * S, 768
+def _ln_inputs(gen, N=B * S, E=768):
     x = (torch.randn(N, E, generator=gen, device="cuda") * 2 + 1).bfloat16()
     scale = torch.rand(E, generator=gen, device="cuda") + 0.5
     bias = torch.randn(E, generator=gen, device="cuda")
@@ -345,12 +356,28 @@ def phase_compare():
     errs["layer_norm_fwd"] = check("layer_norm_fwd", [
         ("y", y, y_p, TOL_BF16), ("mu", mu, mu_p, TOL_F32),
         ("rstd", rstd, rstd_p, TOL_F32)])
-    dx, ds, db = ln.layer_norm_bwd(x, scale, dy, mu, rstd)
-    dx_p, ds_p, db_p = ln.layer_norm_bwd_plain(x.float(), scale, dy.float(),
-                                               mu, rstd)
-    errs["layer_norm_bwd"] = check("layer_norm_bwd", [
-        ("dx", dx, dx_p, TOL_BF16), ("dscale", ds, ds_p, TOL_F32),
-        ("dbias", db, db_p, TOL_F32)])
+    errs["layer_norm_bwd"] = 0.0
+    # BERT-base's backward, a width off the 16-byte vectors (scalar route),
+    # and E = 1024; each twice, which must give the same bits
+    for E in (768, 100, 1024):
+        if E != 768:
+            x, scale, bias, dy = _ln_inputs(gen, E=E)
+            _, mu, rstd = ln.layer_norm_fwd(x, scale, bias, 1e-6)
+        dx, ds, db = ln.layer_norm_bwd(x, scale, dy, mu, rstd)
+        again = ln.layer_norm_bwd(x, scale, dy, mu, rstd)
+        dx_p, ds_p, db_p = ln.layer_norm_bwd_plain(x.float(), scale,
+                                                   dy.float(), mu, rstd)
+        route = ln._bwd_route(x, scale, dy)
+        errs["layer_norm_bwd"] = max(errs["layer_norm_bwd"], check(
+            "layer_norm_bwd:%dx%d" % tuple(x.shape), [
+                ("dx", dx, dx_p, TOL_BF16), ("dscale", ds, ds_p, TOL_F32),
+                ("dbias", db, db_p, TOL_F32)], route=route))
+        same = all(torch.equal(u, v) for u, v in zip((dx, ds, db), again))
+        emit({"phase": "compare", "kernel": "layer_norm_bwd:%dx%d" % tuple(
+            x.shape), "route": route, "bit_identical_twice": same})
+        if not same:
+            raise AssertionError("layer_norm_bwd: two calls differ (E = %d)" % E)
+        del dx, again, dx_p
 
     fwd_err = bwd_err = 0.0
     # the kernel wrappers on the main path's packed case and a causal case
@@ -491,6 +518,7 @@ def phase_parity():
 def phase_times(errs, launches, device_name):
     import torch.nn.functional as F
 
+    from paddle_tpu_torch.kernels import _common
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import layer_norm as ln
 
@@ -519,13 +547,17 @@ def phase_times(errs, launches, device_name):
            cuda_time(lambda: ln.layer_norm_fwd_plain(x, scale, bias, 1e-6)),
            cuda_time(lambda: F.layer_norm(x, (E,), w16, b16, 1e-6)),
            nbytes=2 * N * E * 2 + 2 * E * 4 + 2 * N * 4, flops=8 * N * E)
+    lib = _common.load_library()
+    route = ln._bwd_route(x, scale, dy)
     record("layer_norm_bwd",
            cuda_time(lambda: ln.layer_norm_bwd(x, scale, dy, mu, rstd)),
            cuda_time(lambda: ln.layer_norm_bwd_plain(x, scale, dy, mu, rstd)),
            cuda_time(lambda: torch.ops.aten.native_layer_norm_backward(
                dy, x, [E], mean, rs, w16, b16, [True, True, True])),
            nbytes=3 * N * E * 2 + E * 4 + 2 * N * 4 + 2 * E * 4,
-           flops=12 * N * E)
+           flops=12 * N * E, kernel_route=route,
+           blocks_per_sm=lib.ptt_layer_norm_bwd_blocks_per_sm(
+               E, 1, int(route == "vec16")))
     del x, dy, y
 
     H, D = 12, 64
@@ -787,6 +819,17 @@ def _segment_ids(gen, case):
     N, V = DFM_B * 39, deepfm.DeepFMConfig().num_features
     if case == "one_id":
         return torch.full((N,), 7, dtype=torch.int32, device="cuda"), V
+    if case == "n1":
+        return torch.full((1,), 7, dtype=torch.int32, device="cuda"), V
+    if case == "ragged":                 # N off the kernel's 256-row tile
+        N = 5 * 256 + 77
+    if case == "spanning":
+        # sorted-unique ids with a run of 3.5 tiles from mid-tile and a run
+        # ending at a tile edge, shuffled
+        ids = torch.arange(N, device="cuda", dtype=torch.int32) * 3
+        ids[100:100 + 3 * 256 + 128] = 300
+        ids[4 * 256 - 24:4 * 256] = 3 * (4 * 256 - 24)
+        return ids[torch.randperm(N, generator=gen, device="cuda")], V
     hi = 100 if case == "dups" else V
     ids = torch.randint(0, hi, (N,), generator=gen, device="cuda",
                         dtype=torch.int32)
@@ -798,27 +841,38 @@ def _segment_ids(gen, case):
 
 def phase_compare_segment():
     """The segment kernel against its plain version: row ids exactly equal,
-    values to TOL_F32 / TOL_BF16 of the largest."""
+    values to TOL_F32 / TOL_BF16 of the largest, and a second call giving
+    the same bits.  The DeepFM step's ids in four distributions, then runs
+    crossing several tiles from mid-tile, N = 1, and N off the tile."""
     from paddle_tpu_torch.kernels import segment_update as seg
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     err = 0.0
-    for case in ("bench", "dups", "one_id", "out_of_range"):
-        for dt in (torch.float32, torch.bfloat16):
-            ids, V = _segment_ids(gen, case)
-            vals = torch.randn(ids.shape[0], 11, generator=gen,
-                               device="cuda").to(dt)
-            rows, out = seg.dedup_segment_sum(ids, vals, V)
-            rows_p, out_p = seg.segsum_plain(ids, vals, V)
-            same = bool(torch.equal(rows, rows_p))
-            emit({"phase": "compare", "kernel": "segment_sum:%s:%s" % (
-                case, str(dt).replace("torch.", "")), "out_rows_equal": same})
-            if not same:
-                raise AssertionError("segment_sum: out_rows differ (%s)" % case)
-            err = max(err, check("segment_sum:%s" % case, [
-                ("values", out, out_p,
-                 TOL_BF16 if dt == torch.bfloat16 else TOL_F32)]))
-            del ids, vals, rows, out, rows_p, out_p
+    cases = [(c, dt, 11) for c in ("bench", "dups", "one_id", "out_of_range",
+                                   "spanning", "n1", "ragged")
+             for dt in (torch.float32, torch.bfloat16)]
+    cases.append(("spanning", torch.float32, 8))
+    cases.append(("spanning", torch.float32, 256))     # 8 column chunks
+    for case, dt, D in cases:
+        ids, V = _segment_ids(gen, case)
+        vals = torch.randn(ids.shape[0], D, generator=gen, device="cuda").to(dt)
+        rows, out = seg.dedup_segment_sum(ids, vals, V)
+        rows2, out2 = seg.dedup_segment_sum(ids, vals, V)
+        rows_p, out_p = seg.segsum_plain(ids, vals, V)
+        tag = "segment_sum:%s:N%d:D%d:%s" % (case, ids.shape[0], D,
+                                             str(dt).replace("torch.", ""))
+        same = bool(torch.equal(rows, rows_p))
+        twice = bool(torch.equal(out, out2) and torch.equal(rows, rows2))
+        emit({"phase": "compare", "kernel": tag, "out_rows_equal": same,
+              "bit_identical_twice": twice})
+        if not same:
+            raise AssertionError("segment_sum: out_rows differ (%s)" % tag)
+        if not twice:
+            raise AssertionError("segment_sum: two calls differ (%s)" % tag)
+        err = max(err, check(tag, [
+            ("values", out, out_p,
+             TOL_BF16 if dt == torch.bfloat16 else TOL_F32)]))
+        del ids, vals, rows, out, rows2, out2, rows_p, out_p
     torch.cuda.synchronize()
     return err
 
@@ -1039,26 +1093,76 @@ def phase_compare_flash_long():
     return err
 
 
+def device_ms(fn, calls=10):
+    """Device milliseconds per call of ``fn``, all its CUDA kernels summed
+    (torch.profiler)."""
+    from paddle_tpu_torch.tools.profile_step import cuda_kernels_per_call
+
+    return sum(ms for _, ms in cuda_kernels_per_call(fn, calls).values())
+
+
 def _device_ms_by_kernel(fn, calls, keys):
     """Device ms per call of each kernel whose name holds one of ``keys``,
     from torch.profiler over ``calls`` calls."""
-    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.tools.profile_step import cuda_kernels_per_call
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = dict.fromkeys(keys, 0.0)
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            for k in keys:
-                if k in e.key:
-                    out[k] += e.self_device_time_total / 1e3 / calls
+    per = cuda_kernels_per_call(fn, calls)
+    out = {k: sum(ms for name, (_, ms) in per.items() if k in name)
+           for k in keys}
     if not all(out.values()):
         raise AssertionError("the profiler recorded no device time for %s"
                              % [k for k, t in out.items() if not t])
+    return out
+
+
+def phase_kernels_per_call():
+    """The CUDA kernels one call of each kernel wrapper launches (fills
+    included), by name with its device time, at the main paths' shapes:
+    LayerNorm at BERT-base's [32768, 768] bf16, flash attention at its
+    packed [64, 512, 768] bf16, the BN kernels at [401408, 256] bf16, the
+    segment kernel at the DeepFM step's [319488, 11] f32 on pre-sorted ids,
+    ``conv_wgrad`` at ResNet-50's 56 x 56 3 x 3 bf16.  Returns {wrapper:
+    kernels a call}."""
+    from paddle_tpu_torch.kernels import conv as pconv
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_bn as fbn
+    from paddle_tpu_torch.kernels import layer_norm as ln
+    from paddle_tpu_torch.kernels import segment_update as seg
+    from paddle_tpu_torch.tools.profile_step import cuda_kernels_per_call
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x, scale, bias, dy = _ln_inputs(gen)
+    _, mu, rstd = ln.layer_norm_fwd(x, scale, bias, 1e-6)
+    q, k, v, do = _qkv(gen, (B, S, 768))
+    o, lse = fa.flash_fwd(q, k, v, 12, 0.125, False)
+    bx, bdy, ba, bb, coefs = _bn_inputs(gen, *BN_SHAPES[0], torch.bfloat16)
+    ids, V = _segment_ids(gen, "bench")
+    vals = torch.randn(ids.shape[0], 11, generator=gen, device="cuda")
+    keys, order = torch.sort(ids, stable=True)
+    B_, H, W, C, K, kk, pad = CONV_SHAPES[0]
+    cx = torch.randn(B_, H, W, C, generator=gen, device="cuda").bfloat16()
+    cdy = torch.randn(B_, H, W, K, generator=gen, device="cuda").bfloat16()
+    out = {}
+    for name, fn in (
+            ("layer_norm_fwd", lambda: ln.layer_norm_fwd(x, scale, bias, 1e-6)),
+            ("layer_norm_bwd", lambda: ln.layer_norm_bwd(x, scale, dy, mu, rstd)),
+            ("flash_attention_fwd", lambda: fa.flash_fwd(q, k, v, 12, 0.125, False)),
+            ("flash_attention_bwd", lambda: fa.flash_bwd(q, k, v, o, lse, do, 12,
+                                                         0.125, False)),
+            ("bn_stats", lambda: fbn.stats2(bx)),
+            ("bn_scale_shift", lambda: fbn.scale_shift2(bx, ba, bb)),
+            ("bn_bwd_reduce", lambda: fbn.bwd_reduce2(bdy, bx)),
+            ("bn_dx", lambda: fbn.dx2(bdy, bx, coefs)),
+            ("segment_sum", lambda: seg._segsum_sorted(keys, order, vals, V)),
+            ("conv_wgrad", lambda: pconv.conv_wgrad(cx, cdy, kk, pad))):
+        per = cuda_kernels_per_call(fn)
+        out[name] = sum(n for n, _ in per.values())
+        emit({"phase": "kernels_per_call", "wrapper": name,
+              "cuda_kernels_per_call": out[name],
+              "kernels": {k_: {"per_call": n, "device_ms": ms}
+                          for k_, (n, ms) in per.items()}})
+    del x, dy, q, k, v, do, o, bx, bdy, ids, vals, keys, order, cx, cdy
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1089,21 +1193,28 @@ def phase_times_new(errs, launches, device_name):
     lengths = torch.unique_consecutive(keys, return_counts=True)[1]
     sorted_vals = vals[order]
     one_keys = torch.full_like(keys, 7)
+    kernel = lambda: seg._segsum_sorted(keys, order, vals, V)
+    # index_add_ of every value into its run's first sorted position: the
+    # same output values in one PyTorch call
+    library = lambda: torch.zeros_like(vals).index_add_(0, at_first, vals)
+    one_id = lambda: seg._segsum_sorted(one_keys, pos, vals, V)
+    # ms, library_ms, one_id_ms: CUDA events around 20 calls, as in every
+    # row; back to back the wrapper is bound by the host, so the kernels'
+    # device time (torch.profiler) stands beside them as *device_ms
     rec = {"shape": [N, Dv],
-           "ms": cuda_time(lambda: seg._segsum_sorted(keys, order, vals, V)),
+           "ms": cuda_time(kernel),
+           "device_ms": device_ms(kernel),
            "plain_ms": cuda_time(lambda: seg.segsum_plain(ids, vals, V)),
-           # index_add_ of every value into its run's first sorted position:
-           # the same output values in one PyTorch call
-           "library_ms": cuda_time(
-               lambda: torch.zeros_like(vals).index_add_(0, at_first, vals)),
+           "library_ms": cuda_time(library),
+           "library_device_ms": device_ms(library),
            "sort_ms": cuda_time(lambda: torch.sort(ids, stable=True)),
            # torch.segment_reduce: the compacted layout, a different
            # function, from values already sorted
            "segment_reduce_ms": cuda_time(
                lambda: torch.segment_reduce(sorted_vals, "sum",
                                             lengths=lengths)),
-           "one_id_ms": cuda_time(
-               lambda: seg._segsum_sorted(one_keys, pos, vals, V)),
+           "one_id_ms": cuda_time(one_id),
+           "one_id_device_ms": device_ms(one_id),
            **_bound(device_name, N * Dv, 4 * N + 8 * N + 2 * 4 * N * Dv + 4 * N,
                     "f32")}
     emit({"phase": "times", "name": "segment_sum", **rec})
@@ -1229,6 +1340,11 @@ def main():
     phase_deepfm_parity()
     new_errs["conv_wgrad"], new_launches["conv_wgrad"] = phase_compare_conv()
     new_errs["flash_attention_bwd_long"] = phase_compare_flash_long()
+    per_call = phase_kernels_per_call()
+    if per_call["layer_norm_bwd"] != 1 or per_call["segment_sum"] != 1:
+        raise AssertionError("CUDA kernels a call, by torch.profiler: %s "
+                             "(expected 1 for layer_norm_bwd and segment_sum)"
+                             % per_call)
     kernels += phase_times_new(new_errs, new_launches, name)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})

@@ -159,6 +159,8 @@ def _ptxas_summary(log):
 def load_library():
     """Build (once, keyed by the sources' hash) and load the kernels."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib
@@ -182,10 +184,12 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SIGNATURES = {
     # x, scale, bias, y, mu, rstd, N, E, eps, dtype, stream
     "ptt_layer_norm_fwd": [_P, _P, _P, _P, _P, _P, _L, _I, _F, _I, _P],
-    # x, scale, dy, mu, rstd, dx, partial, dscale, dbias,
-    # N, E, rows_per_block, n_blocks, dtype, stream
+    # x, scale, dy, mu, rstd, dx, scratch, out, done,
+    # N, E, n_blocks, dtype, route, stream
     "ptt_layer_norm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _L, _I, _I, _I, _I, _P],
+    # E, dtype, route
+    "ptt_layer_norm_bwd_blocks_per_sm": [_I, _I, _I],
     # q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal, route, stream
     "ptt_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     # q, k, v, o, do, lse, delta, dq, dk, dv,
@@ -201,10 +205,9 @@ _SIGNATURES = {
     "ptt_bn_bwd_reduce": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _I, _I, _I, _P],
     # dy, x, coefs, dx, M, C, tx, nblk, vec, dtype, stream
     "ptt_bn_dx": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
-    # keys, order, values, out, out_rows, partial, own, spill, N, D, height,
+    # keys, order, values, out, out_rows, scratch, runs, N, D, height,
     # key64, dtype, stream
-    "ptt_segment_sum": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I,
-                        _P],
+    "ptt_segment_sum": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _P],
     # x, dy, partial, dw, B, H, W, C, K, k, pad, splits, per_split, dtype,
     # route, stream
     "ptt_conv_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _L,

@@ -6,8 +6,11 @@ centred variance, ``rstd = rsqrt(var + eps)``, ``y = (x - mu) * rstd *
 scale + bias`` in ``x.dtype``; the backward returns ``dx`` in ``x.dtype``
 and f32 ``dscale``/``dbias``.  The kernels are in ``csrc/layer_norm.cu``.
 
-On a CPU tensor the wrappers run the plain PyTorch version below; on a CUDA
-tensor they launch the kernel or raise.  Any row count is accepted (the
+The backward is one launch that also folds dscale and dbias across its
+blocks, in a fixed order (two calls give the same bits); it takes 16-byte
+vectors where the row allows (``_bwd_route``).  On a CPU tensor the wrappers
+run the plain PyTorch version below; on a CUDA tensor they launch the kernel
+or raise.  Any row count is accepted (the
 TPU's ``_pick_bn`` tiling rule has no counterpart here).
 """
 
@@ -21,8 +24,11 @@ __all__ = ["fused_layer_norm", "layer_norm_reference", "layer_norm_fwd",
            "layer_norm_bwd", "layer_norm_fwd_plain", "layer_norm_bwd_plain"]
 
 _WARPS = 8            # rows per forward block; warps per backward block
-_BWD_BLOCKS = 528     # backward blocks at most: four per SM on 132 SMs
+_GROUP = 16           # backward blocks a first-level fold takes (kGroup)
+_COUNTERS = 128       # backward done-counters a device keeps
 _MAX_SMEM = 232448    # bytes of shared memory a block can use on Hopper
+_WORK = {}            # (device index, stream) -> backward scratch, counters
+_GRID = {}            # (device, dtype, route, E) -> backward blocks an SM
 
 
 # -- plain versions ----------------------------------------------------------
@@ -96,8 +102,37 @@ def layer_norm_fwd(x, scale, bias, eps):
     return y, mu, rstd
 
 
+def _bwd_route(x, scale, dy):
+    """The backward kernel a call takes: ``"vec16"`` (16-byte loads and
+    stores, sums in registers) where a row is 32 lanes' whole 16-byte
+    vectors, at most 1024 columns, and x, dy and scale are 16-byte aligned;
+    else ``"scalar"``."""
+    E = x.shape[1]
+    per = 32 * (16 // x.element_size())
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, scale, dy))
+    return "vec16" if E % per == 0 and E <= 1024 and aligned else "scalar"
+
+
+def _bwd_blocks(lib, x, code, route):
+    """Backward blocks of the persistent grid: CUDA's occupancy query times
+    the SMs, no more than one block for every 8 rows, and no more than the
+    done-counters cover."""
+    N, E = x.shape
+    key = (x.device.index, code, route, E)
+    if key not in _GRID:
+        per_sm = lib.ptt_layer_norm_bwd_blocks_per_sm(E, code, int(route == "vec16"))
+        if per_sm <= 0:
+            raise RuntimeError("layer_norm_bwd: occupancy query failed (%d)"
+                               % per_sm)
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        _GRID[key] = per_sm * sms
+    return max(1, min(math.ceil(N / _WARPS), _GRID[key],
+                      _GROUP * (_COUNTERS - 1)))
+
+
 def layer_norm_bwd(x, scale, dy, mu, rstd):
-    """Backward kernel: returns dx (x.dtype), dscale [E] f32, dbias [E] f32."""
+    """Backward kernel: returns dx (x.dtype), dscale [E] f32, dbias [E] f32.
+    One CUDA launch, on the current stream."""
     if x.device.type == "cpu":
         return layer_norm_bwd_plain(x, scale, dy, mu, rstd)
     if x.device.type != "cuda":
@@ -111,20 +146,28 @@ def layer_norm_bwd(x, scale, dy, mu, rstd):
             raise ValueError("layer_norm_bwd: mu/rstd must be contiguous f32 [N]")
     dy = dy.contiguous()
     lib = _common.load_library()
-    nblk = max(1, min(math.ceil(N / _WARPS), _BWD_BLOCKS))
-    rows = max(1, math.ceil(N / nblk))
-    nblk = max(1, math.ceil(N / rows))
+    route = _bwd_route(x, scale, dy)
+    nblk = _bwd_blocks(lib, x, code, route)
+    # the blocks' partial rows, then the groups' rows, [., 2E] each (every
+    # call rewrites what it reads), and the done-counters (zeroed when
+    # allocated; every launch leaves them at 0): reused by the calls on one
+    # stream, which run one after another; another stream gets its own
+    need = (nblk + -(-nblk // _GROUP)) * 2 * E
+    stream = _common.stream_ptr(x.device)
+    work = _WORK.get((x.device.index, stream))
+    if work is None or work[0].numel() < need:
+        work = _WORK[x.device.index, stream] = (
+            torch.empty(need, device=x.device, dtype=torch.float32),
+            torch.zeros(_COUNTERS, device=x.device, dtype=torch.int32))
+    scratch, done = work
     dx = torch.empty_like(x)
-    partial = torch.empty(2 * nblk * E, device=x.device, dtype=torch.float32)
-    dscale = torch.zeros(E, device=x.device, dtype=torch.float32)
-    dbias = torch.zeros(E, device=x.device, dtype=torch.float32)
+    out = torch.empty(2, E, device=x.device, dtype=torch.float32)
     _common.check_status("layer_norm_bwd", lib.ptt_layer_norm_bwd(
         x.data_ptr(), scale.data_ptr(), dy.data_ptr(), mu.data_ptr(),
-        rstd.data_ptr(), dx.data_ptr(), partial.data_ptr(),
-        dscale.data_ptr(), dbias.data_ptr(), N, E, rows, nblk, code,
-        _common.stream_ptr(x.device)))
+        rstd.data_ptr(), dx.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        done.data_ptr(), N, E, nblk, code, int(route == "vec16"), stream))
     _common.count_launch("layer_norm_bwd")
-    return dx, dscale, dbias
+    return dx, out[0], out[1]
 
 
 class _FusedLayerNorm(torch.autograd.Function):

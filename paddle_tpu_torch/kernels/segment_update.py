@@ -13,9 +13,11 @@ ids outside ``[0, height)`` keep their id.  Unlike ``sparse.merge_rows(via=
 "xla")`` the unique rows are not compacted to the front.  The result applies
 as one scatter per unique row (``apply_rows_update``).
 
-The kernel (``csrc/segment_update.cu``) reads the values through the sort's
-permutation, so the sorted copy of the values is never written, and sums in
-f32 whatever the values' dtype.  On a CPU tensor the wrappers run the plain
+The kernel (``csrc/segment_update.cu``, one launch a call) reads the values
+through the sort's permutation, so the sorted copy of the values is never
+written, and sums in f32 whatever the values' dtype; runs that cross its
+tiles are added by the last of each run's tiles to finish, in a fixed order,
+so two calls give the same bits.  On a CPU tensor the wrappers run the plain
 PyTorch version below; on a CUDA tensor they launch the kernel or raise.
 """
 
@@ -27,6 +29,8 @@ __all__ = ["dedup_segment_sum", "apply_rows_update", "segsum_plain",
            "scatter_rows_drop"]
 
 _TILE = 256     # sorted positions per block (csrc/segment_update.cu kTile)
+_COLS = 32      # columns per block (kCols): wider rows take several blocks
+_WORK = {}      # (device index, stream) -> (scratch f32, run counters int32)
 
 
 def segsum_plain(rows, values, height):
@@ -79,14 +83,32 @@ def dedup_segment_sum(rows, values, height):
     return _segsum_sorted(keys, order, values, height)
 
 
+def _workspace(device, stream, tiles, d):
+    """The kernel's scratch (partial [tiles, d] and own [tiles, d] f32, then
+    spill and run_end [chunks, tiles] int32, a chunk being 32 columns of d;
+    every call rewrites what it reads) and its run counters [chunks, tiles]
+    (zeroed when allocated; every launch leaves them at 0).  Both grow as
+    needed and are reused by the calls on one stream of one device, which
+    run one after another; a call on another stream gets its own."""
+    blocks = tiles * -(-d // _COLS)
+    need = 2 * tiles * d + 2 * blocks
+    key = (device.index, stream)
+    work = _WORK.get(key)
+    if work is None or work[0].numel() < need or work[1].numel() < blocks:
+        work = _WORK[key] = (
+            torch.empty(need, device=device, dtype=torch.float32),
+            torch.zeros(blocks, device=device, dtype=torch.int32))
+    return work
+
+
 def _segsum_sorted(keys, order, values, height):
     """The kernel alone, on inputs ``dedup_segment_sum`` has checked:
     ``keys`` the ids sorted by a stable ``torch.sort``, ``order`` (int64)
     its permutation, ``values`` contiguous in the original order, all on
-    one CUDA device."""
+    one CUDA device.  One CUDA launch, on the current stream."""
     code = _common.dtype_code(values.dtype, "dedup_segment_sum")
     n = keys.shape[0]
-    d = values[0].numel() if n else 0
+    d = values.numel() // n if n else 0
     out = torch.empty_like(values)
     out_rows = torch.empty_like(keys)
     if n == 0 or d == 0:
@@ -94,16 +116,12 @@ def _segsum_sorted(keys, order, values, height):
         out_rows.copy_(keys)
         return out_rows, out
     tiles = -(-n // _TILE)
-    f32 = dict(device=keys.device, dtype=torch.float32)
-    partial = torch.empty(tiles, d, **f32)
-    own = torch.empty(tiles, d, **f32)
-    spill = torch.empty(tiles, device=keys.device, dtype=torch.int32)
-    lib = _common.load_library()
-    _common.check_status("segment_sum", lib.ptt_segment_sum(
+    stream = _common.stream_ptr(keys.device)
+    scratch, runs = _workspace(keys.device, stream, tiles, d)
+    _common.check_status("segment_sum", _common.load_library().ptt_segment_sum(
         keys.data_ptr(), order.data_ptr(), values.data_ptr(), out.data_ptr(),
-        out_rows.data_ptr(), partial.data_ptr(), own.data_ptr(),
-        spill.data_ptr(), n, d, int(height), int(keys.dtype == torch.int64),
-        code, _common.stream_ptr(keys.device)))
+        out_rows.data_ptr(), scratch.data_ptr(), runs.data_ptr(), n, d,
+        int(height), int(keys.dtype == torch.int64), code, stream))
     _common.count_launch("segment_sum")
     return out_rows, out
 

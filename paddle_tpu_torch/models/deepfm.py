@@ -23,8 +23,10 @@ update through four table-update plumbings:
 
 The steps are functional, as the reference's are: they return a new
 parameter tree and leave the values they were given untouched, so the
-autotune can time every variant from the same parameters.  Table updates
-drop out-of-range rows without a host sync (``scatter_rows_drop``).
+autotune can time every variant from the same parameters.  Table gathers
+read ids as JAX's jitted gather does (``take_rows``: negative ids count from
+the end, the rest are clamped, out-of-range ids send no gradient); table
+updates drop out-of-range rows without a host sync (``scatter_rows_drop``).
 """
 
 import dataclasses
@@ -42,14 +44,14 @@ from ..parallel.train import TrainState, grads_of
 from ..sparse import merge_rows
 
 __all__ = ["DeepFMConfig", "deepfm_tiny_config", "init_deepfm_params",
-           "deepfm_forward", "deepfm_loss", "fuse_tables", "split_tables",
+           "deepfm_forward", "deepfm_loss", "take_rows", "fuse_tables", "split_tables",
            "deepfm_loss_from_rows", "deepfm_loss_fused", "deepfm_param_specs",
            "deepfm_forward_sharded", "deepfm_loss_sharded",
            "make_step_variants", "autotune_step", "synthetic_batch",
            "mlp_train_flops", "DeepFMTrainer", "build_deepfm_trainer"]
 
 _SHARDED = ("%s: the port runs at one device so far; row-sharded tables "
-            "are ROADMAP.md Queue 1 item 11 (multi-GPU engine)")
+            "are ROADMAP.md Queue 1 item 5 (multi-GPU engine)")
 
 
 @dataclasses.dataclass
@@ -110,10 +112,24 @@ def _sigmoid_xent(logits, label):
     return loss.mean()
 
 
+def take_rows(table, ids):
+    """``table[ids]`` as JAX's gather takes it under ``jit``: an id below 0
+    counts from the end (``id + V``), the row read is that id clamped to
+    ``[0, V)``, and only ids that were in range after that send a gradient
+    into ``table``.  Torch indexing would wrap every negative id and raise
+    (on the card: a device assert) for an id of ``V`` or more."""
+    V = table.shape[0]
+    ids = ids.long()
+    n = torch.where(ids < 0, ids + V, ids)
+    rows = table[n.clamp(0, V - 1)]
+    hit = ((n >= 0) & (n < V)).view(*ids.shape, *([1] * (rows.dim() - ids.dim())))
+    return torch.where(hit, rows, rows.detach())
+
+
 def deepfm_forward(params, feat_ids, cfg):
     """feat_ids: [B, num_fields] int.  Returns logits [B]."""
-    emb = params["embed"][feat_ids]                     # [B, F, D] gather
-    lin = params["w_linear"][feat_ids][..., 0]          # [B, F]
+    emb = take_rows(params["embed"], feat_ids)          # [B, F, D] gather
+    lin = take_rows(params["w_linear"], feat_ids)[..., 0]   # [B, F]
     return _deepfm_head(params, emb, lin)
 
 
@@ -149,7 +165,7 @@ def deepfm_loss_from_rows(params, rows, label, cfg):
 
 def deepfm_loss_fused(params, fused, batch, cfg):
     """deepfm_loss computed through the fused table (one gather)."""
-    return deepfm_loss_from_rows(params, fused[batch["feat_ids"]],
+    return deepfm_loss_from_rows(params, take_rows(fused, batch["feat_ids"]),
                                  batch["label"], cfg)
 
 
@@ -204,7 +220,7 @@ def make_step_variants(cfg, lr):
         loss, (g_rows, g_head) = grads_of(
             lambda t: deepfm_loss_from_rows(t[1], t[0].reshape(shape3),
                                             batch["label"], cfg),
-            [f[ids], _head_side(params)])
+            [take_rows(f, ids), _head_side(params)])
         return f, ids, g_rows.contiguous(), g_head, loss.detach()
 
     def rows(params, batch):

@@ -123,9 +123,14 @@ def layer_norm(x, scale, bias, eps=1e-6, fused=True):
 
 
 def embed(params, ids, cfg: TransformerConfig):
-    """Token + position embedding: [b, S] ids -> [b, S, E]."""
-    S = ids.shape[1]
-    return params["tok_emb"][ids.long()] + params["pos_emb"][:S][None]
+    """Token + position embedding: [b, S] ids -> [b, S, E].  An id outside
+    ``[0, vocab)`` gets a zero token row and sends no gradient into
+    ``tok_emb``, as the reference's vocab-shard mask does at tp = 1."""
+    V, S = params["tok_emb"].shape[0], ids.shape[1]
+    ids = ids.long()
+    hit = (ids >= 0) & (ids < V)
+    tok = params["tok_emb"][ids.clamp(0, V - 1)]
+    return tok * hit[..., None].to(tok.dtype) + params["pos_emb"][:S][None]
 
 
 def _attention_heads_mode(pl, h, cfg):
@@ -143,7 +148,7 @@ def _attention_heads_mode(pl, h, cfg):
         raise NotImplementedError(
             "use_flash=False on %s: on the card attention runs only through "
             "the flash kernels; a non-flash attention kernel is ROADMAP.md "
-            "Queue 1 item 2" % q2.device)
+            "Queue 1 item 5" % q2.device)
     return o @ pl["wo"] + pl["bo"]
 
 

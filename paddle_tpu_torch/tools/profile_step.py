@@ -10,7 +10,8 @@ two steps with ``torch.profiler`` (CPU and CUDA activities).  Without
 ``--model`` it profiles all three.  Prints one JSON line per kernel group
 (the port's kernels by name, cuBLAS products or cuDNN convolutions, for
 DeepFM the gathers, the id sort and the row scatters, everything else) with
-device milliseconds per step and share, the top kernels by device time, and
+device milliseconds per step and share, each of the port's CUDA kernels on
+its own, the top kernels by device time, and
 the device's busy and idle share of the traced wall time; for ResNet-50
 also the port's batch-norm kernels' summed device time per step beside
 their byte bound.  Needs a CUDA card; fails rather than reading a CPU run
@@ -35,7 +36,7 @@ GROUPS = {
         ("port:flash_attention_fwd", ("flash_fwd_",)),   # both routes
         ("port:flash_attention_bwd", ("flash_bwd_", "flash_delta_kernel")),
         ("port:layer_norm_fwd", ("ln_fwd_kernel",)),
-        ("port:layer_norm_bwd", ("ln_bwd_kernel", "ln_colsum_kernel")),
+        ("port:layer_norm_bwd", ("ln_bwd_",)),          # both routes
         ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")),
     ),
     "resnet50": (
@@ -143,6 +144,27 @@ def bn_byte_bound_ms(cfg):
     return elements * 2 * 8 / HBM_BYTES_PER_S * 1e3
 
 
+def cuda_kernels_per_call(fn, calls=5):
+    """{CUDA kernel name: (launches a call, device ms a call)} from
+    torch.profiler, after one untimed call of ``fn``: ``calls`` calls, each
+    traced on its own.  The profiler now and then loses a kernel's record,
+    so a kernel's launches a call are the most any one call showed, and its
+    device ms the mean over the calls that showed it."""
+    fn()
+    torch.cuda.synchronize()
+    seen = {}
+    for _ in range(calls):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                seen.setdefault(e.key, []).append(
+                    (e.count, e.self_device_time_total / 1e3))
+    return {k: (max(n for n, _ in v), sum(ms for _, ms in v) / len(v))
+            for k, v in seen.items()}
+
+
 def profile_model(model, card, trace=None):
     trainer, staged, lr, extra = {"bert": _bert, "resnet50": _resnet50,
                                   "deepfm": _deepfm}[model]()
@@ -173,6 +195,13 @@ def profile_model(model, card, trace=None):
                           "device_ms_per_step": us / 1e3 / STEPS,
                           "share_of_device_time": us / busy_us,
                           "launches_per_step": n / STEPS}))
+    # the port's own kernels one by one: a group may hold several
+    port = sorted((e for e in kernels if group_of(model, e.key).startswith("port:")),
+                  key=lambda e: -e.self_device_time_total)
+    print(json.dumps({"model": model, "port_kernels": [
+        {"name": e.key[:90], "group": group_of(model, e.key),
+         "device_ms_per_step": e.self_device_time_total / 1e3 / STEPS,
+         "launches_per_step": e.count / STEPS} for e in port]}))
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
     print(json.dumps({"model": model, "top_kernels": [
         {"name": e.key[:90], "group": group_of(model, e.key),

@@ -202,6 +202,34 @@ def test_run_steps_matches_single_steps():
     np.testing.assert_array_equal(multi.numpy(), np.array(single, "f4"))
 
 
+def test_embed_out_of_range_ids_match_jax():
+    """Ids -1, V and V+3: a zero token row and no gradient into
+    ``tok_emb``, as the reference's vocab mask gives at tp = 1.  Exact in
+    f32: the same gathers, products by 0 or 1, and one add."""
+    cfg = jbert.bert_tiny_config()
+    V = cfg.vocab_size
+    params = _jax_params(cfg)
+    ids = np.array([[-1, 2, V, 5], [V + 3, 0, V - 1, -1]], dtype=np.int32)
+    w = np.random.RandomState(12).randn(2, 4, cfg.hidden).astype(np.float32)
+    sub = {k: params[k] for k in ("tok_emb", "pos_emb")}
+
+    def jloss(p):
+        return (jtf.embed(p, jnp.asarray(ids), cfg) * w).sum()
+
+    jout = jtf.embed(jax.tree.map(jnp.asarray, sub), jnp.asarray(ids), cfg)
+    jgrad = jax.grad(jloss)(jax.tree.map(jnp.asarray, sub))
+    tp = {k: torch.from_numpy(v.copy()).requires_grad_() for k, v in sub.items()}
+    out = ptf.embed(tp, torch.from_numpy(ids), cfg)
+    grads = torch.autograd.grad((out * torch.from_numpy(w)).sum(),
+                                [tp["tok_emb"], tp["pos_emb"]])
+    np.testing.assert_array_equal(out.detach().numpy(), np.asarray(jout))
+    np.testing.assert_array_equal(grads[0].numpy(), np.asarray(jgrad["tok_emb"]))
+    np.testing.assert_array_equal(grads[1].numpy(), np.asarray(jgrad["pos_emb"]))
+    # out-of-range positions carry the position row alone
+    np.testing.assert_array_equal(out[0, 0].detach().numpy(), sub["pos_emb"][0])
+    np.testing.assert_array_equal(out[0, 2].detach().numpy(), sub["pos_emb"][2])
+
+
 def test_gelu_is_tanh_form():
     x = np.linspace(-6, 6, 101).astype("f4")
     want = np.asarray(jax.nn.gelu(jnp.asarray(x)))

@@ -155,6 +155,53 @@ def test_out_of_range_ids_drop_as_in_jax(jparams, np_params):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
+@pytest.mark.parametrize("variant", ["dense", "fused", "rows", "segment"])
+def test_out_of_range_ids_in_the_batch_match_bench(jparams, np_params,
+                                                   variant):
+    """Ids -1, -V-1, V and V+5 in the batch, through each step variant of
+    the port's trainer against the same variant of bench.py under jit: the
+    gathers read row V-1 for -1, row 0 for -V-1 and row V-1 for V and V+5
+    (JAX's gather: negatives count from the end, then clamp), and only -1
+    sends a gradient, into row V-1; the row variants' drop-mode update
+    likewise keeps -1 (as V-1) and drops the rest."""
+    V = CFG.num_features
+    batch = _batch(11)
+    # V-1 itself stays out of the batch, so -1's update is the only one to
+    # row V-1 and the row variants' scatter keeps its unique-rows promise
+    batch["feat_ids"][batch["feat_ids"] == V - 1] = 0
+    batch["feat_ids"][0, :4] = [-1, -V - 1, V, V + 5]
+    batch["feat_ids"][3, 2:4] = [V + 5, -1]
+    jb = jax.tree.map(jnp.asarray, batch)
+    p, loss_ref = jax.jit(bench._deepfm_step_variants(CFG, LR)[variant])(
+        jparams, jb)
+    trainer = pdeepfm.build_deepfm_trainer(PCFG, variant=variant,
+                                           device="cpu", params=np_params)
+    loss = trainer.step(_tb(batch), LR)
+    np.testing.assert_allclose(float(loss), float(loss_ref), rtol=1e-6)
+    _assert_trees(trainer.state["params"], p)
+    # the update reached row V-1 (from -1) and left the clamp targets of
+    # the dropped ids alone where nothing else touched them
+    moved = np.abs(np.asarray(p["embed"]) - np_params["embed"]).max(axis=1)
+    assert moved[V - 1] > 100 * TOL["atol"]
+
+
+def test_take_rows_matches_jax_gather():
+    """The gather helper against ``table[ids]`` under jit, forward and the
+    gradient into the table, on a 4-row table."""
+    ids = np.array([-5, -1, 0, 3, 4, 9], dtype=np.int32)
+    t = np.arange(8, dtype=np.float32).reshape(4, 2)
+    w = np.arange(1, 7, dtype=np.float32)[:, None]
+    jt = jnp.asarray(t)
+    fwd_ref = jax.jit(lambda a: a[jnp.asarray(ids)])(jt)
+    grad_ref = jax.grad(lambda a: (jax.jit(lambda b: b[jnp.asarray(ids)])(a)
+                                   * w).sum())(jt)
+    tt = torch.from_numpy(t).requires_grad_()
+    out = pdeepfm.take_rows(tt, torch.from_numpy(ids))
+    (grad,) = torch.autograd.grad((out * torch.from_numpy(w)).sum(), tt)
+    np.testing.assert_array_equal(out.detach().numpy(), np.asarray(fwd_ref))
+    np.testing.assert_array_equal(grad.numpy(), np.asarray(grad_ref))
+
+
 @pytest.mark.parametrize("name", ["adam", "adamw"])
 def test_adam_trajectory_matches_jax(jparams, np_params, name):
     batch = _batch(9)
@@ -199,9 +246,9 @@ def test_autotune_times_every_variant(np_params):
 
 
 def test_unsupported_settings_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         pdeepfm.deepfm_loss_sharded(None, None, PCFG)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         pdeepfm.deepfm_param_specs(PCFG)
     with pytest.raises(ValueError, match="variant"):
         pdeepfm.build_deepfm_trainer(PCFG, variant="nope", device="cpu")
