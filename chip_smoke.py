@@ -83,7 +83,27 @@ Builds the port's CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
     is host-bound back to back), the wgrad kernel at both
     shapes (and its f32 route at 56 x 56), and the flash backward's dk/dv
     and dq kernels at S = 1024 (split by ``torch.profiler``; both routes),
-    beside their plain versions, library calls and bounds.
+    beside their plain versions, library calls and bounds;
+17. the NMT training slice: ``build_nmt_trainer(NMTConfig(dtype=
+    "bfloat16"))`` (vocab 32000 / 32000, 6 + 6 layers, hidden 512, 8 heads,
+    FFN 2048) with SGD at lr 1e-4 on the card, B = 128, Ss = St = 128, the
+    batch from ``wmt16_batch`` as ``bench.py``'s NMT line builds it; a
+    warm-up step and timed steps, with no port kernel launched (the
+    reference's NMT runs no Pallas kernel); tokens/s counted as
+    B x (Ss + St) a step, as the bench counts them, ms/step, peak memory
+    and MFU from ``nmt_train_flops``;
+18. NMT serving: ``beam_search`` on that model (bf16, beam 4, alpha 0.6,
+    max_len 128) answering 16 source sentences of the WMT16 test reader,
+    padded to 128 with masks, after one warm-up decode; sentences/s, ms per
+    decode step, peak memory; no port kernel launched;
+19. NMT parity in f32 at full width, the same weights and batch on the card
+    and through the plain run on the CPU: one training step at B = 2,
+    Ss = St = 128 (the loss and every gradient leaf); ``beam_search`` at
+    B = 2, beam 4, max_len 16, step by step: the beams must stay equal,
+    unless they first part where the CPU's best K + 1 candidates lie
+    within the score tolerance of each other (printed), and the scores
+    agree; ``nmt_copy_decode_parity`` on the card above 0.9, the
+    reference's threshold.
 
 TF32 is switched off for matrix products and convolutions, so the f32
 phases compare f32 with f32.  The last two lines are the kernels' JSON
@@ -124,6 +144,9 @@ AUTOTUNE_ITERS = 10
 # widest-image (s0) and the widest-channel (s3) one: (B, H, W, C, K, k, pad)
 CONV_SHAPES = ((128, 56, 56, 64, 64, 3, 1), (128, 7, 7, 512, 512, 3, 1))
 FLASH_LONG = (8, 1024, 12, 64)      # B, S, heads, head dim
+NMT_B, NMT_S, NMT_LR = 128, 128, 1e-4   # bench.py:612-613's NMT line
+NMT_SERVE = dict(n=16, beam_size=4, max_len=128, alpha=0.6)
+NMT_PARITY_B, NMT_PARITY_DECODE = 2, dict(beam_size=4, max_len=16)
 # the tensor-core kernels: the build phase fails unless the SASS of every
 # instantiation of each holds HMMA instructions
 TENSOR_CORE_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dkv_mma_kernel",
@@ -191,6 +214,24 @@ TOL_RN_GRAD_ALL, TOL_RN_GRAD_LEAF = 0.1, 0.25
 TOL_DFM_LOSS, TOL_DFM_TABLE, TOL_DFM_HEAD, TOL_DFM_VARIANTS = 1e-5, 1e-3, 1e-2, 1e-5
 TOL_DFM_VARIANTS_UPD = 1e-4
 DFM_PARITY_LR = 1.0
+# NMT parity (f32, B = 2, S = 128): the loss's relative error and each
+# gradient leaf's relative L2 distance.  Both sides compute in f32 with no
+# bf16 rounding and differ by summation order (cuBLAS against the CPU's
+# products), a few 1e-6 a leaf, except where a pre-activation lies within
+# f32 rounding of 0 and its ReLU mask flips between two f32 runs: at B = 2
+# (about 20 real source tokens) one such flip in an encoder FFN moved the
+# CPU's encoder leaves by up to 1.1e-3 from a float64 run, while the card's
+# sat within 3.6e-6 of it.  1e-2 is ten such flips; a wrong formula moves a
+# leaf by O(1).  The phase holds the card to the CPU's f32 and float64 runs
+# and prints the CPU f32 run's own distance from float64 beside them.
+# Decode scores, absolute: 16 steps add f32 log-probs of magnitude ~10,
+# each off by summation order at the 1e-6 level, so the sums differ by
+# ~1e-4 at most; 1e-3 leaves ten times that.  Where
+# the two runs pick other beams, the CPU's best K + 1 candidates at that
+# step must lie within this tolerance of each other: a near tie, not a
+# fault.
+TOL_NMT_LOSS, TOL_NMT_GRAD, TOL_NMT_SCORE = 1e-5, 1e-2, 1e-3
+NMT_COPY_THRESHOLD = 0.9            # tests/test_models.py:60
 
 
 def emit(obj):
@@ -1311,6 +1352,184 @@ def phase_times_new(errs, launches, device_name):
     return out
 
 
+# -- NMT phases -----------------------------------------------------------------
+
+def assert_no_launches(phase):
+    from paddle_tpu_torch.kernels import _common
+
+    moved = {k: n for k, n in _common.launches.items() if n}
+    if moved:
+        raise AssertionError("%s launched port kernels: %s" % (phase, moved))
+
+
+def phase_nmt_slice(device_name):
+    """Returns (cfg, params after the timed steps)."""
+    from paddle_tpu_torch._tree import tree_leaves
+    from paddle_tpu_torch.datasets.wmt16 import wmt16_batch
+    from paddle_tpu_torch.models import transformer_nmt as nmt
+
+    cfg = nmt.NMTConfig(dtype="bfloat16")
+    trainer = nmt.build_nmt_trainer(cfg, seed=0)
+    batch = nmt.batch_to(wmt16_batch(cfg, NMT_B, NMT_S, NMT_S), trainer.device)
+    torch.cuda.reset_peak_memory_stats()
+    # the bench's one batch, taken every step; every count must stay 0
+    dt, losses, counts = timed_steps(trainer, [batch] * (TIMED_STEPS + 1),
+                                     NMT_LR, {})
+    tok_s = NMT_B * 2 * NMT_S * TIMED_STEPS / dt
+    flops = nmt.nmt_train_flops(cfg, NMT_B, NMT_S, NMT_S)
+    peak_flops = card_peaks(device_name)[0]
+    n_params = sum(t.numel() for t in tree_leaves(trainer.state["params"]))
+    emit({"phase": "slice", "config": "transformer_nmt", "dtype": cfg.dtype,
+          "batch": NMT_B, "src_len": NMT_S, "tgt_len": NMT_S,
+          "parameters": n_params, "steps_timed": TIMED_STEPS,
+          "ms_per_step": dt / TIMED_STEPS * 1e3, "tokens_per_sec": tok_s,
+          "train_flops_per_step": flops,
+          "mfu": flops * TIMED_STEPS / dt / peak_flops,
+          "peak_bf16_flops": peak_flops,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "losses": losses, "launches": counts})
+    params = trainer.state["params"]
+    del trainer, batch
+    torch.cuda.empty_cache()
+    return cfg, params
+
+
+def phase_nmt_serving(cfg, params):
+    from paddle_tpu_torch.datasets.wmt16 import wmt16_batch
+    from paddle_tpu_torch.kernels import _common
+    from paddle_tpu_torch.models import transformer_nmt as nmt
+
+    n, K, T = NMT_SERVE["n"], NMT_SERVE["beam_size"], NMT_SERVE["max_len"]
+    src = wmt16_batch(cfg, n, NMT_S, NMT_S, split="test")
+    src_ids = torch.from_numpy(src["src_ids"]).cuda()
+    src_mask = torch.from_numpy(src["src_mask"] > 0).cuda()
+    decode = lambda: nmt.beam_search(params, src_ids, src_mask, cfg,
+                                     beam_size=K, max_len=T,
+                                     alpha=NMT_SERVE["alpha"])
+    _common.reset_launches()
+    decode()                                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    seqs, scores = decode()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    assert_no_launches("NMT serving")
+    ok = (tuple(seqs.shape) == (n, K, T) and tuple(scores.shape) == (n, K)
+          and bool(torch.isfinite(scores).all())
+          and bool((scores[:, :-1] >= scores[:, 1:]).all())
+          and bool(((seqs >= 0) & (seqs < cfg.tgt_vocab)).all()))
+    emit({"phase": "serving", "config": "transformer_nmt", "dtype": cfg.dtype,
+          "sentences": n, "src_len": NMT_S, **NMT_SERVE,
+          "seconds": dt, "sentences_per_sec": n / dt,
+          "ms_per_decode_step": dt / T * 1e3,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "best_scores": scores[:, 0].tolist(), "ok": ok})
+    if not ok:
+        raise AssertionError("NMT serving: malformed beams")
+
+
+def _first_parting(cfg, params, src_ids, src_mask, K, T):
+    """Runs ``beam_search_steps`` on the card and the CPU side by side.
+    Where the beams first part: {"step", "margin": the CPU's smallest gap
+    between its best K + 1 candidates there, "err": the largest difference
+    of the two runs' K best scores there}.  Else {"card", "cpu"}: the final
+    states."""
+    from paddle_tpu_torch._tree import tree_map
+    from paddle_tpu_torch.models import transformer_nmt as nmt
+    from paddle_tpu_torch.ops.beam_search_ops import beam_search_step
+
+    runs = [nmt.beam_search_steps(tree_map(lambda t: t.to(dev), params),
+                                  src_ids.to(dev), src_mask.to(dev), cfg,
+                                  beam_size=K, max_len=T)
+            for dev in ("cuda", "cpu")]
+    for (t, _, _, card), (_, cur, before, cpu) in zip(*runs):
+        if not torch.equal(card[0].cpu(), cpu[0]):
+            sel, _, _ = beam_search_step(before[1], cur, K + 1, cfg.eos_id,
+                                         before[2])
+            # the K best scores themselves agree, whichever beams hold them
+            return {"step": t,
+                    "margin": float((sel[:, :-1] - sel[:, 1:]).min()),
+                    "err": float((card[1].cpu() - cpu[1]).abs().max())}
+    return {"card": card, "cpu": cpu}
+
+
+def phase_nmt_parity():
+    from paddle_tpu_torch._tree import tree_leaves, tree_map
+    from paddle_tpu_torch.datasets.wmt16 import wmt16_batch
+    from paddle_tpu_torch.models import transformer_nmt as nmt
+    from paddle_tpu_torch.models.parity import nmt_copy_decode_parity
+    from paddle_tpu_torch.parallel.train import grads_of
+
+    cfg = nmt.NMTConfig()                                  # f32, full width
+    params = nmt.init_nmt_params(torch.Generator().manual_seed(1), cfg)
+    batch = wmt16_batch(cfg, NMT_PARITY_B, NMT_S, NMT_S)
+
+    def step(device, dtype=torch.float32):
+        p = tree_map(lambda t: t.to(device, dtype), params)
+        loss, grads = grads_of(lambda p_, b: nmt.nmt_loss(p_, b, cfg), p,
+                               nmt.batch_to(batch, device))
+        return (float(loss.detach()),
+                [g.cpu().double() for g in tree_leaves(grads)])
+
+    loss_k, grads_k = step("cuda")
+    loss_p, grads_p = step("cpu")
+    _, grads_64 = step("cpu", torch.float64)
+    rel = lambda ga, gb: max(float((a - b).norm() / b.norm().clamp_min(1e-300))
+                             for a, b in zip(ga, gb))
+    rel_cpu, rel_64 = rel(grads_k, grads_p), rel(grads_k, grads_64)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    ok = loss_rel <= TOL_NMT_LOSS and max(rel_cpu, rel_64) <= TOL_NMT_GRAD
+    emit({"phase": "parity", "config": "transformer_nmt f32 step",
+          "batch": NMT_PARITY_B, "src_len": NMT_S, "tgt_len": NMT_S,
+          "loss_card": loss_k, "loss_plain_cpu": loss_p,
+          "loss_rel_err": loss_rel, "tol_loss": TOL_NMT_LOSS,
+          "grad_rel_l2_max": rel_cpu, "grad_rel_l2_max_vs_cpu_f64": rel_64,
+          "tol_grad": TOL_NMT_GRAD,
+          "grad_rel_l2_max_cpu_f32_vs_f64": rel(grads_p, grads_64),
+          "leaves": len(grads_k), "ok": ok})
+    if not ok:
+        raise AssertionError("NMT whole-step parity failed")
+
+    K, T = NMT_PARITY_DECODE["beam_size"], NMT_PARITY_DECODE["max_len"]
+    src_ids = torch.from_numpy(batch["src_ids"])
+    src_mask = torch.from_numpy(batch["src_mask"] > 0)
+    run = _first_parting(cfg, params, src_ids, src_mask, K, T)
+    rec = {"phase": "parity", "config": "transformer_nmt f32 beam_search",
+           "batch": NMT_PARITY_B, **NMT_PARITY_DECODE,
+           "tol_score": TOL_NMT_SCORE}
+    if "step" in run:
+        # a random model's beams repeat one token and sit ~1e-4 apart, so
+        # the two runs may part at a near tie; up to it they must agree
+        ok = run["margin"] <= TOL_NMT_SCORE and run["err"] <= TOL_NMT_SCORE
+        emit({**rec, "beams_equal": False, "first_parting_step": run["step"],
+              "cpu_smallest_top_k_margin": run["margin"],
+              "top_k_scores_max_abs_err": run["err"], "ok": ok})
+    else:
+        (seq_k, sc_k), (seq_p, sc_p) = (
+            nmt.rank_beams(run[d][0].cpu(), run[d][1].cpu(), cfg)
+            for d in ("card", "cpu"))
+        same = bool(torch.equal(seq_k, seq_p))
+        score_err = float((sc_k - sc_p).abs().max())
+        # ranked apart only where two final scores lie within the tolerance
+        rank_margin = float((sc_p[:, :-1] - sc_p[:, 1:]).min())
+        ok = score_err <= TOL_NMT_SCORE and (same or rank_margin <= TOL_NMT_SCORE)
+        emit({**rec, "beams_equal": True, "sequences_equal": same,
+              "score_max_abs_err": score_err,
+              "cpu_smallest_rank_margin": rank_margin,
+              "best_scores_cpu": sc_p[:, 0].tolist(), "ok": ok})
+    if not ok:
+        raise AssertionError("NMT decode parity failed")
+
+    copy = nmt_copy_decode_parity(device="cuda")
+    ok = copy > NMT_COPY_THRESHOLD
+    emit({"phase": "parity", "config": "nmt_copy_decode_parity (card)",
+          "decode_parity": copy, "threshold": NMT_COPY_THRESHOLD, "ok": ok})
+    if not ok:
+        raise AssertionError("NMT copy-task decode parity failed")
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -1346,6 +1565,11 @@ def main():
                              "(expected 1 for layer_norm_bwd and segment_sum)"
                              % per_call)
     kernels += phase_times_new(new_errs, new_launches, name)
+    nmt_cfg, nmt_params = phase_nmt_slice(name)
+    phase_nmt_serving(nmt_cfg, nmt_params)
+    del nmt_params
+    phase_nmt_parity()
+    assert_no_launches("NMT serving and parity")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,21 +1,27 @@
 """Where a training step's device time goes.
 
-    python -m paddle_tpu_torch.tools.profile_step [--model bert|resnet50|deepfm] [--trace out.json]
+    python -m paddle_tpu_torch.tools.profile_step [--model bert|resnet50|deepfm|nmt] [--trace out.json]
 
 Builds the same trainer and batches as ``chip_smoke.py``'s slice phases
 (bf16 BERT-base with LAMB at B = 64, S = 512; bf16 ResNet-50 with fused
 batch norm and momentum at B = 128, 224 x 224; f32 DeepFM, the ``segment``
-SGD step at B = 8192, lr 1e-3; seed 0), takes a warm-up step, then traces
+SGD step at B = 8192, lr 1e-3; bf16 Transformer NMT with SGD at B = 128,
+Ss = St = 128, lr 1e-4; seed 0), takes a warm-up step, then traces
 two steps with ``torch.profiler`` (CPU and CUDA activities).  Without
-``--model`` it profiles all three.  Prints one JSON line per kernel group
+``--model`` it profiles all four.  Prints one JSON line per kernel group
 (the port's kernels by name, cuBLAS products or cuDNN convolutions, for
 DeepFM the gathers, the id sort and the row scatters, everything else) with
 device milliseconds per step and share, each of the port's CUDA kernels on
 its own, the top kernels by device time, and
 the device's busy and idle share of the traced wall time; for ResNet-50
 also the port's batch-norm kernels' summed device time per step beside
-their byte bound.  Needs a CUDA card; fails rather than reading a CPU run
-as device time.
+their byte bound.  NMT's groups come from the op that launched each kernel
+(``nmt_op_group``), since its f32 attention products and bf16 projections
+run cuBLAS kernels whose names do not tell them apart; for NMT it also
+traces one beam-search decode at ``chip_smoke.py``'s serving shape (16
+sentences, beam 4, max_len 128) and prints its busy and idle share and
+launches per decode step.  Needs a CUDA card; fails rather than reading a
+CPU run as device time.
 """
 
 import argparse
@@ -24,12 +30,14 @@ import subprocess
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 STEPS, SEED = 2, 0
 BERT_BATCH, BERT_SEQ = 64, 512          # chip_smoke.py's slices
 RN_BATCH, RN_IMAGE = 128, 224
 DEEPFM_BATCH = 8192
+NMT_BATCH, NMT_LEN = 128, 128
+NMT_SERVE = dict(n=16, beam_size=4, max_len=128, alpha=0.6)
 HBM_BYTES_PER_S = 3.35e12               # H100 SXM (chip_smoke.py CARD_PEAKS)
 GROUPS = {
     "bert": (
@@ -57,7 +65,9 @@ GROUPS = {
                                  "index_kernel")),
         ("MLP (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")),
     ),
+    "nmt": (),        # grouped by the launching op: nmt_op_group
 }
+NMT_UPDATE_RANGE = "nmt:sgd_update"
 
 
 def group_of(model, name):
@@ -109,6 +119,108 @@ def _deepfm():
     return trainer, staged, 1e-3, {
         "batch": DEEPFM_BATCH,
         "mlp_train_flops_per_step": deepfm.mlp_train_flops(cfg, DEEPFM_BATCH)}
+
+
+def _nmt():
+    from paddle_tpu_torch.datasets.wmt16 import wmt16_batch
+    from paddle_tpu_torch.models import transformer_nmt as nmt
+    from paddle_tpu_torch.parallel import optim
+    from paddle_tpu_torch.parallel.train import stack_batches
+
+    init, update = optim.sgd()
+
+    def traced_update(*args):
+        with record_function(NMT_UPDATE_RANGE):
+            return update(*args)
+
+    cfg = nmt.NMTConfig(dtype="bfloat16")
+    trainer = nmt.build_nmt_trainer(cfg, optimizer=(init, traced_update),
+                                    seed=SEED)
+    # the bench's one batch, taken every step
+    staged = stack_batches([wmt16_batch(cfg, NMT_BATCH, NMT_LEN, NMT_LEN)]
+                           * (STEPS + 1), trainer.device)
+    return trainer, staged, 1e-4, {
+        "batch": NMT_BATCH, "src_len": NMT_LEN, "tgt_len": NMT_LEN,
+        "train_flops_per_step": nmt.nmt_train_flops(cfg, NMT_BATCH, NMT_LEN,
+                                                    NMT_LEN)}
+
+
+def nmt_op_group(chain, vocab):
+    """The group of a kernel from the ops that launched it: ``chain`` is
+    [(name, input shapes)] from the launching op outward (its callers, the
+    autograd node, record_function ranges)."""
+    names = [n for n, _ in chain]
+    if NMT_UPDATE_RANGE in names:
+        return "SGD update"
+    if "aten::bmm" in names:
+        return "attention products (f32 from bf16, cuBLAS)"
+    for name, shapes in chain:
+        if name in ("aten::mm", "aten::addmm"):
+            if any(vocab in sh for sh in shapes):
+                return "vocab head product (tied tgt_emb, cuBLAS)"
+            return "FFN and projection products (cuBLAS)"
+    if any(len(sh) >= 3 and sh[-1] == vocab for _, shapes in chain
+           for sh in shapes):
+        return "vocab log-softmax, NLL and casts ([B, T, V] f32)"
+    return "other PyTorch ops"
+
+
+def op_chain(event):
+    """[(name, input shapes)] of a profiler CPU event and its callers."""
+    chain = []
+    while event is not None:
+        chain.append((event.name, [list(sh) for sh in (event.input_shapes or [])
+                                   if isinstance(sh, (list, tuple))]))
+        event = event.cpu_parent
+    return chain
+
+
+def _nmt_op_groups(prof, vocab):
+    """{group: [device us, launches]} over every CPU op with kernels."""
+    groups = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        g = groups.setdefault(nmt_op_group(op_chain(e), vocab), [0.0, 0])
+        g[0] += sum(k.duration for k in e.kernels)
+        g[1] += len(e.kernels)
+    return groups
+
+
+def profile_nmt_decode(card, params, cfg):
+    """One traced beam-search decode at chip_smoke.py's serving shape."""
+    from paddle_tpu_torch.datasets.wmt16 import wmt16_batch
+    from paddle_tpu_torch.models import transformer_nmt as nmt
+
+    src = wmt16_batch(cfg, NMT_SERVE["n"], NMT_LEN, NMT_LEN, split="test")
+    ids = torch.from_numpy(src["src_ids"]).cuda()
+    mask = torch.from_numpy(src["src_mask"] > 0).cuda()
+    kw = {k: NMT_SERVE[k] for k in ("beam_size", "max_len", "alpha")}
+    nmt.beam_search(params, ids, mask, cfg, **kw)            # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        nmt.beam_search(params, ids, mask, cfg, **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if busy_us <= 0:
+        raise SystemExit("profile_step: the profiler recorded no device time")
+    T = NMT_SERVE["max_len"]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    print(json.dumps({"model": "nmt_decode", "device": torch.cuda.get_device_name(0),
+                      "nvidia_smi": card, **NMT_SERVE,
+                      "wall_ms_per_decode_step": wall_ms / T,
+                      "device_busy_ms_per_decode_step": busy_us / 1e3 / T,
+                      "device_idle_share": max(0.0, 1 - busy_us / 1e3 / wall_ms),
+                      "launches_per_decode_step": sum(e.count for e in kernels) / T,
+                      "top_kernels": [
+                          {"name": e.key[:90],
+                           "device_ms_per_decode_step": e.self_device_time_total / 1e3 / T,
+                           "launches_per_decode_step": e.count / T} for e in top],
+                      "note": "wall time includes the profiler's own cost"}))
 
 
 def bn_shapes(cfg, batch):
@@ -167,11 +279,12 @@ def cuda_kernels_per_call(fn, calls=5):
 
 def profile_model(model, card, trace=None):
     trainer, staged, lr, extra = {"bert": _bert, "resnet50": _resnet50,
-                                  "deepfm": _deepfm}[model]()
+                                  "deepfm": _deepfm, "nmt": _nmt}[model]()
     batches = [{k: v[i] for k, v in staged.items()} for i in range(STEPS + 1)]
     trainer.step(batches[0], lr)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=model == "nmt") as prof:
         t0 = time.perf_counter()
         for b in batches[1:]:
             trainer.step(b, lr)
@@ -185,11 +298,17 @@ def profile_model(model, card, trace=None):
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us <= 0:
         raise SystemExit("profile_step: the profiler recorded no device time")
-    groups = {}
-    for e in kernels:
-        g = groups.setdefault(group_of(model, e.key), [0.0, 0])
-        g[0] += e.self_device_time_total
-        g[1] += e.count
+    if model == "nmt":
+        groups = _nmt_op_groups(prof, trainer.cfg.tgt_vocab)
+        us, n = (sum(v[i] for v in groups.values()) for i in (0, 1))
+        groups["not charged to an op"] = [
+            busy_us - us, sum(e.count for e in kernels) - n]
+    else:
+        groups = {}
+        for e in kernels:
+            g = groups.setdefault(group_of(model, e.key), [0.0, 0])
+            g[0] += e.self_device_time_total
+            g[1] += e.count
     for g, (us, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(json.dumps({"model": model, "group": g,
                           "device_ms_per_step": us / 1e3 / STEPS,
@@ -217,6 +336,8 @@ def profile_model(model, card, trace=None):
         summary["bn_kernels_device_ms_per_step"] = sum(
             us for g, (us, _) in groups.items() if g.startswith("port:bn")) / 1e3 / STEPS
     print(json.dumps(summary))
+    if model == "nmt":
+        profile_nmt_decode(card, trainer.state["params"], trainer.cfg)
     del trainer, staged, batches
     torch.cuda.empty_cache()
 
@@ -224,7 +345,7 @@ def profile_model(model, card, trace=None):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", choices=sorted(GROUPS), default=None,
-                    help="profile one model (default: all three)")
+                    help="profile one model (default: all four)")
     ap.add_argument("--trace", default=None,
                     help="write the chrome trace here (with --model)")
     args = ap.parse_args(argv)
@@ -235,7 +356,7 @@ def main(argv=None):
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    for model in [args.model] if args.model else ["bert", "resnet50", "deepfm"]:
+    for model in [args.model] if args.model else ["bert", "resnet50", "deepfm", "nmt"]:
         profile_model(model, card, args.trace)
 
 

@@ -92,6 +92,24 @@ def test_deepfm_entry_point_raises_without_a_card(monkeypatch):
     assert trainer.variant == "segment"
 
 
+def test_nmt_entry_points_raise_without_a_card(monkeypatch):
+    from paddle_tpu_torch._tree import tree_leaves
+    from paddle_tpu_torch.models import transformer_nmt as nmt
+    from paddle_tpu_torch.models.parity import nmt_copy_decode_parity
+
+    cfg = nmt.nmt_tiny_config()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        nmt.build_nmt_trainer(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        nmt.build_nmt_trainer(cfg, device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        nmt_copy_decode_parity()
+    trainer = nmt.build_nmt_trainer(cfg, device="cpu")
+    assert trainer.device.type == "cpu"
+    assert {t.device.type for t in tree_leaves(trainer.state["params"])} == {"cpu"}
+
+
 def test_tree_walks_lists_in_index_order_and_dicts_by_key():
     from paddle_tpu_torch._tree import tree_leaves, tree_map
     from paddle_tpu_torch.convert import params_from_numpy, params_to_numpy
