@@ -103,7 +103,27 @@ Builds the port's CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
     unless they first part where the CPU's best K + 1 candidates lie
     within the score tolerance of each other (printed), and the scores
     agree; ``nmt_copy_decode_parity`` on the card above 0.9, the
-    reference's threshold.
+    reference's threshold;
+20. the LeNet slice (BASELINE config 1, the Fluid program mode): the book's
+    LeNet (conv 5x5 x 20, pool 2; conv 5x5 x 50, pool 2; fc 10) with
+    Adam(1e-3), built with ``import paddle_tpu_torch as fluid`` and run by
+    ``fluid.Executor()`` on the card, f32, B = 64: the startup program,
+    5 warm-up steps and 50 timed steps, each batch from the port's
+    ``datasets/mnist.py`` (the synthetic stand-in unless the idx files are
+    in the data home) through ``DataFeeder``, the loss and accuracy fetched
+    as numpy as a user's loop does; ms/step and images/s; then
+    ``tools/profile_step.py``'s ``lenet`` config: the step's device busy
+    share and CUDA launches per step; no port kernel launched (the
+    reference's LeNet runs no Pallas kernel);
+21. LeNet parity: the port's f32 startup values (a CPU run) loaded into
+    CPU and card scopes (``convert.scope_from_numpy``), in f32 and in
+    float64; the test clone (``clone(for_test=True)``) on a held-out
+    batch, then one SGD step (the loss, the accuracy, every
+    ``<param>@GRAD`` fetched by name) and the parameters after 3 steps,
+    card against CPU, with the ReLU inputs the two put on either side of 0
+    counted; then LeNet + Adam(1e-3) on the card trained on the JAX
+    package's synthetic digits (tests/test_models.py) until the accuracy
+    reaches 0.9, within 150 steps; no port kernel launched.
 
 TF32 is switched off for matrix products and convolutions, so the f32
 phases compare f32 with f32.  The last two lines are the kernels' JSON
@@ -232,6 +252,28 @@ DFM_PARITY_LR = 1.0
 # fault.
 TOL_NMT_LOSS, TOL_NMT_GRAD, TOL_NMT_SCORE = 1e-5, 1e-2, 1e-3
 NMT_COPY_THRESHOLD = 0.9            # tests/test_models.py:60
+# LeNet (B = 64, card against CPU from the same scope values), in f32 and
+# in float64: the test clone's fetches, one SGD step's loss, accuracy and
+# gradients, and the parameters after 3 SGD steps, to 1e-5 of the largest
+# magnitude, the tolerance of tests/test_torch_lenet.py (cuDNN and the CPU
+# sum the convolutions in other orders; TF32 is off).  Except in f32 where
+# the devices disagree on the sign of a ReLU input, which the phase counts
+# at each step and prints with the values: where a pre-activation cancels
+# to within f32 rounding of 0 the two may put it on either side (on an
+# H100, at one conv2 element of the second step's batch, the card gave
+# -2.0e-9 where the CPU gave 1.9e-9), and one flipped mask drops or keeps
+# a whole gradient term: that step's gradients parted by 4.7e-4 and the
+# parameters after 3 steps by 2.3e-4, while the CPU's f32 run stayed
+# within 5.3e-7 of float64 and the two float64 runs within 1e-15.  A step
+# with a flip, and the parameters after it, are held to 1e-2 (tens of such
+# flips; a wrong rule moves them by O(1)); the phase prints each f32 run's
+# distance from the CPU's float64 run beside it.
+# The book's contract: accuracy 0.9 within 150 Adam steps
+# (tests/test_models.py).
+LENET_B, LENET_WARMUP, LENET_TIMED = 64, 5, 50
+LENET_TOL, LENET_F32_TRAJ_TOL = 1e-5, 1e-2
+LENET_PARITY_STEPS, LENET_SGD_LR = 3, 0.05
+LENET_ACC, LENET_MAX_STEPS = 0.9, 150
 
 
 def emit(obj):
@@ -1530,6 +1572,197 @@ def phase_nmt_parity():
     torch.cuda.empty_cache()
 
 
+# -- LeNet phases (the Fluid program mode) ----------------------------------
+
+def phase_lenet_slice(device_name, card):
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.datasets import mnist
+    from paddle_tpu_torch.tools import profile_step
+
+    main, startup, v = profile_step.lenet_programs(
+        fluid, fluid.optimizer.Adam(1e-3))
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    feeder = fluid.DataFeeder([v["img"], v["label"]], program=main)
+    rows = iter(mnist.train()())
+    feeds = [feeder.feed([next(rows) for _ in range(LENET_B)])
+             for _ in range(LENET_WARMUP + LENET_TIMED)]
+    fetch = [v["loss"], v["acc"]]
+    for feed in feeds[:LENET_WARMUP]:
+        exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = [exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+           for feed in feeds[LENET_WARMUP:]]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    losses = [float(lv) for lv, _ in out]
+    accs = [float(av) for _, av in out]
+    ok = bool(np.isfinite(losses).all()) and all(0 <= a <= 1 for a in accs)
+    emit({"phase": "slice", "config": "lenet (Fluid Executor)",
+          "device": device_name, "nvidia_smi": card, "dtype": "float32",
+          "batch": LENET_B, "optimizer": "adam(1e-3)",
+          "steps_timed": LENET_TIMED, "ms_per_step": dt / LENET_TIMED * 1e3,
+          "images_per_sec": LENET_B * LENET_TIMED / dt,
+          "loss_first": losses[0], "loss_last": losses[-1],
+          "acc_last": float(out[-1][1]), "ok": ok})
+    if not ok:
+        raise AssertionError("LeNet slice: a loss not finite or an accuracy "
+                             "outside [0, 1]")
+    prof = profile_step.profile_model("lenet", card)
+    emit({"phase": "slice_profile", "config": "lenet (Fluid Executor)",
+          "device_idle_share": prof["device_idle_share"],
+          "device_busy_share": 1 - prof["device_idle_share"],
+          "launches_per_step": prof["launches_per_step"],
+          "wall_ms_per_step_profiled": prof["wall_ms_per_step"],
+          "device_busy_ms_per_step": prof["device_busy_ms_per_step"]})
+
+
+def _lenet_digits(seed, n):
+    """The JAX package's convergence batch (tests/test_models.py:25-29)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    ys = rng.randint(0, 10, (n, 1)).astype("int64")
+    xs = rng.rand(n, 1, 28, 28).astype("f4") * 0.1
+    for i, k in enumerate(ys[:, 0]):
+        xs[i, 0, :k + 2, :k + 2] += 1.0
+    return {"img": xs, "label": ys}
+
+
+def _lenet_sgd_run(dtype, device, values):
+    """LeNet + SGD in ``dtype`` on ``device``, from ``values`` (the CPU's
+    f32 startup run, cast to each var's declared dtype): the test clone's
+    fetches on a held-out batch, then LENET_PARITY_STEPS steps.  Returns
+    {"test": fetches, "steps": [fetches of each step: the loss, the
+    accuracy, every gradient, the ReLU inputs], "params": {name: array}}."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.dtypes import numpy_dtype
+    from paddle_tpu_torch.tools import profile_step
+
+    main, startup, v = profile_step.lenet_programs(
+        fluid, fluid.optimizer.SGD(LENET_SGD_LR), dtype)
+    declared = {x.name: numpy_dtype(x.dtype) for x in startup.list_vars()}
+    scope = convert.scope_from_numpy(
+        {n: a.astype(declared[n]) for n, a in values.items()}, fluid.Scope(),
+        device)
+    exe = fluid.Executor(fluid.CPUPlace() if device == "cpu"
+                         else fluid.CUDAPlace(0))
+
+    def feed_of(seed):
+        feed = _lenet_digits(seed, LENET_B)
+        feed["img"] = feed["img"].astype(dtype)
+        return feed
+
+    params = [p.name for p in main.all_parameters()]
+    relu_in = [op.inputs["X"][0] for op in main.global_block().ops
+               if op.type == "relu"]
+    test = exe.run(main.clone(for_test=True), feed=feed_of(1000), scope=scope,
+                   fetch_list=[v["loss"], v["acc"], v["pred"]])
+    fetch = ([v["loss"], v["acc"]] + [p + "@GRAD" for p in params]
+             + relu_in)
+    steps = [exe.run(main, feed=feed_of(step), fetch_list=fetch, scope=scope)
+             for step in range(LENET_PARITY_STEPS)]
+    return {"test": test, "steps": steps, "n_out": 2 + len(params),
+            "params": convert.scope_to_numpy(scope, params)}
+
+
+def phase_lenet_parity(card):
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.tools import profile_step
+
+    def rel(got, want):
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+    def params_rel(a, b):
+        return max(rel(a["params"][n], b["params"][n]) for n in a["params"])
+
+    _, startup, _ = profile_step.lenet_programs(
+        fluid, fluid.optimizer.SGD(LENET_SGD_LR))
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    values = convert.scope_to_numpy(
+        init, [x.name for x in startup.list_vars() if x.persistable])
+    runs = {(dt, dev): _lenet_sgd_run(dt, dev, values)
+            for dt in ("float32", "float64") for dev in ("cpu", "cuda")}
+    for dtype in ("float32", "float64"):
+        cpu, gpu = runs[dtype, "cpu"], runs[dtype, "cuda"]
+        n = cpu["n_out"]
+        test_err = max(rel(a, b) for a, b in zip(gpu["test"], cpu["test"]))
+        names = ["loss", "acc"] + [p + "@GRAD" for p in cpu["params"]]
+        step_err = {k: rel(a, b) for k, a, b in zip(
+            names, gpu["steps"][0][:n], cpu["steps"][0][:n])}
+        grad_err = [max(rel(a, b) for a, b in zip(k[2:n], c[2:n]))
+                    for k, c in zip(gpu["steps"], cpu["steps"])]
+        # the ReLU inputs the two devices put on either side of 0, by step,
+        # and the first few flips' values (CPU, card)
+        flips, flip_values = [], []
+        for k, c in zip(gpu["steps"], cpu["steps"]):
+            count = 0
+            for a, b in zip(k[n:], c[n:]):
+                where = np.argwhere((a > 0) != (b > 0))
+                count += len(where)
+                flip_values += [(float(b[tuple(i)]), float(a[tuple(i)]))
+                                for i in where[:3 - len(flip_values)]]
+            flips.append(count)
+        param_err = params_rel(gpu, cpu)
+        # f32 rounding may flip a ReLU mask between the devices (LENET_TOL's
+        # comment): a step with a flip, and the trajectory after it, are
+        # held to LENET_F32_TRAJ_TOL; float64 holds everything to LENET_TOL
+        step_tol = LENET_TOL if flips[0] == 0 else LENET_F32_TRAJ_TOL
+        traj_tol = LENET_TOL if sum(flips) == 0 else LENET_F32_TRAJ_TOL
+        if dtype == "float64":
+            step_tol = traj_tol = LENET_TOL
+        ok = (test_err <= LENET_TOL and max(step_err.values()) <= step_tol
+              and param_err <= traj_tol)
+        rec = {"phase": "parity", "config": "lenet %s SGD, card vs CPU" % dtype,
+               "batch": LENET_B, "test_clone_max_rel_err": test_err,
+               "test_clone_tol": LENET_TOL, "one_step_rel_err": step_err,
+               "one_step_tol": step_tol, "grad_max_rel_err_by_step": grad_err,
+               "params_after_%d_steps_max_rel_err" % LENET_PARITY_STEPS: param_err,
+               "params_tol": traj_tol, "relu_sign_flips_by_step": flips,
+               "first_flips_cpu_card": flip_values, "ok": ok}
+        if dtype == "float32":
+            # both devices' f32 trajectories beside the CPU's float64 one
+            f64 = runs["float64", "cpu"]
+            rec["params_cpu_f32_vs_cpu_f64"] = params_rel(cpu, f64)
+            rec["params_card_f32_vs_cpu_f64"] = params_rel(gpu, f64)
+        emit(rec)
+        if not ok:
+            raise AssertionError("LeNet %s card vs CPU parity failed" % dtype)
+
+    main, startup, v = profile_step.lenet_programs(
+        fluid, fluid.optimizer.Adam(1e-3))
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    batch = _lenet_digits(0, LENET_B)
+    accs = []
+    for _ in range(LENET_MAX_STEPS):
+        lv, av = exe.run(main, feed=batch, fetch_list=[v["loss"], v["acc"]],
+                         scope=scope)
+        if not np.isfinite(lv).all():
+            raise AssertionError("LeNet convergence: loss not finite")
+        accs.append(float(av))
+        if accs[-1] >= LENET_ACC:
+            break
+    ok = accs[-1] >= LENET_ACC
+    emit({"phase": "parity", "config": "lenet converges on the card",
+          "nvidia_smi": card, "steps": len(accs), "accuracy": accs[-1],
+          "threshold": LENET_ACC, "max_steps": LENET_MAX_STEPS, "ok": ok})
+    if not ok:
+        raise AssertionError("LeNet did not reach accuracy %g in %d steps"
+                             % (LENET_ACC, LENET_MAX_STEPS))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -1543,7 +1776,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    name, _ = phase_device()
+    name, card = phase_device()
     phase_build()
     errs = phase_compare()
     launches = phase_slice(name)
@@ -1570,6 +1803,11 @@ def main():
     del nmt_params
     phase_nmt_parity()
     assert_no_launches("NMT serving and parity")
+    from paddle_tpu_torch.kernels import _common
+    _common.reset_launches()
+    phase_lenet_slice(name, card)
+    phase_lenet_parity(card)
+    assert_no_launches("LeNet slice and parity")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

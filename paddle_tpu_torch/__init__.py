@@ -3,22 +3,67 @@
 The JAX package ``paddle_tpu`` stays the reference; this package keeps its
 module names so each counterpart is easy to find:
 
+- the Fluid program mode: ``framework`` (``Program``, ``Block``,
+  ``Variable``, places), ``layers``, ``nets``, ``initializer``,
+  ``backward``, ``optimizer``, ``ops`` (the op rules behind ``registry``)
+  and ``executor``, which runs a program op by op on tensors; with
+  ``import paddle_tpu_torch as fluid`` a program written for the JAX
+  package (``models/lenet.py``) runs unchanged;
 - ``kernels``: the hand-written CUDA kernels (LayerNorm, flash attention,
   fused batch norm, the segment sum of sparse rows, the conv filter
   gradient) with their launch counters and plain PyTorch versions;
 - ``parallel``: transformer blocks, optimizers and the train step at one
   device;
-- ``models.bert``, ``models.resnet``, ``models.deepfm``: the BERT
-  pretraining, ResNet and DeepFM CTR training trainers; ``models.parity``
-  the DeepFM learning criterion;
+- ``models.bert``, ``models.resnet``, ``models.deepfm``,
+  ``models.transformer_nmt``, ``models.lenet``: the trainers and builders of
+  the five BASELINE configs; ``models.parity`` the learning criteria;
 - ``sparse``: SelectedRows and ``merge_rows``;
-- ``convert``: parameter trees to and from the JAX package's numpy form.
+- ``convert``: parameter trees and scopes to and from the JAX package's
+  numpy form.
 
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
-without a card and without that request they raise.  Nothing here imports
-JAX or the JAX package.
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"`` (or
+``CPUPlace()`` to an ``Executor``); without a card and without that request
+they raise.  Nothing here imports JAX or the JAX package.
 """
 
+from . import unique_name
 from .kernels._common import resolve_device
+from .framework import (
+    Program,
+    Block,
+    Operator,
+    Variable,
+    Parameter,
+    program_guard,
+    default_main_program,
+    default_startup_program,
+    name_scope,
+    CPUPlace,
+    CUDAPlace,
+    TPUPlace,
+    CUDAPinnedPlace,
+    in_dygraph_mode,
+)
+from .scope import Scope, global_scope, scope_guard
+from .executor import Executor
+from .backward import append_backward, gradients
+from . import initializer
+from . import layers
+from . import optimizer
+from . import regularizer
+from . import clip
+from . import nets
+from . import data_feeder
+from .data_feeder import DataFeeder
+from .param_attr import ParamAttr
+from . import datasets
 
-__all__ = ["resolve_device"]
+__all__ = [
+    "Program", "Block", "Operator", "Variable", "Parameter", "program_guard",
+    "default_main_program", "default_startup_program", "name_scope",
+    "CPUPlace", "CUDAPlace", "TPUPlace", "CUDAPinnedPlace", "in_dygraph_mode",
+    "Scope", "global_scope", "scope_guard", "Executor", "append_backward",
+    "gradients", "initializer", "layers", "optimizer", "regularizer", "clip",
+    "nets", "data_feeder", "DataFeeder", "ParamAttr", "datasets",
+    "unique_name", "resolve_device",
+]

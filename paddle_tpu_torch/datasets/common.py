@@ -1,6 +1,5 @@
 """Shared loader plumbing (from ``paddle_tpu/datasets/common.py``: the cache
-probe and the synthetic fallback notice; its array helpers come with the
-loaders that use them).
+probe, the synthetic fallback notice, and the array helpers MNIST uses).
 
 ``DATA_HOME`` is ``$PADDLE_TPU_DATA_HOME``, else ``build/dataset`` inside
 this checkout (ignored by git): the port reads nothing outside its
@@ -10,6 +9,8 @@ layout, e.g. ``build/dataset/wmt16/wmt16.tar.gz``."""
 import os
 import warnings
 from pathlib import Path
+
+import numpy as np
 
 DATA_HOME = os.environ.get(
     "PADDLE_TPU_DATA_HOME",
@@ -30,3 +31,24 @@ def warn_synthetic(corpus):
             "deterministic SYNTHETIC stand-in (real shapes/dtypes/label "
             "ranges; not the real data)" % (corpus, DATA_HOME), stacklevel=3)
         _warned.add(corpus)
+
+
+def reader_from_arrays(xs, ys):
+    def reader():
+        for x, y in zip(xs, ys):
+            yield x, y
+
+    return reader
+
+
+def synthetic_classification(seed, n, feat_shape, num_classes,
+                             dtype="float32"):
+    """Linearly-separable-ish deterministic synthetic set: labels come from
+    a fixed random projection so models can genuinely converge on it."""
+    rng = np.random.RandomState(seed)
+    d = int(np.prod(feat_shape))
+    W = rng.randn(d, num_classes).astype("f8")
+    xs = rng.uniform(-1, 1, (n, d))
+    ys = np.argmax(xs @ W + 0.1 * rng.randn(n, num_classes), axis=1)
+    return (xs.reshape((n,) + tuple(feat_shape)).astype(dtype),
+            ys.astype("int64"))

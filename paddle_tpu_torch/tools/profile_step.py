@@ -1,14 +1,16 @@
 """Where a training step's device time goes.
 
-    python -m paddle_tpu_torch.tools.profile_step [--model bert|resnet50|deepfm|nmt] [--trace out.json]
+    python -m paddle_tpu_torch.tools.profile_step [--model bert|resnet50|deepfm|nmt|lenet] [--trace out.json]
 
 Builds the same trainer and batches as ``chip_smoke.py``'s slice phases
 (bf16 BERT-base with LAMB at B = 64, S = 512; bf16 ResNet-50 with fused
 batch norm and momentum at B = 128, 224 x 224; f32 DeepFM, the ``segment``
 SGD step at B = 8192, lr 1e-3; bf16 Transformer NMT with SGD at B = 128,
-Ss = St = 128, lr 1e-4; seed 0), takes a warm-up step, then traces
+Ss = St = 128, lr 1e-4; f32 LeNet with Adam(1e-3) at B = 64 through the
+Fluid ``Executor``, one ``run`` of the main program a step with the loss and
+the accuracy fetched as numpy; seed 0), takes a warm-up step, then traces
 two steps with ``torch.profiler`` (CPU and CUDA activities).  Without
-``--model`` it profiles all four.  Prints one JSON line per kernel group
+``--model`` it profiles all five.  Prints one JSON line per kernel group
 (the port's kernels by name, cuBLAS products or cuDNN convolutions, for
 DeepFM the gathers, the id sort and the row scatters, everything else) with
 device milliseconds per step and share, each of the port's CUDA kernels on
@@ -20,8 +22,9 @@ their byte bound.  NMT's groups come from the op that launched each kernel
 run cuBLAS kernels whose names do not tell them apart; for NMT it also
 traces one beam-search decode at ``chip_smoke.py``'s serving shape (16
 sentences, beam 4, max_len 128) and prints its busy and idle share and
-launches per decode step.  Needs a CUDA card; fails rather than reading a
-CPU run as device time.
+launches per decode step.  Every summary line carries the step's CUDA
+launches.  Needs a CUDA card; fails rather than reading a CPU run as
+device time.
 """
 
 import argparse
@@ -29,6 +32,7 @@ import json
 import subprocess
 import time
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -37,6 +41,7 @@ BERT_BATCH, BERT_SEQ = 64, 512          # chip_smoke.py's slices
 RN_BATCH, RN_IMAGE = 128, 224
 DEEPFM_BATCH = 8192
 NMT_BATCH, NMT_LEN = 128, 128
+LENET_BATCH = 64                        # the book's (test_recognize_digits.py)
 NMT_SERVE = dict(n=16, beam_size=4, max_len=128, alpha=0.6)
 HBM_BYTES_PER_S = 3.35e12               # H100 SXM (chip_smoke.py CARD_PEAKS)
 GROUPS = {
@@ -66,6 +71,13 @@ GROUPS = {
         ("MLP (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")),
     ),
     "nmt": (),        # grouped by the launching op: nmt_op_group
+    "lenet": (
+        ("convolution (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit",
+                                 "cudnn", "winograd", "fft")),
+        ("fc product (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")),
+        ("pooling", ("pool",)),
+        ("reductions (loss, mean, bias gradients)", ("reduce",)),
+    ),
 }
 NMT_UPDATE_RANGE = "nmt:sgd_update"
 
@@ -143,6 +155,53 @@ def _nmt():
         "batch": NMT_BATCH, "src_len": NMT_LEN, "tgt_len": NMT_LEN,
         "train_flops_per_step": nmt.nmt_train_flops(cfg, NMT_BATCH, NMT_LEN,
                                                     NMT_LEN)}
+
+
+def lenet_programs(fluid, optimizer, dtype="float32"):
+    """The book's LeNet (``models/lenet.py``) with ``optimizer`` on the
+    port's ``fluid``, its images and weights in ``dtype``: (main, startup,
+    {"img", "label", "pred", "loss", "acc"})."""
+    from paddle_tpu_torch.models.lenet import build_lenet
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        img = fluid.layers.data("img", shape=[1, 28, 28], dtype=dtype)
+        label = fluid.layers.data("label", shape=[1], dtype="int64")
+        pred, loss, acc = build_lenet(img, label)
+        optimizer.minimize(loss)
+    return main, startup, {"img": img, "label": label, "pred": pred,
+                           "loss": loss, "acc": acc}
+
+
+class FluidStep:
+    """One ``Executor.run`` of a Fluid main program as a trainer's step:
+    ``step(batch, lr)`` feeds ``batch`` and fetches the loss and accuracy
+    as numpy, as a user's loop does (the program carries its own lr)."""
+
+    def __init__(self, exe, main, scope, fetch):
+        self.exe, self.main, self.scope, self.fetch = exe, main, scope, fetch
+
+    def step(self, batch, lr=None):
+        return self.exe.run(self.main, feed=batch, fetch_list=self.fetch,
+                            scope=self.scope)
+
+
+def _lenet():
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.datasets import mnist
+
+    main, startup, v = lenet_programs(fluid, fluid.optimizer.Adam(1e-3))
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    feeder = fluid.DataFeeder([v["img"], v["label"]], program=main)
+    rows = iter(mnist.train()())
+    batches = [feeder.feed([next(rows) for _ in range(LENET_BATCH)])
+               for _ in range(STEPS + 1)]
+    # numpy, as the user's loop feeds it
+    staged = {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+    return (FluidStep(exe, main, scope, [v["loss"], v["acc"]]), staged, None,
+            {"batch": LENET_BATCH, "optimizer": "adam(1e-3)",
+             "feed": "numpy, copied to the card by Executor.run"})
 
 
 def nmt_op_group(chain, vocab):
@@ -279,7 +338,8 @@ def cuda_kernels_per_call(fn, calls=5):
 
 def profile_model(model, card, trace=None):
     trainer, staged, lr, extra = {"bert": _bert, "resnet50": _resnet50,
-                                  "deepfm": _deepfm, "nmt": _nmt}[model]()
+                                  "deepfm": _deepfm, "nmt": _nmt,
+                                  "lenet": _lenet}[model]()
     batches = [{k: v[i] for k, v in staged.items()} for i in range(STEPS + 1)]
     trainer.step(batches[0], lr)
     torch.cuda.synchronize()
@@ -331,6 +391,7 @@ def profile_model(model, card, trace=None):
                "wall_ms_per_step": wall_ms / STEPS,
                "device_busy_ms_per_step": busy_us / 1e3 / STEPS,
                "device_idle_share": max(0.0, 1 - busy_us / 1e3 / wall_ms),
+               "launches_per_step": sum(e.count for e in kernels) / STEPS,
                "note": "wall time includes the profiler's own cost", **extra}
     if model == "resnet50":
         summary["bn_kernels_device_ms_per_step"] = sum(
@@ -340,12 +401,13 @@ def profile_model(model, card, trace=None):
         profile_nmt_decode(card, trainer.state["params"], trainer.cfg)
     del trainer, staged, batches
     torch.cuda.empty_cache()
+    return summary
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", choices=sorted(GROUPS), default=None,
-                    help="profile one model (default: all four)")
+                    help="profile one model (default: all five)")
     ap.add_argument("--trace", default=None,
                     help="write the chrome trace here (with --model)")
     args = ap.parse_args(argv)
@@ -356,7 +418,8 @@ def main(argv=None):
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    for model in [args.model] if args.model else ["bert", "resnet50", "deepfm", "nmt"]:
+    for model in [args.model] if args.model else ["bert", "resnet50", "deepfm", "nmt",
+                                                  "lenet"]:
         profile_model(model, card, args.trace)
 
 

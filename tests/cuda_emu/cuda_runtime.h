@@ -1,20 +1,30 @@
 // Stand-in for the CUDA runtime header in a host build of the port's
-// kernel sources (see mma.cuh here).  A block runs as one std::thread per
-// CUDA thread; __syncthreads and __syncwarp are std::barriers; blocks of a
-// grid run one after another, so __shared__ storage is plain static storage
-// and a kernel's last block to take a ticket (atomicAdd) is the grid's last.
+// kernel sources (see mma.cuh here).  A block runs as one fiber per CUDA
+// thread, all on the calling OS thread (ucontext): a fiber runs until it
+// waits at a barrier (__syncthreads, __syncwarp, a shuffle's exchange),
+// then the scheduler resumes the runnable fiber of lowest thread index (of
+// highest index in every second block), so a warp runs as far as its
+// barriers let it before the next warp starts, and a __syncthreads missing
+// between one warp's writes and another's reads shows.  Blocks of a grid
+// run one after another, so __shared__ storage is plain static storage and
+// a kernel's last block to take a ticket (atomicAdd) is the grid's last.
+// One OS thread, with no system call at a barrier but the context switch's
+// signal-mask call, keeps a run's time near its CPU time however loaded
+// the machine is.
 #pragma once
 #include <algorithm>
 #include <atomic>
-#include <barrier>
+#include <cstdio>
 #include <cmath>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <functional>
 #include <memory>
 #include <string>
-#include <thread>
 #include <vector>
+
+#include <ucontext.h>
 
 using std::max;
 using std::min;
@@ -52,29 +62,67 @@ namespace emu {
 struct Idx {
   unsigned x = 0, y = 0, z = 0;
 };
-inline thread_local Idx thread_idx, block_idx;
-inline std::barrier<>* block_bar;
-inline std::barrier<>* warp_bar[32];
+// the running fiber's thread index and its block's index
+inline Idx thread_idx, block_idx;
 inline char* smem_base;  // the running kernel's dynamic shared memory
 inline dim3 grid_dim, block_dim;
 
+struct Barrier {
+  int n = 0, count = 0;
+  unsigned gen = 0;  // raised each time all n have arrived
+};
+inline Barrier block_bar, warp_bar[32];
+inline bool released;  // a barrier opened since the scheduler last looked
+
+struct Fiber {
+  ucontext_t ctx;
+  const Barrier* wait = nullptr;  // the barrier it waits at, or none
+  unsigned gen = 0;               // that barrier's generation when it arrived
+  bool done = false;
+};
+constexpr size_t kStack = 256 * 1024;
+inline ucontext_t scheduler;
+inline std::vector<Fiber> fibers;
+inline std::vector<std::unique_ptr<char[]>> stacks;
+inline const std::function<void()>* body;
+
+// The last of a barrier's n to arrive goes on; the others give the OS
+// thread back to the scheduler until the barrier's generation moves.
+inline void arrive_and_wait(Barrier& b) {
+  if (++b.count == b.n) {
+    b.count = 0;
+    ++b.gen;
+    released = true;
+    return;
+  }
+  Fiber& f = fibers[thread_idx.x];
+  f.wait = &b;
+  f.gen = b.gen;
+  swapcontext(&f.ctx, &scheduler);
+}
+
+inline void fiber_main() {
+  (*body)();
+  fibers[thread_idx.x].done = true;  // returns to the scheduler (uc_link)
+}
+
 // runs f() once per thread of every block of `grid`, one block after
 // another: in order, or in reverse if PTT_EMU_ORDER is "reverse", or in a
-// fixed shuffled order if it is "shuffle".  One std::thread per CUDA
-// thread, each taking every block in turn, with a block-wide barrier
-// between blocks.
+// fixed shuffled order if it is "shuffle".  Within a block, the scheduler
+// always resumes the first runnable fiber in its preferred order (thread
+// index up in even positions of the block order, down in odd ones) until
+// every one has returned.
 template <class F>
 void launch(dim3 grid, int threads, void* smem, F f) {
   smem_base = static_cast<char*>(smem);
   grid_dim = grid;
   block_dim = dim3(threads);
-  std::barrier<> block(threads);
-  std::vector<std::unique_ptr<std::barrier<>>> warps;
-  for (int w = 0; w < threads / 32; ++w) {
-    warps.emplace_back(new std::barrier<>(32));
-    warp_bar[w] = warps.back().get();
-  }
-  block_bar = &block;
+  block_bar = Barrier{threads};
+  for (auto& w : warp_bar) w = Barrier{32};
+  fibers.assign(threads, Fiber{});
+  while (stacks.size() < static_cast<size_t>(threads)) stacks.emplace_back(new char[kStack]);
+  const std::function<void()> run = f;
+  body = &run;
   const unsigned nb = grid.x * grid.y;
   std::vector<unsigned> order(nb);
   for (unsigned i = 0; i < nb; ++i) order[i] = i;
@@ -87,23 +135,46 @@ void launch(dim3 grid, int threads, void* smem, F f) {
       std::swap(order[i - 1], order[(x >> 33) % i]);
     }
   }
-  std::vector<std::thread> ts;
-  for (int t = 0; t < threads; ++t)
-    ts.emplace_back([&, t] {
-      thread_idx.x = t;
-      for (unsigned i = 0; i < nb; ++i) {
-        const unsigned b = order[i];
-        block_idx.x = b % grid.x;
-        block_idx.y = b / grid.x;
-        f();
-        block.arrive_and_wait();
+  for (unsigned i = 0; i < nb; ++i) {
+    block_idx.x = order[i] % grid.x;
+    block_idx.y = order[i] / grid.x;
+    for (int t = 0; t < threads; ++t) {
+      Fiber& fb = fibers[t];
+      fb = Fiber{};
+      getcontext(&fb.ctx);
+      fb.ctx.uc_stack.ss_sp = stacks[t].get();
+      fb.ctx.uc_stack.ss_size = kStack;
+      fb.ctx.uc_link = &scheduler;
+      makecontext(&fb.ctx, fiber_main, 0);
+    }
+    const int step = i % 2 ? -1 : 1, first = step > 0 ? 0 : threads - 1;
+    released = false;
+    // fibers before t in the preferred order wait, unless a barrier opened
+    for (int left = threads, t = first, idle = 0; left > 0;) {
+      Fiber& fb = fibers[t];
+      if (!fb.done && !(fb.wait && fb.wait->gen == fb.gen)) {
+        fb.wait = nullptr;
+        thread_idx.x = t;
+        swapcontext(&scheduler, &fb.ctx);
+        left -= fb.done;
+        idle = 0;
+        if (released) {
+          released = false;
+          t = first;
+          continue;
+        }
+      } else if (++idle > threads) {
+        std::fprintf(stderr, "emulated block %u: every thread waits at a barrier\n", order[i]);
+        std::abort();
       }
-    });
-  for (auto& t : ts) t.join();
+      t += step;
+      if (t < 0 || t >= threads) t = first;
+    }
+  }
 }
 inline int warp() { return thread_idx.x >> 5; }
 inline int lane() { return thread_idx.x & 31; }
-inline void warp_sync() { warp_bar[warp()]->arrive_and_wait(); }
+inline void warp_sync() { arrive_and_wait(warp_bar[warp()]); }
 }  // namespace emu
 
 #define threadIdx emu::thread_idx
@@ -111,7 +182,7 @@ inline void warp_sync() { warp_bar[warp()]->arrive_and_wait(); }
 #define gridDim emu::grid_dim
 #define blockDim emu::block_dim
 
-inline void __syncthreads() { emu::block_bar->arrive_and_wait(); }
+inline void __syncthreads() { emu::arrive_and_wait(emu::block_bar); }
 inline void __syncwarp() { emu::warp_sync(); }
 
 inline float __shfl_xor_sync(unsigned, float v, int mask) {

@@ -1,7 +1,7 @@
 // Host stand-in for paddle_tpu_torch/kernels/csrc/mma.cuh, with PTX's
 // semantics, so that the tensor-core kernels' fragment indexing, masks and
 // cp.async ordering can be run on a CPU:
-// - cp.async copies are queued per thread and land only at the
+// - cp.async copies are queued per CUDA thread and land only at the
 //   cp.async.wait_group that covers their group (a read before the wait
 //   sees stale shared memory, as on the card);
 // - ldmatrix and mma.sync exchange their lanes' operands through per-warp
@@ -28,21 +28,23 @@ struct PendingCopy {
   int size;
   int group;
 };
-inline thread_local std::vector<PendingCopy> pending;
-inline thread_local int open_group = 0;
+// each CUDA thread's queue and open group, by thread index
+inline std::vector<PendingCopy> pending_of[1024];
+inline int open_group_of[1024];
 
 inline void cp_async(uint32_t dst, const void* src, int size, bool valid) {
   if (dst % size) std::abort();
-  pending.push_back({dst, src, valid ? size : 0, size, open_group});
+  pending_of[threadIdx.x].push_back({dst, src, valid ? size : 0, size, open_group_of[threadIdx.x]});
 }
 inline void cp_async16(uint32_t dst, const void* src, bool valid) { cp_async(dst, src, 16, valid); }
 inline void cp_async4(uint32_t dst, const void* src, bool valid) { cp_async(dst, src, 4, valid); }
-inline void cp_async_commit() { ++open_group; }
+inline void cp_async_commit() { ++open_group_of[threadIdx.x]; }
 template <int N>
 inline void cp_async_wait() {
+  std::vector<PendingCopy>& pending = pending_of[threadIdx.x];
   std::vector<PendingCopy> later;
   for (const PendingCopy& c : pending) {
-    if (c.group < open_group - N) {
+    if (c.group < open_group_of[threadIdx.x] - N) {
       if (c.bytes) std::memcpy(emu::smem_base + c.dst, c.src, c.bytes);
       else std::memset(emu::smem_base + c.dst, 0, c.size);
     } else {

@@ -4,7 +4,8 @@
 in ``kernels/flash_attention.py``.
 
 ``g++`` builds the CUDA source against the stand-in headers in
-``tests/cuda_emu/``, which run a block as 128 threads and execute
+``tests/cuda_emu/``, which run a block's 128 threads as fibers on one OS
+thread (a warp runs on until its barriers stop it) and execute
 ``cp.async``, ``ldmatrix`` and ``mma.sync`` with PTX's semantics (copies
 land only at their ``wait_group``; fragments in PTX's lane layouts).  That
 checks the fragment indexing, the masks of ragged and causal tiles, and the

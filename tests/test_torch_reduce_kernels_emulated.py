@@ -4,9 +4,11 @@
 ``kernels/segment_update.py`` and ``kernels/layer_norm.py``.
 
 ``g++`` builds each CUDA source against the stand-in headers in
-``tests/cuda_emu/``, which run a block as one ``std::thread`` per CUDA thread
-(warp shuffles through per-warp slots between barriers; ``atomicAdd`` and
-``__threadfence`` as host atomics).  Blocks run one after another, in order,
+``tests/cuda_emu/``, which run a block as one fiber per CUDA thread on one
+OS thread, each warp running on until its barriers stop it (warp shuffles
+through per-warp slots between barriers; ``atomicAdd`` and
+``__threadfence`` as host atomics).  One OS thread keeps each case's time
+near its CPU time on a loaded machine: the widest take about 5 s.  Blocks run one after another, in order,
 reversed or shuffled (by the case's size), so the block that takes a
 counter's last ticket, and adds up what the others left, is the last, the
 first or one in the middle, as any may be on the card.  That checks the tiles' bookkeeping
