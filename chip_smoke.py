@@ -123,7 +123,32 @@ Builds the port's CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
     card against CPU, with the ReLU inputs the two put on either side of 0
     counted; then LeNet + Adam(1e-3) on the card trained on the JAX
     package's synthetic digits (tests/test_models.py) until the accuracy
-    reaches 0.9, within 150 steps; no port kernel launched.
+    reaches 0.9, within 150 steps; no port kernel launched;
+22. the deploy path (BASELINE config 1 served): phase 20's trained LeNet
+    saved by ``fluid.io.save_inference_model``; ``create_predictor`` on the
+    card held to the CPU's predictor over the same files and to the
+    training program's test clone at B = 1, 5 and 64; ``clone()`` shares
+    the weight tensors; ``export_inference_model(poly_batch=True)`` and
+    ``load_exported_model`` with buckets [1, 8, 64], one CUDA graph
+    captured per bucket: B = 5 pads to 8 and slices back, the signature
+    count stays 3 over 200 requests of mixed sizes, ``swap_state`` to the
+    startup weights gives the fresh program's answers and a shape change is
+    refused; ``metrics.Accuracy`` over the predictor's outputs equals the
+    test clone's accuracy; one step through a one-device ``CompiledProgram``
+    equals the plain program's; ms per request and requests/s at B = 1 and
+    64 for both predictors, CUDA launches and device ms per request
+    (``torch.profiler``), capture seconds per signature; no port kernel
+    launched;
+23. control flow: the program-mode While beam decode
+    (``tools/programs.py``; the JAX package's tests/test_rnn_beam_ops.py:213)
+    at NMT decode's width, 16 sentences, beam 4, V = 32000, T = 128, the
+    [128, 16, 4, 32000] f32 probabilities (1.05 GB) made from a seed: its
+    sentences equal a plain loop over ``beam_search_step`` /
+    ``beam_backtrack`` on the card exactly, and at B 2, K 3, V 6, T 4 the
+    CPU's; ms, CUDA launches and host syncs per iteration, the feed's copy
+    timed apart; a ``cond`` in a trained program against the CPU's
+    gradients and a ``Switch`` program against the CPU's values; no port
+    kernel launched.
 
 TF32 is switched off for matrix products and convolutions, so the f32
 phases compare f32 with f32.  The last two lines are the kernels' JSON
@@ -274,6 +299,23 @@ LENET_B, LENET_WARMUP, LENET_TIMED = 64, 5, 50
 LENET_TOL, LENET_F32_TRAJ_TOL = 1e-5, 1e-2
 LENET_PARITY_STEPS, LENET_SGD_LR = 3, 0.05
 LENET_ACC, LENET_MAX_STEPS = 0.9, 150
+# The deploy phase: predictions of one set of weights through the card's
+# predictors, the CPU's predictor and the training program's test clone,
+# to 1e-5 of the largest magnitude (tests/test_torch_inference.py's
+# tolerance: cuDNN and the CPU, or two batch sizes, sum the convolutions in
+# other orders); a padded bucket's rows bit for bit against a run of the
+# padded batch; the one-device CompiledProgram step against the plain
+# program's to 1e-6 (the same ops on the same card; cuDNN's weight-gradient
+# algorithm may add in another order between two runs).
+DEPLOY_BUCKETS, DEPLOY_MIXED, DEPLOY_TIMED = [1, 8, 64], 200, 100
+DEPLOY_TOL, DEPLOY_STEP_TOL = 1e-5, 1e-6
+# The While decode at NMT decode's width (phase 18: 16 sentences, beam 4,
+# vocab 32000, 128 steps), and the small case held to the CPU; the cond
+# program's one-step gradients to 1e-5 (tests/test_torch_control_flow.py's
+# tolerance), the Switch's values exactly.
+DECODE_T, DECODE_B, DECODE_K, DECODE_V = 128, 16, 4, 32000
+DECODE_SMALL = (4, 2, 3, 6)
+COND_TOL, COND_STEPS = 1e-5, 4
 
 
 def emit(obj):
@@ -1581,10 +1623,14 @@ def phase_lenet_slice(device_name, card):
     from paddle_tpu_torch.datasets import mnist
     from paddle_tpu_torch.tools import profile_step
 
+    from paddle_tpu_torch import convert
+
     main, startup, v = profile_step.lenet_programs(
         fluid, fluid.optimizer.Adam(1e-3))
     exe, scope = fluid.Executor(), fluid.Scope()
     exe.run(startup, scope=scope)
+    startup_values = convert.scope_to_numpy(
+        scope, [x.name for x in startup.list_vars() if x.persistable])
     feeder = fluid.DataFeeder([v["img"], v["label"]], program=main)
     rows = iter(mnist.train()())
     feeds = [feeder.feed([next(rows) for _ in range(LENET_B)])
@@ -1618,6 +1664,7 @@ def phase_lenet_slice(device_name, card):
           "launches_per_step": prof["launches_per_step"],
           "wall_ms_per_step_profiled": prof["wall_ms_per_step"],
           "device_busy_ms_per_step": prof["device_busy_ms_per_step"]})
+    return main, scope, v, startup_values
 
 
 def _lenet_digits(seed, n):
@@ -1763,6 +1810,338 @@ def phase_lenet_parity(card):
                              % (LENET_ACC, LENET_MAX_STEPS))
 
 
+# -- the deploy path and control flow (the Fluid deployment surface) -----------
+
+def _rel(got, want):
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        raise AssertionError("shapes differ: %s, %s" % (got.shape, want.shape))
+    return float(np.abs(got - want).max(initial=0.0)
+                 / max(np.abs(want).max(initial=0.0), 1e-30))
+
+
+def _refused(error, fn):
+    """True when ``fn()`` raises ``error`` (a refusal the phase checks)."""
+    try:
+        fn()
+    except error:
+        return True
+    return False
+
+
+def _per_request(fn, requests):
+    """(ms per request, requests/s) on the host clock: each call returns
+    numpy, so it ends synchronised."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(requests):
+        fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return dt / requests * 1e3, requests / dt
+
+
+def _device_per_call(fn, calls=5):
+    """(CUDA activities a call, device ms a call) by torch.profiler: the
+    kernels and copies of one call (profile_step.cuda_kernels_per_call)."""
+    from paddle_tpu_torch.tools import profile_step
+
+    per = profile_step.cuda_kernels_per_call(fn, calls=calls)
+    return (sum(n for n, _ in per.values()), sum(ms for _, ms in per.values()),
+            [k[:80] for k in sorted(per, key=lambda k: -per[k][1])[:5]])
+
+
+def phase_deploy(card, trained):
+    """Phase 22: save, serve through the Predictor and the exported
+    predictor's CUDA graphs, swap weights, metrics and a CompiledProgram
+    step.  ``trained``: phase 20's (main, scope, vars, startup values)."""
+    import tempfile
+
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert
+
+    t_phase = time.perf_counter()
+    main, scope, v, startup_values = trained
+    exe = fluid.Executor()
+    test = main.clone(for_test=True)
+    inf = fluid.inference
+    rec = {"phase": "deploy", "config": "lenet (save_inference_model, "
+           "Predictor, exported predictor)", "nvidia_smi": card,
+           "dtype": "float32"}
+    with tempfile.TemporaryDirectory() as d:
+        with fluid.scope_guard(scope):
+            fluid.io.save_inference_model(d, ["img"], [v["pred"]], exe, main)
+        pred = inf.create_predictor(inf.AnalysisConfig(d))
+        cpu_config = inf.AnalysisConfig(d)
+        cpu_config.disable_gpu()
+        cpu = inf.create_predictor(cpu_config)
+        if pred._exe.device.type != "cuda" or cpu._exe.device.type != "cpu":
+            raise AssertionError("predictor devices: %s, %s"
+                                 % (pred._exe.device, cpu._exe.device))
+        batches = {b: _lenet_digits(3000 + b, b) for b in (1, 5, 64)}
+        clone_of = {}
+        errs = {}
+        for b, batch in batches.items():
+            (got,) = pred.run({"img": batch["img"]})
+            clone_of[b] = exe.run(test, feed=batch, fetch_list=[v["pred"]],
+                                  scope=scope)[0]
+            errs[b] = {"vs_cpu_predictor": _rel(got, cpu.run([batch["img"]])[0]),
+                       "vs_test_clone": _rel(got, clone_of[b])}
+        rec["predictor_rel_err"] = errs
+        ok = all(e <= DEPLOY_TOL for r in errs.values() for e in r.values())
+
+        c = pred.clone()
+        names = pred._scope.local_var_names()
+        rec["clone_shares_weights"] = shares = (
+            c._scope is pred._scope and c._exe is pred._exe and all(
+                c._scope.find_var(n).data_ptr() == pred._scope.find_var(n).data_ptr()
+                for n in names))
+        ok &= shares and bool(np.array_equal(c.run([batches[5]["img"]])[0],
+                                             pred.run([batches[5]["img"]])[0]))
+
+        t0 = time.perf_counter()
+        inf.export_inference_model(d, {"img": (64, 1, 28, 28)}, poly_batch=True)
+        rec["export_seconds"] = time.perf_counter() - t0
+        ep = inf.load_exported_model(d).declare_batch_buckets(DEPLOY_BUCKETS)
+        if ep.device.type != "cuda":
+            raise AssertionError("exported predictor on %s" % ep.device)
+        for b in DEPLOY_BUCKETS:
+            ep.ensure_compiled({"img": ((b, 1, 28, 28), "float32")})
+        warm = ep.compiled_signature_count()
+        rec["capture_seconds"] = {str(sig[0][1][0]): s for sig, s
+                                  in ep.capture_seconds().items()}
+        exp_err = {b: _rel(ep.run([batch["img"]])[0], clone_of[b])
+                   for b, batch in batches.items()}
+        rec["exported_vs_test_clone_rel_err"] = exp_err
+        ok &= all(e <= DEPLOY_TOL for e in exp_err.values())
+        five = batches[5]["img"]
+        padded = np.concatenate([five, np.zeros((3,) + five.shape[1:], "f4")])
+        got5 = ep.run([five])[0]
+        rec["b5_pads_to_8"] = pad_ok = (
+            got5.shape == (5, 10)
+            and bool(np.array_equal(got5, ep.run([padded])[0][:5]))
+            and _rel(got5, pred.run([five])[0]) <= DEPLOY_TOL)
+        ok &= pad_ok
+        rng = np.random.RandomState(22)
+        sizes = rng.randint(1, 65, DEPLOY_MIXED)
+        pool = rng.rand(64, 1, 28, 28).astype("f4")
+        for n in sizes:
+            if ep.run([pool[:n]])[0].shape != (n, 10):
+                raise AssertionError("exported predictor: wrong output rows")
+        after = ep.compiled_signature_count()
+        rec["signatures"] = {"after_buckets": warm, "after_mixed": after,
+                             "mixed_requests": DEPLOY_MIXED}
+        ok &= warm == after == len(DEPLOY_BUCKETS)
+
+        # requests: the host clock per request and the device's share
+        timing = {}
+        for name, fn in (("predictor", lambda x: pred.run([x])),
+                         ("exported", lambda x: ep.run([x]))):
+            for b in (1, 64):
+                x = batches[b]["img"]
+                ms, rps = _per_request(lambda: fn(x), DEPLOY_TIMED)
+                n_act, dev_ms, top = _device_per_call(lambda: fn(x))
+                timing["%s_b%d" % (name, b)] = {
+                    "ms_per_request": ms, "requests_per_sec": rps,
+                    "images_per_sec": rps * b,
+                    "cuda_activities_per_request": n_act,
+                    "device_ms_per_request": dev_ms, "top_device": top}
+        rec["requests"] = timing
+
+        # swap_state: the startup weights give the fresh program's answers
+        x = batches[64]["img"]
+        trained_out = ep.run([x])[0]
+        ep.swap_state(startup_values)
+        fresh = convert.scope_from_numpy(startup_values, fluid.Scope(), "cuda")
+        want = exe.run(test, feed=batches[64], fetch_list=[v["pred"]],
+                       scope=fresh)[0]
+        swapped = ep.run([x])[0]
+        w = next(n for n in ep._state if ".w_" in n)
+        refused = _refused(ValueError, lambda: ep.swap_state(
+            {**startup_values, w: np.zeros((3, 3), "f4")}))
+        rec["swap_state"] = {
+            "rel_err_vs_fresh_program": _rel(swapped, want),
+            "moved_from_trained": float(np.abs(swapped - trained_out).max()),
+            "shape_change_refused": refused,
+            "signatures_after": ep.compiled_signature_count()}
+        ok &= (rec["swap_state"]["rel_err_vs_fresh_program"] <= DEPLOY_TOL
+               and rec["swap_state"]["moved_from_trained"] > 1e-3 and refused
+               and rec["swap_state"]["signatures_after"] == len(DEPLOY_BUCKETS))
+
+    # metrics: Accuracy over the predictor's outputs, as the test clone's
+    held = _lenet_digits(4000, LENET_B)
+    probs = pred.run([held["img"]])[0]
+    metric = fluid.metrics.Accuracy()
+    metric.update(float((probs.argmax(1) == held["label"][:, 0]).mean()),
+                  weight=LENET_B)
+    clone_acc = float(exe.run(test, feed=held, fetch_list=[v["acc"]],
+                              scope=scope)[0])
+    rec["accuracy"] = {"metrics_accuracy": metric.eval(), "test_clone": clone_acc}
+    ok &= abs(metric.eval() - clone_acc) <= 1e-7
+
+    # compiler: one step through a one-device CompiledProgram and through
+    # the plain program, from the same weights
+    names = [x.name for x in main.list_vars() if x.persistable]
+    values = convert.scope_to_numpy(scope, names)
+    params = [p.name for p in main.all_parameters()]
+    batch = _lenet_digits(5000, LENET_B)
+    runs = []
+    compiled = fluid.CompiledProgram(main).with_data_parallel(
+        loss_name=v["loss"].name)
+    for prog in (main, compiled):
+        sc = convert.scope_from_numpy(values, fluid.Scope(), "cuda")
+        (loss,) = exe.run(prog, feed=batch, fetch_list=[v["loss"]], scope=sc)
+        runs.append((loss, convert.scope_to_numpy(sc, params)))
+    step_err = max([_rel(runs[1][0], runs[0][0])]
+                   + [_rel(runs[1][1][n], runs[0][1][n]) for n in params])
+    rec["compiled_program_step_rel_err"] = step_err
+    rec["compiled_program_tol"] = DEPLOY_STEP_TOL
+    ok &= step_err <= DEPLOY_STEP_TOL
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["ok"] = bool(ok)
+    emit(rec)
+    if not ok:
+        raise AssertionError("deploy phase failed")
+
+
+def _decode_state(B, K):
+    import numpy as np
+
+    ps0 = (np.where(np.arange(K)[None] == 0, 0.0, -1e9)
+           * np.ones((B, 1))).astype("f4")
+    return ps0, np.full((B, K), -1, "i4")
+
+
+def _plain_beam_decode(probs, ps0, pi0, K, end_id=0):
+    """The decode as a plain loop over the port's beam_search_step and
+    beam_backtrack, on the device ``probs`` lies on."""
+    from paddle_tpu_torch.ops import beam_search_ops as bs
+
+    dev = probs.device
+    scores, ids = torch.from_numpy(ps0).to(dev), torch.from_numpy(pi0).to(dev)
+    toks, pars = [], []
+    for t in range(probs.shape[0]):
+        scores, ids, parent = bs.beam_search_step(
+            scores, torch.log(probs[t].clamp_min(1e-20)), K, end_id,
+            ids == end_id)
+        toks.append(ids)
+        pars.append(parent)
+    return bs.beam_backtrack(torch.stack(toks), torch.stack(pars)).cpu().numpy()
+
+
+def phase_control_flow(card):
+    """Phase 23: the While beam decode at NMT width, cond and Switch."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.ops import control_flow_ops
+    from paddle_tpu_torch.tools import programs
+
+    t_phase = time.perf_counter()
+    rec = {"phase": "control_flow", "nvidia_smi": card}
+
+    def decode(place, T, B, K, V, lp):
+        main, startup, v = programs.while_beam_decode(fluid, T, B, K, V)
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        exe.run(startup, scope=scope)
+        ps0, pi0 = _decode_state(B, K)
+        feed = {"lp": lp, "ps": ps0, "pi": pi0}
+        return lambda: exe.run(main, feed=feed, fetch_list=[v["sent"]],
+                               scope=scope)[0]
+
+    # the small case against the CPU
+    T, B, K, V = DECODE_SMALL
+    small = np.exp(np.random.RandomState(23).randn(T, B, K, V) * 0.5 - 1.0
+                   ).astype("f4")
+    cpu_sent = decode(fluid.CPUPlace(), T, B, K, V, small)()
+    card_sent = decode(fluid.CUDAPlace(0), T, B, K, V, small)()
+    rec["small_equal_cpu"] = small_ok = bool(np.array_equal(card_sent, cpu_sent))
+
+    # NMT decode's width: the probabilities made on the host from the seed
+    T, B, K, V = DECODE_T, DECODE_B, DECODE_K, DECODE_V
+    gen = torch.Generator().manual_seed(23)
+    host = torch.randn((T, B, K, V), generator=gen).mul_(0.5).sub_(1.0).exp_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lp = host.to("cuda")
+    torch.cuda.synchronize()
+    rec["feed_gb"] = host.numel() * 4 / 1e9
+    rec["feed_copy_ms"] = (time.perf_counter() - t0) * 1e3
+    run = decode(fluid.CUDAPlace(0), T, B, K, V, lp)
+    run()                                       # warm-up
+    control_flow_ops.reset_host_syncs()
+    t0 = time.perf_counter()
+    sent = run()
+    dt = time.perf_counter() - t0
+    syncs = control_flow_ops.host_syncs["while"]
+    plain = _plain_beam_decode(lp, *_decode_state(B, K), K)
+    n_act, dev_ms, top = _device_per_call(run, calls=2)
+    with_copy = decode(fluid.CUDAPlace(0), T, B, K, V, host)
+    with_copy()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with_copy()
+    rec["decode_with_host_feed_ms"] = (time.perf_counter() - t0) * 1e3
+    del host, lp, with_copy, run
+    torch.cuda.empty_cache()
+    rec["decode"] = {
+        "T": T, "B": B, "K": K, "V": V, "ms": dt * 1e3,
+        "ms_per_iteration": dt * 1e3 / T, "host_syncs": syncs,
+        "host_syncs_per_iteration": syncs / T,
+        "cuda_activities_per_iteration": n_act / T,
+        "device_ms_per_iteration": dev_ms / T, "top_device": top,
+        "equal_plain_loop": bool(np.array_equal(sent, plain)),
+        "sentence_shape": list(sent.shape)}
+    ok = small_ok and rec["decode"]["equal_plain_loop"] and syncs == T + 1
+
+    # cond in a trained forward section: the card against the CPU from the
+    # same values, each step's loss, branch and gradients
+    main, startup, cv = programs.cond_program(fluid)
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    values = convert.scope_to_numpy(
+        init, [x.name for x in startup.list_vars() if x.persistable])
+    params = [p.name for p in main.all_parameters()]
+    fetch = [cv["loss"].name, cv["pred"].name] + [p + "@GRAD" for p in params]
+    outs = {}
+    for dev, place in (("cpu", fluid.CPUPlace()), ("cuda", fluid.CUDAPlace(0))):
+        exe = fluid.Executor(place)
+        sc = convert.scope_from_numpy(values, fluid.Scope(), dev)
+        outs[dev] = [exe.run(main, feed={"x": np.random.RandomState(s).randn(
+            16, 8).astype("f4")}, fetch_list=fetch, scope=sc)
+            for s in range(COND_STEPS)]
+    branches = [bool(o[1][0]) for o in outs["cpu"]]
+    cond_err = max(_rel(a, b) for k, c in zip(outs["cuda"], outs["cpu"])
+                   for a, b in zip(k, c))
+    rec["cond"] = {"branches_taken": branches, "max_rel_err": cond_err,
+                   "tol": COND_TOL}
+    ok &= cond_err <= COND_TOL and len(set(branches)) == 2
+
+    # Switch: the card's values equal the CPU's
+    main, startup, sv = programs.switch_program(fluid)
+    lrs = {}
+    for dev, place in (("cpu", fluid.CPUPlace()), ("cuda", fluid.CUDAPlace(0))):
+        exe, sc = fluid.Executor(place), fluid.Scope()
+        exe.run(startup, scope=sc)
+        lrs[dev] = [float(exe.run(main, feed={"step": np.array([s], "f4")},
+                                  fetch_list=[sv["lr"]], scope=sc)[0][0])
+                    for s in (0, 4, 5, 9, 10, 20)]
+    rec["switch"] = {"card": lrs["cuda"], "equal_cpu": lrs["cuda"] == lrs["cpu"]}
+    ok &= lrs["cuda"] == lrs["cpu"]
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["ok"] = bool(ok)
+    emit(rec)
+    if not ok:
+        raise AssertionError("control-flow phase failed")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -1805,9 +2184,14 @@ def main():
     assert_no_launches("NMT serving and parity")
     from paddle_tpu_torch.kernels import _common
     _common.reset_launches()
-    phase_lenet_slice(name, card)
+    trained = phase_lenet_slice(name, card)
     phase_lenet_parity(card)
     assert_no_launches("LeNet slice and parity")
+    phase_deploy(card, trained)
+    del trained
+    assert_no_launches("the deploy path")
+    phase_control_flow(card)
+    assert_no_launches("control flow")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -14,6 +14,12 @@ module names so each counterpart is easy to find:
   gradient) with their launch counters and plain PyTorch versions;
 - ``parallel``: transformer blocks, optimizers and the train step at one
   device;
+- the deployment path: ``io`` (``save_inference_model`` and the other
+  savers and loaders, in the JAX package's file format), ``inference``
+  (``Predictor``, ``create_predictor``, and ``export_inference_model`` /
+  ``ExportedPredictor``, a ``torch.export`` program served by one CUDA
+  graph per feed signature), ``metrics``, ``compiler`` (``CompiledProgram``
+  at one device) and ``serving.lattice``;
 - ``models.bert``, ``models.resnet``, ``models.deepfm``,
   ``models.transformer_nmt``, ``models.lenet``: the trainers and builders of
   the five BASELINE configs; ``models.parity`` the learning criteria;
@@ -57,6 +63,12 @@ from . import data_feeder
 from .data_feeder import DataFeeder
 from .param_attr import ParamAttr
 from . import datasets
+from . import metrics
+from . import io
+from . import inference
+from . import compiler
+from .compiler import CompiledProgram, BuildStrategy, ExecutionStrategy
+from .io import load, save
 
 __all__ = [
     "Program", "Block", "Operator", "Variable", "Parameter", "program_guard",
@@ -65,5 +77,7 @@ __all__ = [
     "Scope", "global_scope", "scope_guard", "Executor", "append_backward",
     "gradients", "initializer", "layers", "optimizer", "regularizer", "clip",
     "nets", "data_feeder", "DataFeeder", "ParamAttr", "datasets",
-    "unique_name", "resolve_device",
+    "unique_name", "resolve_device", "metrics", "io", "inference",
+    "compiler", "CompiledProgram", "BuildStrategy", "ExecutionStrategy",
+    "load", "save",
 ]

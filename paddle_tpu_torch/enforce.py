@@ -13,13 +13,20 @@ Operator construction).  A copy of the JAX package's ``enforce.py``."""
 import collections
 import sys
 
-__all__ = ["EnforceNotMet", "enforce", "creation_frame"]
+__all__ = ["EnforceNotMet", "NotDifferentiable", "enforce", "creation_frame"]
 
 _Frame = collections.namedtuple("_Frame", ["filename", "lineno", "name"])
 
 
 class EnforceNotMet(RuntimeError):
     """Parity: enforce.h EnforceNotMet."""
+
+
+class NotDifferentiable(ValueError):
+    """A differentiated value flows through an op the reference cannot
+    differentiate in reverse mode (``while``: ``lax.while_loop``).  The JAX
+    package raises this as a ``ValueError`` from ``jax.grad``, outside any op
+    rule, so the executor passes it on unwrapped."""
 
 
 def enforce(condition, message, *fmt_args):

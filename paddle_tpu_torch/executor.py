@@ -13,10 +13,16 @@ back to the scope.  What the JAX executor caches as a compiled step, this
 one caches as an analysed plan (op rules, sections, state names), keyed by
 program version, feed shapes and fetch names.
 
+Sub-blocks (``while``, ``conditional_block``, ``cond``, ``scan``) run
+through ``OpLoweringContext.interpret_block``: each block's op rules are
+looked up once, when the plan is made, and a control-flow rule runs its
+sub-block's list on a copy of the env as often as it needs.  A one-device
+``CompiledProgram`` runs as the program it wraps.
+
 The JAX executor's other branches (pipeline, sparse lookups, AMP,
-recompute, CompiledProgram/fleet, monitor and sentinel, the warm store,
-py_reader) raise ``NotImplementedError`` naming the ROADMAP item that
-brings them; none quietly runs another path.
+recompute, data-parallel CompiledProgram/fleet, monitor and sentinel, the
+warm store, py_reader) raise ``NotImplementedError`` naming the ROADMAP
+item that brings them; none quietly runs another path.
 """
 
 import os
@@ -25,8 +31,9 @@ import numpy as np
 import torch
 
 from .dtypes import convert_dtype, numpy_dtype
-from .enforce import EnforceNotMet, format_op_error
+from .enforce import EnforceNotMet, NotDifferentiable, format_op_error
 from .framework import Parameter, Program, Variable, default_main_program
+from .compiler import CompiledProgram
 from .kernels._common import resolve_device
 from .registry import OpLoweringContext, get_lowering
 from .scope import global_scope
@@ -90,15 +97,21 @@ def _refuse_unported(program):
                 "the executor wait (ROADMAP Queue 1 item 3)")
 
 
+def refuse_warm_dir():
+    """The warm executable store (the executor's and the exported
+    predictor's persistence) is not ported."""
+    if os.environ.get("PADDLE_TPU_WARM_DIR", "").strip():
+        raise NotImplementedError(
+            "PADDLE_TPU_WARM_DIR: the warm executable store waits (ROADMAP "
+            "Queue 1 item 8)")
+
+
 def _refuse_unported_env():
     if os.environ.get("PADDLE_TPU_MONITOR") == "1":
         raise NotImplementedError(
             "PADDLE_TPU_MONITOR=1: the monitor and its sentinel wait (ROADMAP "
             "Queue 1 item 9)")
-    if os.environ.get("PADDLE_TPU_WARM_DIR", "").strip():
-        raise NotImplementedError(
-            "PADDLE_TPU_WARM_DIR: the warm executable store waits (ROADMAP "
-            "Queue 1 item 8)")
+    refuse_warm_dir()
 
 
 class _OpCall:
@@ -127,9 +140,10 @@ def _run_calls(calls, env, ctx):
         op = c.op
         ins = {slot: [env[n] for n in names if n in env]
                for slot, names in op.inputs.items()}
+        ctx.env = env  # control-flow rules read carried vars by name
         try:
             outs = c.rule(ins, op.attrs, ctx)
-        except EnforceNotMet:
+        except (EnforceNotMet, NotDifferentiable):
             raise
         except Exception as e:
             # PADDLE_ENFORCE-style context: name the op and the user code
@@ -142,14 +156,17 @@ def _run_calls(calls, env, ctx):
 
 
 class _Plan:
-    """A program analysed for one run key: its state names and its ops split
-    at the backward section, each with its rule."""
+    """A program analysed for one run key: its state names, its global
+    block's ops split at the backward section and each sub-block's ops, each
+    op with its rule."""
 
     def __init__(self, program):
         _refuse_unported(program)
         self.program = program
         block = program.global_block()
         self.state_in, self.state_out = _collect_state_names(program)
+        self.sub = {b.idx: [_OpCall(op, b) for op in b.ops]
+                    for b in program.blocks[1:]}
         ops = block.ops
         bwd_idxs = [i for i, op in enumerate(ops) if op.type == "backward_meta"]
         if len(bwd_idxs) > 1:
@@ -167,6 +184,19 @@ class _Plan:
         self.rest = [_OpCall(op, block) for op in ops[i + 1:]]
         self.loss_name = ops[i].attrs["loss_name"]
         self.param_names = list(ops[i].attrs["param_names"])
+
+    def context(self, generator):
+        """The rules' context for one run: sub-blocks run from this plan."""
+        ctx = OpLoweringContext(self.program, generator)
+        ctx.interpret_block = lambda idx, env: self.interpret_block(
+            idx, env, ctx)
+        return ctx
+
+    def interpret_block(self, idx, env, ctx):
+        """Run sub-block ``idx`` on a copy of ``env``; returns the copy."""
+        env = dict(env)
+        _run_calls(self.sub[idx], env, ctx)
+        return env
 
     def run(self, env, ctx):
         if self.loss_name is None:
@@ -224,11 +254,11 @@ class Executor:
         as numpy arrays, or as tensors on the device when ``return_numpy``
         is false."""
         program = program if program is not None else default_main_program()
+        if isinstance(program, CompiledProgram):
+            program = program._program_for_run()
         if not isinstance(program, Program):
-            raise NotImplementedError(
-                "%s: CompiledProgram and data-parallel execution wait (ROADMAP "
-                "Queue 1 item 3, compiler.py, and item 5)"
-                % type(program).__name__)
+            raise TypeError("Executor.run takes a Program or a "
+                            "CompiledProgram, not %s" % type(program).__name__)
         _refuse_unported_env()
         feed = feed or {}
         fetch_names = [_as_fetch_name(f) for f in (fetch_list or [])]
@@ -258,9 +288,8 @@ class Executor:
         env.update(feed_tensors)
         seed = (program.random_seed * 1000003 + self._step) % (2 ** 32)
         self._step += 1
-        ctx = OpLoweringContext(
-            program, torch.Generator(self.device).manual_seed(seed))
-        plan.run(env, ctx)
+        plan.run(env, plan.context(
+            torch.Generator(self.device).manual_seed(seed)))
 
         missing = [n for n in fetch_names if n not in env]
         if missing:

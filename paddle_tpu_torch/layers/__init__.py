@@ -1,6 +1,6 @@
 """Layers API (parity: python/paddle/fluid/layers/): the JAX package's
-``nn``, ``tensor``, ``math_ops``, ``metric_op`` and ``io`` (``data``)
-modules, copied.  Its control_flow, learning_rate_scheduler, sequence,
+``nn``, ``tensor``, ``math_ops``, ``control_flow``, ``metric_op`` and
+``io`` (``data``) modules, copied.  Its learning_rate_scheduler, sequence,
 detection, extras, collective and rnn modules wait (ROADMAP Queue 1
 item 3).  A layer builds ops; an op whose rule the port lacks raises when
 the executor plans the program."""
@@ -13,6 +13,8 @@ from . import nn
 from .nn import *  # noqa: F401,F403
 from . import io
 from .io import *  # noqa: F401,F403
+from . import control_flow
+from .control_flow import *  # noqa: F401,F403
 from . import metric_op
 from .metric_op import *  # noqa: F401,F403
 

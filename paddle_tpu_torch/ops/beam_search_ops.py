@@ -1,6 +1,8 @@
-"""Beam-search steps on tensors (counterpart of
-``paddle_tpu/ops/beam_search_ops.py``: ``beam_search_step`` and
-``beam_backtrack``; parity: math/beam_search.h, beam_search_decode_op.cc).
+"""Beam-search steps and ops on tensors (counterpart of
+``paddle_tpu/ops/beam_search_ops.py``: ``beam_search_step``,
+``beam_backtrack`` and the ``beam_search`` / ``beam_search_decode`` op
+rules that a program-mode decode loop runs; parity: math/beam_search.h,
+beam_search_op.cc, beam_search_decode_op.cc).
 
 Beams are a dense [B, K] axis.  One decode step keeps the best K of the
 K * V accumulated candidate scores of each source sentence; the parent
@@ -14,6 +16,9 @@ frozen beam's non-EOS candidates all score ``pre_score - 1e9``, and at
 """
 
 import torch
+
+from ..registry import register_op
+from .common import x, out
 
 __all__ = ["beam_search_step", "beam_backtrack"]
 
@@ -60,3 +65,38 @@ def beam_backtrack(step_tokens, step_parents, bos_id=None):
         toks.append(torch.gather(step_tokens[t], 1, beam))
         beam = torch.gather(step_parents[t], 1, beam).long()
     return torch.stack(toks[::-1], dim=-1)
+
+
+@register_op("beam_search")
+def _beam_search(ins, attrs, ctx):
+    """Inputs pre_ids [B, K], pre_scores [B, K], scores [B, K, V]: the
+    accumulated candidate scores when is_accumulated (the default), else
+    this step's probabilities, whose logs are added to pre_scores.  A beam
+    whose pre_id is end_id is finished.  Outputs selected_ids,
+    selected_scores and parent_idx, [B, K]."""
+    pre_scores, scores, pre_ids = (x(ins, "pre_scores"), x(ins, "scores"),
+                                   x(ins, "pre_ids"))
+    beam_size = int(attrs.get("beam_size", scores.shape[1]))
+    end_id = int(attrs.get("end_id", 0))
+    finished = None if pre_ids is None else pre_ids == end_id
+    if attrs.get("is_accumulated", True):
+        sel_scores, tokens, parent = beam_search_step(
+            pre_scores, scores, beam_size, end_id, finished, accumulated=True)
+    else:
+        logp = torch.log(scores.clamp_min(1e-20))
+        sel_scores, tokens, parent = beam_search_step(
+            pre_scores, logp, beam_size, end_id, finished)
+    return out(selected_ids=tokens, selected_scores=sel_scores,
+               parent_idx=parent)
+
+
+@register_op("beam_search_decode")
+def _beam_search_decode(ins, attrs, ctx):
+    """Inputs Ids and ParentIdx [T, B, K], optional Scores [B, K].  Outputs
+    SentenceIds [B, K, T] (best first, as beam_search's selection is
+    sorted) and SentenceScores [B, K] when Scores is given."""
+    res = {"SentenceIds": [beam_backtrack(x(ins, "Ids"), x(ins, "ParentIdx"))]}
+    scores = x(ins, "Scores")
+    if scores is not None:
+        res["SentenceScores"] = [scores]
+    return res

@@ -12,14 +12,20 @@ _OP_LOWERING = {}
 
 
 class OpLoweringContext:
-    """Passed to rules that need program context: the program and the run's
-    random generator, whose device is the one the run's tensors lie on."""
+    """Passed to rules that need program context: the program, the run's
+    random generator (whose device is the one the run's tensors lie on),
+    and, for control flow, ``interpret_block(block_idx, env) -> env``, which
+    runs a sub-block's ops on a copy of ``env``.  The executor sets ``env``
+    to the block's whole name -> tensor map before each rule, so that the
+    control-flow rules read carried and closure vars by name."""
 
     def __init__(self, program, generator):
         self.program = program
         # seeded per run (program.random_seed, step); random ops derive
         # their own generator from it and their seed attr (ops/common.py)
         self.generator = generator
+        self.interpret_block = None     # set by the executor's plan
+        self.env = None
 
     @property
     def device(self):

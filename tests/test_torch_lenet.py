@@ -359,7 +359,9 @@ def _unported(case, monkeypatch):
     if case == "warm_store":
         monkeypatch.setenv("PADDLE_TPU_WARM_DIR", "/nonexistent")
     if case == "compiled_program":
-        main = type("CompiledProgram", (), {"_program": main})()
+        # a one-device CompiledProgram runs; one asked to span trainers waits
+        main = fluid.CompiledProgram(main).with_data_parallel(loss_name=loss.name)
+        main._build_strategy.num_trainers = 2
     return main, loss
 
 
@@ -367,7 +369,7 @@ def _unported(case, monkeypatch):
     ("pipeline", "item 5"), ("amp", "item 3"), ("recompute", "item 3"),
     ("sparse_lookup", "item 3"), ("fleet", "item 5"), ("py_reader", "item 4"),
     ("monitor", "item 9"), ("warm_store", "item 8"),
-    ("compiled_program", "item 3"), ("unported_op", None),
+    ("compiled_program", "item 5"), ("unported_op", None),
 ])
 def test_unported_branches_raise(case, item, monkeypatch):
     main, loss = _unported(case, monkeypatch)
