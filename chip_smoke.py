@@ -148,7 +148,36 @@ Builds the port's CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
     CPU's; ms, CUDA launches and host syncs per iteration, the feed's copy
     timed apart; a ``cond`` in a trained program against the CPU's
     gradients and a ``Switch`` program against the CPU's values; no port
-    kernel launched.
+    kernel launched;
+24. book training: each of the eleven book-suite programs of
+    ``tools/book_suite.py`` (word2vec with softmax, hsigmoid and nce heads,
+    the recommender, sentiment conv and stacked LSTM, semantic-role
+    labelling at hidden 128 and depth 4, fit_a_line, ResNet-CIFAR depth 8,
+    VGG, the RNN encoder-decoder: the builders' default widths, the JAX
+    package's tests/test_book_models.py data, batch, optimizer, threshold
+    and step budget) trained by ``fluid.Executor(fluid.CUDAPlace(0))`` to
+    its threshold: the steps it took, ms per step on the host clock after
+    warm-up, and from ``profile_step``'s ``book:<model>`` entry the CUDA
+    launches and device-busy ms per step and the idle share; a model that
+    misses its threshold fails the phase;
+25. book parity: three f32 steps of each model on the card and on the CPU
+    from the same values (nce's negatives fixed, VGG's dropout as in its
+    test clone), ReLU flips counted; training-mode dropout's keep rate and
+    scaling under both implementations on the card;
+26. AMP: ResNet-CIFAR and word2vec under ``amp.decorate(Adam)`` on the
+    card: the first loss against the card's f32 run and the CPU's bf16 run,
+    masters, moments, LR state and batch-norm stats f32 and the gradients
+    f32 after 5 steps, ``save_persistables`` / ``load_persistables`` in the
+    JAX package's format with a bf16 persistable round-tripped bit for bit;
+    no port kernel launched in 24-26;
+27. sparse: the recommender (seven ``is_sparse`` tables, Adam) and word2vec
+    with ``is_sparse=True`` under SGD on both ``merge_rows`` routes and with
+    the dense gradient, from the same values: the segment kernel's launches
+    on the kernel route (one per merging table a step: 7 for the
+    recommender, 0 under SGD, whose sparse branch does not merge), the
+    routes' tables and moments against each other and against the dense
+    gradient, ms per step of each; its launches per step go into the
+    segment kernel's record as ``sparse_executor_launches_per_step``.
 
 TF32 is switched off for matrix products and convolutions, so the f32
 phases compare f32 with f32.  The last two lines are the kernels' JSON
@@ -316,6 +345,57 @@ DEPLOY_TOL, DEPLOY_STEP_TOL = 1e-5, 1e-6
 DECODE_T, DECODE_B, DECODE_K, DECODE_V = 128, 16, 4, 32000
 DECODE_SMALL = (4, 2, 3, 6)
 COND_TOL, COND_STEPS = 1e-5, 4
+# The book suite (phases 24-27, tools/book_suite.py: the JAX package's
+# tests/test_book_models.py data, batches, optimizers, thresholds and step
+# budgets, at the builders' default widths).  Phase 24 times BOOK_TIMED
+# steps after BOOK_WARMUP more, past each model's threshold run.  Phase 25
+# holds the card to the CPU over BOOK_PARITY_STEPS f32 steps from the same
+# values, with nce's negatives and VGG's dropout pinned: each step's loss
+# and the SGD-trained parameters and the sparse tables to 1e-5 of the
+# largest magnitude (tests/test_torch_book.py's tolerance); under Adam, the
+# elements whose CPU gradient stayed above BOOK_SMALL_G in every step to
+# 1e-5 absolute (VGG: 1e-4, as in the test — convs and batch norms over a
+# small batch, whose f32 gradients are ill-conditioned), and the others,
+# where the gradient is rounding noise and Adam moves an element by
+# lr * sign(noise), to 2 * lr a step.  Where the devices put a ReLU input
+# on either side of 0 (counted over the global block's relu ops at every
+# step) the f32 trajectory parts, as phase 21's LeNet did: its losses are
+# then held to BOOK_FLIP_TOL and Adam's parameters to 2 * lr a step, and
+# the same program runs in float64 on both devices, held to the strict
+# tolerances above (the image nets: on the H100 both flipped at the first
+# step, 1 and 4 ReLU inputs, and 1,779 and 8,637 by the third).  Dropout
+# in training mode: the kept share within 5 standard errors
+# of 1 - p over BOOK_DROPOUT_N values, and the kept values scaled as its
+# implementation says, exactly.
+BOOK_WARMUP, BOOK_TIMED = 2, 10
+BOOK_PARITY_STEPS, BOOK_TOL, BOOK_TOL_VGG = 3, 1e-5, 1e-4
+BOOK_SMALL_G, BOOK_FLIP_TOL = 1e-5, 1e-2
+BOOK_DROPOUT_N, BOOK_DROPOUT_P = 1 << 20, 0.2
+# AMP (phase 26): 5 steps under amp.decorate(Adam); the first step's loss
+# against the card's f32 run and the CPU's bf16 run of the same program to
+# AMP_LOSS_TOL (relative): each op rounds its result to bf16 (2^-8
+# relative), and cuBLAS and the CPU accumulate the bf16 products in other
+# orders, so the two bf16 runs part by a few roundings, and bf16 against
+# f32 by about as much (tests/test_torch_amp.py holds JAX's bf16 step to
+# the port's at the same 2e-2).
+AMP_STEPS, AMP_LOSS_TOL = 5, 2e-2
+AMP_MODELS = ("image_resnet", "word2vec_softmax")
+# Sparse (phase 27): the same values on the default merge route
+# (via="xla"), on the segment kernel's route (PADDLE_TPU_SEGMENT_KERNEL=1)
+# and with is_sparse=False.  After the first step (the sparse step), every
+# table, moment and parameter of the two routes to SPARSE_ROUTE_TOL of the
+# largest magnitude (the kernel sums each run of equal ids in another
+# order than index_add_'s atomics: on the H100 up to 3.9e-7 in a first
+# moment over three runs), Adam's second moments, which hold g^2 and so
+# twice g's relative rounding, to 2 x SPARSE_ROUTE_TOL (6.6e-7 seen, in
+# the 2-row gender table, each row a sum of ~128 samples), and the sparse
+# path against the dense
+# gradient to BOOK_TOL; the launches counted over SPARSE_STEPS steps, and
+# the distance after them printed, not held: it grows through the dense
+# layers' Adam updates (on the H100, 1.3e-6 to 2.1e-6 over 5 recommender
+# steps, in fc biases, with the default route itself not deterministic);
+# SPARSE_TIMED steps of each route timed.
+SPARSE_STEPS, SPARSE_TIMED, SPARSE_ROUTE_TOL = 5, 20, 1e-6
 
 
 def emit(obj):
@@ -2141,6 +2221,451 @@ def phase_control_flow(card):
     if not ok:
         raise AssertionError("control-flow phase failed")
 
+# -- the book suite (the Fluid book models through the executor) -------------
+
+def _book(model, optimizer=None, **sizes):
+    """``tools/book_suite.py``'s run of ``model`` on the port."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import datasets
+    from paddle_tpu_torch.models import book
+    from paddle_tpu_torch.tools import book_suite
+
+    return book_suite.build(fluid, book, datasets, model, optimizer=optimizer,
+                            **sizes)
+
+
+def _executor(device):
+    import paddle_tpu_torch as fluid
+
+    return fluid.Executor(fluid.CPUPlace() if device == "cpu"
+                          else fluid.CUDAPlace(0))
+
+
+def _startup_values(run):
+    """The port's f32 startup values of ``run``, from a CPU run."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert
+
+    scope = fluid.Scope()
+    _executor("cpu").run(run.startup, scope=scope)
+    return convert.scope_to_numpy(
+        scope, [v.name for v in run.startup.list_vars() if v.persistable])
+
+
+def _srl_tag_accuracy(exe, run, scope):
+    """The semantic-role test's decode check: (valid label ids, tag
+    accuracy on the trained batch) from one run of the main program
+    fetching the CRF decode, as tests/test_book_models.py does."""
+    import numpy as np
+
+    (dec,) = exe.run(run.main, feed=run.feed,
+                     fetch_list=[run.extra["decode"]], scope=scope)
+    dec, tgt = np.asarray(dec), run.feed["target"]
+    mask = np.arange(tgt.shape[1])[None, :] < run.feed["word_seq_len"][:, None]
+    valid = bool(dec.min() >= 0 and dec.max() < run.extra["n_labels"])
+    return valid, float((dec[:, :tgt.shape[1]] == tgt)[mask].mean())
+
+
+def phase_book_training(card):
+    """Phase 24: each book model trained to its threshold on the card, then
+    timed and profiled."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools import book_suite, profile_step
+
+    failed = []
+    for model in book_suite.MODELS:
+        run = _book(model)
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        exe.run(run.startup, scope=scope)
+        values = []
+        t0 = time.perf_counter()
+        for step in range(run.contract[2]):
+            out = exe.run(run.main, feed=run.feed, fetch_list=run.fetch,
+                          scope=scope)
+            if not np.isfinite(out[0]).all():
+                break
+            values.append(float(np.asarray(out[-1]).mean()))
+            if book_suite.converged(run.contract, values):
+                break
+        train_s = time.perf_counter() - t0
+        ok = book_suite.converged(run.contract, values)
+        rec = {"phase": "book", "model": model, "nvidia_smi": card,
+               "contract": list(run.contract), "steps": len(values),
+               "first": values[0] if values else None,
+               "last": values[-1] if values else None,
+               "train_seconds": train_s}
+        if model == "semantic_roles":
+            valid, tag_acc = _srl_tag_accuracy(exe, run, scope)
+            rec.update(decode_ids_valid=valid, tag_accuracy=tag_acc)
+            ok = ok and valid and tag_acc > 0.5
+        for _ in range(BOOK_WARMUP):
+            exe.run(run.main, feed=run.feed, fetch_list=run.fetch, scope=scope)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(BOOK_TIMED):
+            exe.run(run.main, feed=run.feed, fetch_list=run.fetch, scope=scope)
+        torch.cuda.synchronize()
+        rec["ms_per_step"] = (time.perf_counter() - t0) / BOOK_TIMED * 1e3
+        prof = profile_step.profile_model(profile_step.BOOK_PREFIX + model,
+                                          card)
+        rec.update(launches_per_step=prof["launches_per_step"],
+                   device_busy_ms_per_step=prof["device_busy_ms_per_step"],
+                   device_idle_share=prof["device_idle_share"],
+                   wall_ms_per_step_profiled=prof["wall_ms_per_step"],
+                   ok=ok)
+        emit(rec)
+        if not ok:
+            failed.append(model)
+        del exe, scope, run
+    if failed:
+        raise AssertionError("book models that missed their thresholds on "
+                             "the card: %s" % failed)
+
+
+def _book_steps(model, device, values, steps, **sizes):
+    """``steps`` steps of ``model`` (its random ops pinned; ``sizes`` as
+    ``book_suite.build`` takes them) on ``device`` from ``values``: each
+    step's fetches (the loss, every dense gradient, every global-block ReLU
+    input), then the parameters."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.tools import book_suite
+
+    run = _book(model, **sizes)
+    book_suite.pin_random_ops(run.main)
+    scope = convert.scope_from_numpy(values, fluid.Scope(), device)
+    exe = _executor(device)
+    params = [p.name for p in run.main.all_parameters()]
+    sparse = book_suite.sparse_tables(run.main)
+    dense = [n for n in params if n not in sparse]
+    relu_in = [op.inputs["X"][0] for op in run.main.global_block().ops
+               if op.type == "relu"]
+    fetch = [run.cost.name] + [n + "@GRAD" for n in dense] + relu_in
+    out = [exe.run(run.main, feed=run.feed, fetch_list=fetch, scope=scope)
+           for _ in range(steps)]
+    counters = [v.name for v in run.main.list_vars()
+                if v.persistable and not v.dtype.startswith("float")]
+    return {"steps": out, "dense": dense, "sparse": sparse,
+            "adam_lr": run.adam_lr, "params": convert.scope_to_numpy(scope, params),
+            "counters": convert.scope_to_numpy(scope, counters)}
+
+
+def _book_parity(model, cpu, gpu, loose):
+    """Card against CPU over one pair of ``_book_steps`` runs.  ``loose``
+    (an f32 trajectory after a ReLU flip): the losses to BOOK_FLIP_TOL and
+    Adam's parameters only to its 2 lr a step; otherwise the module's
+    tolerances (BOOK_TOL ...).  Returns the record."""
+    import numpy as np
+
+    from paddle_tpu_torch.tools import book_suite
+
+    n = 1 + len(cpu["dense"])
+    flips, losses = [], []
+    for c, g in zip(cpu["steps"], gpu["steps"]):
+        flips.append(sum(int(((a > 0) != (b > 0)).sum())
+                         for a, b in zip(g[n:], c[n:])))
+        losses.append(_rel(g[0], c[0]))
+    loss_tol = BOOK_FLIP_TOL if loose else BOOK_TOL
+    g_min = {}
+    for c in cpu["steps"]:
+        for name, grad in zip(cpu["dense"], c[1:n]):
+            g_min[name] = np.minimum(g_min.get(name, np.inf), np.abs(grad))
+    lr = cpu["adam_lr"]
+    errs = book_suite.param_errors(gpu["params"], cpu["params"],
+                                   g_min if lr is not None else {},
+                                   BOOK_SMALL_G)
+    adam_tol = BOOK_TOL_VGG if model == "image_vgg" else BOOK_TOL
+    bad, worst_rel, small_parted = [], 0.0, 0
+    for name, (above, small, n_small, scale) in errs.items():
+        worst_rel = max(worst_rel, max(above, small) / scale)
+        small_parted += n_small
+        if lr is None:
+            ok = max(above, small) <= loss_tol * scale
+        elif name in cpu["sparse"] or loose:
+            # no gradient to read, or one a flip changed: Adam moves an
+            # element by at most about lr a step
+            ok = max(above, small) <= 2 * lr * BOOK_PARITY_STEPS
+        else:
+            ok = above <= adam_tol and small <= 2 * lr * BOOK_PARITY_STEPS
+        if not ok:
+            bad.append(name)
+    counters_ok = all(np.array_equal(gpu["counters"][k], v)
+                      for k, v in cpu["counters"].items())
+    return {"steps": BOOK_PARITY_STEPS, "loss_rel_err_by_step": losses,
+            "relu_sign_flips_by_step": flips, "loss_tol": loss_tol,
+            "optimizer": "adam(%g)" % lr if lr is not None else "sgd",
+            "params_max_rel_err": worst_rel,
+            "small_gradient_elements_parted": small_parted,
+            "params_out_of_tolerance": bad,
+            "ok": (max(losses) <= loss_tol and not bad and counters_ok)}
+
+
+def _dropout_on_the_card():
+    """Training-mode dropout on a card tensor: the kept share and the
+    scaling of both implementations."""
+    from paddle_tpu_torch.registry import OpLoweringContext, get_lowering
+
+    p, n = BOOK_DROPOUT_P, BOOK_DROPOUT_N
+    v = torch.rand(n, device="cuda") + 0.5
+    ctx = OpLoweringContext(None, torch.Generator("cuda").manual_seed(0))
+    rec = {}
+    for impl, keep in (("downgrade_in_infer", 1.0),
+                       ("upscale_in_train", 1.0 - p)):
+        outs = get_lowering("dropout")(
+            {"X": [v]}, {"dropout_prob": p, "dropout_implementation": impl,
+                         "seed": 3}, ctx)
+        y, kept = outs["Out"][0], outs["Mask"][0].bool()
+        share = float(kept.float().mean())
+        exact = bool(torch.equal(y[kept], v[kept] / keep)
+                     and not y[~kept].any())
+        rec[impl] = {"kept_share": share, "scaled_exactly": exact,
+                     "ok": exact and abs(share - (1 - p))
+                     <= 5 * (p * (1 - p) / n) ** 0.5}
+    return rec
+
+
+def phase_book_parity(card):
+    """Phase 25: BOOK_PARITY_STEPS f32 steps of each book model on the card
+    and on the CPU from the same values; where a ReLU input flips between
+    the devices, the f32 trajectory loosely and float64 runs of the same
+    program strictly."""
+    from paddle_tpu_torch.dtypes import numpy_dtype
+    from paddle_tpu_torch.tools import book_suite
+
+    failed = []
+    for model in book_suite.MODELS:
+        values = _startup_values(_book(model))
+        runs = {dev: _book_steps(model, dev, values, BOOK_PARITY_STEPS)
+                for dev in ("cpu", "cuda")}
+        n = 1 + len(runs["cpu"]["dense"])
+        flipped = any(((a > 0) != (b > 0)).any()
+                      for c, g in zip(runs["cpu"]["steps"],
+                                      runs["cuda"]["steps"])
+                      for a, b in zip(g[n:], c[n:]))
+        rec = {"phase": "book_parity", "model": model, "nvidia_smi": card,
+               "float32": _book_parity(model, runs["cpu"], runs["cuda"],
+                                       loose=flipped)}
+        ok = rec["float32"]["ok"]
+        if flipped:
+            # the same program in float64: the flips are f32 rounding only
+            # if the float64 runs agree at the strict tolerances
+            if not model.startswith("image_"):
+                ok = False
+                rec["float64"] = "no float64 build of this model"
+            else:
+                run64 = _book(model, dtype="float64")
+                declared = {v.name: numpy_dtype(v.dtype)
+                            for v in run64.startup.list_vars()}
+                v64 = {k: a.astype(declared[k]) for k, a in values.items()}
+                r64 = {dev: _book_steps(model, dev, v64, BOOK_PARITY_STEPS,
+                                        dtype="float64")
+                       for dev in ("cpu", "cuda")}
+                rec["float64"] = _book_parity(model, r64["cpu"],
+                                              r64["cuda"], loose=False)
+                ok = ok and rec["float64"]["ok"]
+        rec["ok"] = ok
+        emit(rec)
+        if not ok:
+            failed.append(model)
+    drop = _dropout_on_the_card()
+    emit({"phase": "book_parity", "check": "dropout in training mode",
+          "p": BOOK_DROPOUT_P, "values": BOOK_DROPOUT_N, **drop})
+    if failed or not all(r["ok"] for r in drop.values()):
+        raise AssertionError("book parity card vs CPU failed: %s" % failed)
+
+
+def phase_book_amp(card):
+    """Phase 26: AMP_MODELS under amp.decorate(Adam) on the card: the first
+    loss against the card's f32 run and the CPU's bf16 run, the f32 state
+    after AMP_STEPS steps, and the persistables saved and loaded in the JAX
+    package's file format with one bf16 persistable among them."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert
+
+    def amp_adam(fl, lr):
+        return fl.amp.decorate(fl.optimizer.Adam(lr))
+
+    failed = []
+    for model in AMP_MODELS:
+        values = _startup_values(_book(model))
+        first = {}
+        for key, device, amp in (("card_bf16", "cuda", True),
+                                 ("card_f32", "cuda", False),
+                                 ("cpu_bf16", "cpu", True)):
+            run = _book(model, optimizer=amp_adam if amp else None)
+            scope = convert.scope_from_numpy(values, fluid.Scope(), device)
+            exe = _executor(device)
+            (first[key],) = exe.run(run.main, feed=run.feed,
+                                    fetch_list=[run.cost], scope=scope)
+            if key == "card_bf16":
+                on_card = (run, scope, exe)
+        run, scope, exe = on_card
+        stats = [v.name for v in run.main.list_vars()
+                 if v.persistable and ("mean" in v.name or "variance" in v.name)
+                 and v.name.startswith("batch_norm")]
+        stats_before = convert.scope_to_numpy(scope, stats)
+        params = [p.name for p in run.main.all_parameters()]
+        for _ in range(AMP_STEPS - 2):
+            exe.run(run.main, feed=run.feed, fetch_list=[run.cost], scope=scope)
+        grads = exe.run(run.main, feed=run.feed, return_numpy=False,
+                        fetch_list=[p + "@GRAD" for p in params], scope=scope)
+        state = [v.name for v in run.main.list_vars() if v.persistable]
+        not_f32 = [n for n in state if scope.find_var(n).is_floating_point()
+                   and scope.find_var(n).dtype != torch.float32]
+        grads_f32 = all(g.dtype == torch.float32 for g in grads)
+        stats_moved = all(not np.array_equal(scope.find_tensor_as_numpy(n), a)
+                          for n, a in stats_before.items())
+        # save in the JAX package's format, with a bf16 persistable
+        bits = np.array([0x3FC0, 0xBF80, 0x0001, 0x4049], np.uint16)
+        run.main.global_block().create_var(name="amp_bf16_probe", shape=(4,),
+                                           dtype="bfloat16", persistable=True)
+        scope.var("amp_bf16_probe")
+        scope.set("amp_bf16_probe", torch.from_numpy(
+            bits.view(np.int16).copy()).view(torch.bfloat16).cuda())
+        d = os.path.join("build", "chip_amp", model)
+        shutil.rmtree(d, ignore_errors=True)
+        with fluid.scope_guard(scope):
+            fluid.io.save_persistables(exe, d, run.main)
+        on_disk = np.load(os.path.join(d, "amp_bf16_probe.npy"))
+        files_ok = (on_disk.dtype == np.dtype("V2")
+                    and np.array_equal(on_disk.view(np.uint16), bits)
+                    and all(np.load(os.path.join(d, p + ".npy")).dtype
+                            == np.float32 for p in params))
+        back = fluid.Scope()
+        with fluid.scope_guard(back):
+            fluid.io.load_persistables(exe, d, run.main)
+        probe = back.find_var("amp_bf16_probe")
+        round_trip = (probe.dtype == torch.bfloat16 and probe.is_cuda
+                      and np.array_equal(probe.view(torch.int16).cpu().numpy()
+                                         .view(np.uint16), bits)
+                      and all(np.array_equal(back.find_tensor_as_numpy(n),
+                                             scope.find_tensor_as_numpy(n))
+                              for n in params))
+        err_f32 = _rel(first["card_bf16"], first["card_f32"])
+        err_cpu = _rel(first["card_bf16"], first["cpu_bf16"])
+        ok = (err_f32 <= AMP_LOSS_TOL and err_cpu <= AMP_LOSS_TOL
+              and not not_f32 and grads_f32 and stats_moved and files_ok
+              and round_trip)
+        emit({"phase": "book_amp", "model": model, "nvidia_smi": card,
+              "first_loss": {k: float(v) for k, v in first.items()},
+              "rel_err_vs_card_f32": err_f32, "rel_err_vs_cpu_bf16": err_cpu,
+              "tol": AMP_LOSS_TOL, "steps": AMP_STEPS,
+              "state_vars": len(state), "state_not_f32": not_f32,
+              "grads_f32": grads_f32, "bn_stats": len(stats),
+              "bn_stats_moved": stats_moved, "files_in_jax_format": files_ok,
+              "bf16_round_trip": round_trip, "ok": ok})
+        if not ok:
+            failed.append(model)
+        shutil.rmtree(d, ignore_errors=True)
+    if failed:
+        raise AssertionError("AMP phase failed: %s" % failed)
+
+
+def phase_book_sparse(card):
+    """Phase 27: the is_sparse path's step on both merge routes and
+    against the dense gradient.  Returns the segment kernel's launches per
+    step on the recommender's kernel route (its main path in this
+    slice)."""
+    import os
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.kernels import _common
+    from paddle_tpu_torch.tools import book_suite
+
+    def sgd(fl, lr):
+        return fl.optimizer.SGD(lr)
+
+    cases = (("recommender", None, {}),
+             ("word2vec_softmax", sgd, {"is_sparse": True}))
+    failed, per_step = [], None
+    saved = os.environ.pop("PADDLE_TPU_SEGMENT_KERNEL", None)
+    try:
+        for model, opt, sizes in cases:
+            values = _startup_values(_book(model, optimizer=opt, **sizes))
+            res, later, ms, launches = {}, {}, {}, {}
+            for route in ("xla", "kernel", "dense"):
+                run = _book(model, optimizer=opt, **sizes)
+                if route == "dense":
+                    for op in run.main.global_block().ops:
+                        if op.type in ("lookup_table", "lookup_table_v2"):
+                            op.attrs["is_sparse"] = False
+                tables = sorted(book_suite.sparse_tables(run.main))
+                os.environ["PADDLE_TPU_SEGMENT_KERNEL"] = (
+                    "1" if route == "kernel" else "0")
+                scope = convert.scope_from_numpy(values, fluid.Scope(), "cuda")
+                exe = fluid.Executor(fluid.CUDAPlace(0))
+                state = [v.name for v in run.main.list_vars() if v.persistable]
+                torch.cuda.synchronize()
+                _common.reset_launches()
+                for step in range(SPARSE_STEPS):
+                    exe.run(run.main, feed=run.feed, fetch_list=[run.cost],
+                            scope=scope)
+                    if step == 0:
+                        res[route] = convert.scope_to_numpy(scope, state)
+                torch.cuda.synchronize()
+                launches[route] = dict(_common.launches)
+                later[route] = convert.scope_to_numpy(scope, state)
+                if route != "dense":
+                    sparse_tables = tables
+                t0 = time.perf_counter()
+                for _ in range(SPARSE_TIMED):
+                    exe.run(run.main, feed=run.feed, fetch_list=[run.cost],
+                            scope=scope)
+                torch.cuda.synchronize()
+                ms[route] = (time.perf_counter() - t0) / SPARSE_TIMED * 1e3
+            by_var = sorted(((_rel(res["kernel"][n], a), n)
+                             for n, a in res["xla"].items()), reverse=True)
+            route_err = by_var[0][0]
+            route_ok = all(e <= SPARSE_ROUTE_TOL * (2 if "moment2" in n else 1)
+                           for e, n in by_var)
+            dense_err = max(_rel(res["dense"][n], a)
+                            for n, a in res["xla"].items())
+            drift = {k: max(_rel(later[k][n], a)
+                            for n, a in later["xla"].items())
+                     for k in ("kernel", "dense")}
+            seg = launches["kernel"].get("segment_sum", 0)
+            others = {k: v for route in launches for k, v in
+                      launches[route].items() if v and k != "segment_sum"}
+            merging = 0 if opt is sgd else len(sparse_tables)
+            expect = merging * SPARSE_STEPS
+            ok = (route_ok and dense_err <= BOOK_TOL
+                  and seg == expect and not others
+                  and launches["xla"].get("segment_sum", 0) == 0)
+            emit({"phase": "book_sparse", "model": model, "nvidia_smi": card,
+                  "optimizer": "sgd" if opt is sgd else "adam",
+                  "sparse_tables": len(sparse_tables), "steps": SPARSE_STEPS,
+                  "kernel_vs_xla_max_rel_err": route_err,
+                  "kernel_vs_xla_worst": [[n, e] for e, n in by_var[:3]],
+                  "route_tol": SPARSE_ROUTE_TOL,
+                  "sparse_vs_dense_max_rel_err": dense_err,
+                  "dense_tol": BOOK_TOL,
+                  "after_%d_steps_max_rel_err" % SPARSE_STEPS: drift,
+                  "segment_sum_launches": seg,
+                  "segment_sum_launches_expected": expect,
+                  "ms_per_step": ms, "other_port_launches": others,
+                  "note": "sgd's sparse branch adds every slot without "
+                          "merging rows, as the reference's does"
+                          if opt is sgd else "", "ok": ok})
+            if not ok:
+                failed.append(model)
+            if model == "recommender":
+                per_step = seg / SPARSE_STEPS
+    finally:
+        os.environ.pop("PADDLE_TPU_SEGMENT_KERNEL", None)
+        if saved is not None:
+            os.environ["PADDLE_TPU_SEGMENT_KERNEL"] = saved
+    if failed:
+        raise AssertionError("sparse phase failed: %s" % failed)
+    return per_step
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2192,6 +2717,14 @@ def main():
     assert_no_launches("the deploy path")
     phase_control_flow(card)
     assert_no_launches("control flow")
+    phase_book_training(card)
+    phase_book_parity(card)
+    phase_book_amp(card)
+    assert_no_launches("the book suite (training, parity, AMP)")
+    seg_per_step = phase_book_sparse(card)
+    for rec in kernels:
+        if rec["name"] == "segment_sum":
+            rec["sparse_executor_launches_per_step"] = seg_per_step
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -6,9 +6,11 @@ module names so each counterpart is easy to find:
 - the Fluid program mode: ``framework`` (``Program``, ``Block``,
   ``Variable``, places), ``layers``, ``nets``, ``initializer``,
   ``backward``, ``optimizer``, ``ops`` (the op rules behind ``registry``)
-  and ``executor``, which runs a program op by op on tensors; with
-  ``import paddle_tpu_torch as fluid`` a program written for the JAX
-  package (``models/lenet.py``) runs unchanged;
+  and ``executor``, which runs a program op by op on tensors (with the
+  SelectedRows path of ``is_sparse`` lookups and, for a program ``amp``
+  tagged, bf16 compute with f32 masters); with ``import paddle_tpu_torch
+  as fluid`` a program written for the JAX package (``models/lenet.py``,
+  the book suite's ``models/book.py``) runs unchanged;
 - ``kernels``: the hand-written CUDA kernels (LayerNorm, flash attention,
   fused batch norm, the segment sum of sparse rows, the conv filter
   gradient) with their launch counters and plain PyTorch versions;
@@ -22,7 +24,9 @@ module names so each counterpart is easy to find:
   at one device) and ``serving.lattice``;
 - ``models.bert``, ``models.resnet``, ``models.deepfm``,
   ``models.transformer_nmt``, ``models.lenet``: the trainers and builders of
-  the five BASELINE configs; ``models.parity`` the learning criteria;
+  the five BASELINE configs; ``models.book`` the Fluid book suite;
+  ``models.parity`` the learning criteria;
+- ``amp`` (and ``contrib.mixed_precision``): ``decorate``, ``amp_guard``;
 - ``sparse``: SelectedRows and ``merge_rows``;
 - ``convert``: parameter trees and scopes to and from the JAX package's
   numpy form.
@@ -69,6 +73,9 @@ from . import inference
 from . import compiler
 from .compiler import CompiledProgram, BuildStrategy, ExecutionStrategy
 from .io import load, save
+from . import amp
+from .amp import amp_guard
+from . import contrib
 
 __all__ = [
     "Program", "Block", "Operator", "Variable", "Parameter", "program_guard",
@@ -79,5 +86,5 @@ __all__ = [
     "nets", "data_feeder", "DataFeeder", "ParamAttr", "datasets",
     "unique_name", "resolve_device", "metrics", "io", "inference",
     "compiler", "CompiledProgram", "BuildStrategy", "ExecutionStrategy",
-    "load", "save",
+    "load", "save", "amp", "amp_guard", "contrib",
 ]

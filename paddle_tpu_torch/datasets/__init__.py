@@ -1,6 +1,8 @@
-"""Corpus readers (counterpart of ``paddle_tpu/datasets``): so far WMT16,
-the NMT slice's corpus, and MNIST, LeNet's.  Copies of the JAX package's
-jax-free loaders.
+"""Corpus readers (counterpart of ``paddle_tpu/datasets``): WMT16, the NMT
+slice's corpus; MNIST, LeNet's; and the book suite's imikolov (word2vec),
+movielens (recommender), imdb (sentiment), conll05 (semantic roles),
+uci_housing (fit_a_line) and cifar (image classification).  Copies of the
+JAX package's jax-free loaders.
 
 Offline contract, as in the reference: a loader first looks for the
 corpus's cache layout under ``common.DATA_HOME`` and otherwise serves a
@@ -10,5 +12,12 @@ and says so once per corpus."""
 from . import common  # noqa: F401
 from . import mnist  # noqa: F401
 from . import wmt16  # noqa: F401
+from . import cifar  # noqa: F401
+from . import uci_housing  # noqa: F401
+from . import imdb  # noqa: F401
+from . import imikolov  # noqa: F401
+from . import movielens  # noqa: F401
+from . import conll05  # noqa: F401
 
-__all__ = ["common", "mnist", "wmt16"]
+__all__ = ["common", "mnist", "wmt16", "cifar", "uci_housing", "imdb",
+           "imikolov", "movielens", "conll05"]

@@ -3,15 +3,27 @@
 Parity surface: python/paddle/fluid/executor.py:418 (Executor.run with
 feed/fetch_list/scope) and framework/executor.cc:192 (C++ Executor::Run).
 
-Counterpart of the JAX package's ``executor.py``: the plain path of its
-``_lower`` (forward, one autodiff step, optimizer ops), run eagerly instead
-of traced and compiled.  The forward ops run with the dense parameters as
-fresh leaves that require grad; ``torch.autograd.grad`` of the summed loss
-gives each ``<param>@GRAD``; the ops after the backward section (the
-optimizer) run under ``torch.no_grad()``; the persistables they write go
-back to the scope.  What the JAX executor caches as a compiled step, this
-one caches as an analysed plan (op rules, sections, state names), keyed by
-program version, feed shapes and fetch names.
+Counterpart of the JAX package's ``executor.py``: its ``_lower`` (forward,
+one autodiff step, optimizer ops) with the sparse-lookup and AMP branches,
+run eagerly instead of traced and compiled.  The forward ops run with the
+dense parameters as fresh leaves that require grad; ``torch.autograd.grad``
+of the summed loss gives each ``<param>@GRAD``; the ops after the backward
+section (the optimizer) run under ``torch.no_grad()``; the persistables
+they write go back to the scope.  What the JAX executor caches as a
+compiled step, this one caches as an analysed plan (op rules, sections,
+state names, sparse tables), keyed by program version, feed shapes and
+fetch names.
+
+- Sparse lookups (``lookup_table(is_sparse=True)``): an eligible table
+  (``_find_sparse_lookups``) is not a leaf; each of its lookups' gathered
+  rows is, so its gradient is a ``sparse.SelectedRows`` of (ids, row
+  gradients) and the [V, D] dense gradient never exists.  An ineligible
+  table warns once and takes the dense gradient.
+- AMP (a program ``amp.decorate`` tagged): the float32 params and env
+  values are cast to bfloat16 at the forward's boundary; the loss is summed
+  in f32, so the gradients come back f32 for the f32 masters; the optimizer
+  section sees the f32 masters, moments and LR state again, and state the
+  forward wrote (``batch_norm``'s running stats) is cast back to its dtype.
 
 Sub-blocks (``while``, ``conditional_block``, ``cond``, ``scan``) run
 through ``OpLoweringContext.interpret_block``: each block's op rules are
@@ -19,13 +31,14 @@ looked up once, when the plan is made, and a control-flow rule runs its
 sub-block's list on a copy of the env as often as it needs.  A one-device
 ``CompiledProgram`` runs as the program it wraps.
 
-The JAX executor's other branches (pipeline, sparse lookups, AMP,
-recompute, data-parallel CompiledProgram/fleet, monitor and sentinel, the
-warm store, py_reader) raise ``NotImplementedError`` naming the ROADMAP
-item that brings them; none quietly runs another path.
+The JAX executor's other branches (pipeline, recompute, data-parallel
+CompiledProgram/fleet, monitor and sentinel, the warm store, py_reader)
+raise ``NotImplementedError`` naming the ROADMAP item that brings them; none
+quietly runs another path.
 """
 
 import os
+import warnings
 
 import numpy as np
 import torch
@@ -37,6 +50,7 @@ from .compiler import CompiledProgram
 from .kernels._common import resolve_device
 from .registry import OpLoweringContext, get_lowering
 from .scope import global_scope
+from .sparse import SelectedRows
 
 __all__ = ["Executor"]
 
@@ -71,11 +85,6 @@ def _refuse_unported(program):
         raise NotImplementedError(
             "PipelineOptimizer programs: the microbatched pipeline path "
             "waits (ROADMAP Queue 1 item 5, pipeline)")
-    amp = getattr(program, "_amp", None)
-    if amp and amp.get("enabled"):
-        raise NotImplementedError(
-            "AMP programs: bf16 compute with f32 masters waits (ROADMAP "
-            "Queue 1 item 3, amp.py)")
     if (getattr(program, "_fleet_strategy", None) is not None
             or getattr(program, "_dist_info", None) is not None):
         raise NotImplementedError(
@@ -90,11 +99,155 @@ def _refuse_unported(program):
             raise NotImplementedError(
                 "recompute (RecomputeOptimizer / use_remat) waits (ROADMAP "
                 "Queue 1 item 3)")
-        if (op.type in ("lookup_table", "lookup_table_v2")
-                and op.attrs.get("is_sparse")):
-            raise NotImplementedError(
-                "lookup_table(is_sparse=True): SelectedRows gradients through "
-                "the executor wait (ROADMAP Queue 1 item 3)")
+
+
+# optimizer ops with a SelectedRows branch (ops/optimizer_ops.py); any other
+# terminal consumer of a sparse gradient makes the table take the dense
+# gradient, as in the JAX executor
+_SPARSE_GRAD_CONSUMERS = {"sgd", "momentum", "adam", "adagrad"}
+
+# gradient transforms the JAX executor lets a sparse gradient through (the
+# regularizer's scale/sign + sum, the clips); the port's rules for sum,
+# scale and the elementwise binaries keep it sparse, and a clip the port
+# lacks raises "no lowering registered" as any unported op does
+_SPARSE_GRAD_TRANSFORMS = {"sum", "clip", "clip_by_norm", "scale",
+                           "elementwise_mul", "elementwise_div"}
+
+# index-preserving ops an Ids tensor may pass through between the feed and
+# the lookup: the derived ids can be computed from the feeds alone, ahead
+# of the forward
+_IDS_CHAIN_OPS = {"reshape", "reshape2", "squeeze", "squeeze2", "unsqueeze",
+                  "unsqueeze2", "slice", "concat", "split", "cast",
+                  "transpose", "transpose2", "assign"}
+
+_SPARSE_FALLBACK_WARNED = set()
+
+
+def _first_unsupported_consumer(w_grad, rest_ops, block):
+    """None when every consumer chain from ``w_grad`` reaches an optimizer
+    op with a SelectedRows branch through sparse-capable transforms, else
+    the op type that breaks a chain (JAX ``executor.py:161``)."""
+    frontier = {w_grad}
+    seen = set()
+    while frontier:
+        name = frontier.pop()
+        if name in seen:
+            continue
+        seen.add(name)
+        for op in rest_ops:
+            if name not in op.input_arg_names:
+                continue
+            if op.type in _SPARSE_GRAD_CONSUMERS:
+                continue
+            if op.type == "squared_l2_norm":
+                continue        # reduces to a dense scalar; the chain ends
+            if op.type in _SPARSE_GRAD_TRANSFORMS:
+                if op.type in ("elementwise_mul", "elementwise_div"):
+                    # only a sparse X by a scalar Y stays sparse
+                    if op.inputs.get("X", [None])[0] != name:
+                        return op.type
+                    y = block._find_var_recursive(
+                        (op.inputs.get("Y") or [None])[0])
+                    yshape = tuple(getattr(y, "shape", ()) or ())
+                    if any(int(d) != 1 for d in yshape):
+                        return op.type
+                frontier.update(op.output_arg_names)
+                continue
+            return op.type
+    return None
+
+
+def _ids_chain(ids_name, fwd_ops, feed_names):
+    """The ops, in program order, that derive ``ids_name`` from feeds
+    through index-preserving ops; [] if it is a feed; None if it cannot be
+    derived so (JAX ``executor.py:407``)."""
+    if ids_name in feed_names:
+        return []
+    producer, writes = {}, {}
+    for op in fwd_ops:
+        for n in op.output_arg_names:
+            producer[n] = op
+            writes[n] = writes.get(n, 0) + 1
+    chain, seen = [], set()
+
+    def walk(name):
+        if name in feed_names:
+            return True
+        op = producer.get(name)
+        if op is None or op.type not in _IDS_CHAIN_OPS:
+            return False
+        if writes.get(name, 0) > 1:
+            return False        # which write the lookup reads is unclear
+        if id(op) in seen:
+            return True
+        if not all(walk(i) for i in op.input_arg_names):
+            return False
+        seen.add(id(op))
+        chain.append(op)
+        return True
+
+    if not walk(ids_name):
+        return None
+    order = {id(op): i for i, op in enumerate(fwd_ops)}
+    chain.sort(key=lambda op: order[id(op)])
+    return chain
+
+
+def _warn_sparse_fallback(program, w, reason):
+    key = (id(program), w)
+    if key in _SPARSE_FALLBACK_WARNED:
+        return
+    _SPARSE_FALLBACK_WARNED.add(key)
+    warnings.warn(
+        "lookup_table(is_sparse=True) on table %r falls back to the DENSE "
+        "gradient path (%s); the full [V, D] gradient will materialize"
+        % (w, reason), stacklevel=3)
+
+
+def _find_sparse_lookups(program, fwd_ops, rest_ops, param_names, feed_names):
+    """Tables eligible for the SelectedRows gradient (JAX
+    ``executor.py:458``): every forward use of the table is an
+    ``is_sparse`` lookup whose Ids come from the feed (directly or through
+    index-preserving ops), and every consumer of its ``@GRAD`` is an
+    optimizer op with a sparse branch.  Returns {table: [(op, ids_name,
+    attrs, chain_ops)]}; an ineligible ``is_sparse`` table warns once."""
+    uses = {}
+    eligible = {}
+    for op in fwd_ops:
+        for n in op.input_arg_names:
+            if n in param_names:
+                uses.setdefault(n, []).append(op)
+    lookups = ("lookup_table", "lookup_table_v2")
+    for w, ops_using in uses.items():
+        wants_sparse = any(op.type in lookups and op.attrs.get("is_sparse")
+                           for op in ops_using)
+        specs, reason = [], None
+        for op in ops_using:
+            if (op.type in lookups and op.attrs.get("is_sparse")
+                    and op.inputs.get("W", [None])[0] == w):
+                ids_name = op.inputs.get("Ids", [None])[0]
+                chain = _ids_chain(ids_name, fwd_ops, feed_names)
+                if chain is None:
+                    specs, reason = None, (
+                        "Ids %r are not derivable from feeds by "
+                        "index-preserving ops" % ids_name)
+                    break
+                specs.append((op, ids_name, op.attrs, chain))
+            else:
+                specs, reason = None, (
+                    "table has a non-sparse-lookup use (%s)" % op.type)
+                break
+        if specs is not None:
+            bad = _first_unsupported_consumer(
+                w + "@GRAD", rest_ops, program.global_block())
+            if bad is not None:
+                specs, reason = None, (
+                    "gradient consumer %r has no SelectedRows branch" % bad)
+        if specs:
+            eligible[w] = specs
+        elif wants_sparse:
+            _warn_sparse_fallback(program, w, reason or "ineligible")
+    return eligible
 
 
 def refuse_warm_dir():
@@ -158,9 +311,9 @@ def _run_calls(calls, env, ctx):
 class _Plan:
     """A program analysed for one run key: its state names, its global
     block's ops split at the backward section and each sub-block's ops, each
-    op with its rule."""
+    op with its rule, and the tables whose gradient is sparse."""
 
-    def __init__(self, program):
+    def __init__(self, program, feed_names=()):
         _refuse_unported(program)
         self.program = program
         block = program.global_block()
@@ -175,15 +328,37 @@ class _Plan:
                 "gradients() combined?); the executor runs exactly one — "
                 "compute extra gradients in a separate program, or via "
                 "gradients() alone" % len(bwd_idxs))
+        self.sparse = {}
+        self.written_in_fwd = set()
         if not bwd_idxs:
             self.fwd, self.rest = [_OpCall(op, block) for op in ops], []
             self.loss_name, self.param_names = None, []
             return
         i = bwd_idxs[0]
-        self.fwd = [_OpCall(op, block) for op in ops[:i]]
-        self.rest = [_OpCall(op, block) for op in ops[i + 1:]]
+        fwd_ops, rest_ops = ops[:i], ops[i + 1:]
         self.loss_name = ops[i].attrs["loss_name"]
         self.param_names = list(ops[i].attrs["param_names"])
+        self.fwd = [_OpCall(op, block) for op in fwd_ops]
+        self.rest = [_OpCall(op, block) for op in rest_ops]
+        self.written_in_fwd = {n for op in fwd_ops for n in op.output_arg_names}
+        amp = getattr(program, "_amp", None)
+        self.amp_dtype = (torch.bfloat16 if amp and amp.get("enabled")
+                          else None)
+        # sparse tables: each lookup's output is its gathered rows, a leaf
+        # of its own, so autograd yields row gradients (JAX executor.py
+        # :747-767)
+        specs = _find_sparse_lookups(program, fwd_ops, rest_ops,
+                                     set(self.param_names), set(feed_names))
+        by_op = {id(c.op): c for c in self.fwd}
+        for w, lookups in specs.items():
+            self.sparse[w] = []
+            for k, (op, ids_name, attrs, chain) in enumerate(lookups):
+                leaf = "@ROWS@%s@%d" % (w, k)
+                by_op[id(op)].rule = (
+                    lambda ins, attrs_, ctx, leaf=leaf:
+                    {"Out": [ctx.env[leaf]]})
+                self.sparse[w].append(
+                    (leaf, ids_name, attrs, [by_op[id(c)] for c in chain]))
 
     def context(self, generator):
         """The rules' context for one run: sub-blocks run from this plan."""
@@ -198,26 +373,96 @@ class _Plan:
         _run_calls(self.sub[idx], env, ctx)
         return env
 
+    def _sparse_rows(self, env, ctx):
+        """Each sparse lookup's gathered rows as a leaf that requires grad,
+        by leaf name; the ids a lookup reads are made first from the feeds
+        when an index-preserving chain derives them."""
+        lookup = get_lowering("lookup_table")
+        leaves = {}
+        for w, lookups in self.sparse.items():
+            for leaf, ids_name, attrs, chain in lookups:
+                if ids_name not in env:
+                    _run_calls(chain, env, ctx)
+                rows = lookup({"W": [env[w]], "Ids": [env[ids_name]]},
+                              attrs, ctx)["Out"][0]
+                leaves[leaf] = rows.detach().requires_grad_(True)
+        return leaves
+
+    def _sparse_grad(self, env, w, grads):
+        """``w@GRAD`` as a SelectedRows of the lookups' ids and row
+        gradients; a ``padding_idx`` id points at the out-of-range
+        sentinel, so its row does not train (JAX executor.py:824-845)."""
+        height = env[w].shape[0]
+        ids_parts, val_parts = [], []
+        for leaf, ids_name, attrs, _ in self.sparse[w]:
+            g = grads[leaf]
+            ids = env[ids_name]
+            if ids.ndim > 1 and ids.shape[-1] == 1:
+                ids = ids[..., 0]
+            ids = ids.reshape(-1)
+            pad = int(attrs.get("padding_idx", -1))
+            if pad >= 0:
+                ids = torch.where(ids == pad, height, ids)
+            ids_parts.append(ids)
+            val_parts.append(g.reshape(-1, g.shape[-1]))
+        return SelectedRows(torch.cat(ids_parts), torch.cat(val_parts),
+                            height)
+
     def run(self, env, ctx):
         if self.loss_name is None:
             with torch.no_grad():
                 _run_calls(self.fwd, env, ctx)
             return
-        params = {p: env[p].detach().requires_grad_(True)
-                  for p in self.param_names if p in env}
-        env.update(params)
+        dense = [p for p in self.param_names
+                 if p in env and p not in self.sparse]
+        with torch.no_grad():
+            leaves = self._sparse_rows(env, ctx)
+        leaves.update({p: env[p].detach().requires_grad_(True)
+                       for p in dense})
+        amp = self.amp_dtype
+        if amp is None:
+            env.update(leaves)
+            fwd_env = env
+        else:
+            # bf16 compute with f32 masters: float32 values are cast at the
+            # forward's boundary, ints stay as they are
+            fwd_env = {k: _amp_cast(v, amp) for k, v in env.items()}
+            fwd_env.update({k: _amp_cast(v, amp) for k, v in leaves.items()})
         with torch.enable_grad():
-            _run_calls(self.fwd, env, ctx)
-            loss = env[self.loss_name].float().sum()
-        grads = torch.autograd.grad(loss, list(params.values()),
-                                    allow_unused=True)
-        for (name, leaf), g in zip(params.items(), grads):
+            _run_calls(self.fwd, fwd_env, ctx)
+            loss = fwd_env[self.loss_name].float().sum()
+        grads = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()), allow_unused=True)))
+        if amp is not None:
+            # the optimizer section sees the f32 masters, moments and LR
+            # state; state the forward wrote (batch_norm's running stats)
+            # comes back in its own dtype
+            for k, v in fwd_env.items():
+                orig = env.get(k)
+                if orig is None:
+                    env[k] = v
+                elif k in self.written_in_fwd:
+                    env[k] = v.to(orig.dtype)
+        for name in dense:
+            leaf, g = leaves[name], grads[name]
             env[name] = leaf.detach()
             # a parameter the loss does not reach has a zero gradient, as
             # jax.grad gives it
             env[name + "@GRAD"] = torch.zeros_like(env[name]) if g is None else g
+        for w in self.sparse:
+            for leaf, *_ in self.sparse[w]:
+                env.pop(leaf, None)
+                if grads[leaf] is None:
+                    grads[leaf] = torch.zeros_like(leaves[leaf])
+            env[w + "@GRAD"] = self._sparse_grad(env, w, grads)
         with torch.no_grad():
             _run_calls(self.rest, env, ctx)
+
+
+def _amp_cast(v, dtype):
+    if isinstance(v, torch.Tensor) and v.dtype == torch.float32:
+        return v.to(dtype)
+    return v
 
 
 class Executor:
@@ -274,7 +519,7 @@ class Executor:
         # a cached plan holds its program, so the program's id stays its own
         plan = self._cache.get(key) if use_program_cache else None
         if plan is None:
-            plan = _Plan(program)
+            plan = _Plan(program, feed_tensors)
             if use_program_cache:
                 self._cache[key] = plan
 
@@ -295,6 +540,11 @@ class Executor:
         if missing:
             raise KeyError("fetch targets %s are neither fed nor computed by "
                            "the program" % missing)
+        sparse = [n for n in fetch_names if isinstance(env[n], SelectedRows)]
+        if sparse:
+            raise TypeError(
+                "fetch targets %s are SelectedRows gradients of is_sparse "
+                "lookups; fetch the updated tables instead" % sparse)
         fetches = [env[n].detach() for n in fetch_names]
         for n in plan.state_out:
             if n in env:

@@ -11,9 +11,11 @@ package).  Scope values are tensors here; they go to numpy on the host to
 be written, and come back as tensors on the executor's device (the CPU when
 no executor is given; the executor moves them on its first run).
 
-numpy has no bfloat16, and the port writes no format of its own, so a
-bfloat16 value raises: bf16 persistables come with AMP (ROADMAP Queue 1
-item 3, amp.py).
+numpy has no bfloat16 of its own.  The JAX package's files hold a bf16
+value as its raw 16-bit patterns, numpy dtype ``|V2`` (what ``np.save``
+writes for an ml_dtypes bfloat16 array); the port writes the same bytes,
+and reads them back as ``torch.bfloat16`` for a var declared bfloat16, so
+each package loads the other's directories.
 """
 
 import os
@@ -50,14 +52,15 @@ def _is_parameter(var):
     return isinstance(var, Parameter)
 
 
+_BF16_FILE_DTYPE = np.dtype("V2")
+
+
 def _to_numpy(name, value):
     if isinstance(value, torch.Tensor):
+        value = value.detach().cpu()
         if value.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "%s is bfloat16, which numpy (and so the .npy/.npz format "
-                "shared with the JAX package) cannot hold: bf16 persistables "
-                "wait (ROADMAP Queue 1 item 3, amp.py)" % name)
-        return value.detach().cpu().numpy()
+            return value.view(torch.int16).numpy().view(_BF16_FILE_DTYPE)
+        return value.numpy()
     return np.asarray(value)
 
 
@@ -65,8 +68,19 @@ def _device_of(executor):
     return executor.device if executor is not None else torch.device("cpu")
 
 
-def _to_tensor(array, device):
-    return torch.from_numpy(np.array(array)).to(device)
+def _to_tensor(array, device, var=None):
+    """``array`` as a tensor on ``device``.  A ``|V2`` array holds bf16 bit
+    patterns: it becomes a bfloat16 tensor when ``var`` is declared
+    bfloat16, and raises when ``var`` is declared another dtype."""
+    array = np.array(array)
+    if array.dtype == _BF16_FILE_DTYPE:
+        if var is not None and var.dtype != "bfloat16":
+            raise ValueError(
+                "%s is declared %s, but its file holds 16-bit patterns (a "
+                "bfloat16 value)" % (var.name, var.dtype))
+        return torch.from_numpy(array.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(array).to(device)
 
 
 def save_vars(executor, dirname, main_program=None, vars=None, predicate=None,
@@ -114,13 +128,13 @@ def load_vars(executor, dirname, main_program=None, vars=None, predicate=None,
             for v in vars:
                 if v.name in data:
                     scope.var(v.name)
-                    scope.set(v.name, _to_tensor(data[v.name], device))
+                    scope.set(v.name, _to_tensor(data[v.name], device, v))
     else:
         for v in vars:
             path = os.path.join(dirname, v.name + ".npy")
             if os.path.exists(path):
                 scope.var(v.name)
-                scope.set(v.name, _to_tensor(np.load(path), device))
+                scope.set(v.name, _to_tensor(np.load(path), device, v))
 
 
 def load_params(executor, dirname, main_program=None, filename=None,
@@ -317,5 +331,7 @@ def load(program, model_path, executor=None, var_list=None):
             raise RuntimeError(
                 "fluid.load: variables %s not found in checkpoint %s (its "
                 "keys: %s...)" % (missing, path, sorted(data.files)[:8]))
+        declared = {v.name: v for v in program.list_vars()}
         for name in names:
-            scope.set(name, _to_tensor(data[name], device))
+            scope.set(name, _to_tensor(data[name], device,
+                                       declared.get(name)))

@@ -235,8 +235,8 @@ def array_write(x, i, array=None):
     idx = _static_index(i)
     if idx is None:
         raise NotImplementedError(
-            "dynamic array_write index requires a scan capture "
-            "(layers.scan/StaticRNN wait: ROADMAP Queue 1 item 3)"
+            "dynamic array_write index requires a scan capture; use "
+            "layers.scan_block/StaticRNN"
         )
     if idx < len(array):
         array[idx] = x
@@ -282,7 +282,7 @@ def array_read(array, i):
         return _reshape(picked, list(array[0].shape))
     raise NotImplementedError(
         "dynamic array_read over ragged TensorArray requires a scan "
-        "capture (layers.scan/StaticRNN wait: ROADMAP Queue 1 item 3)"
+        "capture; use layers.scan_block/StaticRNN"
     )
 
 

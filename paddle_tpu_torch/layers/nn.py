@@ -167,8 +167,8 @@ def embedding(
     tp_split=None,
 ):
     """Parity: layers/nn.py embedding (lookup_table_op).  is_sparse selects the
-    SelectedRows grad path in the reference; under XLA sparse grads lower to
-    scatter-add, so the flag is accepted and the dense path is used.
+    SelectedRows gradient: the executor differentiates the gathered rows, not
+    the table, when the table is eligible (``executor._find_sparse_lookups``).
 
     tp_split ("row" | "col" | None): tensor-parallel hook — "row" shards the
     vocab dim over the mesh's model axis (distributed_lookup_table layout),

@@ -1,11 +1,10 @@
 """Composite networks (parity: python/paddle/fluid/nets.py —
-simple_img_conv_pool, img_conv_group, glu, scaled_dot_product_attention).
-A copy of the JAX package's ``nets.py``; ``sequence_conv_pool`` waits for
-``layers.sequence``."""
+simple_img_conv_pool, img_conv_group, sequence_conv_pool, glu,
+scaled_dot_product_attention).  A copy of the JAX package's ``nets.py``."""
 
 from . import layers
 
-__all__ = ["simple_img_conv_pool", "img_conv_group", "glu",
+__all__ = ["sequence_conv_pool", "simple_img_conv_pool", "img_conv_group", "glu",
            "scaled_dot_product_attention"]
 
 
@@ -66,3 +65,16 @@ def scaled_dot_product_attention(queries, keys, values, num_heads=1, dropout_rat
         weights = layers.dropout(weights, dropout_prob=dropout_rate)
     return layers.matmul(weights, values)
 
+
+def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
+                       act="sigmoid", pool_type="max", bias_attr=None,
+                       seq_len=None):
+    """Parity: nets.py sequence_conv_pool — sequence_conv + sequence_pool
+    over the padded [N, T, D] representation (pass seq_len to mask tails)."""
+    from .layers.extras import sequence_conv
+    from .layers.sequence import sequence_pool
+
+    conv_out = sequence_conv(input, num_filters=num_filters,
+                             filter_size=filter_size, param_attr=param_attr,
+                             bias_attr=bias_attr, act=act, seq_len=seq_len)
+    return sequence_pool(conv_out, pool_type, seq_len=seq_len)

@@ -1,10 +1,13 @@
 """Math op rules on tensors: the elementwise binaries, compares and logical
-ops, scale, mul, mean and top_k (counterparts of the rules in
-``paddle_tpu/ops/math_ops.py`` that LeNet and control-flow programs run;
-the others wait).
+ops, scale, sum, mul, mean, the reductions, floor and top_k (counterparts of
+the rules in ``paddle_tpu/ops/math_ops.py`` that the Fluid slices run; the
+others wait).
 
 Reference parity: operators/elementwise/, controlflow/compare_op.cc,
-logical_op.cc, scale_op.cc, mul_op.cc, mean_op.cc, top_k_op.cc.
+logical_op.cc, scale_op.cc, sum_op.cc, mul_op.cc, mean_op.cc,
+reduce_ops/, activation_op.cc (floor), top_k_op.cc.  A SelectedRows
+gradient (``sparse.py``) passes ``scale``, a binary by a scalar and ``sum``
+as the JAX rules pass it (math/selected_rows_functor.cc).
 """
 
 import math
@@ -34,9 +37,14 @@ def _register_binary(name, fn):
     def _rule(ins, attrs, ctx, fn=fn):
         a, b = x(ins, "X"), x(ins, "Y")
         if isinstance(a, SelectedRows):
+            if b.numel() == 1:
+                # sparse grad x scalar (the global-norm clip factor, a
+                # shape-[1] fluid scalar included): map over the rows'
+                # values, keep the sparse representation
+                return out(Out=SelectedRows(a.rows, fn(a.values, b.reshape(())),
+                                            a.height))
             raise NotImplementedError(
-                "%s of a SelectedRows gradient: sparse gradients through the "
-                "executor wait (ROADMAP Queue 1 item 3)" % name)
+                "%s: SelectedRows lhs supports only scalar rhs" % name)
         a, b = _bcast(a, b, int(attrs.get("axis", -1)))
         return out(Out=fn(a, b))
 
@@ -46,6 +54,7 @@ _register_binary("elementwise_sub", torch.sub)
 _register_binary("elementwise_mul", torch.mul)
 # true division, integers included, as jnp.divide
 _register_binary("elementwise_div", torch.true_divide)
+_register_binary("elementwise_pow", torch.pow)
 
 _register_binary("less_than", torch.lt)
 _register_binary("less_equal", torch.le)
@@ -71,9 +80,8 @@ def _scale(ins, attrs, ctx):
     scale = attrs.get("scale", 1.0)
     bias = attrs.get("bias", 0.0)
     if isinstance(v, SelectedRows):
-        raise NotImplementedError(
-            "scale of a SelectedRows gradient: sparse gradients through the "
-            "executor wait (ROADMAP Queue 1 item 3)")
+        return out(Out=SelectedRows(v.rows, v.values * scale + bias,
+                                    v.height))
     w = v if v.is_floating_point() else v.to(torch.float32)
     if attrs.get("bias_after_scale", True):
         r = w * scale + bias
@@ -81,6 +89,36 @@ def _scale(ins, attrs, ctx):
         r = (w + bias) * scale
     integer = not v.is_floating_point() and v.dtype != torch.bool
     return out(Out=r.to(v.dtype) if integer else r)
+
+
+@register_op("sum")
+def _sum(ins, attrs, ctx):
+    vs = ins["X"]
+    sparse = [v for v in vs if isinstance(v, SelectedRows)]
+    if sparse:
+        if len(sparse) == len(vs):
+            # SelectedRows + SelectedRows: concatenate the slices; duplicate
+            # rows merge when applied (MergeAdd semantics)
+            return out(Out=SelectedRows(
+                torch.cat([v.rows for v in sparse]),
+                torch.cat([v.values for v in sparse]), sparse[0].height))
+        # a SelectedRows gradient plus a dense term (the regularizer's
+        # pattern): the term is added to the touched rows only, after the
+        # rows are merged, so a duplicated id gets it once; merged() parks
+        # empty slots at row == height, whose term is zero
+        assert len(sparse) == 1, "at most one sparse addend supported"
+        rows, vals = sparse[0].merged()
+        height = sparse[0].height
+        safe = rows.clamp(max=height - 1)
+        valid = (rows < height)[:, None]
+        for d in vs:
+            if not isinstance(d, SelectedRows):
+                vals = vals + torch.where(valid, d[safe], 0.0)
+        return out(Out=SelectedRows(rows, vals, height))
+    r = vs[0]
+    for v in vs[1:]:
+        r = r + v
+    return out(Out=r)
 
 
 @register_op("mul")
@@ -96,6 +134,47 @@ def _mul(ins, attrs, ctx):
 
     r = _flat2(a, xd) @ _flat2(b, yd)
     return out(Out=r.reshape(tuple(a.shape[:xd]) + tuple(b.shape[yd:])))
+
+
+@register_op("floor")
+def _floor(ins, attrs, ctx):
+    return out(Out=torch.floor(x(ins, "X")))
+
+
+def _reduce(fn):
+    """attrs: dim (default [0]), keep_dim, reduce_all.  ``fn(v, dims,
+    keep)`` reduces over a tuple of dims, as ``jnp.sum(axis=...)``."""
+    def rule(ins, attrs, ctx):
+        v = x(ins, "X")
+        if attrs.get("reduce_all", False):
+            dims = tuple(range(v.ndim))
+        else:
+            dims = tuple(a if a >= 0 else a + v.ndim
+                         for a in attrs.get("dim", [0]))
+        return out(Out=fn(v, dims, bool(attrs.get("keep_dim", False))))
+
+    return rule
+
+
+def _one_dim_at_a_time(op):
+    """A reduction torch takes over one dim at a time (prod, all, any),
+    applied over each of ``dims`` from the last."""
+    def fn(v, dims, keep):
+        for d in sorted(set(dims), reverse=True):
+            v = op(v, dim=d, keepdim=keep)
+        return v
+
+    return fn
+
+
+register_op("reduce_sum")(_reduce(lambda v, d, k: v.sum(dim=d, keepdim=k)))
+register_op("reduce_mean")(_reduce(lambda v, d, k: v.mean(dim=d, keepdim=k)))
+# amax/amin, as jnp.max/min: tied extremes share the gradient equally
+register_op("reduce_max")(_reduce(lambda v, d, k: v.amax(dim=d, keepdim=k)))
+register_op("reduce_min")(_reduce(lambda v, d, k: v.amin(dim=d, keepdim=k)))
+register_op("reduce_prod")(_reduce(_one_dim_at_a_time(torch.prod)))
+register_op("reduce_all")(_reduce(_one_dim_at_a_time(torch.all)))
+register_op("reduce_any")(_reduce(_one_dim_at_a_time(torch.any)))
 
 
 @register_op("mean")

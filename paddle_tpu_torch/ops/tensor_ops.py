@@ -1,15 +1,18 @@
-"""Tensor op rules: fill_constant, gaussian_random and uniform_random (the
-startup program's initializers), and assign, cast, reshape2, concat,
-stack, gather, one_hot, increment and where, which control-flow programs
-and ``Switch`` run (counterparts of the rules in
-``paddle_tpu/ops/tensor_ops.py``; the others wait).
+"""Tensor op rules: fill_constant, fill_constant_batch_size_like,
+gaussian_random and uniform_random (the startup program's initializers),
+and assign, cast, reshape2, transpose2, concat, split, squeeze2,
+unsqueeze2, expand, stack, gather, one_hot, increment and where
+(counterparts of the rules in ``paddle_tpu/ops/tensor_ops.py``; the others
+wait).
 
-Parity: operators/fill_constant_op.cc, gaussian_random_op.cc,
+Parity: operators/fill_constant_op.cc,
+fill_constant_batch_size_like_op.cc, gaussian_random_op.cc,
 uniform_random_op.cc, assign_op.cc, cast_op.cc, reshape_op.cc,
-concat_op.cc, stack_op.cc, gather_op.cc, one_hot_op.cc, increment_op.cc,
-where_op.cc.  Random ops draw from ``torch`` generators seeded per run and
-op (``common.op_generator``); they do not reproduce ``jax.random`` streams,
-only their distributions.
+transpose_op.cc, concat_op.cc, split_op.cc, squeeze_op.cc,
+unsqueeze_op.cc, expand_op.cc, stack_op.cc, gather_op.cc, one_hot_op.cc,
+increment_op.cc, where_op.cc.  Random ops draw from ``torch`` generators
+seeded per run and op (``common.op_generator``); they do not reproduce
+``jax.random`` streams, only their distributions.
 """
 
 import torch
@@ -23,6 +26,16 @@ def _fill_constant(ins, attrs, ctx):
     shape = [int(s) for s in attrs["shape"]]
     return out(Out=torch.full(shape, attrs.get("value", 0.0),
                               dtype=dtype_of(attrs), device=ctx.device))
+
+
+@register_op("fill_constant_batch_size_like")
+def _fill_constant_bsl(ins, attrs, ctx):
+    ref = x(ins, "Input")
+    shape = [int(s) for s in attrs["shape"]]
+    shape[int(attrs.get("output_dim_idx", 0))] = ref.shape[
+        int(attrs.get("input_dim_idx", 0))]
+    return out(Out=torch.full(shape, attrs.get("value", 0.0),
+                              dtype=dtype_of(attrs), device=ref.device))
 
 
 @register_op("gaussian_random")
@@ -52,6 +65,10 @@ def _cast(ins, attrs, ctx):
     return out(Out=x(ins, "X").to(dtype_of(attrs, attrs.get("out_dtype", "float32"))))
 
 
+def _xshape(v):
+    return v.new_zeros((0,) + tuple(v.shape))
+
+
 @register_op("reshape2")
 def _reshape2(ins, attrs, ctx):
     v = x(ins, "X")
@@ -59,8 +76,60 @@ def _reshape2(ins, attrs, ctx):
     # 0 means "copy this dim from input" (reference reshape_op.cc semantics)
     shape = ([v.shape[i] if s == 0 else s
               for i, s in enumerate(shape[:v.ndim])] + shape[v.ndim:])
-    return out(Out=v.reshape(shape),
-               XShape=v.new_zeros((0,) + tuple(v.shape)))
+    return out(Out=v.reshape(shape), XShape=_xshape(v))
+
+
+@register_op("transpose2")
+def _transpose2(ins, attrs, ctx):
+    v = x(ins, "X")
+    return out(Out=v.permute(*[int(a) for a in attrs["axis"]]),
+               XShape=_xshape(v))
+
+
+@register_op("split")
+def _split(ins, attrs, ctx):
+    """``sections`` (sizes) or ``num`` equal parts along ``axis``."""
+    v = x(ins, "X")
+    axis = int(attrs.get("axis", 0))
+    sections = attrs.get("sections")
+    if sections:
+        parts = torch.split(v, [int(n) for n in sections], dim=axis)
+    else:
+        num = int(attrs.get("num", 0))
+        if v.shape[axis] % num:
+            raise ValueError("split: axis %d of size %d does not split into "
+                             "%d equal parts" % (axis, v.shape[axis], num))
+        parts = torch.split(v, v.shape[axis] // num, dim=axis)
+    return out(Out=list(parts))
+
+
+@register_op("squeeze2")
+def _squeeze2(ins, attrs, ctx):
+    """Drops the listed axes that have size 1 (all size-1 axes when none
+    are listed); a listed axis of another size stays."""
+    v = x(ins, "X")
+    axes = attrs.get("axes") or [i for i, s in enumerate(v.shape) if s == 1]
+    for ax in sorted(axes, reverse=True):
+        if v.shape[ax] == 1:
+            v = v.squeeze(ax)
+    return out(Out=v, XShape=v.new_zeros((0,)))
+
+
+@register_op("unsqueeze2")
+def _unsqueeze2(ins, attrs, ctx):
+    v = x(ins, "X")
+    for ax in sorted(attrs["axes"]):
+        v = v.unsqueeze(ax)
+    return out(Out=v, XShape=v.new_zeros((0,)))
+
+
+@register_op("expand")
+def _expand(ins, attrs, ctx):
+    """Tiles X ``expand_times`` along each axis (``jnp.tile``: a shorter
+    list applies to the trailing axes)."""
+    v = x(ins, "X")
+    times = [int(t) for t in attrs["expand_times"]]
+    return out(Out=v.repeat(*([1] * (v.ndim - len(times)) + times)))
 
 
 @register_op("concat")
@@ -73,7 +142,7 @@ def _stack(ins, attrs, ctx):
     return out(Y=torch.stack(ins["X"], dim=int(attrs.get("axis", 0))))
 
 
-def _take_fill(v, idx):
+def take_fill(v, idx):
     """Rows ``idx`` of ``v`` along axis 0 with ``jnp.take``'s default
     ("fill") semantics: a negative index counts from the end, and an index
     still outside [0, n) reads NaN (floats), the type's least value (signed
@@ -100,7 +169,7 @@ def _take_fill(v, idx):
 def _gather(ins, attrs, ctx):
     v, idx = x(ins, "X"), x(ins, "Index")
     idx = idx.reshape(-1) if idx.ndim > 1 else idx
-    return out(Out=_take_fill(v, idx))
+    return out(Out=take_fill(v, idx))
 
 
 @register_op("one_hot")

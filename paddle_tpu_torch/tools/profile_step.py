@@ -1,6 +1,6 @@
 """Where a training step's device time goes.
 
-    python -m paddle_tpu_torch.tools.profile_step [--model bert|resnet50|deepfm|nmt|lenet] [--trace out.json]
+    python -m paddle_tpu_torch.tools.profile_step [--model bert|resnet50|deepfm|nmt|lenet|book] [--trace out.json]
 
 Builds the same trainer and batches as ``chip_smoke.py``'s slice phases
 (bf16 BERT-base with LAMB at B = 64, S = 512; bf16 ResNet-50 with fused
@@ -8,7 +8,9 @@ batch norm and momentum at B = 128, 224 x 224; f32 DeepFM, the ``segment``
 SGD step at B = 8192, lr 1e-3; bf16 Transformer NMT with SGD at B = 128,
 Ss = St = 128, lr 1e-4; f32 LeNet with Adam(1e-3) at B = 64 through the
 Fluid ``Executor``, one ``run`` of the main program a step with the loss and
-the accuracy fetched as numpy; seed 0), takes a warm-up step, then traces
+the accuracy fetched as numpy; seed 0; with ``--model book`` each of the
+eleven book-suite programs of ``tools/book_suite.py`` in turn, as
+``chip_smoke.py`` phase 24 trains them), takes a warm-up step, then traces
 two steps with ``torch.profiler`` (CPU and CUDA activities).  Without
 ``--model`` it profiles all five.  Prints one JSON line per kernel group
 (the port's kernels by name, cuBLAS products or cuDNN convolutions, for
@@ -78,13 +80,27 @@ GROUPS = {
         ("pooling", ("pool",)),
         ("reductions (loss, mean, bias gradients)", ("reduce",)),
     ),
+    "book": (
+        ("port:segment_sum", ("segsum_",)),
+        ("convolution (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit",
+                                 "cudnn", "winograd", "fft")),
+        ("products (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")),
+        ("sort (ids)", ("radixsort", "sort", "onesweep")),
+        ("gather / scatter (rows, ids)", ("index", "gather", "scatter")),
+        ("reductions", ("reduce",)),
+        ("copies and casts", ("copy", "cat", "fill")),
+        ("elementwise", ("elementwise", "vectorized", "unrolled")),
+        ("pooling", ("pool",)),
+    ),
 }
+BOOK_PREFIX = "book:"
 NMT_UPDATE_RANGE = "nmt:sgd_update"
 
 
 def group_of(model, name):
     low = name.lower()
-    for group, keys in GROUPS[model]:
+    for group, keys in GROUPS["book" if model.startswith(BOOK_PREFIX)
+                              else model]:
         if any(k in low for k in keys):
             return group
     return "other"
@@ -202,6 +218,23 @@ def _lenet():
     return (FluidStep(exe, main, scope, [v["loss"], v["acc"]]), staged, None,
             {"batch": LENET_BATCH, "optimizer": "adam(1e-3)",
              "feed": "numpy, copied to the card by Executor.run"})
+
+
+def _book(model):
+    """A book model's training program (``tools/book_suite.py``: the JAX
+    test's data, batch and optimizer, the builders' default widths) run by
+    ``Executor()`` on the card, one batch fed every step."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import datasets
+    from paddle_tpu_torch.models import book
+    from paddle_tpu_torch.tools import book_suite
+
+    run = book_suite.build(fluid, book, datasets, model)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(run.startup, scope=scope)
+    staged = {k: np.stack([v] * (STEPS + 1)) for k, v in run.feed.items()}
+    return (FluidStep(exe, run.main, scope, run.fetch), staged, None,
+            {"feed": "numpy, copied to the card by Executor.run"})
 
 
 def nmt_op_group(chain, vocab):
@@ -337,9 +370,12 @@ def cuda_kernels_per_call(fn, calls=5):
 
 
 def profile_model(model, card, trace=None):
-    trainer, staged, lr, extra = {"bert": _bert, "resnet50": _resnet50,
-                                  "deepfm": _deepfm, "nmt": _nmt,
-                                  "lenet": _lenet}[model]()
+    if model.startswith(BOOK_PREFIX):
+        trainer, staged, lr, extra = _book(model[len(BOOK_PREFIX):])
+    else:
+        trainer, staged, lr, extra = {"bert": _bert, "resnet50": _resnet50,
+                                      "deepfm": _deepfm, "nmt": _nmt,
+                                      "lenet": _lenet}[model]()
     batches = [{k: v[i] for k, v in staged.items()} for i in range(STEPS + 1)]
     trainer.step(batches[0], lr)
     torch.cuda.synchronize()
@@ -407,7 +443,8 @@ def profile_model(model, card, trace=None):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", choices=sorted(GROUPS), default=None,
-                    help="profile one model (default: all five)")
+                    help="profile one model (default: all but the book), or "
+                         "'book': each book-suite model in turn")
     ap.add_argument("--trace", default=None,
                     help="write the chrome trace here (with --model)")
     args = ap.parse_args(argv)
@@ -418,8 +455,14 @@ def main(argv=None):
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    for model in [args.model] if args.model else ["bert", "resnet50", "deepfm", "nmt",
-                                                  "lenet"]:
+    if args.model == "book":
+        from paddle_tpu_torch.tools.book_suite import MODELS
+
+        models = [BOOK_PREFIX + m for m in MODELS]
+    else:
+        models = ([args.model] if args.model
+                  else ["bert", "resnet50", "deepfm", "nmt", "lenet"])
+    for model in models:
         profile_model(model, card, args.trace)
 
 

@@ -35,10 +35,12 @@ FWD_TOL, GRAD_TOL = 1e-6, 1e-5
 def _close(got, want, tol, what):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     assert got.shape == want.shape, (what, got.shape, want.shape)
-    both_nan = np.isnan(got) & np.isnan(want)
+    # NaN where the other side has NaN, and the same infinity, match
+    same = (np.isnan(got) & np.isnan(want)) | (np.isinf(want) & (got == want))
     assert not (np.isnan(got) ^ np.isnan(want)).any(), what
-    scale = max(np.abs(np.where(both_nan, 0, want)).max(initial=0.0), 1e-30)
-    err = np.abs(np.where(both_nan, 0, got - want)).max(initial=0.0)
+    assert not (np.isinf(got) ^ np.isinf(want)).any(), what
+    scale = max(np.abs(np.where(same, 0, want)).max(initial=0.0), 1e-30)
+    err = np.abs(np.where(same, 0, got - want)).max(initial=0.0)
     assert err <= tol * scale, "%s: %.3g of %.3g" % (what, err, scale)
 
 
@@ -149,7 +151,8 @@ def test_pool2d_tie_gradient_goes_to_the_first_maximum():
 
 
 @pytest.mark.parametrize("case", ["hard", "ignore_index", "ignore_in_range",
-                                  "p_zero", "soft", "out_of_range"])
+                                  "p_zero", "soft", "out_of_range",
+                                  "negative_label"])
 def test_cross_entropy(case):
     rng = np.random.RandomState(5)
     p = rng.rand(6, 10).astype(np.float32) + 0.05
@@ -167,6 +170,8 @@ def test_cross_entropy(case):
     if case == "out_of_range":
         label[2, 0] = -100                   # ignored: zero loss
         label[4, 0] = 12                     # NaN loss, as JAX's fill gather
+    if case == "negative_label":
+        label[2, 0] = -1                     # the last class, as JAX wraps it
     if case == "soft":
         label = rng.rand(6, 10).astype(np.float32)
         label /= label.sum(-1, keepdims=True)
@@ -179,6 +184,8 @@ def test_cross_entropy(case):
     if case == "p_zero":
         np.testing.assert_allclose(y[[0, 3], 0], -np.log(np.float32(1e-20)),
                                    rtol=1e-6)
+    if case == "negative_label":
+        np.testing.assert_allclose(y[2, 0], -np.log(p[2, 9]), rtol=1e-6)
 
 
 @pytest.mark.parametrize("xs,ys,axis", [
@@ -257,17 +264,30 @@ def test_adam_dense():
 
 
 @pytest.mark.parametrize("op", ["sgd", "momentum", "adam"])
-def test_sparse_gradients_raise(op):
-    g = SelectedRows(torch.tensor([0, 2]), torch.ones(2, 4), 5)
-    ins = {"Param": [torch.zeros(5, 4)], "Grad": [g],
-           "LearningRate": [torch.tensor([0.1])],
-           "Velocity": [torch.zeros(5, 4)], "Moment1": [torch.zeros(5, 4)],
-           "Moment2": [torch.zeros(5, 4)], "Beta1Pow": [torch.tensor([0.9])],
-           "Beta2Pow": [torch.tensor([0.999])]}
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        port_rule(op)(ins, {}, None)
+def test_sparse_gradients_update_as_in_jax(op):
+    """A SelectedRows gradient with a duplicated row: the port's rule
+    against the JAX rule, every output (tests/test_torch_sparse_executor.py
+    holds each branch's edge cases)."""
+    from paddle_tpu.sparse import SelectedRows as JaxSelectedRows
+
+    rows = np.array([0, 2, 2, 4], np.int64)
+    vals = _randn(19, 4, 3)
+    ins = {"Param": [_randn(20, 5, 3)], "LearningRate": [np.array([0.1], np.float32)],
+           "Velocity": [_randn(21, 5, 3)], "Moment1": [_randn(22, 5, 3) * 1e-2],
+           "Moment2": [np.abs(_randn(23, 5, 3)) * 1e-4],
+           "Beta1Pow": [np.array([0.9], np.float32)],
+           "Beta2Pow": [np.array([0.999], np.float32)]}
+    jouts = jax_rule(op)(dict({k: [jnp.asarray(a) for a in v] for k, v in ins.items()},
+                              Grad=[JaxSelectedRows(jnp.asarray(rows), jnp.asarray(vals), 5)]),
+                         {}, JaxContext(None, None, seed_root=0))
+    pouts = port_rule(op)(dict({k: [torch.from_numpy(a) for a in v] for k, v in ins.items()},
+                               Grad=[SelectedRows(torch.from_numpy(rows), torch.from_numpy(vals), 5)]),
+                          {}, None)
+    assert set(pouts) == set(jouts)
+    for slot in jouts:
+        _close(pouts[slot][0].numpy(), np.asarray(jouts[slot][0]), FWD_TOL, slot)
 
 
 def test_an_unported_op_raises_the_registry_error():
     with pytest.raises(NotImplementedError, match="no lowering registered"):
-        port_rule("lookup_table")
+        port_rule("layer_norm")

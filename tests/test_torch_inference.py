@@ -168,18 +168,78 @@ def test_fluid_save_and_load_and_a_missing_var_raises(port_lenet, tmp_path):
         prog.global_block().vars.pop(extra.name)
 
 
-def test_bf16_persistable_save_raises(tmp_path):
-    scope = pfluid.Scope()
-    main = pfluid.Program()
-    main.global_block().create_var(name="w", shape=(2,), dtype="bfloat16",
-                                   persistable=True)
-    scope.var("w")
-    scope.set("w", torch.ones(2, dtype=torch.bfloat16))
-    with pfluid.scope_guard(scope):
-        with pytest.raises(NotImplementedError, match="amp.py"):
-            pfluid.io.save_persistables(None, str(tmp_path), main)
-        with pytest.raises(NotImplementedError, match="amp.py"):
-            pfluid.save(main, str(tmp_path / "ckpt"))
+def _bf16_program(fluid):
+    main = fluid.Program()
+    block = main.global_block()
+    block.create_var(name="w", shape=(5,), dtype="bfloat16", persistable=True)
+    block.create_var(name="b", shape=(2,), dtype="float32", persistable=True)
+    return main
+
+
+BF16_BITS = np.array([0x3FC0, 0xBF80, 0x0001, 0x7F80, 0x4049], np.uint16)
+
+
+@pytest.mark.parametrize("how", ["npy", "npz", "pdparams"])
+def test_bf16_persistables_round_trip_between_packages(how, tmp_path):
+    """A bf16 persistable (1.5, -1, the least subnormal, inf, 3.14...) saved
+    by either package loads in the other with the same 16 bits: the port
+    writes numpy's ``|V2`` raw patterns, as the JAX package's ``np.save``
+    of an ml_dtypes array does, and reads them back as torch.bfloat16 for
+    a var declared bfloat16."""
+    import jax.numpy as jnp
+
+    bits = torch.from_numpy(BF16_BITS.view(np.int16).copy())
+    b = np.array([0.25, -2.0], np.float32)
+    pmain, jmain = _bf16_program(pfluid), _bf16_program(jfluid)
+
+    def save(fluid, main, scope, path):
+        with fluid.scope_guard(scope):
+            if how == "pdparams":
+                fluid.save(main, str(path / "ckpt"))
+            else:
+                fluid.io.save_persistables(
+                    None, str(path), main,
+                    filename="all.npz" if how == "npz" else None)
+
+    def load(fluid, main, scope, path):
+        with fluid.scope_guard(scope):
+            if how == "pdparams":
+                fluid.load(main, str(path / "ckpt"))
+            else:
+                fluid.io.load_persistables(
+                    None, str(path), main,
+                    filename="all.npz" if how == "npz" else None)
+
+    pscope = pfluid.Scope()
+    for n, v in (("w", bits.view(torch.bfloat16)), ("b", torch.from_numpy(b))):
+        pscope.var(n)
+        pscope.set(n, v)
+    save(pfluid, pmain, pscope, tmp_path / "port")
+    jscope = jfluid.Scope()
+    load(jfluid, jmain, jscope, tmp_path / "port")
+    assert np.asarray(jscope.find_var("w")).dtype == np.dtype("V2")
+    np.testing.assert_array_equal(
+        np.asarray(jscope.find_var("w")).view(np.uint16), BF16_BITS)
+    np.testing.assert_array_equal(np.asarray(jscope.find_var("b")), b)
+
+    jscope = jfluid.Scope()
+    jscope.var("w")
+    jscope.set("w", jnp.asarray(BF16_BITS.view(np.int16)).view(jnp.bfloat16))
+    jscope.var("b")
+    jscope.set("b", jnp.asarray(b))
+    save(jfluid, jmain, jscope, tmp_path / "jax")
+    pscope = pfluid.Scope()
+    load(pfluid, pmain, pscope, tmp_path / "jax")
+    w = pscope.find_var("w")
+    assert w.dtype == torch.bfloat16
+    np.testing.assert_array_equal(w.view(torch.int16).numpy().view(np.uint16),
+                                  BF16_BITS)
+    np.testing.assert_array_equal(pscope.find_tensor_as_numpy("b"), b)
+
+    # 16-bit patterns into a var declared float32 are refused
+    pmain.global_block().vars["w"].dtype = "float32"
+    with pytest.raises(ValueError, match="16-bit patterns"):
+        load(pfluid, pmain, pfluid.Scope(), tmp_path / "jax")
 
 
 def _has_class_reference(path):

@@ -333,14 +333,8 @@ def _unported(case, monkeypatch):
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
         img = fluid.layers.data("img", shape=[1, 28, 28], dtype="float32")
         label = fluid.layers.data("label", shape=[1], dtype="int64")
-        if case == "sparse_lookup":
-            ids = fluid.layers.data("ids", shape=[1], dtype="int64")
-            emb = fluid.layers.embedding(ids, size=[10, 4], is_sparse=True)
-            img = fluid.layers.elementwise_add(
-                fluid.layers.reshape(img, [-1, 784]),
-                fluid.layers.reduce_sum(emb))
         if case == "unported_op":
-            img = fluid.layers.dropout(img, 0.5)
+            img = fluid.layers.layer_norm(img)
         _, loss, _ = plenet.build_mlp(img, label)
         opt = fluid.optimizer.SGD(0.1)
         if case == "pipeline":
@@ -348,8 +342,6 @@ def _unported(case, monkeypatch):
         if case == "recompute":
             opt = fluid.optimizer.RecomputeOptimizer(opt)
         opt.minimize(loss)
-    if case == "amp":
-        main._amp = {"enabled": True}
     if case == "fleet":
         main._fleet_strategy = object()
     if case == "py_reader":
@@ -366,8 +358,8 @@ def _unported(case, monkeypatch):
 
 
 @pytest.mark.parametrize("case,item", [
-    ("pipeline", "item 5"), ("amp", "item 3"), ("recompute", "item 3"),
-    ("sparse_lookup", "item 3"), ("fleet", "item 5"), ("py_reader", "item 4"),
+    ("pipeline", "item 5"), ("recompute", "item 3"),
+    ("fleet", "item 5"), ("py_reader", "item 4"),
     ("monitor", "item 9"), ("warm_store", "item 8"),
     ("compiled_program", "item 5"), ("unported_op", None),
 ])
