@@ -36,7 +36,9 @@ Builds the port's CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
 6. the batch-norm kernels against their plain versions at ResNet-50's
    largest bottleneck shape and its widest one, bf16 and f32, a ragged row
    count, and ``fused_bn_train`` / ``fused_scale_shift`` through autograd
-   against the same functions on the CPU;
+   against the same functions on the CPU; the two reductions (statistics,
+   backward reduce) give the same bits on a second call and leave their
+   workspace's counters at 0;
 7. the ResNet slice: ``build_resnet_trainer(resnet50_config(fuse_bn=True),
    optimizer=momentum(0.9))`` on the card (bf16, 224 x 224, B = 128,
    lr 1e-2), a warm-up step and timed steps; each batch-norm kernel's launch
@@ -45,8 +47,11 @@ Builds the port's CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
 8. ResNet whole-step parity: one f32 ResNet-50 step at 224, B = 2, through
    the kernels on the card and the plain versions on the CPU, from the same
    weights and batch: the loss, every gradient leaf and the new BN state;
-9. times of the batch-norm kernels at both shapes, beside their plain
-   versions and library calls, as in 5;
+9. times of the batch-norm kernels at both shapes and at ResNet-50's two
+   smallest views, (6272, 512) and (25088, 256), beside their plain
+   versions and library calls, as in 5, with each call's device time
+   (``torch.profiler``) and stream time (a CUDA graph's replay) beside the
+   CUDA-event time (``tools/bn_times.py``);
 10. the segment-sum kernel against its plain version at the DeepFM step's
     shape (N = 8192 x 39 ids, D = 11), f32 and bf16, in four cases: ids
     uniform in [0, 1M), heavy duplicates, one id N times, 20 ids out of
@@ -76,8 +81,8 @@ Builds the port's CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
     plain version;
 15. the CUDA kernels one call of each kernel wrapper launches at the main
     paths' shapes, counted by ``torch.profiler``, with each one's device
-    time: one for ``layer_norm_bwd`` and for the segment kernel, or the run
-    fails;
+    time: one for ``layer_norm_bwd``, the segment kernel and the two
+    batch-norm reductions, or the run fails;
 16. times of the segment kernel (CUDA events, with the device time by
     ``torch.profiler`` beside it and its library call's, since its wrapper
     is host-bound back to back), the wgrad kernel at both
@@ -177,7 +182,16 @@ Builds the port's CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
     recommender, 0 under SGD, whose sparse branch does not merge), the
     routes' tables and moments against each other and against the dense
     gradient, ms per step of each; its launches per step go into the
-    segment kernel's record as ``sparse_executor_launches_per_step``.
+    segment kernel's record as ``sparse_executor_launches_per_step``;
+28. op rules on the card: ``cast`` from f32 to uint8, int8 and int32 (NaN,
+    infinities, 3e9 and other values out of range), to bool, f16 and bf16,
+    ``fill_constant`` of out-of-range values, ``sequence_reverse`` with a
+    length past T (f32, int32, bool), ``reduce_*`` over an empty ``dim``
+    list, and ``mean``, ``softmax`` and ``where`` on integer inputs, each
+    through the port's rule on CUDA tensors: the values equal the JAX
+    rule's (written here as constants; ``tests/test_torch_fluid_ops.py``
+    holds the CPU to the JAX package on the same inputs) and the CPU's,
+    with no device assert; no port kernel launched.
 
 TF32 is switched off for matrix products and convolutions, so the f32
 phases compare f32 with f32.  The last two lines are the kernels' JSON
@@ -211,6 +225,7 @@ RESNET50_FLOPS_PER_IMAGE = 3 * 4.09e9   # bench.py:259: fwd 4.09 GFLOP, train 3x
 # [M, C] views timed and compared: the largest bottleneck BN (s0 conv3 /
 # projection output at B = 128) and the fewest rows, widest channels (s3)
 BN_SHAPES = ((401408, 256), (6272, 2048))
+BN_SMALL_SHAPES = ((6272, 512), (25088, 256))   # its two smallest views
 DFM_B, DFM_LR = 8192, 1e-3         # bench.py:969-974's DeepFM shapes
 DFM_PER_STEP = {"segment_sum": 1}
 AUTOTUNE_ITERS = 10
@@ -815,13 +830,24 @@ def phase_times(errs, launches, device_name):
 
 # -- ResNet-50 phases -----------------------------------------------------------
 
-def _bn_inputs(gen, M, C, dtype):
-    mk = lambda: (torch.randn(M, C, generator=gen, device="cuda") * 2 + 1).to(dtype)
-    x, dy = mk(), mk()
-    a = (torch.rand(C, generator=gen, device="cuda") + 0.5).to(dtype)
-    b = torch.randn(C, generator=gen, device="cuda").to(dtype)
-    coefs = torch.randn(3, C, generator=gen, device="cuda")
-    return x, dy, a, b, coefs
+def _check_reduction_repeats(name, fn):
+    """A one-launch BN reduction called twice: the same bits, and its
+    workspace's counters back at 0 after each call."""
+    from paddle_tpu_torch.kernels import _common
+    from paddle_tpu_torch.kernels import fused_bn as fbn
+
+    first = [t.clone() for t in fn()]
+    second = fn()
+    torch.cuda.synchronize()
+    counters = fbn._WORK[(torch.cuda.current_device(),
+                          _common.stream_ptr(torch.device("cuda")))][1]
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    left = int(counters.abs().sum())
+    emit({"phase": "compare", "kernel": name, "same_bits_over_two_calls": same,
+          "counters_after": left})
+    if not same or left:
+        raise AssertionError("%s: two calls differ (%s) or the counters "
+                             "were left at %d" % (name, not same, left))
 
 
 def phase_compare_bn():
@@ -829,6 +855,7 @@ def phase_compare_bn():
     timed shapes in bf16 and f32 and a ragged row count; then the autograd
     round trip against the same functions on the CPU."""
     from paddle_tpu_torch.kernels import fused_bn as fbn
+    from paddle_tpu_torch.tools.bn_times import inputs as _bn_inputs
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     errs = dict.fromkeys(RN_PER_STEP, 0.0)
@@ -843,6 +870,7 @@ def phase_compare_bn():
         s_p, q_p = fbn.bn_stats_plain(x)
         errs["bn_stats"] = max(errs["bn_stats"], check("bn_stats" + tag, [
             ("sum", s, s_p, TOL_F32), ("sumsq", q, q_p, TOL_F32)]))
+        _check_reduction_repeats("bn_stats" + tag, lambda: fbn.stats2(x))
         errs["bn_scale_shift"] = max(errs["bn_scale_shift"], check(
             "bn_scale_shift" + tag, [("y", fbn.scale_shift2(x, a, b),
                                       fbn.scale_shift_plain(x, a, b), tol)]))
@@ -851,6 +879,8 @@ def phase_compare_bn():
         errs["bn_bwd_reduce"] = max(errs["bn_bwd_reduce"], check(
             "bn_bwd_reduce" + tag, [("sum_dy", s1, s1_p, TOL_F32),
                                     ("sum_dy_x", s2, s2_p, TOL_F32)]))
+        _check_reduction_repeats("bn_bwd_reduce" + tag,
+                                 lambda: fbn.bwd_reduce2(dy, x))
         errs["bn_dx"] = max(errs["bn_dx"], check("bn_dx" + tag, [
             ("dx", fbn.dx2(dy, x, coefs), fbn.dx_plain(dy, x, coefs), tol)]))
         del x, dy, s, q, s1, s2
@@ -950,48 +980,22 @@ def phase_resnet_parity():
 
 
 def phase_times_bn(errs, launches, device_name):
-    """Each BN kernel at both shapes (bf16), with its plain version and the
-    PyTorch call that computes the same function (or the nearest one)."""
-    from paddle_tpu_torch.kernels import fused_bn as fbn
+    """Each BN kernel at both shapes and ResNet-50's two smallest views
+    (bf16): CUDA-event and device (``torch.profiler``) ms a call, with its
+    plain version and the PyTorch call that computes the same function (or
+    the nearest one), from ``tools/bn_times.py``; the bound from this card's
+    peaks."""
+    from paddle_tpu_torch.tools import bn_times
 
-    gen = torch.Generator(device="cuda").manual_seed(4)
     rows = {k: [] for k in RN_PER_STEP}
-    for M, C in BN_SHAPES:
-        x, dy, a, b, coefs = _bn_inputs(gen, M, C, torch.bfloat16)
-        weight = torch.rand(C, generator=gen, device="cuda") + 0.5
-        mean, invstd = torch.batch_norm_stats(x, 1e-5)
-        sum_dy, sum_dy_xmu, _, _ = torch.batch_norm_backward_reduce(
-            dy, x, mean, invstd, weight, True, True, True)
-        count = torch.full((1,), M, dtype=torch.int32, device="cuda")
-        el = M * C
-        # (name, kernel, plain, library, bytes, flops): bytes read once and
-        # written once; f32 CUDA-core operations per element
-        for name, fn, plain, lib, nbytes, flops in (
-                ("bn_stats", lambda: fbn.stats2(x), lambda: fbn.bn_stats_plain(x),
-                 lambda: torch.batch_norm_stats(x, 1e-5),
-                 2 * el + 2 * C * 4, 3 * el),
-                ("bn_scale_shift", lambda: fbn.scale_shift2(x, a, b),
-                 lambda: fbn.scale_shift_plain(x, a, b),
-                 lambda: torch.addcmul(b, x, a), 4 * el + 2 * C * 2, 2 * el),
-                ("bn_bwd_reduce", lambda: fbn.bwd_reduce2(dy, x),
-                 lambda: fbn.bwd_reduce_plain(dy, x),
-                 lambda: torch.batch_norm_backward_reduce(
-                     dy, x, mean, invstd, weight, True, False, False),
-                 4 * el + 2 * C * 4, 3 * el),
-                ("bn_dx", lambda: fbn.dx2(dy, x, coefs),
-                 lambda: fbn.dx_plain(dy, x, coefs),
-                 lambda: torch.batch_norm_backward_elemt(
-                     dy, x, mean, invstd, weight, sum_dy, sum_dy_xmu, count),
-                 6 * el + 3 * C * 4, 5 * el)):
-            t_ops, t_bytes = bound_ms(device_name, flops, nbytes, peak="f32")
-            row = {"shape": [M, C], "ms": cuda_time(fn),
-                   "plain_ms": cuda_time(plain), "library_ms": cuda_time(lib),
-                   "bound_ms": max(t_bytes, t_ops),
-                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                   "bytes": nbytes, "flops": flops}
+    for M, C in BN_SHAPES + BN_SMALL_SHAPES:
+        for name, row in bn_times.shape_rows(M, C).items():
+            t_ops, t_bytes = bound_ms(device_name, row["flops"], row["bytes"],
+                                      peak="f32")
+            row.update(bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations")
             emit({"phase": "times", "name": name, **row})
             rows[name].append(row)
-        del x, dy, mean, invstd, sum_dy, sum_dy_xmu
     out = []
     for name, (first, *others) in rows.items():
         src, rep = SOURCES[name]
@@ -1333,6 +1337,7 @@ def phase_kernels_per_call():
     from paddle_tpu_torch.kernels import fused_bn as fbn
     from paddle_tpu_torch.kernels import layer_norm as ln
     from paddle_tpu_torch.kernels import segment_update as seg
+    from paddle_tpu_torch.tools.bn_times import inputs as _bn_inputs
     from paddle_tpu_torch.tools.profile_step import cuda_kernels_per_call
 
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -2667,6 +2672,125 @@ def phase_book_sparse(card):
     return per_step
 
 
+# -- op rules on the card ----------------------------------------------------
+
+_NAN, _INF = float("nan"), float("inf")
+_OOR = [_NAN, _INF, -_INF, 3e9, -1.7, 256.0, 300.0, 0.5]
+_ARANGE12 = [[0., 1., 2., 3.], [4., 5., 6., 7.], [8., 9., 10., 11.]]
+# (label, op, {slot: [(values, dtype)]}, attrs, {out slot: the JAX rule's
+# values on the CPU, or None where only the CPU's are compared}):
+# tests/test_torch_fluid_ops.py holds the port's CPU values to the JAX
+# package's rules on these inputs
+OP_RULE_CASES = (
+    ("cast f32->uint8", "cast", {"X": [([[1., 0.], [2., -3.]], "float32")]},
+     {"out_dtype": "uint8"}, {"Out": [[1, 0], [2, 0]]}),
+    ("cast f32->uint8 high", "cast", {"X": [([-1.7, 256., 300.], "float32")]},
+     {"out_dtype": "uint8"}, {"Out": [0, 255, 255]}),
+    ("cast f32->int32", "cast", {"X": [([_NAN, _INF, -_INF, 3e9], "float32")]},
+     {"out_dtype": "int32"},
+     {"Out": [0, 2147483647, -2147483648, 2147483647]}),
+    ("cast f32->int8", "cast", {"X": [(_OOR, "float32")]},
+     {"out_dtype": "int8"}, {"Out": [0, 127, -128, 127, -1, 127, 127, 0]}),
+    ("cast f32->uint8 all", "cast", {"X": [(_OOR, "float32")]},
+     {"out_dtype": "uint8"}, {"Out": [0, 255, 0, 255, 0, 255, 255, 0]}),
+    ("cast f32->bool", "cast", {"X": [(_OOR + [0.0], "float32")]},
+     {"out_dtype": "bool"}, {"Out": [True] * 8 + [False]}),
+    ("cast f32->float16", "cast", {"X": [(_OOR, "float32")]},
+     {"out_dtype": "float16"}, {"Out": None}),
+    ("cast f32->bfloat16", "cast", {"X": [(_OOR, "float32")]},
+     {"out_dtype": "bfloat16"}, {"Out": None}),
+    ("fill_constant int32 1e10", "fill_constant", {},
+     {"shape": [2], "dtype": "int32", "value": 1e10},
+     {"Out": [2147483647, 2147483647]}),
+    ("fill_constant int32 nan", "fill_constant", {},
+     {"shape": [2], "dtype": "int32", "value": _NAN}, {"Out": [0, 0]}),
+    ("fill_constant uint8 -3.7", "fill_constant", {},
+     {"shape": [2], "dtype": "uint8", "value": -3.7}, {"Out": [0, 0]}),
+    ("fill_constant uint8 300", "fill_constant", {},
+     {"shape": [2], "dtype": "uint8", "value": 300.0}, {"Out": [255, 255]}),
+    ("fill_constant float16 1e10", "fill_constant", {},
+     {"shape": [2], "dtype": "float16", "value": 1e10}, {"Out": [_INF, _INF]}),
+    ("sequence_reverse f32", "sequence_reverse",
+     {"X": [(_ARANGE12, "float32")], "SeqLen": [([0, 1, 6], "int64")]}, {},
+     {"Y": [[0, 1, 2, 3], [4, 5, 6, 7], [_NAN, _NAN, 11, 10]]}),
+    ("sequence_reverse int32", "sequence_reverse",
+     {"X": [(_ARANGE12, "int32")], "SeqLen": [([0, 1, 6], "int64")]}, {},
+     {"Y": [[0, 1, 2, 3], [4, 5, 6, 7], [-2147483648, -2147483648, 11, 10]]}),
+    ("sequence_reverse bool", "sequence_reverse",
+     {"X": [(_ARANGE12, "bool")], "SeqLen": [([0, 1, 6], "int64")]}, {},
+     {"Y": [[False, True, True, True], [True] * 4, [True, True, True, True]]}),
+    ("reduce_sum dim=[]", "reduce_sum", {"X": [([[1., 0.], [2., -3.]], "float32")]},
+     {"dim": [], "keep_dim": False}, {"Out": [[1, 0], [2, -3]]}),
+    ("reduce_all dim=[]", "reduce_all", {"X": [([[1., 0.], [2., -3.]], "float32")]},
+     {"dim": [], "keep_dim": True}, {"Out": [[True, False], [True, True]]}),
+    ("mean int32", "mean", {"X": [([[1, 2], [3, 4]], "int32")]}, {},
+     {"Out": 2.5}),
+    ("reduce_mean bool", "reduce_mean", {"X": [([[1, 0], [1, 1]], "bool")]},
+     {"dim": [0]}, {"Out": [1.0, 0.5]}),
+    ("softmax int32", "softmax", {"X": [([[1, 2, 3]], "int32")]}, {},
+     {"Out": [[0.09003057, 0.24472847, 0.66524096]]}),
+    ("where int32 condition", "where",
+     {"Condition": [([1, 0], "int32")], "X": [([1., 2.], "float32")],
+      "Y": [([3., 4.], "float32")]}, {}, {"Out": [1., 4.]}),
+)
+
+
+def _same_values(got, want, tol):
+    """Equal shapes and values: NaN where NaN, the same infinities, finite
+    floats to ``tol`` of the largest finite magnitude, the rest exactly."""
+    got, want = got.double(), want.double()
+    if got.shape != want.shape or not torch.equal(got.isnan(), want.isnan()):
+        return False
+    g, w = got[~got.isnan()], want[~want.isnan()]
+    if not torch.equal(g.isinf(), w.isinf()) or not torch.equal(
+            g[g.isinf()], w[w.isinf()]):
+        return False
+    g, w = g[~g.isinf()], w[~w.isinf()]
+    if not g.numel():
+        return True
+    return float((g - w).abs().max()) <= tol * max(float(w.abs().max()), 1e-30)
+
+
+def phase_op_rules():
+    """Each OP_RULE_CASES rule on CUDA tensors against its JAX values and
+    against the same rule on the CPU: no device assert (the sync after
+    each case would raise it), the same values."""
+    import paddle_tpu_torch.ops  # noqa: F401  (registers the rules)
+    from paddle_tpu_torch.dtypes import convert_dtype
+    from paddle_tpu_torch.registry import OpLoweringContext, get_lowering
+
+    bad = []
+    for label, op, ins, attrs, want in OP_RULE_CASES:
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            ctx = OpLoweringContext(None, torch.Generator(dev).manual_seed(0))
+            t_ins = {k: [torch.tensor(v).to(convert_dtype(dt)).to(dev)
+                         for v, dt in vals] for k, vals in ins.items()}
+            outs[dev] = get_lowering(op)(t_ins, dict(attrs), ctx)
+            torch.cuda.synchronize()
+        rec = {"phase": "op_rules", "case": label}
+        for slot, ref in want.items():
+            card, cpu = outs["cuda"][slot][0], outs["cpu"][slot][0]
+            rec["dtype"] = str(card.dtype).replace("torch.", "")
+            rec["card"] = (card.cpu().float() if card.is_floating_point()
+                           else card.cpu()).tolist()
+            # floats to 1e-6 of the largest (the card's exp differs from
+            # the CPU's in the last place), everything else exactly
+            tol = 1e-6 if card.is_floating_point() else 0.0
+            rec["card_equals_cpu"] = (card.dtype == cpu.dtype
+                                      and _same_values(card.cpu(), cpu, tol))
+            ok = rec["card_equals_cpu"]
+            if ref is not None:
+                rec["card_equals_jax"] = _same_values(
+                    card.cpu(), torch.tensor(ref, dtype=torch.float64), tol)
+                ok = ok and rec["card_equals_jax"]
+            if not ok:
+                bad.append(label)
+        emit(rec)
+    if bad:
+        raise AssertionError("op rules on the card differ: %s" % bad)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -2697,10 +2821,10 @@ def main():
     new_errs["conv_wgrad"], new_launches["conv_wgrad"] = phase_compare_conv()
     new_errs["flash_attention_bwd_long"] = phase_compare_flash_long()
     per_call = phase_kernels_per_call()
-    if per_call["layer_norm_bwd"] != 1 or per_call["segment_sum"] != 1:
+    one_launch = ("layer_norm_bwd", "segment_sum", "bn_stats", "bn_bwd_reduce")
+    if any(per_call[k] != 1 for k in one_launch):
         raise AssertionError("CUDA kernels a call, by torch.profiler: %s "
-                             "(expected 1 for layer_norm_bwd and segment_sum)"
-                             % per_call)
+                             "(expected 1 for %s)" % (per_call, one_launch))
     kernels += phase_times_new(new_errs, new_launches, name)
     nmt_cfg, nmt_params = phase_nmt_slice(name)
     phase_nmt_serving(nmt_cfg, nmt_params)
@@ -2717,6 +2841,8 @@ def main():
     assert_no_launches("the deploy path")
     phase_control_flow(card)
     assert_no_launches("control flow")
+    phase_op_rules()
+    assert_no_launches("op rules")
     phase_book_training(card)
     phase_book_parity(card)
     phase_book_amp(card)

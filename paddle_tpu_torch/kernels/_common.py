@@ -196,13 +196,15 @@ _SIGNATURES = {
     # B, H, Sq, Sk, D, scale, causal, dtype, route, stream
     "ptt_flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
-    # x, partial, sum, sumsq, M, C, tx, rows_per_block, nblk, vec, dtype, stream
-    "ptt_bn_stats": [_P, _P, _P, _P, _L, _I, _I, _L, _I, _I, _I, _P],
+    # x, scratch, counters, out, M, C, tx, rows_per_block, nblk, group, vec,
+    # dtype, stream
+    "ptt_bn_stats": [_P, _P, _P, _P, _L, _I, _I, _L, _I, _I, _I, _I, _P],
     # x, a, b, y, M, C, tx, nblk, vec, dtype, stream
     "ptt_bn_scale_shift": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
-    # dy, x, partial, sum_dy, sum_dyx, M, C, tx, rows_per_block, nblk, vec,
-    # dtype, stream
-    "ptt_bn_bwd_reduce": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _I, _I, _I, _P],
+    # dy, x, scratch, counters, out, M, C, tx, rows_per_block, nblk, group,
+    # vec, dtype, stream
+    "ptt_bn_bwd_reduce": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _I, _I, _I, _I,
+                          _P],
     # dy, x, coefs, dx, M, C, tx, nblk, vec, dtype, stream
     "ptt_bn_dx": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
     # keys, order, values, out, out_rows, scratch, runs, N, D, height,

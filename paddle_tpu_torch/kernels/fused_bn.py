@@ -15,9 +15,15 @@ apply in ``x.dtype``, ``dx`` in f32 from f32 coefficients then cast, and
 ``fused_bn_train`` returns are stop-gradient by contract: they are marked
 non-differentiable.
 
-On a CPU tensor the wrappers run the plain PyTorch versions below; on a CUDA
-tensor they launch the kernel or raise.
+The two reductions (statistics, backward reduce) are one CUDA launch a
+call: the blocks' f32 partial sums are folded in the kernel in a fixed
+order, so two calls give the same bits, through a workspace kept per device
+and stream (``_WORK``).  On a CPU tensor the wrappers run the plain PyTorch
+versions below; on a CUDA tensor they launch the kernel or raise.
 """
+
+import functools
+import math
 
 import torch
 
@@ -29,9 +35,12 @@ __all__ = ["bn_stats", "fused_bn_train", "fused_scale_shift", "fused_bn_eval",
            "dx_plain"]
 
 _THREADS = 256         # threads per block (csrc/fused_bn.cu kThreads)
-_REDUCE_BLOCKS = 528   # reduction blocks at most: four per SM on 132 SMs
+_REDUCE_PER_SM = 4     # reduction blocks an SM (the kernels' launch bounds)
 _APPLY_BLOCKS = 1056   # elementwise blocks at most: eight per SM, full occupancy
-_MIN_ROWS = 4          # rows each reduction thread sweeps at least
+_MIN_ROWS = 8          # rows each reduction thread sweeps at least
+_TILE_VECTORS = 8      # 16-byte vectors across a reduction's channel tile
+_ONE_LEVEL = 64        # row blocks a tile folds in one level, at most
+_WORK = {}             # (device index, stream) -> (scratch f32, counters int32)
 
 
 # -- plain versions ([M, C] views) -------------------------------------------
@@ -110,13 +119,81 @@ def _layout(x2, *others):
     return tx, int(vec), -(-nv // tx), _THREADS // tx
 
 
-def _reduce_blocks(M, tiles, ty):
-    """(row blocks, rows per block) of a reduction: about four blocks per SM
-    over row blocks and channel tiles together, each thread sweeping at
-    least _MIN_ROWS rows."""
-    nblk = max(1, min(-(-_REDUCE_BLOCKS // tiles), -(-M // (_MIN_ROWS * ty))))
+def _reduce_layout(x2, *others):
+    """(tx, vec, tiles) of a reduction over ``x2 [M, C]``: tx threads across
+    a channel tile (a power of two), each owning one 16-byte vector of
+    channels where C and every address allow (vec = 1; tx at most
+    _TILE_VECTORS), else one channel (tx at most 32); tiles is the number of
+    channel tiles."""
+    C = x2.shape[1]
+    v = 16 // x2.element_size()
+    vec = C % v == 0 and all(t.data_ptr() % 16 == 0 for t in (x2,) + others)
+    nv = C // v if vec else C
+    tx = min(_TILE_VECTORS if vec else 32, 1 << (nv - 1).bit_length())
+    return tx, int(vec), -(-nv // tx)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _reduce_blocks(M, tiles, ty, sms):
+    """(row blocks, rows per block) of a reduction: one wave of
+    _REDUCE_PER_SM blocks an SM over row blocks and channel tiles together,
+    each thread sweeping at least _MIN_ROWS rows."""
+    nblk = max(1, min(_REDUCE_PER_SM * sms // tiles,
+                      -(-M // (_MIN_ROWS * ty))))
     rows = -(-M // nblk)
     return -(-M // rows), rows
+
+
+def _fold_group(nblk):
+    """Row blocks a reduction folds together first: all of them (one level)
+    up to _ONE_LEVEL, else about sqrt(nblk), so that the last block of a
+    group and the last group each read about as many rows."""
+    return nblk if nblk <= _ONE_LEVEL else math.isqrt(nblk - 1) + 1
+
+
+def _workspace(device, stream, floats, counters):
+    """The reductions' scratch (the f32 partial rows of the row blocks and
+    of their groups, rewritten by every call) and counters (int32, zeroed
+    when allocated; every launch leaves them at 0),
+    for the calls on one stream of one device, which run one after another;
+    a call on another stream gets its own.  Both grow, and never shrink."""
+    key = (device.index, stream)
+    work = _WORK.get(key)
+    if work is None or work[0].numel() < floats or work[1].numel() < counters:
+        floats = max(floats, work[0].numel() if work else 0)
+        counters = max(counters, work[1].numel() if work else 0)
+        work = _WORK[key] = (
+            torch.empty(floats, device=device, dtype=torch.float32),
+            torch.zeros(counters, device=device, dtype=torch.int32))
+    return work
+
+
+def _reduce(name, fn, a2, *rest):
+    """One launch of a reduction kernel (``fn``, the C entry) over ``a2``
+    (and ``rest``, the same shape): f32 [2, C] out, returned as two [C]
+    views."""
+    M, C = a2.shape
+    code = _check(name, a2, *rest)
+    tx, vec, tiles = _reduce_layout(a2, *rest)
+    nblk, rows = _reduce_blocks(M, tiles, _THREADS // tx,
+                                _sm_count(a2.device.index))
+    stream = _common.stream_ptr(a2.device)
+    group = _fold_group(nblk)
+    ngroups = -(-nblk // group)
+    scratch, counters = _workspace(a2.device, stream,
+                                   2 * (nblk + ngroups) * C,
+                                   tiles * (ngroups + 1))
+    out = torch.empty(2, C, device=a2.device, dtype=torch.float32)
+    _common.check_status(name, fn(
+        *(t.data_ptr() for t in (a2,) + rest), scratch.data_ptr(),
+        counters.data_ptr(), out.data_ptr(), M, C, tx, rows, nblk, group, vec,
+        code, stream))
+    _common.count_launch(name)
+    return out[0], out[1]
 
 
 def _apply_blocks(M, tiles, ty):
@@ -124,22 +201,11 @@ def _apply_blocks(M, tiles, ty):
 
 
 def stats2(x2):
-    """Statistics kernel on ``x2 [M, C]``: f32 sum and sum of squares [C]."""
+    """Statistics kernel on ``x2 [M, C]``: f32 sum and sum of squares [C],
+    one launch."""
     if _on_cpu("bn_stats", x2):
         return bn_stats_plain(x2)
-    code = _check("bn_stats", x2)
-    M, C = x2.shape
-    tx, vec, tiles, ty = _layout(x2)
-    nblk, rows = _reduce_blocks(M, tiles, ty)
-    lib = _common.load_library()
-    f32 = dict(device=x2.device, dtype=torch.float32)
-    partial = torch.empty(2 * nblk * C, **f32)
-    s, q = torch.empty(C, **f32), torch.empty(C, **f32)
-    _common.check_status("bn_stats", lib.ptt_bn_stats(
-        x2.data_ptr(), partial.data_ptr(), s.data_ptr(), q.data_ptr(), M, C,
-        tx, rows, nblk, vec, code, _common.stream_ptr(x2.device)))
-    _common.count_launch("bn_stats")
-    return s, q
+    return _reduce("bn_stats", _common.load_library().ptt_bn_stats, x2)
 
 
 def scale_shift2(x2, a, b):
@@ -161,23 +227,12 @@ def scale_shift2(x2, a, b):
 
 
 def bwd_reduce2(dy2, x2):
-    """Backward-reduce kernel: f32 sum of dy and of dy*x [C], one sweep."""
+    """Backward-reduce kernel: f32 sum of dy and of dy*x [C], one sweep, one
+    launch."""
     if _on_cpu("bn_bwd_reduce", dy2, x2):
         return bwd_reduce_plain(dy2, x2)
-    code = _check("bn_bwd_reduce", x2, dy2)
-    M, C = x2.shape
-    tx, vec, tiles, ty = _layout(x2, dy2)
-    nblk, rows = _reduce_blocks(M, tiles, ty)
-    lib = _common.load_library()
-    f32 = dict(device=x2.device, dtype=torch.float32)
-    partial = torch.empty(2 * nblk * C, **f32)
-    s1, s2x = torch.empty(C, **f32), torch.empty(C, **f32)
-    _common.check_status("bn_bwd_reduce", lib.ptt_bn_bwd_reduce(
-        dy2.data_ptr(), x2.data_ptr(), partial.data_ptr(), s1.data_ptr(),
-        s2x.data_ptr(), M, C, tx, rows, nblk, vec, code,
-        _common.stream_ptr(x2.device)))
-    _common.count_launch("bn_bwd_reduce")
-    return s1, s2x
+    return _reduce("bn_bwd_reduce", _common.load_library().ptt_bn_bwd_reduce,
+                   dy2, x2)
 
 
 def dx2(dy2, x2, coefs):

@@ -29,3 +29,25 @@ def op_generator(ctx, attrs):
 
 def dtype_of(attrs, default="float32"):
     return convert_dtype(attrs.get("dtype", default))
+
+
+def promote_float(v):
+    """``v`` as a float: integer and bool tensors go to f32, as ``jnp.mean``,
+    ``jax.nn.softmax`` and the other float-only JAX functions promote them
+    with x64 off; a float tensor is returned as it is."""
+    return v if v.is_floating_point() else v.float()
+
+
+def saturating_cast(v, dtype):
+    """``v.to(dtype)`` with XLA's conversion, as the JAX rules' ``astype``:
+    a float going to an integer type maps NaN to 0 and saturates at the
+    type's range (``Tensor.to`` wraps, or gives the least value, as C++'s
+    conversion does); every other conversion is ``Tensor.to``'s."""
+    if (not v.is_floating_point() or dtype.is_floating_point
+            or dtype == torch.bool):
+        return v.to(dtype)
+    info = torch.iinfo(dtype)
+    # max + 1 and min are powers of two: exact in every float type
+    hi, lo = v >= info.max + 1.0, v < info.min
+    r = torch.where(torch.isnan(v) | hi | lo, 0, v).to(dtype)
+    return torch.where(hi, info.max, torch.where(lo, info.min, r))

@@ -16,7 +16,7 @@ import torch
 
 from ..registry import register_op
 from ..sparse import SelectedRows
-from .common import x, out
+from .common import x, out, promote_float
 
 
 def _bcast(a, b, axis):
@@ -54,7 +54,9 @@ _register_binary("elementwise_sub", torch.sub)
 _register_binary("elementwise_mul", torch.mul)
 # true division, integers included, as jnp.divide
 _register_binary("elementwise_div", torch.true_divide)
-_register_binary("elementwise_pow", torch.pow)
+# bool ** bool in int32, as jnp.power (torch.pow refuses bool)
+_register_binary("elementwise_pow", lambda a, b: torch.pow(
+    *(t.int() if t.dtype == torch.bool else t for t in (a, b))))
 
 _register_binary("less_than", torch.lt)
 _register_binary("less_equal", torch.le)
@@ -138,12 +140,17 @@ def _mul(ins, attrs, ctx):
 
 @register_op("floor")
 def _floor(ins, attrs, ctx):
-    return out(Out=torch.floor(x(ins, "X")))
+    """Integers and bool come back as they are, as from ``jnp.floor``."""
+    v = x(ins, "X")
+    return out(Out=torch.floor(v) if v.is_floating_point() else v)
 
 
-def _reduce(fn):
+def _reduce(fn, over_none=lambda v: v):
     """attrs: dim (default [0]), keep_dim, reduce_all.  ``fn(v, dims,
-    keep)`` reduces over a tuple of dims, as ``jnp.sum(axis=...)``."""
+    keep)`` reduces over a tuple of dims, as ``jnp.sum(axis=...)``.  An
+    empty ``dim`` list without reduce_all reduces no axis, as
+    ``jnp.sum(axis=())`` (torch reads ``dim=()`` as every axis):
+    ``over_none(v)`` gives the input in the dtype the reduction would."""
     def rule(ins, attrs, ctx):
         v = x(ins, "X")
         if attrs.get("reduce_all", False):
@@ -151,6 +158,8 @@ def _reduce(fn):
         else:
             dims = tuple(a if a >= 0 else a + v.ndim
                          for a in attrs.get("dim", [0]))
+            if not dims:
+                return out(Out=over_none(v))
         return out(Out=fn(v, dims, bool(attrs.get("keep_dim", False))))
 
     return rule
@@ -167,19 +176,30 @@ def _one_dim_at_a_time(op):
     return fn
 
 
-register_op("reduce_sum")(_reduce(lambda v, d, k: v.sum(dim=d, keepdim=k)))
-register_op("reduce_mean")(_reduce(lambda v, d, k: v.mean(dim=d, keepdim=k)))
+def _summed(v):
+    """``v`` in the dtype torch's sum and prod give it: integers and bool
+    widen to int64 (JAX's int32 under x64 off; the values agree)."""
+    return v if v.is_floating_point() else v.to(torch.int64)
+
+
+register_op("reduce_sum")(_reduce(lambda v, d, k: v.sum(dim=d, keepdim=k),
+                                  _summed))
+# integers and bool average in f32, as jnp.mean
+register_op("reduce_mean")(_reduce(
+    lambda v, d, k: promote_float(v).mean(dim=d, keepdim=k), promote_float))
 # amax/amin, as jnp.max/min: tied extremes share the gradient equally
 register_op("reduce_max")(_reduce(lambda v, d, k: v.amax(dim=d, keepdim=k)))
 register_op("reduce_min")(_reduce(lambda v, d, k: v.amin(dim=d, keepdim=k)))
-register_op("reduce_prod")(_reduce(_one_dim_at_a_time(torch.prod)))
-register_op("reduce_all")(_reduce(_one_dim_at_a_time(torch.all)))
-register_op("reduce_any")(_reduce(_one_dim_at_a_time(torch.any)))
+register_op("reduce_prod")(_reduce(_one_dim_at_a_time(torch.prod), _summed))
+register_op("reduce_all")(_reduce(_one_dim_at_a_time(torch.all),
+                                  lambda v: v.bool()))
+register_op("reduce_any")(_reduce(_one_dim_at_a_time(torch.any),
+                                  lambda v: v.bool()))
 
 
 @register_op("mean")
 def _mean(ins, attrs, ctx):
-    return out(Out=x(ins, "X").mean().reshape(()))
+    return out(Out=promote_float(x(ins, "X")).mean().reshape(()))
 
 
 @register_op("top_k")

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ..registry import register_op
-from .common import x, out, op_generator
+from .common import x, out, op_generator, promote_float
 from .pooling_ops import ceil_pads
 from .tensor_ops import take_fill
 
@@ -30,14 +30,17 @@ def _register_act(name, fn):
         return out(Out=fn(x(ins, "X"), attrs))
 
 
-_register_act("relu", lambda v, a: torch.relu(v))
+# bool in int32, as jax.nn.relu's maximum with 0 (torch.relu refuses bool)
+_register_act("relu", lambda v, a: torch.relu(
+    v.int() if v.dtype == torch.bool else v))
 _register_act("sigmoid", lambda v, a: torch.sigmoid(v))
 _register_act("tanh", lambda v, a: torch.tanh(v))
 
 
 @register_op("softmax")
 def _softmax(ins, attrs, ctx):
-    return out(Out=torch.softmax(x(ins, "X"), dim=int(attrs.get("axis", -1))))
+    return out(Out=torch.softmax(promote_float(x(ins, "X")),
+                                 dim=int(attrs.get("axis", -1))))
 
 
 @register_op("dropout")
@@ -82,6 +85,8 @@ def _conv2d(ins, attrs, ctx):
 def _pool2d(ins, attrs, ctx):
     v = x(ins, "X")
     ptype = attrs.get("pooling_type", "max")
+    if ptype != "max":
+        v = promote_float(v)          # integers average in f32, as in JAX
     # amax, as jnp.max: tied maxima share the gradient equally
     if attrs.get("global_pooling", False):
         if ptype == "max":
@@ -212,7 +217,7 @@ def _pick(logp, li, axis):
 
 @register_op("softmax_with_cross_entropy")
 def _softmax_with_cross_entropy(ins, attrs, ctx):
-    logits, label = x(ins, "Logits"), x(ins, "Label")
+    logits, label = promote_float(x(ins, "Logits")), x(ins, "Label")
     axis = int(attrs.get("axis", -1)) % logits.ndim
     logp = torch.log_softmax(logits, dim=axis)
     if attrs.get("soft_label", False):

@@ -14,6 +14,7 @@ import torch
 from ..dtypes import convert_dtype
 from ..registry import register_op
 from .common import x, out
+from .tensor_ops import take_fill
 
 
 def _valid(data, length):
@@ -25,6 +26,20 @@ def _valid(data, length):
 
 def _per_row(length, data):
     return length.reshape([-1] + [1] * (data.ndim - 2))
+
+
+def _take_steps(data, idx):
+    """``data[n, idx[n, k]]`` for an [N, K] index, with
+    ``jnp.take_along_axis``'s fill: a negative step counts from the end,
+    and a step still outside [0, T) reads ``take_fill``'s fill (NaN for
+    floats) and takes no gradient."""
+    N, T = data.shape[:2]
+    idx = idx.long()
+    idx = torch.where(idx < 0, idx + T, idx)
+    flat = torch.arange(N, device=data.device)[:, None] * T + idx
+    flat = torch.where((idx >= 0) & (idx < T), flat, N * T)   # past the end
+    rows = take_fill(data.reshape((N * T,) + data.shape[2:]), flat.reshape(-1))
+    return rows.reshape(tuple(idx.shape) + data.shape[2:])
 
 
 @register_op("sequence_mask")
@@ -51,20 +66,20 @@ def _sequence_pool(ins, attrs, ctx):
         length = torch.full((data.shape[0],), data.shape[1],
                             dtype=torch.int64, device=data.device)
     m = _valid(data, length)
-    zero = torch.zeros((), dtype=data.dtype, device=data.device)
+    # a float 0, as the JAX rule's: integer data sums in f32
     if ptype == "SUM":
-        r = torch.where(m, data, zero).sum(dim=1)
+        r = torch.where(m, data, 0.0).sum(dim=1)
     elif ptype == "AVERAGE":
-        r = (torch.where(m, data, zero).sum(dim=1)
+        r = (torch.where(m, data, 0.0).sum(dim=1)
              / _per_row(length, data).clamp(min=1))
     elif ptype == "SQRT":
-        r = (torch.where(m, data, zero).sum(dim=1)
+        r = (torch.where(m, data, 0.0).sum(dim=1)
              / torch.sqrt(_per_row(length, data).clamp(min=1).to(data.dtype)))
     elif ptype == "MAX":
         r = torch.where(m, data, float("-inf")).amax(dim=1)
     elif ptype == "LAST":
-        idx = (length - 1).clamp(min=0).long()
-        r = data[torch.arange(data.shape[0], device=data.device), idx]
+        # a length past T reads the fill, as take_along_axis
+        r = _take_steps(data, (length - 1).clamp(min=0).reshape(-1, 1))[:, 0]
     elif ptype == "FIRST":
         r = data[:, 0]
     else:
@@ -75,15 +90,15 @@ def _sequence_pool(ins, attrs, ctx):
 @register_op("sequence_reverse")
 def _sequence_reverse(ins, attrs, ctx):
     """Reverses each row's first ``length`` steps in place; the padding
-    stays where it is (the whole time axis without SeqLen)."""
+    stays where it is (the whole time axis without SeqLen).  A length past
+    T reads steps past T: ``take_fill``'s fill (NaN for floats), as the
+    JAX rule's ``take_along_axis``."""
     data, length = x(ins, "X"), x(ins, "SeqLen")
     if length is None:
         return out(Y=torch.flip(data, dims=(1,)))
     t = torch.arange(data.shape[1], device=data.device)[None, :]
     ln = length.reshape(-1, 1)
-    idx = torch.where(t < ln, ln - 1 - t, t).long()
-    rows = torch.arange(data.shape[0], device=data.device)[:, None]
-    return out(Y=data[rows, idx])
+    return out(Y=_take_steps(data, torch.where(t < ln, ln - 1 - t, t)))
 
 
 @register_op("sequence_conv")

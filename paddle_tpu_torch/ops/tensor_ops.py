@@ -18,13 +18,24 @@ seeded per run and op (``common.op_generator``); they do not reproduce
 import torch
 
 from ..registry import register_op
-from .common import x, out, op_generator, dtype_of
+from .common import x, out, op_generator, dtype_of, saturating_cast
+
+
+def _fill_value(attrs):
+    """The ``value`` attr converted as ``jnp.full`` converts it: a Python
+    float through f32 (x64 off) then ``saturating_cast`` (NaN to 0, an
+    integer type's range saturated, a float type's overflow to inf), an int
+    or a bool as ``Tensor.to``."""
+    value = attrs.get("value", 0.0)
+    src = torch.tensor(value, dtype=torch.float32
+                       if isinstance(value, float) else None)
+    return saturating_cast(src, dtype_of(attrs)).item()
 
 
 @register_op("fill_constant")
 def _fill_constant(ins, attrs, ctx):
     shape = [int(s) for s in attrs["shape"]]
-    return out(Out=torch.full(shape, attrs.get("value", 0.0),
+    return out(Out=torch.full(shape, _fill_value(attrs),
                               dtype=dtype_of(attrs), device=ctx.device))
 
 
@@ -34,7 +45,7 @@ def _fill_constant_bsl(ins, attrs, ctx):
     shape = [int(s) for s in attrs["shape"]]
     shape[int(attrs.get("output_dim_idx", 0))] = ref.shape[
         int(attrs.get("input_dim_idx", 0))]
-    return out(Out=torch.full(shape, attrs.get("value", 0.0),
+    return out(Out=torch.full(shape, _fill_value(attrs),
                               dtype=dtype_of(attrs), device=ref.device))
 
 
@@ -62,7 +73,10 @@ def _assign(ins, attrs, ctx):
 
 @register_op("cast")
 def _cast(ins, attrs, ctx):
-    return out(Out=x(ins, "X").to(dtype_of(attrs, attrs.get("out_dtype", "float32"))))
+    """A float going to an integer type saturates, NaN to 0, as JAX's
+    ``astype`` (``saturating_cast``)."""
+    return out(Out=saturating_cast(
+        x(ins, "X"), dtype_of(attrs, attrs.get("out_dtype", "float32"))))
 
 
 def _xshape(v):
@@ -195,5 +209,6 @@ def _increment(ins, attrs, ctx):
 
 @register_op("where")
 def _where(ins, attrs, ctx):
+    """A nonzero condition (NaN included) takes X, as ``jnp.where``."""
     c, a, b = x(ins, "Condition"), x(ins, "X"), x(ins, "Y")
-    return out(Out=torch.where(c, a, b))
+    return out(Out=torch.where(c if c.dtype == torch.bool else c != 0, a, b))

@@ -19,7 +19,7 @@ device milliseconds per step and share, each of the port's CUDA kernels on
 its own, the top kernels by device time, and
 the device's busy and idle share of the traced wall time; for ResNet-50
 also the port's batch-norm kernels' summed device time per step beside
-their byte bound.  NMT's groups come from the op that launched each kernel
+their byte bounds.  NMT's groups come from the op that launched each kernel
 (``nmt_op_group``), since its f32 attention products and bf16 projections
 run cuBLAS kernels whose names do not tell them apart; for NMT it also
 traces one beam-search decode at ``chip_smoke.py``'s serving shape (16
@@ -59,7 +59,6 @@ GROUPS = {
         ("port:bn_scale_shift", ("bn_scale_shift_kernel",)),
         ("port:bn_bwd_reduce", ("bn_bwd_reduce_kernel",)),
         ("port:bn_dx", ("bn_dx_kernel",)),
-        ("port:bn_fold (stats and bwd_reduce)", ("bn_fold_kernel",)),
         ("convolution (cuDNN)", ("conv", "xmma", "cudnn", "implicit", "fprop",
                                  "dgrad", "wgrad", "cutlass", "sm90_", "nvjet",
                                  "gemm")),
@@ -132,7 +131,7 @@ def _resnet50():
                                                     SEED),
                            trainer.device, {"image": torch.bfloat16})
     return trainer, staged, 1e-2, {"batch": RN_BATCH, "image": RN_IMAGE,
-                                   "bn_byte_bound_ms": bn_byte_bound_ms(cfg)}
+                                   "bn_byte_bounds_ms": bn_byte_bounds_ms(cfg)}
 
 
 def _deepfm():
@@ -340,12 +339,18 @@ def bn_shapes(cfg, batch):
     return shapes
 
 
-def bn_byte_bound_ms(cfg):
-    """The four kernels' least device time a step at 2-byte elements: stats
-    reads x (1 pass), scale_shift reads x and writes y (2), bwd_reduce reads
-    dy and x (2), dx reads dy and x and writes dx (3)."""
+# [M, C] passes each batch-norm kernel makes over 2-byte elements: stats
+# reads x, scale_shift reads x and writes y, bwd_reduce reads dy and x, dx
+# reads dy and x and writes dx
+BN_PASSES = {"bn_stats": 1, "bn_scale_shift": 2, "bn_bwd_reduce": 2, "bn_dx": 3}
+
+
+def bn_byte_bounds_ms(cfg):
+    """Each batch-norm kernel's least device time a step at 2-byte
+    elements, by BN_PASSES."""
     elements = sum(m * c for m, c in bn_shapes(cfg, RN_BATCH))
-    return elements * 2 * 8 / HBM_BYTES_PER_S * 1e3
+    return {k: elements * 2 * n / HBM_BYTES_PER_S * 1e3
+            for k, n in BN_PASSES.items()}
 
 
 def cuda_kernels_per_call(fn, calls=5):

@@ -291,3 +291,290 @@ def test_sparse_gradients_update_as_in_jax(op):
 def test_an_unported_op_raises_the_registry_error():
     with pytest.raises(NotImplementedError, match="no lowering registered"):
         port_rule("layer_norm")
+
+
+# -- integer, bool, empty-dim and out-of-range inputs ---------------------------
+# ROADMAP Queue 3's faults 1-4 and the wider probe's: each rule through
+# registry.get_lowering on both sides, compared by value (NaN where NaN, the
+# same infinities, floats to FWD_TOL) and by kind (bool, integer or float;
+# JAX's int32 stands for the port's int64 under x64 off), then one Fluid
+# program per fault through each package's Executor(CPUPlace()).
+
+def _kind(a):
+    return "b" if a.dtype == np.bool_ else (
+        "i" if np.issubdtype(a.dtype, np.integer) else "f")
+
+
+def _numpy(t):
+    """A rule's output as numpy: bf16 (JAX's and torch's) as f32."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    t = np.asarray(t)
+    return t.astype(np.float32) if t.dtype == jnp.bfloat16 else t
+
+
+def _same(got, want, what):
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    assert _kind(got) == _kind(want), (what, got.dtype, want.dtype)
+    if _kind(want) == "f":
+        _close(got, want, FWD_TOL, what)
+    else:
+        np.testing.assert_array_equal(got, want, err_msg=what)
+
+
+def _rule_matches(op, ins, attrs):
+    """Both rules on ``ins`` ({slot: [numpy]}); every output compared by
+    value and kind."""
+    jctx = JaxContext(None, None, seed_root=0)
+    pctx = PortContext(None, torch.Generator().manual_seed(0))
+    jouts = jax_rule(op)({k: [jnp.asarray(a) for a in v] for k, v in ins.items()},
+                         dict(attrs), jctx)
+    pouts = port_rule(op)({k: [torch.from_numpy(np.array(a)) for a in v]
+                           for k, v in ins.items()}, dict(attrs), pctx)
+    assert set(pouts) == set(jouts), op
+    for slot in jouts:
+        for j, p in zip(jouts[slot], pouts[slot]):
+            _same(_numpy(p), _numpy(j), "%s %s" % (op, slot))
+    return jouts, pouts
+
+
+REDUCE_OPS = ["reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
+              "reduce_prod", "reduce_all", "reduce_any"]
+_SMALL = {"float32": np.array([[1, 0], [2, -3]], np.float32),
+          "int32": np.array([[1, 0], [2, -3]], np.int32),
+          "bool": np.array([[True, False], [True, True]])}
+
+
+@pytest.mark.parametrize("keep", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "int32", "bool"])
+@pytest.mark.parametrize("mode", ["empty_dim", "reduce_all"])
+@pytest.mark.parametrize("op", REDUCE_OPS)
+def test_reduce_over_an_empty_dim_list_matches_jax(op, mode, dtype, keep):
+    """Queue 3 fault 1: ``dim=[]`` without reduce_all reduces no axis, as
+    ``jnp.sum(axis=())``, in the dtype JAX gives (bool from all/any, f32
+    from the mean of integers); reduce_all still reduces every axis."""
+    attrs = {"dim": [], "keep_dim": keep, "reduce_all": mode == "reduce_all"}
+    _rule_matches(op, {"X": [_SMALL[dtype]]}, attrs)
+
+
+@pytest.mark.parametrize("op,ins,attrs", [
+    ("mean", {"X": [np.array([[1, 2], [3, 4]], np.int32)]}, {}),
+    ("mean", {"X": [_SMALL["bool"]]}, {}),
+    ("reduce_mean", {"X": [_SMALL["bool"]]}, {"dim": [0]}),
+    ("reduce_mean", {"X": [_SMALL["int32"]]}, {"dim": [1], "keep_dim": True}),
+    ("reduce_mean", {"X": [_SMALL["int32"]]}, {"reduce_all": True}),
+    ("softmax", {"X": [np.array([[1, 2, 3]], np.int32)]}, {}),
+    ("softmax", {"X": [_SMALL["int32"]]}, {"axis": 0}),
+    ("where", {"Condition": [np.array([1, 0], np.int32)],
+               "X": [np.array([1., 2.], np.float32)],
+               "Y": [np.array([3., 4.], np.float32)]}, {}),
+    ("where", {"Condition": [np.array([np.nan, 0.0, -2.0], np.float32)],
+               "X": [np.array([1., 2., 3.], np.float32)],
+               "Y": [np.array([4., 5., 6.], np.float32)]}, {}),
+], ids=["mean_int32", "mean_bool", "reduce_mean_bool", "reduce_mean_int32_keep",
+        "reduce_mean_int32_all", "softmax_int32", "softmax_int32_axis0",
+        "where_int32_condition", "where_f32_condition_nan"])
+def test_integer_and_bool_inputs_match_jax(op, ins, attrs):
+    """Queue 3 fault 2: integer and bool inputs go to f32 where ``jnp.mean``
+    and ``jax.nn.softmax`` promote them; ``where`` takes a nonzero
+    condition (NaN included) as true."""
+    _rule_matches(op, ins, attrs)
+
+
+_OOR = np.array([np.nan, np.inf, -np.inf, 3e9, -3e9, -1.7, 255.5, 256, 300,
+                 0.5, -3, 0, 70000, -129], np.float32)
+
+
+@pytest.mark.parametrize("out_dtype", ["uint8", "int8", "int16", "int32",
+                                       "bool", "float16", "bfloat16",
+                                       "float32"])
+@pytest.mark.parametrize("case", ["out_of_range", "small", "int32_input"])
+def test_cast_saturates_as_jax(case, out_dtype):
+    """Queue 3 fault 3: a float going to an integer type maps NaN to 0 and
+    saturates at the type's range, as XLA's convert (``Tensor.to`` wraps);
+    integer inputs wrap in both.  int64 is left out: JAX holds it as int32
+    under x64 off, so a value past int32's range differs by design."""
+    x = {"out_of_range": _OOR, "small": _SMALL["float32"],
+         "int32_input": np.array([-3, 0, 300, 2 ** 31 - 1, -2 ** 31],
+                                 np.int32)}[case]
+    _rule_matches("cast", {"X": [x]}, {"out_dtype": out_dtype})
+
+
+@pytest.mark.parametrize("value", [1e10, -1e10, float("nan"), 3.7, -3.7,
+                                   255.5, 300.0, 16777217.0])
+@pytest.mark.parametrize("dtype", ["int32", "uint8", "bool", "float16",
+                                   "bfloat16", "float32"])
+def test_fill_constant_converts_as_jax(dtype, value):
+    """Queue 3 fault 3's sibling: the value goes through f32 (x64 off), then
+    saturates for integer types, as ``jnp.full`` converts it; a float16
+    overflow is inf.  The batch-size-like variant the same."""
+    _rule_matches("fill_constant", {}, {"shape": [2], "dtype": dtype,
+                                        "value": value})
+    _rule_matches("fill_constant_batch_size_like", {"Input": [_SMALL["int32"]]},
+                  {"shape": [-1, 3], "dtype": dtype, "value": value})
+
+
+_X12 = np.arange(12, dtype=np.float32).reshape(3, 4)
+
+
+@pytest.mark.parametrize("lengths", [[0, 1, 6], [9, 4, 100], [-1, 2, 4]],
+                         ids=["past_t", "far_past_t", "negative"])
+@pytest.mark.parametrize("dtype", ["float32", "int32", "uint8", "bool",
+                                   "float32_3d"])
+def test_sequence_reverse_past_t_fills_as_jax(dtype, lengths):
+    """Queue 3 fault 4: a length past T reads steps past T, which
+    ``jnp.take_along_axis`` fills (NaN for floats, the least value of a
+    signed integer, the largest of an unsigned one, True for bool); the
+    port used to raise IndexError."""
+    x = {"float32": _X12, "int32": _X12.astype(np.int32),
+         "uint8": _X12.astype(np.uint8), "bool": _X12 % 3 == 0,
+         "float32_3d": np.arange(24, dtype=np.float32).reshape(3, 4, 2)}[dtype]
+    _rule_matches("sequence_reverse", {"X": [x], "SeqLen": [
+        np.array(lengths, np.int64)]}, {})
+
+
+def test_sequence_reverse_past_t_takes_no_gradient_past_t():
+    """The filled steps take no gradient; the others take the reversed
+    cotangent, as under jax.vjp."""
+    _run("sequence_reverse", {"X": [_randn(8, 3, 4, 2)],
+                              "SeqLen": [np.array([0, 3, 6], np.int64)]},
+         {}, ["X"], "Y")
+
+
+_SEQ = np.arange(24, dtype=np.float32).reshape(3, 4, 2)
+
+
+@pytest.mark.parametrize("op,ins,attrs", [
+    ("relu", {"X": [_SMALL["bool"]]}, {}),
+    ("floor", {"X": [_SMALL["bool"]]}, {}),
+    ("floor", {"X": [_SMALL["int32"]]}, {}),
+    ("elementwise_pow", {"X": [_SMALL["bool"]], "Y": [_SMALL["bool"]]}, {}),
+    ("softmax_with_cross_entropy", {"Logits": [_SMALL["int32"]],
+                                    "Label": [np.array([[1], [0]], np.int64)]},
+     {}),
+    ("pool2d", {"X": [np.arange(32, dtype=np.int32).reshape(1, 2, 4, 4)]},
+     {"pooling_type": "avg", "ksize": [2, 2], "strides": [2, 2]}),
+    ("pool2d", {"X": [np.arange(32, dtype=np.int32).reshape(1, 2, 4, 4)]},
+     {"pooling_type": "avg", "global_pooling": True}),
+    ("pool2d", {"X": [np.arange(32, dtype=np.int32).reshape(1, 2, 4, 4)]},
+     {"pooling_type": "avg", "ksize": [2, 2], "adaptive": True}),
+    ("sequence_pool", {"X": [_SEQ.astype(np.int32)],
+                       "SeqLen": [np.array([1, 2, 3], np.int64)]},
+     {"pooltype": "SUM"}),
+    ("sequence_pool", {"X": [_SEQ.astype(np.int32)],
+                       "SeqLen": [np.array([0, 2, 3], np.int64)]},
+     {"pooltype": "AVERAGE"}),
+    ("sequence_pool", {"X": [_SEQ.astype(np.int32)],
+                       "SeqLen": [np.array([1, 2, 4], np.int64)]},
+     {"pooltype": "SQRT"}),
+    ("sequence_pool", {"X": [_SEQ], "SeqLen": [np.array([0, 2, 9], np.int64)]},
+     {"pooltype": "LAST"}),
+    ("sequence_pool", {"X": [_SEQ.astype(np.int32)],
+                       "SeqLen": [np.array([0, 2, 9], np.int64)]},
+     {"pooltype": "LAST"}),
+], ids=["relu_bool", "floor_bool", "floor_int32", "pow_bool",
+        "softmax_xent_int32_logits", "avg_pool_int32", "global_avg_pool_int32",
+        "adaptive_avg_pool_int32", "seq_sum_int32", "seq_avg_int32",
+        "seq_sqrt_int32", "seq_last_past_t", "seq_last_past_t_int32"])
+def test_probe_repairs_match_jax(op, ins, attrs):
+    """What the wider probe of the ported rules found beside Queue 3's four
+    faults, each a few lines: bool and integer inputs the JAX rules take
+    (promoting to int32 or f32 as they do), and ``sequence_pool(LAST)``
+    with a length past T, filled as ``take_along_axis`` fills."""
+    _rule_matches(op, ins, attrs)
+
+
+# -- the same faults as whole Fluid programs -------------------------------------
+
+import paddle_tpu as jfluid                 # noqa: E402
+import paddle_tpu_torch as pfluid           # noqa: E402
+from paddle_tpu_torch import convert        # noqa: E402
+
+
+def _both_programs(build, feed):
+    """``build(fluid)`` -> (main, startup, fetch vars) on both packages under
+    a fresh ``unique_name.guard()``, run once by each ``Executor(CPUPlace())``
+    from the JAX startup's values; returns (JAX fetches, port fetches)."""
+    outs = []
+    for fluid in (jfluid, pfluid):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            fetch = build(fluid)
+        outs.append((fluid, main, startup, [v.name for v in fetch]))
+    (jf, jmain, jstart, names), (pf, pmain, _, _) = outs
+    jexe, jscope = jf.Executor(jf.CPUPlace()), jf.Scope()
+    jexe.run(jstart, scope=jscope)
+    persist = [v.name for v in jstart.list_vars() if v.persistable]
+    pscope = convert.scope_from_numpy(convert.scope_to_numpy(jscope, persist),
+                                      pf.Scope(), "cpu")
+    jout = jexe.run(jmain, feed=feed, fetch_list=names, scope=jscope)
+    pout = pf.Executor(pf.CPUPlace()).run(pmain, feed=feed, fetch_list=names,
+                                          scope=pscope)
+    return jout, pout
+
+
+def _programs_match(build, feed):
+    jout, pout = _both_programs(build, feed)
+    assert len(jout) == len(pout)
+    for i, (j, p) in enumerate(zip(jout, pout)):
+        _same(_numpy(p), _numpy(j), "fetch %d" % i)
+
+
+def _data(fluid, name, dtype, shape=(2, 2)):
+    return fluid.layers.data(name, shape=list(shape), dtype=dtype,
+                             append_batch_size=False)
+
+
+def test_executor_reduce_over_an_empty_dim_list_matches_jax():
+    def build(fluid):
+        x = _data(fluid, "x", "float32")
+        L = fluid.layers
+        return [L.reduce_sum(x, dim=[]), L.reduce_mean(x, dim=[], keep_dim=True),
+                L.reduce_max(x, dim=[]), L.reduce_min(x, dim=[]),
+                L.reduce_prod(x, dim=[]), L.reduce_all(x, dim=[]),
+                L.reduce_any(x, dim=[]), L.reduce_sum(x)]
+    _programs_match(build, {"x": _SMALL["float32"]})
+
+
+def test_executor_integer_inputs_match_jax():
+    def build(fluid):
+        L = fluid.layers
+        i = _data(fluid, "i", "int32")
+        c = _data(fluid, "c", "int32", (2,))
+        a, b = _data(fluid, "a", "float32", (2,)), _data(fluid, "b", "float32", (2,))
+        return [L.mean(i), L.reduce_mean(i, dim=[0]), L.softmax(i),
+                L.where(c, a, b)]
+    _programs_match(build, {"i": np.array([[1, 2], [3, 4]], np.int32),
+                            "c": np.array([1, 0], np.int32),
+                            "a": np.array([1., 2.], np.float32),
+                            "b": np.array([3., 4.], np.float32)})
+
+
+def test_executor_cast_and_fill_constant_saturate_as_jax():
+    """The casts of fed values saturate in both Executors.  ``fill_constant``
+    only at values that both of JAX's paths agree on: under the JAX
+    Executor's jit the value is folded while tracing by numpy's cast (1e10
+    to int32 gives its least value, -3.7 to uint8 253), where the JAX rule
+    run eagerly saturates, as the port does (ROADMAP Queue 3)."""
+    def build(fluid):
+        L = fluid.layers
+        x = _data(fluid, "x", "float32")
+        o = _data(fluid, "o", "float32", (len(_OOR),))
+        return [L.cast(x, "uint8"), L.cast(o, "int32"), L.cast(o, "uint8"),
+                L.cast(o, "int8"), L.cast(o, "bool"), L.cast(o, "float16"),
+                L.fill_constant([2], "int32", 3.7),
+                L.fill_constant([2], "uint8", 255.5),
+                L.fill_constant([2], "float16", 1e10)]
+    _programs_match(build, {"x": _SMALL["float32"], "o": _OOR})
+
+
+def test_executor_sequence_reverse_past_t_matches_jax():
+    def build(fluid):
+        L = fluid.layers
+        x = _data(fluid, "x", "float32", (3, 4))
+        xi = _data(fluid, "xi", "int32", (3, 4))
+        n = _data(fluid, "n", "int64", (3,))
+        return [L.sequence_reverse(x, seq_len=n), L.sequence_reverse(xi, seq_len=n)]
+    _programs_match(build, {"x": _X12, "xi": _X12.astype(np.int32),
+                            "n": np.array([0, 1, 6], np.int64)})

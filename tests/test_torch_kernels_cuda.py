@@ -125,6 +125,11 @@ def test_redesigned_wrappers_run_one_cuda_kernel_a_call(cuda_device):
     vals = torch.randn(319488, 11, generator=g, device=cuda_device)
     assert _cuda_kernels_per_call(
         lambda: seg._segsum_sorted(keys, order, vals, 1000000)) == 1
+    # the batch-norm reductions at ResNet-50's largest and widest views
+    for M, C in ((401408, 256), (6272, 2048)):
+        x = torch.randn(M, C, generator=g, device=cuda_device).bfloat16()
+        assert _cuda_kernels_per_call(lambda: fbn.stats2(x)) == 1
+        assert _cuda_kernels_per_call(lambda: fbn.bwd_reduce2(x, x)) == 1
 
 
 def test_fused_layer_norm_autograd_on_card(cuda_device):
@@ -314,6 +319,27 @@ def test_bn_kernels_match_plain(cuda_device, dtype, M, C):
         for gt, wt in zip(got, want):
             assert gt.dtype == wt.dtype and gt.shape == wt.shape
             assert _rel(gt, wt) <= (2e-2 if gt.dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.parametrize("M,C,dtype", [
+    (6272, 2048, torch.bfloat16), (25088, 256, torch.bfloat16),
+    (100003, 512, torch.float32), (777, 12, torch.bfloat16)])
+def test_bn_reductions_are_deterministic_and_reset_their_counters(
+        cuda_device, M, C, dtype):
+    """Two calls of each one-launch reduction give the same bits (the last
+    block of a tile folds the blocks' rows in a fixed order) and leave the
+    workspace's tile counters at 0."""
+    g = torch.Generator(device=cuda_device).manual_seed(M + C)
+    x = torch.randn(M, C, generator=g, device=cuda_device).to(dtype)
+    dy = torch.randn(M, C, generator=g, device=cuda_device).to(dtype)
+    for fn in (lambda: fbn.stats2(x), lambda: fbn.bwd_reduce2(dy, x)):
+        a = [t.clone() for t in fn()]
+        b = fn()
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+        counters = fbn._WORK[(x.device.index,
+                              _common.stream_ptr(x.device))][1]
+        assert not counters.any()
 
 
 def test_bn_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):

@@ -1,7 +1,9 @@
 """The one-launch reduction kernels of ``csrc/segment_update.cu``
-(``segsum_kernel``) and ``csrc/layer_norm.cu`` (``ln_bwd_vec_kernel``,
-``ln_bwd_scalar_kernel``) run on the CPU and held to the plain versions in
-``kernels/segment_update.py`` and ``kernels/layer_norm.py``.
+(``segsum_kernel``), ``csrc/layer_norm.cu`` (``ln_bwd_vec_kernel``,
+``ln_bwd_scalar_kernel``) and ``csrc/fused_bn.cu`` (``bn_stats_kernel``,
+``bn_bwd_reduce_kernel``) run on the CPU and held to the plain versions in
+``kernels/segment_update.py``, ``kernels/layer_norm.py`` and
+``kernels/fused_bn.py``.
 
 ``g++`` builds each CUDA source against the stand-in headers in
 ``tests/cuda_emu/``, which run a block as one fiber per CUDA thread on one
@@ -13,7 +15,9 @@ reversed or shuffled (by the case's size), so the block that takes a
 counter's last ticket, and adds up what the others left, is the last, the
 first or one in the middle, as any may be on the card.  That checks the tiles' bookkeeping
 (runs crossing one or many tile edges, ragged last tiles, rows wider than
-the segment kernel's 32 columns, the fold of the blocks' partial sums) and that the counter is back at 0 after a call.  The
+the segment kernel's 32 columns, the fold of the blocks' partial sums, the
+batch-norm kernels' channel tiles and ragged row blocks) and that the
+counters are back at 0 after a call.  The
 speed, the registers and any race the emulation's ordering hides are the
 card's to show (``chip_smoke.py``, ``tests/test_torch_kernels_cuda.py``).
 
@@ -30,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.kernels import fused_bn as fbn
 from paddle_tpu_torch.kernels import layer_norm as ln
 from paddle_tpu_torch.kernels import segment_update as seg
 
@@ -64,6 +69,11 @@ def seg_emu(tmp_path_factory):
 @pytest.fixture(scope="module")
 def ln_emu(tmp_path_factory):
     return _build(tmp_path_factory, "layer_norm.cu", "ln_emu")
+
+
+@pytest.fixture(scope="module")
+def bn_emu(tmp_path_factory):
+    return _build(tmp_path_factory, "fused_bn.cu", "bn_emu")
 
 
 def _raw(t):
@@ -198,5 +208,61 @@ def test_layer_norm_bwd_emulated_matches_plain(ln_emu, tmp_path, N, E, dtype,
     assert _rel(outs[0][0], ds_p) <= TOL_F32
     assert _rel(outs[0][1], db_p) <= TOL_F32
     assert np.array_equal(_raw(dxs[0]), _raw(dxs[1]))
+    assert torch.equal(outs[0], outs[1])
+    assert np.fromfile(tmp_path / "done.bin", dtype=np.uint32)[0] == 0
+
+
+@pytest.mark.parametrize("M,C,dtype,nblk,group,route,kernel", [
+    (1001, 256, torch.bfloat16, 5, None, "vec16", "stats"),    # 4 tiles, ragged rows
+    (1001, 256, torch.bfloat16, 5, None, "vec16", "bwd_reduce"),
+    (700, 64, torch.float32, 3, None, "vec16", "stats"),       # f32: 2 tiles of 32
+    (700, 64, torch.float32, 3, None, "vec16", "bwd_reduce"),
+    (333, 72, torch.bfloat16, 4, None, "vec16", "bwd_reduce"), # last tile 1 vector
+    (5, 256, torch.bfloat16, 1, None, "vec16", "stats"),       # M under one block
+    (5, 256, torch.float32, 1, None, "vec16", "bwd_reduce"),
+    (257, 12, torch.float32, 6, None, "scalar", "stats"),      # C = 12: V = 1
+    (257, 12, torch.bfloat16, 6, None, "scalar", "bwd_reduce"),
+    (150, 36, torch.bfloat16, 2, None, "scalar", "stats"),     # 2 tiles, last of 4
+    (150, 64, torch.float32, 7, None, "scalar", "bwd_reduce"), # V = 1 at a vector width
+    (2000, 128, torch.bfloat16, 9, None, "vec16", "stats"),
+    (3000, 64, torch.bfloat16, 40, 16, "vec16", "stats"),      # 3 groups: two levels
+    (3000, 64, torch.float32, 17, 16, "vec16", "bwd_reduce"),  # a group of one block
+    (2000, 256, torch.bfloat16, 20, 6, "vec16_wide", "bwd_reduce"),  # tx 32: 1 tile
+    (999, 96, torch.float32, 33, 16, "scalar", "stats"),       # scalar fold, 3 groups
+    (4190, 64, torch.bfloat16, 70, None, "vec16", "bwd_reduce"),  # groups of 9
+])
+def test_bn_reductions_emulated_match_plain(bn_emu, tmp_path, M, C, dtype, nblk,
+                                            group, route, kernel):
+    """Each case: the two sums against the plain version at chip_smoke.py's
+    f32 tolerance, the counters back at 0, and two calls bit for bit.  A
+    group smaller than the row blocks takes the two-level fold (each group,
+    then the groups); the wrapper's grouping (``_fold_group``) folds up to
+    64 row blocks in one level."""
+    rng = np.random.RandomState(M + C)
+    a = torch.from_numpy((rng.randn(M, C) + 0.5).astype(np.float32)).to(dtype)
+    b = torch.from_numpy((rng.randn(M, C) * 2).astype(np.float32)).to(dtype)
+    tx, vec, tiles = fbn._reduce_layout(a, b)
+    if route == "scalar":
+        tx, vec = min(32, 1 << (C - 1).bit_length()), 0
+    if route == "vec16_wide":             # a tile of 32 vectors, full rows
+        tx = 32
+    assert vec == route.startswith("vec16")
+    rows = -(-M // nblk)
+    assert -(-M // rows) == nblk
+    group = group or fbn._fold_group(nblk)
+    two = kernel == "bwd_reduce"
+    _raw(a).tofile(tmp_path / "a.bin")
+    _raw(b).tofile(tmp_path / "b.bin")
+    subprocess.run([str(bn_emu), str(tmp_path), str(M), str(C),
+                    str(int(dtype == torch.bfloat16)), str(vec), str(tx),
+                    str(nblk), str(rows), str(group), str(int(two)), "2"],
+                   check=True, capture_output=True, text=True, timeout=120,
+                   env=_order_env(M + C + nblk))
+    want = fbn.bwd_reduce_plain(a, b) if two else fbn.bn_stats_plain(a)
+    outs = [_load(tmp_path / ("out%d.bin" % c), torch.float32, (2, C))
+            for c in (0, 1)]
+    assert torch.isfinite(outs[0]).all()
+    for got, w in zip(outs[0], want):
+        assert _rel(got, w) <= TOL_F32
     assert torch.equal(outs[0], outs[1])
     assert np.fromfile(tmp_path / "done.bin", dtype=np.uint32)[0] == 0
