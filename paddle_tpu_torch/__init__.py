@@ -27,6 +27,10 @@ module names so each counterpart is easy to find:
   the five BASELINE configs; ``models.book`` the Fluid book suite;
   ``models.parity`` the learning criteria;
 - ``amp`` (and ``contrib.mixed_precision``): ``decorate``, ``amp_guard``;
+- ``monitor`` (run telemetry: timeline, spans, Prometheus, recompiles,
+  MemScope, the TrainSentinel), ``profiler`` (``torch.profiler`` behind
+  the Fluid profiler API), ``flags`` (``FLAGS_check_nan_inf``) and
+  ``ft.chaos`` (the executor's fault drills);
 - ``sparse``: SelectedRows and ``merge_rows``;
 - ``convert``: parameter trees and scopes to and from the JAX package's
   numpy form.
@@ -76,6 +80,12 @@ from .io import load, save
 from . import amp
 from .amp import amp_guard
 from . import contrib
+from . import flags
+from .flags import set_flags, get_flags
+from . import monitor
+from . import profiler
+from . import ft
+from .param_attr import WeightNormParamAttr
 
 __all__ = [
     "Program", "Block", "Operator", "Variable", "Parameter", "program_guard",
@@ -86,5 +96,6 @@ __all__ = [
     "nets", "data_feeder", "DataFeeder", "ParamAttr", "datasets",
     "unique_name", "resolve_device", "metrics", "io", "inference",
     "compiler", "CompiledProgram", "BuildStrategy", "ExecutionStrategy",
-    "load", "save", "amp", "amp_guard", "contrib",
+    "load", "save", "amp", "amp_guard", "contrib", "flags", "set_flags",
+    "get_flags", "monitor", "profiler", "ft", "WeightNormParamAttr",
 ]

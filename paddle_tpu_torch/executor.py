@@ -31,20 +31,42 @@ looked up once, when the plan is made, and a control-flow rule runs its
 sub-block's list on a copy of the env as often as it needs.  A one-device
 ``CompiledProgram`` runs as the program it wraps.
 
+The monitor's hooks sit where the JAX executor's sit in its ``_run``
+(``monitor/``): the spans ``executor.run``, ``executor.feed_convert``,
+``executor.compile`` (the plan build, on a plan-cache miss, which the
+recompile detector records with the key split into the reference's named
+parts), ``executor.dispatch`` and ``executor.device_sync``; the
+``feed_stall`` and ``compute`` phases; ``record_step`` with a sampled
+``device_ms`` from CUDA events around the dispatch (synchronised only on a
+sampled step); MemScope's plan ledger, measured on the plan's first run,
+and its headroom check before each later dispatch; the chaos points
+``nan_batch`` and ``oom_step``; the sentinel's health bundle and guard
+before the state commits to the scope; ``FLAGS_check_nan_inf`` through
+``localize_nonfinite``; and the memory sample after the commit.  With the
+monitor off, a run launches exactly what it launched before the hooks: the
+same kernels in the same order, with no extra sync.
+
 The JAX executor's other branches (pipeline, recompute, data-parallel
-CompiledProgram/fleet, monitor and sentinel, the warm store, py_reader)
-raise ``NotImplementedError`` naming the ROADMAP item that brings them; none
+CompiledProgram/fleet, the warm store, py_reader) raise
+``NotImplementedError`` naming the ROADMAP item that brings them; none
 quietly runs another path.
 """
 
 import os
+import time
 import warnings
 
 import numpy as np
 import torch
 
+from . import monitor as _monitor
 from .dtypes import convert_dtype, numpy_dtype
 from .enforce import EnforceNotMet, NotDifferentiable, format_op_error
+from .flags import globals_ as _flags
+from .ft import chaos as _chaos
+from .monitor import memscope as _memscope
+from .monitor import sentinel as _sentinel
+from .monitor import trace as _trace
 from .framework import Parameter, Program, Variable, default_main_program
 from .compiler import CompiledProgram
 from .kernels._common import resolve_device
@@ -259,12 +281,18 @@ def refuse_warm_dir():
             "Queue 1 item 8)")
 
 
-def _refuse_unported_env():
-    if os.environ.get("PADDLE_TPU_MONITOR") == "1":
-        raise NotImplementedError(
-            "PADDLE_TPU_MONITOR=1: the monitor and its sentinel wait (ROADMAP "
-            "Queue 1 item 9)")
-    refuse_warm_dir()
+_MONITOR_IDENT_SEQ = [0]
+
+
+def _monitor_ident(obj, prefix):
+    """Stable telemetry identity for a Program/Executor, stored on the
+    object (a dead object's recycled id must not make a fresh object's
+    first plan look like a rebuild of the old one's)."""
+    ident = getattr(obj, "_monitor_ident", None)
+    if ident is None:
+        _MONITOR_IDENT_SEQ[0] += 1
+        ident = obj._monitor_ident = "%s#%d" % (prefix, _MONITOR_IDENT_SEQ[0])
+    return ident
 
 
 class _OpCall:
@@ -498,19 +526,42 @@ class Executor:
         state read from and written back to ``scope``.  Returns the fetches
         as numpy arrays, or as tensors on the device when ``return_numpy``
         is false."""
+        with _trace.span("executor.run"):
+            return self._run(program, feed, fetch_list, scope, return_numpy,
+                             use_program_cache)
+
+    def _run(self, program, feed, fetch_list, scope, return_numpy,
+             use_program_cache):
+        mon = _monitor.active()
+        t_start = time.perf_counter() if mon is not None else 0.0
+        sent = getattr(mon, "sentinel", None) if mon is not None else None
         program = program if program is not None else default_main_program()
         if isinstance(program, CompiledProgram):
             program = program._program_for_run()
         if not isinstance(program, Program):
             raise TypeError("Executor.run takes a Program or a "
                             "CompiledProgram, not %s" % type(program).__name__)
-        _refuse_unported_env()
+        refuse_warm_dir()
         feed = feed or {}
         fetch_names = [_as_fetch_name(f) for f in (fetch_list or [])]
         scope = scope if scope is not None else global_scope()
         block = program.global_block()
-        feed_tensors = {n: self._feed_tensor(block, n, v)
-                        for n, v in feed.items()}
+        ident = None
+        if mon is not None:
+            # the telemetry identity of (program, this executor): tags the
+            # plan's ledger and compile events and every step record
+            ident = "%s@%s" % (_monitor_ident(program, "Program"),
+                               _monitor_ident(self, "Exec"))
+            _memscope.note_scope(scope)
+        t_feed = time.perf_counter()
+        with _trace.span("executor.feed_convert"):
+            feed_tensors = {n: self._feed_tensor(block, n, v)
+                            for n, v in feed.items()}
+        if mon is not None:
+            mon.phase_add("feed_stall", (time.perf_counter() - t_feed) * 1e3)
+        if _chaos.maybe_fire("nan_batch"):
+            # the tripwire drill (ft/chaos.py): this run's batch gets a NaN
+            feed_tensors = _sentinel.poison_feed(feed_tensors)
 
         key = (id(program), program._version,
                tuple(sorted((n, tuple(t.shape), t.dtype)
@@ -518,10 +569,14 @@ class Executor:
                tuple(fetch_names))
         # a cached plan holds its program, so the program's id stays its own
         plan = self._cache.get(key) if use_program_cache else None
-        if plan is None:
-            plan = _Plan(program, feed_tensors)
+        first_run = plan is None
+        if first_run:
+            with _trace.span("executor.compile"):
+                plan = _Plan(program, feed_tensors)
             if use_program_cache:
                 self._cache[key] = plan
+            if mon is not None:
+                self._record_plan(mon, ident, key, plan, use_program_cache)
 
         missing = [n for n in plan.state_in if not scope.has_var(n)]
         if missing:
@@ -531,10 +586,38 @@ class Executor:
                 % missing)
         env = {n: scope.find_var(n).to(self.device) for n in plan.state_in}
         env.update(feed_tensors)
-        seed = (program.random_seed * 1000003 + self._step) % (2 ** 32)
+        step = self._step
+        seed = (program.random_seed * 1000003 + step) % (2 ** 32)
         self._step += 1
-        plan.run(env, plan.context(
-            torch.Generator(self.device).manual_seed(seed)))
+        health = sent is not None and plan.loss_name is not None \
+            and sent.wants_health(step)
+        state_in = dict(env) if health else None
+        probe = timer = None
+        if mon is not None:
+            if first_run and use_program_cache:
+                probe = _memscope.LedgerProbe(self.device, env.values())
+            elif not first_run:
+                # a measured plan's admission check (MemScope), before its
+                # second dispatch
+                _memscope.predict_dispatch(mon, ident)
+            if mon.take_device_sample():
+                timer = _DeviceTimer(self.device)
+        t_call = time.perf_counter()
+        try:
+            with _trace.span("executor.dispatch", compiled=first_run):
+                if _chaos.maybe_fire("oom_step"):
+                    # the OOM drill (ft/chaos.py): this run's dispatch dies
+                    raise _memscope.InjectedOOMError(
+                        "RESOURCE_EXHAUSTED: injected oom_step fault "
+                        "dispatching %s" % (ident or "program"))
+                plan.run(env, plan.context(
+                    torch.Generator(self.device).manual_seed(seed)))
+        except Exception as e:
+            # the OOM postmortem, with the memory section, before the
+            # exception propagates
+            if mon is not None and _memscope.is_resource_exhausted(e):
+                _memscope.note_oom(mon, ident, e)
+            raise
 
         missing = [n for n in fetch_names if n not in env]
         if missing:
@@ -546,11 +629,120 @@ class Executor:
                 "fetch targets %s are SelectedRows gradients of is_sparse "
                 "lookups; fetch the updated tables instead" % sparse)
         fetches = [env[n].detach() for n in fetch_names]
-        for n in plan.state_out:
-            if n in env:
-                scope.var(n)
-                scope.set(n, env[n].detach())
+        state_out = {n: env[n].detach() for n in plan.state_out if n in env}
+        vec = names = None
+        if health:
+            vec, names = _health(plan, env, state_in)
+            if sent.guard_on_device:
+                state_out, vec = _sentinel.traced_guard(vec, state_in,
+                                                        state_out)
+
+        if mon is not None:
+            host_ms = (time.perf_counter() - t_start) * 1e3
+            device_ms = None
+            if timer is not None:
+                with _trace.span("executor.device_sync"):
+                    device_ms = timer.stop()
+                mon.registry.counter("monitor.fetch.sampled_sync").incr()
+            if not first_run:
+                mon.phase_add("compute", device_ms if device_ms is not None
+                              else (time.perf_counter() - t_call) * 1e3)
+            batch = max((int(t.shape[0]) for t in feed_tensors.values()
+                         if t.ndim > 0), default=None)
+            mon.record_step(step, host_ms, device_ms, batch=batch,
+                            fetches=len(fetch_names), compiled=first_run,
+                            ident=ident, defer_memory=True)
+            if probe is not None:
+                _memscope.record_program(
+                    mon, ident, probe.finish(fetches + list(state_out.values())),
+                    source="compile")
+
+        if vec is not None:
+            # may raise NonFiniteError (halt) before the state commits
+            sent.after_step(step, vec, names, state_out=state_out,
+                            fetches=fetches, fetch_names=fetch_names,
+                            feed=feed_tensors, ident=ident)
+
+        if _flags["FLAGS_check_nan_inf"]:
+            # per-run NaN/Inf validation (flags.cc FLAGS_check_nan_inf),
+            # naming the tensor through the sentinel's localizer
+            bad = _sentinel.localize_nonfinite(
+                list(state_out.items()) + list(zip(fetch_names, fetches)))
+            if bad:
+                _sentinel.record_nonfinite(
+                    bad, mon.registry if mon is not None else None)
+                first = bad[0]
+                more = ", ".join(b["name"] for b in bad[1:4])
+                raise RuntimeError(
+                    "FLAGS_check_nan_inf: variable %r contains NaN/Inf "
+                    "after this step (%d NaN, %d Inf; first at flat "
+                    "index %d)%s"
+                    % (first["name"], first["nan"], first["inf"],
+                       first["first_index"],
+                       "; also nonfinite: %s" % more if more else ""))
+
+        for n, v in state_out.items():
+            scope.var(n)
+            scope.set(n, v)
+        if mon is not None:
+            # the time-sampled memory watermark, after the commit, so the
+            # owner walk sees the new state in the scope
+            mon.maybe_sample_memory()
+            if return_numpy and fetches:
+                mon.registry.counter("monitor.fetch.inline_sync").incr()
         if return_numpy:
             return [(f.float() if f.dtype == torch.bfloat16 else f).cpu().numpy()
                     for f in fetches]
         return fetches
+
+    def _record_plan(self, mon, ident, key, plan, cached):
+        """A plan-cache miss: the recompile detector gets the key split into
+        the reference's named parts; an uncached run is counted, never as
+        recompile churn."""
+        if cached:
+            feed = tuple((n, shape, str(dtype).replace("torch.", ""))
+                         for n, shape, dtype in key[2])
+            mon.recompiles.record_compile(ident, {
+                "version": key[1], "feed": feed, "fetch": key[3],
+                "state": tuple(plan.state_in), "sharding": None})
+        else:
+            mon.registry.counter("monitor.compile.uncached").incr()
+            mon.timeline.emit("compile", ident=ident, recompile=False,
+                              diff=[], cached=False)
+
+
+def _health(plan, env, state_in):
+    """The sentinel's bundle from a training step's env: the dense
+    gradients by parameter and the sparse ones by their row values, the
+    parameters before and after the step (the reference's health
+    arguments)."""
+    dense = [p for p in plan.param_names
+             if p in env and p not in plan.sparse]
+    grads = {p: env[p + "@GRAD"] for p in dense}
+    for w in plan.sparse:
+        grads[w] = env[w + "@GRAD"].values
+    return _sentinel.traced_health(
+        env[plan.loss_name], grads, {p: state_in[p] for p in dense},
+        {p: env[p] for p in dense})
+
+
+class _DeviceTimer:
+    """The sampled step's device time: CUDA events around the dispatch on
+    a card (its ``stop`` waits for the end event), the host clock on the
+    CPU."""
+
+    def __init__(self, device):
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+        else:
+            self.t0 = time.perf_counter()
+
+    def stop(self):
+        if not self.cuda:
+            return (time.perf_counter() - self.t0) * 1e3
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        end.synchronize()
+        return self.start.elapsed_time(end)

@@ -15,7 +15,7 @@ Python loop here; the Viterbi argmax takes the first of tied maxima, as
 import torch
 
 from ..registry import register_op
-from .common import x, out
+from .common import x, out, take_clamp, take_steps
 
 
 def _unpack(transition):
@@ -30,7 +30,11 @@ def _lengths(length, B, T, device):
 
 def crf_nll(emission, transition, label, lengths):
     """[B] positive losses: log Z - score(label path).  A row of length 0
-    costs exactly 0 (linear_chain_crf_op.h)."""
+    costs exactly 0 (linear_chain_crf_op.h).  Labels outside [0, D) and
+    lengths past T read as the JAX rule's gathers read them: the emission's
+    ``take_along_axis`` fills (NaN), a length's last label fills (the
+    least int64), and the weight lookups wrap a negative index once and
+    clamp (``take_clamp``)."""
     B, T, D = emission.shape
     a, b, w = _unpack(transition)
     em = emission.float()
@@ -48,12 +52,12 @@ def crf_nll(emission, transition, label, lengths):
     # the gold path's score
     t_idx = torch.arange(T, device=em.device)[None, :]
     zero = torch.zeros((), dtype=em.dtype, device=em.device)
-    em_lab = torch.gather(em, 2, lab.clamp(0, D - 1)[:, :, None])[:, :, 0]
+    em_lab = take_steps(em.reshape(B * T, D), lab.reshape(B * T, 1)).reshape(B, T)
     em_score = torch.where(t_idx < ln[:, None], em_lab, zero).sum(dim=1)
-    pair = w[lab[:, :-1], lab[:, 1:]]                       # [B, T - 1]
+    pair = take_clamp(w, lab[:, :-1], lab[:, 1:])           # [B, T - 1]
     trans_score = torch.where(t_idx[:, 1:] < ln[:, None], pair, zero).sum(dim=1)
-    last = torch.gather(lab, 1, (ln - 1).clamp(min=0)[:, None])[:, 0]
-    path = em_score + trans_score + a[lab[:, 0]] + b[last]
+    last = take_steps(lab, (ln - 1).clamp(min=0)[:, None])[:, 0]
+    path = em_score + trans_score + take_clamp(a, lab[:, 0]) + take_clamp(b, last)
     return torch.where(ln > 0, logz - path, zero)
 
 

@@ -1,13 +1,15 @@
 """Math op rules on tensors: the elementwise binaries, compares and logical
-ops, scale, sum, mul, mean, the reductions, floor and top_k (counterparts of
-the rules in ``paddle_tpu/ops/math_ops.py`` that the Fluid slices run; the
-others wait).
+ops, scale, sum, mul, mean, the reductions, floor, sqrt, sign, the clips
+and top_k (counterparts of the rules in ``paddle_tpu/ops/math_ops.py``
+that the Fluid slices and the port's optimizer, clip and regularizer
+classes run; the others wait).
 
 Reference parity: operators/elementwise/, controlflow/compare_op.cc,
 logical_op.cc, scale_op.cc, sum_op.cc, mul_op.cc, mean_op.cc,
-reduce_ops/, activation_op.cc (floor), top_k_op.cc.  A SelectedRows
-gradient (``sparse.py``) passes ``scale``, a binary by a scalar and ``sum``
-as the JAX rules pass it (math/selected_rows_functor.cc).
+reduce_ops/, activation_op.cc (floor, sqrt, sign), clip_op.cc,
+clip_by_norm_op.cc, squared_l2_norm_op.cc, top_k_op.cc.  A SelectedRows
+gradient (``sparse.py``) passes ``scale``, a binary by a scalar, ``sum``
+and the clips as the JAX rules pass it (math/selected_rows_functor.cc).
 """
 
 import math
@@ -57,6 +59,10 @@ _register_binary("elementwise_div", torch.true_divide)
 # bool ** bool in int32, as jnp.power (torch.pow refuses bool)
 _register_binary("elementwise_pow", lambda a, b: torch.pow(
     *(t.int() if t.dtype == torch.bool else t for t in (a, b))))
+# NaN propagates and a tie splits the gradient in halves, as jnp.maximum
+_register_binary("elementwise_max", torch.maximum)
+# the remainder takes the divisor's sign, as jnp.mod
+_register_binary("elementwise_mod", torch.remainder)
 
 _register_binary("less_than", torch.lt)
 _register_binary("less_equal", torch.le)
@@ -143,6 +149,65 @@ def _floor(ins, attrs, ctx):
     """Integers and bool come back as they are, as from ``jnp.floor``."""
     v = x(ins, "X")
     return out(Out=torch.floor(v) if v.is_floating_point() else v)
+
+
+@register_op("sqrt")
+def _sqrt(ins, attrs, ctx):
+    return out(Out=torch.sqrt(x(ins, "X")))
+
+
+@register_op("sign")
+def _sign(ins, attrs, ctx):
+    """-1, 0 or 1; NaN stays NaN, as ``jnp.sign``."""
+    v = x(ins, "X")
+    return out(Out=torch.where(torch.isnan(v), v, torch.sign(v))
+               if v.is_floating_point() else torch.sign(v))
+
+
+def _clip_values(v, lo, hi):
+    """``jnp.clip``: a maximum then a minimum, so a value exactly at a
+    bound takes half its gradient, as those two give it."""
+    v = torch.maximum(v, torch.tensor(lo, dtype=v.dtype, device=v.device))
+    return torch.minimum(v, torch.tensor(hi, dtype=v.dtype, device=v.device))
+
+
+@register_op("clip")
+def _clip(ins, attrs, ctx):
+    """A SelectedRows input is merged first: duplicate ids sum before the
+    clip, as the dense gradient would."""
+    v = x(ins, "X")
+    if isinstance(v, SelectedRows):
+        rows, vals = v.merged()
+        return out(Out=SelectedRows(
+            rows, _clip_values(vals, attrs["min"], attrs["max"]), v.height))
+    return out(Out=_clip_values(v, attrs["min"], attrs["max"]))
+
+
+def _clipped_by_norm(v, max_norm):
+    norm = torch.sqrt(torch.sum(torch.square(v)))
+    return torch.where(norm > max_norm, v * (max_norm / norm), v)
+
+
+@register_op("clip_by_norm")
+def _clip_by_norm(ins, attrs, ctx):
+    """A SelectedRows input's norm is the norm of its merged rows (the
+    dense gradient's norm, clip_by_norm_op.h)."""
+    v = x(ins, "X")
+    max_norm = attrs["max_norm"]
+    if isinstance(v, SelectedRows):
+        rows, vals = v.merged()
+        return out(Out=SelectedRows(rows, _clipped_by_norm(vals, max_norm),
+                                    v.height))
+    return out(Out=_clipped_by_norm(v, max_norm))
+
+
+@register_op("squared_l2_norm")
+def _squared_l2_norm(ins, attrs, ctx):
+    """A SelectedRows input sums duplicate ids before squaring."""
+    v = x(ins, "X")
+    if isinstance(v, SelectedRows):
+        _, v = v.merged()
+    return out(Out=torch.sum(torch.square(v)).reshape(()))
 
 
 def _reduce(fn, over_none=lambda v: v):

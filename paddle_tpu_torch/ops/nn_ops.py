@@ -19,9 +19,9 @@ import torch
 import torch.nn.functional as F
 
 from ..registry import register_op
-from .common import x, out, op_generator, promote_float
+from .common import (x, out, op_generator, promote_float, saturating_cast,
+                     take_fill)
 from .pooling_ops import ceil_pads
-from .tensor_ops import take_fill
 
 
 def _register_act(name, fn):
@@ -125,7 +125,8 @@ def _batch_norm(ins, attrs, ctx):
     """Batch statistics (population variance) in training, the running
     ones under is_test / use_global_stats; the running stats move by
     ``momentum`` without a gradient.  Computes in the input's dtype, as the
-    JAX rule."""
+    JAX rule; an integer X normalises in f32 and Y goes back to its dtype
+    (the statistics stay f32), as ``jnp.mean`` and ``astype`` do."""
     v = x(ins, "X")
     scale, bias = x(ins, "Scale"), x(ins, "Bias")
     mean, var = x(ins, "Mean"), x(ins, "Variance")
@@ -143,8 +144,8 @@ def _batch_norm(ins, attrs, ctx):
         m, va = mean, var
         new_mean, new_var = mean, var
     else:
-        m = v.mean(dim=axes)
-        va = v.var(dim=axes, unbiased=False)
+        m = promote_float(v).mean(dim=axes)
+        va = promote_float(v).var(dim=axes, unbiased=False)
         new_mean = momentum * mean + (1.0 - momentum) * m.detach()
         new_var = momentum * var + (1.0 - momentum) * va.detach()
     y = (v - m.reshape(cshape)) * torch.rsqrt(va + eps).reshape(cshape)
@@ -152,7 +153,7 @@ def _batch_norm(ins, attrs, ctx):
         y = y * scale.reshape(cshape)
     if bias is not None:
         y = y + bias.reshape(cshape)
-    return out(Y=y.to(v.dtype), MeanOut=new_mean, VarianceOut=new_var,
+    return out(Y=saturating_cast(y, v.dtype), MeanOut=new_mean, VarianceOut=new_var,
                SavedMean=m, SavedVariance=va)
 
 

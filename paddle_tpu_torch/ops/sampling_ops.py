@@ -18,7 +18,7 @@ import math
 import torch
 
 from ..registry import register_op
-from .common import op_generator, out, x
+from .common import op_generator, out, take_clamp, x
 
 
 def _log_uniform_prob(k, range_):
@@ -67,9 +67,10 @@ def _nce(ins, attrs, ctx):
                            num_total, dist_probs, inp.device).reshape(B, num_neg)
     sample_labels = torch.cat([label, negs], dim=1)          # [B, T + neg]
 
-    logits = torch.einsum("bd,btd->bt", inp, weight[sample_labels])
+    # a label outside [0, num_total) reads as JAX's gather reads it
+    logits = torch.einsum("bd,btd->bt", inp, take_clamp(weight, sample_labels))
     if bias is not None:
-        logits = logits + bias.reshape(-1)[sample_labels]
+        logits = logits + take_clamp(bias.reshape(-1), sample_labels)
     o = torch.sigmoid(logits)
     if sampler == 0:
         pt = torch.full(sample_labels.shape, 1.0 / num_total,
@@ -77,7 +78,7 @@ def _nce(ins, attrs, ctx):
     elif sampler == 1:
         pt = _log_uniform_prob(sample_labels, num_total - 1)
     else:
-        pt = dist_probs[sample_labels]
+        pt = take_clamp(dist_probs, sample_labels)
     bq = pt * num_neg
     true = torch.arange(T + num_neg, device=inp.device)[None, :] < T
     cost = torch.where(true, -torch.log(o / (o + bq)),
@@ -115,9 +116,11 @@ def _hierarchical_sigmoid(ins, attrs, ctx):
     valid = idx >= 0
     idx = torch.where(valid, idx, torch.zeros_like(idx))
     zero = torch.zeros((), dtype=xin.dtype, device=xin.device)
-    pre = torch.einsum("bd,bld->bl", xin, w[idx])
+    # a node past the table (a label outside [0, num_classes)) reads as
+    # JAX's gather reads it
+    pre = torch.einsum("bd,bld->bl", xin, take_clamp(w, idx))
     if bias is not None:
-        pre = pre + bias.reshape(-1)[idx]
+        pre = pre + take_clamp(bias.reshape(-1), idx)
     pre = torch.where(valid, pre, zero).clamp(-40.0, 40.0)
     o = (torch.log1p(torch.exp(pre)).sum(dim=1, keepdim=True)
          - (torch.where(valid, bits, 0.0) * pre).sum(dim=1, keepdim=True))

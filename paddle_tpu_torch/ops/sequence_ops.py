@@ -13,8 +13,7 @@ import torch
 
 from ..dtypes import convert_dtype
 from ..registry import register_op
-from .common import x, out
-from .tensor_ops import take_fill
+from .common import x, out, take_steps
 
 
 def _valid(data, length):
@@ -26,20 +25,6 @@ def _valid(data, length):
 
 def _per_row(length, data):
     return length.reshape([-1] + [1] * (data.ndim - 2))
-
-
-def _take_steps(data, idx):
-    """``data[n, idx[n, k]]`` for an [N, K] index, with
-    ``jnp.take_along_axis``'s fill: a negative step counts from the end,
-    and a step still outside [0, T) reads ``take_fill``'s fill (NaN for
-    floats) and takes no gradient."""
-    N, T = data.shape[:2]
-    idx = idx.long()
-    idx = torch.where(idx < 0, idx + T, idx)
-    flat = torch.arange(N, device=data.device)[:, None] * T + idx
-    flat = torch.where((idx >= 0) & (idx < T), flat, N * T)   # past the end
-    rows = take_fill(data.reshape((N * T,) + data.shape[2:]), flat.reshape(-1))
-    return rows.reshape(tuple(idx.shape) + data.shape[2:])
 
 
 @register_op("sequence_mask")
@@ -79,7 +64,7 @@ def _sequence_pool(ins, attrs, ctx):
         r = torch.where(m, data, float("-inf")).amax(dim=1)
     elif ptype == "LAST":
         # a length past T reads the fill, as take_along_axis
-        r = _take_steps(data, (length - 1).clamp(min=0).reshape(-1, 1))[:, 0]
+        r = take_steps(data, (length - 1).clamp(min=0).reshape(-1, 1))[:, 0]
     elif ptype == "FIRST":
         r = data[:, 0]
     else:
@@ -98,7 +83,7 @@ def _sequence_reverse(ins, attrs, ctx):
         return out(Y=torch.flip(data, dims=(1,)))
     t = torch.arange(data.shape[1], device=data.device)[None, :]
     ln = length.reshape(-1, 1)
-    return out(Y=_take_steps(data, torch.where(t < ln, ln - 1 - t, t)))
+    return out(Y=take_steps(data, torch.where(t < ln, ln - 1 - t, t)))
 
 
 @register_op("sequence_conv")

@@ -1,5 +1,6 @@
 """Tensor op rules: fill_constant, fill_constant_batch_size_like,
-gaussian_random and uniform_random (the startup program's initializers),
+gaussian_random, truncated_gaussian_random and uniform_random (the startup
+program's initializers),
 and assign, cast, reshape2, transpose2, concat, split, squeeze2,
 unsqueeze2, expand, stack, gather, one_hot, increment and where
 (counterparts of the rules in ``paddle_tpu/ops/tensor_ops.py``; the others
@@ -7,7 +8,7 @@ wait).
 
 Parity: operators/fill_constant_op.cc,
 fill_constant_batch_size_like_op.cc, gaussian_random_op.cc,
-uniform_random_op.cc, assign_op.cc, cast_op.cc, reshape_op.cc,
+truncated_gaussian_random_op.cc, uniform_random_op.cc, assign_op.cc, cast_op.cc, reshape_op.cc,
 transpose_op.cc, concat_op.cc, split_op.cc, squeeze_op.cc,
 unsqueeze_op.cc, expand_op.cc, stack_op.cc, gather_op.cc, one_hot_op.cc,
 increment_op.cc, where_op.cc.  Random ops draw from ``torch`` generators
@@ -15,10 +16,12 @@ seeded per run and op (``common.op_generator``); they do not reproduce
 ``jax.random`` streams, only their distributions.
 """
 
+import math
+
 import torch
 
 from ..registry import register_op
-from .common import x, out, op_generator, dtype_of, saturating_cast
+from .common import x, out, op_generator, dtype_of, saturating_cast, take_fill
 
 
 def _fill_value(attrs):
@@ -55,6 +58,21 @@ def _gaussian_random(ins, attrs, ctx):
     v = torch.randn(shape, generator=op_generator(ctx, attrs),
                     dtype=dtype_of(attrs), device=ctx.device)
     return out(Out=attrs.get("mean", 0.0) + attrs.get("std", 1.0) * v)
+
+
+@register_op("truncated_gaussian_random")
+def _truncated_gaussian_random(ins, attrs, ctx):
+    """mean + std * a standard normal cut to [-2, 2], as
+    ``jax.random.truncated_normal(key, -2, 2)``: the inverse normal CDF of
+    a uniform draw between the CDF's values at -2 and 2 (another stream
+    than JAX's, from ``op_generator``)."""
+    shape = [int(s) for s in attrs["shape"]]
+    gen = op_generator(ctx, attrs)
+    lo, hi = (0.5 * (1.0 + math.erf(z / math.sqrt(2.0))) for z in (-2.0, 2.0))
+    u = torch.rand(shape, generator=gen, device=ctx.device) * (hi - lo) + lo
+    v = (math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)).clamp(-2.0, 2.0)
+    return out(Out=(attrs.get("mean", 0.0) + attrs.get("std", 1.0) * v)
+               .to(dtype_of(attrs)))
 
 
 @register_op("uniform_random")
@@ -154,29 +172,6 @@ def _concat(ins, attrs, ctx):
 @register_op("stack")
 def _stack(ins, attrs, ctx):
     return out(Y=torch.stack(ins["X"], dim=int(attrs.get("axis", 0))))
-
-
-def take_fill(v, idx):
-    """Rows ``idx`` of ``v`` along axis 0 with ``jnp.take``'s default
-    ("fill") semantics: a negative index counts from the end, and an index
-    still outside [0, n) reads NaN (floats), the type's least value (signed
-    integers), its largest (unsigned) or True (bool), and takes no
-    gradient."""
-    n = v.shape[0]
-    idx = idx.long()
-    idx = torch.where(idx < 0, idx + n, idx)
-    hit = (idx >= 0) & (idx < n)
-    rows = v[idx.clamp(0, max(n - 1, 0))]
-    if v.is_floating_point():
-        fill = float("nan")
-    elif v.dtype == torch.bool:
-        fill = True
-    elif v.dtype == torch.uint8:
-        fill = torch.iinfo(v.dtype).max
-    else:
-        fill = torch.iinfo(v.dtype).min
-    return torch.where(hit.reshape((-1,) + (1,) * (v.ndim - 1)), rows,
-                       torch.full((), fill, dtype=v.dtype, device=v.device))
 
 
 @register_op("gather")

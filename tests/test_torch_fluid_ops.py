@@ -578,3 +578,136 @@ def test_executor_sequence_reverse_past_t_matches_jax():
         return [L.sequence_reverse(x, seq_len=n), L.sequence_reverse(xi, seq_len=n)]
     _programs_match(build, {"x": _X12, "xi": _X12.astype(np.int32),
                             "n": np.array([0, 1, 6], np.int64)})
+
+
+# -- Queue 3's logged faults: out-of-range labels and lengths, integer BN --------
+# Each input runs through both rules (value and kind), then as a Fluid program
+# through both Executors.  The port's rules read an index out of range as the
+# JAX rules' gathers read it (``ops/common.py`` ``clamp_index``,
+# ``take_steps``) where they used to raise IndexError.
+
+def _crf_case(labels, lengths):
+    rng = np.random.RandomState(0)
+    return {"Emission": [rng.randn(3, 4, 3).astype(np.float32)],
+            "Transition": [rng.randn(5, 3).astype(np.float32)],
+            "Label": [np.array(labels, np.int64)],
+            "Length": [np.array(lengths, np.int64)]}
+
+
+def _hsig_case():
+    rng = np.random.RandomState(0)
+    return {"X": [rng.randn(3, 4).astype(np.float32)],
+            "W": [rng.randn(4, 4).astype(np.float32)],
+            "Bias": [np.zeros(4, np.float32)],
+            "Label": [np.array([1, 7, -1], np.int64)]}
+
+
+def _nce_case():
+    rng = np.random.RandomState(0)
+    return {"Input": [rng.randn(3, 4).astype(np.float32)],
+            "Label": [np.array([[1], [7], [-1]], np.int64)],
+            "Weight": [rng.randn(5, 4).astype(np.float32)],
+            "Bias": [rng.randn(5).astype(np.float32)]}
+
+
+def _bn_case():
+    rng = np.random.RandomState(0)
+    return {"X": [rng.randn(2, 3, 2, 2).astype(np.int32)],
+            "Scale": [np.ones(3, np.float32)], "Bias": [np.zeros(3, np.float32)],
+            "Mean": [np.zeros(3, np.float32)], "Variance": [np.ones(3, np.float32)]}
+
+
+QUEUE3_CASES = {
+    "crf_length_past_t": ("linear_chain_crf",
+                          _crf_case([[0, 1, 2, 0]] * 3, [2, 4, 6]), {}),
+    "crf_label_out_of_range": ("linear_chain_crf",
+                               _crf_case([[0, 5, -1, 0]] * 3, [2, 4, 3]), {}),
+    "crf_label_and_length": ("linear_chain_crf",
+                             _crf_case([[0, 2, 1, 0], [3, 1, 0, 2], [1, 1, 7, 0]],
+                                       [9, 4, 2]), {}),
+    "hsigmoid_label_out_of_range": ("hierarchical_sigmoid", _hsig_case(),
+                                    {"num_classes": 5}),
+    "nce_label_out_of_range": ("nce", _nce_case(),
+                               {"num_total_classes": 5,
+                                "custom_neg_classes": [0, 3]}),
+    "nce_label_out_of_range_log_uniform": ("nce", _nce_case(),
+                                           {"num_total_classes": 5, "sampler": 1,
+                                            "custom_neg_classes": [4, 2]}),
+    "batch_norm_int32_training": ("batch_norm", _bn_case(), {}),
+    "batch_norm_int32_nhwc": ("batch_norm", _bn_case(),
+                              {"data_layout": "NHWC"}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(QUEUE3_CASES))
+def test_queue3_logged_faults_match_jax(case):
+    """ROADMAP Queue 3's four logged faults: ``linear_chain_crf`` with a
+    length past T or a label outside [0, D) (finite values and NaN alike),
+    ``hierarchical_sigmoid`` and ``nce`` with a label outside the classes,
+    ``batch_norm`` of an int32 X in training (int32 Y, f32 statistics)."""
+    op, ins, attrs = QUEUE3_CASES[case]
+    if op == "batch_norm" and attrs.get("data_layout") == "NHWC":
+        ins = dict(ins, X=[ins["X"][0].transpose(0, 2, 3, 1).copy()])
+    _rule_matches(op, ins, attrs)
+
+
+def test_crf_gradient_matches_jax():
+    """In range, the repaired CRF's gradients into Emission and Transition
+    against ``jax.vjp``."""
+    _run("linear_chain_crf", _crf_case([[0, 1, 2, 0], [2, 2, 1, 0], [1, 0, 0, 2]],
+                                       [2, 4, 3]),
+         {}, ["Emission", "Transition"], "LogLikelihood")
+
+
+def test_hsigmoid_and_nce_gradients_with_out_of_range_labels_match_jax():
+    """A clamped row takes the gradient of every read of it, as JAX's
+    gather gives it."""
+    _run("hierarchical_sigmoid", _hsig_case(), {"num_classes": 5},
+         ["X", "W"], "Out")
+    _run("nce", _nce_case(), {"num_total_classes": 5, "custom_neg_classes": [0, 3]},
+         ["Input", "Weight"], "Cost")
+
+
+def _pin_nce_negatives(fluid, negatives):
+    for op in fluid.default_main_program().global_block().ops:
+        if op.type == "nce":
+            op.attrs["custom_neg_classes"] = list(negatives)
+
+
+def test_executor_crf_with_out_of_range_labels_and_lengths_matches_jax():
+    ins = _crf_case([[0, 2, 1, 0], [3, 1, 0, 2], [1, 1, 7, 0]], [9, 4, 2])
+
+    def build(fluid):
+        L = fluid.layers
+        em = _data(fluid, "em", "float32", (3, 4, 3))
+        lab = _data(fluid, "lab", "int64", (3, 4))
+        ln = _data(fluid, "ln", "int64", (3,))
+        return [L.linear_chain_crf(em, lab, length=ln)]
+
+    feed = {"em": ins["Emission"][0], "lab": ins["Label"][0],
+            "ln": ins["Length"][0]}
+    _programs_match(build, feed)
+    feed["lab"] = np.array([[0, 5, -1, 0]] * 3, np.int64)
+    _programs_match(build, feed)
+
+
+def test_executor_hsigmoid_and_nce_with_out_of_range_labels_match_jax():
+    def build(fluid):
+        L = fluid.layers
+        xv = _data(fluid, "x", "float32", (3, 4))
+        lab = _data(fluid, "lab", "int64", (3, 1))
+        h = L.hsigmoid(xv, lab, 5)
+        n = L.nce(xv, lab, 5, num_neg_samples=2)
+        _pin_nce_negatives(fluid, [0, 3])
+        return [h, n]
+
+    _programs_match(build, {"x": _hsig_case()["X"][0],
+                            "lab": np.array([[1], [7], [-1]], np.int64)})
+
+
+def test_executor_batch_norm_of_int32_matches_jax():
+    def build(fluid):
+        xv = _data(fluid, "x", "int32", (2, 3, 2, 2))
+        return [fluid.layers.batch_norm(xv)]
+
+    _programs_match(build, {"x": _bn_case()["X"][0]})

@@ -3,6 +3,9 @@
 on the card or raise, never quietly on the CPU."""
 
 import ast
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -42,6 +45,33 @@ def test_no_jax_or_reference_imports(path):
     bad = [n for n in _imported(path)
            if n.split(".")[0] in FORBIDDEN]
     assert not bad, "%s imports %s" % (path.relative_to(ROOT), bad)
+
+
+MONITOR_STACK = ["monitor", "monitor.registry", "monitor.timeline",
+                 "monitor.trace", "monitor.flight", "monitor.exporters",
+                 "monitor.recompile", "monitor.session", "monitor.fleetscope",
+                 "monitor.tracemesh", "monitor.watchtower", "monitor.memory",
+                 "monitor.memscope", "monitor.sentinel", "profiler", "flags",
+                 "ft", "ft.chaos", "ops.misc_ops5"]
+
+
+def test_the_monitor_stack_is_checked_and_loads_alone():
+    """Every module the monitor stack added is among the files checked
+    above, and importing all of them in a fresh interpreter loads neither
+    JAX nor the JAX package."""
+    checked = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for mod in MONITOR_STACK:
+        path = "paddle_tpu_torch/" + mod.replace(".", "/")
+        assert path + ".py" in checked or path + "/__init__.py" in checked, mod
+    code = ("import sys\n" + "".join("import paddle_tpu_torch.%s\n" % m
+                                      for m in MONITOR_STACK)
+            + "print(sorted({m.split('.')[0] for m in sys.modules} & "
+              "{'jax', 'jaxlib', 'paddle_tpu'}))")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "[]"
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):

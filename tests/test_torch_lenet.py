@@ -346,8 +346,6 @@ def _unported(case, monkeypatch):
         main._fleet_strategy = object()
     if case == "py_reader":
         main._py_readers = [object()]
-    if case == "monitor":
-        monkeypatch.setenv("PADDLE_TPU_MONITOR", "1")
     if case == "warm_store":
         monkeypatch.setenv("PADDLE_TPU_WARM_DIR", "/nonexistent")
     if case == "compiled_program":
@@ -360,7 +358,7 @@ def _unported(case, monkeypatch):
 @pytest.mark.parametrize("case,item", [
     ("pipeline", "item 5"), ("recompute", "item 3"),
     ("fleet", "item 5"), ("py_reader", "item 4"),
-    ("monitor", "item 9"), ("warm_store", "item 8"),
+    ("warm_store", "item 8"),
     ("compiled_program", "item 5"), ("unported_op", None),
 ])
 def test_unported_branches_raise(case, item, monkeypatch):
@@ -370,6 +368,31 @@ def test_unported_branches_raise(case, item, monkeypatch):
     match = ("ROADMAP Queue 1 " + item) if item else "no lowering registered"
     with pytest.raises(NotImplementedError, match=match):
         exe.run(main, feed=feed, fetch_list=[loss], scope=pfluid.Scope())
+
+
+def test_monitor_env_run_writes_a_timeline(tmp_path, monkeypatch):
+    """``PADDLE_TPU_MONITOR=1`` switches the monitor on at the first run (it
+    was refused until the monitor was ported): the run succeeds and the
+    session writes its timeline into ``PADDLE_TPU_MONITOR_DIR``."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.monitor import session
+
+    main, startup, v = build(pfluid)
+    monkeypatch.setenv("PADDLE_TPU_MONITOR", "1")
+    monkeypatch.setenv("PADDLE_TPU_MONITOR_DIR", str(tmp_path))
+    monkeypatch.setattr(session, "_env_checked", False)
+    monitor.disable()
+    try:
+        exe = pfluid.Executor(pfluid.CPUPlace())
+        scope = pfluid.Scope()
+        exe.run(startup, scope=scope)
+        (lv,) = exe.run(main, feed=digits(0, n=2), fetch_list=[v["loss"]],
+                        scope=scope)
+        assert np.isfinite(lv).all() and monitor.active() is not None
+    finally:
+        monitor.disable()
+    steps = monitor.read_events(str(tmp_path / "timeline.jsonl"), ev="step")
+    assert len(steps) == 2 and steps[-1]["compiled"] is True
 
 
 def test_dygraph_minimize_raises():
