@@ -31,6 +31,11 @@ module names so each counterpart is easy to find:
   MemScope, the TrainSentinel), ``profiler`` (``torch.profiler`` behind
   the Fluid profiler API), ``flags`` (``FLAGS_check_nan_inf``) and
   ``ft.chaos`` (the executor's fault drills);
+- the data path: ``dataset`` (``DatasetFactory``, ``QueueDataset``,
+  ``InMemoryDataset`` over the native MultiSlot parser of ``runtime``),
+  ``feed_pipe`` (``DeviceFeedPipe``, ``InFlightWindow``), ``reader``
+  (``DataLoader``), ``layers.io``'s ``py_reader`` family, ``trainer``
+  (``Executor.train_from_dataset``) and ``async_executor``;
 - ``sparse``: SelectedRows and ``merge_rows``;
 - ``convert``: parameter trees and scopes to and from the JAX package's
   numpy form.
@@ -86,6 +91,12 @@ from . import monitor
 from . import profiler
 from . import ft
 from .param_attr import WeightNormParamAttr
+from .trainer import FetchHandler
+from .reader import DataLoader
+from . import dataset
+from .dataset import DatasetFactory
+from .async_executor import AsyncExecutor
+from .layers.io import EOFException
 
 __all__ = [
     "Program", "Block", "Operator", "Variable", "Parameter", "program_guard",
@@ -98,4 +109,6 @@ __all__ = [
     "compiler", "CompiledProgram", "BuildStrategy", "ExecutionStrategy",
     "load", "save", "amp", "amp_guard", "contrib", "flags", "set_flags",
     "get_flags", "monitor", "profiler", "ft", "WeightNormParamAttr",
+    "FetchHandler", "DataLoader", "dataset", "DatasetFactory",
+    "AsyncExecutor", "EOFException",
 ]

@@ -46,10 +46,17 @@ before the state commits to the scope; ``FLAGS_check_nan_inf`` through
 monitor off, a run launches exactly what it launched before the hooks: the
 same kernels in the same order, with no extra sync.
 
+The data path (``trainer.py``): a started ``py_reader`` of the program
+injects its next staged batch as the feed and raises ``EOFException`` at
+the end, as the JAX executor's does; ``train_from_dataset`` and
+``infer_from_dataset`` drive a Dataset through ``feed_pipe.DeviceFeedPipe``
+(``feed_converter`` stages each batch on the card off the training thread)
+with lazy fetches, and the executor's ``InFlightWindow`` bounds how many
+lazily fetched steps may be outstanding (``drain`` waits for them all).
+
 The JAX executor's other branches (pipeline, recompute, data-parallel
-CompiledProgram/fleet, the warm store, py_reader) raise
-``NotImplementedError`` naming the ROADMAP item that brings them; none
-quietly runs another path.
+CompiledProgram/fleet, the warm store) raise ``NotImplementedError`` naming
+the ROADMAP item that brings them; none quietly runs another path.
 """
 
 import os
@@ -61,6 +68,7 @@ import torch
 
 from . import monitor as _monitor
 from .dtypes import convert_dtype, numpy_dtype
+from .feed_pipe import InFlightWindow, make_feed_convert, make_placer
 from .enforce import EnforceNotMet, NotDifferentiable, format_op_error
 from .flags import globals_ as _flags
 from .ft import chaos as _chaos
@@ -112,10 +120,6 @@ def _refuse_unported(program):
         raise NotImplementedError(
             "fleet/transpiler-tagged programs: data-parallel execution waits "
             "(ROADMAP Queue 1 item 5)")
-    if getattr(program, "_py_readers", None):
-        raise NotImplementedError(
-            "py_reader-fed programs: the reader pipeline waits (ROADMAP "
-            "Queue 1 item 4)")
     for op in program.global_block().ops:
         if op.type == "backward_meta" and op.attrs.get("use_remat"):
             raise NotImplementedError(
@@ -504,10 +508,56 @@ class Executor:
         self.device = resolve_device(None if place is None else place.device())
         self._cache = {}
         self._step = 0
+        # async-fetch depth governor (feed_pipe.py): bounds outstanding
+        # lazy-fetch runs to K steps (PADDLE_TPU_MAX_INFLIGHT, default 2)
+        self.inflight = InFlightWindow()
+
+    def drain(self):
+        """Wait for every outstanding lazy-fetch run, so run wall times
+        measure completed work, not queued work."""
+        self.inflight.drain()
 
     def close(self):
-        """Parity: executor.cc Executor::Close — drops the cached plans."""
+        """Parity: executor.cc Executor::Close — waits for outstanding runs
+        and drops the cached plans."""
+        self.drain()
         self._cache.clear()
+
+    def feed_converter(self, program=None):
+        """The feed-conversion closure ``feed_dict -> staged feed`` for use
+        OFF the training thread (the DeviceFeedPipe stage): declared dtypes
+        applied, and on a card the copy through a pinned buffer started on
+        a side stream, so the copy of batch k+1 overlaps step k.  ``run``
+        takes the staged tensors as they are."""
+        program = program if program is not None else default_main_program()
+        if isinstance(program, CompiledProgram):
+            program = program._program_for_run()
+        block = program.global_block()
+
+        def dtype_of(name):
+            var = block._find_var_recursive(name)
+            if var is None:
+                return None
+            try:
+                return numpy_dtype(var.dtype)
+            except ValueError:
+                return None          # bfloat16: run() casts the tensor
+
+        return make_feed_convert(dtype_of, make_placer(self.device))
+
+    def infer_from_dataset(self, *args, **kwargs):
+        from .trainer import _run_from_dataset
+
+        return _run_from_dataset(self, *args, train=False, **kwargs)
+
+    def train_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, **kwargs):
+        """Parity: executor.py:1093 — the dataset/trainer path."""
+        from .trainer import _run_from_dataset
+
+        return _run_from_dataset(self, program=program, dataset=dataset,
+                                 scope=scope, thread=thread, train=True,
+                                 **kwargs)
 
     def _feed_tensor(self, block, name, value):
         """A feed value as a tensor on this executor's device, in the var's
@@ -543,6 +593,12 @@ class Executor:
                             "CompiledProgram, not %s" % type(program).__name__)
         refuse_warm_dir()
         feed = feed or {}
+        # py_reader-fed programs (layers/io.py py_reader): a started reader
+        # injects its next staged batch as the feed; exhaustion raises
+        # EOFException, as the reference's read_file does at the end of an
+        # epoch
+        for rdr in getattr(program, "_py_readers", ()):
+            feed = rdr._inject_feed(feed)
         fetch_names = [_as_fetch_name(f) for f in (fetch_list or [])]
         scope = scope if scope is not None else global_scope()
         block = program.global_block()
@@ -693,6 +749,9 @@ class Executor:
         if return_numpy:
             return [(f.float() if f.dtype == torch.bfloat16 else f).cpu().numpy()
                     for f in fetches]
+        # lazy fetches: bound the host's run-ahead by this step's outputs
+        # (an event after them; the window waits on the (K+1)-oldest)
+        self.inflight.admit(fetches or list(state_out.values()))
         return fetches
 
     def _record_plan(self, mon, ident, key, plan, cached):

@@ -318,7 +318,7 @@ def fused_bn_train(x, scale, bias, eps=1e-5, sync_axis=None):
     if sync_axis is not None:
         raise NotImplementedError(
             "sync_axis=%r: cross-replica batch statistics need the multi-GPU "
-            "engine, ROADMAP.md Queue 1 item 11" % (sync_axis,))
+            "engine, ROADMAP.md Queue 1 item 5" % (sync_axis,))
     return _FusedBNTrain.apply(x, scale, bias, float(eps))
 
 

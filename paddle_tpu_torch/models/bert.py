@@ -24,7 +24,7 @@ __all__ = ["bert_base_config", "bert_tiny_config", "make_loss_fn",
            "build_bert_trainer"]
 
 _UNSUPPORTED = ("%s=%d: the port runs at one device so far; data, tensor and "
-                "pipeline parallelism are ROADMAP.md Queue 1 item 11 "
+                "pipeline parallelism are ROADMAP.md Queue 1 item 5 "
                 "(multi-GPU engine)")
 
 
@@ -49,7 +49,7 @@ def _check_single_device(cfg, dp=1):
             raise NotImplementedError(_UNSUPPORTED % (name, deg))
     if cfg.attn_mode != "heads":
         raise NotImplementedError(
-            "attn_mode=%r: ring attention is ROADMAP.md Queue 1 item 11"
+            "attn_mode=%r: ring attention is ROADMAP.md Queue 1 item 5"
             % cfg.attn_mode)
 
 

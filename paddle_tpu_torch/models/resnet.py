@@ -36,7 +36,7 @@ __all__ = ["ResNetConfig", "resnet50_config", "resnet_tiny_config",
            "synthetic_batches", "ResNetTrainer", "build_resnet_trainer"]
 
 _UNSUPPORTED = ("%s: the port runs at one device so far; data parallelism "
-                "and sync-BN are ROADMAP.md Queue 1 item 11 (multi-GPU "
+                "and sync-BN are ROADMAP.md Queue 1 item 5 (multi-GPU "
                 "engine)")
 _BN_EPS = 1e-5
 

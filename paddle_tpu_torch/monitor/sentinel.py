@@ -402,6 +402,11 @@ class Sentinel:
                        fetches=fetches, fetch_names=fetch_names,
                        feed=feed, ident=ident)
 
+    def on_run_start(self, train=True):
+        """train_from_dataset's run bracket: restart the steps/s window so
+        a back-to-back run does not report rates across the gap."""
+        self._rate_ref = None
+
     # -- sampling ----------------------------------------------------------
     def _record_sample(self, step, vec, names):
         reg = self.monitor.registry

@@ -1,13 +1,14 @@
 """NN op rules on tensors: activations, softmax, dropout, conv2d, pool2d,
 batch_norm, lookup_table and the losses cross_entropy,
-softmax_with_cross_entropy and square_error_cost (counterparts of the
+softmax_with_cross_entropy, sigmoid_cross_entropy_with_logits and
+square_error_cost (counterparts of the
 rules in ``paddle_tpu/ops/nn_ops.py`` that the Fluid slices run; the others
 wait).
 
 Reference parity: operators/activation_op.cc, softmax_op.cc,
 dropout_op.cc, conv_op.cc, pool_op.cc, batch_norm_op.cc,
 lookup_table_op.cc, cross_entropy_op.cc, softmax_with_cross_entropy_op.cc,
-square_error_cost.  NCHW, as the reference.  The JAX rules leave the
+sigmoid_cross_entropy_with_logits_op.cc, square_error_cost.  NCHW, as the reference.  The JAX rules leave the
 convolution and the pooling windows to XLA (``lax.conv_general_dilated``,
 ``lax.reduce_window``); here they go to PyTorch's own ops.  ``dropout``
 draws its mask from a ``torch`` generator (``common.op_generator``): the
@@ -231,6 +232,23 @@ def _softmax_with_cross_entropy(ins, attrs, ctx):
                            torch.zeros((), dtype=loss.dtype,
                                        device=loss.device), loss)
     return out(Loss=loss, Softmax=torch.exp(logp))
+
+
+@register_op("sigmoid_cross_entropy_with_logits")
+def _sigmoid_ce(ins, attrs, ctx):
+    """max(x, 0) - x * label + log1p(exp(-|x|)), 0 where label equals
+    ignore_index; ``normalize`` divides by the count of other labels."""
+    v, label = x(ins, "X"), x(ins, "Label")
+    label = label.to(v.dtype)
+    loss = torch.clamp(v, min=0.0) - v * label + torch.log1p(torch.exp(-torch.abs(v)))
+    ignore = attrs.get("ignore_index", -100)
+    zero = torch.zeros((), dtype=loss.dtype, device=loss.device)
+    loss = torch.where(label == ignore, zero, loss)
+    if attrs.get("normalize", False):
+        norm = torch.clamp(torch.sum((label != ignore).to(loss.dtype)),
+                           min=1.0)
+        loss = loss / norm
+    return out(Out=loss)
 
 
 @register_op("square_error_cost")

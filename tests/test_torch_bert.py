@@ -304,7 +304,7 @@ def test_convert_roundtrip_keeps_bf16_bits():
 
 
 def test_parallel_degrees_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         pbert.build_bert_trainer(pbert.bert_tiny_config(tp=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         pbert.build_bert_trainer(pbert.bert_tiny_config(), device="cpu", dp=2)

@@ -1,0 +1,148 @@
+"""The derived per-element bounds of ``tools/fp_bounds.py`` on the CPU.
+
+They gate the data path's card checks where the order of additions is not
+fixed (``chip_smoke.py``'s ``ctr_dataset`` and phase 27): each route's
+merge of duplicate ids against the exact float64 sum within
+gamma(n - 1) sum |x| (runs of one or two terms exactly), and Adam's and
+SGD's sparse updates against a float64 recomputation with the bound
+propagated through each f32 operation, 2^-149 of underflow per operation
+included.  Here: the bounds hold on both merge routes of the port's CPU
+path and on a step of the CTR program; they are reached (so no margin
+below 1 can be promised); the underflow term is needed; a merged value
+four units off is caught; Adam's moments equal their f32 replay.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu_torch as fluid
+from paddle_tpu_torch.sparse import merge_rows
+from paddle_tpu_torch.tools import ctr_program as cp
+from paddle_tpu_torch.tools import fp_bounds as fb
+
+U = 2.0 ** -24
+
+
+def _merge(rows, values, via):
+    r, v = merge_rows(torch.from_numpy(rows), torch.from_numpy(values),
+                      1000, via=via)
+    return r.numpy(), v.numpy()
+
+
+def _zipf_contributions(seed, n=4000, d=5):
+    rng = np.random.RandomState(seed)
+    rows = (rng.zipf(1.3, n) % 1000).astype(np.int64)
+    values = (rng.randn(n, d) * np.exp(rng.randn(n, d) * 3)).astype(np.float32)
+    return rows, values
+
+
+@pytest.mark.parametrize("via", ["xla", "kernel"])
+def test_both_merge_routes_lie_within_their_bounds(via):
+    rows, values = _zipf_contributions(0)
+    out_rows, out = _merge(rows, values, via)
+    rec = fb.merge_check(rows, values, out_rows, out, 1000)
+    assert rec["rows_equal"] and rec["short_runs_exact"], rec
+    assert rec["within_bound"] and rec["longest_run"] > 100, rec
+
+
+def test_the_sum_bound_is_reached():
+    """1 + 2^-24 + 2^-24 in f32 is 1 in any order (each addition rounds
+    the tie to even): the error 2^-23 is the whole of gamma(2) (1 + 2^-23),
+    so the largest ratio over many elements can come near 1."""
+    rows = np.zeros(3, np.int64)
+    values = np.array([[1.0], [U], [U]], np.float32)
+    out_rows, out = _merge(rows, values, "xla")
+    assert out[0, 0] == 1.0
+    rec = fb.merge_check(rows, values, out_rows, out, 1000)
+    assert 0.999 < rec["max_err_over_bound"] <= 1.0
+
+
+def test_a_merge_four_units_off_is_caught():
+    """Three equal terms: the bound is gamma(2) 3.3, under two units of
+    the sum; four units off is outside it, and so is a term left out."""
+    rows = np.array([5, 5, 5], np.int64)
+    values = np.full((3, 1), 1.1, np.float32)
+    out_rows, out = _merge(rows, values, "xla")
+    assert fb.merge_check(rows, values, out_rows, out, 1000)["within_bound"]
+    off = out.copy()
+    for _ in range(4):
+        off = np.nextafter(off, np.float32(10))
+    assert not fb.merge_check(rows, values, out_rows, off, 1000)[
+        "within_bound"]
+    short = out - np.float32(1.1)
+    assert not fb.merge_check(rows, values, out_rows, short, 1000)[
+        "within_bound"]
+
+
+def test_short_runs_are_held_exactly():
+    rows = np.array([3, 5, 3, 7], np.int64)
+    values = np.array([[0.1], [0.2], [0.7], [-0.0]], np.float32)
+    out_rows, out = _merge(rows, values, "kernel")
+    assert fb.merge_check(rows, values, out_rows, out, 1000)[
+        "short_runs_exact"]
+    out[out_rows == 3] = np.nextafter(out[out_rows == 3], np.float32(1))
+    assert not fb.merge_check(rows, values, out_rows, out, 1000)[
+        "short_runs_exact"]
+
+
+def test_the_underflow_term_is_needed():
+    """(1 - beta2) g^2 underflows to 0 in f32 for |g| ~ 1e-22: a bound
+    relative to the exact value alone would be exceeded infinitely often;
+    with 2^-149 per operation the 0 is covered."""
+    g = np.array([[1e-22, -3e-23]], np.float32)
+    inputs = dict(param=np.ones((4, 2), np.float32),
+                  m1=np.zeros((4, 2), np.float32),
+                  m2=np.zeros((4, 2), np.float32),
+                  beta1_pow=np.array([0.9], np.float32),
+                  beta2_pow=np.array([0.999], np.float32),
+                  lr=np.array([1e-3], np.float32), rows=np.array([1]),
+                  grad=g)
+    out = fb.sparse_adam_f32(**inputs)
+    ref = fb.sparse_adam_reference(**inputs)["Moment2Out"]
+    assert (out["Moment2Out"][1] == 0).all() and (ref.r[1] > 0).all()
+    relative_only = fb.UNIT * 4 * ref.r[1]
+    assert (ref.r[1] > relative_only).all()
+    assert fb.sparse_adam_check(out, **inputs)["Moment2Out"]["within_bound"]
+
+
+@pytest.mark.parametrize("via", ["xla", "kernel"])
+def test_a_ctr_step_lies_within_its_bounds(tmp_path, via, monkeypatch):
+    monkeypatch.setenv("PADDLE_TPU_SEGMENT_KERNEL",
+                       "1" if via == "kernel" else "0")
+    files = cp.write_ctr_files(str(tmp_path), n_files=1, rows_per_file=256,
+                               n_fields=8, vocab=300, zipf=0.99)
+    prog = cp.build_ctr_program(fluid, n_fields=8, vocab=300, embed=4,
+                                mlp=(16,), lr=1e-3)
+    exe, scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    exe.run(prog.startup, scope=scope)
+    ds = cp.make_dataset(fluid, "QueueDataset", files, prog, 256)
+    feed = next(ds._iter_batches())
+    with fb.capture_sparse_updates() as recs:
+        step = fluid.Executor(fluid.CPUPlace())
+        step.run(prog.main, feed=feed, fetch_list=[prog.loss], scope=scope)
+    assert len(recs) == 2
+    for rec in recs:
+        res = fb.check_sparse_update(rec)
+        assert res["ok"], res
+        assert res["merge"]["longest_run"] > 2
+        # the moments' arithmetic is IEEE here too: the same bits
+        assert res["Moment1Out"]["f32_replay_equal"]
+        assert res["Moment2Out"]["f32_replay_equal"]
+    # the plan keeps the wrapped rules, which record nothing afterwards
+    step.run(prog.main, feed=feed, fetch_list=[prog.loss], scope=scope)
+    assert len(recs) == 2
+
+
+def test_an_sgd_sparse_update_lies_within_its_bound():
+    rows, values = _zipf_contributions(2, n=600, d=3)
+    param = np.random.RandomState(3).randn(1000, 3).astype(np.float32)
+    lr = np.array([0.37], np.float32)
+    from paddle_tpu_torch.kernels.segment_update import scatter_rows_drop
+
+    out = scatter_rows_drop(torch.from_numpy(param.copy()),
+                            torch.from_numpy(rows),
+                            -torch.from_numpy(lr)[0] * torch.from_numpy(values))
+    rec = fb.sparse_sgd_check(out.numpy(), param, lr, rows, values)
+    assert rec["ParamOut"]["within_bound"], rec
+    assert rec["ParamOut"]["max_err_over_bound"] > 0

@@ -182,7 +182,7 @@ def test_statistics_are_not_differentiable():
 
 def test_sync_axis_raises():
     x = torch.randn(2, 3, 3, 4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         pfbn.fused_bn_train(x, torch.ones(4), torch.zeros(4), sync_axis="dp")
 
 

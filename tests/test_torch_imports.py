@@ -74,6 +74,51 @@ def test_the_monitor_stack_is_checked_and_loads_alone():
     assert r.stdout.strip().splitlines()[-1] == "[]"
 
 
+DATA_PATH = ["runtime", "ft.retry", "dataset", "async_executor",
+             "feed_pipe", "reader", "layers.io", "trainer",
+             "tools.ctr_program", "datasets.flowers", "datasets.image",
+             "datasets.mq2007", "datasets.sentiment", "datasets.voc2012",
+             "datasets.wmt14"]
+
+
+def test_the_data_path_is_checked_and_loads_alone():
+    """Every module the data path added is among the files checked above,
+    and importing all of them in a fresh interpreter loads neither JAX nor
+    the JAX package; the native datafeed is built from the port's own
+    source."""
+    checked = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for mod in DATA_PATH:
+        path = "paddle_tpu_torch/" + mod.replace(".", "/")
+        assert path + ".py" in checked or path + "/__init__.py" in checked, mod
+    assert (ROOT / "paddle_tpu_torch/runtime/datafeed.cc").exists()
+    code = ("import sys\n" + "".join("import paddle_tpu_torch.%s\n" % m
+                                      for m in DATA_PATH)
+            + "print(sorted({m.split('.')[0] for m in sys.modules} & "
+              "{'jax', 'jaxlib', 'paddle_tpu'}))")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_data_path_entry_points_raise_without_a_card(monkeypatch):
+    """Without a card, the Executor and a DataLoader given no place raise
+    before they stage anything; with CPUPlace they run on the CPU."""
+    import paddle_tpu_torch as fluid
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fluid.Executor()
+    loader = fluid.DataLoader.from_generator(capacity=2)
+    loader.set_batch_generator(lambda: iter([{"x": np.zeros(2)}]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        list(loader)
+    loader.set_batch_generator(lambda: iter([{"x": np.zeros(2)}]),
+                               places=fluid.CPUPlace())
+    assert [b["x"].device.type for b in loader] == ["cpu"]
+
+
 def test_entry_points_raise_without_a_card(monkeypatch):
     """With no card, an entry point called without device='cpu' raises
     before it builds anything."""

@@ -449,10 +449,10 @@ def test_resnet_tiny_steps_on_card_match_cpu(cuda_device):
 def test_resnet_trainer_refuses_sync_bn_and_dp(cuda_device):
     from paddle_tpu_torch.models import resnet
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         resnet.build_resnet_trainer(resnet.resnet_tiny_config(sync_bn=True),
                                     device=cuda_device)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         resnet.build_resnet_trainer(resnet.resnet_tiny_config(),
                                     device=cuda_device, dp=2)
 

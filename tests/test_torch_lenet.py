@@ -335,6 +335,9 @@ def _unported(case, monkeypatch):
         label = fluid.layers.data("label", shape=[1], dtype="int64")
         if case == "unported_op":
             img = fluid.layers.layer_norm(img)
+        if case == "py_reader":
+            reader = fluid.layers.create_py_reader_by_data(
+                capacity=2, feed_list=[img, label])
         _, loss, _ = plenet.build_mlp(img, label)
         opt = fluid.optimizer.SGD(0.1)
         if case == "pipeline":
@@ -345,7 +348,11 @@ def _unported(case, monkeypatch):
     if case == "fleet":
         main._fleet_strategy = object()
     if case == "py_reader":
-        main._py_readers = [object()]
+        # item 4 is ported: the program reads its feed from a started
+        # reader, here one over an empty source
+        reader.decorate_batch_generator(lambda: iter([]),
+                                        places=fluid.CPUPlace())
+        reader.start()
     if case == "warm_store":
         monkeypatch.setenv("PADDLE_TPU_WARM_DIR", "/nonexistent")
     if case == "compiled_program":
@@ -364,6 +371,12 @@ def _unported(case, monkeypatch):
 def test_unported_branches_raise(case, item, monkeypatch):
     main, loss = _unported(case, monkeypatch)
     exe = pfluid.Executor(pfluid.CPUPlace())
+    if case == "py_reader":
+        # no longer refused (ROADMAP Queue 1 item 4, the data path): the
+        # run reads the reader, whose end raises EOFException
+        with pytest.raises(pfluid.EOFException):
+            exe.run(main, fetch_list=[loss], scope=pfluid.Scope())
+        return
     feed = digits(0, n=2)
     match = ("ROADMAP Queue 1 " + item) if item else "no lowering registered"
     with pytest.raises(NotImplementedError, match=match):

@@ -309,9 +309,9 @@ def test_synthetic_batches_are_bench_batches():
 
 
 def test_unsupported_settings_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         pres.build_resnet_trainer(pres.resnet_tiny_config(sync_bn=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         pres.build_resnet_trainer(pres.resnet_tiny_config(), device="cpu", dp=2)
 
 
