@@ -269,7 +269,33 @@ Builds the port's CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
     ``DataLoader.from_generator`` and a ``py_reader`` program: the staged
     batches on the card equal the host's, the losses equal the ``feed=``
     path's bit for bit (cuDNN deterministic), ``EOFException`` after the
-    last batch.
+    last batch;
+39. ``rules_3b``: every row of ``tools/rule_cases.py`` (ROADMAP Queue 1
+    item 3-B's tranches 1-3: the 100 rules of ``math_ops``, ``nn_ops`` and
+    ``tensor_ops`` that compute, with their traps) on CUDA tensors,
+    forward and the gradients of a seeded cotangent, with no device
+    assert, held to the same rule in float64 on the CPU within the bound
+    ``tools/fp_bounds.py``'s ``BoundMode`` derives from the rule's own
+    ATen operations (bit for bit with the CPU's f32 rule where no
+    operation rounds; integer and bool outputs exactly), cuDNN off; the
+    largest error over bound of every case and rule; the four refusals
+    raise; ``randint`` keeps its range and repeats itself from a seed
+    (``tests/test_torch_op_rules_3b.py`` holds the CPU to the JAX rules on
+    the same rows);
+40. ``encoder_parity``: the Fluid-layers encoder of ``tools/programs.py``
+    at 2 layers, hidden 64, 4 heads, S = 32, B = 4, dropout 0, three SGD
+    and three Adam steps on the card and on the CPU from one
+    initialisation: losses (and under SGD every parameter) to 1e-5 of the
+    largest, the tolerance of ``tests/test_torch_optimizers.py``, which the
+    card's first runs met at under a tenth of it;
+41. ``encoder``: that program at BERT-base widths (vocab 30528, 12 x 768,
+    12 heads, FFN 3072), S = 512, B = 16, f32, dropout 0.1, Adam 1e-4,
+    through ``Executor(CUDAPlace(0))``: a warm-up and 5 timed steps (ms a
+    step, tokens/s, MFU of the bf16 peak, share of the f32 CUDA-core
+    peak, peak memory), launches, busy and idle a step from
+    ``tools/profile_step.py``'s ``fluid_encoder``, a second run from the
+    same startup bit for bit the first, 10 steps on one batch with dropout
+    0 with the loss falling; no port kernel launched in 39-41.
 
 Phases 30-33 and 36 write their monitor directories under
 ``build/monitor``, phases 35-36 their data files under
@@ -4113,6 +4139,285 @@ def phase_dataloader(card):
         raise AssertionError("dataloader: %s" % rec)
 
 
+# -- item 3-B's tranches 1-3 and the Fluid-layers encoder (phases 39-41) -------
+
+# the encoder parity cell: tools/programs.py's program at 2 layers, hidden 64
+ENC_PARITY = dict(vocab=512, hidden=64, layers=2, heads=4, ffn=256, seq=32,
+                  batch=4, dropout=0.0)
+ENC_PARITY_STEPS = 3
+ENC_PARITY_TOL = 1e-5        # tests/test_torch_optimizers.py's, for 3 steps
+ENC_SGD_LR, ENC_ADAM_LR = 0.05, 1e-3
+ENC_WARMUP, ENC_TIMED, ENC_FALL_STEPS = 1, 5, 10
+ENC_FEED_SEED = 100
+
+
+def _rule_on(device, op, ins, attrs, grad_slots, grad_out, ct):
+    """The port's rule on ``device`` from numpy inputs: (outputs, grads);
+    the sync raises a device assert, if one fired."""
+    from paddle_tpu_torch.registry import OpLoweringContext, get_lowering
+
+    ctx = OpLoweringContext(None, torch.Generator(device).manual_seed(0))
+    t = {k: [torch.from_numpy(a.copy()).to(device) for a in v]
+         for k, v in ins.items()}
+    leaves = [t[s][0].requires_grad_(True) for s in grad_slots]
+    outs = get_lowering(op)(t, dict(attrs), ctx)
+    grads = {}
+    if grad_slots:
+        got = torch.autograd.grad(outs[grad_out][0], leaves, ct.to(device),
+                                  allow_unused=True)
+        grads = dict(zip(grad_slots, got))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return outs, grads
+
+
+def phase_rules_3b(card):
+    """Phase 39: every row of ``tools/rule_cases.py`` (the 100 rules of
+    item 3-B's tranches 1-3 that compute, with the traps) on CUDA tensors,
+    forward and the gradients of a seeded cotangent, held to the same rule
+    run in float64 on the CPU within the bound ``tools/fp_bounds.py``'s
+    ``BoundMode`` derives from the rule's operations (bit for bit where no
+    operation rounds, and to the CPU's f32 rule there; integer and bool
+    outputs exactly); the four refusals raise on the card; ``randint``
+    keeps its range and repeats itself from a seed.  cuDNN is off, so the
+    convolutions run PyTorch's im2col products, whose sums the bound
+    covers (cuDNN may choose Winograd or FFT algorithms, whose errors it
+    does not).  Prints each case's largest error over bound and each
+    rule's."""
+    import numpy as np
+
+    from paddle_tpu_torch.registry import OpLoweringContext, get_lowering
+    from paddle_tpu_torch.tools import fp_bounds
+    from paddle_tpu_torch.tools.rule_cases import REFUSALS, RULE_CASES
+
+    worst, bad, n_checked = {}, [], 0
+    with torch.backends.cudnn.flags(enabled=False):
+        for cid, op, ins, attrs, grad_slots, grad_out in RULE_CASES:
+            ct = None
+            if grad_slots:
+                y, _ = _rule_on("cpu", op, ins, attrs, (), None, None)
+                ct = torch.from_numpy(np.random.RandomState(1).standard_normal(
+                    tuple(y[grad_out][0].shape)).astype(np.float32))
+            dev, dev_g = _rule_on("cuda", op, ins, attrs, grad_slots,
+                                  grad_out, ct)
+            cpu, cpu_g = _rule_on("cpu", op, ins, attrs, grad_slots, grad_out, ct)
+            res, gres, ambiguous = fp_bounds.rule_bounds(
+                get_lowering(op), {k: [torch.from_numpy(a.copy()) for a in v]
+                                   for k, v in ins.items()},
+                attrs, grad_slots, grad_out, ct)
+            checks = [(slot, dev[slot][i], cpu[slot][i], rb)
+                      for slot, vals in res.items() for i, rb in enumerate(vals)]
+            checks += [("d" + s, dev_g[s], cpu_g[s], gres[s])
+                       for s in grad_slots if gres[s] is not None]
+            rows, ok = {}, True
+            for slot, got, exact, (ref, bound) in checks:
+                rec = fp_bounds.hold_to_bound(got, ref, bound, exact=exact)
+                same_dtype = got.dtype == exact.dtype
+                rec["ok"] = rec["ok"] and same_dtype
+                rec["card_minus_cpu_f32"] = float(
+                    (got.detach().cpu().double() - exact.detach().double())
+                    .abs().nan_to_num().max()) if got.numel() else 0.0
+                rows[slot] = rec
+                ok = ok and rec["ok"]
+                n_checked += 1
+            ratio = max(r["ratio"] for r in rows.values())
+            worst[op] = max(worst.get(op, 0.0), ratio)
+            emit({"phase": "rules_3b", "case": cid, "op": op,
+                  "max_err_over_bound": ratio, "outputs": rows,
+                  "undecided_comparisons": ambiguous, "ok": ok})
+            if not ok:
+                bad.append(cid)
+        refused = {}
+        for cid, op, ins, attrs in REFUSALS:
+            try:
+                _rule_on("cuda", op, ins, attrs, (), None, None)
+                refused[cid] = False
+            except NotImplementedError:
+                refused[cid] = True
+        attrs = {"shape": [1000, 4], "low": -3, "high": 5, "seed": 7}
+        draws = [get_lowering("randint")({}, attrs, OpLoweringContext(
+            None, torch.Generator("cuda").manual_seed(seed)))["Out"][0]
+                 for seed in (0, 0, 1)]
+        randint_ok = (draws[0].dtype == torch.int64 and draws[0].is_cuda
+                      and tuple(draws[0].shape) == (1000, 4)
+                      and set(draws[0].unique().tolist()) == set(range(-3, 5))
+                      and torch.equal(draws[0], draws[1])
+                      and not torch.equal(draws[0], draws[2]))
+    rules = sorted(set(worst) | {c[1] for c in REFUSALS} | {"randint"})
+    emit({"phase": "rules_3b_summary", "nvidia_smi": card,
+          "cases": len(RULE_CASES),
+          "outputs_checked": n_checked, "rules": len(rules),
+          "max_err_over_bound_by_rule": worst, "refusals_raise": refused,
+          "randint_range_and_seed": randint_ok, "failed": bad})
+    if bad or not all(refused.values()) or not randint_ok or len(rules) != 101:
+        raise AssertionError("item 3-B rules on the card: failed %s, refusals "
+                             "%s, randint %s, %d rules" % (bad, refused,
+                                                            randint_ok, len(rules)))
+
+
+def _encoder(cfg_kw, **over):
+    from paddle_tpu_torch.tools.programs import EncoderConfig
+
+    return EncoderConfig(**dict(cfg_kw, **over))
+
+
+def _encoder_steps(cfg, device, values, steps, names):
+    """``steps`` runs of the encoder program on ``device`` from the startup
+    ``values``: (losses, {name: final numpy value})."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.tools.programs import (bert_encoder_program,
+                                                 encoder_feed)
+
+    main, _, v = bert_encoder_program(fluid, cfg)
+    scope = convert.scope_from_numpy(values, fluid.Scope(), device)
+    exe = _executor(device)
+    losses = [float(exe.run(main, feed=encoder_feed(cfg, k),
+                            fetch_list=[v["loss"]], scope=scope)[0])
+              for k in range(steps)]
+    return losses, convert.scope_to_numpy(scope, names)
+
+
+def phase_encoder_parity(card):
+    """Phase 40: the Fluid-layers encoder at 2 layers, hidden 64, 4 heads,
+    S = 32, B = 4, dropout 0, three steps on the card and on the CPU from
+    one initialisation (the CPU startup's values): with SGD the losses and
+    every parameter to ENC_PARITY_TOL of the largest (the key projection's
+    bias, whose gradient is exactly 0, to 1e-5 lr a step absolute, as in
+    ``tests/test_torch_fluid_encoder.py``); with Adam the losses only (its
+    m / sqrt(v) turns a gradient that nearly cancels into a full step)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.tools.programs import bert_encoder_program
+
+    out = {}
+    for opt, lr in (("sgd", ENC_SGD_LR), ("adam", ENC_ADAM_LR)):
+        cfg = _encoder(ENC_PARITY, lr=lr, optimizer=opt)
+        main, startup, _ = bert_encoder_program(fluid, cfg)
+        scope0 = fluid.Scope()
+        _executor("cpu").run(startup, scope=scope0)
+        names = sorted(x.name for x in startup.list_vars() if x.persistable)
+        values = convert.scope_to_numpy(scope0, names)
+        params = [p.name for p in main.global_block().all_parameters()]
+        card_l, card_p = _encoder_steps(cfg, "cuda", values, ENC_PARITY_STEPS,
+                                        params)
+        cpu_l, cpu_p = _encoder_steps(cfg, "cpu", values, ENC_PARITY_STEPS,
+                                      params)
+        loss_err = max(_rel([a], [b]) for a, b in zip(card_l, cpu_l))
+        rec = {"phase": "encoder_parity", "nvidia_smi": card,
+               "optimizer": opt, "lr": lr,
+               "steps": ENC_PARITY_STEPS, "card_losses": card_l,
+               "cpu_losses": cpu_l, "loss_max_rel_err": loss_err,
+               "tol": ENC_PARITY_TOL}
+        ok = loss_err <= ENC_PARITY_TOL
+        if opt == "sgd":
+            key_bias = [n for n in params if n.endswith("_key_fc.b_0")]
+            errs = {n: _rel(card_p[n], cpu_p[n]) for n in params
+                    if n not in key_bias}
+            noise = max(float(abs(p[n]).max()) for p in (card_p, cpu_p)
+                        for n in key_bias)
+            rec.update(param_max_rel_err=max(errs.values()),
+                       worst_param=max(errs, key=errs.get),
+                       key_bias_max_abs=noise,
+                       key_bias_bound=1e-5 * lr * ENC_PARITY_STEPS)
+            ok = (ok and rec["param_max_rel_err"] <= ENC_PARITY_TOL
+                  and noise <= rec["key_bias_bound"])
+        rec["ok"] = ok
+        emit(rec)
+        out[opt] = rec
+        if not ok:
+            raise AssertionError("encoder parity (%s) outside %g: %s"
+                                 % (opt, ENC_PARITY_TOL, rec))
+    return out
+
+
+def _encoder_run(cfg, feeds, fetch_params=False):
+    """A fresh Executor on the card: the startup, then one run a feed.
+    Returns (losses, ms of each run, params or None, (exe, main, scope))."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools.programs import bert_encoder_program
+
+    main, startup, v = bert_encoder_program(fluid, cfg)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    losses, ms = [], []
+    for feed in feeds:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (lv,) = exe.run(main, feed=feed, fetch_list=[v["loss"]], scope=scope)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(lv))
+    params = None
+    if fetch_params:
+        from paddle_tpu_torch import convert
+
+        params = convert.scope_to_numpy(
+            scope, [p.name for p in main.global_block().all_parameters()])
+    return losses, ms, params
+
+
+def phase_encoder(device_name, card):
+    """Phase 41: the Fluid-layers BERT-base encoder (``tools/programs.py``
+    ``BERT_BASE_ENCODER``: vocab 30528, 12 x 768, 12 heads, FFN 3072,
+    S = 512, B = 16, f32, dropout 0.1, Adam 1e-4) through
+    ``Executor(CUDAPlace(0))``: a warm-up step and ENC_TIMED timed steps
+    (host clock, each ending in a sync), a fresh seeded batch each; ms a
+    step, tokens/s, MFU against the bf16 peak and the share of the f32
+    CUDA-core peak; launches, busy and idle a step from ``torch.profiler``
+    (``profile_step``'s ``fluid_encoder``); a second run from a fresh
+    Executor (the same startup seeds) bit for bit the first; ENC_FALL_STEPS
+    steps on one batch with dropout 0, the loss falling; no port kernel
+    launched."""
+    import numpy as np
+
+    from paddle_tpu_torch.tools import profile_step
+    from paddle_tpu_torch.tools.programs import (BERT_BASE_ENCODER,
+                                                 encoder_feed,
+                                                 encoder_train_flops)
+
+    cfg = BERT_BASE_ENCODER
+    feeds = [encoder_feed(cfg, ENC_FEED_SEED + k)
+             for k in range(ENC_WARMUP + ENC_TIMED)]
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, params = _encoder_run(cfg, feeds, fetch_params=True)
+    peak = torch.cuda.max_memory_allocated()
+    again, _, params2 = _encoder_run(cfg, feeds, fetch_params=True)
+    same = again == losses and all(np.array_equal(params[n], params2[n])
+                                   for n in params)
+    del params, params2
+    step_s = sum(ms[ENC_WARMUP:]) / ENC_TIMED / 1e3
+    flops = encoder_train_flops(cfg)
+    bf16, _, f32 = card_peaks(device_name)
+    fall, _, _ = _encoder_run(cfg._replace(dropout=0.0),
+                              [encoder_feed(cfg, ENC_FEED_SEED)] * ENC_FALL_STEPS)
+    torch.cuda.empty_cache()
+    prof = profile_step.profile_model("fluid_encoder", card)
+    ok = (bool(np.isfinite(losses).all()) and same
+          and fall[-1] < fall[0] and bool(np.isfinite(fall).all()))
+    emit({"phase": "encoder", "config": "Fluid-layers BERT-base encoder "
+          "(Executor)", "device": device_name, "nvidia_smi": card,
+          "dtype": "float32", "batch": cfg.batch, "seq": cfg.seq,
+          "layers": cfg.layers, "hidden": cfg.hidden, "vocab": cfg.vocab,
+          "optimizer": "adam(1e-4)", "dropout": cfg.dropout,
+          "steps_timed": ENC_TIMED, "ms_per_step": step_s * 1e3,
+          "ms_each_step": ms, "tokens_per_sec": cfg.batch * cfg.seq / step_s,
+          "train_flops_per_step": flops, "mfu_bf16_peak": flops / step_s / bf16,
+          "f32_cuda_core_share": flops / step_s / f32,
+          "peak_memory_gb": peak / 1e9, "losses": losses,
+          "rerun_bit_for_bit": same, "fixed_batch_losses_dropout0": fall,
+          "launches_per_step": prof["launches_per_step"],
+          "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+          "device_busy_share": 1 - prof["device_idle_share"],
+          "device_idle_share": prof["device_idle_share"],
+          "wall_ms_per_step_profiled": prof["wall_ms_per_step"], "ok": ok})
+    if not ok:
+        raise AssertionError("encoder: losses finite %s, rerun bit for bit %s, "
+                             "loss falling %s -> %s" % (
+                                 bool(np.isfinite(losses).all()), same,
+                                 fall[0], fall[-1]))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -4184,6 +4489,12 @@ def main():
     ctr_per_step, ctr_times = phase_ctr_dataset(card, name)
     hostfed_per_step = phase_deepfm_hostfed(card)
     phase_dataloader(card)
+    _common.reset_launches()
+    phase_rules_3b(card)
+    phase_encoder_parity(card)
+    torch.cuda.empty_cache()
+    phase_encoder(name, card)
+    assert_no_launches("item 3-B's rules and the Fluid-layers encoder")
     for rec in kernels:
         if rec["name"] == "segment_sum":
             rec["ctr_dataset_launches_per_step"] = ctr_per_step

@@ -37,6 +37,8 @@ module names so each counterpart is easy to find:
   (``DataLoader``), ``layers.io``'s ``py_reader`` family, ``trainer``
   (``Executor.train_from_dataset``) and ``async_executor``;
 - ``sparse``: SelectedRows and ``merge_rows``;
+- ``lod`` (``LoDTensor``, ``LoDTensorArray``, ``Tensor``) and
+  ``learning_rate_decay``, the compat names the JAX package exports;
 - ``convert``: parameter trees and scopes to and from the JAX package's
   numpy form.
 
@@ -97,6 +99,8 @@ from . import dataset
 from .dataset import DatasetFactory
 from .async_executor import AsyncExecutor
 from .layers.io import EOFException
+from . import learning_rate_decay  # noqa: F401
+from .lod import LoDTensor, LoDTensorArray, Tensor  # noqa: F401
 
 __all__ = [
     "Program", "Block", "Operator", "Variable", "Parameter", "program_guard",
@@ -110,5 +114,6 @@ __all__ = [
     "load", "save", "amp", "amp_guard", "contrib", "flags", "set_flags",
     "get_flags", "monitor", "profiler", "ft", "WeightNormParamAttr",
     "FetchHandler", "DataLoader", "dataset", "DatasetFactory",
-    "AsyncExecutor", "EOFException",
+    "AsyncExecutor", "EOFException", "learning_rate_decay", "LoDTensor",
+    "LoDTensorArray", "Tensor",
 ]

@@ -666,8 +666,15 @@ class Executor:
                     raise _memscope.InjectedOOMError(
                         "RESOURCE_EXHAUSTED: injected oom_step fault "
                         "dispatching %s" % (ident or "program"))
-                plan.run(env, plan.context(
-                    torch.Generator(self.device).manual_seed(seed)))
+                ctx = plan.context(torch.Generator(self.device).manual_seed(seed))
+                try:
+                    plan.run(env, ctx)
+                finally:
+                    # the context and its sub-block closure form a cycle: a
+                    # reference to the run's tensors kept there would keep
+                    # every intermediate of the step alive until the cyclic
+                    # collector ran (tens of GB at BERT-base, B = 16, f32)
+                    ctx.env = None
         except Exception as e:
             # the OOM postmortem, with the memory section, before the
             # exception propagates

@@ -1,13 +1,12 @@
 """Op rules on tensors (counterpart of ``paddle_tpu/ops``).
 
 Importing this package registers the rules the port has so far with the
-registry: the ops of LeNet and the book suite (``tensor_ops``, ``math_ops``,
-``nn_ops``, ``misc_ops3``, ``sequence_ops``, ``crf_ops``,
-``sampling_ops``), the ops the port's clip, regularizer, initializer and
-weight-norm classes emit (in ``math_ops``, ``tensor_ops`` and
-``misc_ops5``), the optimizers with their SelectedRows branches
-(``optimizer_ops``), ``metric_ops``, the control-flow ops
-(``control_flow_ops``) and the beam-search ops (``beam_search_ops``).  Each
+registry: every rule of the JAX package's ``tensor_ops``, ``math_ops`` and
+``nn_ops``, the ops of the book suite (``misc_ops3``, ``sequence_ops``,
+``crf_ops``, ``sampling_ops``), the weight-norm op (``misc_ops5``), the
+optimizers with their SelectedRows branches (``optimizer_ops``),
+``metric_ops``, the control-flow ops (``control_flow_ops``) and the
+beam-search ops (``beam_search_ops``).  Each
 module mirrors a JAX package module and a reference operators/
 sub-directory; the other op types wait and raise the registry's "no
 lowering registered" error.  ``beam_search_ops`` also holds the NMT

@@ -1,13 +1,16 @@
 """Math op rules on tensors: the elementwise binaries, compares and logical
-ops, scale, sum, mul, mean, the reductions, floor, sqrt, sign, the clips
-and top_k (counterparts of the rules in ``paddle_tpu/ops/math_ops.py``
-that the Fluid slices and the port's optimizer, clip and regularizer
-classes run; the others wait).
+ops, scale, sum, matmul, mul, bmm, the unary functions, pow, the clips,
+the reductions, mean, arg_max/arg_min, argsort, top_k, cumsum, the
+isfinite family, kron, dot and p_norm (counterparts of every rule in
+``paddle_tpu/ops/math_ops.py``).
 
 Reference parity: operators/elementwise/, controlflow/compare_op.cc,
-logical_op.cc, scale_op.cc, sum_op.cc, mul_op.cc, mean_op.cc,
-reduce_ops/, activation_op.cc (floor, sqrt, sign), clip_op.cc,
-clip_by_norm_op.cc, squared_l2_norm_op.cc, top_k_op.cc.  A SelectedRows
+logical_op.cc, scale_op.cc, sum_op.cc, matmul_op.cc, mul_op.cc,
+bmm_op.cc, mean_op.cc, reduce_ops/, activation_op.cc (the unary
+functions), pow_op, clip_op.cc, clip_by_norm_op.cc,
+squared_l2_norm_op.cc, arg_min_max_op_base.h, argsort_op.cc,
+top_k_op.cc, cum_op.h, isfinite_op.cc, kron_op.cc, dot_op.cc,
+p_norm_op.cc.  A SelectedRows
 gradient (``sparse.py``) passes ``scale``, a binary by a scalar, ``sum``
 and the clips as the JAX rules pass it (math/selected_rows_functor.cc).
 """
@@ -61,8 +64,13 @@ _register_binary("elementwise_pow", lambda a, b: torch.pow(
     *(t.int() if t.dtype == torch.bool else t for t in (a, b))))
 # NaN propagates and a tie splits the gradient in halves, as jnp.maximum
 _register_binary("elementwise_max", torch.maximum)
+# ties split the gradient in halves, as jnp.minimum
+_register_binary("elementwise_min", torch.minimum)
 # the remainder takes the divisor's sign, as jnp.mod
 _register_binary("elementwise_mod", torch.remainder)
+# floor(a / b) with Python's correction (c10's div_floor), as
+# jnp.floor_divide; no gradient, as JAX's is 0
+_register_binary("elementwise_floordiv", torch.floor_divide)
 
 _register_binary("less_than", torch.lt)
 _register_binary("less_equal", torch.le)
@@ -73,6 +81,7 @@ _register_binary("not_equal", torch.ne)
 
 _register_binary("logical_and", torch.logical_and)
 _register_binary("logical_or", torch.logical_or)
+_register_binary("logical_xor", torch.logical_xor)
 
 
 @register_op("logical_not")
@@ -142,6 +151,64 @@ def _mul(ins, attrs, ctx):
 
     r = _flat2(a, xd) @ _flat2(b, yd)
     return out(Out=r.reshape(tuple(a.shape[:xd]) + tuple(b.shape[yd:])))
+
+
+@register_op("matmul")
+def _matmul(ins, attrs, ctx):
+    """``jnp.matmul`` semantics (a 1-D side is a vector, leading dims
+    broadcast) after the optional swaps of the last two axes; ``alpha``
+    scales the product."""
+    a, b = x(ins, "X"), x(ins, "Y")
+    if attrs.get("transpose_X", False):
+        a = a.transpose(-1, -2)
+    if attrs.get("transpose_Y", False):
+        b = b.transpose(-1, -2)
+    r = torch.matmul(a, b)
+    alpha = attrs.get("alpha", 1.0)
+    if alpha != 1.0:
+        r = r * alpha
+    return out(Out=r)
+
+
+@register_op("bmm")
+def _bmm(ins, attrs, ctx):
+    return out(Out=torch.matmul(x(ins, "X"), x(ins, "Y")))
+
+
+def _register_unary(name, fn):
+    @register_op(name)
+    def _rule(ins, attrs, ctx, fn=fn):
+        return out(Out=fn(x(ins, "X")))
+
+
+# integer inputs: abs, square, ceil and round keep the dtype, the others
+# compute in f32, as the jnp functions
+_register_unary("abs", torch.abs)
+_register_unary("rsqrt", torch.rsqrt)
+_register_unary("square", torch.square)
+_register_unary("exp", torch.exp)
+_register_unary("log", torch.log)
+_register_unary("log2", torch.log2)
+_register_unary("log10", torch.log10)
+_register_unary("log1p", torch.log1p)
+_register_unary("sin", torch.sin)
+_register_unary("cos", torch.cos)
+_register_unary("tan", torch.tan)
+_register_unary("asin", torch.asin)
+_register_unary("acos", torch.acos)
+_register_unary("atan", torch.atan)
+_register_unary("sinh", torch.sinh)
+_register_unary("cosh", torch.cosh)
+_register_unary("ceil", lambda v: torch.ceil(v) if v.is_floating_point() else v)
+# halves to even, as jnp.round
+_register_unary("round", lambda v: torch.round(v) if v.is_floating_point() else v)
+_register_unary("reciprocal", torch.reciprocal)
+_register_unary("erf", torch.erf)
+
+
+@register_op("pow")
+def _pow(ins, attrs, ctx):
+    return out(Out=torch.pow(x(ins, "X"), attrs.get("factor", 1.0)))
 
 
 @register_op("floor")
@@ -276,3 +343,87 @@ def _top_k(ins, attrs, ctx):
     k = int(attrs["k"])
     vals, idx = torch.sort(v, dim=-1, descending=True, stable=True)
     return out(Out=vals[..., :k], Indices=idx[..., :k])
+
+
+@register_op("arg_max")
+def _arg_max(ins, attrs, ctx):
+    """The first maximum; a NaN counts as the maximum, as ``jnp.argmax``."""
+    return out(Out=torch.argmax(x(ins, "X"), dim=int(attrs.get("axis", -1))))
+
+
+@register_op("arg_min")
+def _arg_min(ins, attrs, ctx):
+    return out(Out=torch.argmin(x(ins, "X"), dim=int(attrs.get("axis", -1))))
+
+
+@register_op("argsort")
+def _argsort(ins, attrs, ctx):
+    """A stable sort, ascending or descending (ties keep their order, NaN
+    sorts as the largest), as ``jnp.argsort``."""
+    v = x(ins, "X")
+    vals, idx = torch.sort(v, dim=int(attrs.get("axis", -1)), stable=True,
+                           descending=bool(attrs.get("descending", False)))
+    return out(Out=vals, Indices=idx)
+
+
+@register_op("cumsum")
+def _cumsum(ins, attrs, ctx):
+    """``reverse`` composes with ``exclusive`` as in cum_op.h: a reverse
+    sum is flip(cumsum(flip)); an exclusive one shifts by one place."""
+    v = x(ins, "X")
+    axis = int(attrs.get("axis", -1)) % v.ndim
+    if attrs.get("reverse", False):
+        v = torch.flip(v, (axis,))
+    r = torch.cumsum(v, dim=axis)
+    if attrs.get("exclusive", False):
+        r = torch.cat([torch.zeros_like(r.narrow(axis, 0, 1)),
+                       r.narrow(axis, 0, r.shape[axis] - 1)], dim=axis)
+    if attrs.get("reverse", False):
+        r = torch.flip(r, (axis,))
+    return out(Out=r)
+
+
+@register_op("isfinite")
+def _isfinite(ins, attrs, ctx):
+    """One bool of shape [1]: whether every element is finite."""
+    return out(Out=torch.isfinite(x(ins, "X")).all().reshape(1))
+
+
+@register_op("isnan")
+def _isnan(ins, attrs, ctx):
+    return out(Out=torch.isnan(x(ins, "X")))
+
+
+@register_op("isinf")
+def _isinf(ins, attrs, ctx):
+    return out(Out=torch.isinf(x(ins, "X")))
+
+
+@register_op("kron")
+def _kron(ins, attrs, ctx):
+    return out(Out=torch.kron(x(ins, "X"), x(ins, "Y")))
+
+
+@register_op("dot")
+def _dot(ins, attrs, ctx):
+    a, b = x(ins, "X"), x(ins, "Y")
+    return out(Out=(a * b).sum(dim=-1, keepdim=True))
+
+
+@register_op("p_norm")
+def _p_norm(ins, attrs, ctx):
+    """``jnp.linalg.norm(x, ord=porder, axis, keepdims)``: with no axis a
+    2-D input takes the matrix norm of that order (porder 2: the largest
+    singular value), as ``torch.linalg.norm`` with the same arguments."""
+    axis = attrs.get("axis")
+    if isinstance(axis, list):
+        axis = tuple(axis)
+    return out(Out=torch.linalg.norm(x(ins, "X"), ord=attrs.get("porder", 2.0),
+                                     dim=axis,
+                                     keepdim=bool(attrs.get("keepdim", False))))
+
+
+@register_op("maximum_entry_count")
+def _maximum_entry_count(ins, attrs, ctx):
+    """Registered only to refuse, as the JAX package's placeholder does."""
+    raise NotImplementedError

@@ -1,6 +1,6 @@
 """Where a training step's device time goes.
 
-    python -m paddle_tpu_torch.tools.profile_step [--model bert|resnet50|deepfm|nmt|lenet|book] [--trace out.json]
+    python -m paddle_tpu_torch.tools.profile_step [--model bert|resnet50|deepfm|nmt|lenet|book|fluid_encoder] [--trace out.json]
 
 Builds the same trainer and batches as ``chip_smoke.py``'s slice phases
 (bf16 BERT-base with LAMB at B = 64, S = 512; bf16 ResNet-50 with fused
@@ -10,7 +10,10 @@ Ss = St = 128, lr 1e-4; f32 LeNet with Adam(1e-3) at B = 64 through the
 Fluid ``Executor``, one ``run`` of the main program a step with the loss and
 the accuracy fetched as numpy; seed 0; with ``--model book`` each of the
 eleven book-suite programs of ``tools/book_suite.py`` in turn, as
-``chip_smoke.py`` phase 24 trains them), takes a warm-up step, then traces
+``chip_smoke.py`` phase 24 trains them; with ``--model fluid_encoder`` the
+Fluid-layers BERT-base encoder of ``tools/programs.py`` in f32, Adam at
+1e-4, dropout 0.1, B = 16, S = 512, through ``Executor(CUDAPlace(0))``, as
+``chip_smoke.py`` phase 41 trains it), takes a warm-up step, then traces
 two steps with ``torch.profiler`` (CPU and CUDA activities).  Without
 ``--model`` it profiles all five.  Prints one JSON line per kernel group
 (the port's kernels by name, cuBLAS products or cuDNN convolutions, for
@@ -72,6 +75,18 @@ GROUPS = {
         ("MLP (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")),
     ),
     "nmt": (),        # grouped by the launching op: nmt_op_group
+    "fluid_encoder": (
+        ("products (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")),
+        ("softmax / log_softmax", ("softmax",)),
+        ("reductions (layer_norm statistics, sums, means)", ("reduce",)),
+        ("gather / scatter (embeddings, labels)", ("index", "gather",
+                                                   "scatter")),
+        ("random (dropout masks)", ("rand", "philox", "distribution")),
+        ("copies and casts", ("copy", "cat", "fill")),
+        ("elementwise (adds, gelu, dropout, Adam)", ("elementwise",
+                                                     "vectorized",
+                                                     "unrolled")),
+    ),
     "lenet": (
         ("convolution (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit",
                                  "cudnn", "winograd", "fft")),
@@ -236,6 +251,28 @@ def _book(model):
             {"feed": "numpy, copied to the card by Executor.run"})
 
 
+def _fluid_encoder():
+    """The Fluid-layers BERT-base encoder (``tools/programs.py``) run by
+    ``Executor(CUDAPlace(0))``, a fresh seeded batch every step."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools.programs import (BERT_BASE_ENCODER,
+                                                 bert_encoder_program,
+                                                 encoder_feed,
+                                                 encoder_train_flops)
+
+    cfg = BERT_BASE_ENCODER
+    main, startup, v = bert_encoder_program(fluid, cfg)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    feeds = [encoder_feed(cfg, SEED + i) for i in range(STEPS + 1)]
+    staged = {k: np.stack([f[k] for f in feeds]) for k in feeds[0]}
+    return (FluidStep(exe, main, scope, [v["loss"]]), staged, None,
+            {"batch": cfg.batch, "seq": cfg.seq, "dtype": "float32",
+             "optimizer": "adam(1e-4)", "dropout": cfg.dropout,
+             "train_flops_per_step": encoder_train_flops(cfg),
+             "feed": "numpy, copied to the card by Executor.run"})
+
+
 def nmt_op_group(chain, vocab):
     """The group of a kernel from the ops that launched it: ``chain`` is
     [(name, input shapes)] from the launching op outward (its callers, the
@@ -380,7 +417,8 @@ def profile_model(model, card, trace=None):
     else:
         trainer, staged, lr, extra = {"bert": _bert, "resnet50": _resnet50,
                                       "deepfm": _deepfm, "nmt": _nmt,
-                                      "lenet": _lenet}[model]()
+                                      "lenet": _lenet,
+                                      "fluid_encoder": _fluid_encoder}[model]()
     batches = [{k: v[i] for k, v in staged.items()} for i in range(STEPS + 1)]
     trainer.step(batches[0], lr)
     torch.cuda.synchronize()

@@ -12,13 +12,24 @@ that ``chip_smoke.py`` and the tests build the same programs:
 - ``cond_program``: a ``cond`` in a trained forward section, each branch
   with its own fc layer, trained by SGD;
 - ``switch_program``: an LR-warmup style ``Switch`` with overlapping
-  cases (the JAX package's Switch: the last matching case wins).
+  cases (the JAX package's Switch: the last matching case wins);
+- ``bert_encoder_program``: a BERT encoder built only from public
+  ``fluid.layers`` in the shape of Paddle 1.6's own Fluid BERT (fc
+  projections, ``matmul`` attention with a mask bias, ``layer_norm``,
+  a gelu FFN, a vocabulary ``fc`` and ``softmax_with_cross_entropy``),
+  trained by Adam or SGD.
 
 Each returns ``(main, startup, vars)``, built under a fresh
 ``unique_name.guard()`` so the two packages name every var alike.
 """
 
-__all__ = ["while_beam_decode", "cond_program", "switch_program"]
+import collections
+
+import numpy as np
+
+__all__ = ["while_beam_decode", "cond_program", "switch_program",
+           "EncoderConfig", "BERT_BASE_ENCODER", "bert_encoder_program",
+           "encoder_feed", "encoder_train_flops"]
 
 
 def while_beam_decode(fluid, T, B, K, V, end_id=0):
@@ -117,3 +128,114 @@ def switch_program(fluid):
             with switch.default():
                 layers.assign(consts[2], lr)
     return main, startup, {"step": step, "lr": lr}
+
+
+# vocab, hidden, layers, heads, FFN width, sequence length, batch, dropout
+# rate, learning rate and optimizer ("adam" or "sgd")
+EncoderConfig = collections.namedtuple(
+    "EncoderConfig", "vocab hidden layers heads ffn seq batch dropout lr "
+                     "optimizer")
+# bench.py's BERT-base (paddle_tpu/models/bert.py bert_base_config) at
+# S = 512, B = 16, in f32 with dropout 0.1 and Adam at 1e-4
+BERT_BASE_ENCODER = EncoderConfig(vocab=30528, hidden=768, layers=12, heads=12,
+                                  ffn=3072, seq=512, batch=16, dropout=0.1,
+                                  lr=1e-4, optimizer="adam")
+
+
+def bert_encoder_program(fluid, cfg):
+    """Feeds (all [B, S, 1]): "src_ids" and "pos_ids" int64, "input_mask"
+    f32 (1 for a real token), "labels" int64.  Per layer: q, k and v from
+    ``fc(num_flatten_dims=2)``, reshaped and transposed into heads;
+    ``matmul(q, k, transpose_y=True, alpha=d_head ** -0.5)`` plus the bias
+    (mask mask^T - 1) 10000 stacked over the heads; softmax, dropout,
+    ``matmul`` with v, back to [B, S, H]; an output fc, dropout, the
+    residual and ``layer_norm``; then fc(gelu), fc, dropout, the residual
+    and ``layer_norm``.  A vocabulary fc, ``softmax_with_cross_entropy``
+    and ``mean`` give vars["loss"].  Dropout is upscale_in_train, as
+    Paddle's BERT; weights start from a normal truncated at 2 std (0.02),
+    as its initializer."""
+    B, S, H, nh = cfg.batch, cfg.seq, cfg.hidden, cfg.heads
+    dh = H // nh
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        L = fluid.layers
+        init = fluid.initializer.TruncatedNormal(scale=0.02)
+
+        def attr(name):
+            return fluid.ParamAttr(name=name, initializer=init)
+
+        def fc(x, size, name, act=None):
+            return L.fc(x, size, num_flatten_dims=2, act=act,
+                        param_attr=attr(name + ".w_0"),
+                        bias_attr=fluid.ParamAttr(name=name + ".b_0"))
+
+        def drop(x):
+            if not cfg.dropout:
+                return x
+            return L.dropout(x, dropout_prob=cfg.dropout,
+                             dropout_implementation="upscale_in_train")
+
+        def norm(x, name):
+            return L.layer_norm(x, begin_norm_axis=2,
+                                param_attr=fluid.ParamAttr(name=name + "_scale"),
+                                bias_attr=fluid.ParamAttr(name=name + "_bias"))
+
+        def heads(x):
+            return L.transpose(L.reshape(x, [0, 0, nh, dh]), [0, 2, 1, 3])
+
+        feeds = {n: L.data(n, shape=[B, S, 1], dtype=dt, append_batch_size=False)
+                 for n, dt in (("src_ids", "int64"), ("pos_ids", "int64"),
+                               ("input_mask", "float32"), ("labels", "int64"))}
+        x = L.elementwise_add(
+            L.embedding(feeds["src_ids"], size=[cfg.vocab, H],
+                        param_attr=attr("word_embedding")),
+            L.embedding(feeds["pos_ids"], size=[S, H],
+                        param_attr=attr("pos_embedding")))
+        x = drop(norm(x, "pre_encoder_layer_norm"))
+        mask = feeds["input_mask"]
+        bias = L.scale(L.matmul(mask, mask, transpose_y=True), scale=10000.0,
+                       bias=-1.0, bias_after_scale=False)
+        bias = L.stack([bias] * nh, axis=1)
+        bias.stop_gradient = True
+        for i in range(cfg.layers):
+            p = "encoder_layer_%d" % i
+            q, k, v = (heads(fc(x, H, "%s_multi_head_att_%s_fc" % (p, n)))
+                       for n in ("query", "key", "value"))
+            s = L.elementwise_add(
+                L.matmul(q, k, transpose_y=True, alpha=dh ** -0.5), bias)
+            ctxt = L.matmul(drop(L.softmax(s)), v)
+            ctxt = L.reshape(L.transpose(ctxt, [0, 2, 1, 3]), [0, 0, H])
+            att = drop(fc(ctxt, H, p + "_multi_head_att_output_fc"))
+            x = norm(L.elementwise_add(att, x), p + "_post_att_layer_norm")
+            ffn = fc(fc(x, cfg.ffn, p + "_ffn_fc_0", act="gelu"), H,
+                     p + "_ffn_fc_1")
+            x = norm(L.elementwise_add(drop(ffn), x), p + "_post_ffn_layer_norm")
+        logits = fc(x, cfg.vocab, "mask_lm_out_fc")
+        loss = L.mean(L.softmax_with_cross_entropy(logits, feeds["labels"]))
+        opt = (fluid.optimizer.Adam(cfg.lr) if cfg.optimizer == "adam"
+               else fluid.optimizer.SGD(cfg.lr))
+        opt.minimize(loss)
+    return main, startup, dict(feeds, loss=loss, logits=logits)
+
+
+def encoder_feed(cfg, seed):
+    """A batch as ``bench.py`` makes BERT's: token ids and labels uniform
+    over the vocabulary, positions 0..S-1, every token real (a mask of
+    ones), from ``numpy.random.RandomState(seed)``."""
+    rng = np.random.RandomState(seed)
+    shape = (cfg.batch, cfg.seq, 1)
+    pos = np.broadcast_to(np.arange(cfg.seq).reshape(1, -1, 1), shape)
+    return {"src_ids": rng.randint(0, cfg.vocab, shape).astype(np.int64),
+            "pos_ids": np.ascontiguousarray(pos, np.int64),
+            "input_mask": np.ones(shape, np.float32),
+            "labels": rng.randint(0, cfg.vocab, shape).astype(np.int64)}
+
+
+def encoder_train_flops(cfg):
+    """Matrix-product FLOPs of one training step (forward and backward, 3x
+    the forward), as ``bench.py`` counts BERT's: per token and layer
+    8 H^2 (q, k, v, output) + 4 H F (the FFN) + 4 S H (attention), plus
+    2 H V for the vocabulary fc."""
+    H, F, S, V = cfg.hidden, cfg.ffn, cfg.seq, cfg.vocab
+    per_token = cfg.layers * (8 * H * H + 4 * H * F + 4 * S * H) + 2 * H * V
+    return 3 * per_token * cfg.batch * S

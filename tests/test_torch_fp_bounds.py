@@ -146,3 +146,92 @@ def test_an_sgd_sparse_update_lies_within_its_bound():
     rec = fb.sparse_sgd_check(out.numpy(), param, lr, rows, values)
     assert rec["ParamOut"]["within_bound"], rec
     assert rec["ParamOut"]["max_err_over_bound"] > 0
+
+
+# -- op rules, operation by operation (BoundMode) --------------------------------
+
+from paddle_tpu_torch.registry import OpLoweringContext, get_lowering  # noqa: E402
+from paddle_tpu_torch.tools.rule_cases import RULE_CASES  # noqa: E402
+
+# the CPU's own gelu evaluates erf by a polynomial of absolute error 1.5e-7
+# (not the 2 ulps of CUDA's erff that the bound assumes)
+_CPU_OFF_THE_CUDA_TABLE = {("gelu_erf", "Out")}
+
+
+def _f32_rule(case):
+    """The rule in f32 on the CPU: outputs, cotangent, gradients."""
+    _, op, ins, attrs, grad_slots, grad_out = case
+    ctx = OpLoweringContext(None, torch.Generator().manual_seed(0))
+    t = {k: [torch.from_numpy(np.array(a)) for a in v] for k, v in ins.items()}
+    leaves = [t[s][0].requires_grad_(True) for s in grad_slots]
+    outs = get_lowering(op)(t, dict(attrs), ctx)
+    ct, grads = None, {}
+    if grad_slots:
+        y = outs[grad_out][0]
+        ct = torch.from_numpy(np.random.RandomState(1).standard_normal(
+            tuple(y.shape)).astype(np.float32))
+        got = torch.autograd.grad(y, leaves, ct, allow_unused=True)
+        grads = dict(zip(grad_slots, got))
+    return outs, ct, grads
+
+
+@pytest.mark.parametrize("case", RULE_CASES, ids=[c[0] for c in RULE_CASES])
+def test_rule_bounds_hold_on_the_cpu(case):
+    """Every row of ``tools/rule_cases.py``: the bound engine knows every
+    ATen op the rule and its gradient dispatch, and the CPU's f32 results
+    lie within the bounds (where the bound is 0, bit for bit), the CPU's
+    IEEE arithmetic and its library functions being within the CUDA
+    table's ulps (but for ``_CPU_OFF_THE_CUDA_TABLE``)."""
+    cid, op, ins, attrs, grad_slots, grad_out = case
+    outs, ct, grads = _f32_rule(case)
+    t_ins = {k: [torch.from_numpy(np.array(a)) for a in v] for k, v in ins.items()}
+    res, gres, _ = fb.rule_bounds(get_lowering(op), t_ins, attrs, grad_slots,
+                                  grad_out, ct)
+    checks = [(slot, got, rb) for slot, vals in res.items()
+              for got, rb in zip(outs[slot], vals)]
+    checks += [("d" + s, grads[s], gres[s]) for s in grad_slots
+               if gres[s] is not None]
+    for slot, got, (ref, bound) in checks:
+        if (cid, slot) in _CPU_OFF_THE_CUDA_TABLE:
+            continue
+        rec = fb.hold_to_bound(got, ref, bound)
+        assert rec["ok"], (cid, slot, rec)
+
+
+def test_a_rule_result_two_bounds_off_is_caught():
+    case = next(c for c in RULE_CASES if c[0] == "matmul")
+    outs, _, _ = _f32_rule(case)
+    t_ins = {k: [torch.from_numpy(np.array(a)) for a in v]
+             for k, v in case[2].items()}
+    (ref, bound), = fb.rule_bounds(get_lowering("matmul"), t_ins, {})[0]["Out"]
+    got = outs["Out"][0].detach().double()
+    assert fb.hold_to_bound(got, ref, bound)["ok"]
+    i = int(torch.argmax(bound))
+    bad = got.clone().view(-1)
+    bad[i] = ref.view(-1)[i] + 2 * bound.view(-1)[i]
+    rec = fb.hold_to_bound(bad.view(got.shape), ref, bound)
+    assert not rec["ok"] and rec["ratio"] >= 1.9
+
+
+def test_a_copy_one_ulp_off_is_caught():
+    """Data movement has a bound of 0: one ulp off anywhere fails."""
+    x = np.random.RandomState(3).randn(4, 5).astype(np.float32)
+    res, _, _ = fb.rule_bounds(get_lowering("flip"), {"X": [torch.from_numpy(x)]},
+                               {"axis": [1]})
+    (ref, bound), = res["Out"]
+    assert float(bound.abs().max()) == 0.0
+    got = torch.from_numpy(np.flip(x, 1).copy())
+    assert fb.hold_to_bound(got, ref, bound)["ok"]
+    got[2, 3] = float(np.nextafter(got[2, 3].numpy(), np.float32(9)))
+    assert fb.hold_to_bound(got, ref, bound)["exact_mismatches"] == 1
+
+
+def test_an_exp_three_ulps_off_is_caught():
+    """exp's own bound is the CUDA table's 2 ulps."""
+    x = np.linspace(-3, 3, 50).astype(np.float32)
+    res, _, _ = fb.rule_bounds(get_lowering("exp"), {"X": [torch.from_numpy(x)]}, {})
+    (ref, bound), = res["Out"]
+    exact = ref.float()
+    assert fb.hold_to_bound(exact, ref, bound)["ok"]
+    off = exact.double() * (1 + 3 * 2.0 ** -23)
+    assert not fb.hold_to_bound(off, ref, bound)["ok"]

@@ -197,3 +197,36 @@ def test_tree_walks_lists_in_index_order_and_dicts_by_key():
     back = params_to_numpy(params_from_numpy(
         {"mlp": [{"w": np.ones((2, 3), np.float32)}]}, "cpu"))
     assert isinstance(back["mlp"], list) and back["mlp"][0]["w"].shape == (2, 3)
+
+
+@pytest.mark.parametrize("name", ["learning_rate_decay", "LoDTensor",
+                                  "LoDTensorArray", "Tensor"])
+def test_compat_names_are_exported_as_the_jax_package_exports_them(name):
+    """``lod`` and ``learning_rate_decay``, exported from the package root
+    as ``paddle_tpu/__init__.py`` exports them."""
+    import paddle_tpu
+    import paddle_tpu_torch
+
+    assert hasattr(paddle_tpu, name) and hasattr(paddle_tpu_torch, name)
+    if name == "learning_rate_decay":
+        from paddle_tpu_torch.layers import learning_rate_scheduler as sched
+
+        mod = paddle_tpu_torch.learning_rate_decay
+        assert mod.__all__ == paddle_tpu.learning_rate_decay.__all__
+        assert all(getattr(mod, f) is getattr(sched, f) for f in mod.__all__)
+
+
+def test_lod_tensor_round_trips_lengths_and_arrays():
+    import paddle_tpu
+    from paddle_tpu_torch import LoDTensor, LoDTensorArray, Tensor
+
+    sides = []
+    for cls in (LoDTensor, paddle_tpu.LoDTensor):
+        t = cls()
+        t.set(np.arange(12, dtype=np.float32).reshape(6, 2))
+        t.set_recursive_sequence_lengths([[2, 3, 1]])
+        sides.append((t.lod(), t.recursive_sequence_lengths(), t.shape(),
+                      np.asarray(t, np.int64).tolist()))
+    assert sides[0] == sides[1]
+    assert sides[0][0] == [[0, 2, 5, 6]]
+    assert Tensor is LoDTensor and isinstance(LoDTensorArray(), list)
