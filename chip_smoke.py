@@ -271,17 +271,22 @@ Builds the port's CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
     path's bit for bit (cuDNN deterministic), ``EOFException`` after the
     last batch;
 39. ``rules_3b``: every row of ``tools/rule_cases.py`` (ROADMAP Queue 1
-    item 3-B's tranches 1-3: the 100 rules of ``math_ops``, ``nn_ops`` and
-    ``tensor_ops`` that compute, with their traps) on CUDA tensors,
-    forward and the gradients of a seeded cotangent, with no device
-    assert, held to the same rule in float64 on the CPU within the bound
-    ``tools/fp_bounds.py``'s ``BoundMode`` derives from the rule's own
-    ATen operations (bit for bit with the CPU's f32 rule where no
-    operation rounds; integer and bool outputs exactly), cuDNN off; the
-    largest error over bound of every case and rule; the four refusals
-    raise; ``randint`` keeps its range and repeats itself from a seed
-    (``tests/test_torch_op_rules_3b.py`` holds the CPU to the JAX rules on
-    the same rows);
+    item 3-B's tranches 1-4 with ``ctc_align`` and ``edit_distance``: the
+    rules that compute, with their traps and edges, and the inputs of
+    Queue 3's faults 1-7) on CUDA tensors, forward and the gradients of a
+    seeded cotangent, with no device assert, held to the same rule in
+    float64 on the CPU within the bound ``tools/fp_bounds.py``'s
+    ``BoundMode`` derives from the rule's own ATen operations (bit for bit
+    with the CPU's f32 rule where no operation rounds; integer and bool
+    outputs exactly), cuDNN off; then Queue 3's fault 8, every row with its
+    float slots cast to int32 and to bool (``cast_rows``), forward, held
+    alike, and refused on the card where the CPU refuses; the largest
+    error over bound of every case and rule; the four refusals raise;
+    ``randint``, ``sample_logits``' negatives and ``sampling_id`` keep their
+    range and repeat themselves from a seed; what ``linalg.svdvals`` gives
+    on the card for a matrix holding a NaN (``tests/test_torch_op_rules_3b.py``,
+    ``test_torch_op_rules_4.py`` and ``test_torch_queue3_faults.py`` hold
+    the CPU to the JAX rules on the same rows);
 40. ``encoder_parity``: the Fluid-layers encoder of ``tools/programs.py``
     at 2 layers, hidden 64, 4 heads, S = 32, B = 4, dropout 0, three SGD
     and three Adam steps on the card and on the CPU from one
@@ -295,7 +300,23 @@ Builds the port's CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
     peak, peak memory), launches, busy and idle a step from
     ``tools/profile_step.py``'s ``fluid_encoder``, a second run from the
     same startup bit for bit the first, 10 steps on one batch with dropout
-    0 with the loss falling; no port kernel launched in 39-41.
+    0 with the loss falling;
+42. ``crnn_parity``: the CRNN-CTC recognizer of ``tools/programs.py``
+    (PaddleCV ocr_recognition's ``crnn_ctc_model.py`` at its published
+    widths: 48 x 512 images, conv groups of 16 / 32 / 64 / 128, GRUs of
+    200 both ways, 96 logits over 64 steps, ``warpctc``), B = 32, f32, two
+    Momentum steps on the card and on the CPU from one initialisation: the
+    losses, and the parameters, momentum velocities and BN running
+    statistics each as one vector, to 1e-5 of its largest (phase 40's
+    tolerance); the evaluation program's edit distances equal the CPU's
+    on every row decoded alike;
+43. ``crnn``: that program through ``Executor(CUDAPlace(0))``: a warm-up
+    and 5 timed steps (ms a step, images/s, shares of the f32 and bf16
+    peaks, peak memory), launches, busy and idle a step from
+    ``tools/profile_step.py``'s ``crnn_ctc``, 10 steps on one batch with
+    the loss falling, the evaluation's mean edit distance, and the warpctc
+    rule against ``F.ctc_loss`` at [32, 64, 96] as a yardstick; no port
+    kernel launched in 39-43.
 
 Phases 30-33 and 36 write their monitor directories under
 ``build/monitor``, phases 35-36 their data files under
@@ -4139,7 +4160,7 @@ def phase_dataloader(card):
         raise AssertionError("dataloader: %s" % rec)
 
 
-# -- item 3-B's tranches 1-3 and the Fluid-layers encoder (phases 39-41) -------
+# -- item 3-B's op rules and the Fluid-layers encoder (phases 39-41) --------------
 
 # the encoder parity cell: tools/programs.py's program at 2 layers, hidden 64
 ENC_PARITY = dict(vocab=512, hidden=64, layers=2, heads=4, ffn=256, seq=32,
@@ -4149,6 +4170,9 @@ ENC_PARITY_TOL = 1e-5        # tests/test_torch_optimizers.py's, for 3 steps
 ENC_SGD_LR, ENC_ADAM_LR = 0.05, 1e-3
 ENC_WARMUP, ENC_TIMED, ENC_FALL_STEPS = 1, 5, 10
 ENC_FEED_SEED = 100
+# phase 39's rules: tranches 1-3 (101), tranche 4 with ctc_align and
+# edit_distance (27)
+RULES_ON_THE_CARD = 128
 
 
 def _rule_on(device, op, ins, attrs, grad_slots, grad_out, ct):
@@ -4171,55 +4195,146 @@ def _rule_on(device, op, ins, attrs, grad_slots, grad_out, ct):
     return outs, grads
 
 
+def _hold_row(op, ins, attrs, grad_slots, grad_out):
+    """One row on the card against its float64 CPU run within
+    ``BoundMode``'s bound (bit for bit with the CPU's f32 rule where the
+    bound is 0; integer and bool outputs exactly; the same dtypes).
+    Returns (per-output records, ok, undecided comparisons)."""
+    import numpy as np
+
+    from paddle_tpu_torch.registry import get_lowering
+    from paddle_tpu_torch.tools import fp_bounds
+
+    ct = None
+    if grad_slots:
+        y, _ = _rule_on("cpu", op, ins, attrs, (), None, None)
+        ct = torch.from_numpy(np.random.RandomState(1).standard_normal(
+            tuple(y[grad_out][0].shape)).astype(np.float32))
+    dev, dev_g = _rule_on("cuda", op, ins, attrs, grad_slots, grad_out, ct)
+    cpu, cpu_g = _rule_on("cpu", op, ins, attrs, grad_slots, grad_out, ct)
+    res, gres, ambiguous = fp_bounds.rule_bounds(
+        get_lowering(op), {k: [torch.from_numpy(a.copy()) for a in v]
+                           for k, v in ins.items()},
+        attrs, grad_slots, grad_out, ct)
+    checks = [(slot, dev[slot][i], cpu[slot][i], rb)
+              for slot, vals in res.items() for i, rb in enumerate(vals)]
+    checks += [("d" + s, dev_g[s], cpu_g[s], gres[s])
+               for s in grad_slots if gres[s] is not None]
+    rows, ok = {}, True
+    for slot, got, exact, (ref, bound) in checks:
+        rec = fp_bounds.hold_to_bound(got, ref, bound, exact=exact)
+        rec["ok"] = rec["ok"] and got.dtype == exact.dtype and got.is_cuda
+        rec["card_minus_cpu_f32"] = float(
+            (got.detach().cpu().double() - exact.detach().double())
+            .abs().nan_to_num().max()) if got.numel() else 0.0
+        rows[slot] = rec
+        ok = ok and rec["ok"]
+    return rows, ok, ambiguous
+
+
+def _raises(device, op, ins, attrs):
+    """Whether the rule refuses these inputs on ``device`` (its error's
+    kind may differ between the devices' kernels)."""
+    try:
+        _rule_on(device, op, ins, attrs, (), None, None)
+    except Exception:
+        return True
+    return False
+
+
+# cast rows whose rule computes an integer or bool input in f32 and
+# converts the result back (as astype): held where the conversion is
+# decided by the float result's bound
+_CONVERTED = ("interpolate", "bilinear_interp")
+
+
+def _hold_converted(op, ins, attrs, rows):
+    """For a ``_CONVERTED`` row whose integer or bool output differs from
+    the CPU's: the same rule on the input as f32 gives the float value and
+    its bound (``BoundMode``); an element whose interval holds a
+    conversion threshold (an integer for a truncation, 0 for bool) is
+    undecided, every other one must equal the CPU's."""
+    import numpy as np
+
+    from paddle_tpu_torch.registry import get_lowering
+    from paddle_tpu_torch.tools import fp_bounds
+
+    f_ins = {k: [torch.from_numpy(a.astype(np.float32)) for a in v]
+             for k, v in ins.items()}
+    dev, _ = _rule_on("cuda", op, ins, attrs, (), None, None)
+    cpu, _ = _rule_on("cpu", op, ins, attrs, (), None, None)
+    (ref, bound), = fp_bounds.rule_bounds(get_lowering(op), f_ins, attrs)[0]["Out"]
+    got, want = dev["Out"][0].cpu(), cpu["Out"][0]
+    lo, hi = ref - bound, ref + bound
+    if want.dtype == torch.bool:
+        decided = (lo > 0) | (hi < 0) | ((ref == 0) & (bound == 0))
+    else:
+        decided = torch.trunc(lo) == torch.trunc(hi)
+    ok = bool((got[decided] == want[decided]).all()) and got.dtype == want.dtype
+    rows["Out"].update(ok=ok, undecided_elements=int((~decided).sum()))
+    return ok
+
+
+def _draws_on_the_card():
+    """sample_logits' negatives and sampling_id's draws on CUDA tensors:
+    in range, on the card, repeating themselves from a seed and not from
+    another (the tests hold their distributions on the CPU)."""
+    from paddle_tpu_torch.registry import OpLoweringContext, get_lowering
+
+    def run(op, ins, attrs, seed):
+        return get_lowering(op)(ins, dict(attrs), OpLoweringContext(
+            None, torch.Generator("cuda").manual_seed(seed)))
+
+    g = torch.Generator().manual_seed(5)
+    logits = torch.randn(16, 1000, generator=g).cuda()
+    labels = torch.randint(0, 1000, (16, 2), generator=g).cuda()
+    attrs = {"num_samples": 64, "seed": 3}
+    a, b, c = (run("sample_logits", {"Logits": [logits], "Labels": [labels]},
+                   attrs, s)["Samples"][0] for s in (0, 0, 1))
+    neg = a[:, 2:]
+    logits_ok = (a.is_cuda and torch.equal(a, b) and not torch.equal(a, c)
+                 and bool((neg == neg[:1]).all())
+                 and len(set(neg[0].tolist())) == 64
+                 and 0 <= int(neg.min()) and int(neg.max()) < 1000
+                 and torch.equal(a[:, :2], labels))
+    probs = torch.softmax(torch.randn(4096, 7, generator=g), 1).cuda()
+    x, y, z = (run("sampling_id", {"X": [probs]}, {"seed": 1}, s)["Out"][0]
+               for s in (0, 0, 1))
+    id_ok = (x.is_cuda and torch.equal(x, y) and not torch.equal(x, z)
+             and 0 <= float(x.min()) and float(x.max()) <= 6)
+    return {"sample_logits": logits_ok, "sampling_id": id_ok}
+
+
 def phase_rules_3b(card):
-    """Phase 39: every row of ``tools/rule_cases.py`` (the 100 rules of
-    item 3-B's tranches 1-3 that compute, with the traps) on CUDA tensors,
-    forward and the gradients of a seeded cotangent, held to the same rule
-    run in float64 on the CPU within the bound ``tools/fp_bounds.py``'s
-    ``BoundMode`` derives from the rule's operations (bit for bit where no
-    operation rounds, and to the CPU's f32 rule there; integer and bool
-    outputs exactly); the four refusals raise on the card; ``randint``
-    keeps its range and repeats itself from a seed.  cuDNN is off, so the
+    """Phase 39: every row of ``tools/rule_cases.py`` (the rules of item
+    3-B's tranches 1-4 that compute, with ``ctc_align`` and
+    ``edit_distance``, their traps and edges, and Queue 3's faults) on
+    CUDA tensors, forward and the gradients of a seeded cotangent, held to
+    the same rule run in float64 on the CPU within the bound
+    ``tools/fp_bounds.py``'s ``BoundMode`` derives from the rule's
+    operations (bit for bit where no operation rounds, and to the CPU's f32
+    rule there; integer and bool outputs exactly); then Queue 3 entry 8,
+    every row with its float slots cast to int32 and to bool, forward, held
+    alike (a row the CPU refuses must be refused on the card too; the
+    resizes' integer outputs, conversions of an f32 interpolation, where
+    the float result's bound decides the conversion); the
+    four refusals raise on the card; ``randint``, ``sample_logits``' draws
+    and ``sampling_id`` keep their range and repeat themselves from a
+    seed; what ``linalg.svdvals`` gives on the card for a matrix holding a
+    NaN (the ``p_norm`` rule guards it).  cuDNN is off, so the
     convolutions run PyTorch's im2col products, whose sums the bound
     covers (cuDNN may choose Winograd or FFT algorithms, whose errors it
     does not).  Prints each case's largest error over bound and each
     rule's."""
-    import numpy as np
-
     from paddle_tpu_torch.registry import OpLoweringContext, get_lowering
-    from paddle_tpu_torch.tools import fp_bounds
-    from paddle_tpu_torch.tools.rule_cases import REFUSALS, RULE_CASES
+    from paddle_tpu_torch.tools.rule_cases import (QUEUE3_ROWS, REFUSALS,
+                                                   RULE_CASES, cast_rows)
 
-    worst, bad, n_checked = {}, [], 0
+    worst, bad, n_checked, refused_alike = {}, [], 0, {}
     with torch.backends.cudnn.flags(enabled=False):
         for cid, op, ins, attrs, grad_slots, grad_out in RULE_CASES:
-            ct = None
-            if grad_slots:
-                y, _ = _rule_on("cpu", op, ins, attrs, (), None, None)
-                ct = torch.from_numpy(np.random.RandomState(1).standard_normal(
-                    tuple(y[grad_out][0].shape)).astype(np.float32))
-            dev, dev_g = _rule_on("cuda", op, ins, attrs, grad_slots,
-                                  grad_out, ct)
-            cpu, cpu_g = _rule_on("cpu", op, ins, attrs, grad_slots, grad_out, ct)
-            res, gres, ambiguous = fp_bounds.rule_bounds(
-                get_lowering(op), {k: [torch.from_numpy(a.copy()) for a in v]
-                                   for k, v in ins.items()},
-                attrs, grad_slots, grad_out, ct)
-            checks = [(slot, dev[slot][i], cpu[slot][i], rb)
-                      for slot, vals in res.items() for i, rb in enumerate(vals)]
-            checks += [("d" + s, dev_g[s], cpu_g[s], gres[s])
-                       for s in grad_slots if gres[s] is not None]
-            rows, ok = {}, True
-            for slot, got, exact, (ref, bound) in checks:
-                rec = fp_bounds.hold_to_bound(got, ref, bound, exact=exact)
-                same_dtype = got.dtype == exact.dtype
-                rec["ok"] = rec["ok"] and same_dtype
-                rec["card_minus_cpu_f32"] = float(
-                    (got.detach().cpu().double() - exact.detach().double())
-                    .abs().nan_to_num().max()) if got.numel() else 0.0
-                rows[slot] = rec
-                ok = ok and rec["ok"]
-                n_checked += 1
+            rows, ok, ambiguous = _hold_row(op, ins, attrs, grad_slots, grad_out)
+            n_checked += len(rows)
             ratio = max(r["ratio"] for r in rows.values())
             worst[op] = max(worst.get(op, 0.0), ratio)
             emit({"phase": "rules_3b", "case": cid, "op": op,
@@ -4227,6 +4342,21 @@ def phase_rules_3b(card):
                   "undecided_comparisons": ambiguous, "ok": ok})
             if not ok:
                 bad.append(cid)
+        cast_worst, n_cast = 0.0, 0
+        for cid, op, ins, attrs in cast_rows():
+            if _raises("cpu", op, ins, attrs):
+                refused_alike[cid] = _raises("cuda", op, ins, attrs)
+                continue
+            rows, ok, _ = _hold_row(op, ins, attrs, (), None)
+            if not ok and op in _CONVERTED:
+                ok = _hold_converted(op, ins, attrs, rows)
+            n_cast += 1
+            n_checked += len(rows)
+            cast_worst = max([cast_worst] + [r["ratio"] for r in rows.values()])
+            if not ok:
+                bad.append(cid)
+                emit({"phase": "rules_3b_cast", "case": cid, "op": op,
+                      "outputs": rows, "ok": ok})
         refused = {}
         for cid, op, ins, attrs in REFUSALS:
             try:
@@ -4243,16 +4373,32 @@ def phase_rules_3b(card):
                       and set(draws[0].unique().tolist()) == set(range(-3, 5))
                       and torch.equal(draws[0], draws[1])
                       and not torch.equal(draws[0], draws[2]))
-    rules = sorted(set(worst) | {c[1] for c in REFUSALS} | {"randint"})
+        sampled = _draws_on_the_card()
+        nan_matrix = torch.tensor([[1.0, float("nan"), 2.0], [3.0, 4.0, 5.0]],
+                                  device="cuda")
+        try:
+            svdvals_of_nan = torch.linalg.svdvals(nan_matrix).tolist()
+        except RuntimeError as e:
+            svdvals_of_nan = "raises %s" % type(e).__name__
+    rules = sorted(set(worst) | {c[1] for c in REFUSALS} | {"randint"}
+                   | set(sampled))
     emit({"phase": "rules_3b_summary", "nvidia_smi": card,
-          "cases": len(RULE_CASES),
+          "cases": len(RULE_CASES), "queue3_fault_rows": QUEUE3_ROWS,
+          "cast_rows_held": n_cast, "cast_rows_refused_alike": refused_alike,
+          "cast_max_err_over_bound": cast_worst,
           "outputs_checked": n_checked, "rules": len(rules),
           "max_err_over_bound_by_rule": worst, "refusals_raise": refused,
-          "randint_range_and_seed": randint_ok, "failed": bad})
-    if bad or not all(refused.values()) or not randint_ok or len(rules) != 101:
-        raise AssertionError("item 3-B rules on the card: failed %s, refusals "
-                             "%s, randint %s, %d rules" % (bad, refused,
-                                                            randint_ok, len(rules)))
+          "randint_range_and_seed": randint_ok, "draws_range_and_seed": sampled,
+          "svdvals_of_a_nan_matrix_on_the_card": svdvals_of_nan,
+          "failed": bad})
+    if (bad or not all(refused.values()) or not randint_ok
+            or not all(sampled.values()) or not all(refused_alike.values())
+            or len(rules) != RULES_ON_THE_CARD):
+        raise AssertionError(
+            "item 3-B rules on the card: failed %s, refusals %s, randint %s, "
+            "draws %s, refused alike %s, %d rules" % (
+                bad, refused, randint_ok, sampled,
+                [k for k, v in refused_alike.items() if not v], len(rules)))
 
 
 def _encoder(cfg_kw, **over):
@@ -4418,6 +4564,237 @@ def phase_encoder(device_name, card):
                                  fall[0], fall[-1]))
 
 
+# -- item 3-B tranche 4: the CRNN-CTC recognizer (phases 42-43) ---------------
+
+CRNN_STEPS = 2               # phase 42: card against the CPU's f32 run
+CRNN_TOL = ENC_PARITY_TOL    # as phase 40
+CRNN_WARMUP, CRNN_TIMED, CRNN_FALL_STEPS = 1, 5, 10
+CRNN_FEED_SEED = 300
+
+
+def _crnn_run(cfg, device, values, feeds, names):
+    """``feeds`` runs of the CRNN program on ``device`` from the startup
+    ``values``, then its evaluation program on the last feed: (losses,
+    {name: numpy}, (decoded, decoded lengths, distances))."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.tools.programs import crnn_ctc_program
+
+    main, _, test, v = crnn_ctc_program(fluid, cfg)
+    scope = convert.scope_from_numpy(values, fluid.Scope(), device)
+    exe = _executor(device)
+    losses = [float(exe.run(main, feed=f, fetch_list=[v["loss"]],
+                            scope=scope)[0]) for f in feeds]
+    ev = exe.run(test, feed=feeds[-1], scope=scope,
+                 fetch_list=[v["decoded"], v["decoded_length"], v["distance"]])
+    return losses, convert.scope_to_numpy(scope, names), ev
+
+
+def _max_norm_rel(got, want, names):
+    """The state ``names`` as one vector: its largest distance over its
+    largest magnitude (each name's own, largest first, beside it)."""
+    import numpy as np
+
+    err = {n: float(np.abs(got[n].astype(np.float64) - want[n]).max())
+           for n in names}
+    scale = max(float(np.abs(want[n]).max()) for n in names)
+    worst = sorted(err, key=err.get, reverse=True)[:3]
+    return max(err.values()) / scale, {n: err[n] for n in worst}
+
+
+def phase_crnn_parity(card):
+    """Phase 42: the CRNN-CTC recognizer (``tools/programs.py``
+    ``CRNN_CTC``: 48 x 512 gray images, conv groups of 16 / 32 / 64 / 128
+    with BN and ceil-mode pools, ``im2sequence`` to 64 steps of 768, GRUs
+    of 200 both ways, 96 logits a step, ``warpctc`` with
+    ``norm_by_times``, Momentum(1e-3, 0.9) with L2Decay(4e-4)), B = 32,
+    f32, two steps on the card and on the CPU from one initialisation (the
+    CPU startup's values), held as phase 40 holds the encoder to the CPU's
+    f32 run: the losses, and the model's state as three vectors (the
+    parameters, the momentum velocities, the BN running statistics), each
+    to CRNN_TOL of its largest magnitude.  Not each parameter on its own:
+    the published initialisation (BN scales N(0, 0.01), zero biases) leaves
+    whole parameters at rounding noise after two steps (a convolution bias
+    before a BN has a gradient of exactly 0; the first BN's offset moves
+    by ~1e-11, a cancellation of far larger terms), where a relative
+    comparison compares the noise.  ``BoundMode`` cannot hold a whole step:
+    through eight BNs, ReLU flips and 64-step recurrences its worst-case
+    bounds pass 1e300.  Then the evaluation program (``ctc_greedy_decoder``,
+    ``edit_distance``) on the last batch: where the card decodes a row as
+    the CPU does, its edit distance equals the CPU's; the rows decoded
+    otherwise (a logit that ties within rounding) are counted."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.tools.programs import (CRNN_CTC, crnn_ctc_program,
+                                                 crnn_feed)
+
+    cfg = CRNN_CTC
+    main, startup, _, _ = crnn_ctc_program(fluid, cfg)
+    scope0 = fluid.Scope()
+    _executor("cpu").run(startup, scope=scope0)
+    names = sorted(x.name for x in startup.list_vars() if x.persistable)
+    values = convert.scope_to_numpy(scope0, names)
+    params = sorted(p.name for p in main.global_block().all_parameters())
+    velocity = [n for n in names if "velocity" in n]
+    running = [n for n in names if n.endswith((".mean_0", ".var_0"))]
+    feeds = [crnn_feed(cfg, CRNN_FEED_SEED + k) for k in range(CRNN_STEPS)]
+    t0 = time.perf_counter()
+    card_l, card_p, card_ev = _crnn_run(cfg, "cuda", values, feeds, names)
+    cpu_l, cpu_p, cpu_ev = _crnn_run(cfg, "cpu", values, feeds, names)
+    loss_err = max(_rel([a], [b]) for a, b in zip(card_l, cpu_l))
+    groups = {g: _max_norm_rel(card_p, cpu_p, ns) for g, ns in (
+        ("parameters", params), ("velocities", velocity),
+        ("bn_running_stats", running))}
+    each = {n: _rel(card_p[n], cpu_p[n]) for n in params}
+    same_rows = [b for b in range(cfg.batch)
+                 if np.array_equal(card_ev[0][b], cpu_ev[0][b])
+                 and card_ev[1][b] == cpu_ev[1][b]]
+    dist_equal = all(float(card_ev[2][b, 0]) == float(cpu_ev[2][b, 0])
+                     for b in same_rows)
+    ok = (loss_err <= CRNN_TOL and all(e <= CRNN_TOL for e, _ in groups.values())
+          and dist_equal and bool(np.isfinite(card_ev[2]).all())
+          and len(params) == 8 * 4 + 15 and len(velocity) == len(params))
+    rec = {"phase": "crnn_parity", "nvidia_smi": card, "batch": cfg.batch,
+           "image": [cfg.height, cfg.width], "steps": CRNN_STEPS,
+           "card_losses": card_l, "cpu_losses": cpu_l,
+           "loss_max_rel_err": loss_err,
+           "state_max_rel_err": {g: e for g, (e, _) in groups.items()},
+           "state_largest_distances": {g: w for g, (_, w) in groups.items()},
+           "param_rel_err_each_largest": sorted(each.values())[-3:],
+           "tol": CRNN_TOL, "eval_rows_decoded_as_cpu": len(same_rows),
+           "eval_distances_equal_there": dist_equal,
+           "card_mean_edit_distance": float(np.mean(card_ev[2])),
+           "cpu_mean_edit_distance": float(np.mean(cpu_ev[2])),
+           "seconds": time.perf_counter() - t0, "ok": ok}
+    emit(rec)
+    if not ok:
+        raise AssertionError("CRNN parity outside %g: %s" % (CRNN_TOL, rec))
+    return rec
+
+
+def _ctc_yardstick(device_name):
+    """The warpctc rule (forward and backward, its own log-space loop over
+    T) against ``F.ctc_loss`` (cuDNN's or PyTorch's CTC kernels) at the
+    CRNN's CTC shape, [32, 64, 96] logits, labels of 4-24: CUDA-event
+    times of each, and their largest difference per row (a yardstick; the
+    port never calls F.ctc_loss)."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.registry import OpLoweringContext, get_lowering
+    from paddle_tpu_torch.tools.programs import CRNN_CTC, crnn_feed
+
+    cfg = CRNN_CTC
+    T = cfg.width // 8
+    feed = crnn_feed(cfg, CRNN_FEED_SEED)
+    g = torch.Generator().manual_seed(6)
+    logits = torch.randn(cfg.batch, T, cfg.classes + 1, generator=g).cuda()
+    logits.requires_grad_(True)
+    labels = torch.from_numpy(feed["label"]).cuda()
+    lens = torch.from_numpy(feed["label_length"]).cuda()
+    rule = get_lowering("warpctc")
+    ctx = OpLoweringContext(None, torch.Generator("cuda"))
+
+    def ours():
+        loss = rule({"Logits": [logits], "Label": [labels],
+                     "LabelLength": [lens]}, {"blank": cfg.classes}, ctx)["Loss"][0]
+        torch.autograd.grad(loss.sum(), [logits])
+        return loss
+
+    def library():
+        lp = torch.log_softmax(logits, -1).transpose(0, 1)
+        loss = F.ctc_loss(lp, labels.long(), torch.full((cfg.batch,), T,
+                                                        device="cuda"),
+                          lens, blank=cfg.classes, reduction="none")
+        torch.autograd.grad(loss.sum(), [logits])
+        return loss
+
+    diff = float((ours().detach()[:, 0] - library().detach()).abs().max())
+    rec = {"phase": "ctc_yardstick", "shape": [cfg.batch, T, cfg.classes + 1],
+           "label_lengths": [int(lens.min()), int(lens.max())],
+           "warpctc_rule_fwd_bwd_ms": cuda_time(ours, iters=10),
+           "f_ctc_loss_fwd_bwd_ms": cuda_time(library, iters=10),
+           "max_abs_loss_difference": diff,
+           "losses_finite": bool(np.isfinite(diff))}
+    emit(rec)
+    return rec
+
+
+def phase_crnn(device_name, card):
+    """Phase 43: the CRNN-CTC recognizer at its published widths, B = 32,
+    f32, through ``Executor(CUDAPlace(0))`` from the card's own seeded
+    startup: a warm-up step and CRNN_TIMED timed steps, a fresh seeded
+    batch each (ms a step, images/s, the share of the f32 CUDA-core and
+    bf16 peaks, peak memory); launches, busy and idle a step from
+    ``tools/profile_step.py``'s ``crnn_ctc``; CRNN_FALL_STEPS steps on one
+    batch with the loss falling, then the evaluation program on that batch
+    (the mean edit distance); the warpctc rule against ``F.ctc_loss`` as a
+    yardstick."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools import profile_step
+    from paddle_tpu_torch.tools.programs import (CRNN_CTC, crnn_ctc_program,
+                                                 crnn_feed, crnn_train_flops)
+
+    cfg = CRNN_CTC
+    torch.cuda.reset_peak_memory_stats()
+    main, startup, test, v = crnn_ctc_program(fluid, cfg)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    losses, ms = [], []
+    for k in range(CRNN_WARMUP + CRNN_TIMED):
+        feed = crnn_feed(cfg, CRNN_FEED_SEED + k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (lv,) = exe.run(main, feed=feed, fetch_list=[v["loss"]], scope=scope)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(lv))
+    peak = torch.cuda.max_memory_allocated()
+    step_s = sum(ms[CRNN_WARMUP:]) / CRNN_TIMED / 1e3
+    one = crnn_feed(cfg, CRNN_FEED_SEED)
+    fall = [float(exe.run(main, feed=one, fetch_list=[v["loss"]],
+                          scope=scope)[0]) for _ in range(CRNN_FALL_STEPS)]
+    dist, dec_len = exe.run(test, feed=one, scope=scope,
+                            fetch_list=[v["distance"], v["decoded_length"]])
+    del exe, scope
+    torch.cuda.empty_cache()
+    prof = profile_step.profile_model("crnn_ctc", card)
+    ctc = _ctc_yardstick(device_name)
+    flops = crnn_train_flops(cfg)
+    bf16, _, f32 = card_peaks(device_name)
+    ok = (bool(np.isfinite(losses).all()) and bool(np.isfinite(fall).all())
+          and fall[-1] < fall[0] and bool(np.isfinite(dist).all())
+          and ctc["losses_finite"])
+    emit({"phase": "crnn", "config": "CRNN-CTC (PaddleCV ocr_recognition, "
+          "crnn_ctc_model.py) through the Executor", "device": device_name,
+          "nvidia_smi": card, "dtype": "float32", "batch": cfg.batch,
+          "image": [1, cfg.height, cfg.width], "classes": cfg.classes + 1,
+          "optimizer": "momentum(1e-3, 0.9) + L2Decay(4e-4)",
+          "steps_timed": CRNN_TIMED, "ms_per_step": step_s * 1e3,
+          "ms_each_step": ms, "images_per_sec": cfg.batch / step_s,
+          "train_flops_per_step": flops,
+          "f32_cuda_core_share": flops / step_s / f32,
+          "mfu_bf16_peak": flops / step_s / bf16,
+          "peak_memory_gb": peak / 1e9, "losses": losses,
+          "fixed_batch_losses": fall,
+          "eval_mean_edit_distance": float(np.mean(dist)),
+          "eval_mean_decoded_length": float(np.mean(dec_len)),
+          "launches_per_step": prof["launches_per_step"],
+          "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+          "device_busy_share": 1 - prof["device_idle_share"],
+          "device_idle_share": prof["device_idle_share"],
+          "wall_ms_per_step_profiled": prof["wall_ms_per_step"], "ok": ok})
+    if not ok:
+        raise AssertionError("crnn: losses finite %s, loss falling %s -> %s, "
+                             "distances finite %s" % (
+                                 bool(np.isfinite(losses).all()), fall[0],
+                                 fall[-1], bool(np.isfinite(dist).all())))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -4494,7 +4871,11 @@ def main():
     phase_encoder_parity(card)
     torch.cuda.empty_cache()
     phase_encoder(name, card)
-    assert_no_launches("item 3-B's rules and the Fluid-layers encoder")
+    torch.cuda.empty_cache()
+    phase_crnn_parity(card)
+    phase_crnn(name, card)
+    assert_no_launches("item 3-B's rules, the Fluid-layers encoder and the "
+                       "CRNN")
     for rec in kernels:
         if rec["name"] == "segment_sum":
             rec["ctr_dataset_launches_per_step"] = ctr_per_step

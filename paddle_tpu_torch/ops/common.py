@@ -110,3 +110,54 @@ def take_clamp(v, *idx):
         return r
     hit = hit.reshape(tuple(hit.shape) + (1,) * (r.ndim - hit.ndim))
     return torch.where(hit, r, r.detach())
+
+
+def exact_matmul(a, b):
+    """``torch.matmul`` for floats; for integer and bool operands the
+    product as XLA computes it (torch's CUDA products refuse integers):
+    int64 products summed, back to a's integer dtype (wrapping, as an int32
+    accumulator does) or, for bool, whether any product is nonzero.  A 1-D
+    side is a vector and leading dims broadcast, as in ``jnp.matmul``."""
+    if a.is_floating_point() or b.is_floating_point():
+        return torch.matmul(a, b)
+    dt = a.dtype
+    a, b = a.to(torch.int64), b.to(torch.int64)
+    if b.ndim == 1:
+        r = (a * b).sum(dim=-1)
+    elif a.ndim == 1:
+        r = (a.unsqueeze(-1) * b).sum(dim=-2)
+    else:
+        r = (a.unsqueeze(-1) * b.unsqueeze(-3)).sum(dim=-2)
+    return r != 0 if dt == torch.bool else r.to(dt)
+
+
+def exact_conv(fn, v, w, **kw):
+    """``fn(v, w, **kw)`` (a torch convolution) for floats; integer and
+    bool inputs convolve in float64, exact while the sums stay below 2^53,
+    and come back to v's dtype (bool: whether the sum is nonzero), as the
+    JAX rules' integer convolutions give (torch's CUDA convolutions refuse
+    integers)."""
+    if v.is_floating_point():
+        return fn(v, w, **kw)
+    r = fn(v.double(), w.double(), **kw)
+    return r != 0 if v.dtype == torch.bool else r.to(torch.int64).to(v.dtype)
+
+
+_SIGNED = {torch.float64: torch.int64, torch.float32: torch.int32,
+           torch.float16: torch.int16, torch.bfloat16: torch.int16}
+
+
+def lax_top_k(v, k):
+    """``lax.top_k`` along the last axis: the k largest in XLA's total
+    order of floats (+0 above -0, NaN above +inf, -NaN below -inf), ties
+    to the lower index; ``torch.topk`` promises no order among equals and
+    a sort takes -0 and +0 as equal.  Returns (values, indices)."""
+    key = v
+    if v.is_floating_point():
+        bits = v.view(_SIGNED[v.dtype])
+        mask = torch.iinfo(bits.dtype).max
+        key = torch.where(bits < 0, bits ^ mask, bits)
+    elif v.dtype == torch.bool:
+        key = v.to(torch.uint8)
+    idx = torch.sort(key, dim=-1, descending=True, stable=True)[1][..., :k]
+    return torch.gather(v, -1, idx), idx

@@ -21,7 +21,7 @@ import torch
 
 from ..registry import register_op
 from ..sparse import SelectedRows
-from .common import x, out, promote_float
+from .common import exact_matmul, lax_top_k, x, out, promote_float
 
 
 def _bcast(a, b, axis):
@@ -68,9 +68,32 @@ _register_binary("elementwise_max", torch.maximum)
 _register_binary("elementwise_min", torch.minimum)
 # the remainder takes the divisor's sign, as jnp.mod
 _register_binary("elementwise_mod", torch.remainder)
-# floor(a / b) with Python's correction (c10's div_floor), as
-# jnp.floor_divide; no gradient, as JAX's is 0
-_register_binary("elementwise_floordiv", torch.floor_divide)
+
+
+def _floor_divide(a, b):
+    """``jnp.floor_divide``.  Floats: floor(a / b) with Python's correction
+    (c10's div_floor, the remainder route of JAX's ``_float_divmod``), and
+    NaN where b is 0, as JAX's remainder by 0 is NaN.  Integers: the
+    truncating quotient moved down one where the signs differ and the
+    remainder is not 0, with XLA's x / 0 = -1 and x % 0 = x, so x // 0 is
+    -1 at x = 0 and -2 elsewhere, and INT_MIN // -1 is INT_MIN; bool
+    computes in int32, as JAX promotes it.  No gradient, as JAX's is 0."""
+    if a.dtype == torch.bool:
+        a = a.int()
+    if b.dtype == torch.bool:
+        b = b.int()
+    if a.is_floating_point() or b.is_floating_point():
+        return torch.where(b == 0, float("nan"), torch.floor_divide(a, b))
+    dt = torch.promote_types(a.dtype, b.dtype)
+    a, b = a.to(dt), b.to(dt)
+    wraps = (a == torch.iinfo(dt).min) & (b == -1)
+    undefined = (b == 0) | wraps
+    q = torch.div(a, torch.where(undefined, 1, b), rounding_mode="floor")
+    by_zero = torch.where(a == 0, -1, -2).to(dt)
+    return torch.where(b == 0, by_zero, torch.where(wraps, a, q))
+
+
+_register_binary("elementwise_floordiv", _floor_divide)
 
 _register_binary("less_than", torch.lt)
 _register_binary("less_equal", torch.le)
@@ -163,7 +186,7 @@ def _matmul(ins, attrs, ctx):
         a = a.transpose(-1, -2)
     if attrs.get("transpose_Y", False):
         b = b.transpose(-1, -2)
-    r = torch.matmul(a, b)
+    r = exact_matmul(a, b)
     alpha = attrs.get("alpha", 1.0)
     if alpha != 1.0:
         r = r * alpha
@@ -172,7 +195,7 @@ def _matmul(ins, attrs, ctx):
 
 @register_op("bmm")
 def _bmm(ins, attrs, ctx):
-    return out(Out=torch.matmul(x(ins, "X"), x(ins, "Y")))
+    return out(Out=exact_matmul(x(ins, "X"), x(ins, "Y")))
 
 
 def _register_unary(name, fn):
@@ -181,9 +204,20 @@ def _register_unary(name, fn):
         return out(Out=fn(x(ins, "X")))
 
 
+def _abs_like_jax(v):
+    """``jnp.abs``: bool and integers keep their dtype; for floats the
+    gradient at +0 and -0 is 1, as JAX's select(x >= 0, g, -g) (torch's
+    sign(x) gives 0), and -0 comes out +0."""
+    if v.dtype == torch.bool:
+        return v
+    if not v.is_floating_point():
+        return torch.abs(v)
+    return torch.where(v >= 0, v, -v) + 0.0
+
+
 # integer inputs: abs, square, ceil and round keep the dtype, the others
 # compute in f32, as the jnp functions
-_register_unary("abs", torch.abs)
+_register_unary("abs", _abs_like_jax)
 _register_unary("rsqrt", torch.rsqrt)
 _register_unary("square", torch.square)
 _register_unary("exp", torch.exp)
@@ -247,7 +281,8 @@ def _clip(ins, attrs, ctx):
         rows, vals = v.merged()
         return out(Out=SelectedRows(
             rows, _clip_values(vals, attrs["min"], attrs["max"]), v.height))
-    return out(Out=_clip_values(v, attrs["min"], attrs["max"]))
+    # integers and bool clip in f32, as jnp.clip with float bounds gives
+    return out(Out=_clip_values(promote_float(v), attrs["min"], attrs["max"]))
 
 
 def _clipped_by_norm(v, max_norm):
@@ -336,24 +371,27 @@ def _mean(ins, attrs, ctx):
 
 @register_op("top_k")
 def _top_k(ins, attrs, ctx):
-    """The k largest along the last axis.  Ties go to the lower index, as
-    ``lax.top_k`` breaks them: a stable descending sort cut to k
-    (``torch.topk`` promises no order among equal values)."""
-    v = x(ins, "X")
-    k = int(attrs["k"])
-    vals, idx = torch.sort(v, dim=-1, descending=True, stable=True)
-    return out(Out=vals[..., :k], Indices=idx[..., :k])
+    """The k largest along the last axis, as ``lax.top_k`` picks them
+    (``common.lax_top_k``: ties to the lower index, +0 above -0)."""
+    vals, idx = lax_top_k(x(ins, "X"), int(attrs["k"]))
+    return out(Out=vals, Indices=idx)
+
+
+def _bool_as_int(v):
+    return v.to(torch.uint8) if v.dtype == torch.bool else v
 
 
 @register_op("arg_max")
 def _arg_max(ins, attrs, ctx):
     """The first maximum; a NaN counts as the maximum, as ``jnp.argmax``."""
-    return out(Out=torch.argmax(x(ins, "X"), dim=int(attrs.get("axis", -1))))
+    return out(Out=torch.argmax(_bool_as_int(x(ins, "X")),
+                                dim=int(attrs.get("axis", -1))))
 
 
 @register_op("arg_min")
 def _arg_min(ins, attrs, ctx):
-    return out(Out=torch.argmin(x(ins, "X"), dim=int(attrs.get("axis", -1))))
+    return out(Out=torch.argmin(_bool_as_int(x(ins, "X")),
+                                dim=int(attrs.get("axis", -1))))
 
 
 @register_op("argsort")
@@ -410,17 +448,71 @@ def _dot(ins, attrs, ctx):
     return out(Out=(a * b).sum(dim=-1, keepdim=True))
 
 
+def _vector_norm(v, p, dims, keep):
+    """``jnp.linalg.vector_norm``'s compositions, whose gradients at a zero
+    vector this keeps: p = 1 a sum of |x| (1 at 0, as ``_abs_like_jax``),
+    p = 2 sqrt(sum x x) (NaN at 0), inf the largest |x| with an initial 0
+    (the tie with it halves the gradient), else (sum |x|^p)^(1 / p) with
+    1 / p rounded to f32, as JAX makes it a constant of x's dtype."""
+    a = _abs_like_jax(v)
+    if p == math.inf:
+        return torch.maximum(a.amax(dim=dims, keepdim=keep),
+                             torch.zeros((), dtype=v.dtype, device=v.device))
+    if p == -math.inf:
+        return a.amin(dim=dims, keepdim=keep)
+    if p == 0:
+        return (v != 0).to(v.dtype).sum(dim=dims, keepdim=keep)
+    if p == 1:
+        return a.sum(dim=dims, keepdim=keep)
+    if p == 2:
+        return torch.sqrt((v * v).sum(dim=dims, keepdim=keep))
+    inv = torch.tensor(1.0 / p, dtype=v.dtype).item()
+    return torch.pow(torch.pow(a, p).sum(dim=dims, keepdim=keep), inv)
+
+
+def _singular_values(v):
+    """The singular values of each matrix of [..., m, n]; NaN for a matrix
+    holding a NaN or an infinity, as the JAX SVD gives (torch's raises on
+    the CPU: its LAPACK does not converge)."""
+    bad = ~torch.isfinite(v).all(dim=-1, keepdim=True).all(dim=-2, keepdim=True)
+    s = torch.linalg.svdvals(torch.where(bad, 0.0, v))
+    return torch.where(bad[..., 0], float("nan"), s)
+
+
 @register_op("p_norm")
 def _p_norm(ins, attrs, ctx):
-    """``jnp.linalg.norm(x, ord=porder, axis, keepdims)``: with no axis a
-    2-D input takes the matrix norm of that order (porder 2: the largest
-    singular value), as ``torch.linalg.norm`` with the same arguments."""
+    """``jnp.linalg.norm(x, ord=porder, axis, keepdims)``: one axis (or a
+    1-D input with none) gives the vector norm; two axes (or a 2-D input
+    with none) the matrix norm of that order, porder 2 the largest
+    singular value with an initial 0.  Integer and bool inputs compute in
+    f32, as ``jnp.linalg.norm`` promotes them."""
+    v = promote_float(x(ins, "X"))
+    p = attrs.get("porder", 2.0)
+    keep = bool(attrs.get("keepdim", False))
     axis = attrs.get("axis")
-    if isinstance(axis, list):
-        axis = tuple(axis)
-    return out(Out=torch.linalg.norm(x(ins, "X"), ord=attrs.get("porder", 2.0),
-                                     dim=axis,
-                                     keepdim=bool(attrs.get("keepdim", False))))
+    if axis is None:
+        dims = tuple(range(v.ndim))
+    else:
+        dims = tuple(d % v.ndim for d in (
+            axis if isinstance(axis, (list, tuple)) else (axis,)))
+    if len(dims) == 1:
+        return out(Out=_vector_norm(v, float(p), dims, keep))
+    if len(dims) != 2:
+        raise ValueError("p_norm: improper number of axes %r for a norm"
+                         % (dims,))
+    if p not in (2, -2, "nuc"):
+        return out(Out=torch.linalg.matrix_norm(v, ord=p, dim=dims,
+                                                keepdim=keep))
+    s = _singular_values(torch.movedim(v, dims, (-2, -1)))
+    if p == 2:
+        r = torch.maximum(s.amax(dim=-1),
+                          torch.zeros((), dtype=v.dtype, device=v.device))
+    else:
+        r = s.amin(dim=-1) if p == -2 else s.sum(dim=-1)
+    if keep:
+        for d in sorted(dims):
+            r = r.unsqueeze(d)
+    return out(Out=r)
 
 
 @register_op("maximum_entry_count")

@@ -26,15 +26,16 @@ rule's ``jax.random`` mask, not its bits.
 """
 
 import itertools
+import math
 
 import torch
 import torch.nn.functional as F
 
 from ..registry import register_op
-from .common import (x, out, op_generator, promote_float, saturating_cast,
-                     take_clamp, take_fill)
+from .common import (exact_conv, exact_matmul, x, out, op_generator,
+                     promote_float, saturating_cast, take_clamp, take_fill)
 from .math_ops import _clip_values
-from .pooling_ops import ceil_pads
+from .pooling_ops import ceil_pads, window_max, window_mean
 
 
 _SELU_ALPHA = 1.6732632423543772848170429916717
@@ -62,21 +63,27 @@ def _softplus(v):
     return torch.logaddexp(v, _zero(v))
 
 
-def _register_act(name, fn):
+def _register_act(name, fn, promote=True):
+    """``promote``: integer and bool inputs compute in f32, as the JAX
+    activations (a jax.nn function, or a clip or where with a float
+    constant) promote them."""
     @register_op(name)
     def _rule(ins, attrs, ctx, fn=fn):
-        return out(Out=fn(x(ins, "X"), attrs))
+        v = x(ins, "X")
+        return out(Out=fn(promote_float(v) if promote else v, attrs))
 
 
 # bool in int32, as jax.nn.relu's maximum with 0 (torch.relu refuses bool)
 _register_act("relu", lambda v, a: torch.relu(
-    v.int() if v.dtype == torch.bool else v))
+    v.int() if v.dtype == torch.bool else v), promote=False)
 _register_act("relu6", lambda v, a: _clip_values(v, 0.0, a.get("threshold", 6.0)))
 _register_act("sigmoid", lambda v, a: torch.sigmoid(v))
 _register_act("logsigmoid", lambda v, a: F.logsigmoid(v))
 _register_act("tanh", lambda v, a: torch.tanh(v))
-_register_act("gelu", lambda v, a: F.gelu(
-    v, approximate="tanh" if a.get("approximate", False) else "none"))
+# +inf gives +inf, as jax.nn.gelu's x (1 + erf(x / sqrt 2)) / 2 (F.gelu's
+# CPU kernel gives NaN there)
+_register_act("gelu", lambda v, a: torch.where(v == math.inf, v, F.gelu(
+    v, approximate="tanh" if a.get("approximate", False) else "none")))
 # x >= 0 keeps x, so the gradient at 0 is 1, as jax.nn.leaky_relu
 _register_act("leaky_relu", lambda v, a: torch.where(
     v >= 0, v, a.get("alpha", 0.02) * v))
@@ -155,10 +162,10 @@ def _pair(v, n=2):
 @register_op("conv2d")
 def _conv2d(ins, attrs, ctx):
     v, w = x(ins, "Input"), x(ins, "Filter")
-    r = F.conv2d(v, w, stride=_pair(attrs.get("strides", [1, 1])),
-                 padding=_pair(attrs.get("paddings", [0, 0])),
-                 dilation=_pair(attrs.get("dilations", [1, 1])),
-                 groups=int(attrs.get("groups", 1)))
+    r = exact_conv(F.conv2d, v, w, stride=_pair(attrs.get("strides", [1, 1])),
+                   padding=_pair(attrs.get("paddings", [0, 0])),
+                   dilation=_pair(attrs.get("dilations", [1, 1])),
+                   groups=int(attrs.get("groups", 1)))
     return out(Output=r)
 
 
@@ -181,19 +188,21 @@ def _conv2d_transpose(ins, attrs, ctx):
     if int(attrs.get("groups", 1)) != 1:
         raise NotImplementedError(
             "conv2d_transpose: groups > 1 is not supported on the TPU path")
-    r = F.conv_transpose2d(v, w, stride=_pair(attrs.get("strides", [1, 1])),
-                           padding=_pair(attrs.get("paddings", [0, 0])),
-                           dilation=_pair(attrs.get("dilations", [1, 1])))
+    r = exact_conv(F.conv_transpose2d, v, w,
+                   stride=_pair(attrs.get("strides", [1, 1])),
+                   padding=_pair(attrs.get("paddings", [0, 0])),
+                   dilation=_pair(attrs.get("dilations", [1, 1])))
     return out(Output=r)
 
 
 @register_op("conv3d")
 def _conv3d(ins, attrs, ctx):
     v, w = x(ins, "Input"), x(ins, "Filter")
-    r = F.conv3d(v, w, stride=_pair(attrs.get("strides", [1, 1, 1]), 3),
-                 padding=_pair(attrs.get("paddings", [0, 0, 0]), 3),
-                 dilation=_pair(attrs.get("dilations", [1, 1, 1]), 3),
-                 groups=int(attrs.get("groups", 1)))
+    r = exact_conv(F.conv3d, v, w,
+                   stride=_pair(attrs.get("strides", [1, 1, 1]), 3),
+                   padding=_pair(attrs.get("paddings", [0, 0, 0]), 3),
+                   dilation=_pair(attrs.get("dilations", [1, 1, 1]), 3),
+                   groups=int(attrs.get("groups", 1)))
     return out(Output=r)
 
 
@@ -218,22 +227,12 @@ def _pool2d(ins, attrs, ctx):
         if ptype == "max":
             return out(Out=v6.amax(dim=(3, 5)))
         return out(Out=v6.mean(dim=(3, 5)))
-    (hl, hh), (wl, wh) = (ceil_pads(v.shape[2 + i], k[i], s[i], p[i],
-                                    attrs.get("ceil_mode", False))
-                          for i in range(2))
-    pads = (wl, wh, hl, hh)           # F.pad: last axis first
+    pairs = [ceil_pads(v.shape[2 + i], k[i], s[i], p[i],
+                       attrs.get("ceil_mode", False)) for i in range(2)]
     if ptype == "max":
-        # the window's first maximum takes the gradient, as XLA's
-        # select_and_scatter does for lax.reduce_window(max)
-        vp = F.pad(v, pads, value=float("-inf")) if any(pads) else v
-        return out(Out=F.max_pool2d(vp, k, s))
-    ssum = F.avg_pool2d(F.pad(v, pads), k, s, divisor_override=1)
-    if attrs.get("exclusive", True):
-        ones = F.pad(torch.ones_like(v[:1, :1]), pads)
-        cnt = F.avg_pool2d(ones, k, s, divisor_override=1)
-    else:
-        cnt = float(k[0] * k[1])
-    return out(Out=ssum / cnt)
+        return out(Out=window_max(v, k, s, pairs, F.max_pool2d))
+    return out(Out=window_mean(v, k, s, pairs, F.avg_pool2d,
+                               attrs.get("exclusive", True)))
 
 
 @register_op("batch_norm")
@@ -260,8 +259,8 @@ def _batch_norm(ins, attrs, ctx):
         m, va = mean, var
         new_mean, new_var = mean, var
     else:
-        m = promote_float(v).mean(dim=axes)
-        va = promote_float(v).var(dim=axes, unbiased=False)
+        # the mean, then the mean of the squared deviations, as jnp.var
+        m, va = (t.reshape(-1) for t in _moments(promote_float(v), axes))
         new_mean = momentum * mean + (1.0 - momentum) * m.detach()
         new_var = momentum * var + (1.0 - momentum) * va.detach()
     y = (v - m.reshape(cshape)) * torch.rsqrt(va + eps).reshape(cshape)
@@ -297,9 +296,9 @@ def _layer_norm(ins, attrs, ctx):
     begin = int(attrs.get("begin_norm_axis", 1))
     dims = tuple(range(begin, v.ndim))
     m, va = _moments(v.float(), dims)
-    y = (v - m) * torch.rsqrt(va + attrs.get("epsilon", 1e-5))
+    y = (promote_float(v) - m) * torch.rsqrt(va + attrs.get("epsilon", 1e-5))
     y = _scale_shift(y, x(ins, "Scale"), x(ins, "Bias"), v.shape[begin:])
-    return out(Y=y.to(v.dtype), Mean=m.reshape(v.shape[:begin]),
+    return out(Y=saturating_cast(y, v.dtype), Mean=m.reshape(v.shape[:begin]),
                Variance=va.reshape(v.shape[:begin]))
 
 
@@ -307,8 +306,9 @@ def _layer_norm(ins, attrs, ctx):
 def _group_norm(ins, attrs, ctx):
     """NCHW; statistics per sample and group in the input's dtype.  Mean
     and Variance drop every unit dim (``jnp.squeeze``), so a batch of 1 or
-    one group changes their shape."""
-    v = x(ins, "X")
+    one group changes their shape.  Integer and bool inputs normalise in
+    f32, as ``jnp.mean`` promotes them."""
+    v = promote_float(x(ins, "X"))
     g = int(attrs.get("groups", 32))
     n, c = v.shape[0], v.shape[1]
     vg = v.reshape((n, g, c // g) + tuple(v.shape[2:]))
@@ -321,7 +321,7 @@ def _group_norm(ins, attrs, ctx):
 
 @register_op("instance_norm")
 def _instance_norm(ins, attrs, ctx):
-    v = x(ins, "X")
+    v = promote_float(x(ins, "X"))
     m, va = _moments(v, tuple(range(2, v.ndim)))
     y = (v - m) * torch.rsqrt(va + attrs.get("epsilon", 1e-5))
     y = _scale_shift(y, x(ins, "Scale"), x(ins, "Bias"),
@@ -476,7 +476,7 @@ def _kldiv_loss(ins, attrs, ctx):
     """target (log(max(target, 1e-20)) - x), reduced by ``reduction``:
     "mean" (the default), "sum", "batchmean" (the sum over the batch size)
     or "none"."""
-    v, t = x(ins, "X"), x(ins, "Target")
+    v, t = promote_float(x(ins, "X")), promote_float(x(ins, "Target"))
     tiny = torch.tensor(1e-20, dtype=t.dtype, device=t.device)
     loss = t * (torch.log(torch.maximum(t, tiny)) - v)
     red = attrs.get("reduction", "mean")
@@ -507,11 +507,14 @@ def _interpolate(ins, attrs, ctx):
     v = x(ins, "X")
     size = (int(attrs["out_h"]), int(attrs["out_w"]))
     if attrs.get("interp_method", "bilinear") == "nearest":
-        r = F.interpolate(v, size=size, mode="nearest-exact")
+        # a gather: integers and bool pass through float64 exactly
+        w = v if v.is_floating_point() else v.double()
+        r = F.interpolate(w, size=size, mode="nearest-exact")
     else:
-        r = F.interpolate(v, size=size, mode="bilinear", align_corners=False,
-                          antialias=True)
-    return out(Out=r.to(v.dtype))
+        r = F.interpolate(promote_float(v), size=size, mode="bilinear",
+                          align_corners=False, antialias=True)
+    # integers truncate and saturate, bool is "nonzero", as astype
+    return out(Out=saturating_cast(r, v.dtype))
 
 
 register_op("bilinear_interp")(_interpolate)
@@ -590,9 +593,14 @@ def _temporal_shift(ins, attrs, ctx):
 def _multihead_matmul(ins, attrs, ctx):
     """Attention as the JAX rule composes it: einsum, scale, bias,
     softmax, einsum (not a fused attention kernel)."""
-    q, k, v = x(ins, "Q"), x(ins, "K"), x(ins, "V")
+    q, k, v = x(ins, "Q"), x(ins, "K"), promote_float(x(ins, "V"))
     bias_qk = x(ins, "BiasQK")
-    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * attrs.get("alpha", 1.0)
+    if q.is_floating_point():
+        s = torch.einsum("bhqd,bhkd->bhqk", q, k)
+    else:
+        # integer and bool scores as JAX's einsum gives them, then f32
+        s = promote_float(exact_matmul(q, k.transpose(-1, -2)))
+    s = s * attrs.get("alpha", 1.0)
     if bias_qk is not None:
         s = s + bias_qk
     p = torch.softmax(s, dim=-1)

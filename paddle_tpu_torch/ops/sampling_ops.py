@@ -1,16 +1,18 @@
-"""Sampled large-vocabulary training op rules: nce and hierarchical_sigmoid
-(counterparts of the rules in ``paddle_tpu/ops/sampling_ops.py``; its
-sample_logits and sampling_id wait).
+"""Sampled large-vocabulary training op rules: nce, hierarchical_sigmoid,
+sample_logits and sampling_id (counterparts of the rules in
+``paddle_tpu/ops/sampling_ops.py``).
 
 Parity: operators/nce_op.h (Gutmann & Hyvarinen NCE; the samplers of
-math/sampler.cc: 0 uniform, 1 log-uniform, 2 a custom distribution) and
+math/sampler.cc: 0 uniform, 1 log-uniform, 2 a custom distribution),
 hierarchical_sigmoid_op.h with math/matrix_bit_code.h (SimpleCode, the
-default tree, or a custom PathTable / PathCode).
+default tree, or a custom PathTable / PathCode), sample_logits_op.h and
+sampling_id_op.h.
 
-The negatives are drawn from a ``torch`` generator seeded per run and op
+The draws come from a ``torch`` generator seeded per run and op
 (``common.op_generator``), with the JAX samplers' distributions but not
-their ``jax.random`` bits; ``custom_neg_classes`` fixes them, and is how the
-two packages are held to each other.
+their ``jax.random`` bits; ``custom_neg_classes`` and sample_logits'
+customized samples fix them, and are how the two packages are held to
+each other.
 """
 
 import math
@@ -18,7 +20,8 @@ import math
 import torch
 
 from ..registry import register_op
-from .common import op_generator, out, take_clamp, x
+from .math_ops import _clip_values
+from .common import op_generator, out, promote_float, take_clamp, take_steps, x
 
 
 def _log_uniform_prob(k, range_):
@@ -125,3 +128,70 @@ def _hierarchical_sigmoid(ins, attrs, ctx):
     o = (torch.log1p(torch.exp(pre)).sum(dim=1, keepdim=True)
          - (torch.where(valid, bits, 0.0) * pre).sum(dim=1, keepdim=True))
     return out(Out=o, PreOut=pre, W_Out=w)
+
+
+def _tolerable(v):
+    """sample_logits_op.h TolerableValue: NaN to 0, then clipped to
+    [-1e10, 1e10] as ``jnp.clip`` clips (a value at a bound takes half
+    its gradient; ``clamp`` would pass all of it)."""
+    return _clip_values(torch.where(torch.isnan(v), 0.0, v), -1e10, 1e10)
+
+
+@register_op("sample_logits")
+def _sample_logits(ins, attrs, ctx):
+    """Logits [B, C] at each row's true Labels [B, T] and S shared
+    negatives: with ``use_customized_samples`` the given Samples [B, T + S]
+    and their probabilities; else S distinct classes drawn log-uniformly
+    without replacement (Gumbel top-S over the class weights), each
+    probability scaled by S (sample_prob.h's num_tries).  A negative
+    equal to one of the row's true labels takes -1e20 with
+    ``remove_accidental_hits``; SampledLogits = logit - log(probability),
+    each kept tolerable."""
+    logits = promote_float(x(ins, "Logits"))   # f32 out, as in the JAX rule
+    labels = x(ins, "Labels").long()
+    B, C = logits.shape
+    T = labels.shape[1]
+    S = int(attrs["num_samples"])
+    dev = logits.device
+    if attrs.get("use_customized_samples", False):
+        samples = x(ins, "CustomizedSamples").long()
+        probabilities = x(ins, "CustomizedProbabilities")
+    else:
+        k = torch.arange(C, device=dev, dtype=torch.float32)
+        weights = torch.log(torch.log((k + 2.0) / (k + 1.0)))
+        u = torch.rand((C,), generator=op_generator(ctx, attrs), device=dev)
+        gumbel = -torch.log(-torch.log(u.clamp(min=1e-20)))
+        neg = torch.sort(weights + gumbel, descending=True, stable=True)[1][:S]
+        p_neg = _log_uniform_prob(neg, C - 1) * S
+        p_true = _log_uniform_prob(labels, C - 1) * S
+        samples = torch.cat([labels, neg[None, :].expand(B, S)], dim=1)
+        probabilities = torch.cat([p_true, p_neg[None, :].expand(B, S)], dim=1)
+    sampled = take_steps(logits, samples)
+    if attrs.get("remove_accidental_hits", True):
+        hit = (samples[:, None, :] == samples[:, :T, None]).any(dim=1)
+        negative = torch.arange(samples.shape[1], device=dev)[None, :] >= T
+        sampled = torch.where(negative & hit, sampled - 1e20, sampled)
+    sampled = _tolerable(sampled - _tolerable(torch.log(probabilities)))
+    return out(SampledLogits=sampled, Samples=samples,
+               Probabilities=probabilities.detach(),
+               SampledLabels=torch.arange(T, dtype=torch.int32, device=dev)
+               [None, :].expand(B, T),
+               LogitsDim=torch.tensor(tuple(logits.shape), dtype=torch.int32,
+                                      device=dev),
+               LabelsDim=torch.tensor(tuple(labels.shape), dtype=torch.int32,
+                                      device=dev))
+
+
+@register_op("sampling_id")
+def _sampling_id(ins, attrs, ctx):
+    """One draw from each row's distribution X [B, C]: the first index
+    whose running sum reaches r ~ U[min, max) (a lower bound on the
+    running sum, clipped to [0, C)), in X's dtype as the JAX rule
+    returns it."""
+    v = x(ins, "X")
+    lo, hi = float(attrs.get("min", 0.0)), float(attrs.get("max", 1.0))
+    r = torch.rand((v.shape[0], 1), generator=op_generator(ctx, attrs),
+                   device=v.device) * (hi - lo) + lo
+    cum = torch.cumsum(v.float(), dim=1)
+    idx = (cum < r).sum(dim=1).clamp(0, v.shape[1] - 1)
+    return out(Out=idx.to(v.dtype))

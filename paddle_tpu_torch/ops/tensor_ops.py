@@ -352,18 +352,37 @@ def _shape(ins, attrs, ctx):
                                 device=v.device))
 
 
+def _reflect_index(lo, n, hi, device):
+    """The source index of each of lo + n + hi positions of an axis of n
+    padded by reflection, as ``jnp.pad(mode="reflect")``: the walk bounces
+    off both ends again and again (period 2 (n - 1)) however far the pad
+    reaches; an axis of one repeats its element."""
+    i = torch.arange(-lo, n + hi, device=device)
+    if n == 1:
+        return torch.zeros_like(i)
+    i = torch.remainder(i, 2 * (n - 1))
+    return torch.where(i < n, i, 2 * (n - 1) - i)
+
+
 @register_op("pad2d")
 def _pad2d(ins, attrs, ctx):
     """NCHW; paddings [top, bottom, left, right]; mode "constant"
-    (``pad_value``), "reflect" (no edge repeat) or "edge"."""
+    (``pad_value``), "reflect" (no edge repeat; a pad as long as the axis
+    or longer reflects again, as ``jnp.pad``) or "edge" (bool as uint8:
+    the replicate pad refuses bool)."""
     v = x(ins, "X")
     p = [int(i) for i in attrs["paddings"]]
-    pads = (p[2], p[3], p[0], p[1])
     mode = attrs.get("mode", "constant")
     if mode == "constant":
-        return out(Out=F.pad(v, pads, value=attrs.get("pad_value", 0.0)))
-    return out(Out=F.pad(v, pads, mode={"reflect": "reflect",
-                                        "edge": "replicate"}[mode]))
+        return out(Out=F.pad(v, (p[2], p[3], p[0], p[1]),
+                             value=attrs.get("pad_value", 0.0)))
+    if mode == "reflect":
+        r = v.index_select(2, _reflect_index(p[0], v.shape[2], p[1], v.device))
+        return out(Out=r.index_select(
+            3, _reflect_index(p[2], v.shape[3], p[3], v.device)))
+    w = v.to(torch.uint8) if v.dtype == torch.bool else v
+    return out(Out=F.pad(w, (p[2], p[3], p[0], p[1]), mode="replicate")
+               .to(v.dtype))
 
 
 @register_op("pad")
@@ -432,12 +451,14 @@ def _flip(ins, attrs, ctx):
 
 @register_op("roll")
 def _roll(ins, attrs, ctx):
-    """With no axis the flattened tensor rolls, as ``jnp.roll``."""
+    """With no axis the flattened tensor rolls by the sum of the shifts,
+    as ``jnp.roll`` rolls it by each in turn."""
     axis = attrs.get("axis")
     shifts = attrs["shifts"]
     shifts = tuple(shifts) if isinstance(shifts, (list, tuple)) else shifts
     if axis is None or axis == []:
-        return out(Out=torch.roll(x(ins, "X"), shifts))
+        total = sum(shifts) if isinstance(shifts, tuple) else shifts
+        return out(Out=torch.roll(x(ins, "X"), total))
     return out(Out=torch.roll(x(ins, "X"), shifts, _axes(axis)))
 
 

@@ -488,7 +488,13 @@ _LINEAR = ("view", "_unsafe_view", "reshape", "expand", "permute",
            "index_put", "scatter", "scatter_add", "index_add", "clone",
            "contiguous", "detach", "alias", "_to_copy", "copy", "sum",
            "cumsum", "narrow", "_upsample_nearest_exact2d",
-           "_upsample_nearest_exact2d_backward", "masked_scatter")
+           "_upsample_nearest_exact2d_backward", "masked_scatter",
+           "im2col", "col2im", "max_pool2d_with_indices_backward",
+           "max_pool3d_with_indices_backward")
+# window sums: linear only with divisor_override = 1 (the pooling rules'
+# sums; a divisor would add a division's rounding)
+_WINDOW_SUMS = ("avg_pool2d", "avg_pool3d", "avg_pool2d_backward",
+                "avg_pool3d_backward")
 _MULTILINEAR = ("mm", "bmm", "mv", "dot", "convolution",
                 "convolution_backward")
 
@@ -506,10 +512,12 @@ def _own(y, ulps):
 
 
 def _f32_error(c):
-    """The rounding of a constant to f32 (0 for one f32 holds exactly)."""
+    """The rounding of a constant to f32 (0 for one f32 holds exactly, an
+    infinity or a NaN included)."""
     if isinstance(c, float):
-        return abs(c - float(np.float32(c)))
-    return (c - c.float().double()).abs()
+        return abs(c - float(np.float32(c))) if math.isfinite(c) else 0.0
+    return torch.where(torch.isfinite(c), (c - c.float().double()).abs(),
+                       torch.zeros_like(c))
 
 
 class _V:
@@ -949,11 +957,40 @@ class BoundMode(TorchDispatchMode):
         elif base in _LINEAR:
             if base == "copy":            # copy_(dst, src)
                 self.set(res, self.bound(args[1]).expand(res.shape))
+            elif (base in ("view", "_unsafe_view")
+                  and func._overloadname != "dtype"):
+                # the bounds are stored contiguous, where a view of a
+                # strided tensor may not exist: the same values by reshape
+                self._linear(torch.ops.aten.reshape.default, args, kwargs, res)
             else:
                 self._linear(outplace, args, kwargs, res)
         elif base in _MULTILINEAR:
             self._multilinear(func, args, kwargs, out)
-        elif base in ("amax", "amin"):
+        elif base in _WINDOW_SUMS:
+            divisor = args[7 if base.endswith("_backward") else 6] if len(
+                args) > (7 if base.endswith("_backward") else 6) else None
+            if divisor != 1:
+                raise NotImplementedError(
+                    "no bound rule for %s without divisor_override=1" % func)
+            self._linear(outplace, args, kwargs, res)
+        elif base in ("max_pool2d_with_indices", "max_pool3d_with_indices"):
+            # a selection: each output moves by at most the largest bound
+            # in its window (the padding, -inf, takes no part)
+            self.set(out[0], func(self.bound(args[0]), *args[1:], **kwargs)[0])
+        elif base == "cummin":
+            # a running selection: by at most the running largest bound
+            self.set(out[0], torch.cummax(self.bound(args[0]), args[1])[0])
+        elif base == "threshold_backward":
+            # g where x > threshold, else 0: where x's interval holds the
+            # threshold either may be the card's, so |g| + its bound
+            g, xv, thr = self._v(args[0]), self._v(args[1]), args[2]
+            flip = (xv.r - thr).abs() <= xv.e
+            if bool((flip & (xv.r != thr)).any()):
+                self.ambiguous.append(str(func))
+            e = torch.where(flip, g.r.abs() + g.e,
+                            torch.where(xv.r <= thr, torch.zeros_like(g.e), g.e))
+            self.set(out, e)
+        elif base in ("amax", "amin") and args[0].is_floating_point():
             # a selection: the result moves by at most the largest bound
             self.set(out, torch.ops.aten.amax.default(
                 self.bound(args[0]), *args[1:], **kwargs))
@@ -966,7 +1003,7 @@ class BoundMode(TorchDispatchMode):
             n = x.r.numel() // max(out.numel(), 1)
             v = _div(s, _c(float(n)))
             self.set(out, v.e)
-        elif base == "sort":
+        elif base == "sort" and args[0].is_floating_point():
             vals, idx = out
             dim = args[1] if len(args) > 1 else kwargs.get("dim", -1)
             e = self.bound(args[0])
@@ -990,6 +1027,14 @@ class BoundMode(TorchDispatchMode):
             self.set(first, v.e)
             if isinstance(out, tuple):
                 self._fresh(out[1:])
+        elif (base == "div" and floats_out and len(args) == 2 and not kwargs
+              and isinstance(args[1], (int, float)) and args[1] != 0):
+            # CUDA divides by a host scalar as a product with its f32
+            # reciprocal (BinaryDivTrueKernel.cu): two roundings
+            b = float(args[1])
+            r32 = float(np.float32(1.0) / np.float32(b))
+            v = _ew(torch.mul, [self._v(args[0]), _V(1.0 / b, abs(r32 - 1.0 / b))], 0)
+            self.set(res, v.e.expand(res.shape))
         elif base in _IEEE or base in _SELECT or base in CUDA_ULPS:
             if floats_out:
                 v = self._elementwise(outplace, args, kwargs,

@@ -1,6 +1,6 @@
 """Where a training step's device time goes.
 
-    python -m paddle_tpu_torch.tools.profile_step [--model bert|resnet50|deepfm|nmt|lenet|book|fluid_encoder] [--trace out.json]
+    python -m paddle_tpu_torch.tools.profile_step [--model bert|resnet50|deepfm|nmt|lenet|book|fluid_encoder|crnn_ctc] [--trace out.json]
 
 Builds the same trainer and batches as ``chip_smoke.py``'s slice phases
 (bf16 BERT-base with LAMB at B = 64, S = 512; bf16 ResNet-50 with fused
@@ -13,7 +13,11 @@ eleven book-suite programs of ``tools/book_suite.py`` in turn, as
 ``chip_smoke.py`` phase 24 trains them; with ``--model fluid_encoder`` the
 Fluid-layers BERT-base encoder of ``tools/programs.py`` in f32, Adam at
 1e-4, dropout 0.1, B = 16, S = 512, through ``Executor(CUDAPlace(0))``, as
-``chip_smoke.py`` phase 41 trains it), takes a warm-up step, then traces
+``chip_smoke.py`` phase 41 trains it; with ``--model crnn_ctc`` the
+CRNN-CTC recognizer of ``tools/programs.py`` at its published widths, f32,
+B = 32, Momentum(1e-3, 0.9) with L2Decay, through
+``Executor(CUDAPlace(0))``, as ``chip_smoke.py`` phase 43 trains it),
+takes a warm-up step, then traces
 two steps with ``torch.profiler`` (CPU and CUDA activities).  Without
 ``--model`` it profiles all five.  Prints one JSON line per kernel group
 (the port's kernels by name, cuBLAS products or cuDNN convolutions, for
@@ -86,6 +90,20 @@ GROUPS = {
         ("elementwise (adds, gelu, dropout, Adam)", ("elementwise",
                                                      "vectorized",
                                                      "unrolled")),
+    ),
+    "crnn_ctc": (
+        ("convolution (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit",
+                                 "cudnn", "winograd", "fft", "im2col",
+                                 "col2im")),
+        ("products (cuBLAS: fcs, GRU steps)", ("gemm", "xmma", "cutlass",
+                                              "sm90_", "nvjet")),
+        ("batch norm statistics and other reductions", ("reduce", "norm")),
+        ("pooling", ("pool",)),
+        ("gather / scatter (CTC emissions, steps)", ("index", "gather",
+                                                     "scatter")),
+        ("copies and casts (step slices, stacks)", ("copy", "cat", "fill")),
+        ("elementwise (GRU gates, CTC logaddexp, momentum)", (
+            "elementwise", "vectorized", "unrolled")),
     ),
     "lenet": (
         ("convolution (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit",
@@ -390,6 +408,26 @@ def bn_byte_bounds_ms(cfg):
             for k, n in BN_PASSES.items()}
 
 
+def _crnn_ctc():
+    """The CRNN-CTC recognizer (``tools/programs.py`` ``CRNN_CTC``) run by
+    ``Executor(CUDAPlace(0))``, a fresh seeded batch every step."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools.programs import (CRNN_CTC, crnn_ctc_program,
+                                                 crnn_feed, crnn_train_flops)
+
+    cfg = CRNN_CTC
+    main, startup, _, v = crnn_ctc_program(fluid, cfg)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    feeds = [crnn_feed(cfg, SEED + i) for i in range(STEPS + 1)]
+    staged = {k: np.stack([f[k] for f in feeds]) for k in feeds[0]}
+    return (FluidStep(exe, main, scope, [v["loss"]]), staged, None,
+            {"batch": cfg.batch, "image": [cfg.height, cfg.width],
+             "dtype": "float32", "optimizer": "momentum(1e-3, 0.9) + L2Decay",
+             "train_flops_per_step": crnn_train_flops(cfg),
+             "feed": "numpy, copied to the card by Executor.run"})
+
+
 def cuda_kernels_per_call(fn, calls=5):
     """{CUDA kernel name: (launches a call, device ms a call)} from
     torch.profiler, after one untimed call of ``fn``: ``calls`` calls, each
@@ -418,7 +456,8 @@ def profile_model(model, card, trace=None):
         trainer, staged, lr, extra = {"bert": _bert, "resnet50": _resnet50,
                                       "deepfm": _deepfm, "nmt": _nmt,
                                       "lenet": _lenet,
-                                      "fluid_encoder": _fluid_encoder}[model]()
+                                      "fluid_encoder": _fluid_encoder,
+                                      "crnn_ctc": _crnn_ctc}[model]()
     batches = [{k: v[i] for k, v in staged.items()} for i in range(STEPS + 1)]
     trainer.step(batches[0], lr)
     torch.cuda.synchronize()

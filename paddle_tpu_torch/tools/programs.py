@@ -17,7 +17,12 @@ that ``chip_smoke.py`` and the tests build the same programs:
   ``fluid.layers`` in the shape of Paddle 1.6's own Fluid BERT (fc
   projections, ``matmul`` attention with a mask bias, ``layer_norm``,
   a gelu FFN, a vocabulary ``fc`` and ``softmax_with_cross_entropy``),
-  trained by Adam or SGD.
+  trained by Adam or SGD;
+- ``crnn_ctc_program``: the CRNN-CTC text recognizer of PaddlePaddle's
+  models repository (``PaddleCV/ocr_recognition/crnn_ctc_model.py``:
+  ``ocr_convs``, ``encoder_net``, ``ctc_train_net``) in public
+  ``fluid.layers``, with its evaluation program (greedy CTC decoding and
+  the edit distance to the labels).
 
 Each returns ``(main, startup, vars)``, built under a fresh
 ``unique_name.guard()`` so the two packages name every var alike.
@@ -29,7 +34,8 @@ import numpy as np
 
 __all__ = ["while_beam_decode", "cond_program", "switch_program",
            "EncoderConfig", "BERT_BASE_ENCODER", "bert_encoder_program",
-           "encoder_feed", "encoder_train_flops"]
+           "encoder_feed", "encoder_train_flops", "CRNNConfig", "CRNN_CTC",
+           "crnn_ctc_program", "crnn_feed", "crnn_train_flops"]
 
 
 def while_beam_decode(fluid, T, B, K, V, end_id=0):
@@ -239,3 +245,125 @@ def encoder_train_flops(cfg):
     H, F, S, V = cfg.hidden, cfg.ffn, cfg.seq, cfg.vocab
     per_token = cfg.layers * (8 * H * H + 4 * H * F + 4 * S * H) + 2 * H * V
     return 3 * per_token * cfg.batch * S
+
+
+CRNNConfig = collections.namedtuple(
+    "CRNNConfig", "batch height width classes channels hidden label_min "
+                  "label_max lr momentum l2")
+
+# crnn_ctc_model.py at its published widths: data_reader.py's DATA_SHAPE
+# [1, 48, 512] gray images, 95 classes and the blank, conv groups of
+# 16 / 32 / 64 / 128 channels, GRUs of 200, Momentum(1e-3, 0.9) with
+# L2Decay(4e-4); batch 32; label lengths 4-24 (synthetic labels)
+CRNN_CTC = CRNNConfig(batch=32, height=48, width=512, classes=95,
+                      channels=(16, 32, 64, 128), hidden=200, label_min=4,
+                      label_max=24, lr=1e-3, momentum=0.9, l2=4e-4)
+
+
+def crnn_ctc_program(fluid, cfg):
+    """Feeds: "pixel" [B, 1, H, W] f32, "label" [B, L] int32 padded ids in
+    [0, classes), "label_length" [B] int64 (L = cfg.label_max).
+
+    ``ocr_convs``: four groups of two 3 x 3 convolutions (pad 1), each with
+    batch_norm + relu, of cfg.channels; the first three groups end in a
+    2 x 2 max pool of stride 2 with ``ceil_mode``.  The features
+    [B, C, H / 8, W / 8] become T = W / 8 steps of C H / 8 by
+    ``im2sequence`` (filter [H / 8, 1], stride 1), reshaped to [B, T, C H / 8]
+    (``im2sequence`` declares a 2-D output, its rule gives [B, T, C H / 8];
+    the reshape makes the two agree for the fcs).  Two fcs of 3 hidden
+    feed a forward and a reverse ``dynamic_gru``; an fc over both gives
+    classes + 1 logits a step.  ``warpctc`` (blank = classes,
+    ``norm_by_times``), ``reduce_sum``, then ``Momentum`` with ``L2Decay``
+    on every parameter.  The initializers and learning-rate factors are
+    the published ones (conv weights N(0, 0.0005) for the first, N(0,
+    0.01) after; biases 0; fc and GRU weights N(0, 0.02), the GRU biases
+    at learning rate 2).  The published ``candidate_activation="relu"``
+    is passed; both packages' ``dynamic_gru`` ignore it and run tanh.
+
+    Returns (main, startup, test, vars): ``test`` is main cloned for test
+    before the optimizer, with the evaluation: ``ctc_greedy_decoder``
+    (blank = classes) and ``edit_distance`` (normalized, as Paddle's
+    ``EditDistance`` evaluator) against the labels; vars "loss", "logits",
+    "decoded", "decoded_length", "distance"."""
+    B, H, W = cfg.batch, cfg.height, cfg.width
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        L = fluid.layers
+        reg = fluid.regularizer.L2Decay(cfg.l2)
+
+        def attr(std, lr=1.0):
+            return fluid.ParamAttr(regularizer=reg, learning_rate=lr,
+                                   initializer=fluid.initializer.Normal(0.0, std))
+
+        pixel = L.data("pixel", shape=[B, 1, H, W], dtype="float32",
+                       append_batch_size=False)
+        label = L.data("label", shape=[B, cfg.label_max], dtype="int32",
+                       append_batch_size=False)
+        label_length = L.data("label_length", shape=[B], dtype="int64",
+                              append_batch_size=False)
+        x = pixel
+        for g, ch in enumerate(cfg.channels):
+            for i in range(2):
+                w = attr(0.0005 if g == 0 and i == 0 else 0.01)
+                x = L.conv2d(x, num_filters=ch, filter_size=3, padding=1,
+                             param_attr=w, act=None)
+                x = L.batch_norm(x, act="relu", param_attr=attr(0.01),
+                                 bias_attr=attr(0.0))
+            if g < len(cfg.channels) - 1:
+                x = L.pool2d(x, pool_size=2, pool_type="max", pool_stride=2,
+                             ceil_mode=True)
+        C, hf, T = x.shape[1], x.shape[2], x.shape[3]
+        seq = L.im2sequence(x, filter_size=[hf, 1], stride=[1, 1])
+        seq = L.reshape(seq, [B, T, C * hf])
+        fcs = [L.fc(seq, cfg.hidden * 3, num_flatten_dims=2,
+                    param_attr=attr(0.02), bias_attr=attr(0.02))
+               for _ in range(2)]
+        grus = [L.dynamic_gru(f, cfg.hidden, param_attr=attr(0.02),
+                              bias_attr=attr(0.02, lr=2.0), is_reverse=rev,
+                              candidate_activation="relu")
+                for f, rev in zip(fcs, (False, True))]
+        logits = L.fc(grus, cfg.classes + 1, num_flatten_dims=2,
+                      param_attr=attr(0.02), bias_attr=attr(0.0))
+        cost = L.warpctc(logits, label, blank=cfg.classes, norm_by_times=True,
+                         label_length=label_length)
+        loss = L.reduce_sum(cost)
+        decoded, decoded_length = L.ctc_greedy_decoder(logits, blank=cfg.classes)
+        distance, _ = L.edit_distance(decoded, label, normalized=True,
+                                      input_length=decoded_length,
+                                      label_length=label_length)
+        test = main.clone(for_test=True)
+        fluid.optimizer.Momentum(cfg.lr, cfg.momentum).minimize(loss)
+    return main, startup, test, dict(
+        pixel=pixel, label=label, label_length=label_length, loss=loss,
+        logits=logits, decoded=decoded, decoded_length=decoded_length,
+        distance=distance)
+
+
+def crnn_feed(cfg, seed):
+    """A batch from ``numpy.random.RandomState(seed)``: pixels uniform in
+    [0, 1), label lengths uniform in [label_min, label_max], labels
+    uniform over the classes (0 past each length)."""
+    rng = np.random.RandomState(seed)
+    n = rng.randint(cfg.label_min, cfg.label_max + 1, cfg.batch)
+    lab = rng.randint(0, cfg.classes, (cfg.batch, cfg.label_max))
+    lab[np.arange(cfg.label_max)[None, :] >= n[:, None]] = 0
+    return {"pixel": rng.rand(cfg.batch, 1, cfg.height, cfg.width)
+            .astype(np.float32),
+            "label": lab.astype(np.int32), "label_length": n.astype(np.int64)}
+
+
+def crnn_train_flops(cfg):
+    """Multiply-add FLOPs of one training step (3x the forward): the
+    convolutions, the three fcs and the two GRUs' recurrent products (the
+    CTC recursion and the elementwise work are not counted)."""
+    H, W, B = cfg.height, cfg.width, cfg.batch
+    conv, cin = 0, 1
+    for g, ch in enumerate(cfg.channels):
+        conv += 2 * H * W * 9 * ch * (cin + ch)
+        cin = ch
+        if g < len(cfg.channels) - 1:
+            H, W = -(-H // 2), -(-W // 2)
+    T, feat, h = W, cfg.channels[-1] * H, cfg.hidden
+    fcs = 2 * T * (2 * feat * 3 * h + 2 * h * (cfg.classes + 1))
+    grus = 2 * T * 2 * (h * 2 * h + h * h)
+    return 3 * B * (conv + fcs + grus)

@@ -1,12 +1,15 @@
-"""Inputs for the op rules of ROADMAP Queue 1 item 3-B's first three
-tranches (``ops/math_ops.py``, ``ops/nn_ops.py``, ``ops/tensor_ops.py``),
-made with numpy from fixed seeds, so that the CPU tests hold the port's
-rules to the JAX package's on them and ``chip_smoke.py`` runs the same
-rules on the card: one row a rule and setting, then the traps (bilinear
-shrinking, which JAX antialiases; nearest at half-pixel centres; the 2-D
-``p_norm``; ``isfinite``; negative ``strided_slice`` steps; ``gather_nd``
-and ``scatter`` ids out of range; ``group_norm`` at N = 1; both ``gelu``
-forms; ``kldiv_loss``'s four reductions).
+"""Inputs for the op rules of ROADMAP Queue 1 item 3-B (tranches 1-3:
+``ops/math_ops.py``, ``ops/nn_ops.py``, ``ops/tensor_ops.py``; tranche 4
+with ``ctc_align`` and ``edit_distance``: ``RULE_CASES_4``), made with
+numpy from fixed seeds, so that the CPU tests hold the port's rules to the
+JAX package's on them and ``chip_smoke.py`` runs the same rules on the
+card: one row a rule and setting, then the traps (bilinear shrinking,
+which JAX antialiases; nearest at half-pixel centres; the 2-D ``p_norm``;
+``isfinite``; negative ``strided_slice`` steps; ``gather_nd`` and
+``scatter`` ids out of range; ``group_norm`` at N = 1; both ``gelu``
+forms; ``kldiv_loss``'s four reductions), the inputs of ROADMAP Queue 3's
+faults, and tranche 4's attribute edges.  ``cast_rows`` gives every row
+with its float slots cast to int32 and to bool (Queue 3 entry 8).
 
 A row is ``(id, op, ins, attrs, grad_slots, grad_out)``: ``ins`` maps each
 input slot to a list of numpy arrays; the gradients are those of a seeded
@@ -15,7 +18,7 @@ cotangent against ``outs[grad_out][0]`` into ``grad_slots``.
 
 import numpy as np
 
-__all__ = ["RULE_CASES", "REFUSALS"]
+__all__ = ["RULE_CASES", "RULE_CASES_4", "REFUSALS", "QUEUE3_ROWS", "cast_rows"]
 
 
 def _randn(seed, *shape):
@@ -403,3 +406,277 @@ REFUSALS = [
      {"Input": [_randn(172, 1, 4, 3, 3)], "Filter": [_randn(173, 4, 1, 2, 2)]},
      {"groups": 2}),
 ]
+
+# -- ROADMAP Queue 3's eight faults (entries 1-7 here; entry 8 is every
+# row's float slots cast to int32 and to bool, ``cast_rows``) -------------
+QUEUE3_CASES = [
+    ("floordiv_by_zero_f32", "elementwise_floordiv",
+     {"X": [np.array([1, -1, 0, 3.5, 2], np.float32)],
+      "Y": [np.array([0, 0, 0, 0, -2], np.float32)]}, {}, [], None),
+    ("floordiv_by_zero_int", "elementwise_floordiv",
+     {"X": [np.array([5, 0, -5, -7, 7], np.int32)],
+      "Y": [np.array([0, 0, 0, 2, -2], np.int32)]}, {}, [], None),
+    ("abs_signed_zeros", "abs",
+     {"X": [np.array([0.0, -0.0, 1.5, -1.0, -0.0], np.float32)]}, {}, ["X"],
+     "Out"),
+] + [
+    ("p_norm_zero_%s" % name, "p_norm", {"X": [np.zeros((2, 3), np.float32)]},
+     {"porder": p, "axis": -1}, ["X"], "Out")
+    for name, p in (("p1", 1.0), ("p2", 2.0), ("p3", 3.0), ("inf", float("inf")))
+] + [
+    ("p_norm_matrix_nan", "p_norm",
+     {"X": [np.array([[1, np.nan, 2], [3, 4, 5]], np.float32)]}, {}, [], None),
+    ("gelu_erf_infinities", "gelu",
+     {"X": [np.array([np.inf, -np.inf, 1.0, -2.0], np.float32)]},
+     {"approximate": False}, [], None),
+    ("pad2d_reflect_past_axis", "pad2d",
+     {"X": [np.arange(24, dtype=np.float32).reshape(1, 2, 3, 4)]},
+     {"paddings": [3, 4, 4, 5], "mode": "reflect"}, ["X"], "Out"),
+    ("roll_shifts_no_axis", "roll", {"X": [_randn(174, 2, 3, 4)]},
+     {"shifts": [1, 2]}, ["X"], "Out"),
+]
+RULE_CASES += QUEUE3_CASES
+QUEUE3_ROWS = len(QUEUE3_CASES)
+
+
+def cast_rows(cases=None):
+    """Queue 3 entry 8's probe: each row with a float input slot, its float
+    slots cast to int32 (round(2 x)) and to bool (x > 0), forward only:
+    (id, op, ins, attrs) with "_int32" or "_bool" on the id."""
+    rows = []
+    for cid, op, ins, attrs, _, _ in (RULE_CASES if cases is None else cases):
+        if not any(np.issubdtype(a.dtype, np.floating)
+                   for v in ins.values() for a in v):
+            continue
+        for kind in ("int32", "bool"):
+            with np.errstate(invalid="ignore"):   # a NaN casts to INT_MIN
+                cast = {k: [(np.round(2 * a).astype(np.int32) if kind == "int32"
+                             else a > 0) if np.issubdtype(a.dtype, np.floating)
+                            else a for a in v] for k, v in ins.items()}
+            rows.append(("%s_%s" % (cid, kind), op, cast, attrs))
+    return rows
+
+
+# -- item 3-B tranche 4 with ctc_align and edit_distance (27 rules) --------
+
+def _tied3(seed, *shape):
+    """Values on four levels: many 2 x 2 x 2 windows hold tied maxima."""
+    return np.random.RandomState(seed).randint(-2, 2, shape).astype(np.float32)
+
+
+_SEQ_LEN = np.array([5, 2, 0], np.int64)
+_UNPOOL_IDX = np.array([[[[0, 3, 5], [12, 15, 22]],
+                         [[7, -2, 4], [30, 17, 23]]]], np.int32)
+_AUC_STAT = np.arange(16, dtype=np.int64) % 3
+RULE_CASES_4 = [
+    # -- sequence_ops --------------------------------------------------------
+    ("sequence_softmax", "sequence_softmax",
+     {"X": [_randn(200, 3, 5) * 2], "SeqLen": [_SEQ_LEN]}, {}, ["X"], "Out"),
+    ("sequence_softmax_3d", "sequence_softmax",
+     {"X": [_randn(201, 2, 4, 3)], "SeqLen": [np.array([4, 1], np.int64)]}, {},
+     ["X"], "Out"),
+    ("sequence_softmax_no_len", "sequence_softmax", {"X": [_randn(202, 2, 4)]},
+     {}, ["X"], "Out"),
+    ("sequence_expand_as", "sequence_expand_as",
+     {"X": [_randn(203, 3, 2)], "Y": [_randn(204, 3, 4, 1)]}, {}, ["X"], "Out"),
+    ("sequence_concat", "sequence_concat",
+     {"X": [_randn(205, 2, 3, 2), _randn(206, 2, 1, 2)]}, {}, [], None),
+    ("sequence_pad", "sequence_pad",
+     {"X": [_randn(207, 3, 4, 2)], "SeqLen": [np.array([4, 1, 3], np.int64)]},
+     {"padded_length": 4}, ["X"], "Out"),
+    ("sequence_unpad", "sequence_unpad",
+     {"X": [_randn(208, 3, 4)], "Length": [np.array([2, 4, 0], np.int64)]}, {},
+     ["X"], "Out"),
+    ("im2sequence", "im2sequence", {"X": [_randn(209, 2, 3, 6, 5)]},
+     {"kernels": [3, 2], "strides": [1, 2], "paddings": [0, 0, 0, 0]},
+     ["X"], "Out"),
+    ("im2sequence_column", "im2sequence", {"X": [_randn(210, 2, 4, 6, 8)]},
+     {"kernels": [6, 1], "strides": [1, 1]}, ["X"], "Out"),
+    ("sequence_slice", "sequence_slice",
+     {"X": [_randn(211, 3, 6, 2)], "Offset": [np.array([[1], [4], [0]], np.int64)],
+      "Length": [np.array([[3], [5], [0]], np.int64)]}, {}, ["X"], "Out"),
+    ("sequence_erase", "sequence_erase",
+     {"X": [_ints(212, 0, 6, 3, 7)], "SeqLen": [np.array([7, 4, 0], np.int64)]},
+     {"tokens": [2, 5]}, [], None),
+    ("sequence_enumerate", "sequence_enumerate",
+     {"X": [_ints(213, 0, 9, 3, 5)], "SeqLen": [_SEQ_LEN]},
+     {"win_size": 3, "pad_value": -1}, [], None),
+    ("sequence_expand", "sequence_expand",
+     {"X": [_randn(214, 3, 2)], "Y": [_randn(215, 3, 4)]}, {}, ["X"], "Out"),
+    ("sequence_scatter", "sequence_scatter",
+     {"X": [_randn(216, 3, 6)],
+      "Ids": [np.array([[1, 4, 1], [-1, 7, 2], [0, 0, 5]], np.int64)],
+      "Updates": [_randn(217, 3, 3)], "SeqLen": [np.array([3, 2, 1], np.int64)]},
+     {}, ["X", "Updates"], "Out"),
+    ("sequence_topk_avg_pooling", "sequence_topk_avg_pooling",
+     {"X": [np.round(_randn(218, 2, 3, 2, 5))],
+      "COLUMN": [np.array([5, 3], np.int64)]},
+     {"topks": [1, 3, 6], "channel_num": 3}, ["X"], "Out"),
+    # -- ctc_ops, ctc_align, edit_distance ----------------------------------
+    ("warpctc", "warpctc",
+     {"Logits": [_randn(219, 3, 6, 5) * 2],
+      "Label": [np.array([[1, 2, 2], [3, 0, 0], [4, 1, 0]], np.int32)],
+      "LogitsLength": [np.array([6, 4, 5], np.int64)],
+      "LabelLength": [np.array([3, 1, 2], np.int64)]}, {"blank": 0},
+     ["Logits"], "Loss"),
+    ("warpctc_norm_by_times", "warpctc",
+     {"Logits": [_randn(220, 4, 7, 6)],
+      "Label": [np.array([[0, 0, 1], [2, 3, 4], [1, 1, 1], [0, 2, 0]], np.int32)],
+      "LogitsLength": [np.array([7, 5, 6, 1], np.int64)],
+      "LabelLength": [np.array([2, 3, 0, 1], np.int64)]},
+     {"blank": 5, "norm_by_times": True}, ["Logits"], "Loss"),
+    ("warpctc_no_lengths", "warpctc",
+     {"Logits": [_randn(221, 2, 5, 4)],
+      "Label": [np.array([[1, 3], [2, 2]], np.int32)]}, {"blank": 0},
+     ["Logits"], "Loss"),
+    ("ctc_align", "ctc_align",
+     {"Input": [np.array([[0, 1, 1, 0, 2, 2, 0, 1], [3, 3, 3, 0, 3, 1, 1, 1],
+                          [1, 2, 0, 0, 1, 0, 0, 0]], np.int32)],
+      "InputLength": [np.array([[8], [5], [0]], np.int64)]},
+     {"blank": 0, "merge_repeated": True}, [], None),
+    ("ctc_align_no_merge", "ctc_align",
+     {"Input": [np.array([[0, 1, 1, 0, 2, 2, 3, 3], [3, 3, 3, 0, 3, 1, 1, 1]],
+                         np.int32)]},
+     {"blank": 3, "merge_repeated": False, "padding_value": -1}, [], None),
+    ("edit_distance", "edit_distance",
+     {"Hyps": [_ints(222, 0, 4, 4, 6)], "Refs": [_ints(223, 0, 4, 4, 5)],
+      "HypsLength": [np.array([6, 3, 0, 2], np.int64)],
+      "RefsLength": [np.array([5, 5, 2, 0], np.int64)]},
+     {"normalized": False}, [], None),
+    ("edit_distance_normalized", "edit_distance",
+     {"Hyps": [_ints(224, 0, 3, 3, 7)], "Refs": [_ints(225, 0, 3, 3, 4)]},
+     {"normalized": True}, [], None),
+    # -- rnn_ops -----------------------------------------------------------------
+    ("gru", "gru",
+     {"Input": [_randn(226, 2, 4, 9)], "Weight": [_randn(227, 3, 9) * 0.5],
+      "Bias": [_randn(228, 1, 9)], "H0": [_randn(229, 2, 3)],
+      "SeqLen": [np.array([4, 2], np.int64)]}, {},
+     ["Input", "Weight", "Bias", "H0"], "Hidden"),
+    ("gru_reverse_origin", "gru",
+     {"Input": [_randn(230, 3, 5, 6)], "Weight": [_randn(231, 2, 6) * 0.5],
+      "SeqLen": [np.array([5, 3, 0], np.int64)]},
+     {"is_reverse": True, "origin_mode": True, "activation": "relu"},
+     ["Input", "Weight"], "Hidden"),
+    ("gru_last_hidden", "gru",
+     {"Input": [_randn(232, 2, 3, 6)], "Weight": [_randn(233, 2, 6) * 0.5]},
+     {"gate_activation": "sigmoid"}, ["Input", "Weight"], "LastHidden"),
+    ("lstm", "lstm",
+     {"Input": [_randn(234, 2, 4, 8)], "Weight": [_randn(235, 2, 8) * 0.5],
+      "Bias": [_randn(236, 1, 8)], "H0": [_randn(237, 2, 2)],
+      "C0": [_randn(238, 2, 2)], "SeqLen": [np.array([3, 4], np.int64)]}, {},
+     ["Input", "Weight", "H0", "C0"], "Hidden"),
+    ("lstm_reverse_cell", "lstm",
+     {"Input": [_randn(239, 3, 4, 8)], "Weight": [_randn(240, 2, 8) * 0.5],
+      "SeqLen": [np.array([4, 1, 2], np.int64)]},
+     {"is_reverse": True, "candidate_activation": "relu"}, ["Input", "Weight"],
+     "Cell"),
+    ("lstmp", "lstmp",
+     {"Input": [_randn(241, 2, 3, 8)], "Weight": [_randn(242, 3, 8) * 0.5],
+      "ProjWeight": [_randn(243, 2, 3) * 0.5], "Bias": [_randn(244, 1, 8)],
+      "H0": [_randn(245, 2, 2)], "SeqLen": [np.array([3, 2], np.int64)]},
+     {"proj_activation": "tanh"}, ["Input", "Weight", "ProjWeight"],
+     "Projection"),
+    ("lstmp_reverse_last", "lstmp",
+     {"Input": [_randn(246, 2, 4, 8)], "Weight": [_randn(247, 3, 8) * 0.5],
+      "ProjWeight": [_randn(248, 2, 3) * 0.5],
+      "SeqLen": [np.array([2, 4], np.int64)]},
+     {"is_reverse": True}, ["Input", "ProjWeight"], "LastProjection"),
+    # -- pooling_ops -------------------------------------------------------------
+    ("pool3d_max_ties_ceil", "pool3d", {"X": [_tied3(249, 2, 2, 5, 4, 5)]},
+     {"pooling_type": "max", "ksize": [2, 2, 2], "strides": [2, 2, 2],
+      "paddings": [1, 0, 1], "ceil_mode": True}, ["X"], "Out"),
+    ("pool3d_avg_exclusive", "pool3d", {"X": [_randn(250, 1, 2, 4, 5, 3)]},
+     {"pooling_type": "avg", "ksize": [3, 2, 2], "strides": [1, 2, 1],
+      "paddings": [1, 1, 0]}, ["X"], "Out"),
+    ("pool3d_avg_inclusive_ceil", "pool3d", {"X": [_randn(251, 1, 2, 5, 4, 3)]},
+     {"pooling_type": "avg", "ksize": [2, 3, 2], "strides": [2, 2, 2],
+      "paddings": [0, 1, 1], "exclusive": False, "ceil_mode": True},
+     ["X"], "Out"),
+    ("pool3d_global_max_ties", "pool3d", {"X": [_tied3(252, 2, 3, 2, 2, 3)]},
+     {"pooling_type": "max", "global_pooling": True}, ["X"], "Out"),
+    ("pool3d_adaptive_avg", "pool3d", {"X": [_randn(253, 1, 2, 4, 6, 4)]},
+     {"pooling_type": "avg", "ksize": [2, 3, 2], "adaptive": True}, ["X"], "Out"),
+    ("max_pool2d_with_index", "max_pool2d_with_index",
+     {"X": [_tied3(254, 2, 2, 7, 6)]},
+     {"ksize": [3, 3], "strides": [2, 2], "paddings": [1, 1],
+      "ceil_mode": True}, ["X"], "Out"),
+    ("max_pool2d_with_index_global", "max_pool2d_with_index",
+     {"X": [_randn(255, 2, 3, 3, 4)]}, {"global_pooling": True}, ["X"], "Out"),
+    ("maxout", "maxout", {"X": [_tied3(256, 2, 6, 3, 2)]}, {"groups": 3},
+     ["X"], "Out"),
+    ("maxout_last_axis", "maxout", {"X": [_randn(257, 2, 3, 4)]},
+     {"groups": 2, "axis": -1}, ["X"], "Out"),
+    ("unpool", "unpool",
+     {"X": [_randn(258, 1, 2, 2, 3)], "Indices": [_UNPOOL_IDX]},
+     {"ksize": [2, 2], "strides": [2, 2]}, ["X"], "Out"),
+    ("spp_max", "spp", {"X": [_tied3(259, 2, 2, 5, 7)]},
+     {"pyramid_height": 3, "pooling_type": "max"}, ["X"], "Out"),
+    ("spp_avg", "spp", {"X": [_randn(260, 1, 3, 6, 5)]},
+     {"pyramid_height": 2, "pooling_type": "avg"}, ["X"], "Out"),
+    # -- metric_ops --------------------------------------------------------------
+    ("auc", "auc",
+     {"Predict": [np.stack([1 - np.r_[_r(261, 6, lo=0, hi=1), 0.0, 1.0],
+                            np.r_[_r(261, 6, lo=0, hi=1), 0.0, 1.0]], 1)
+                  .astype(np.float32)],
+      "Label": [_ints(262, 0, 2, 8, 1)], "StatPos": [_AUC_STAT],
+      "StatNeg": [_AUC_STAT[::-1].copy()]}, {"num_thresholds": 15}, [], None),
+    ("precision_recall", "precision_recall",
+     {"Indices": [np.array([[0], [2], [1], [1], [0], [2]], np.int32)],
+      "Labels": [np.array([[0], [1], [1], [2], [0], [2]], np.int32)],
+      "Weights": [_r(263, 6, 1, lo=0.5, hi=2)],
+      "StatesInfo": [np.round(_r(264, 3, 4, lo=0, hi=5))]},
+     {"class_number": 3}, [], None),
+    ("precision_recall_unweighted", "precision_recall",
+     {"Indices": [np.array([[0], [2], [2], [1]], np.int64)],
+      "Labels": [np.array([[0], [1], [2], [2]], np.int64)]},
+     {"class_number": 4}, [], None),
+    # -- sampling_ops: sample_logits with given samples (the draws are
+    # pinned by range, seed and distribution in the tests) ------------------
+    ("sample_logits_custom", "sample_logits",
+     {"Logits": [_randn(265, 3, 7) * 2],
+      "Labels": [np.array([[1, 4], [0, 6], [2, 2]], np.int64)],
+      "CustomizedSamples": [np.array([[1, 4, 0, 4, 5], [0, 6, 3, 1, 6],
+                                      [2, 2, 2, 5, 1]], np.int64)],
+      "CustomizedProbabilities": [_r(266, 3, 5, lo=0.05, hi=0.9)]},
+     {"num_samples": 3, "use_customized_samples": True,
+      "remove_accidental_hits": True}, ["Logits"], "SampledLogits"),
+    ("sample_logits_custom_keep_hits", "sample_logits",
+     {"Logits": [_randn(267, 2, 5)],
+      "Labels": [np.array([[3], [0]], np.int64)],
+      "CustomizedSamples": [np.array([[3, 3, 1], [0, 4, 0]], np.int64)],
+      "CustomizedProbabilities": [_r(268, 2, 3, lo=0.05, hi=0.9)]},
+     {"num_samples": 2, "use_customized_samples": True,
+      "remove_accidental_hits": False}, ["Logits"], "SampledLogits"),
+]
+# attribute edges: pads past the window, more bins than pixels, lengths of
+# 0 and past T, offsets outside the row, windows past T, infeasible
+# alignments (T < labels + repeats) and no time steps
+RULE_CASES_4 += [
+    ("pool3d_pad_past_window", "pool3d", {"X": [_randn(269, 1, 2, 3, 4, 3)]},
+     {"pooling_type": "max", "ksize": [2, 2, 2], "strides": [1, 2, 2],
+      "paddings": [2, 1, 2]}, ["X"], "Out"),
+    ("max_pool2d_with_index_pad_past_window", "max_pool2d_with_index",
+     {"X": [_randn(270, 1, 2, 3, 4)]},
+     {"ksize": [2, 2], "strides": [1, 1], "paddings": [2, 2]}, ["X"], "Out"),
+    ("spp_bins_past_axis", "spp", {"X": [_randn(271, 1, 2, 5, 3)]},
+     {"pyramid_height": 4, "pooling_type": "max"}, ["X"], "Out"),
+    ("sequence_slice_edges", "sequence_slice",
+     {"X": [_randn(272, 3, 5)], "Offset": [np.array([[-2], [4], [9]], np.int64)],
+      "Length": [np.array([[4], [5], [2]], np.int64)]}, {}, ["X"], "Out"),
+    ("sequence_enumerate_past_t", "sequence_enumerate",
+     {"X": [_ints(273, 0, 9, 2, 3)], "SeqLen": [np.array([9, 3], np.int64)]},
+     {"win_size": 5, "pad_value": 7}, [], None),
+    ("sequence_erase_all", "sequence_erase",
+     {"X": [np.array([[2, 2, 5], [1, 2, 3]], np.int64)]}, {"tokens": [2, 5]},
+     [], None),
+    ("ctc_align_past_t", "ctc_align",
+     {"Input": [np.array([[1, 1, 0, 2], [0, 0, 0, 0]], np.int32)],
+      "InputLength": [np.array([[9], [4]], np.int64)]}, {"blank": 0}, [], None),
+    ("warpctc_edges", "warpctc",
+     {"Logits": [_randn(274, 3, 3, 4)],
+      "Label": [np.array([[1, 1], [2, 3], [1, 2]], np.int32)],
+      "LogitsLength": [np.array([3, 0, 1], np.int64)],
+      "LabelLength": [np.array([2, 2, 1], np.int64)]}, {"blank": 0},
+     ["Logits"], "Loss"),
+]
+RULE_CASES += RULE_CASES_4

@@ -289,10 +289,10 @@ def test_sparse_gradients_update_as_in_jax(op):
 
 
 def test_an_unported_op_raises_the_registry_error():
-    # maxout waits for item 3-B's tranche 4 (layer_norm, the example here
-    # until tranches 1-3 ported it)
+    # affine_channel waits for item 3-B's tranche 5 (maxout, the example
+    # here until tranche 4 ported it; layer_norm before tranches 1-3)
     with pytest.raises(NotImplementedError, match="no lowering registered"):
-        port_rule("maxout")
+        port_rule("affine_channel")
 
 
 # -- integer, bool, empty-dim and out-of-range inputs ---------------------------

@@ -235,3 +235,20 @@ def test_an_exp_three_ulps_off_is_caught():
     assert fb.hold_to_bound(exact, ref, bound)["ok"]
     off = exact.double() * (1 + 3 * 2.0 ** -23)
     assert not fb.hold_to_bound(off, ref, bound)["ok"]
+
+
+def test_a_division_by_a_host_scalar_is_bounded_as_cuda_computes_it():
+    """CUDA divides a tensor by a host scalar as a product with the f32
+    reciprocal (two roundings, up to about 1.5 ulps); the bound covers that
+    result, which a correctly rounded division's half ulp would not."""
+    x = np.random.RandomState(7).uniform(1, 2, 4096).astype(np.float32)
+    t = torch.from_numpy(x).double()
+    mode = fb.BoundMode()
+    with mode:
+        mode.set_exact(t)
+        y = t / 3.0
+        bound = mode.bound(y)
+    cuda_like = torch.from_numpy(x * (np.float32(1) / np.float32(3))).double()
+    assert fb.hold_to_bound(cuda_like, y, bound)["ok"]
+    half_ulp = y.abs() * 2.0 ** -24
+    assert bool(((cuda_like - y).abs() > half_ulp).any())

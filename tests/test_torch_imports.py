@@ -230,3 +230,47 @@ def test_lod_tensor_round_trips_lengths_and_arrays():
     assert sides[0] == sides[1]
     assert sides[0][0] == [[0, 2, 5, 6]]
     assert Tensor is LoDTensor and isinstance(LoDTensorArray(), list)
+
+
+TRANCHE_4 = ["ops.sequence_ops", "ops.ctc_ops", "ops.misc_ops4",
+             "ops.misc_ops3", "ops.rnn_ops", "ops.pooling_ops",
+             "ops.metric_ops", "ops.sampling_ops", "tools.programs",
+             "tools.rule_cases", "tools.fp_bounds", "tools.profile_step"]
+
+
+def test_tranche_4_and_the_crnn_path_are_checked_and_load_alone():
+    """The op modules of item 3-B's tranche 4 (with ``ctc_align`` and
+    ``edit_distance``) and the CRNN's program and profiling tools are among
+    the files checked above, and importing all of them in a fresh
+    interpreter loads neither JAX nor the JAX package."""
+    checked = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for mod in TRANCHE_4:
+        assert "paddle_tpu_torch/%s.py" % mod.replace(".", "/") in checked, mod
+    code = ("import sys\n" + "".join("import paddle_tpu_torch.%s\n" % m
+                                      for m in TRANCHE_4)
+            + "print(sorted({m.split('.')[0] for m in sys.modules} & "
+              "{'jax', 'jaxlib', 'paddle_tpu'}))")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "[]"
+
+
+@pytest.mark.parametrize("op,ins", [
+    ("warpctc", {"Logits": [np.zeros((1, 2, 3), np.float32)],
+                 "Label": [np.array([[1]], np.int32)]}),
+    ("edit_distance", {"Hyps": [np.array([[1, 2]], np.int32)],
+                       "Refs": [np.array([[1]], np.int32)]}),
+    ("ctc_align", {"Input": [np.array([[1, 1, 0]], np.int32)]}),
+])
+def test_the_crnn_rules_stay_on_their_tensors_device(op, ins):
+    """A rule computes on the device its inputs lie on: on CPU tensors the
+    outputs are CPU tensors (on CUDA tensors, CUDA ones; ``chip_smoke.py``
+    phase 39 checks that), with no move between."""
+    from paddle_tpu_torch.registry import OpLoweringContext, get_lowering
+
+    outs = get_lowering(op)({k: [torch.from_numpy(a) for a in v]
+                             for k, v in ins.items()}, {},
+                            OpLoweringContext(None, torch.Generator()))
+    assert {t.device.type for v in outs.values() for t in v} == {"cpu"}

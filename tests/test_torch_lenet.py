@@ -334,9 +334,9 @@ def _unported(case, monkeypatch):
         img = fluid.layers.data("img", shape=[1, 28, 28], dtype="float32")
         label = fluid.layers.data("label", shape=[1], dtype="int64")
         if case == "unported_op":
-            # an op item 3-B's tranche 4 ports (layer_norm, the example
-            # until tranches 1-3 ported it)
-            img = fluid.layers.maxout(img, groups=1)
+            # an op item 3-B's tranche 5 ports (maxout until tranche 4
+            # ported it; layer_norm until tranches 1-3)
+            img = fluid.layers.affine_channel(img)
         if case == "py_reader":
             reader = fluid.layers.create_py_reader_by_data(
                 capacity=2, feed_list=[img, label])
