@@ -315,8 +315,26 @@ Builds the port's CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
     peaks, peak memory), launches, busy and idle a step from
     ``tools/profile_step.py``'s ``crnn_ctc``, 10 steps on one batch with
     the loss falling, the evaluation's mean edit distance, and the warpctc
-    rule against ``F.ctc_loss`` at [32, 64, 96] as a yardstick; no port
-    kernel launched in 39-43.
+    rule against ``F.ctc_loss`` at [32, 64, 96] as a yardstick;
+44. ``rules_5``: every row of ``tools/rule_cases_5.py`` (item 3-B's
+    tranche 5: the 59 rules of ``misc_ops``-``misc_ops4`` with their kinks
+    and attribute edges) held as phase 39 holds its rows, their int32 and
+    bool casts, the refusals, the random rules, ``py_func`` and
+    SelectedRows by contract, and ``install_check.run_check()`` on the
+    card (``tests/test_torch_op_rules_5.py`` holds the CPU to the JAX
+    rules on the same rows);
+45. ``lac_parity``: the LAC tagger of ``tools/programs.py`` (PaddleNLP
+    lexical_analysis's ``lex_net``) at a narrow width, two Adam steps on
+    the card and on the CPU from one initialisation: the losses, and the
+    parameters and Adam moments each as one vector, to 1e-5 of its
+    largest; every decoded tag and ``chunk_eval`` count exactly;
+46. ``lac``: that program at its published widths (vocabulary 20,940,
+    128 / 128, 2 bidirectional GRU layers, 57 tags), B = 300, T = 64,
+    through ``Executor(CUDAPlace(0))``: a warm-up and 5 timed steps (ms a
+    step, tokens/s, the f32 CUDA-core share, peak memory), launches, busy
+    and idle a step from ``tools/profile_step.py``'s ``lac``, 10 steps on
+    one batch with the loss falling, the evaluation's precision, recall
+    and F1; no port kernel launched in 39-46.
 
 Phases 30-33 and 36 write their monitor directories under
 ``build/monitor``, phases 35-36 their data files under
@@ -1767,7 +1785,7 @@ def phase_nmt_parity():
     from paddle_tpu_torch.parallel.train import grads_of
 
     cfg = nmt.NMTConfig()                                  # f32, full width
-    params = nmt.init_nmt_params(torch.Generator().manual_seed(1), cfg)
+    params = nmt.init_nmt_params(torch.Generator().manual_seed(1), cfg, "cpu")
     batch = wmt16_batch(cfg, NMT_PARITY_B, NMT_S, NMT_S)
 
     def step(device, dtype=torch.float32):
@@ -4795,6 +4813,334 @@ def phase_crnn(device_name, card):
                                  fall[-1], bool(np.isfinite(dist).all())))
 
 
+
+# -- item 3-B tranche 5 and the LAC tagger (phases 44-46) -----------------------
+
+# phase 44's rules: tranche 5 (59)
+RULES_5_ON_THE_CARD = 59
+LAC_STEPS = 2                # phase 45: card against the CPU's f32 run
+LAC_TOL = ENC_PARITY_TOL     # as phases 40 and 42
+LAC_WARMUP, LAC_TIMED, LAC_FALL_STEPS = 1, 5, 30
+LAC_FEED_SEED = 400
+
+
+def _contract_draws_on_the_card():
+    """The random rules of tranche 5 and ``py_func`` on CUDA tensors:
+    ``*_batch_size_like`` shapes, dtypes, ranges, a seed repeating itself
+    and another not; ``random_crop`` windows at starts in range with
+    SeedOut the seed; ``py_func`` calling a numpy function on the card's
+    tensors; ``merge_selected_rows`` of integer-valued rows bit for bit
+    the CPU's."""
+    import numpy as np
+
+    from paddle_tpu_torch.ops.misc_ops4 import register_py_func
+    from paddle_tpu_torch.registry import OpLoweringContext, get_lowering
+    from paddle_tpu_torch.sparse import SelectedRows
+
+    def run(op, ins, attrs, seed=0, device="cuda"):
+        return get_lowering(op)(ins, dict(attrs), OpLoweringContext(
+            None, torch.Generator(device).manual_seed(seed)))
+
+    like = torch.zeros(6, 1000, device="cuda")
+    ok = {}
+    attrs = {"shape": [-1, 300], "input_dim_idx": 1, "output_dim_idx": 0,
+             "min": -2.0, "max": 3.0, "seed": 4}
+    u = [run("uniform_random_batch_size_like", {"Input": [like]}, attrs, s)
+         ["Out"][0] for s in (0, 0, 1)]
+    ok["uniform_random_batch_size_like"] = (
+        u[0].is_cuda and tuple(u[0].shape) == (1000, 300)
+        and float(u[0].min()) >= -2.0 and float(u[0].max()) < 3.0
+        and torch.equal(u[0], u[1]) and not torch.equal(u[0], u[2]))
+    attrs = {"shape": [4, -1], "input_dim_idx": 0, "output_dim_idx": 1,
+             "mean": 1.0, "std": 0.5, "seed": 4, "dtype": "float64"}
+    gs = [run("gaussian_random_batch_size_like", {"Input": [like]}, attrs, s)
+          ["Out"][0] for s in (0, 0, 1)]
+    ok["gaussian_random_batch_size_like"] = (
+        gs[0].is_cuda and gs[0].dtype == torch.float64
+        and tuple(gs[0].shape) == (4, 6) and torch.equal(gs[0], gs[1])
+        and not torch.equal(gs[0], gs[2]))
+    x = torch.arange(2 * 5 * 6, dtype=torch.float32, device="cuda").reshape(2, 5, 6)
+    crops = []
+    for s in range(12):
+        r = run("random_crop", {"X": [x]}, {"shape": [3, 4], "seed": 9}, s)
+        o = r["Out"][0]
+        i, j = divmod(int(o[0, 0, 0]), 6)
+        crops.append(o.is_cuda and int(r["SeedOut"][0]) == 9 and 0 <= i <= 2
+                     and 0 <= j <= 2 and torch.equal(o, x[:, i:i + 3, j:j + 4]))
+    ok["random_crop"] = all(crops)
+    seen = []
+
+    def host(a, b):
+        seen.append((type(a), type(b)))
+        return a * 2 + b, b.max()
+
+    fid = register_py_func(host)
+    a = torch.arange(6, dtype=torch.float32, device="cuda").reshape(2, 3)
+    b = torch.tensor([[1, 5, -2], [0, 3, 7]], dtype=torch.int32, device="cuda")
+    got = run("py_func", {"X": [a, b]},
+              {"forward_callable_id": fid, "out_shapes": [[2, 3], []],
+               "out_dtypes": ["float32", "int64"]})["Out"]
+    ok["py_func"] = (all(t.is_cuda for t in got) and seen == [(np.ndarray,) * 2]
+                     and torch.equal(got[0], a * 2 + b)
+                     and got[1].dtype == torch.int64 and int(got[1]) == 7)
+    rows = torch.tensor([4, 1, 4, 0, 1, 4, 9, 0])
+    vals = torch.randint(-50, 50, (8, 16), generator=torch.Generator()
+                         .manual_seed(3)).float()
+    merged = [run("merge_selected_rows", {"X": [SelectedRows(
+        rows.to(dev), vals.to(dev), 12)]}, {}, device=dev)["Out"][0]
+        for dev in ("cuda", "cpu")]
+    ok["merge_selected_rows"] = (
+        merged[0].values.is_cuda
+        and torch.equal(merged[0].rows.cpu(), merged[1].rows)
+        and torch.equal(merged[0].values.cpu(), merged[1].values)
+        and merged[1].rows.tolist()[:4] == [0, 1, 4, 9])
+    return ok
+
+
+def phase_rules_5(card):
+    """Phase 44: every row of ``tools/rule_cases_5.py`` (item 3-B's
+    tranche 5, the 59 rules of ``misc_ops``-``misc_ops4`` with their kinks
+    and attribute edges) on CUDA tensors, forward and the gradients of a
+    seeded cotangent, held as phase 39 holds tranches 1-4: to the same rule
+    in float64 on the CPU within ``BoundMode``'s derived bound (bit for bit
+    with the CPU's f32 rule where no operation rounds; integer and bool
+    outputs, as ``hash``, ``unique``'s Index, ``chunk_eval``'s and
+    ``mean_iou``'s counts, exactly), cuDNN off; every row's int32 and bool
+    casts alike, or refused on the card where the CPU refuses; the four
+    refusals raise; the random rules, ``py_func`` and SelectedRows by
+    contract (``_contract_draws_on_the_card``); ``install_check.run_check()``
+    on the card."""
+    import io as _io
+    import contextlib
+
+    from paddle_tpu_torch import install_check
+    from paddle_tpu_torch.tools.rule_cases import cast_rows
+    from paddle_tpu_torch.tools.rule_cases_5 import REFUSALS_5, RULE_CASES_5
+
+    worst, bad, n_checked, refused_alike = {}, [], 0, {}
+    t0 = time.perf_counter()
+    with torch.backends.cudnn.flags(enabled=False):
+        for cid, op, ins, attrs, grad_slots, grad_out in RULE_CASES_5:
+            rows, ok, ambiguous = _hold_row(op, ins, attrs, grad_slots, grad_out)
+            n_checked += len(rows)
+            ratio = max(r["ratio"] for r in rows.values())
+            worst[op] = max(worst.get(op, 0.0), ratio)
+            emit({"phase": "rules_5", "case": cid, "op": op,
+                  "max_err_over_bound": ratio, "outputs": rows,
+                  "undecided_comparisons": ambiguous, "ok": ok})
+            if not ok:
+                bad.append(cid)
+        cast_worst, n_cast = 0.0, 0
+        for cid, op, ins, attrs in cast_rows(RULE_CASES_5):
+            if _raises("cpu", op, ins, attrs):
+                refused_alike[cid] = _raises("cuda", op, ins, attrs)
+                continue
+            rows, ok, _ = _hold_row(op, ins, attrs, (), None)
+            n_cast += 1
+            n_checked += len(rows)
+            cast_worst = max([cast_worst] + [r["ratio"] for r in rows.values()])
+            if not ok:
+                bad.append(cid)
+                emit({"phase": "rules_5_cast", "case": cid, "op": op,
+                      "outputs": rows, "ok": ok})
+        refused = {cid: _raises("cuda", op, ins, attrs)
+                   for cid, op, ins, attrs in REFUSALS_5}
+        drawn = _contract_draws_on_the_card()
+    said = _io.StringIO()
+    with contextlib.redirect_stdout(said):
+        check_loss = install_check.run_check()
+    rules = sorted(set(worst) | set(drawn))
+    emit({"phase": "rules_5_summary", "nvidia_smi": card,
+          "cases": len(RULE_CASES_5), "cast_rows_held": n_cast,
+          "cast_rows_refused_alike": refused_alike,
+          "cast_max_err_over_bound": cast_worst,
+          "outputs_checked": n_checked, "rules": len(rules),
+          "max_err_over_bound_by_rule": worst, "refusals_raise": refused,
+          "contracts": drawn, "install_check": said.getvalue().strip(),
+          "seconds": time.perf_counter() - t0, "failed": bad})
+    name = torch.cuda.get_device_name(0)
+    if (bad or not all(refused.values()) or not all(drawn.values())
+            or not all(refused_alike.values())
+            or len(rules) != RULES_5_ON_THE_CARD
+            or not (name in said.getvalue() and "TPU" not in said.getvalue()
+                    and check_loss == check_loss)):
+        raise AssertionError(
+            "tranche 5 on the card: failed %s, refusals %s, contracts %s, "
+            "refused alike %s, %d rules, install_check %r" % (
+                bad, refused, drawn,
+                [k for k, v in refused_alike.items() if not v], len(rules),
+                said.getvalue()))
+
+
+def _lac_run(cfg, device, values, feeds, names):
+    """``feeds`` runs of the LAC program on ``device`` from the startup
+    ``values``, fetching the loss and the decoded tags with chunk_eval's
+    counts and scores, then its test program on the last feed: (losses,
+    evaluations a step, {name: numpy}, the test evaluation)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.tools.programs import lac_program
+
+    main, _, test, v = lac_program(fluid, cfg)
+    scope = convert.scope_from_numpy(values, fluid.Scope(), device)
+    exe = _executor(device)
+    fetch = [v[k] for k in ("loss", "decoded", "num_infer", "num_label",
+                            "num_correct", "precision", "recall", "f1")]
+    runs = [exe.run(main, feed=f, fetch_list=fetch, scope=scope) for f in feeds]
+    ev = exe.run(test, feed=feeds[-1], scope=scope, fetch_list=fetch[1:])
+    return ([float(r[0]) for r in runs], [r[1:] for r in runs],
+            convert.scope_to_numpy(scope, names), ev)
+
+
+def _same_eval(a, b):
+    """Decoded tags and chunk counts equal; precision, recall, F1 within 2
+    roundings of the CPU's f32 (each is a count ratio: one division, F1 two
+    more operations)."""
+    import numpy as np
+
+    exact = all(np.array_equal(np.asarray(x), np.asarray(y))
+                for x, y in zip(a[:4], b[:4]))
+    scores = all(abs(float(x) - float(y)) <= 4 * 2.0 ** -24 * max(abs(float(y)), 1e-30)
+                 for x, y in zip(a[4:], b[4:]))
+    return exact and scores
+
+
+def phase_lac_parity(card):
+    """Phase 45: the LAC tagger (``tools/programs.py`` ``lac_program``) at
+    a narrow width (2 bidirectional GRU layers of 8, embedding 8,
+    vocabulary 50, 7 tags, B = 3, T = 6), f32, two Adam steps on the card
+    and on the CPU from one initialisation (the CPU startup's values): the
+    losses, and the parameters and the two Adam moments each as one
+    vector, to LAC_TOL of its largest (phases 40 and 42's tolerance; one
+    by one, an element whose gradient is rounding noise moves by Adam's
+    lr g / (|g| + eps)); every ``crf_decoding`` tag and every
+    ``chunk_eval`` count exactly, precision / recall / F1 to the CPU's
+    f32 within their few roundings, in both training steps and the test
+    program."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.tools.programs import (LACConfig, lac_feed,
+                                                 lac_program)
+
+    cfg = LACConfig(batch=3, seq_len=6, vocab=50, emb=8, hidden=8, tags=7,
+                    len_min=2, len_max=6, lr=1e-3)
+    main, startup, _, _ = lac_program(fluid, cfg)
+    scope0 = fluid.Scope()
+    _executor("cpu").run(startup, scope=scope0)
+    names = sorted(x.name for x in startup.list_vars() if x.persistable)
+    values = convert.scope_to_numpy(scope0, names)
+    params = sorted(p.name for p in main.global_block().all_parameters())
+    groups = {"parameters": params,
+              "moment1": [n for n in names if "_moment1" in n],
+              "moment2": [n for n in names if "_moment2" in n]}
+    feeds = [lac_feed(cfg, LAC_FEED_SEED + k) for k in range(LAC_STEPS)]
+    t0 = time.perf_counter()
+    card_l, card_e, card_p, card_t = _lac_run(cfg, "cuda", values, feeds, names)
+    cpu_l, cpu_e, cpu_p, cpu_t = _lac_run(cfg, "cpu", values, feeds, names)
+    loss_err = max(_rel([a], [b]) for a, b in zip(card_l, cpu_l))
+    state = {g: _max_norm_rel(card_p, cpu_p, ns) for g, ns in groups.items()}
+    evals = [_same_eval(a, b) for a, b in zip(card_e + [card_t], cpu_e + [cpu_t])]
+    ok = (loss_err <= LAC_TOL and all(e <= LAC_TOL for e, _ in state.values())
+          and all(evals) and len(params) == 28
+          and len(groups["moment1"]) == len(params))
+    rec = {"phase": "lac_parity", "nvidia_smi": card, "batch": cfg.batch,
+           "seq_len": cfg.seq_len, "steps": LAC_STEPS, "card_losses": card_l,
+           "cpu_losses": cpu_l, "loss_max_rel_err": loss_err,
+           "state_max_rel_err": {g: e for g, (e, _) in state.items()},
+           "state_largest_distances": {g: w for g, (_, w) in state.items()},
+           "tol": LAC_TOL, "evaluations_equal": evals,
+           "card_counts": [[int(x) for x in e[1:4]] for e in card_e + [card_t]],
+           "seconds": time.perf_counter() - t0, "ok": ok}
+    emit(rec)
+    if not ok:
+        raise AssertionError("LAC parity outside %g: %s" % (LAC_TOL, rec))
+    return rec
+
+
+def phase_lac(device_name, card):
+    """Phase 46: the LAC tagger at its published widths (vocabulary 20,940,
+    embedding 128, 2 bidirectional GRU layers of 128, 57 tags), B = 300,
+    T = 64, f32, Adam(1e-3) with the learning-rate factors 5 (embedding)
+    and 0.2 (``crfw``), through ``Executor(CUDAPlace(0))`` from the card's
+    own seeded startup: a warm-up step and LAC_TIMED timed steps, a fresh
+    seeded batch each (ms a step, tokens/s at B T, the share of the f32
+    CUDA-core peak from ``lac_train_flops``, peak memory); launches, busy
+    and idle a step from ``tools/profile_step.py``'s ``lac``;
+    the test program's chunk precision, recall and F1 on one batch before
+    and after LAC_FALL_STEPS steps on it: the loss falls, and as the
+    feed's tags follow from its words, chunks are inferred and matched and
+    F1 rises."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools import profile_step
+    from paddle_tpu_torch.tools.programs import (LAC, lac_feed, lac_program,
+                                                 lac_train_flops)
+
+    cfg = LAC
+    torch.cuda.reset_peak_memory_stats()
+    main, startup, test, v = lac_program(fluid, cfg)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    losses, ms = [], []
+    for k in range(LAC_WARMUP + LAC_TIMED):
+        feed = lac_feed(cfg, LAC_FEED_SEED + k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (lv,) = exe.run(main, feed=feed, fetch_list=[v["loss"]], scope=scope)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(lv))
+    peak = torch.cuda.max_memory_allocated()
+    step_s = sum(ms[LAC_WARMUP:]) / LAC_TIMED / 1e3
+    one = lac_feed(cfg, LAC_FEED_SEED)
+    evaluated = [v[k] for k in ("precision", "recall", "f1", "num_infer",
+                                "num_label", "num_correct")]
+    before = exe.run(test, feed=one, scope=scope, fetch_list=evaluated)
+    fall = [float(exe.run(main, feed=one, fetch_list=[v["loss"]],
+                          scope=scope)[0]) for _ in range(LAC_FALL_STEPS)]
+    p, r, f1, ni, nl, nc = exe.run(test, feed=one, scope=scope,
+                                   fetch_list=evaluated)
+    del exe, scope
+    torch.cuda.empty_cache()
+    prof = profile_step.profile_model("lac", card)
+    flops = lac_train_flops(cfg)
+    _, _, f32 = card_peaks(device_name)
+    tokens = cfg.batch * cfg.seq_len
+    ok = (bool(np.isfinite(losses).all()) and bool(np.isfinite(fall).all())
+          and fall[-1] < fall[0] and int(nl) > 0 and int(ni) > 0
+          and int(nc) > 0 and float(before[2]) < float(f1) <= 1.0)
+    emit({"phase": "lac", "config": "LAC lexical analysis (PaddleNLP "
+          "lexical_analysis, nets.py lex_net) through the Executor",
+          "device": device_name, "nvidia_smi": card, "dtype": "float32",
+          "batch": cfg.batch, "seq_len": cfg.seq_len, "vocab": cfg.vocab,
+          "tags": cfg.tags, "optimizer": "adam(1e-3), lr factors emb 5, "
+          "crfw 0.2, L2Decay(1e-4)", "steps_timed": LAC_TIMED,
+          "ms_per_step": step_s * 1e3, "ms_each_step": ms,
+          "tokens_per_sec": tokens / step_s, "train_flops_per_step": flops,
+          "f32_cuda_core_share": flops / step_s / f32,
+          "peak_memory_gb": peak / 1e9, "losses": losses,
+          "fixed_batch_losses": fall, "eval_precision": float(p),
+          "eval_recall": float(r), "eval_f1": float(f1),
+          "eval_chunks_infer_label_correct": [int(ni), int(nl), int(nc)],
+          "eval_before_fixed_batch_steps": {
+              "precision": float(before[0]), "recall": float(before[1]),
+              "f1": float(before[2]),
+              "chunks_infer_label_correct": [int(x) for x in before[3:]]},
+          "launches_per_step": prof["launches_per_step"],
+          "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+          "device_busy_share": 1 - prof["device_idle_share"],
+          "device_idle_share": prof["device_idle_share"],
+          "wall_ms_per_step_profiled": prof["wall_ms_per_step"], "ok": ok})
+    if not ok:
+        raise AssertionError("lac: losses finite %s, loss falling %s -> %s, "
+                             "chunks inferred / label / correct %d / %d / "
+                             "%d, F1 %r -> %r" % (
+                                 bool(np.isfinite(losses).all()), fall[0],
+                                 fall[-1], int(ni), int(nl), int(nc),
+                                 float(before[2]), float(f1)))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -4874,8 +5220,12 @@ def main():
     torch.cuda.empty_cache()
     phase_crnn_parity(card)
     phase_crnn(name, card)
-    assert_no_launches("item 3-B's rules, the Fluid-layers encoder and the "
-                       "CRNN")
+    torch.cuda.empty_cache()
+    phase_rules_5(card)
+    phase_lac_parity(card)
+    phase_lac(name, card)
+    assert_no_launches("item 3-B's rules, the Fluid-layers encoder, the "
+                       "CRNN and the LAC tagger")
     for rec in kernels:
         if rec["name"] == "segment_sum":
             rec["ctr_dataset_launches_per_step"] = ctr_per_step

@@ -39,6 +39,10 @@ module names so each counterpart is easy to find:
 - ``sparse``: SelectedRows and ``merge_rows``;
 - ``lod`` (``LoDTensor``, ``LoDTensorArray``, ``Tensor``) and
   ``learning_rate_decay``, the compat names the JAX package exports;
+- ``ir`` (the ``Pass`` registry and ``PassManager``), ``transpiler`` and
+  ``distributed`` (the ``DistributeTranspiler``, whose tagged programs the
+  executor refuses until the multi-GPU engine), ``install_check``
+  (``run_check``) and ``contrib.layers``;
 - ``convert``: parameter trees and scopes to and from the JAX package's
   numpy form.
 
@@ -101,6 +105,10 @@ from .async_executor import AsyncExecutor
 from .layers.io import EOFException
 from . import learning_rate_decay  # noqa: F401
 from .lod import LoDTensor, LoDTensorArray, Tensor  # noqa: F401
+from . import transpiler  # noqa: F401
+from . import install_check  # noqa: F401
+from . import ir  # noqa: F401
+from . import distributed  # noqa: F401
 
 __all__ = [
     "Program", "Block", "Operator", "Variable", "Parameter", "program_guard",
@@ -115,5 +123,6 @@ __all__ = [
     "get_flags", "monitor", "profiler", "ft", "WeightNormParamAttr",
     "FetchHandler", "DataLoader", "dataset", "DatasetFactory",
     "AsyncExecutor", "EOFException", "learning_rate_decay", "LoDTensor",
-    "LoDTensorArray", "Tensor",
+    "LoDTensorArray", "Tensor", "transpiler", "install_check", "ir",
+    "distributed",
 ]

@@ -8,8 +8,9 @@ as ``.npy`` files or one ``.npz`` container (``__params__.npz`` beside an
 inference model, ``<path>.pdparams`` for ``save``), and the program as a
 pickle of plain data (dicts, lists, strings and numbers: no class of either
 package).  Scope values are tensors here; they go to numpy on the host to
-be written, and come back as tensors on the executor's device (the CPU when
-no executor is given; the executor moves them on its first run).
+be written, and come back as tensors on the executor's device (``cuda``
+when no executor is given, as every entry point resolves it: without a
+card that raises, and a CPU load passes ``Executor(CPUPlace())``).
 
 numpy has no bfloat16 of its own.  The JAX package's files hold a bf16
 value as its raw 16-bit patterns, numpy dtype ``|V2`` (what ``np.save``
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from .framework import Program, Parameter, Variable, default_main_program
+from .kernels._common import resolve_device
 from .scope import global_scope
 
 __all__ = [
@@ -65,7 +67,7 @@ def _to_numpy(name, value):
 
 
 def _device_of(executor):
-    return executor.device if executor is not None else torch.device("cpu")
+    return executor.device if executor is not None else resolve_device(None)
 
 
 def _to_tensor(array, device, var=None):

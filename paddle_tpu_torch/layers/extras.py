@@ -702,10 +702,24 @@ def stanh(x, scale_a=0.67, scale_b=1.7159, name=None):
 
 
 def py_func(func, x, out, backward_func=None, skip_vars_in_backward_input=None):
-    """Parity: layers/nn.py py_func — a host-Python op.  Waits in the port
-    (ROADMAP Queue 1 item 3)."""
-    raise NotImplementedError(
-        "py_func: the host-callback op waits (ROADMAP Queue 1 item 3)")
+    """Parity: layers/nn.py py_func — a host-Python op: ``func`` gets the
+    inputs as numpy arrays on the host.  ``out`` must be vars made
+    beforehand (create_variable_for_type_inference) whose shapes and
+    dtypes declare the results.  Like the JAX package's, it has no
+    gradient (``backward_func`` is accepted and unused)."""
+    from ..ops.misc_ops4 import register_py_func
+    from ..framework import default_main_program
+
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    outs = out if isinstance(out, (list, tuple)) else [out]
+    fid = register_py_func(func)
+    block = default_main_program().global_block()
+    block.append_op(type="py_func", inputs={"X": list(xs)},
+                    outputs={"Out": list(outs)},
+                    attrs={"forward_callable_id": fid,
+                           "out_shapes": [list(_shape(o)) for o in outs],
+                           "out_dtypes": [str(o.dtype) for o in outs]})
+    return out
 
 
 def get_tensor_from_selected_rows(x, name=None):

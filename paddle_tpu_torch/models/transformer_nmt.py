@@ -102,9 +102,11 @@ def _layer_params(gen, cfg, cross):
     return p
 
 
-def init_nmt_params(gen, cfg: NMTConfig, device="cpu"):
+def init_nmt_params(gen, cfg: NMTConfig, device=None):
     """The reference's tree and scales from a ``torch.Generator`` (weights
-    N(0, 1/fan_in) in the model dtype, LayerNorms f32 ones and zeros)."""
+    N(0, 1/fan_in) in the model dtype, LayerNorms f32 ones and zeros), on
+    ``device`` (``cuda`` unless named)."""
+    device = resolve_device(device)
     E, dt = cfg.hidden, cfg.tdtype
 
     def stack(cross):

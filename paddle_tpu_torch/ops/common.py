@@ -131,6 +131,18 @@ def exact_matmul(a, b):
     return r != 0 if dt == torch.bool else r.to(dt)
 
 
+def promoting_matmul(a, b):
+    """``jnp.matmul``'s promotion: where one side is a float and the other
+    an integer or bool, the other in the float's dtype; otherwise
+    ``exact_matmul`` (two integer or two bool sides keep their kind)."""
+    if a.is_floating_point() != b.is_floating_point():
+        if a.is_floating_point():
+            b = b.to(a.dtype)
+        else:
+            a = a.to(b.dtype)
+    return exact_matmul(a, b)
+
+
 def exact_conv(fn, v, w, **kw):
     """``fn(v, w, **kw)`` (a torch convolution) for floats; integer and
     bool inputs convolve in float64, exact while the sums stay below 2^53,

@@ -942,6 +942,19 @@ class BoundMode(TorchDispatchMode):
         res = out if not inplace else args[0]
         floats_out = [o for o in tree_flatten(res)[0]
                       if isinstance(o, torch.Tensor) and o.is_floating_point()]
+        if (floats_out and not inplace and (base in _IEEE or base in CUDA_ULPS)
+                and not any(isinstance(a, torch.Tensor) and a.is_floating_point()
+                            for a in tree_flatten(args)[0])):
+            # integer or bool operands promoted to a float result (a true
+            # division of integers, an integer times a Python float): the
+            # run converts them to f32 first (exact below 2^24), so the
+            # reference takes them in float64 and the operation's own
+            # rounding gets its bound below
+            args = tree_map(lambda a: a.double() if isinstance(a, torch.Tensor)
+                            else a, args)
+            out = res = func(*args, **kwargs)
+            floats_out = [o for o in tree_flatten(res)[0]
+                          if isinstance(o, torch.Tensor) and o.is_floating_point()]
         if base in _COMPARE:
             self._compare(func, args, kwargs, out)
         elif base in _FRESH:

@@ -1,6 +1,6 @@
 """Where a training step's device time goes.
 
-    python -m paddle_tpu_torch.tools.profile_step [--model bert|resnet50|deepfm|nmt|lenet|book|fluid_encoder|crnn_ctc] [--trace out.json]
+    python -m paddle_tpu_torch.tools.profile_step [--model bert|resnet50|deepfm|nmt|lenet|book|fluid_encoder|crnn_ctc|lac] [--trace out.json]
 
 Builds the same trainer and batches as ``chip_smoke.py``'s slice phases
 (bf16 BERT-base with LAMB at B = 64, S = 512; bf16 ResNet-50 with fused
@@ -16,7 +16,10 @@ Fluid-layers BERT-base encoder of ``tools/programs.py`` in f32, Adam at
 ``chip_smoke.py`` phase 41 trains it; with ``--model crnn_ctc`` the
 CRNN-CTC recognizer of ``tools/programs.py`` at its published widths, f32,
 B = 32, Momentum(1e-3, 0.9) with L2Decay, through
-``Executor(CUDAPlace(0))``, as ``chip_smoke.py`` phase 43 trains it),
+``Executor(CUDAPlace(0))``, as ``chip_smoke.py`` phase 43 trains it;
+with ``--model lac`` the LAC lexical-analysis tagger of
+``tools/programs.py`` at its published widths, f32, B = 300, T = 64,
+Adam(1e-3), as ``chip_smoke.py`` phase 46 trains it),
 takes a warm-up step, then traces
 two steps with ``torch.profiler`` (CPU and CUDA activities).  Without
 ``--model`` it profiles all five.  Prints one JSON line per kernel group
@@ -103,6 +106,18 @@ GROUPS = {
                                                      "scatter")),
         ("copies and casts (step slices, stacks)", ("copy", "cat", "fill")),
         ("elementwise (GRU gates, CTC logaddexp, momentum)", (
+            "elementwise", "vectorized", "unrolled")),
+    ),
+    "lac": (
+        ("products (cuBLAS: fcs, GRU steps)", ("gemm", "xmma", "cutlass",
+                                              "sm90_", "nvjet")),
+        ("reductions (CRF log-sum-exp, Viterbi max, Adam norms)",
+         ("reduce", "norm")),
+        ("gather / scatter (embedding rows, sparse Adam, CRF labels)",
+         ("index", "gather", "scatter")),
+        ("sort (the sparse rows' merge)", ("sort", "radix")),
+        ("copies and casts (step slices, stacks)", ("copy", "cat", "fill")),
+        ("elementwise (GRU gates, CRF recursion, Adam)", (
             "elementwise", "vectorized", "unrolled")),
     ),
     "lenet": (
@@ -428,6 +443,26 @@ def _crnn_ctc():
              "feed": "numpy, copied to the card by Executor.run"})
 
 
+def _lac():
+    """The LAC tagger (``tools/programs.py`` ``LAC``) run by
+    ``Executor(CUDAPlace(0))``, a fresh seeded batch every step."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools.programs import (LAC, lac_feed, lac_program,
+                                                 lac_train_flops)
+
+    cfg = LAC
+    main, startup, _, v = lac_program(fluid, cfg)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    feeds = [lac_feed(cfg, SEED + i) for i in range(STEPS + 1)]
+    staged = {k: np.stack([f[k] for f in feeds]) for k in feeds[0]}
+    return (FluidStep(exe, main, scope, [v["loss"]]), staged, None,
+            {"batch": cfg.batch, "seq_len": cfg.seq_len, "dtype": "float32",
+             "optimizer": "adam(1e-3), lr factors emb 5, crfw 0.2",
+             "train_flops_per_step": lac_train_flops(cfg),
+             "feed": "numpy, copied to the card by Executor.run"})
+
+
 def cuda_kernels_per_call(fn, calls=5):
     """{CUDA kernel name: (launches a call, device ms a call)} from
     torch.profiler, after one untimed call of ``fn``: ``calls`` calls, each
@@ -457,7 +492,8 @@ def profile_model(model, card, trace=None):
                                       "deepfm": _deepfm, "nmt": _nmt,
                                       "lenet": _lenet,
                                       "fluid_encoder": _fluid_encoder,
-                                      "crnn_ctc": _crnn_ctc}[model]()
+                                      "crnn_ctc": _crnn_ctc,
+                                      "lac": _lac}[model]()
     batches = [{k: v[i] for k, v in staged.items()} for i in range(STEPS + 1)]
     trainer.step(batches[0], lr)
     torch.cuda.synchronize()

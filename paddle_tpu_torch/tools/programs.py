@@ -22,7 +22,13 @@ that ``chip_smoke.py`` and the tests build the same programs:
   models repository (``PaddleCV/ocr_recognition/crnn_ctc_model.py``:
   ``ocr_convs``, ``encoder_net``, ``ctc_train_net``) in public
   ``fluid.layers``, with its evaluation program (greedy CTC decoding and
-  the edit distance to the labels).
+  the edit distance to the labels);
+- ``lac_program``: the LAC lexical-analysis tagger of PaddlePaddle's
+  models repository (``PaddleNLP/lexical_analysis``, ``nets.py``
+  ``lex_net`` and ``creator.py``): an ``is_sparse`` word embedding, two
+  bidirectional ``dynamic_gru`` layers, an fc to the tags as emissions,
+  ``linear_chain_crf`` trained by Adam, and ``crf_decoding`` with
+  ``chunk_eval`` (IOB) as its evaluation.
 
 Each returns ``(main, startup, vars)``, built under a fresh
 ``unique_name.guard()`` so the two packages name every var alike.
@@ -35,7 +41,8 @@ import numpy as np
 __all__ = ["while_beam_decode", "cond_program", "switch_program",
            "EncoderConfig", "BERT_BASE_ENCODER", "bert_encoder_program",
            "encoder_feed", "encoder_train_flops", "CRNNConfig", "CRNN_CTC",
-           "crnn_ctc_program", "crnn_feed", "crnn_train_flops"]
+           "crnn_ctc_program", "crnn_feed", "crnn_train_flops", "LACConfig",
+           "LAC", "lac_program", "lac_feed", "lac_train_flops"]
 
 
 def while_beam_decode(fluid, T, B, K, V, end_id=0):
@@ -367,3 +374,133 @@ def crnn_train_flops(cfg):
     fcs = 2 * T * (2 * feat * 3 * h + 2 * h * (cfg.classes + 1))
     grus = 2 * T * 2 * (h * 2 * h + h * h)
     return 3 * B * (conv + fcs + grus)
+
+
+LACConfig = collections.namedtuple(
+    "LACConfig", "batch seq_len vocab emb hidden tags len_min len_max lr")
+
+# lex_net's published hyperparameters (conf/args.yaml), which no caller
+# varies: bigru_num 2, emb_learning_rate 5, crf_learning_rate 0.2,
+# L2Decay(1e-4) and Uniform(-0.1, 0.1) initialisers
+LAC_BIGRU_NUM = 2
+LAC_EMB_LR = 5.0
+LAC_CRF_LR = 0.2
+LAC_L2 = 1e-4
+LAC_INIT_BOUND = 0.1
+
+# lex_net at its published widths (conf/args.yaml): a 20,940-word
+# vocabulary, word_emb_dim 128, grnn_hidden_dim 128, 57 tags (28 chunk
+# types in IOB and O), base_learning_rate 1e-3 (Adam); batch 300
+# sentences of 8-64 words, padded to 64 (synthetic words and tags)
+LAC = LACConfig(batch=300, seq_len=64, vocab=20940, emb=128, hidden=128,
+                tags=57, len_min=8, len_max=64, lr=1e-3)
+
+
+def lac_program(fluid, cfg):
+    """Feeds: "word" [B, T] int64 word ids, "target" [B, T] int64 IOB tag
+    ids (chunk type k: B-k = 2 k, I-k = 2 k + 1; O = tags - 1), "length"
+    [B] int64 (T = cfg.seq_len; padded, not LoD).
+
+    ``lex_net``: ``embedding`` (``is_sparse``, Uniform(-b, b) with b =
+    LAC_INIT_BOUND, learning rate LAC_EMB_LR), then LAC_BIGRU_NUM
+    bidirectional layers, each direction an fc to 3 hidden and a
+    ``dynamic_gru`` (the second ``is_reverse`` over each row's length),
+    both with Uniform(-b, b) and L2Decay(LAC_L2), concatenated; an fc to
+    the tags as the emissions; ``linear_chain_crf`` with the transition
+    ``crfw`` (learning rate LAC_CRF_LR) over each row's length, ``mean`` as the loss, and
+    ``crf_decoding`` with ``crfw`` and ``chunk_eval`` (IOB,
+    ceil((tags - 1) / 2) chunk types, the lengths), as ``creator.py``
+    builds them into the training program.
+
+    Returns (main, startup, test, vars): ``test`` is main cloned for test
+    before Adam; vars "loss", "emission", "decoded", "precision",
+    "recall", "f1", "num_infer", "num_label", "num_correct"."""
+    B, T = cfg.batch, cfg.seq_len
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        L = fluid.layers
+
+        def attr(**kw):
+            return fluid.ParamAttr(
+                initializer=fluid.initializer.Uniform(-LAC_INIT_BOUND,
+                                                      LAC_INIT_BOUND), **kw)
+
+        word = L.data("word", shape=[B, T], dtype="int64",
+                      append_batch_size=False)
+        target = L.data("target", shape=[B, T], dtype="int64",
+                        append_batch_size=False)
+        length = L.data("length", shape=[B], dtype="int64",
+                        append_batch_size=False)
+        x = L.embedding(word, size=[cfg.vocab, cfg.emb], is_sparse=True,
+                        param_attr=attr(name="word_emb",
+                                        learning_rate=LAC_EMB_LR))
+        reg = fluid.regularizer.L2Decay(LAC_L2)
+        for _ in range(LAC_BIGRU_NUM):
+            grus = []
+            for rev in (False, True):
+                pre = L.fc(x, cfg.hidden * 3, num_flatten_dims=2,
+                           param_attr=attr(regularizer=reg))
+                grus.append(L.dynamic_gru(pre, cfg.hidden,
+                                          param_attr=attr(regularizer=reg),
+                                          is_reverse=rev, seq_len=length))
+            x = L.concat(grus, axis=2)
+        emission = L.fc(x, cfg.tags, num_flatten_dims=2,
+                        param_attr=attr(regularizer=reg))
+        crf_cost = L.linear_chain_crf(
+            emission, target, length=length,
+            param_attr=fluid.ParamAttr(name="crfw", learning_rate=LAC_CRF_LR))
+        loss = L.mean(crf_cost)
+        decoded = L.crf_decoding(emission, fluid.ParamAttr(name="crfw"),
+                                 length=length)
+        p, r, f1, ni, nl, nc = L.chunk_eval(
+            decoded, target, "IOB", int(np.ceil((cfg.tags - 1) / 2.0)),
+            seq_length=length)
+        test = main.clone(for_test=True)
+        fluid.optimizer.Adam(cfg.lr).minimize(loss)
+    return main, startup, test, dict(
+        word=word, target=target, length=length, loss=loss,
+        emission=emission, decoded=decoded, precision=p, recall=r, f1=f1,
+        num_infer=ni, num_label=nl, num_correct=nc)
+
+
+def lac_feed(cfg, seed):
+    """A batch from ``numpy.random.RandomState(seed)`` whose tags follow
+    from its words.  Word w has the kind w mod (c + 1) of c =
+    (tags - 1) // 2 chunk types, the last kind meaning O, for every seed.
+    Each sentence (length uniform in [len_min, len_max]) is a run of
+    kinds: each position keeps the kind before it with probability 0.5,
+    else draws one uniformly, and takes a uniform word of that kind.  The
+    tags are then valid IOB: O for an O word, I-k for a word of type k
+    after a word of type k, else B-k; past each length, word 0 and O."""
+    rng = np.random.RandomState(seed)
+    B, T = cfg.batch, cfg.seq_len
+    n = rng.randint(cfg.len_min, cfg.len_max + 1, B)
+    n_types = (cfg.tags - 1) // 2
+    kinds = n_types + 1
+    go_on, fresh = rng.rand(B, T) < 0.5, rng.randint(0, kinds, (B, T))
+    kind = fresh.copy()
+    for t in range(1, T):
+        kind[go_on[:, t], t] = kind[go_on[:, t], t - 1]
+    words = kind + kinds * rng.randint(0, cfg.vocab // kinds, (B, T))
+    after = np.concatenate([np.full((B, 1), -1), kind[:, :-1]], axis=1)
+    tags = np.where(kind == n_types, cfg.tags - 1,
+                    2 * kind + (kind == after))
+    past = np.arange(T)[None, :] >= n[:, None]
+    words[past] = 0
+    tags[past] = cfg.tags - 1
+    return {"word": words.astype(np.int64), "target": tags.astype(np.int64),
+            "length": n.astype(np.int64)}
+
+
+def lac_train_flops(cfg):
+    """Multiply-add FLOPs of one training step (3x the forward) at every
+    padded position: each bidirectional layer's two fcs to 3 hidden and
+    the GRUs' recurrent products, and the emission fc (the CRF recursions,
+    the embedding gather and the elementwise work are not counted)."""
+    h, tokens = cfg.hidden, cfg.batch * cfg.seq_len
+    per_token, width = 0, cfg.emb
+    for _ in range(LAC_BIGRU_NUM):
+        per_token += 2 * (2 * width * 3 * h + 2 * h * 3 * h)
+        width = 2 * h
+    per_token += 2 * width * cfg.tags
+    return 3 * tokens * per_token

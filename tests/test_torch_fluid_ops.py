@@ -289,10 +289,11 @@ def test_sparse_gradients_update_as_in_jax(op):
 
 
 def test_an_unported_op_raises_the_registry_error():
-    # affine_channel waits for item 3-B's tranche 5 (maxout, the example
-    # here until tranche 4 ported it; layer_norm before tranches 1-3)
+    # prroi_pool waits for item 3-B's tranche 6 (affine_channel, the
+    # example here until tranche 5 ported it; maxout until tranche 4,
+    # layer_norm before tranches 1-3)
     with pytest.raises(NotImplementedError, match="no lowering registered"):
-        port_rule("affine_channel")
+        port_rule("prroi_pool")
 
 
 # -- integer, bool, empty-dim and out-of-range inputs ---------------------------

@@ -252,3 +252,22 @@ def test_a_division_by_a_host_scalar_is_bounded_as_cuda_computes_it():
     assert fb.hold_to_bound(cuda_like, y, bound)["ok"]
     half_ulp = y.abs() * 2.0 ** -24
     assert bool(((cuda_like - y).abs() > half_ulp).any())
+
+
+def test_an_integer_divided_by_a_host_scalar_is_bounded_as_its_f32_division():
+    """An integer tensor over a Python number gives an f32 result: the
+    bound engine takes the integers in float64 and bounds the division as
+    CUDA computes it (a product with the f32 reciprocal), so the card's
+    x * (1 / 20) passes where the CPU's correctly rounded x / 20 differs
+    from it by an ulp (``fsp``'s int32 probe: an integer product over
+    H W)."""
+    x = torch.tensor([3, 7, 13, 2 ** 20 + 1, -9], dtype=torch.int32)
+    with fb.BoundMode() as mode:
+        out = x / 20
+        bound = mode.bound(out)
+    assert out.dtype == torch.float64 and bool((bound > 0).all())
+    ref = x.double() / 20
+    card = x.float() * (np.float32(1) / np.float32(20))
+    cpu = x.float() / 20
+    assert fb.hold_to_bound(card, ref, bound)["ok"]
+    assert fb.hold_to_bound(cpu, ref, bound)["ok"]

@@ -274,3 +274,39 @@ def test_the_crnn_rules_stay_on_their_tensors_device(op, ins):
                              for k, v in ins.items()}, {},
                             OpLoweringContext(None, torch.Generator()))
     assert {t.device.type for v in outs.values() for t in v} == {"cpu"}
+
+
+TRANCHE_5 = ["ops.misc_ops", "ops.misc_ops2", "ops.misc_ops3",
+             "ops.misc_ops4", "tools.rule_cases_5", "ir", "transpiler",
+             "distributed", "distributed.transpiler", "install_check",
+             "contrib.layers", "layers.extras", "tools.programs"]
+
+
+def test_tranche_5_and_the_small_modules_are_checked_and_load_alone():
+    """The op modules of item 3-B's tranche 5, ``ir``, the transpilers,
+    ``install_check`` and ``contrib.layers`` are among the files checked
+    above, and importing all of them in a fresh interpreter loads neither
+    JAX nor the JAX package."""
+    checked = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for mod in TRANCHE_5:
+        path = "paddle_tpu_torch/%s" % mod.replace(".", "/")
+        assert path + ".py" in checked or path + "/__init__.py" in checked, mod
+    code = ("import sys\n" + "".join("import paddle_tpu_torch.%s\n" % m
+                                      for m in TRANCHE_5)
+            + "print(sorted({m.split('.')[0] for m in sys.modules} & "
+              "{'jax', 'jaxlib', 'paddle_tpu'}))")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "[]"
+
+
+@pytest.mark.parametrize("name", ["ir", "transpiler", "install_check",
+                                  "distributed"])
+def test_the_small_modules_are_exported_as_the_jax_package_exports_them(name):
+    import paddle_tpu
+    import paddle_tpu_torch
+
+    assert hasattr(paddle_tpu, name) and hasattr(paddle_tpu_torch, name)
+    assert getattr(paddle_tpu_torch, name).__name__ == "paddle_tpu_torch." + name

@@ -147,8 +147,9 @@ def test_fluid_save_and_load_and_a_missing_var_raises(port_lenet, tmp_path):
     with pfluid.scope_guard(scope):
         assert pfluid.save(main, path) == path + ".pdparams"
     fresh = pfluid.Scope()
+    cpu = pfluid.Executor(pfluid.CPUPlace())    # no executor means the card
     with pfluid.scope_guard(fresh):
-        pfluid.load(main, path)
+        pfluid.load(main, path, cpu)
     persist = [v.name for v in main.list_vars() if v.persistable]
     for n in persist:
         assert torch.equal(fresh.find_var(n), scope.find_var(n)), n
@@ -164,7 +165,7 @@ def test_fluid_save_and_load_and_a_missing_var_raises(port_lenet, tmp_path):
         extra = prog.global_block().create_var(name="not_saved", shape=(2,),
                                                dtype="float32", persistable=True)
         with pytest.raises(RuntimeError, match=r"\['not_saved'\] not found"):
-            fluid.load(prog, path)
+            fluid.load(prog, path, cpu if fluid is pfluid else None)
         prog.global_block().vars.pop(extra.name)
 
 
@@ -202,12 +203,14 @@ def test_bf16_persistables_round_trip_between_packages(how, tmp_path):
                     filename="all.npz" if how == "npz" else None)
 
     def load(fluid, main, scope, path):
+        # the port's loads name a CPU executor: with none they go to the card
+        exe = fluid.Executor(fluid.CPUPlace()) if fluid is pfluid else None
         with fluid.scope_guard(scope):
             if how == "pdparams":
-                fluid.load(main, str(path / "ckpt"))
+                fluid.load(main, str(path / "ckpt"), exe)
             else:
                 fluid.io.load_persistables(
-                    None, str(path), main,
+                    exe, str(path), main,
                     filename="all.npz" if how == "npz" else None)
 
     pscope = pfluid.Scope()

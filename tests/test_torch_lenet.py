@@ -334,9 +334,12 @@ def _unported(case, monkeypatch):
         img = fluid.layers.data("img", shape=[1, 28, 28], dtype="float32")
         label = fluid.layers.data("label", shape=[1], dtype="int64")
         if case == "unported_op":
-            # an op item 3-B's tranche 5 ports (maxout until tranche 4
-            # ported it; layer_norm until tranches 1-3)
-            img = fluid.layers.affine_channel(img)
+            # an op item 3-B's tranche 6 ports (affine_channel until
+            # tranche 5 ported it; maxout until tranche 4, layer_norm
+            # until tranches 1-3): a precise RoI pool of the whole image
+            rois = fluid.layers.data("rois", shape=[4], dtype="float32")
+            img = fluid.layers.prroi_pool(img, rois, pooled_height=28,
+                                          pooled_width=28)
         if case == "py_reader":
             reader = fluid.layers.create_py_reader_by_data(
                 capacity=2, feed_list=[img, label])

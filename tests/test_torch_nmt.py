@@ -300,7 +300,7 @@ def test_train_flops_count_every_product():
     torch.utils.flop_counter counts over one forward and backward."""
     cfg = pnmt.nmt_tiny_config()
     B, Ss, St = 3, 10, 9
-    params = pnmt.init_nmt_params(torch.Generator().manual_seed(0), cfg)
+    params = pnmt.init_nmt_params(torch.Generator().manual_seed(0), cfg, "cpu")
     batch = pnmt.batch_to(_padded_batch(5, cfg, *BATCHES["padded"], Ss=Ss,
                                         St=St), "cpu")
     leaves = tree_leaves(params)

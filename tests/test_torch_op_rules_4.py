@@ -8,8 +8,9 @@ Every row of ``tools/rule_cases.py``'s ``RULE_CASES_4`` is held to the JAX
 rule forward and backward by ``tests/test_torch_op_rules_3b.py`` (and its
 int32 / bool casts by ``tests/test_torch_queue3_faults.py``).  Here:
 
-- the registry: 228 of the JAX registry's 357 op types, 129 left, none
-  of this tranche;
+- the registry: tranche 4's rules stay registered, and the port's op
+  types are a subset of the JAX registry's (228 of 357 at this tranche;
+  ``tests/test_torch_op_rules_5.py`` counts the later ones);
 - the special-value probe on every row with a float input: a few of its
   elements set to +0 and -0 (forward and gradients, so the kinks of the
   max rules and the clips meet ties), to +-inf and NaN (forward), and to
@@ -60,12 +61,15 @@ sample_logits sampling_id""".split()
 
 
 def test_the_27_rules_are_registered_and_129_types_are_left():
+    """Named for the count at tranche 4; later tranches port more (the
+    counts are ``test_torch_op_rules_5.py``'s), so this holds what stays
+    true: tranche 4's rules registered, and no type the reference lacks."""
     assert len(TRANCHE_4) == len(set(TRANCHE_4)) == 27
     port, ref = set(registered_ops()), set(jax_registered())
     assert set(TRANCHE_4) <= port and port <= ref
-    assert len(port) == 228 and len(ref) == 357
+    assert len(port) >= 228 and len(ref) == 357
     left = ref - port
-    assert len(left) == 129 and not left & set(TRANCHE_4)
+    assert len(left) <= 129 and not left & set(TRANCHE_4)
     assert {op for _, op, *_ in RULE_CASES_4} == set(TRANCHE_4) - {"sampling_id"}
 
 
