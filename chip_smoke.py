@@ -332,13 +332,36 @@ Builds the port's CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
     128 / 128, 2 bidirectional GRU layers, 57 tags), B = 300, T = 64,
     through ``Executor(CUDAPlace(0))``: a warm-up and 5 timed steps (ms a
     step, tokens/s, the f32 CUDA-core share, peak memory), launches, busy
-    and idle a step from ``tools/profile_step.py``'s ``lac``, 10 steps on
+    and idle a step from ``tools/profile_step.py``'s ``lac``, 30 steps on
     one batch with the loss falling, the evaluation's precision, recall
-    and F1; no port kernel launched in 39-46.
+    and F1 before and after them (F1 must rise); no port kernel launched
+    in 39-46;
+47. ``dygraph_parity``: the dygraph mode on the card against the CPU:
+    ``tools/programs.py``'s ``dygraph_resnet`` at a narrow width ([1, 1,
+    1, 1], widths 8-64, 32 x 32, B = 4) from one set of weights, two
+    Momentum steps: in float64 the losses, parameters, velocities and BN
+    statistics as vectors to 1e-5 of the largest, in f32 the first loss;
+    a Linear / LayerNorm / GRUUnit / Embedding / BilinearTensorProduct set
+    with one Adam step in f32 likewise; each gradient clipper within
+    ``BoundMode``'s bound of its float64 CPU run;
+48. ``dygraph_resnet``: the dygraph ResNet-50 (PaddlePaddle models v1.6
+    dygraph/resnet, 102 classes, B = 32, 224 x 224, f32, Momentum over
+    ``PiecewiseDecay``) under ``dygraph.guard()``: a warm-up and 5 timed
+    steps (ms a step, images/s, the f32 CUDA-core share, peak memory, the
+    first loss), launches, busy and idle a step from
+    ``tools/profile_step.py``'s ``dygraph_resnet``, 20 steps on one batch
+    with the loss falling and its accuracy rising;
+49. ``dygraph_serving``: that net's checkpoint (``save_dygraph`` /
+    ``load_dygraph``) bit for bit, ``TracedLayer`` in eval mode against
+    the eager forward and its saved program bit for bit, ms a request
+    eager / traced / loaded, one recompile for a new batch size, and
+    ``DataParallel`` at one rank bit for bit; no port kernel launched in
+    47-49.
 
 Phases 30-33 and 36 write their monitor directories under
 ``build/monitor``, phases 35-36 their data files under
-``build/data_path``.
+``build/data_path``, phase 49 its checkpoint and traced program under
+``build/dygraph``.
 TF32 is switched off for matrix products and convolutions, so the f32
 phases compare f32 with f32.  The last two lines are the kernels' JSON
 record and ``{"ok": true, "device": {...}}``; any failure exits non-zero
@@ -5141,6 +5164,431 @@ def phase_lac(device_name, card):
                                  float(before[2]), float(f1)))
 
 
+# -- item 3-C, the dygraph mode (phases 47-49) ----------------------------------
+
+DY_PARITY_STEPS = 2          # phase 47: card against the CPU
+DY_TOL = ENC_PARITY_TOL      # as phases 40, 42 and 45
+DY_FEED_SEED = 500
+DY_WARMUP, DY_TIMED, DY_FALL_STEPS = 1, 5, 20
+DY_REQUESTS = 20             # phase 49: ms a request, each way
+DY_NEW_BATCH = 8             # phase 49: a second signature
+DY_DIR = "build/dygraph"
+
+
+def _dy_narrow():
+    """Phase 47's ResNet: the [1, 1, 1, 1] layout, widths 8-64, 32 x 32,
+    B = 4."""
+    from paddle_tpu_torch.tools.programs import DygraphResNetConfig
+
+    return DygraphResNetConfig(depth=(1, 1, 1, 1), base_width=8, classes=102,
+                               batch=4, image=32)
+
+
+def _dy_place(device):
+    import paddle_tpu_torch as fluid
+
+    return fluid.CPUPlace() if device == "cpu" else fluid.CUDAPlace(0)
+
+
+def _dy_resnet_run(cfg, device, state, feeds, dtype):
+    """Momentum steps of ``dygraph_resnet`` on ``device`` from ``state``,
+    its parameters and statistics in ``dtype``: (losses, {name: float64
+    numpy} of the state, of the velocities)."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools.programs import (dygraph_resnet,
+                                                 dygraph_resnet_optimizer,
+                                                 dygraph_resnet_step)
+
+    dy = fluid.dygraph
+    with dy.guard(_dy_place(device)):
+        net = dygraph_resnet(fluid, cfg)
+        net.set_dict(state)
+        for p in net.parameters():
+            p._value = p._value.to(dtype)
+        opt = dygraph_resnet_optimizer(fluid)
+        losses = [float(dygraph_resnet_step(
+            fluid, net, opt, dy.to_variable(torch.from_numpy(img).to(dtype)),
+            dy.to_variable(lab))[0].numpy()) for img, lab in feeds]
+        vel = {n: opt._dy_acc[("velocity", id(p))].double().cpu().numpy()
+               for n, p in net.named_parameters() if p.trainable}
+        return (losses, {n: v.astype(np.float64)
+                         for n, v in net.state_dict().items()}, vel)
+
+
+def _dy_layer_set(fluid):
+    """A Linear, a LayerNorm, a GRUUnit over 6 steps, an Embedding and a
+    ``_lowering_apply`` layer (BilinearTensorProduct) in one Layer."""
+    dy = fluid.dygraph
+
+    class LayerSet(dy.Layer):
+        def __init__(self):
+            super().__init__("layer_set")
+            self.emb = dy.Embedding(size=[50, 16])
+            self.fc = dy.Linear(16, 24, act="tanh")
+            self.ln = dy.LayerNorm(normalized_shape=[24], begin_norm_axis=2)
+            self.gru = dy.GRUUnit(size=24)
+            self.btp = dy.nn.BilinearTensorProduct(size=3, act="sigmoid")
+
+        def forward(self, ids, h):
+            x = self.ln(self.fc(self.emb(ids)))
+            for t in range(x.shape[1]):
+                h, _, _ = self.gru(x[:, t, :], h)
+            return self.btp(h, h)
+
+    return LayerSet()
+
+
+def _dy_layer_set_run(device, state, feed):
+    """The layer set on ``device`` from ``state`` (its lazy layer built by
+    a first call): the loss, one Adam step, the loss again; (losses,
+    {name: numpy} of the state and the two moments, {name: gradient})."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+
+    dy = fluid.dygraph
+    ids, h0, w = feed
+    with dy.guard(_dy_place(device)):
+        net = _dy_layer_set(fluid)
+        net(dy.to_variable(ids), dy.to_variable(h0))
+        if state is not None:
+            net.set_dict(state)
+        opt = fluid.optimizer.Adam(1e-3)
+
+        def loss():
+            out = net(dy.to_variable(ids), dy.to_variable(h0))
+            return dy.nn._lowering_apply("mean", ("X",), {}, "Out",
+                                         out * dy.to_variable(w))
+
+        first = loss()
+        first.backward()
+        grads = {n: p._grad for n, p in net.named_parameters()}
+        opt.minimize(first, parameter_list=net.parameters())
+        net.clear_gradients()
+        after = loss()
+        got = {n: v.astype(np.float64) for n, v in net.state_dict().items()}
+        for n, p in net.named_parameters():
+            for m in ("moment1", "moment2"):
+                got["%s@%s" % (n, m)] = (opt._dy_acc[(m, id(p))]
+                                         .double().cpu().numpy())
+        return [float(first.numpy()), float(after.numpy())], got, grads
+
+
+def _dy_clippers(grads):
+    """Each clipper on the card's gradients against its float64 CPU run
+    within ``BoundMode``'s bound: the largest ratio of each."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools import fp_bounds
+
+    gs = [g for _, g in sorted(grads.items()) if g is not None]
+    top = max(float(g.abs().max()) for g in gs)
+    norms = [float(g.double().norm()) for g in gs]
+    glob = sum(n * n for n in norms) ** 0.5
+    clip = fluid.dygraph_grad_clip
+    rec = {}
+    for name, c in (("value", clip.GradClipByValue(0.5 * top)),
+                    ("norm", clip.GradClipByNorm(0.5 * min(norms))),
+                    ("global_norm", clip.GradClipByGlobalNorm(0.5 * glob))):
+        def rule(ins, attrs, ctx, c=c):
+            return {"Out": [g for _, g in c._clip(list(enumerate(ins["G"])))]}
+
+        res, _, ambiguous = fp_bounds.rule_bounds(rule, {"G": [g.cpu() for g in gs]}, {})
+        got = rule({"G": gs}, {}, None)["Out"]
+        held = [fp_bounds.hold_to_bound(g, r, b)
+                for g, (r, b) in zip(got, res["Out"])]
+        rec[name] = {"ratio": max(h["ratio"] for h in held),
+                     "on_the_card": all(g.is_cuda for g in got),
+                     "ok": (all(h["ok"] for h in held) and not ambiguous
+                            and all(g.is_cuda for g in got))}
+    return rec
+
+
+def phase_dygraph_parity(card):
+    """Phase 47: the dygraph mode on the card against the CPU.  The narrow
+    ResNet of ``tools/programs.py`` (``dygraph_resnet`` at the [1, 1, 1, 1]
+    layout, widths 8-64, 32 x 32, B = 4), from one set of weights
+    (``set_dict``), DY_PARITY_STEPS Momentum steps on each: in float64 the
+    losses, and the parameters, velocities and BN statistics each as one
+    vector, to DY_TOL of its largest; in f32 the first loss to DY_TOL and
+    the state's distances recorded (a ReLU input that cancels to ~0 takes
+    either sign in f32, and its flip moves every gradient below it: the
+    f32 trajectory is not held).  A Linear + LayerNorm + GRUUnit +
+    Embedding + BilinearTensorProduct set in f32, one Adam step: the two
+    losses, the parameters and both moments as vectors to DY_TOL.  Each
+    gradient clipper on the card's gradients to its float64 CPU run
+    within ``BoundMode``'s bound."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools.programs import (dygraph_resnet,
+                                                 dygraph_resnet_feed)
+
+    t0 = time.perf_counter()
+    cfg = _dy_narrow()
+    with fluid.dygraph.guard(fluid.CPUPlace()):
+        state = dygraph_resnet(fluid, cfg).state_dict()
+    feeds = [dygraph_resnet_feed(cfg, DY_FEED_SEED + k)
+             for k in range(DY_PARITY_STEPS)]
+    rec = {"phase": "dygraph_parity", "nvidia_smi": card, "batch": cfg.batch,
+           "image": cfg.image, "steps": DY_PARITY_STEPS, "tol": DY_TOL}
+    ok = True
+    for dtype in (torch.float64, torch.float32):
+        card_l, card_s, card_v = _dy_resnet_run(cfg, "cuda", state, feeds, dtype)
+        cpu_l, cpu_s, cpu_v = _dy_resnet_run(cfg, "cpu", state, feeds, dtype)
+        trainable = list(cpu_v)
+        stats = [n for n in cpu_s if n not in cpu_v]
+        errs = {"parameters": _max_norm_rel(card_s, cpu_s, trainable),
+                "velocities": _max_norm_rel(card_v, cpu_v, trainable),
+                "bn_statistics": _max_norm_rel(card_s, cpu_s, stats)}
+        loss_errs = [_rel([a], [b]) for a, b in zip(card_l, cpu_l)]
+        key = str(dtype).replace("torch.", "")
+        rec[key] = {"card_losses": card_l, "cpu_losses": cpu_l,
+                    "loss_rel_err": loss_errs,
+                    "state_max_rel_err": {g: e for g, (e, _) in errs.items()},
+                    "state_largest_distances": {g: w for g, (_, w) in errs.items()}}
+        if dtype == torch.float64:
+            ok &= (max(loss_errs) <= DY_TOL
+                   and all(e <= DY_TOL for e, _ in errs.values())
+                   and len(trainable) == 53 and len(stats) == 34)
+        else:
+            ok &= loss_errs[0] <= DY_TOL and bool(np.isfinite(card_l).all())
+    rng = np.random.RandomState(DY_FEED_SEED)
+    feed = (rng.randint(0, 50, (4, 6)).astype(np.int64),
+            (rng.randn(4, 8) * 0.5).astype(np.float32),
+            np.cos(np.arange(12)).reshape(4, 3).astype(np.float32))
+    with fluid.dygraph.guard(fluid.CPUPlace()):
+        net = _dy_layer_set(fluid)
+        net(fluid.dygraph.to_variable(feed[0]), fluid.dygraph.to_variable(feed[1]))
+        state = net.state_dict()
+    card_l, card_s, card_g = _dy_layer_set_run("cuda", state, feed)
+    cpu_l, cpu_s, _ = _dy_layer_set_run("cpu", state, feed)
+    groups = {"parameters": [n for n in cpu_s if "@" not in n],
+              "moment1": [n for n in cpu_s if n.endswith("@moment1")],
+              "moment2": [n for n in cpu_s if n.endswith("@moment2")]}
+    errs = {g: _max_norm_rel(card_s, cpu_s, ns) for g, ns in groups.items()}
+    loss_err = max(_rel([a], [b]) for a, b in zip(card_l, cpu_l))
+    rec["layer_set"] = {"layers": "Embedding, Linear(tanh), LayerNorm, "
+                        "GRUUnit x 6, BilinearTensorProduct(sigmoid)",
+                        "optimizer": "adam(1e-3), one step",
+                        "card_losses": card_l, "cpu_losses": cpu_l,
+                        "loss_rel_err": loss_err,
+                        "state_max_rel_err": {g: e for g, (e, _) in errs.items()}}
+    ok &= loss_err <= DY_TOL and all(e <= DY_TOL for e, _ in errs.values())
+    rec["clippers"] = _dy_clippers(card_g)
+    ok &= all(r["ok"] for r in rec["clippers"].values())
+    rec["seconds"] = time.perf_counter() - t0
+    rec["ok"] = bool(ok)
+    emit(rec)
+    if not ok:
+        raise AssertionError("dygraph parity: %s" % rec)
+
+
+def _dy_accuracy(prob, label):
+    return float((prob.numpy().argmax(1) == label.reshape(-1)).mean())
+
+
+def phase_dygraph_resnet(device_name, card):
+    """Phase 48: the dygraph ResNet-50 of ``tools/programs.py``
+    (``DYGRAPH_RESNET50``: PaddlePaddle models v1.6 dygraph/resnet at its
+    published widths, 102 classes, B = 32, 224 x 224, f32, Momentum 0.9
+    over ``PiecewiseDecay`` from 0.1) under ``dygraph.guard()`` on the
+    card: a warm-up and DY_TIMED timed steps on fresh seeded batches
+    staged on the card (ms a step, images/s, the f32 CUDA-core share from
+    ``dygraph_resnet_train_flops``, peak memory, the first loss);
+    launches, busy and idle a step from ``tools/profile_step.py``'s
+    ``dygraph_resnet``; DY_FALL_STEPS steps on one batch: the loss falls
+    and that batch's accuracy rises.  Returns the trained net and a batch
+    for phase 49."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools import profile_step
+    from paddle_tpu_torch.tools.programs import (
+        DYGRAPH_RESNET50, dygraph_resnet, dygraph_resnet_feed,
+        dygraph_resnet_optimizer, dygraph_resnet_step,
+        dygraph_resnet_train_flops)
+
+    cfg = DYGRAPH_RESNET50
+    dy = fluid.dygraph
+    torch.cuda.reset_peak_memory_stats()
+    with dy.guard():
+        net = dygraph_resnet(fluid, cfg)
+        opt = dygraph_resnet_optimizer(fluid)
+        batches = []
+        for k in range(DY_WARMUP + DY_TIMED):
+            img, lab = dygraph_resnet_feed(cfg, DY_FEED_SEED + k)
+            batches.append((dy.to_variable(img), dy.to_variable(lab)))
+        losses, ms = [], []
+        for img, lab in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _ = dygraph_resnet_step(fluid, net, opt, img, lab)
+            lv = float(loss.numpy())
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(lv)
+        peak = torch.cuda.max_memory_allocated()
+        step_s = sum(ms[DY_WARMUP:]) / DY_TIMED / 1e3
+        img, lab = batches[0]
+        fall, acc = [], []
+        for _ in range(DY_FALL_STEPS):
+            loss, prob = dygraph_resnet_step(fluid, net, opt, img, lab)
+            fall.append(float(loss.numpy()))
+            acc.append(_dy_accuracy(prob, lab.numpy()))
+        del batches
+    torch.cuda.empty_cache()
+    prof = profile_step.profile_model("dygraph_resnet", card)
+    flops = dygraph_resnet_train_flops(cfg)
+    _, _, f32 = card_peaks(device_name)
+    ok = (bool(np.isfinite(losses).all()) and bool(np.isfinite(fall).all())
+          and fall[-1] < fall[0] and acc[-1] > acc[0])
+    emit({"phase": "dygraph_resnet", "config": "ResNet-50 in dygraph "
+          "(PaddlePaddle models v1.6 dygraph/resnet/train.py)",
+          "device": device_name, "nvidia_smi": card, "dtype": "float32",
+          "batch": cfg.batch, "image": cfg.image, "classes": cfg.classes,
+          "optimizer": "momentum(0.9) over piecewise_decay from 0.1",
+          "steps_timed": DY_TIMED, "ms_per_step": step_s * 1e3,
+          "ms_each_step": ms, "images_per_sec": cfg.batch / step_s,
+          "train_flops_per_step": flops,
+          "f32_cuda_core_share": flops / step_s / f32,
+          "peak_memory_gb": peak / 1e9, "first_loss": losses[0],
+          "losses": losses, "fixed_batch_losses": fall,
+          "fixed_batch_accuracy_first_last": [acc[0], acc[-1]],
+          "launches_per_step": prof["launches_per_step"],
+          "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+          "device_busy_share": 1 - prof["device_idle_share"],
+          "device_idle_share": prof["device_idle_share"],
+          "wall_ms_per_step_profiled": prof["wall_ms_per_step"], "ok": ok})
+    if not ok:
+        raise AssertionError("dygraph ResNet-50: losses finite %s, loss %r -> "
+                             "%r, accuracy %r -> %r" % (
+                                 bool(np.isfinite(losses).all()), fall[0],
+                                 fall[-1], acc[0], acc[-1]))
+    return net, dygraph_resnet_feed(cfg, DY_FEED_SEED + DY_WARMUP + DY_TIMED)
+
+
+def _dy_same_state(a, b):
+    import numpy as np
+
+    return list(a) == list(b) and all(
+        a[n].dtype == b[n].dtype and np.array_equal(a[n], b[n]) for n in a)
+
+
+def phase_dygraph_serving(card, net, feed):
+    """Phase 49: phase 48's trained ResNet-50.  ``save_dygraph`` ->
+    ``load_dygraph`` -> ``set_dict`` into a fresh net restores every
+    parameter and BN statistic bit for bit.  ``TracedLayer.trace`` in eval
+    mode at B = 32: the traced call against the eager eval forward to
+    DEPLOY_TOL (as phase 22 holds the exported predictor), the layer's
+    state unchanged by it; ``save_inference_model`` -> ``TracedLayer.load``
+    equals the traced call bit for bit; ms a request eager (under
+    ``no_grad``), traced and loaded; a call at B = DY_NEW_BATCH records one
+    recompile with the monitor enabled.  ``DataParallel`` at one rank
+    trains one step of phase 47's narrow net bit for bit as the bare net."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.tools.programs import (
+        DYGRAPH_RESNET50, dygraph_resnet, dygraph_resnet_feed,
+        dygraph_resnet_optimizer, dygraph_resnet_step)
+
+    dy = fluid.dygraph
+    t0 = time.perf_counter()
+    rec = {"phase": "dygraph_serving", "nvidia_smi": card,
+           "batch": DYGRAPH_RESNET50.batch, "tol": DEPLOY_TOL}
+    saved = _deterministic_cudnn()
+    try:
+        with dy.guard():
+            trained = net.state_dict()
+            shutil.rmtree(DY_DIR, ignore_errors=True)
+            path = DY_DIR + "/resnet50"
+            dy.save_dygraph(trained, path)
+            loaded, _ = dy.load_dygraph(path)
+            fresh = dygraph_resnet(fluid, DYGRAPH_RESNET50)
+            fresh.set_dict(loaded)
+            rec["checkpoint_bit_for_bit"] = _dy_same_state(fresh.state_dict(),
+                                                           trained)
+            del fresh
+            net.eval()
+            img = dy.to_variable(feed[0])
+            with dy.no_grad():
+                eager = net(img).numpy()
+            t1 = time.perf_counter()
+            _, traced = dy.TracedLayer.trace(net, [img])
+            got = traced(img).numpy()
+            rec["trace_and_capture_seconds"] = time.perf_counter() - t1
+            rec["traced_rel_err_vs_eager"] = _rel(got, eager)
+            rec["layer_state_unchanged"] = _dy_same_state(net.state_dict(),
+                                                          trained)
+            t1 = time.perf_counter()
+            traced.save_inference_model(DY_DIR + "/traced")
+            served = dy.TracedLayer.load(DY_DIR + "/traced")
+            from_disk = served(feed[0]).numpy()
+            rec["save_load_seconds"] = time.perf_counter() - t1
+            rec["loaded_bit_for_bit"] = bool(np.array_equal(from_disk, got))
+
+            def eager_call():
+                with dy.no_grad():
+                    return net(dy.to_variable(feed[0])).numpy()
+
+            rec["ms_per_request"] = {
+                "eager": _per_request(eager_call, DY_REQUESTS)[0],
+                "traced": _per_request(lambda: traced(feed[0]).numpy(),
+                                       DY_REQUESTS)[0],
+                "loaded": _per_request(lambda: served(feed[0]).numpy(),
+                                       DY_REQUESTS)[0]}
+            mon = monitor.enable(_fresh_dir("dygraph_monitor"))
+            try:
+                before = len(mon.recompiles.events)
+                traced(feed[0][:DY_NEW_BATCH])
+                traced(feed[0][:DY_NEW_BATCH])
+                events = list(mon.recompiles.events)[before:]
+            finally:
+                monitor.disable()
+            rec["new_signature_recompiles"] = len(events)
+            rec["recompile_ident"] = events[0]["ident"] if events else None
+            net.train()
+        cfg = _dy_narrow()
+        small = dygraph_resnet_feed(cfg, DY_FEED_SEED)
+        with dy.guard(fluid.CPUPlace()):
+            start = dygraph_resnet(fluid, cfg).state_dict()
+        after = []
+        for wrap in (False, True):
+            with dy.guard():
+                bare = dygraph_resnet(fluid, cfg)
+                bare.set_dict(start)
+                model = dy.DataParallel(bare) if wrap else bare
+                if wrap:
+                    dy.prepare_context()
+                opt = dygraph_resnet_optimizer(fluid)
+                img, lab = map(dy.to_variable, small)
+                loss = fluid.dygraph.nn._lowering_apply(
+                    "mean", ("X",), {}, "Out", fluid.dygraph.nn._lowering_apply(
+                        "cross_entropy", ("X", "Label"), {}, "Y", model(img), lab))
+                if wrap:
+                    loss = model.scale_loss(loss)
+                loss.backward()
+                if wrap:
+                    model.apply_collective_grads()
+                opt.minimize(loss, parameter_list=model.parameters())
+                after.append(model.state_dict())
+        rec["data_parallel_bit_for_bit"] = _dy_same_state(after[1], after[0])
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    rec["seconds"] = time.perf_counter() - t0
+    ok = (rec["checkpoint_bit_for_bit"] and rec["layer_state_unchanged"]
+          and rec["traced_rel_err_vs_eager"] <= DEPLOY_TOL
+          and rec["loaded_bit_for_bit"] and rec["new_signature_recompiles"] == 1
+          and "TracedLayer" in (rec["recompile_ident"] or "")
+          and rec["data_parallel_bit_for_bit"])
+    rec["ok"] = bool(ok)
+    emit(rec)
+    if not ok:
+        raise AssertionError("dygraph serving: %s" % rec)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -5226,6 +5674,12 @@ def main():
     phase_lac(name, card)
     assert_no_launches("item 3-B's rules, the Fluid-layers encoder, the "
                        "CRNN and the LAC tagger")
+    torch.cuda.empty_cache()
+    phase_dygraph_parity(card)
+    dy_net, dy_feed = phase_dygraph_resnet(name, card)
+    phase_dygraph_serving(card, dy_net, dy_feed)
+    del dy_net
+    assert_no_launches("the dygraph mode (parity, ResNet-50, serving)")
     for rec in kernels:
         if rec["name"] == "segment_sum":
             rec["ctr_dataset_launches_per_step"] = ctr_per_step

@@ -43,6 +43,11 @@ module names so each counterpart is easy to find:
   ``distributed`` (the ``DistributeTranspiler``, whose tagged programs the
   executor refuses until the multi-GPU engine), ``install_check``
   (``run_check``) and ``contrib.layers``;
+- ``dygraph`` (the imperative mode: ``guard``, ``VarBase`` and its tape,
+  ``Layer``, the ``nn`` layers, ``TracedLayer``, ``DataParallel`` at one
+  rank, ``save_dygraph`` / ``load_dygraph``, the schedulers) and
+  ``dygraph_grad_clip``; ``optimizer.*.minimize`` under ``dygraph.guard()``
+  updates the parameters eagerly;
 - ``convert``: parameter trees and scopes to and from the JAX package's
   numpy form.
 
@@ -109,6 +114,8 @@ from . import transpiler  # noqa: F401
 from . import install_check  # noqa: F401
 from . import ir  # noqa: F401
 from . import distributed  # noqa: F401
+from . import dygraph  # noqa: F401
+from . import dygraph_grad_clip  # noqa: F401
 
 __all__ = [
     "Program", "Block", "Operator", "Variable", "Parameter", "program_guard",
@@ -124,5 +131,5 @@ __all__ = [
     "FetchHandler", "DataLoader", "dataset", "DatasetFactory",
     "AsyncExecutor", "EOFException", "learning_rate_decay", "LoDTensor",
     "LoDTensorArray", "Tensor", "transpiler", "install_check", "ir",
-    "distributed",
+    "distributed", "dygraph", "dygraph_grad_clip",
 ]

@@ -7,8 +7,10 @@ ModelAverage :2484, EMA :2786, Pipeline :3020, Recompute :3313, Lookahead :3606)
 
 Update rules themselves are ops (ops/optimizer_ops.py), which the executor
 runs after the backward section.  A copy of the JAX package's
-``optimizer.py`` (its program-mode classes); the dygraph path raises until
-the port has dygraph (ROADMAP Queue 1 item 3)."""
+``optimizer.py``.  Under ``dygraph.guard()``, ``minimize`` runs the same
+rules eagerly on the parameters' gradients, with the accumulators kept
+per optimizer (``_dy_acc``); as in the JAX package, that path applies no
+``regularization`` and no ``grad_clip``."""
 
 import numpy as np
 
@@ -155,12 +157,65 @@ class Optimizer:
         from .framework import in_dygraph_mode
 
         if in_dygraph_mode():
-            raise NotImplementedError(
-                "dygraph minimize: the port has no dygraph mode yet (ROADMAP "
-                "Queue 1 item 3, dygraph/*)")
+            return self._dygraph_minimize(loss, parameter_list)
         params_grads = self.backward(loss, startup_program, parameter_list, no_grad_set)
         opt_ops = self.apply_gradients(params_grads)
         return opt_ops, params_grads
+
+    # -- dygraph path (parity: optimizers run after loss.backward() on the
+    # imperative tape; updates reuse the SAME op rules so static and
+    # dygraph numerics are identical) --------------------------------------
+    def _dygraph_minimize(self, loss, parameter_list):
+        import torch
+
+        from .registry import get_lowering, OpLoweringContext
+
+        params = [p for p in (parameter_list or []) if p.trainable]
+        if not params:
+            raise ValueError("dygraph minimize requires parameter_list")
+        if not hasattr(self, "_dy_acc"):
+            self._dy_acc = {}
+        lr = self._learning_rate() if callable(self._learning_rate) else self._learning_rate
+        device = params[0]._value.device
+        lr = torch.tensor([float(lr)], dtype=torch.float32, device=device)
+        ctx = OpLoweringContext(None, torch.Generator(device).manual_seed(0))
+        rule = get_lowering(self.type)
+        for p in params:
+            if p._grad is None:
+                continue
+            ins, outs_map = self._dygraph_slots(p)
+            ins["Param"] = [p._value]
+            ins["Grad"] = [p._grad.to(p._value.dtype)]
+            ins["LearningRate"] = [lr]
+            result = rule(ins, self._dygraph_attrs(), ctx)
+            p.set_value(result["ParamOut"][0])
+            for slot, key in outs_map.items():
+                if slot in result:
+                    self._dy_acc[key] = result[slot][0]
+        return None, [(p, p._grad) for p in params]
+
+    def _dygraph_slots(self, p):
+        """Build accumulator input slots for the dygraph path; returns
+        (ins, {out_slot: acc_key}).  Overridden per optimizer family via
+        _DY_SLOTS: list of (in_slot, out_slot, acc_name, init)."""
+        import torch
+
+        ins = {}
+        outs = {}
+        for in_slot, out_slot, acc_name, init in getattr(self, "_DY_SLOTS", []):
+            key = (acc_name, id(p))
+            if key not in self._dy_acc:
+                if acc_name.endswith("pow"):
+                    self._dy_acc[key] = torch.tensor(
+                        [init], dtype=torch.float32, device=p._value.device)
+                else:
+                    self._dy_acc[key] = torch.zeros_like(p._value)
+            ins[in_slot] = [self._dy_acc[key]]
+            outs[out_slot] = key
+        return ins, outs
+
+    def _dygraph_attrs(self):
+        return {}
 
 
 class SGDOptimizer(Optimizer):
@@ -186,6 +241,10 @@ class MomentumOptimizer(Optimizer):
         super().__init__(learning_rate, **kwargs)
         self._momentum = momentum
         self._use_nesterov = use_nesterov
+        self._DY_SLOTS = [("Velocity", "VelocityOut", "velocity", 0.0)]
+
+    def _dygraph_attrs(self):
+        return {"mu": self._momentum, "use_nesterov": self._use_nesterov}
 
     def _create_accumulators(self, block, parameters):
         for p in parameters:
@@ -310,6 +369,16 @@ class AdamOptimizer(Optimizer):
         super().__init__(learning_rate, **kwargs)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
         self._lazy_mode = lazy_mode
+        self._DY_SLOTS = [
+            ("Moment1", "Moment1Out", "moment1", 0.0),
+            ("Moment2", "Moment2Out", "moment2", 0.0),
+            ("Beta1Pow", "Beta1PowOut", "beta1_pow", beta1),
+            ("Beta2Pow", "Beta2PowOut", "beta2_pow", beta2),
+        ]
+
+    def _dygraph_attrs(self):
+        return {"beta1": self._beta1, "beta2": self._beta2,
+                "epsilon": self._epsilon, "lazy_mode": self._lazy_mode}
 
     def _create_accumulators(self, block, parameters):
         for p in parameters:

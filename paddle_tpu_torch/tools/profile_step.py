@@ -1,6 +1,6 @@
 """Where a training step's device time goes.
 
-    python -m paddle_tpu_torch.tools.profile_step [--model bert|resnet50|deepfm|nmt|lenet|book|fluid_encoder|crnn_ctc|lac] [--trace out.json]
+    python -m paddle_tpu_torch.tools.profile_step [--model bert|resnet50|deepfm|nmt|lenet|book|fluid_encoder|crnn_ctc|lac|dygraph_resnet] [--trace out.json]
 
 Builds the same trainer and batches as ``chip_smoke.py``'s slice phases
 (bf16 BERT-base with LAMB at B = 64, S = 512; bf16 ResNet-50 with fused
@@ -19,7 +19,10 @@ B = 32, Momentum(1e-3, 0.9) with L2Decay, through
 ``Executor(CUDAPlace(0))``, as ``chip_smoke.py`` phase 43 trains it;
 with ``--model lac`` the LAC lexical-analysis tagger of
 ``tools/programs.py`` at its published widths, f32, B = 300, T = 64,
-Adam(1e-3), as ``chip_smoke.py`` phase 46 trains it),
+Adam(1e-3), as ``chip_smoke.py`` phase 46 trains it; with ``--model
+dygraph_resnet`` the dygraph ResNet-50 of ``tools/programs.py`` in f32,
+B = 32, 224 x 224, Momentum over ``PiecewiseDecay``, one tape sweep and
+``minimize`` a step, as ``chip_smoke.py`` phase 48 trains it),
 takes a warm-up step, then traces
 two steps with ``torch.profiler`` (CPU and CUDA activities).  Without
 ``--model`` it profiles all five.  Prints one JSON line per kernel group
@@ -118,6 +121,18 @@ GROUPS = {
         ("sort (the sparse rows' merge)", ("sort", "radix")),
         ("copies and casts (step slices, stacks)", ("copy", "cat", "fill")),
         ("elementwise (GRU gates, CRF recursion, Adam)", (
+            "elementwise", "vectorized", "unrolled")),
+    ),
+    "dygraph_resnet": (
+        ("convolution (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit",
+                                 "cudnn", "winograd", "fft", "xmma", "sm90_",
+                                 "nvjet", "cutlass")),
+        ("fc product (cuBLAS)", ("gemm",)),
+        ("batch norm statistics and other reductions", ("reduce", "norm",
+                                                        "welford")),
+        ("pooling", ("pool",)),
+        ("copies and casts", ("copy", "cat", "fill")),
+        ("elementwise (batch norm, ReLU, adds, momentum)", (
             "elementwise", "vectorized", "unrolled")),
     ),
     "lenet": (
@@ -463,6 +478,47 @@ def _lac():
              "feed": "numpy, copied to the card by Executor.run"})
 
 
+class DygraphStep:
+    """A dygraph training step as a trainer: ``step(batch, lr)`` runs
+    ``tools/programs.py``'s ``dygraph_resnet_step`` under a guard on the
+    card (``lr`` unused: the optimizer holds its schedule)."""
+
+    def __init__(self, fluid, net, opt):
+        self.fluid, self.net, self.opt = fluid, net, opt
+
+    def step(self, batch, lr=None):
+        from paddle_tpu_torch.tools.programs import dygraph_resnet_step
+
+        dy = self.fluid.dygraph
+        with dy.guard():
+            loss, _ = dygraph_resnet_step(self.fluid, self.net, self.opt,
+                                          dy.to_variable(batch["img"]),
+                                          dy.to_variable(batch["label"]))
+        return loss
+
+
+def _dygraph_resnet():
+    """The dygraph ResNet-50 (``tools/programs.py`` ``DYGRAPH_RESNET50``)
+    with Momentum over ``PiecewiseDecay``, the seeded batches staged on the
+    card."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools.programs import (
+        DYGRAPH_RESNET50, dygraph_resnet, dygraph_resnet_feed,
+        dygraph_resnet_optimizer, dygraph_resnet_train_flops)
+
+    cfg = DYGRAPH_RESNET50
+    with fluid.dygraph.guard():
+        net = dygraph_resnet(fluid, cfg)
+    feeds = [dygraph_resnet_feed(cfg, SEED + i) for i in range(STEPS + 1)]
+    staged = {k: torch.from_numpy(np.stack([f[i] for f in feeds])).cuda()
+              for i, k in enumerate(("img", "label"))}
+    return (DygraphStep(fluid, net, dygraph_resnet_optimizer(fluid)), staged,
+            None, {"batch": cfg.batch, "image": cfg.image, "dtype": "float32",
+                   "optimizer": "momentum(piecewise 0.1, 0.9), dygraph",
+                   "train_flops_per_step": dygraph_resnet_train_flops(cfg),
+                   "feed": "seeded batches staged on the card"})
+
+
 def cuda_kernels_per_call(fn, calls=5):
     """{CUDA kernel name: (launches a call, device ms a call)} from
     torch.profiler, after one untimed call of ``fn``: ``calls`` calls, each
@@ -493,7 +549,8 @@ def profile_model(model, card, trace=None):
                                       "lenet": _lenet,
                                       "fluid_encoder": _fluid_encoder,
                                       "crnn_ctc": _crnn_ctc,
-                                      "lac": _lac}[model]()
+                                      "lac": _lac,
+                                      "dygraph_resnet": _dygraph_resnet}[model]()
     batches = [{k: v[i] for k, v in staged.items()} for i in range(STEPS + 1)]
     trainer.step(batches[0], lr)
     torch.cuda.synchronize()

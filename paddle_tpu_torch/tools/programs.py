@@ -30,7 +30,11 @@ that ``chip_smoke.py`` and the tests build the same programs:
   ``linear_chain_crf`` trained by Adam, and ``crf_decoding`` with
   ``chunk_eval`` (IOB) as its evaluation.
 
-Each returns ``(main, startup, vars)``, built under a fresh
+- ``dygraph_resnet``: the dygraph ResNet of PaddlePaddle models v1.6
+  (``dygraph/resnet/train.py``), a ``Layer`` on ``fluid.dygraph`` with its
+  optimizer, loss and step.
+
+Each program builder returns ``(main, startup, vars)``, built under a fresh
 ``unique_name.guard()`` so the two packages name every var alike.
 """
 
@@ -42,7 +46,11 @@ __all__ = ["while_beam_decode", "cond_program", "switch_program",
            "EncoderConfig", "BERT_BASE_ENCODER", "bert_encoder_program",
            "encoder_feed", "encoder_train_flops", "CRNNConfig", "CRNN_CTC",
            "crnn_ctc_program", "crnn_feed", "crnn_train_flops", "LACConfig",
-           "LAC", "lac_program", "lac_feed", "lac_train_flops"]
+           "LAC", "lac_program", "lac_feed", "lac_train_flops",
+           "DygraphResNetConfig", "DYGRAPH_RESNET50", "dygraph_resnet",
+           "dygraph_resnet_optimizer", "dygraph_resnet_loss",
+           "dygraph_resnet_step", "dygraph_resnet_feed",
+           "dygraph_resnet_train_flops"]
 
 
 def while_beam_decode(fluid, T, B, K, V, end_id=0):
@@ -504,3 +512,187 @@ def lac_train_flops(cfg):
         width = 2 * h
     per_token += 2 * width * cfg.tags
     return 3 * tokens * per_token
+
+
+DygraphResNetConfig = collections.namedtuple(
+    "DygraphResNetConfig", "depth base_width classes batch image")
+
+# PaddlePaddle models v1.6 dygraph/resnet/train.py, which no caller varies:
+# Momentum 0.9 over piecewise_decay from lr 0.1 (boundaries at epochs 30,
+# 60, 90 of ImageNet's 1,281,167 images at the strategy's batch 256,
+# values 0.1, 0.01, 0.001, 0.0001) and L2Decay(1e-4); the fc's
+# Uniform(-1/sqrt(2048), 1/sqrt(2048)) initialiser
+RESNET_MOMENTUM = 0.9
+RESNET_BASE_LR = 0.1
+RESNET_LR_EPOCHS = (30, 60, 90)
+RESNET_TOTAL_IMAGES = 1281167
+RESNET_STRATEGY_BATCH = 256
+RESNET_L2 = 1e-4
+
+# ResNet-50 at its published widths: bottlenecks [3, 4, 6, 3] of 64-512
+# filters (x 4 out), 102 classes (flowers), batch 32, 224 x 224
+DYGRAPH_RESNET50 = DygraphResNetConfig(depth=(3, 4, 6, 3), base_width=64,
+                                       classes=102, batch=32, image=224)
+
+
+def dygraph_resnet(fluid, cfg):
+    """The dygraph ResNet of PaddlePaddle models v1.6
+    ``dygraph/resnet/train.py`` on ``fluid``'s dygraph (call it under
+    ``fluid.dygraph.guard``): ``ConvBNLayer`` (a ``Conv2D`` without bias,
+    then ``BatchNorm(act)``), ``BottleneckBlock``s of ``cfg.depth`` with
+    1x1 / 3x3 / 1x1 convolutions, a projection shortcut first in each
+    stage, the add and a ReLU after it; a 7x7/2 stem, a 3/2/1 max pool, a
+    global average pool, a reshape and a ``Linear`` to ``cfg.classes``
+    with ``act="softmax"``.  The add, the ReLU and the reshape run the op
+    rules through ``nn._lowering_apply``, as ``fluid.layers`` builds
+    them in the source (``fluid.layers`` builds program ops under a
+    dygraph guard in both packages)."""
+    dg = fluid.dygraph
+    lower = dg.nn._lowering_apply
+    widths = [cfg.base_width * 2 ** i for i in range(len(cfg.depth))]
+
+    class ConvBNLayer(dg.Layer):
+        def __init__(self, num_channels, num_filters, filter_size, stride=1,
+                     act=None):
+            super().__init__("conv_bn_layer")
+            self._conv = dg.Conv2D(
+                num_channels=num_channels, num_filters=num_filters,
+                filter_size=filter_size, stride=stride,
+                padding=(filter_size - 1) // 2, act=None, bias_attr=False)
+            self._batch_norm = dg.BatchNorm(num_channels=num_filters, act=act)
+
+        def forward(self, inputs):
+            return self._batch_norm(self._conv(inputs))
+
+    class BottleneckBlock(dg.Layer):
+        def __init__(self, num_channels, num_filters, stride, shortcut):
+            super().__init__("bottleneck_block")
+            self.conv0 = ConvBNLayer(num_channels, num_filters, 1, act="relu")
+            self.conv1 = ConvBNLayer(num_filters, num_filters, 3,
+                                     stride=stride, act="relu")
+            self.conv2 = ConvBNLayer(num_filters, num_filters * 4, 1)
+            if not shortcut:
+                self.short = ConvBNLayer(num_channels, num_filters * 4, 1,
+                                         stride=stride)
+            self.shortcut = shortcut
+
+        def forward(self, inputs):
+            conv2 = self.conv2(self.conv1(self.conv0(inputs)))
+            short = inputs if self.shortcut else self.short(inputs)
+            y = lower("elementwise_add", ("X", "Y"), {"axis": -1}, "Out",
+                      short, conv2)
+            return lower("relu", ("X",), {}, "Out", y)
+
+    class ResNet(dg.Layer):
+        def __init__(self):
+            super().__init__("resnet")
+            self.conv = ConvBNLayer(3, widths[0], 7, stride=2, act="relu")
+            self.pool2d_max = dg.Pool2D(pool_size=3, pool_stride=2,
+                                        pool_padding=1, pool_type="max")
+            self.blocks = []
+            channels = widths[0]
+            for stage, n in enumerate(cfg.depth):
+                shortcut = False
+                for i in range(n):
+                    block = self.add_sublayer(
+                        "bb_%d_%d" % (stage, i),
+                        BottleneckBlock(channels, widths[stage],
+                                        2 if i == 0 and stage != 0 else 1,
+                                        shortcut))
+                    self.blocks.append(block)
+                    channels, shortcut = widths[stage] * 4, True
+            self.pool2d_avg = dg.Pool2D(pool_size=7, pool_type="avg",
+                                        global_pooling=True)
+            self.features = channels
+            stdv = 1.0 / np.sqrt(channels * 1.0)
+            self.out = dg.Linear(
+                channels, cfg.classes, act="softmax",
+                param_attr=fluid.ParamAttr(
+                    initializer=fluid.initializer.Uniform(-stdv, stdv)))
+
+        def forward(self, inputs):
+            y = self.pool2d_max(self.conv(inputs))
+            for block in self.blocks:
+                y = block(y)
+            y = self.pool2d_avg(y)
+            y = lower("reshape2", ("X",), {"shape": [-1, self.features]},
+                      "Out", y)
+            return self.out(y)
+
+    return ResNet()
+
+
+def dygraph_resnet_optimizer(fluid):
+    """``train.py``'s ``optimizer_setting``: Momentum(RESNET_MOMENTUM) over
+    ``PiecewiseDecay`` (RESNET_BASE_LR, a tenth at each boundary) with
+    ``L2Decay(RESNET_L2)``, which neither package's dygraph optimizer
+    applies."""
+    step = int(RESNET_TOTAL_IMAGES / RESNET_STRATEGY_BATCH + 1)
+    boundaries = [step * e for e in RESNET_LR_EPOCHS]
+    values = [RESNET_BASE_LR * 0.1 ** i for i in range(len(boundaries) + 1)]
+    return fluid.optimizer.Momentum(
+        learning_rate=fluid.dygraph.PiecewiseDecay(boundaries, values, 0),
+        momentum=RESNET_MOMENTUM,
+        regularization=fluid.regularizer.L2Decay(RESNET_L2))
+
+
+def dygraph_resnet_loss(fluid, net, img, label):
+    """(mean cross-entropy, softmax output) of ``net`` on one batch of
+    VarBases, through ``cross_entropy`` and ``mean`` as ``train.py`` takes
+    them."""
+    lower = fluid.dygraph.nn._lowering_apply
+    out = net(img)
+    loss = lower("cross_entropy", ("X", "Label"), {}, "Y", out, label)
+    return lower("mean", ("X",), {}, "Out", loss), out
+
+
+def dygraph_resnet_step(fluid, net, opt, img, label):
+    """One training step as ``train.py`` takes it: the loss, ``backward``,
+    ``minimize`` over the parameters and ``clear_gradients``.  Returns
+    (loss, softmax output) as VarBases."""
+    loss, out = dygraph_resnet_loss(fluid, net, img, label)
+    loss.backward()
+    opt.minimize(loss, parameter_list=net.parameters())
+    net.clear_gradients()
+    return loss, out
+
+
+def dygraph_resnet_feed(cfg, seed):
+    """Images [B, 3, S, S] f32 and labels [B, 1] int64 from
+    ``numpy.random.RandomState(seed)``, as ``datasets/flowers.py``'s
+    synthetic fallback makes them at 32 x 32, scaled to S: noise in
+    [0, 0.3) and 0.7 added to one S/8 square, at cell label mod 64 of an
+    8 x 8 grid, in channel label mod 3, so the label follows from the
+    image (the pair is unique below 192 classes)."""
+    rng = np.random.RandomState(seed)
+    B, S = cfg.batch, cfg.image
+    cell = S // 8
+    label = rng.randint(0, cfg.classes, B)
+    img = rng.rand(B, 3, S, S).astype(np.float32) * 0.3
+    for b, lab in enumerate(label):
+        r, c = divmod(int(lab) % 64, 8)
+        img[b, lab % 3, r * cell:(r + 1) * cell, c * cell:(c + 1) * cell] += 0.7
+    return img, label.reshape(B, 1).astype(np.int64)
+
+
+def dygraph_resnet_train_flops(cfg):
+    """Multiply-add FLOPs of one training step (3x the forward): every
+    convolution and the fc (batch norm, pooling and the elementwise work
+    not counted)."""
+    S, B = cfg.image, cfg.batch
+    widths = [cfg.base_width * 2 ** i for i in range(len(cfg.depth))]
+    H = S // 2
+    macs = H * H * 49 * 3 * widths[0]
+    H = -(-H // 2)
+    cin = widths[0]
+    for stage, n in enumerate(cfg.depth):
+        w = widths[stage]
+        for i in range(n):
+            stride = 2 if i == 0 and stage != 0 else 1
+            Ho = -(-H // stride)
+            macs += H * H * cin * w + Ho * Ho * (9 * w * w + w * 4 * w)
+            if i == 0:
+                macs += Ho * Ho * cin * 4 * w
+            H, cin = Ho, 4 * w
+    macs += cin * cfg.classes
+    return 3 * 2 * B * macs

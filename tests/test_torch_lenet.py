@@ -414,6 +414,8 @@ def test_monitor_env_run_writes_a_timeline(tmp_path, monkeypatch):
 
 
 def test_dygraph_minimize_raises():
+    """Under a dygraph guard ``minimize`` takes the dygraph path, which
+    needs the trainable parameters, as the JAX package's does."""
     from paddle_tpu_torch import framework
 
     main, startup = pfluid.Program(), pfluid.Program()
@@ -421,7 +423,7 @@ def test_dygraph_minimize_raises():
         x = pfluid.layers.data("x", shape=[3], dtype="float32")
         loss = pfluid.layers.mean(pfluid.layers.fc(x, 2))
     with framework._dygraph_guard(object()):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
+        with pytest.raises(ValueError, match="requires parameter_list"):
             pfluid.optimizer.SGD(0.1).minimize(loss)
 
 
