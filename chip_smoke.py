@@ -356,7 +356,29 @@ Builds the port's CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
     the eager forward and its saved program bit for bit, ms a request
     eager / traced / loaded, one recompile for a new batch size, and
     ``DataParallel`` at one rank bit for bit; no port kernel launched in
-    47-49.
+    47-49;
+50. ``dp_nccl``: ``fleet.init()`` from a one-rank PADDLE_* env joins a
+    world of one over NCCL; ``build_bert_trainer(bert_base_config(),
+    MeshSpec(dp=1))`` (bf16, B = 64, S = 512, LAMB, 3 steps) bit for bit
+    against the default one-device trainer, ms a step both ways; every
+    backend function under the collective wrappers on the NCCL group at
+    BERT-base's gradient size, each bit for bit its identity, timed;
+51. ``dp_two_ranks``: two spawned ranks share the card over gloo (CUDA
+    tensors; NCCL refuses two ranks on one device): every backend
+    function checked on the card's tensors; ResNet-50 (224, bf16,
+    ``fuse_bn``, ``sync_bn``, momentum, global B = 128) and BERT-base (bf16,
+    LAMB, ``zero=True``, global B = 64), 3 steps each: replicas bit for
+    bit, every reduced statistic and gradient the card's sum of the ranks'
+    local values bit for bit, the loss within the derived bound of the
+    mean of the same terms (BERT's terms bit for bit the one-rank step's),
+    the update against the one-rank optimizer's on the reduced gradient,
+    ms a step, collective ms, peak memory, launches a rank a step (53 of
+    each BN kernel; 24 / 24 / 12 / 12 LN and flash), then 3 more steps of
+    each untapped and timed; ResNet-50 in f32, two steps at dp = 2 with
+    sync-BN, its per-image loss terms and reduced gradient held to the
+    one-rank step's within DP_F32_LIMIT times the distance a row
+    permutation of the global batch makes, and a control without sync-BN
+    that must exceed that limit.
 
 Phases 30-33 and 36 write their monitor directories under
 ``build/monitor``, phases 35-36 their data files under
@@ -854,8 +876,9 @@ def _bert_slice():
 
     cfg = bert.bert_base_config()
     trainer = bert.build_bert_trainer(cfg, optimizer=optim.lamb(), seed=0)
-    staged = stack_batches(bert.synthetic_batches(cfg, TIMED_STEPS + 1, B, S),
-                           trainer.device, bert.batch_specs())
+    staged = stack_batches(trainer.mesh, bert.batch_specs(),
+                           bert.synthetic_batches(cfg, TIMED_STEPS + 1, B, S),
+                           bert.batch_dtypes())
     batches = [{k: v[i] for k, v in staged.items()} for i in range(TIMED_STEPS + 1)]
     return cfg, trainer, batches
 
@@ -1087,14 +1110,16 @@ def phase_compare_bn():
 def phase_resnet_slice(device_name):
     from paddle_tpu_torch.models import resnet
     from paddle_tpu_torch.parallel import optim
+    from paddle_tpu_torch.parallel.rules import P
     from paddle_tpu_torch.parallel.train import stack_batches
 
     cfg = resnet.resnet50_config(dtype="bfloat16", fuse_bn=True, image_size=IMAGE)
     trainer = resnet.build_resnet_trainer(cfg, optimizer=optim.momentum(0.9),
                                           seed=0)
     # images staged in bf16, as bench.py stages them on the chip
-    staged = stack_batches(resnet.synthetic_batches(cfg, TIMED_STEPS + 1, B_RN),
-                           trainer.device, {"image": torch.bfloat16})
+    staged = stack_batches(trainer.mesh, {"image": P("dp"), "label": P("dp")},
+                           resnet.synthetic_batches(cfg, TIMED_STEPS + 1, B_RN),
+                           {"image": torch.bfloat16})
     batches = [{k: v[i] for k, v in staged.items()} for i in range(TIMED_STEPS + 1)]
     torch.cuda.reset_peak_memory_stats()
     dt, losses, counts = timed_steps(trainer, batches, 1e-2, RN_PER_STEP)
@@ -5589,6 +5614,885 @@ def phase_dygraph_serving(card, net, feed):
         raise AssertionError("dygraph serving: %s" % rec)
 
 
+# -- item 5-A: data parallelism (phases 50-51) ----------------------------------
+
+DP_STEPS = 3
+DP_WORLD = 2                  # phase 51: two gloo ranks sharing the one card
+DP_LR_BERT, DP_LR_RN = 1e-4, 1e-2     # the slices' learning rates (4, 7)
+DP_TIMEOUT_S = 600
+DP_F32_STEPS = 2              # phase 51's f32 ResNet-50 steps at dp = 2
+# ... held within this many yardsticks: sound runs on the H100 read 0.90-1.36,
+# the control without sync-BN 41-3,161 (PERF.md, section 6)
+DP_F32_LIMIT = 4.0
+U_BF16 = 2.0 ** -8            # bf16's unit roundoff (8 significant bits)
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _same_tensor_bits(a, b):
+    """Equal shapes, dtypes and bits (-0.0 is not 0.0)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    ints = {torch.bfloat16: torch.int16, torch.float16: torch.int16,
+            torch.float32: torch.int32, torch.float64: torch.int64}
+    if a.dtype in ints:
+        a, b = (t.contiguous().view(ints[t.dtype]) for t in (a, b))
+    return bool(torch.equal(a, b))
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _clone(tree):
+    from paddle_tpu_torch._tree import tree_map
+
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def _like(tree, leaves):
+    """``leaves`` (in ``tree_leaves`` order) put back in ``tree``'s shape."""
+    it = iter(leaves)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(t[k]) for k in sorted(t)}
+        if isinstance(t, list):
+            return [walk(v) for v in t]
+        return next(it)
+
+    return walk(tree)
+
+
+def phase_dp_nccl(device_name, card, device=None, bert_kw=None, batch=B, seq=S):
+    """Phase 50: the NCCL route at world size 1.  ``fleet.init()`` from a
+    one-rank PADDLE_* env joins a world of one over NCCL (the backend the
+    card picks); ``build_bert_trainer(bert_base_config(), MeshSpec(dp=1))``
+    (bf16, B = 64, S = 512, LAMB) trains DP_STEPS steps, held bit for bit
+    (losses, parameters, moments) to the default one-device trainer at the
+    same seed and batches, with ms a step both ways and the flash / LN
+    launches per step; then every backend function under the collective
+    wrappers, called directly on the one-rank NCCL group on a bf16 buffer
+    of BERT-base's gradient size (every parameter), each held bit for bit
+    to its identity (the sum of one, the concatenation of one, the
+    permutation of one) and timed."""
+    import os
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch._tree import tree_leaves
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.kernels import _common
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.parallel import MeshSpec, optim
+    from paddle_tpu_torch.parallel import collectives as col
+
+    endpoint = "127.0.0.1:%d" % _free_port()
+    env = {"PADDLE_TRAINER_ID": "0", "PADDLE_TRAINERS_NUM": "1",
+           "PADDLE_TRAINER_ENDPOINTS": endpoint,
+           "PADDLE_CURRENT_ENDPOINT": endpoint}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    rec = {"phase": "dp_nccl", "nvidia_smi": card}
+    try:
+        f = fleet.init(device=device)
+        dev = f.device
+        rec.update(backend=dist.get_backend(), world=dist.get_world_size(),
+                   device=str(dev))
+        cfg = bert.bert_base_config(**(bert_kw or {}))
+        batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+                   for b in bert.synthetic_batches(cfg, DP_STEPS, batch, seq)]
+
+        def run(mesh_spec):
+            kw = {} if mesh_spec is None else {"mesh_spec": mesh_spec}
+            tr = bert.build_bert_trainer(cfg, optimizer=optim.lamb(), seed=0,
+                                         device=dev, **kw)
+            _common.reset_launches()
+            losses, ms = [], []
+            for b in batches:
+                _sync(dev)
+                t0 = time.perf_counter()
+                losses.append(tr.step(b, DP_LR_BERT))
+                _sync(dev)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            counts = dict(_common.launches)
+            state = [t.detach().cpu() for t in tree_leaves(tr.state)]
+            rec["backend_elements"] = sum(t.numel() for t in
+                                          tree_leaves(tr.state["params"]))
+            del tr
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            return [float(l) for l in losses], ms, counts, state
+
+        one_loss, one_ms, one_counts, one_state = run(None)
+        dp_loss, dp_ms, dp_counts, dp_state = run(MeshSpec(dp=1))
+        rec.update(losses=dp_loss, ms_per_step_mesh=dp_ms,
+                   ms_per_step_one_device=one_ms, launches=dp_counts,
+                   bit_for_bit=bool(one_loss == dp_loss and all(
+                       _same_tensor_bits(a, b) for a, b in zip(one_state, dp_state))))
+        n = rec["backend_elements"]
+        del one_state, dp_state
+        group = dist.group.WORLD
+        gen = torch.Generator(device=dev).manual_seed(50)
+        buf = torch.randn(n, generator=gen, device=dev).to(torch.bfloat16)
+        calls = {
+            "all_reduce_sum": lambda: col.backend_all_reduce(buf, group, "sum"),
+            "all_reduce_max": lambda: col.backend_all_reduce(buf, group, "max"),
+            "all_reduce_min": lambda: col.backend_all_reduce(buf, group, "min"),
+            "all_gather": lambda: col.backend_all_gather(buf, group, 0),
+            "reduce_scatter": lambda: col.backend_reduce_scatter(buf, group, 0),
+            "permute": lambda: col.backend_permute(buf, group, 1),
+            "all_to_all": lambda: col.backend_all_to_all(buf, group, 0, 0),
+            "broadcast": lambda: col.backend_broadcast(buf, group, 0)}
+        rows = {}
+        for name, fn in calls.items():
+            got = fn()
+            _sync(dev)
+            same = _same_tensor_bits(got, buf)
+            del got
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fn()
+            _sync(dev)
+            rows[name] = {"bit_for_bit": same,
+                          "ms": (time.perf_counter() - t0) / 5 * 1e3}
+        rec["backend_calls"] = rows
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    want = {k: PER_STEP.get(k, 0) * DP_STEPS for k in rec["launches"]}
+    ok = (rec["backend"] == ("nccl" if torch.device(rec["device"]).type == "cuda"
+                            else "gloo")
+          and rec["world"] == 1 and rec["bit_for_bit"]
+          and all(r["bit_for_bit"] for r in rows.values())
+          and (rec["launches"] == want or dev.type != "cuda"))
+    rec["ok"] = bool(ok)
+    emit(rec)
+    if not ok:
+        raise AssertionError("phase 50 (NCCL at world 1): %s" % rec)
+    return rec["launches"]
+
+
+class _DpWatch:
+    """Inside the block: every sum the backend layer runs (psum's all-reduce
+    and ZeRO's reduce-scatter) recorded as (kind, the local value, the
+    reduced one, dim), and every torch.distributed collective timed on the
+    host clock between two syncs of the card."""
+
+    _TIMED = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
+              "broadcast", "all_to_all_single")
+
+    def __init__(self, device):
+        self.device = device
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        from paddle_tpu_torch.parallel import collectives as col
+
+        self.taps, self.seconds, self.calls, self._saved = [], 0.0, 0, []
+        ar, rs = col.backend_all_reduce, col.backend_reduce_scatter
+
+        def tap_ar(x, group, op="sum"):
+            y = ar(x, group, op)
+            if op == "sum":
+                self.taps.append(("sum", x.detach().clone(), y.detach(), None))
+            return y
+
+        def tap_rs(x, group, dim=0):
+            y = rs(x, group, dim)
+            self.taps.append(("scatter", x.detach().clone(), y.detach(), dim))
+            return y
+
+        def timed(fn):
+            def call(*a, **k):
+                _sync(self.device)
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                _sync(self.device)
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+                return out
+            return call
+
+        patches = [(col, "backend_all_reduce", tap_ar),
+                   (col, "backend_reduce_scatter", tap_rs)]
+        patches += [(dist, n, timed(getattr(dist, n))) for n in self._TIMED]
+        for mod, name, fn in patches:
+            self._saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def _check_taps(taps, rank, world):
+    """Each reduced value against the sum of the ranks' local values on the
+    card (gathered from every rank), bit for bit: (values checked, bad)."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.parallel import collectives as col
+
+    group, bad = dist.group.WORLD, 0
+    for kind, local, reduced, dim in taps:
+        both = col.backend_all_gather(local.unsqueeze(0), group, 0)
+        want = both[0]
+        for r in range(1, world):
+            want = want + both[r]
+        if kind == "scatter":
+            want = want.chunk(world, dim)[rank]
+        bad += not _same_tensor_bits(reduced, want)
+    return {"reduced_values": len(taps), "differ": bad}
+
+
+def _replicas_differ(trees, world):
+    """Leaves of ``trees`` whose bits differ between the ranks."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch._tree import tree_leaves
+    from paddle_tpu_torch.parallel import collectives as col
+
+    bad = 0
+    for t in (leaf for tree in trees for leaf in tree_leaves(tree)):
+        both = col.backend_all_gather(t.reshape(1, -1), dist.group.WORLD, 0)
+        bad += not all(_same_tensor_bits(both[0], both[r]) for r in range(1, world))
+    return bad
+
+
+def _dp_backend_check(rank, world, device):
+    """Every backend function on the gloo group over the card's tensors
+    (f32 and bf16), each against the value it must give, computed from the
+    ranks' gathered inputs: gloo takes CUDA tensors, nothing stages."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.parallel import collectives as col
+
+    group, out = dist.group.WORLD, {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = (torch.arange(world * 4 * 3, dtype=torch.float32, device=device)
+             .reshape(world * 4, 3) * (rank + 1) / 7).to(dt)
+        allx = col.backend_all_gather(x.unsqueeze(0), group, 0)
+        total = allx[0]
+        for r in range(1, world):
+            total = total + allx[r]
+        checks = {
+            "all_reduce_sum": (col.backend_all_reduce(x, group, "sum"), total),
+            "all_reduce_max": (col.backend_all_reduce(x, group, "max"),
+                               allx.amax(0)),
+            "all_reduce_min": (col.backend_all_reduce(x, group, "min"),
+                               allx.amin(0)),
+            "all_gather": (col.backend_all_gather(x, group, 1),
+                           torch.cat(list(allx), 1)),
+            "reduce_scatter": (col.backend_reduce_scatter(x, group, 0),
+                               total.chunk(world, 0)[rank]),
+            "permute": (col.backend_permute(x, group, 1),
+                        allx[(rank - 1) % world]),
+            "all_to_all": (col.backend_all_to_all(x, group, 0, 1),
+                           torch.cat([a.chunk(world, 0)[rank] for a in allx], 1)),
+            "broadcast": (col.backend_broadcast(x, group, 1), allx[1])}
+        for name, (got, want) in checks.items():
+            out["%s %s" % (name, str(dt)[6:])] = bool(
+                got.device == x.device and _same_tensor_bits(got, want))
+    return out
+
+
+def _split_sum_bound(terms, count, l_one, l_dp):
+    """The bound ``tools/fp_bounds.py`` derives for a mean of the same n
+    f32 ``terms`` that the one-rank step adds in one order and the dp = 2
+    step as two sums of n/2 added together: gamma(n - 1) sum |t| for the
+    first, gamma(n/2) sum |t| for the second (its halves and their sum),
+    over the count, and one division's rounding each."""
+    from paddle_tpu_torch.tools import fp_bounds
+
+    t = terms.double().flatten()
+    n = t.numel()
+    abs_sum = float(t.abs().sum())
+    bound = ((float(fp_bounds.gamma(n - 1)) + float(fp_bounds.gamma(n // 2)))
+             * abs_sum / count + 2 * fp_bounds.U32 * (abs(l_one) + abs(l_dp)))
+    return {"terms": n, "loss_one_order": l_one, "loss_dp": l_dp,
+            "err": abs(l_one - l_dp), "bound": bound,
+            "err_over_bound": abs(l_one - l_dp) / bound}
+
+
+def _terms_gap(t_x, t_one):
+    """Relative L2 distance of two runs' per-example loss terms."""
+    t_x, t_one = t_x.double().flatten(), t_one.double().flatten()
+    return float((t_x - t_one).norm() / t_one.norm())
+
+
+def _grad_gap(g_dp, g_one, world, names):
+    """The reduced dp gradient over the world size (an exact scaling)
+    against the one-rank gradient of the global batch, by leaf: the largest
+    relative L2 distance (and its leaf), the median one, and the median
+    ratio of the norms before the scaling (the dp gradient scale, ROADMAP
+    Queue 3).  Reported in bf16; phase 51 holds it in f32
+    (``_dp_resnet_f32``)."""
+    gaps, ratios = [], []
+    for name, a, b in zip(names, g_dp, g_one):
+        a, b = a.double(), b.double()
+        nb = float(b.norm())
+        if nb > 0:
+            gaps.append((float((a / world - b).norm()) / nb, name))
+            ratios.append(float(a.norm()) / nb)
+    gaps.sort()
+    return {"grad_rel_l2_max": gaps[-1][0], "grad_rel_l2_max_leaf": gaps[-1][1],
+            "grad_rel_l2_median": gaps[len(gaps) // 2][0],
+            "grad_norm_ratio_median": sorted(ratios)[len(ratios) // 2]}
+
+
+def _untapped_steps(tr, batches, lr, device):
+    """One more step a batch with no watch (no card syncs around the
+    collectives, no copies of their inputs): each one's ms, loss and kernel
+    launches."""
+    from paddle_tpu_torch.kernels import _common
+
+    out = []
+    for b in batches:
+        _common.reset_launches()
+        _sync(device)
+        t0 = time.perf_counter()
+        loss = tr.step(b, lr)
+        _sync(device)
+        out.append({"ms": (time.perf_counter() - t0) * 1e3,
+                    "loss": float(loss), "launches": dict(_common.launches)})
+    return out
+
+
+def _resnet_terms(params, bn, batch, mesh, cfg):
+    """The per-image NLL terms of the ResNet loss, forward only."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.models import resnet
+
+    with torch.no_grad(), mesh:
+        logits, _ = resnet.resnet_forward(params, bn, batch["image"], cfg,
+                                          train=True)
+        logp = F.log_softmax(logits, dim=-1)
+        return -logp.gather(1, batch["label"].long()[:, None])[:, 0]
+
+
+def _dp_resnet(rank, world, device, args):
+    """ResNet-50 at dp = world, sync-BN through the fused kernels."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch._tree import tree_leaves
+    from paddle_tpu_torch.kernels import _common
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.parallel import MeshSpec, optim
+    from paddle_tpu_torch.parallel import collectives as col
+    from paddle_tpu_torch.parallel.mesh import make_mesh
+    from paddle_tpu_torch.parallel.rules import P, leaf_paths
+    from paddle_tpu_torch.parallel.train import grads_of, shard_batch
+
+    cfg = resnet.resnet50_config(dtype="bfloat16", fuse_bn=True, sync_bn=True,
+                                 image_size=args["image"], **args["rn_kw"])
+    init, update = optim.momentum(0.9)
+    seen = []
+
+    def recording(grads, state, params, lr):     # the reduced gradients
+        if seen is not None:
+            seen.append(_clone(grads))
+        return update(grads, state, params, lr)
+
+    tr = resnet.build_resnet_trainer(cfg, MeshSpec(dp=world),
+                                     optimizer=(init, recording), seed=0,
+                                     device=device)
+    batches = [{"image": torch.from_numpy(b["image"]).to(device, torch.bfloat16),
+                "label": torch.from_numpy(b["label"]).to(device)}
+               for b in resnet.synthetic_batches(cfg, DP_STEPS,
+                                                 args["rn_batch"])]
+    steps, peak = [], 0
+    for i, b in enumerate(batches):
+        p0, v0 = _clone(tr.state["params"]), _clone(tr.state["opt"]["velocity"])
+        bn0 = _clone(tr.bn_state)
+        seen.clear()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        _common.reset_launches()
+        with _DpWatch(device) as w:
+            _sync(device)
+            t0 = time.perf_counter()
+            loss = tr.step(b, DP_LR_RN)
+            _sync(device)
+            dt = time.perf_counter() - t0
+        rec = {"step": i, "loss": float(loss), "ms": dt * 1e3,
+               "collective_ms": w.seconds * 1e3,
+               "collective_calls": w.calls, "launches": dict(_common.launches)}
+        if device.type == "cuda":
+            peak = max(peak, torch.cuda.max_memory_allocated())
+        rec["taps"] = _check_taps(w.taps, rank, world)
+        del w
+        rec["replicas_differ"] = _replicas_differ(
+            [tr.state["params"], tr.state["opt"]["velocity"], tr.bn_state], world)
+        local = shard_batch(tr.mesh, {"image": P("dp"), "label": P("dp")}, b)
+        t_dp = col.backend_all_gather(_resnet_terms(p0, bn0, local, tr.mesh, cfg),
+                                      dist.group.WORLD, 0)
+        if rank == 0:
+            # the loss: the mean of the dp forward's own terms (their
+            # distance from the one-rank terms is held in f32, in
+            # _dp_resnet_f32); the bf16 distance reported
+            rec["loss_bound"] = _split_sum_bound(
+                t_dp, t_dp.numel(), float(t_dp.sum() / t_dp.numel()),
+                float(loss))
+            rec["terms_rel_l2"] = _terms_gap(
+                t_dp, _resnet_terms(p0, bn0, b, make_mesh(device=device), cfg))
+            # the update: the one-rank momentum step on the reduced gradient
+            pr, st = _clone(p0), {"velocity": _clone(v0)}
+            update(seen[0], st, pr, DP_LR_RN)
+            rec["update_bit_for_bit"] = all(
+                _same_tensor_bits(a, c) for a, c in zip(
+                    tree_leaves(pr) + tree_leaves(st["velocity"]),
+                    tree_leaves(tr.state["params"])
+                    + tree_leaves(tr.state["opt"]["velocity"])))
+            loss_fn = resnet.make_loss_fn(cfg)
+            _, g1 = grads_of(lambda p, bb: loss_fn({"params": p, "_bn": bn0}, bb),
+                             _clone(p0), b)
+            rec.update(_grad_gap(tree_leaves(seen[0]), tree_leaves(g1), world,
+                                 leaf_paths(g1)[0]))
+            del g1, pr, st
+        del p0, v0, bn0
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        dist.barrier()
+        steps.append(rec)
+    seen = None
+    untapped = _untapped_steps(tr, batches, DP_LR_RN, device)
+    del tr
+    return {"steps": steps, "peak_memory_allocated": peak, "untapped": untapped}
+
+
+def _dp_resnet_f32(rank, world, device, args):
+    """ResNet-50 in f32 (``fuse_bn``, the bf16 run's images and global
+    batch), DP_F32_STEPS steps at dp = world with sync-BN, and the same
+    steps of a control with each rank's own BN statistics (sync_bn off).
+    Rank 0 takes, from each step's starting state, the one-rank loss terms
+    and gradient of the global batch, and the yardstick: the same of the
+    batch with its rows permuted, which reassociates the batch sums (the BN
+    statistics, their backward sums and the gradients' batch reductions)
+    and changes nothing else.  Returns, per step and run, the distances of
+    the terms and of the reduced gradient over the world size from the
+    one-rank step's (``_terms_gap``, ``_grad_gap``) and the permutation's."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch._tree import tree_leaves
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.parallel import MeshSpec, optim
+    from paddle_tpu_torch.parallel import collectives as col
+    from paddle_tpu_torch.parallel.mesh import make_mesh
+    from paddle_tpu_torch.parallel.rules import P, leaf_paths
+    from paddle_tpu_torch.parallel.train import grads_of, shard_batch
+
+    host = resnet.synthetic_batches(
+        resnet.resnet50_config(image_size=args["image"], **args["rn_kw"]),
+        DP_F32_STEPS, args["rn_batch"])
+    batches = [{"image": torch.from_numpy(b["image"]).to(device),
+                "label": torch.from_numpy(b["label"]).to(device)}
+               for b in host]
+    perm = torch.randperm(args["rn_batch"],
+                          generator=torch.Generator().manual_seed(1)).to(device)
+    one = make_mesh(device=device)
+    out = {}
+    for run, sync in (("sync_bn", True), ("control_local_bn", False)):
+        cfg = resnet.resnet50_config(dtype="float32", fuse_bn=True,
+                                     sync_bn=sync, image_size=args["image"],
+                                     **args["rn_kw"])
+        init, update = optim.momentum(0.9)
+        seen = []
+
+        def recording(grads, state, params, lr, seen=seen, update=update):
+            seen.append(_clone(grads))
+            return update(grads, state, params, lr)
+
+        tr = resnet.build_resnet_trainer(cfg, MeshSpec(dp=world),
+                                         optimizer=(init, recording), seed=0,
+                                         device=device)
+        loss_fn = resnet.make_loss_fn(cfg)
+        recs = []
+        for i, b in enumerate(batches):
+            p0, bn0 = _clone(tr.state["params"]), _clone(tr.bn_state)
+            seen.clear()
+            loss = float(tr.step(b, DP_LR_RN))
+            local = shard_batch(tr.mesh, {"image": P("dp"), "label": P("dp")}, b)
+            t_dp = col.backend_all_gather(
+                _resnet_terms(p0, bn0, local, tr.mesh, cfg), dist.group.WORLD, 0)
+            rec = {"step": i, "loss": loss}
+            if rank == 0:
+                names = leaf_paths(p0)[0]
+
+                def one_rank(bb):
+                    _, g = grads_of(
+                        lambda p, x: loss_fn({"params": p, "_bn": bn0}, x),
+                        _clone(p0), bb)
+                    return _resnet_terms(p0, bn0, bb, one, cfg), tree_leaves(g)
+
+                t1, g1 = one_rank(b)
+                rec["loss_bound"] = _split_sum_bound(
+                    t_dp, t_dp.numel(), float(t_dp.sum() / t_dp.numel()), loss)
+                rec["terms_rel_l2"] = _terms_gap(t_dp, t1)
+                rec["grad"] = _grad_gap(tree_leaves(seen[0]), g1, world, names)
+                if sync:
+                    tp, gp = one_rank({k: v[perm] for k, v in b.items()})
+                    rec["yardstick_terms_rel_l2"] = _terms_gap(
+                        tp[torch.argsort(perm)], t1)
+                    rec["yardstick_grad"] = _grad_gap(gp, g1, 1, names)
+                    del tp, gp
+                del t1, g1
+            del p0, bn0
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+            dist.barrier()
+            recs.append(rec)
+        out[run] = recs
+        del tr
+    return out
+
+
+def _f32_verdict(f32):
+    """Phase 51's f32 hold: at every step, the sync-BN run's terms and
+    reduced gradient (by leaf, median and largest) within DP_F32_LIMIT
+    times the permutation's distance, and the control past that limit in
+    its terms and its gradient median.  Returns the problems found."""
+    bad = []
+    for st, ctl in zip(f32["sync_bn"], f32["control_local_bn"]):
+        g, y = st["grad"], st["yardstick_grad"]
+        pairs = {"terms": (st["terms_rel_l2"], st["yardstick_terms_rel_l2"]),
+                 "grad median": (g["grad_rel_l2_median"],
+                                 y["grad_rel_l2_median"]),
+                 "grad largest": (g["grad_rel_l2_max"], y["grad_rel_l2_max"])}
+        for what, (got, yard) in pairs.items():
+            if not got <= DP_F32_LIMIT * yard:
+                bad.append("f32 step %d %s %s over %s x %s"
+                           % (st["step"], what, got, DP_F32_LIMIT, yard))
+        ctl_pairs = {"terms": (ctl["terms_rel_l2"], pairs["terms"][1]),
+                     "grad median": (ctl["grad"]["grad_rel_l2_median"],
+                                     pairs["grad median"][1])}
+        for what, (got, yard) in ctl_pairs.items():
+            if not got > DP_F32_LIMIT * yard:
+                bad.append("f32 step %d: the control's (no sync-BN) %s %s is "
+                           "within %s x %s" % (st["step"], what, got,
+                                               DP_F32_LIMIT, yard))
+        for r in (st, ctl):
+            if r["loss_bound"]["err_over_bound"] > 1 or not math.isfinite(
+                    r["loss"]):
+                bad.append("f32 step %d loss %s" % (st["step"], r["loss_bound"]))
+    return bad
+
+
+def _bert_terms(params, batch, cfg):
+    """The per-token terms of the MLM loss (nll * mask), forward only."""
+    from paddle_tpu_torch.parallel import transformer as T
+
+    with torch.no_grad():
+        x = T.embed(params, batch["ids"], cfg)
+        x = T.run_layers(params["params_layers"], x, cfg)
+        x = T.layer_norm(x, params["lnf_scale"], params["lnf_bias"], fused=False)
+        nll = T._ChunkedVocabNLL.apply(x, params["tok_emb"], batch["labels"], 4)
+        return (nll * batch["mask"].float()).flatten()
+
+
+def _lamb_replay_bound(p0, p_ref, p_dp, m_ref, v_ref, step, lr):
+    """Per leaf, the largest |p_dp - p_ref| over the bound derived for
+    LAMB's update when its two trust-ratio norms are sums of squares
+    reassociated (ZeRO's psum of two halves against one sum over the
+    leaf): each norm within gamma(n - 1) / 2 + u, the ratio within
+    delta = 2 (gamma(n - 1) + 3u), the f32 update lr * trust * r within
+    delta + 4u of |u|, then its bf16 cast and the bf16 subtraction, half
+    a bf16 ulp each of |u| (twice) and of the two results."""
+    from paddle_tpu_torch.tools import fp_bounds
+
+    b1, b2, eps, wd = 0.9, 0.999, 1e-6, 0.01       # optim.lamb's defaults
+    worst = 0.0
+    for p, pr, pd, m, v in zip(p0, p_ref, p_dp, m_ref, v_ref):
+        n = p.numel()
+        b1t, b2t = b1 ** float(step), b2 ** float(step)
+        r = (m.double() / (1 - b1t)) / ((v.double() / (1 - b2t)).sqrt() + eps) \
+            + wd * p.double()
+        w_norm, r_norm = float(p.double().norm()), float(r.norm())
+        trust = w_norm / r_norm if w_norm > 0 and r_norm > 0 else 1.0
+        u = (lr * trust * r).abs()
+        delta = 2 * (float(fp_bounds.gamma(n - 1)) + 3 * fp_bounds.U32)
+        bound = (u * (delta + 4 * fp_bounds.U32) + U_BF16 * 2 * u * (1 + delta)
+                 + U_BF16 * (pr.double().abs() + pd.double().abs()) + 1e-30)
+        worst = max(worst, float(((pd.double() - pr.double()).abs() / bound).max()))
+    return worst
+
+
+def _dp_bert(rank, world, device, args):
+    """BERT-base at dp = world with ZeRO (LAMB moments sharded over dp)."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch._tree import tree_leaves
+    from paddle_tpu_torch.kernels import _common
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.parallel import MeshSpec, optim
+    from paddle_tpu_torch.parallel import collectives as col
+    from paddle_tpu_torch.parallel.rules import leaf_paths
+    from paddle_tpu_torch.parallel.train import grads_of, shard_batch
+
+    cfg = bert.bert_base_config(**args["bert_kw"])
+    init, update = optim.lamb()
+    seen = []
+
+    def recording(grads, state, params, lr):     # the reduced shards
+        if seen is not None:
+            seen.append([g.detach().clone() for g in tree_leaves(grads)])
+        return update(grads, state, params, lr)
+
+    tr = bert.build_bert_trainer(cfg, MeshSpec(dp=world, zero=True),
+                                 optimizer=(init, recording), seed=0,
+                                 device=device)
+    group = dist.group.WORLD
+    params = tr.state["params"]
+    sharded = [m.shape != p.shape for m, p in zip(
+        tree_leaves(tr.state["opt"]["m"]), tree_leaves(params))]
+    batches = [{k: torch.from_numpy(v).to(device) for k, v in b.items()}
+               for b in bert.synthetic_batches(cfg, DP_STEPS, args["bert_batch"],
+                                               args["seq"])]
+
+    def gathered(key):
+        return [col.backend_all_gather(t, group, 0) if s else t.detach().clone()
+                for t, s in zip(tree_leaves(tr.state["opt"][key]), sharded)]
+
+    steps, peak = [], 0
+    for i, b in enumerate(batches):
+        p0 = [t.detach().clone() for t in tree_leaves(params)]
+        m0, v0 = gathered("m"), gathered("v")
+        step0 = int(tr.state["opt"]["step"])
+        seen.clear()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        _common.reset_launches()
+        with _DpWatch(device) as w:
+            _sync(device)
+            t0 = time.perf_counter()
+            loss = tr.step(b, DP_LR_BERT)
+            _sync(device)
+            dt = time.perf_counter() - t0
+        rec = {"step": i, "loss": float(loss), "ms": dt * 1e3,
+               "collective_ms": w.seconds * 1e3,
+               "collective_calls": w.calls, "launches": dict(_common.launches),
+               "sharded_leaves": sum(sharded), "leaves": len(sharded)}
+        if device.type == "cuda":
+            peak = max(peak, torch.cuda.max_memory_allocated())
+        rec["taps"] = _check_taps(w.taps, rank, world)
+        del w
+        m1, v1 = gathered("m"), gathered("v")
+        rec["replicas_differ"] = _replicas_differ([params, m1, v1], world)
+        # ZeRO's update runs on the sharded leaves' reduced shards, then on
+        # the replicated leaves' reduced gradients
+        calls = iter(seen)
+        sh = iter(next(calls) if any(sharded) else [])
+        rep = iter(next(calls) if not all(sharded) else [])
+        g_full = [col.backend_all_gather(next(sh), group, 0) if s else next(rep)
+                  for s in sharded]
+        p0_tree = _like(params, p0)
+        t_dp = col.backend_all_gather(_bert_terms(
+            p0_tree, shard_batch(tr.mesh, bert.batch_specs(), b), cfg), group, 0)
+        if rank == 0:
+            t1 = _bert_terms(p0_tree, b, cfg)
+            count = float(b["mask"].float().sum())
+            l1 = float(t1.sum() / max(count, 1.0))
+            # per-sequence terms: the dp forward's are the one-rank's bits
+            rec["terms_bit_for_bit"] = _same_tensor_bits(t1, t_dp)
+            rec["loss_bound"] = _split_sum_bound(t1, count, l1, float(loss))
+            # the update: the replicated LAMB step on the reduced gradient
+            pr = [t.clone() for t in p0]
+            st = {"m": [t.clone() for t in m0], "v": [t.clone() for t in v0],
+                  "step": torch.tensor(step0, dtype=torch.int32, device=device)}
+            update(g_full, st, pr, DP_LR_BERT)
+            rec["moments_bit_for_bit"] = all(
+                _same_tensor_bits(a, c) for a, c in zip(st["m"] + st["v"], m1 + v1))
+            rec["params_err_over_bound"] = _lamb_replay_bound(
+                p0, pr, tree_leaves(params), st["m"], st["v"], step0 + 1,
+                DP_LR_BERT)
+            _, g1 = grads_of(bert.make_loss_fn(cfg), _clone(p0_tree), b)
+            rec.update(_grad_gap(g_full, tree_leaves(g1), world,
+                                 leaf_paths(g1)[0]))
+            del g1, pr, st
+        del p0, p0_tree, m0, v0, m1, v1, g_full
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        dist.barrier()
+        steps.append(rec)
+    seen = None
+    untapped = _untapped_steps(tr, batches, DP_LR_BERT, device)
+    del tr
+    return {"steps": steps, "peak_memory_allocated": peak, "untapped": untapped}
+
+
+def _dp_rank(rank, world, endpoint, results, args):
+    """One rank of phase 51, in a spawned process: ``fleet.init()`` from
+    the PADDLE_* env a launcher gives a worker, with
+    ``PADDLE_DISTRI_BACKEND=gloo`` (both ranks on card 0), then the backend
+    check, ResNet-50 and BERT-base; its records go on ``results``.  An
+    exception fails the process, whose exit code the parent reads."""
+    import os
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import fleet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update({
+        "PADDLE_TRAINER_ID": str(rank), "PADDLE_TRAINERS_NUM": str(world),
+        "PADDLE_TRAINER_ENDPOINTS": endpoint,
+        "PADDLE_CURRENT_ENDPOINT": endpoint, "PADDLE_DISTRI_BACKEND": "gloo",
+        "FLAGS_selected_gpus": "0"})
+    device = fleet.init(
+        device=None if args["device"] == "cuda" else args["device"]).device
+    try:
+        res = {"rank": rank, "backend": dist.get_backend(),
+               "backend_cuda": _dp_backend_check(rank, world, device),
+               "resnet": _dp_resnet(rank, world, device, args)}
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        res["bert"] = _dp_bert(rank, world, device, args)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        res["resnet_f32"] = _dp_resnet_f32(rank, world, device, args)
+        results.put(res)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dp_two_ranks(device_name, card, device="cuda", rn_kw=None,
+                       bert_kw=None, rn_batch=B_RN, bert_batch=B, seq=S,
+                       image=IMAGE):
+    """Phase 51: two ranks on the one card, gloo over CUDA tensors (NCCL
+    refuses two ranks on one device), each a spawned process that joins
+    through ``fleet.init()`` (a launcher's PADDLE_* env with
+    ``PADDLE_DISTRI_BACKEND=gloo``).  Every
+    backend function on the card's tensors; then ResNet-50 (224, bf16,
+    fuse_bn, sync_bn, momentum, global B = 128) and BERT-base (S = 512,
+    bf16, LAMB with zero=True, global B = 64), DP_STEPS steps each.  After
+    every step: both ranks' parameters, BN state, velocities and gathered
+    moments bit for bit alike; every reduced statistic and gradient (each
+    psum and reduce-scatter the backend ran) equal to the card's sum of the
+    ranks' local values, bit for bit; the step's loss within the derived
+    bound of the one-rank step's on the same global batch from the same
+    state (``_split_sum_bound``; ResNet's of its own terms, BERT's of the
+    one-rank terms, which its dp terms equal bit for bit); the update
+    against the one-rank optimizer on the reduced gradient (momentum bit
+    for bit; LAMB's moments bit for bit and its parameters within
+    ``_lamb_replay_bound``); the bf16 reduced gradient over 2 against the
+    one-rank gradient, reported.  Each rank's ms a step, collective ms,
+    peak memory and kernel launches a step (53 of each BN kernel for
+    ResNet; 24 / 24 / 12 / 12 LN and flash for BERT), all under the
+    watch's syncs and copies; then 3 more steps of each, untapped and
+    timed.  Last, ResNet-50 in f32 (``_dp_resnet_f32``), held by
+    ``_f32_verdict``.
+    Returns the launches a rank a step, by model."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    endpoint = "127.0.0.1:%d" % _free_port()
+    args = {"device": device, "rn_kw": rn_kw or {}, "bert_kw": bert_kw or {},
+            "rn_batch": rn_batch, "bert_batch": bert_batch, "seq": seq,
+            "image": image}
+    procs = [ctx.Process(target=_dp_rank, args=(r, DP_WORLD, endpoint, results,
+                                                args))
+             for r in range(DP_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        while len(got) < DP_WORLD:
+            try:
+                res = results.get(timeout=5)
+                got[res["rank"]] = res
+            except queue.Empty:
+                codes = [p.exitcode for p in procs]
+                if any(c not in (None, 0) for c in codes):
+                    raise AssertionError("phase 51: a rank failed, exit codes "
+                                         "%s" % codes)
+                if time.monotonic() > deadline:
+                    raise AssertionError("phase 51: no result in %d s"
+                                         % DP_TIMEOUT_S)
+        for p in procs:
+            p.join(120)
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * DP_WORLD:
+            raise AssertionError("phase 51: exit codes %s" % codes)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(30)
+    on_card = torch.device(device).type == "cuda"
+    want = {"resnet": RN_PER_STEP, "bert": PER_STEP}
+    ok, bad = True, []
+    for rank in range(DP_WORLD):
+        res = got[rank]
+        if res["backend"] != "gloo" or not all(res["backend_cuda"].values()):
+            bad.append("rank %d backend %s" % (rank, res["backend_cuda"]))
+        for model in ("resnet", "bert"):
+            for st in res[model]["steps"]:
+                where = "rank %d %s step %d" % (rank, model, st["step"])
+                if st["taps"]["differ"] or st["replicas_differ"]:
+                    bad.append("%s: taps %s, replicas %s"
+                               % (where, st["taps"], st["replicas_differ"]))
+                if on_card and st["launches"] != {
+                        k: want[model].get(k, 0) for k in st["launches"]}:
+                    bad.append("%s launches %s" % (where, st["launches"]))
+                if not math.isfinite(st["loss"]):
+                    bad.append("%s loss %s" % (where, st["loss"]))
+                if rank == 0:
+                    if st["loss_bound"]["err_over_bound"] > 1 or not st.get(
+                            "terms_bit_for_bit", True):
+                        bad.append("%s loss %s, terms bit for bit %s" % (
+                            where, st["loss_bound"],
+                            st.get("terms_bit_for_bit")))
+                    if not st.get("update_bit_for_bit",
+                                  st.get("moments_bit_for_bit")):
+                        bad.append("%s update replay" % where)
+                    if st.get("params_err_over_bound", 0) > 1:
+                        bad.append("%s LAMB params %s"
+                                   % (where, st["params_err_over_bound"]))
+            for un in res[model]["untapped"]:
+                if (on_card and un["launches"] != {
+                        k: want[model].get(k, 0) for k in un["launches"]}) \
+                        or not math.isfinite(un["loss"]):
+                    bad.append("rank %d %s untapped step %s" % (rank, model, un))
+            emit({"phase": "dp_two_ranks", "model": model, "rank": rank,
+                  "world": DP_WORLD, "backend": res["backend"],
+                  "peak_memory_allocated": res[model]["peak_memory_allocated"],
+                  "steps": res[model]["steps"],
+                  "untapped_steps": res[model]["untapped"]})
+        if rank == 0:
+            bad += _f32_verdict(res["resnet_f32"])
+            emit({"phase": "dp_two_ranks", "model": "resnet_f32",
+                  "limit_in_yardsticks": DP_F32_LIMIT,
+                  "runs": res["resnet_f32"]})
+            emit({"phase": "dp_two_ranks", "backend_calls_on_cuda_tensors":
+                  res["backend_cuda"]})
+    ok = not bad
+    emit({"phase": "dp_two_ranks", "nvidia_smi": card, "ok": ok, "seconds":
+          time.perf_counter() - t0, "problems": bad[:20]})
+    if not ok:
+        raise AssertionError("phase 51: %s" % bad[:20])
+    return {m: got[0][m]["steps"][-1]["launches"] for m in ("resnet", "bert")}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -5680,6 +6584,18 @@ def main():
     phase_dygraph_serving(card, dy_net, dy_feed)
     del dy_net
     assert_no_launches("the dygraph mode (parity, ResNet-50, serving)")
+    torch.cuda.empty_cache()
+    nccl_launches = phase_dp_nccl(name, card)
+    dp_launches = phase_dp_two_ranks(name, card)
+    for rec in kernels:
+        key = {"flash_attention_bwd_dq": "flash_attention_bwd",
+               "flash_attention_bwd_dkv": "flash_attention_bwd"}.get(
+                   rec["name"], rec["name"])
+        if key in PER_STEP:
+            rec["dp1_nccl_launches_per_step"] = nccl_launches[key] // DP_STEPS
+            rec["dp2_launches_per_rank_step"] = dp_launches["bert"][key]
+        if key in RN_PER_STEP:
+            rec["sync_bn_dp2_launches_per_rank_step"] = dp_launches["resnet"][key]
     for rec in kernels:
         if rec["name"] == "segment_sum":
             rec["ctr_dataset_launches_per_step"] = ctr_per_step

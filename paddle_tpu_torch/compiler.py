@@ -3,18 +3,20 @@
 Parity: python/paddle/fluid/compiler.py:65 (CompiledProgram,
 with_data_parallel :138) and framework/details/build_strategy.h.  The
 counterpart of the JAX package's ``compiler.py``, which shards the batch of
-one jitted step over a device mesh.  Here the port runs on one card:
+one jitted step over a device mesh.  Here a program runs on one card:
 ``with_data_parallel`` over one place runs the program as it is (the
 executor unwraps it), and every other layout (more than one place, an
-explicit mesh, trainers, a tensor-parallel degree above 1, sync-BN) raises
-``NotImplementedError`` naming ROADMAP Queue 1 item 5, the multi-GPU engine.
+explicit mesh, trainers, sync-BN) raises ``NotImplementedError`` naming
+ROADMAP Queue 1 item 5-B, program-mode data parallelism (a tensor-parallel
+degree above 1 names item 5-C).
 The BuildStrategy knobs that name fusions or memory passes are accepted and
 recorded, as in the reference, and change nothing.
 """
 
 __all__ = ["CompiledProgram", "BuildStrategy", "ExecutionStrategy"]
 
-_MULTI_GPU = "ROADMAP Queue 1 item 5, the multi-GPU engine"
+_MULTI_GPU = "ROADMAP Queue 1 item 5-B, program-mode data parallelism"
+_TENSOR_PARALLEL = "ROADMAP Queue 1 item 5-C, tensor parallelism"
 
 
 class BuildStrategy:
@@ -92,7 +94,7 @@ class CompiledProgram:
         if int(getattr(bs, "tensor_parallel_degree", 1)) > 1:
             raise NotImplementedError(
                 "BuildStrategy.tensor_parallel_degree = %d waits (%s)"
-                % (bs.tensor_parallel_degree, _MULTI_GPU))
+                % (bs.tensor_parallel_degree, _TENSOR_PARALLEL))
         if bs.sync_batch_norm:
             raise NotImplementedError(
                 "BuildStrategy.sync_batch_norm: synchronised batch norm "

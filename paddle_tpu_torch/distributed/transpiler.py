@@ -12,8 +12,8 @@ records the cluster spec (trainer_id, trainers, endpoints) and tags the
 program for data-parallel execution; in "pserver" mode the server
 programs are empty, so that launcher scripts written for the reference
 keep working with every rank a trainer.  The port's executor refuses a
-tagged program until its data-parallel engine lands (ROADMAP Queue 1
-item 5).
+tagged program until program-mode data parallelism lands (ROADMAP Queue 1
+item 5-B).
 """
 
 import warnings
@@ -23,7 +23,7 @@ from ..framework import Program, default_main_program
 __all__ = ["DistributeTranspiler", "DistributeTranspilerConfig"]
 
 _REFUSED = ("the port's Executor refuses the transpiled program until its "
-            "data-parallel execution lands (ROADMAP Queue 1 item 5)")
+            "data-parallel execution lands (ROADMAP Queue 1 item 5-B)")
 
 
 class DistributeTranspilerConfig:

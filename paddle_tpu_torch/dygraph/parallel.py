@@ -2,16 +2,27 @@
 scale_loss :150 + apply_collective_grads :201 coalesced allreduce over
 NCCLParallelContext nccl_context.h:61).
 
-The counterpart of the JAX package's ``dygraph/parallel.py`` at one rank:
-``ParallelEnv`` reads the same environment, ``DataParallel`` wraps a layer
-and ``prepare_context`` returns the environment.  With
-``PADDLE_TRAINERS_NUM`` above 1, ``prepare_context`` and
-``apply_collective_grads`` raise until the port's multi-GPU engine (ROADMAP
-Queue 1 item 5) brings the NCCL all-reduce."""
+The counterpart of the JAX package's ``dygraph/parallel.py``:
+``ParallelEnv`` reads the same environment; with ``PADDLE_TRAINERS_NUM``
+above 1, ``prepare_context`` joins the ``torch.distributed`` world (rank 0's
+store at the first endpoint; NCCL on a card, gloo on the CPU) where the
+reference calls ``jax.distributed.initialize``, and
+``DataParallel.apply_collective_grads`` all-gathers every gradient across
+the ranks and takes the mean, as the reference's ``process_allgather`` and
+``jnp.mean`` do.  After ``scale_loss`` (1/nranks) that mean is
+(1/nranks^2) times the sum of the ranks' gradients, the JAX package's
+arithmetic (the reference Paddle sums the scaled gradients; ROADMAP Queue
+3)."""
 
 import os
 
+import torch
+import torch.distributed as dist
+
+from .base import current_device
 from .layers import Layer
+from ..parallel import collectives as col
+from ..parallel.mesh import init_world
 
 __all__ = ["DataParallel", "ParallelEnv", "prepare_context", "Env"]
 
@@ -52,19 +63,14 @@ class ParallelEnv:
 Env = ParallelEnv
 
 
-def _refuse_ranks(env, what):
-    raise NotImplementedError(
-        "%s: %d trainers (PADDLE_TRAINERS_NUM); the port's dygraph runs one "
-        "rank until its multi-GPU engine (ROADMAP Queue 1 item 5)"
-        % (what, env.nranks))
-
-
 def prepare_context(strategy=None):
-    """Parity: dygraph/parallel.py prepare_context — at one rank, the
-    environment; above one, refused (ROADMAP Queue 1 item 5)."""
+    """Parity: dygraph/parallel.py prepare_context — joins the world of
+    ``PADDLE_TRAINERS_NUM`` ranks (the NCCLParallelContext ncclUniqueId
+    bootstrap) on the tracer's device, unless one is already joined."""
     env = ParallelEnv()
-    if env.nranks > 1:
-        _refuse_ranks(env, "prepare_context")
+    if env.nranks > 1 and not dist.is_initialized():
+        init_world(env.local_rank, env.nranks, env.trainer_endpoints[0],
+                   current_device())
     return env
 
 
@@ -88,11 +94,15 @@ class DataParallel(Layer):
         return loss * (1.0 / n)
 
     def apply_collective_grads(self):
-        """Parity: :201 — allreduce gradients across ranks.  One rank: a
-        no-op; above one, refused (ROADMAP Queue 1 item 5)."""
+        """Parity: :201 — every gradient gathered across the ranks and
+        replaced by the mean over them.  One rank: a no-op."""
         if self._env.nranks <= 1:
             return
-        _refuse_ranks(self._env, "DataParallel.apply_collective_grads")
+        group = dist.group.WORLD
+        for p in self._layers.parameters():
+            if p._grad is not None:
+                arr = col.backend_all_gather(p._grad.unsqueeze(0), group)
+                p._grad = torch.mean(arr, dim=0)
 
     def state_dict(self, *args, **kwargs):
         return self._layers.state_dict(*args, **kwargs)

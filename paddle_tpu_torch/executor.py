@@ -114,12 +114,12 @@ def _refuse_unported(program):
     if getattr(program, "_pipeline", None) is not None:
         raise NotImplementedError(
             "PipelineOptimizer programs: the microbatched pipeline path "
-            "waits (ROADMAP Queue 1 item 5, pipeline)")
+            "waits (ROADMAP Queue 1 item 5-C, pipeline)")
     if (getattr(program, "_fleet_strategy", None) is not None
             or getattr(program, "_dist_info", None) is not None):
         raise NotImplementedError(
-            "fleet/transpiler-tagged programs: data-parallel execution waits "
-            "(ROADMAP Queue 1 item 5)")
+            "fleet/transpiler-tagged programs: program-mode data-parallel "
+            "execution waits (ROADMAP Queue 1 item 5-B)")
     for op in program.global_block().ops:
         if op.type == "backward_meta" and op.attrs.get("use_remat"):
             raise NotImplementedError(

@@ -28,6 +28,8 @@ import math
 import torch
 
 from . import _common
+from ..parallel import collectives as col
+from ..parallel.mesh import AXES
 
 __all__ = ["bn_stats", "fused_bn_train", "fused_scale_shift", "fused_bn_eval",
            "stats2", "scale_shift2", "bwd_reduce2", "dx2",
@@ -277,18 +279,23 @@ def bn_stats(x):
 class _FusedBNTrain(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps):
+    def forward(ctx, x, scale, bias, eps, sync_axis):
         x2 = _rows(x, "fused_bn_train")
         s, q = stats2(x2)
         n = float(x2.shape[0])
         m = s / n
         m2 = q / n
+        if sync_axis is not None:
+            # cross-replica statistics between the two kernels (sync-BN)
+            m = col.pmean(m, sync_axis)
+            m2 = col.pmean(m2, sync_axis)
         v = m2 - m * m
         r = torch.rsqrt(v + eps)
         a = scale * r
         b = bias - m * a
         y2 = scale_shift2(x2, a.to(x.dtype), b.to(x.dtype))
         ctx.save_for_backward(x, scale, m, r)
+        ctx.sync_axis = sync_axis
         ctx.mark_non_differentiable(m, v)
         return y2.view(x.shape), m, v
 
@@ -299,27 +306,38 @@ class _FusedBNTrain(torch.autograd.Function):
         x2 = x.view(-1, x.shape[-1])
         dy2 = _rows(dy, "fused_bn_train backward")
         s1, s2x = bwd_reduce2(dy2, x2)
-        n = float(x2.shape[0])
         # dgamma/dbeta fold out of the same sweep: sum dy*xhat = (sum dy*x -
-        # m * sum dy) * r
+        # m * sum dy) * r; they stay this rank's partial sums, for the
+        # step's gradient psum
         dgamma = (s2x - m * s1) * r
+        S1, S2x, n = s1, s2x, float(x2.shape[0])
+        if ctx.sync_axis is not None:
+            S1 = col.psum(s1, ctx.sync_axis)
+            S2x = col.psum(s2x, ctx.sync_axis)
+            n = n * col.axis_size_in(ctx.sync_axis)
+        S2 = (S2x - m * S1) * r                 # the global sum dy*xhat
         g = scale * r
-        B = -(g * r * dgamma) / n
-        Cc = -B * m - g * s1 / n
+        B = -(g * r * S2) / n
+        Cc = -B * m - g * S1 / n
         dx = dx2(dy2, x2, torch.stack([g, B, Cc]))
         return (dx.view(x.shape), dgamma.to(scale.dtype), s1.to(scale.dtype),
-                None)
+                None, None)
 
 
 def fused_bn_train(x, scale, bias, eps=1e-5, sync_axis=None):
     """Training-mode batch norm: ``(y, batch_mean, batch_var)``, one
     statistics sweep and a fused backward.  ``scale``/``bias`` are f32
-    ``[C]``; the statistics come back in f32 and are stop-gradient."""
-    if sync_axis is not None:
-        raise NotImplementedError(
-            "sync_axis=%r: cross-replica batch statistics need the multi-GPU "
-            "engine, ROADMAP.md Queue 1 item 5" % (sync_axis,))
-    return _FusedBNTrain.apply(x, scale, bias, float(eps))
+    ``[C]``; the statistics come back in f32 and are stop-gradient.
+    ``sync_axis`` names the mesh axis for cross-replica statistics
+    (sync-BN): the ``pmean`` of the mean and mean square rides between the
+    statistics and scale-shift kernels, and the ``psum`` of the backward
+    sums between the reduce and dx kernels (a no-op outside a mesh or at
+    size 1).  ``dgamma``/``dbeta`` come back as this rank's partial sums,
+    so the step's gradient psum treats them as the autodiff path's."""
+    if sync_axis is not None and sync_axis not in AXES:
+        raise ValueError("sync_axis=%r is not a mesh axis (one of %s)"
+                         % (sync_axis, ", ".join(AXES)))
+    return _FusedBNTrain.apply(x, scale, bias, float(eps), sync_axis)
 
 
 class _FusedScaleShift(torch.autograd.Function):

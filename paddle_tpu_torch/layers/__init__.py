@@ -1,8 +1,8 @@
 """Layers API (parity: python/paddle/fluid/layers/): the JAX package's
 ``nn``, ``tensor``, ``math_ops``, ``control_flow``, ``metric_op``, ``io``
 (``data``), ``learning_rate_scheduler``, ``sequence``, ``extras`` and
-``rnn`` modules, copied.  Its detection and collective modules wait
-(ROADMAP Queue 1 item 3).  A layer builds ops; an op whose rule the port
+``rnn`` modules and ``collective`` (the ``_c_*`` layers), copied.  Its
+detection module waits (ROADMAP Queue 1 item 3-B, tranche 6).  A layer builds ops; an op whose rule the port
 lacks raises when the executor plans the program."""
 
 from . import math_ops
@@ -23,6 +23,7 @@ from . import sequence
 from .sequence import *  # noqa: F401,F403
 from . import extras
 from .extras import *  # noqa: F401,F403
+from . import collective
 from . import rnn
 from .rnn import *  # noqa: F401,F403
 

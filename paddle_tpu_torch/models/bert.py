@@ -1,6 +1,8 @@
-"""BERT-style transformer LM pretraining at one device (counterpart of
+"""BERT-style transformer LM pretraining (counterpart of
 ``paddle_tpu/models/bert.py``): embedding, pre-LN blocks through the flash
-attention and LayerNorm kernels, the streaming vocab loss, and LAMB.
+attention and LayerNorm kernels, the streaming vocab loss, and LAMB, on a
+mesh of data-parallel ranks (``MeshSpec(dp=...)``, with ``zero=True`` the
+optimizer state sharded over dp) or one device.
 
 batch dict: ids/labels int32 [B, S], mask float32 [B, S] (1 where the label
 position counts), optionally positions int32 [B, P] with labels/mask [B, P].
@@ -12,20 +14,22 @@ import numpy as np
 import torch
 
 from ..convert import params_from_numpy
-from ..kernels._common import resolve_device
 from ..parallel import optim
-from ..parallel.train import TrainState, make_train_step
+from ..parallel.mesh import DP, MeshSpec
+from ..parallel.rules import PartitionSpec as P
+from ..parallel.train import (TrainState, make_train_step, shard_pytree,
+                              state_specs)
 from ..parallel.transformer import (TransformerConfig, embed,
-                                    final_logits_loss, init_transformer_params,
-                                    run_layers)
+                                    final_logits_loss, grad_sync_axes,
+                                    init_transformer_params, run_layers,
+                                    transformer_param_specs)
 
 __all__ = ["bert_base_config", "bert_tiny_config", "make_loss_fn",
-           "batch_specs", "synthetic_batches", "BertTrainer",
+           "batch_specs", "batch_dtypes", "synthetic_batches", "BertTrainer",
            "build_bert_trainer"]
 
-_UNSUPPORTED = ("%s=%d: the port runs at one device so far; data, tensor and "
-                "pipeline parallelism are ROADMAP.md Queue 1 item 5 "
-                "(multi-GPU engine)")
+_UNSUPPORTED = ("%s=%d: tensor and pipeline parallelism wait (ROADMAP.md "
+                "Queue 1 item 5-C); the port runs the data-parallel axis")
 
 
 def bert_base_config(**kw):
@@ -43,19 +47,20 @@ def bert_tiny_config(**kw):
     return TransformerConfig(**d)
 
 
-def _check_single_device(cfg, dp=1):
-    for name, deg in (("dp", dp), ("tp", cfg.tp), ("pp", cfg.pp)):
+def _check_supported(cfg):
+    for name, deg in (("tp", cfg.tp), ("pp", cfg.pp)):
         if deg > 1:
             raise NotImplementedError(_UNSUPPORTED % (name, deg))
     if cfg.attn_mode != "heads":
         raise NotImplementedError(
-            "attn_mode=%r: ring attention is ROADMAP.md Queue 1 item 5"
+            "attn_mode=%r: ring attention waits (ROADMAP.md Queue 1 item 5-C)"
             % cfg.attn_mode)
 
 
 def make_loss_fn(cfg: TransformerConfig):
-    """Loss: embed, run the stack, the MLM loss (pp = 1)."""
-    _check_single_device(cfg)
+    """Per-rank loss: embed, run the stack, the MLM loss over the dp-split
+    global batch (pp = 1)."""
+    _check_supported(cfg)
 
     def loss_fn(params, batch):
         mask = batch["mask"].float()
@@ -68,6 +73,11 @@ def make_loss_fn(cfg: TransformerConfig):
 
 
 def batch_specs(keys=("ids", "labels", "mask")):
+    """Each batch key split over dp on its batch dim."""
+    return {k: P(DP) for k in keys}
+
+
+def batch_dtypes(keys=("ids", "labels", "mask")):
     """The torch dtype of each batch key."""
     dtypes = {"ids": torch.int32, "labels": torch.int32,
               "mask": torch.float32, "positions": torch.int32}
@@ -86,37 +96,69 @@ def synthetic_batches(cfg, n, batch, seq, seed=0):
 @dataclasses.dataclass
 class BertTrainer:
     cfg: TransformerConfig
+    mesh: object
     device: torch.device
     state: dict
     step_fn: object
+    specs: dict
     multi_fn: object = None
+    batch_keys: tuple = ("ids", "labels", "mask")
 
     def step(self, batch, lr):
+        """One step over a global batch; each rank trains on its slice."""
         self.state, loss = self.step_fn(self.state, batch, lr)
         return loss
 
     def run_steps(self, batches, lr):
         """N steps over batches with a leading [N] step axis (staged with
         parallel.train.stack_batches).  Returns losses [N]."""
+        if self.multi_fn is None:
+            raise RuntimeError("trainer built without multi-step support")
         self.state, losses = self.multi_fn(self.state, batches, lr)
         return losses
 
 
-def build_bert_trainer(cfg, optimizer=None, seed=0, device=None, params=None,
-                       dp=1):
-    """Params on ``device`` (``cuda`` unless named), optimizer state, and the
-    train step.  ``params``: a tree to start from instead of a seeded init —
-    torch tensors, or numpy arrays as ``jax.tree.map(np.asarray, params)``
-    gives them from the JAX package."""
-    _check_single_device(cfg, dp)
-    device = resolve_device(device)
+def build_bert_trainer(cfg, mesh_spec: MeshSpec = None, optimizer=None,
+                       seed=0, device=None, params=None,
+                       batch_keys=("ids", "labels", "mask")):
+    """The mesh of this rank's world (``mesh_spec``, one rank by default),
+    params on ``device`` (``cuda`` unless named) placed by their specs (rank
+    0's values on every rank), optimizer state (sharded over dp with
+    ``MeshSpec(zero=True)``), and the train step — the
+    ParallelExecutor-constructor analogue (parallel_executor.cc:393).
+    ``params``: a tree to start from instead of a seeded init — torch
+    tensors, or numpy arrays as ``jax.tree.map(np.asarray, params)`` gives
+    them from the JAX package."""
+    _check_supported(cfg)
+    mesh_spec = mesh_spec or MeshSpec(dp=1, pp=cfg.pp, tp=cfg.tp)
+    if mesh_spec.pp != cfg.pp or mesh_spec.tp != cfg.tp:
+        raise ValueError("mesh %s against cfg pp=%d tp=%d"
+                         % (mesh_spec, cfg.pp, cfg.tp))
+    mesh = mesh_spec.build(device=device)
+    device = mesh.device
     optimizer = optimizer or optim.lamb()
     if params is None:
         gen = torch.Generator().manual_seed(seed)
         params = init_transformer_params(gen, cfg, device=device)
     else:
         params = params_from_numpy(params, device)
+    pspecs = transformer_param_specs(cfg)
     state = TrainState.create(params, optimizer)
-    build = make_train_step(make_loss_fn(cfg), optimizer)
-    return BertTrainer(cfg=cfg, device=device, state=state,
-                       step_fn=build(state), multi_fn=build.multi(state))
+    syncs = grad_sync_axes(cfg)
+    loss_fn = make_loss_fn(cfg)
+    bspecs = batch_specs(batch_keys)
+    if mesh_spec.zero:
+        from ..parallel.zero import make_zero_train_step
+
+        step_fn, sspecs = make_zero_train_step(
+            loss_fn, mesh, pspecs, syncs, optimizer, bspecs)(state)
+        multi_fn = None
+    else:
+        sspecs = state_specs(pspecs, state)
+        build = make_train_step(loss_fn, mesh, pspecs, syncs, optimizer,
+                                bspecs)
+        step_fn, multi_fn = build(state), build.multi(state)
+    state = shard_pytree(state, sspecs, mesh)
+    return BertTrainer(cfg=cfg, mesh=mesh, device=device, state=state,
+                       step_fn=step_fn, specs=sspecs, multi_fn=multi_fn,
+                       batch_keys=tuple(batch_keys))

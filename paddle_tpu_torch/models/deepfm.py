@@ -50,8 +50,8 @@ __all__ = ["DeepFMConfig", "deepfm_tiny_config", "init_deepfm_params",
            "make_step_variants", "autotune_step", "synthetic_batch",
            "mlp_train_flops", "DeepFMTrainer", "build_deepfm_trainer"]
 
-_SHARDED = ("%s: the port runs at one device so far; row-sharded tables "
-            "are ROADMAP.md Queue 1 item 5 (multi-GPU engine)")
+_SHARDED = ("%s: row-sharded tables wait (ROADMAP.md Queue 1 item 5-C); "
+            "the port's DeepFM runs at one device")
 
 
 @dataclasses.dataclass

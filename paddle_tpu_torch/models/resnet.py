@@ -1,5 +1,8 @@
-"""ResNet training at one device (counterpart of ``paddle_tpu/models/resnet.py``,
-BASELINE config 2: ResNet-50 / ImageNet image classification).
+"""ResNet training (counterpart of ``paddle_tpu/models/resnet.py``, BASELINE
+config 2: ResNet-50 / ImageNet image classification), on a mesh of
+data-parallel ranks (``MeshSpec(dp=...)``; params replicated, the batch
+split, gradients psum'd, ``sync_bn`` batch statistics reduced across ranks)
+or one device.
 
 The public layout is the JAX package's: images ``[B, H, W, 3]``, conv
 weights HWIO in the parameter tree, BN parameters and running statistics
@@ -10,8 +13,10 @@ an activation is then a view and not a copy.  Convolutions pad as XLA's
 explicit ``F.pad`` where the two sides differ.
 
 With ``fuse_bn`` (the bench's setting) every training-mode BN runs the four
-``kernels/fused_bn`` kernels; ``fuse_bn=False`` runs the folded BN math in
-eager PyTorch, the JAX package's own XLA path, as the A/B.  Convolutions,
+``kernels/fused_bn`` kernels (with ``sync_bn``, the statistics and the
+backward sums reduced over dp between them); ``fuse_bn=False`` runs the
+folded BN math in eager PyTorch, the JAX package's own XLA path, as the
+A/B.  Convolutions,
 max pool, ReLU, the residual add, the global mean and the ``fc`` product
 are PyTorch calls, as the JAX package leaves them to XLA.
 
@@ -27,17 +32,18 @@ import torch.nn.functional as F
 from .._tree import tree_map
 from ..convert import params_from_numpy
 from ..kernels import fused_bn as fbn
-from ..kernels._common import resolve_device, same_pads
+from ..kernels._common import same_pads
+from ..parallel import collectives as col
 from ..parallel import optim
-from ..parallel.train import TrainState, grads_of
+from ..parallel.mesh import DP, MeshSpec
+from ..parallel.rules import PartitionSpec as P
+from ..parallel.train import (TrainState, grads_of, shard_batch, shard_pytree,
+                              state_specs)
 
 __all__ = ["ResNetConfig", "resnet50_config", "resnet_tiny_config",
            "init_resnet_params", "resnet_forward", "make_loss_fn",
            "synthetic_batches", "ResNetTrainer", "build_resnet_trainer"]
 
-_UNSUPPORTED = ("%s: the port runs at one device so far; data parallelism "
-                "and sync-BN are ROADMAP.md Queue 1 item 5 (multi-GPU "
-                "engine)")
 _BN_EPS = 1e-5
 
 
@@ -168,7 +174,8 @@ def _bn_fused(x, p, s, cfg, train, updates, path):
     the NHWC view of the channels-last activation."""
     xh = x.permute(0, 2, 3, 1)
     if train:
-        y, m, v = fbn.fused_bn_train(xh, p["scale"], p["bias"], _BN_EPS)
+        y, m, v = fbn.fused_bn_train(xh, p["scale"], p["bias"], _BN_EPS,
+                                     DP if cfg.sync_bn else None)
         mom = cfg.bn_momentum
         updates[path] = {"mean": mom * s["mean"] + (1 - mom) * m,
                          "var": mom * s["var"] + (1 - mom) * v}
@@ -180,13 +187,17 @@ def _bn_fused(x, p, s, cfg, train, updates, path):
 
 def _bn(x, p, s, cfg, train, updates, path):
     """Folded batch norm: y = x*a + b with per-channel a, b in x.dtype, f32
-    statistics (one-pass variance); gradients flow through the batch
-    statistics, the running-statistics update takes them stop-gradient."""
+    statistics (one-pass variance; with ``sync_bn`` each pmean'd over dp);
+    gradients flow through the batch statistics, the running-statistics
+    update takes them stop-gradient."""
     if cfg.fuse_bn:
         return _bn_fused(x, p, s, cfg, train, updates, path)
     if train:
         m = x.mean(dim=(0, 2, 3), dtype=torch.float32)
         m2 = x.float().square().mean(dim=(0, 2, 3))
+        if cfg.sync_bn:
+            m = col.pmean(m, DP)
+            m2 = col.pmean(m2, DP)
         v = m2 - m.square()
         mom = cfg.bn_momentum
         updates[path] = {"mean": mom * s["mean"] + (1 - mom) * m.detach(),
@@ -243,8 +254,10 @@ def resnet_forward(params, bn_state, images, cfg, train=True):
 
 
 def make_loss_fn(cfg):
-    """loss_fn({'params': tree, '_bn': bn_state}, batch) -> (mean NLL,
-    new_bn_state), as the JAX package's (one device)."""
+    """Per-rank loss_fn({'params': tree, '_bn': bn_state}, batch_local) ->
+    (mean NLL over the dp-split global batch, new_bn_state), as the JAX
+    package's: the NLL sum psum'd over dp, over the global count (a host
+    number, as the reference's psum of the static count folds)."""
 
     def loss_fn(bundle, batch):
         logits, new_state = resnet_forward(bundle["params"], bundle["_bn"],
@@ -252,7 +265,8 @@ def make_loss_fn(cfg):
         logp = F.log_softmax(logits, dim=-1)
         labels = batch["label"].long()
         nll = -torch.gather(logp, 1, labels[:, None])[:, 0]
-        return nll.sum() / nll.shape[0], new_state
+        count = nll.shape[0] * col.axis_size_in(DP)
+        return col.psum(nll.sum(), DP) / count, new_state
 
     return loss_fn
 
@@ -273,52 +287,72 @@ def synthetic_batches(cfg, n, batch, seed=0):
 @dataclasses.dataclass
 class ResNetTrainer:
     cfg: ResNetConfig
+    mesh: object
     device: torch.device
     state: dict
     bn_state: dict
     step_fn: object
 
     def step(self, batch, lr):
+        """One step over a global batch; each rank trains on its slice."""
         self.state, self.bn_state, loss = self.step_fn(self.state,
                                                        self.bn_state, batch, lr)
         return loss
 
     def run_steps(self, batches, lr):
         """N steps over batches with a leading [N] step axis (staged with
-        parallel.train.stack_batches).  Returns losses [N]."""
+        parallel.train.stack_batches, already this rank's).  Returns losses
+        [N]."""
         n = next(iter(batches.values())).shape[0]
-        return torch.stack([self.step({k: v[i] for k, v in batches.items()}, lr)
-                            for i in range(n)])
+        losses = []
+        for i in range(n):
+            self.state, self.bn_state, loss = self.step_fn.local(
+                self.state, self.bn_state,
+                {k: v[i] for k, v in batches.items()}, lr)
+            losses.append(loss)
+        return torch.stack(losses)
 
 
-def _make_step(loss_fn, optimizer):
-    """step(state, bn_state, batch, lr) -> (state, new_bn_state, loss): the
-    forward, ``autograd.grad`` with the BN state as an auxiliary output, and
-    the optimizer's in-place update."""
+def _make_step(loss_fn, optimizer, mesh):
+    """step(state, bn_state, batch, lr) -> (state, new_bn_state, loss) over
+    a global batch (``step.local`` over this rank's slice): the forward,
+    ``autograd.grad`` with the BN state as an auxiliary output, each
+    gradient psum'd and each new BN statistic pmean'd over dp, and the
+    optimizer's in-place update."""
     _, opt_update = optimizer
+    bspecs = {"image": P(DP), "label": P(DP)}
 
-    def step(state, bn_state, batch, lr):
-        (loss, new_bn), grads = grads_of(
-            lambda p, b: loss_fn({"params": p, "_bn": bn_state}, b),
-            state["params"], batch)
-        new_params, new_opt = opt_update(grads, state["opt"], state["params"], lr)
+    def local(state, bn_state, batch, lr):
+        with mesh:
+            (loss, new_bn), grads = grads_of(
+                lambda p, b: loss_fn({"params": p, "_bn": bn_state}, b),
+                state["params"], batch)
+            with torch.no_grad():
+                grads = tree_map(lambda g: col.psum(g, DP), grads)
+                new_bn = tree_map(lambda a: col.pmean(a, DP), new_bn)
+            new_params, new_opt = opt_update(grads, state["opt"],
+                                             state["params"], lr)
         return {"params": new_params, "opt": new_opt}, new_bn, loss.detach()
 
+    def step(state, bn_state, batch, lr):
+        return local(state, bn_state, shard_batch(mesh, bspecs, batch), lr)
+
+    step.local = local
     return step
 
 
-def build_resnet_trainer(cfg, optimizer=None, seed=0, device=None, params=None,
-                         bn_state=None, dp=1):
-    """Params and BN state on ``device`` (``cuda`` unless named), momentum
-    (0.9) unless another optimizer is given, and the train step.
-    ``params``/``bn_state``: trees to start from instead of a seeded init —
-    torch tensors, or numpy arrays as ``jax.tree.map(np.asarray, tree)``
-    gives them from the JAX package."""
-    if dp > 1:
-        raise NotImplementedError(_UNSUPPORTED % ("dp=%d" % dp))
-    if cfg.sync_bn:
-        raise NotImplementedError(_UNSUPPORTED % "sync_bn=True")
-    device = resolve_device(device)
+def build_resnet_trainer(cfg, mesh_spec: MeshSpec = None, optimizer=None,
+                         seed=0, device=None, params=None, bn_state=None):
+    """DP trainer: the mesh of this rank's world (``mesh_spec``, one rank by
+    default), params and BN state on ``device`` (``cuda`` unless named),
+    replicated (rank 0's values on every rank), momentum (0.9) unless
+    another optimizer is given, and the train step: the batch split over
+    dp, gradients psum'd — the ParallelExecutor AllReduce mode
+    (parallel_executor.cc:393).  ``params``/``bn_state``: trees to start
+    from instead of a seeded init — torch tensors, or numpy arrays as
+    ``jax.tree.map(np.asarray, tree)`` gives them from the JAX package."""
+    mesh = (mesh_spec or MeshSpec(1, 1, 1)).build(device=device)
+    device = mesh.device
     optimizer = optimizer or optim.momentum(0.9)
     if params is None or bn_state is None:
         fresh = init_resnet_params(torch.Generator().manual_seed(seed), cfg,
@@ -327,5 +361,9 @@ def build_resnet_trainer(cfg, optimizer=None, seed=0, device=None, params=None,
     bn_state = (fresh[1] if bn_state is None
                 else params_from_numpy(bn_state, device))
     state = TrainState.create(params, optimizer)
-    return ResNetTrainer(cfg=cfg, device=device, state=state, bn_state=bn_state,
-                         step_fn=_make_step(make_loss_fn(cfg), optimizer))
+    pspecs = tree_map(lambda _: P(), params)
+    state = shard_pytree(state, state_specs(pspecs, state), mesh)
+    bn_state = shard_pytree(bn_state, tree_map(lambda _: P(), bn_state), mesh)
+    return ResNetTrainer(cfg=cfg, mesh=mesh, device=device, state=state,
+                         bn_state=bn_state,
+                         step_fn=_make_step(make_loss_fn(cfg), optimizer, mesh))

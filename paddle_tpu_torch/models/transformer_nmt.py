@@ -34,6 +34,8 @@ from ..convert import params_from_numpy
 from ..kernels._common import resolve_device
 from ..ops.beam_search_ops import beam_search_step
 from ..parallel import optim
+from ..parallel.mesh import DP, make_mesh
+from ..parallel.rules import PartitionSpec as P
 from ..parallel.train import TrainState, make_train_step
 from .deepfm import take_rows
 
@@ -310,6 +312,7 @@ def nmt_train_flops(cfg: NMTConfig, batch, src_len, tgt_len):
 @dataclasses.dataclass
 class NMTTrainer:
     cfg: NMTConfig
+    mesh: object
     device: torch.device
     state: dict
     step_fn: object
@@ -322,10 +325,12 @@ class NMTTrainer:
 def build_nmt_trainer(cfg, optimizer=None, seed=0, device=None, params=None):
     """Params on ``device`` (``cuda`` unless named), optimizer state (SGD
     unless given: ``p - lr * g`` cast to p's dtype, the step ``bench.py``'s
-    NMT line takes) and the train step.  ``params``: a tree to start from
-    instead of a seeded init — torch tensors, or numpy arrays as
-    ``jax.tree.map(np.asarray, params)`` gives them from the JAX package."""
-    device = resolve_device(device)
+    NMT line takes) and the train step over a one-rank mesh.  ``params``: a
+    tree to start from instead of a seeded init — torch tensors, or numpy
+    arrays as ``jax.tree.map(np.asarray, params)`` gives them from the JAX
+    package."""
+    mesh = make_mesh(device=device)
+    device = mesh.device
     optimizer = optimizer or optim.sgd()
     if params is None:
         params = init_nmt_params(torch.Generator().manual_seed(seed), cfg,
@@ -333,5 +338,10 @@ def build_nmt_trainer(cfg, optimizer=None, seed=0, device=None, params=None):
     else:
         params = params_from_numpy(params, device)
     state = TrainState.create(params, optimizer)
-    build = make_train_step(lambda p, b: nmt_loss(p, b, cfg), optimizer)
-    return NMTTrainer(cfg=cfg, device=device, state=state, step_fn=build(state))
+    build = make_train_step(
+        lambda p, b: nmt_loss(p, b, cfg), mesh, tree_map(lambda _: P(), params),
+        tree_map(lambda _: (DP,), params), optimizer,
+        {k: P(DP) for k in ("src_ids", "src_mask", "tgt_in", "tgt_out",
+                            "tgt_mask")})
+    return NMTTrainer(cfg=cfg, mesh=mesh, device=device, state=state,
+                      step_fn=build(state))

@@ -23,7 +23,7 @@ sentinel watches the MODEL beside the monitor's watch of the system:
   step) and counts the skip (``monitor.health.skipped_batches``), reading
   the vector back every step; ``quarantine`` also commits a debug
   checkpoint through ``parallel/checkpoint.py``, which the port does not
-  have yet: it raises ``NotImplementedError`` (ROADMAP Queue 1 item 5).
+  have yet: it raises ``NotImplementedError`` (ROADMAP Queue 1 item 5-D).
 - **divergence detectors** (copies): rolling robust z-score loss spikes,
   grad-norm explosion against the rolling median, loss plateaus, as
   ``monitor.health.{loss_spike,grad_explosion,plateau}`` counters and
@@ -344,7 +344,7 @@ class Sentinel:
         if policy == "quarantine":
             raise NotImplementedError(
                 "sentinel policy 'quarantine': its debug checkpoint needs "
-                "parallel/checkpoint.py, which waits (ROADMAP Queue 1 item 5)")
+                "parallel/checkpoint.py, which waits (ROADMAP Queue 1 item 5-D)")
         self.monitor = monitor
         self.policy = policy
         every = max(

@@ -7,7 +7,8 @@ registry: every rule of the JAX package's ``tensor_ops``, ``math_ops``,
 ``misc_ops2``, ``misc_ops3`` and ``misc_ops4``, ``crf_ops``, the
 weight-norm op (``misc_ops5``), the optimizers with their SelectedRows
 branches (``optimizer_ops``), the control-flow ops
-(``control_flow_ops``) and the beam-search ops (``beam_search_ops``).  Each
+(``control_flow_ops``), the collective ops (``collective_ops``) and the
+beam-search ops (``beam_search_ops``).  Each
 module mirrors a JAX package module and a reference operators/
 sub-directory; the other op types wait and raise the registry's "no
 lowering registered" error.  ``beam_search_ops`` also holds the NMT
@@ -31,6 +32,7 @@ from . import sampling_ops  # noqa: F401  (ref: operators/nce_op, hierarchical_s
 from . import optimizer_ops  # noqa: F401  (ref: operators/optimizers/)
 from . import metric_ops  # noqa: F401  (ref: operators/metrics/)
 from . import control_flow_ops  # noqa: F401  (ref: operators/controlflow/)
+from . import collective_ops  # noqa: F401  (ref: operators/collective/)
 from .beam_search_ops import beam_backtrack, beam_search_step
 
 from ..registry import registered_ops  # noqa: F401

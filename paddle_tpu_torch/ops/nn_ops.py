@@ -31,6 +31,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..parallel import collectives as col
 from ..registry import register_op
 from .common import (exact_conv, exact_matmul, x, out, op_generator,
                      promote_float, saturating_cast, take_clamp, take_fill)
@@ -241,16 +242,14 @@ def _batch_norm(ins, attrs, ctx):
     ones under is_test / use_global_stats; the running stats move by
     ``momentum`` without a gradient.  Computes in the input's dtype, as the
     JAX rule; an integer X normalises in f32 and Y goes back to its dtype
-    (the statistics stay f32), as ``jnp.mean`` and ``astype`` do."""
+    (the statistics stay f32), as ``jnp.mean`` and ``astype`` do.
+    ``_sync_axis`` (sync BN) pmeans the mean and the mean square over that
+    mesh axis, as the reference's ``:235-237``."""
     v = x(ins, "X")
     scale, bias = x(ins, "Scale"), x(ins, "Bias")
     mean, var = x(ins, "Mean"), x(ins, "Variance")
     eps = attrs.get("epsilon", 1e-5)
     momentum = attrs.get("momentum", 0.9)
-    if attrs.get("_sync_axis"):
-        raise NotImplementedError(
-            "batch_norm over a mesh axis (sync BN) waits for data-parallel "
-            "execution (ROADMAP Queue 1 item 5)")
     c_axis = 1 if attrs.get("data_layout", "NCHW") == "NCHW" else v.ndim - 1
     axes = tuple(i for i in range(v.ndim) if i != c_axis)
     cshape = [1] * v.ndim
@@ -261,6 +260,11 @@ def _batch_norm(ins, attrs, ctx):
     else:
         # the mean, then the mean of the squared deviations, as jnp.var
         m, va = (t.reshape(-1) for t in _moments(promote_float(v), axes))
+        if attrs.get("_sync_axis"):  # sync BN over a mesh axis
+            ax = attrs["_sync_axis"]
+            m = col.pmean(m, ax)
+            va = col.pmean(torch.square(promote_float(v)).mean(dim=axes),
+                           ax) - torch.square(m)
         new_mean = momentum * mean + (1.0 - momentum) * m.detach()
         new_var = momentum * var + (1.0 - momentum) * va.detach()
     y = (v - m.reshape(cshape)) * torch.rsqrt(va + eps).reshape(cshape)

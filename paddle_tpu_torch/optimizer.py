@@ -754,7 +754,7 @@ class PipelineOptimizer:
     flowing through scope queues (device_worker.h:274-330).  The JAX
     package's executor runs the sections over `num_microbatches`
     microbatches; the port's executor does not run such a program yet (it
-    raises; ROADMAP Queue 1 item 5).
+    raises; ROADMAP Queue 1 item 5-C).
 
     cut_list: list of cut-point Variables (or [Variable] lists, reference
     style); K cuts -> K+1 sections.

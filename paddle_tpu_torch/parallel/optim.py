@@ -12,11 +12,39 @@ bias corrections are f32 because the step count's powers are f32 arrays;
 the update is cast to the parameter dtype, with no f32 master copy.
 """
 
+import contextlib
+
 import torch
 
 from .._tree import tree_leaves, tree_map
 
-__all__ = ["sgd", "momentum", "adam", "adamw", "lamb"]
+__all__ = ["sgd", "momentum", "adam", "adamw", "lamb", "norm_reduction"]
+
+# When a leaf is a ZeRO shard (parallel/zero.py), per-param reductions (the
+# LAMB trust-ratio norms) must span the whole param, not the local shard:
+# zero.py wraps its sharded update in norm_reduction(psum over dp), and the
+# norm becomes the square root of the psum of the shards' sums of squares,
+# as the reference's _norm_sq.
+_NORM_REDUCE = None
+
+
+@contextlib.contextmanager
+def norm_reduction(fn):
+    global _NORM_REDUCE
+    prev = _NORM_REDUCE
+    _NORM_REDUCE = fn
+    try:
+        yield
+    finally:
+        _NORM_REDUCE = prev
+
+
+def _norm(x):
+    """The l2 norm of an f32 leaf; across its ZeRO shards under
+    norm_reduction."""
+    if _NORM_REDUCE is None:
+        return torch.linalg.vector_norm(x)
+    return torch.sqrt(_NORM_REDUCE(torch.sum(torch.square(x))))
 
 
 def _tree_zeros(params):
@@ -138,8 +166,8 @@ def lamb(beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=0.01):
             mhat = m_.float() / (1 - b1t)
             vhat = v_.float() / (1 - b2t)
             r = mhat / (torch.sqrt(vhat) + eps) + weight_decay * p.float()
-            w_norm = torch.linalg.vector_norm(p.float())
-            r_norm = torch.linalg.vector_norm(r)
+            w_norm = _norm(p.float())
+            r_norm = _norm(r)
             one = torch.ones((), device=p.device)
             trust = torch.where(w_norm > 0,
                                 torch.where(r_norm > 0, w_norm / r_norm, one),

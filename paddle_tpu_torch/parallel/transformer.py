@@ -1,5 +1,8 @@
-"""Transformer building blocks at one device (counterpart of
-``paddle_tpu/parallel/transformer.py`` at tp = pp = 1, ``attn_mode="heads"``).
+"""Transformer building blocks (counterpart of
+``paddle_tpu/parallel/transformer.py`` at tp = pp = 1, ``attn_mode="heads"``):
+per-rank code whose loss sums over the dp axis (``collectives.psum``), with
+the reference's param specs and gradient sync axes.  Tensor, sequence and
+ring parallelism wait for ROADMAP.md Queue 1 item 5-C.
 
 Parameters keep the JAX package's tree and layout: per-layer leaves are
 stacked ``[L, ...]`` and matrices are ``[in, out]``, so a tree converted
@@ -22,11 +25,14 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .._tree import tree_map
+from . import collectives as col
+from .mesh import DP, PP, TP
 from ..kernels.flash_attention import attention_reference, flash_attention_packed
 from ..kernels.layer_norm import fused_layer_norm, layer_norm_reference
 from ..kernels._common import resolve_device
 
-__all__ = ["TransformerConfig", "init_transformer_params", "embed",
+__all__ = ["TransformerConfig", "init_transformer_params",
+           "transformer_param_specs", "grad_sync_axes", "embed",
            "layer_norm", "transformer_layer", "run_layers",
            "final_logits_loss"]
 
@@ -41,10 +47,10 @@ class TransformerConfig:
     max_seq: int = 512
     dtype: str = "bfloat16"          # compute/param dtype
     causal: bool = False             # False = BERT (bidirectional), True = GPT
-    attn_mode: str = "heads"         # only "heads" at one device
+    attn_mode: str = "heads"         # "heads"; "ring" waits for item 5-C
     remat: bool = False              # torch.utils.checkpoint per layer
-    tp: int = 1                      # tensor-parallel degree (1 here)
-    pp: int = 1                      # pipeline stages (1 here)
+    tp: int = 1                      # tensor-parallel degree (1; item 5-C)
+    pp: int = 1                      # pipeline stages (1; item 5-C)
     use_flash: bool = True           # the flash-attention kernel
     flash_block_q: int = 512         # TPU kernel block sizes: accepted, unused
     flash_block_k: int = 512
@@ -105,6 +111,49 @@ def init_transformer_params(generator, cfg: TransformerConfig, device=None):
     return tree_map(lambda t: t.to(device), params)
 
 
+def _param_skeleton():
+    """The init_transformer_params tree STRUCTURE without tensors — what the
+    sharding rules resolve against when no live params exist yet."""
+    from .rules import SkeletonLeaf
+
+    layer = {k: SkeletonLeaf() for k in (
+        "ln1_scale", "ln1_bias", "wq", "wk", "wv", "bqkv", "wo", "bo",
+        "ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2")}
+    return {"tok_emb": SkeletonLeaf(), "pos_emb": SkeletonLeaf(),
+            "lnf_scale": SkeletonLeaf(), "lnf_bias": SkeletonLeaf(),
+            "params_layers": layer}
+
+
+def transformer_param_specs(cfg: TransformerConfig, params=None):
+    """PartitionSpec tree matching init_transformer_params' structure,
+    derived from the rule tree (``rules.transformer_rules``)."""
+    from . import rules as shard_rules
+
+    return shard_rules.match_partition_rules(
+        shard_rules.transformer_rules(cfg),
+        _param_skeleton() if params is None else params)
+
+
+def grad_sync_axes(cfg: TransformerConfig):
+    """Per-leaf tuple of mesh axes whose gradient contributions must be
+    summed (the AllReduceOpHandle placement decision,
+    details/all_reduce_op_handle.cc:48): dp always; tp for leaves
+    replicated over tp; pp for leaves replicated over pp."""
+    specs = transformer_param_specs(cfg)
+
+    def axes(spec_leaf):
+        used = {a for part in spec_leaf if part for a in
+                ((part,) if isinstance(part, str) else tuple(part))}
+        sync = [DP]
+        if TP not in used:
+            sync.append(TP)   # replicated over tp -> partial grads per seq shard
+        if PP not in used:
+            sync.append(PP)
+        return tuple(sync)
+
+    return tree_map(axes, specs)
+
+
 # ---------------------------------------------------------------------------
 # Forward pieces
 # ---------------------------------------------------------------------------
@@ -147,8 +196,9 @@ def _attention_heads_mode(pl, h, cfg):
     else:
         raise NotImplementedError(
             "use_flash=False on %s: on the card attention runs only through "
-            "the flash kernels; a non-flash attention kernel is ROADMAP.md "
-            "Queue 1 item 5" % q2.device)
+            "the flash kernels; a non-flash attention kernel (the reference's "
+            "ring_attention at axis=None) is ROADMAP.md Queue 1 item 5-C"
+            % q2.device)
     return o @ pl["wo"] + pl["bo"]
 
 
@@ -253,12 +303,15 @@ class _ChunkedVocabNLL(torch.autograd.Function):
 
 def final_logits_loss(params, x, labels, mask, cfg: TransformerConfig,
                       positions=None):
-    """Softmax cross-entropy with the tied embedding head, mean over the
-    mask.  ``positions`` [b, P] selects the MLM label positions, and then
-    labels/mask are [b, P]."""
+    """Softmax cross-entropy with the tied embedding head: the token mean
+    over the dp-split global batch (the sum of the NLL and the count each
+    psum'd over dp, as the reference's ``:433-434``).  ``positions`` [b, P]
+    selects the MLM label positions, and then labels/mask are [b, P]."""
     x = layer_norm(x, params["lnf_scale"], params["lnf_bias"], fused=False)
     if positions is not None:
         idx = positions.long()[..., None].expand(-1, -1, x.shape[-1])
         x = torch.gather(x, 1, idx)                               # [b, P, E]
     nll = _ChunkedVocabNLL.apply(x, params["tok_emb"], labels, 4) * mask
-    return nll.sum() / mask.float().sum().clamp_min(1.0)
+    total = col.psum(nll.sum(), DP)
+    count = col.psum(mask.float().sum(), DP)
+    return total / count.clamp_min(1.0)

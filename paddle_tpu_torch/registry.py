@@ -19,8 +19,12 @@ class OpLoweringContext:
     to the block's whole name -> tensor map before each rule, so that the
     control-flow rules read carried and closure vars by name."""
 
-    def __init__(self, program, generator):
+    def __init__(self, program, generator, axis_env=None):
         self.program = program
+        # ring_id -> mesh axis name for the collective ops; empty (every
+        # collective an identity) unless a caller running the program
+        # inside a mesh passes it, as in the reference
+        self.axis_env = axis_env or {}
         # seeded per run (program.random_seed, step); random ops derive
         # their own generator from it and their seed attr (ops/common.py)
         self.generator = generator

@@ -1,0 +1,147 @@
+"""Data-parallel steps over one card a rank, NCCL: weak scaling of the
+port's dp trainers at a fixed batch a rank.
+
+    python -m paddle_tpu_torch.tools.dp_scaling [--model bert|resnet50]
+        [--nprocs 1 2 4] [--steps 5]
+
+For each world size it starts that many workers through
+``python -m paddle_tpu_torch.distributed.launch --nproc_per_node N`` (NCCL,
+each rank on its own card); each worker joins through ``fleet.init()`` and
+trains BERT-base (bf16, S = 512, 32 sequences a rank, LAMB with
+``zero=True``) or ResNet-50 (bf16, 224, 64 images a rank, ``fuse_bn`` with
+``sync_bn``, momentum): a warm-up step, then ``--steps`` timed steps (the
+host clock around them, ending in a sync).  After the timed steps every
+rank's parameters are gathered and compared, bit for bit.  Rank 0 prints
+one JSON line a world size: ms a step, items a second, the scaling
+efficiency against the one-rank line, the card's name and power limit.
+Needs as many cards as the largest world size.
+"""
+
+import argparse
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+
+import torch
+
+BERT_PER_RANK, SEQ = 32, 512
+RESNET_PER_RANK, IMAGE = 64, 224
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _worker(model, steps):
+    import torch.distributed as dist
+
+    from paddle_tpu_torch._tree import tree_leaves
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import bert, resnet
+    from paddle_tpu_torch.parallel import MeshSpec, optim
+    from paddle_tpu_torch.parallel import collectives as col
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f = fleet.init()
+    world, rank = f.worker_num(), f.worker_index()
+    if model == "bert":
+        cfg = bert.bert_base_config()
+        tr = bert.build_bert_trainer(cfg, MeshSpec(dp=world, zero=True),
+                                     optimizer=optim.lamb(), seed=0,
+                                     device=f.device)
+        host = bert.synthetic_batches(cfg, steps + 1, BERT_PER_RANK * world,
+                                      SEQ)
+        items, lr = BERT_PER_RANK * world * SEQ, 1e-4
+    else:
+        cfg = resnet.resnet50_config(dtype="bfloat16", fuse_bn=True,
+                                     sync_bn=True, image_size=IMAGE)
+        tr = resnet.build_resnet_trainer(cfg, MeshSpec(dp=world),
+                                         optimizer=optim.momentum(0.9),
+                                         seed=0, device=f.device)
+        host = resnet.synthetic_batches(cfg, steps + 1,
+                                        RESNET_PER_RANK * world)
+        items, lr = RESNET_PER_RANK * world, 1e-2
+    batches = [{k: torch.from_numpy(v).to(f.device) for k, v in b.items()}
+               for b in host]
+    if model == "resnet50":
+        for b in batches:
+            b["image"] = b["image"].to(torch.bfloat16)
+    tr.step(batches[0], lr)                       # warm-up
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    losses = [tr.step(b, lr) for b in batches[1:]]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    differ = 0
+    for t in tree_leaves(tr.state["params"]):
+        both = col.backend_all_gather(t.reshape(1, -1), dist.group.WORLD, 0)
+        differ += not all(torch.equal(both[0], both[r]) for r in range(world))
+    if rank == 0:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        print("DP_SCALING " + json.dumps({
+            "model": model, "world": world, "backend": dist.get_backend(),
+            "per_rank_batch": BERT_PER_RANK if model == "bert"
+            else RESNET_PER_RANK, "ms_per_step": dt * 1e3,
+            "items_per_sec": items / dt,
+            "peak_memory_allocated": torch.cuda.max_memory_allocated(),
+            "losses": [float(l) for l in losses],
+            "replica_leaves_differ": differ, "nvidia_smi": smi}),
+            flush=True)
+    dist.destroy_process_group()
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser("paddle_tpu_torch.tools.dp_scaling")
+    p.add_argument("--model", choices=("bert", "resnet50"), default="bert")
+    p.add_argument("--nprocs", type=int, nargs="+", default=[1, 2, 4])
+    p.add_argument("--steps", type=int, default=5)
+    p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    args = p.parse_args(argv)
+    if args.worker:
+        _worker(args.model, args.steps)
+        return 0
+    from paddle_tpu_torch.kernels import _common
+
+    _common.load_library()        # build once, before the workers load it
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    base = None
+    for n in args.nprocs:
+        if n > torch.cuda.device_count():
+            raise RuntimeError("world %d needs %d cards, have %d"
+                               % (n, n, torch.cuda.device_count()))
+        out = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+             "--nproc_per_node", str(n), "--started_port", str(_free_port()),
+             os.path.abspath(__file__), "--worker", "--model", args.model,
+             "--steps", str(args.steps)],
+            capture_output=True, text=True, env=env, cwd=root)
+        if out.returncode != 0:
+            raise RuntimeError("world %d failed (rc %d):\n%s" % (
+                n, out.returncode, out.stderr[-4000:]))
+        line = [ln for ln in out.stdout.splitlines()
+                if ln.startswith("DP_SCALING ")][-1]
+        rec = json.loads(line[len("DP_SCALING "):])
+        base = base or rec
+        rec["scaling_efficiency"] = (base["ms_per_step"] / rec["ms_per_step"]
+                                     if base["world"] == 1 else None)
+        print(json.dumps(rec), flush=True)
+        if rec["replica_leaves_differ"]:
+            raise RuntimeError("world %d: replicas differ" % n)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -175,37 +175,43 @@ def _bert():
 
     cfg = bert.bert_base_config()
     trainer = bert.build_bert_trainer(cfg, optimizer=optim.lamb(), seed=SEED)
-    staged = stack_batches(bert.synthetic_batches(cfg, STEPS + 1, BERT_BATCH,
+    staged = stack_batches(trainer.mesh, bert.batch_specs(),
+                           bert.synthetic_batches(cfg, STEPS + 1, BERT_BATCH,
                                                   BERT_SEQ, SEED),
-                           trainer.device, bert.batch_specs())
+                           bert.batch_dtypes())
     return trainer, staged, 1e-4, {"batch": BERT_BATCH, "seq": BERT_SEQ}
 
 
 def _resnet50():
     from paddle_tpu_torch.models import resnet
     from paddle_tpu_torch.parallel import optim
+    from paddle_tpu_torch.parallel.mesh import DP
+    from paddle_tpu_torch.parallel.rules import P
     from paddle_tpu_torch.parallel.train import stack_batches
 
     cfg = resnet.resnet50_config(dtype="bfloat16", fuse_bn=True,
                                  image_size=RN_IMAGE)
     trainer = resnet.build_resnet_trainer(cfg, optimizer=optim.momentum(0.9),
                                           seed=SEED)
-    staged = stack_batches(resnet.synthetic_batches(cfg, STEPS + 1, RN_BATCH,
+    staged = stack_batches(trainer.mesh, {"image": P(DP), "label": P(DP)},
+                           resnet.synthetic_batches(cfg, STEPS + 1, RN_BATCH,
                                                     SEED),
-                           trainer.device, {"image": torch.bfloat16})
+                           {"image": torch.bfloat16})
     return trainer, staged, 1e-2, {"batch": RN_BATCH, "image": RN_IMAGE,
                                    "bn_byte_bounds_ms": bn_byte_bounds_ms(cfg)}
 
 
 def _deepfm():
     from paddle_tpu_torch.models import deepfm
+    from paddle_tpu_torch.parallel.mesh import make_mesh
     from paddle_tpu_torch.parallel.train import stack_batches
 
     cfg = deepfm.DeepFMConfig()
     trainer = deepfm.build_deepfm_trainer(cfg, variant="segment", seed=SEED)
     # the bench's one batch, taken every step
-    staged = stack_batches([deepfm.synthetic_batch(cfg, DEEPFM_BATCH, SEED)]
-                           * (STEPS + 1), trainer.device)
+    staged = stack_batches(make_mesh(device=trainer.device), {},
+                           [deepfm.synthetic_batch(cfg, DEEPFM_BATCH, SEED)]
+                           * (STEPS + 1))
     return trainer, staged, 1e-3, {
         "batch": DEEPFM_BATCH,
         "mlp_train_flops_per_step": deepfm.mlp_train_flops(cfg, DEEPFM_BATCH)}
@@ -227,8 +233,9 @@ def _nmt():
     trainer = nmt.build_nmt_trainer(cfg, optimizer=(init, traced_update),
                                     seed=SEED)
     # the bench's one batch, taken every step
-    staged = stack_batches([wmt16_batch(cfg, NMT_BATCH, NMT_LEN, NMT_LEN)]
-                           * (STEPS + 1), trainer.device)
+    staged = stack_batches(trainer.mesh, {},
+                           [wmt16_batch(cfg, NMT_BATCH, NMT_LEN, NMT_LEN)]
+                           * (STEPS + 1))
     return trainer, staged, 1e-4, {
         "batch": NMT_BATCH, "src_len": NMT_LEN, "tgt_len": NMT_LEN,
         "train_flops_per_step": nmt.nmt_train_flops(cfg, NMT_BATCH, NMT_LEN,

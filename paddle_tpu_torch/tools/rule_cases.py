@@ -18,7 +18,8 @@ cotangent against ``outs[grad_out][0]`` into ``grad_slots``.
 
 import numpy as np
 
-__all__ = ["RULE_CASES", "RULE_CASES_4", "REFUSALS", "QUEUE3_ROWS", "cast_rows"]
+__all__ = ["RULE_CASES", "RULE_CASES_4", "REFUSALS", "QUEUE3_ROWS",
+           "COLLECTIVE_CASES", "cast_rows"]
 
 
 def _randn(seed, *shape):
@@ -680,3 +681,38 @@ RULE_CASES_4 += [
      ["Logits"], "Loss"),
 ]
 RULE_CASES += RULE_CASES_4
+
+
+# -- item 3-B tranche 8: the 15 collective op types (with item 5-A) --------
+# Each input array holds every rank's value on a leading axis of 2 (rank r
+# takes [r]); the rules run with ring 0 mapped to the dp axis of a 2-rank
+# world (and as identities with no axis for the ring).
+COLLECTIVE_CASES = [
+    ("c_allreduce_sum", "c_allreduce_sum", {"X": [_randn(300, 2, 3, 4)]},
+     {"ring_id": 0}, ["X"], "Out"),
+    ("c_allreduce_max", "c_allreduce_max", {"X": [_randn(301, 2, 3, 4)]},
+     {"ring_id": 0}, [], None),
+    ("c_allreduce_min", "c_allreduce_min", {"X": [_randn(302, 2, 3, 4)]},
+     {"ring_id": 0}, [], None),
+    ("c_allreduce_prod", "c_allreduce_prod",
+     {"X": [_r(303, 2, 3, 4, lo=0.5, hi=2.0)]}, {"ring_id": 0}, ["X"], "Out"),
+    ("c_allgather", "c_allgather", {"X": [_randn(304, 2, 3, 4)]},
+     {"ring_id": 0, "nranks": 2}, ["X"], "Out"),
+    ("c_reducescatter", "c_reducescatter", {"X": [_randn(305, 2, 4, 3)]},
+     {"ring_id": 0, "nranks": 2}, ["X"], "Out"),
+    ("c_broadcast", "c_broadcast", {"X": [_randn(306, 2, 3, 4)]},
+     {"ring_id": 0, "root": 1}, ["X"], "Out"),
+    ("c_ppermute", "c_ppermute", {"X": [_randn(307, 2, 3, 4)]},
+     {"ring_id": 0, "shift": 1}, ["X"], "Out"),
+    ("c_sync_calc_stream", "c_sync_calc_stream", {"X": [_randn(308, 2, 3)]},
+     {}, ["X"], "Out"),
+    ("c_sync_comm_stream", "c_sync_comm_stream", {"X": [_randn(309, 2, 3)]},
+     {"ring_id": 0}, ["X"], "Out"),
+    ("c_comm_init", "c_comm_init", {}, {"ring_id": 0, "nranks": 2}, [], None),
+    ("c_comm_init_all", "c_comm_init_all", {}, {"ring_id": 0}, [], None),
+    ("c_gen_nccl_id", "c_gen_nccl_id", {}, {}, [], None),
+    ("allreduce", "allreduce", {"X": [_randn(310, 2, 5)]}, {"ring_id": 0},
+     ["X"], "Out"),
+    ("broadcast", "broadcast", {"X": [_randn(311, 2, 5)]},
+     {"ring_id": 0, "root": 0}, ["X"], "Out"),
+]

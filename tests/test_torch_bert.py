@@ -29,6 +29,7 @@ from paddle_tpu_torch._tree import tree_leaves
 from paddle_tpu_torch.models import bert as pbert
 from paddle_tpu_torch.parallel import optim as poptim
 from paddle_tpu_torch.parallel import transformer as ptf
+from paddle_tpu_torch.parallel.mesh import MeshSpec
 from paddle_tpu_torch.parallel.train import stack_batches
 
 LOSS_TOL = dict(rtol=1e-5, atol=0)
@@ -198,7 +199,8 @@ def test_run_steps_matches_single_steps():
     b = pbert.build_bert_trainer(cfg, device="cpu", params=params)
     single = [float(a.step({k: torch.from_numpy(v) for k, v in bt.items()}, 1e-3))
               for bt in batches]
-    multi = b.run_steps(stack_batches(batches, "cpu", pbert.batch_specs()), 1e-3)
+    multi = b.run_steps(stack_batches(b.mesh, pbert.batch_specs(), batches,
+                                      pbert.batch_dtypes()), 1e-3)
     np.testing.assert_array_equal(multi.numpy(), np.array(single, "f4"))
 
 
@@ -304,7 +306,17 @@ def test_convert_roundtrip_keeps_bf16_bits():
 
 
 def test_parallel_degrees_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        pbert.build_bert_trainer(pbert.bert_tiny_config(tp=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        pbert.build_bert_trainer(pbert.bert_tiny_config(), device="cpu", dp=2)
+    """tp, pp and ring attention wait for item 5-C; dp above one needs a
+    world of that many ranks (tests/test_torch_parallel_dp.py runs one)."""
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5-C"):
+        pbert.build_bert_trainer(pbert.bert_tiny_config(tp=2),
+                                 MeshSpec(tp=2), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5-C"):
+        pbert.build_bert_trainer(pbert.bert_tiny_config(pp=2),
+                                 MeshSpec(pp=2), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5-C"):
+        pbert.build_bert_trainer(pbert.bert_tiny_config(attn_mode="ring"),
+                                 device="cpu")
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        pbert.build_bert_trainer(pbert.bert_tiny_config(), MeshSpec(dp=2),
+                                 device="cpu")

@@ -605,16 +605,6 @@ def test_data_parallel_at_one_rank_trains_as_the_bare_model():
         np.testing.assert_array_equal(bare[n], wrapped[n])
 
 
-def test_more_than_one_rank_waits_for_item_5(monkeypatch):
-    monkeypatch.setenv("PADDLE_TRAINERS_NUM", "2")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        pdy.prepare_context()
-    with pdy.guard(pfluid.CPUPlace()):
-        dp = pdy.DataParallel(pdy.Linear(2, 2))
-        with pytest.raises(NotImplementedError, match="item 5"):
-            dp.apply_collective_grads()
-
-
 def test_guard_without_a_place_is_the_card_or_raises():
     from paddle_tpu_torch.framework import _dygraph_tracer
 

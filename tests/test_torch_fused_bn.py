@@ -181,9 +181,17 @@ def test_statistics_are_not_differentiable():
 
 
 def test_sync_axis_raises():
+    """A sync_axis that is not a mesh axis raises; "dp" outside a mesh (or
+    at one rank) is the local statistics, bit for bit, as the reference's
+    pmean is a no-op there (tests/test_torch_parallel_dp.py holds it across
+    ranks)."""
     x = torch.randn(2, 3, 3, 4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        pfbn.fused_bn_train(x, torch.ones(4), torch.zeros(4), sync_axis="dp")
+    with pytest.raises(ValueError, match="not a mesh axis"):
+        pfbn.fused_bn_train(x, torch.ones(4), torch.zeros(4), sync_axis="model")
+    plain = pfbn.fused_bn_train(x, torch.ones(4), torch.zeros(4))
+    synced = pfbn.fused_bn_train(x, torch.ones(4), torch.zeros(4), sync_axis="dp")
+    for a, b in zip(plain, synced):
+        assert torch.equal(a, b)
 
 
 def test_non_contiguous_input_raises_rather_than_copies():

@@ -102,6 +102,49 @@ def test_the_data_path_is_checked_and_loads_alone():
     assert r.stdout.strip().splitlines()[-1] == "[]"
 
 
+DATA_PARALLEL = ["parallel", "parallel.mesh", "parallel.collectives",
+                 "parallel.rules", "parallel.train", "parallel.zero",
+                 "distributed", "distributed.fleet", "distributed.launch",
+                 "distributed.role_maker", "ops.collective_ops",
+                 "layers.collective", "dygraph.parallel"]
+
+
+def test_the_data_parallel_engine_is_checked_and_loads_alone():
+    """Every module of item 5-A is among the files checked above, and
+    importing all of them in a fresh interpreter loads neither JAX nor the
+    JAX package, nor initialises a process group."""
+    checked = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for mod in DATA_PARALLEL:
+        path = "paddle_tpu_torch/" + mod.replace(".", "/")
+        assert path + ".py" in checked or path + "/__init__.py" in checked, mod
+    code = ("import sys\n" + "".join("import paddle_tpu_torch.%s\n" % m
+                                      for m in DATA_PARALLEL)
+            + "import torch.distributed as dist\n"
+            + "assert not dist.is_initialized()\n"
+            + "print(sorted({m.split('.')[0] for m in sys.modules} & "
+              "{'jax', 'jaxlib', 'paddle_tpu'}))")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_fleet_init_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
+    """fleet.init() picks the card (and raises without one); with
+    device="cpu" and no PADDLE_* endpoints a process runs alone."""
+    from paddle_tpu_torch.distributed import fleet
+
+    for k in ("PADDLE_TRAINER_ENDPOINTS", "PADDLE_TRAINERS_NUM"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fleet._Fleet().init()
+    f = fleet._Fleet().init(device="cpu")
+    assert f.device.type == "cpu" and f.worker_num() == 1
+    assert not torch.distributed.is_initialized()
+
+
 def test_data_path_entry_points_raise_without_a_card(monkeypatch):
     """Without a card, the Executor and a DataLoader given no place raise
     before they stage anything; with CPUPlace they run on the CPU."""

@@ -447,14 +447,17 @@ def test_resnet_tiny_steps_on_card_match_cpu(cuda_device):
 
 
 def test_resnet_trainer_refuses_sync_bn_and_dp(cuda_device):
+    """tp and pp wait for item 5-C; dp above one needs a world of that many
+    ranks (chip_smoke.py phase 51 runs two)."""
     from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.parallel.mesh import MeshSpec
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5-C"):
         resnet.build_resnet_trainer(resnet.resnet_tiny_config(sync_bn=True),
-                                    device=cuda_device)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+                                    MeshSpec(tp=2), device=cuda_device)
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         resnet.build_resnet_trainer(resnet.resnet_tiny_config(),
-                                    device=cuda_device, dp=2)
+                                    MeshSpec(dp=2), device=cuda_device)
 
 
 def test_non_flash_attention_raises_on_card(cuda_device):

@@ -42,6 +42,8 @@ from paddle_tpu_torch._tree import tree_leaves
 from paddle_tpu_torch.kernels import _common
 from paddle_tpu_torch.models import resnet as pres
 from paddle_tpu_torch.parallel import optim as poptim
+from paddle_tpu_torch.parallel.mesh import DP, MeshSpec
+from paddle_tpu_torch.parallel.rules import P
 from paddle_tpu_torch.parallel.train import stack_batches
 
 LOSS_TOL = dict(rtol=1e-5, atol=0)
@@ -290,7 +292,8 @@ def test_run_steps_matches_single_steps():
     a = pres.build_resnet_trainer(cfg, device="cpu", params=params, bn_state=state)
     b = pres.build_resnet_trainer(cfg, device="cpu", params=params, bn_state=state)
     single = [float(a.step(_torch_batch(bt), LR)) for bt in batches]
-    multi = b.run_steps(stack_batches(batches, "cpu"), LR)
+    multi = b.run_steps(stack_batches(b.mesh, {"image": P(DP), "label": P(DP)},
+                                      batches), LR)
     np.testing.assert_array_equal(multi.numpy(), np.array(single, "f4"))
     for x, y in zip(tree_leaves(a.bn_state), tree_leaves(b.bn_state)):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
@@ -309,10 +312,17 @@ def test_synthetic_batches_are_bench_batches():
 
 
 def test_unsupported_settings_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        pres.build_resnet_trainer(pres.resnet_tiny_config(sync_bn=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        pres.build_resnet_trainer(pres.resnet_tiny_config(), device="cpu", dp=2)
+    """tp and pp wait for item 5-C; dp above one needs a world of that many
+    ranks (tests/test_torch_parallel_dp.py runs one)."""
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5-C"):
+        pres.build_resnet_trainer(pres.resnet_tiny_config(sync_bn=True),
+                                  MeshSpec(tp=2), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5-C"):
+        pres.build_resnet_trainer(pres.resnet_tiny_config(), MeshSpec(pp=2),
+                                  device="cpu")
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        pres.build_resnet_trainer(pres.resnet_tiny_config(), MeshSpec(dp=2),
+                                  device="cpu")
 
 
 @pytest.mark.parametrize("depth,image", [(18, 16), (50, 32)])

@@ -108,8 +108,15 @@ def test_the_ports_transpiler_warns_that_the_executor_refuses(sync):
 
 
 def test_the_distributed_package_exports_only_the_transpiler():
-    assert pfluid.distributed.__all__ == ["DistributeTranspiler",
-                                          "DistributeTranspilerConfig"]
+    """The transpiler and, since item 5-A, fleet and the role makers: the
+    JAX package's exports but the GeoSGD Communicator (item 5-B)."""
+    assert pfluid.distributed.__all__ == [
+        "fleet", "PaddleCloudRoleMaker", "UserDefinedRoleMaker", "Role",
+        "DistributeTranspiler", "DistributeTranspilerConfig"]
+    jnames = {n for n in dir(jfluid.distributed) if not n.startswith("_")}
+    assert set(pfluid.distributed.__all__) == jnames - {
+        "Communicator", "communicator", "heartbeat", "launch", "role_maker",
+        "transpiler"}
     assert (pfluid.distributed.DistributeTranspiler
             is pfluid.transpiler.DistributeTranspiler)
     assert jfluid.transpiler.__all__ == pfluid.transpiler.__all__
