@@ -390,6 +390,7 @@ record and ``{"ok": true, "device": {...}}``; any failure exits non-zero
 without them.  Nothing here imports JAX or the JAX package.
 """
 
+import contextlib
 import json
 import math
 import re
@@ -5789,7 +5790,8 @@ class _DpWatch:
     """Inside the block: every sum the backend layer runs (psum's all-reduce
     and ZeRO's reduce-scatter) recorded as (kind, the local value, the
     reduced one, dim), and every torch.distributed collective timed on the
-    host clock between two syncs of the card."""
+    host clock between two syncs of the card, with the bytes of its
+    input."""
 
     _TIMED = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
               "broadcast", "all_to_all_single")
@@ -5803,6 +5805,7 @@ class _DpWatch:
         from paddle_tpu_torch.parallel import collectives as col
 
         self.taps, self.seconds, self.calls, self._saved = [], 0.0, 0, []
+        self.bytes = 0
         ar, rs = col.backend_all_reduce, col.backend_reduce_scatter
 
         def tap_ar(x, group, op="sum"):
@@ -5817,6 +5820,9 @@ class _DpWatch:
             return y
 
         def timed(fn):
+            # the input: the second argument of the (output, input) forms
+            src = 1 if fn.__name__.endswith(("_tensor", "_single")) else 0
+
             def call(*a, **k):
                 _sync(self.device)
                 t0 = time.perf_counter()
@@ -5824,6 +5830,7 @@ class _DpWatch:
                 _sync(self.device)
                 self.seconds += time.perf_counter() - t0
                 self.calls += 1
+                self.bytes += a[src].numel() * a[src].element_size()
                 return out
             return call
 
@@ -6493,6 +6500,672 @@ def phase_dp_two_ranks(device_name, card, device="cuda", rn_kw=None,
     return {m: got[0][m]["steps"][-1]["launches"] for m in ("resnet", "bert")}
 
 
+# -- item 5-B: program-mode data parallelism (phase 52) -------------------------
+
+PDP_STEPS = 3                 # the encoder: a checked, a watched, an untapped step
+PDP_FEED_SEED = 700
+PDP_RN_BATCH = 64             # ResNet-CIFAR's global batch: 32 a rank
+PDP_RN_STEPS = 2              # checked steps (then one untapped)
+PDP_GEO_K, PDP_GEO_STEPS = 2, 4
+PDP_GRAD_LIMIT = DP_F32_LIMIT  # yardsticks, as phase 51's f32 hold
+PDP_TIMEOUT_S = 600
+
+
+def _pdp_place(device):
+    import paddle_tpu_torch as fluid
+
+    return (fluid.CUDAPlace(0) if torch.device(device).type == "cuda"
+            else fluid.CPUPlace())
+
+
+def phase_program_dp_nccl(device_name, card, device=None, cfg=None):
+    """Phase 52, first part: the Fluid-layers BERT-base encoder (phase 41's
+    program: 12 x 768, S = 512, f32, Adam, B = 16, dropout 0.1) under
+    ``fleet.distributed_optimizer`` in a one-rank NCCL world (``fleet.init()``
+    from a one-rank PADDLE_* env), PDP_STEPS steps from the state and on the
+    batches the untagged program runs: the losses and every persistable bit
+    for bit the untagged program's."""
+    import os
+
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.tools.programs import (BERT_BASE_ENCODER,
+                                                 bert_encoder_program,
+                                                 encoder_feed)
+
+    cfg = cfg or BERT_BASE_ENCODER
+    endpoint = "127.0.0.1:%d" % _free_port()
+    env = {"PADDLE_TRAINER_ID": "0", "PADDLE_TRAINERS_NUM": "1",
+           "PADDLE_TRAINER_ENDPOINTS": endpoint,
+           "PADDLE_CURRENT_ENDPOINT": endpoint}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    rec = {"phase": "program_dp_nccl", "nvidia_smi": card, "batch": cfg.batch,
+           "seq": cfg.seq, "layers": cfg.layers, "hidden": cfg.hidden}
+    t0 = time.perf_counter()
+    try:
+        dev = fleet.init(device=device).device
+        rec.update(backend=dist.get_backend(), world=dist.get_world_size())
+        place = _pdp_place(dev)
+        feeds = [encoder_feed(cfg, PDP_FEED_SEED + k) for k in range(PDP_STEPS)]
+        init, runs = None, {}
+        for tagged in (False, True):
+            main, startup, v = bert_encoder_program(
+                fluid, cfg, wrap_optimizer=fleet.distributed_optimizer
+                if tagged else None)
+            exe, scope = fluid.Executor(place), fluid.Scope()
+            exe.run(startup, scope=scope)
+            names = sorted(x.name for x in startup.list_vars() if x.persistable)
+            if init is None:
+                init = {n: scope.find_var(n).clone() for n in names}
+            else:
+                for n in names:
+                    scope.set(n, init[n].clone())
+            losses, ms = [], []
+            for f in feeds:
+                _sync(dev)
+                t1 = time.perf_counter()
+                (lv,) = exe.run(main, feed=f, fetch_list=[v["loss"]],
+                                scope=scope)
+                _sync(dev)
+                ms.append((time.perf_counter() - t1) * 1e3)
+                losses.append(float(lv))
+            runs[tagged] = (losses, ms, {n: scope.find_var(n) for n in names})
+            del exe, scope
+        del init
+        (l0, ms0, s0), (l1, ms1, s1) = runs[False], runs[True]
+        rec.update(losses=l1, ms_each_step_fleet=ms1, ms_each_step_plain=ms0,
+                   fleet_tagged=True,
+                   bit_for_bit=bool(l0 == l1 and all(
+                       _same_tensor_bits(s0[n], s1[n]) for n in s0)))
+        del runs, s0, s1
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()     # the ranks of the second part share the card
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, val in saved.items():
+            if val is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = val
+    rec["seconds"] = time.perf_counter() - t0
+    rec["ok"] = bool(rec["bit_for_bit"] and rec["world"] == 1 and
+                     all(math.isfinite(x) for x in rec["losses"]))
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError("phase 52 (one-rank NCCL world): %s" % rec)
+
+
+def _pdp_replicas_differ(scope, names):
+    """The names whose value differs from rank 0's (a broadcast each), the
+    same list on every rank."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.parallel import collectives as col
+
+    bad = []
+    for n in names:
+        t = scope.find_var(n)
+        if not isinstance(t, torch.Tensor):
+            continue
+        ref = col.backend_broadcast(t, dist.group.WORLD, 0)
+        if not _same_tensor_bits(t.contiguous(), ref):
+            bad.append(n)
+    flag = torch.tensor([len(bad)], device=scope.find_var(names[0]).device)
+    dist.all_reduce(flag)
+    return bad if int(flag) == len(bad) else bad + ["(another rank's)"]
+
+
+def _pdp_state(scope, names):
+    return {n: scope.find_var(n).clone() for n in names}
+
+
+def _pdp_one_rank(place, main, state, step, feed, fetch):
+    """The untagged ``main`` on one rank from ``state`` (copied), its
+    executor at the data-parallel run's step (so its random ops draw the
+    same numbers): the fetches, on the device."""
+    import paddle_tpu_torch as fluid
+
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    for n, t in state.items():
+        scope.var(n)
+        scope.set(n, t.clone())
+    exe._step = step
+    return exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                   return_numpy=False)
+
+
+def _pdp_loss_bound(t_dp, t_one, l_dp, l_one, world):
+    """|l_dp - l_one| against the bound the arithmetic gives: each loss is
+    an f32 mean of its own terms (the data-parallel one a sum of each
+    rank's n/world, then of the ranks; one rank's in one order), each within
+    gamma(k) of the terms' absolute sum over n and a rounding of its
+    division; the two runs' exact means differ by what float64 measures."""
+    from paddle_tpu_torch.tools import fp_bounds
+
+    a, b = t_dp.double().flatten(), t_one.double().flatten()
+    n = a.numel()
+    g = fp_bounds.gamma
+    bound = (g(n // world + world) * float(a.abs().sum()) / n
+             + g(n) * float(b.abs().sum()) / n
+             + 2 * fp_bounds.U32 * (abs(l_dp) + abs(l_one))
+             + abs(float(a.mean()) - float(b.mean()))
+             + 2 * n * 2.0 ** -53 * float(a.abs().mean() + b.abs().mean()))
+    err = abs(l_dp - l_one)
+    return {"terms": n, "loss_dp": l_dp, "loss_one_rank": l_one, "err": err,
+            "bound": bound, "err_over_bound": err / bound,
+            "terms_bit_for_bit": _same_tensor_bits(t_dp, t_one)}
+
+
+def _pdp_encoder(rank, world, device, args):
+    """BERT-base encoder under fleet, AllReduce: a checked step (rank 0
+    holds the gathered dropout masks and loss terms to the one-rank run's
+    from the same state), a watched one (collectives), an untapped one;
+    replicas; the gradient at dropout 0 against the one-rank gradient in
+    yardsticks (the larger of a row permutation's distance and that of the
+    one-rank program run on the ranks' row blocks in turn), with a rank's
+    own rows and n times the gradient as controls;
+    then kReduce from the same state: losses and parameters bit for bit,
+    Adam's moments half their bytes a rank."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.tools.programs import (bert_encoder_program,
+                                                 encoder_feed)
+
+    cfg = args["enc_cfg"]
+    place = _pdp_place(device)
+    feeds = [encoder_feed(cfg, PDP_FEED_SEED + k) for k in range(PDP_STEPS)]
+    on_card = torch.device(device).type == "cuda"
+
+    def build(c, strategy=None, tagged=True):
+        wrap = ((lambda opt: fleet.distributed_optimizer(opt, strategy))
+                if tagged else None)
+        return bert_encoder_program(fluid, c, wrap_optimizer=wrap)
+
+    out = {}
+    main, startup, v = build(cfg)
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    exe.run(startup, scope=scope)
+    names = sorted(x.name for x in startup.list_vars() if x.persistable)
+    params = [p.name for p in main.global_block().all_parameters()]
+    init = _pdp_state(scope, names)
+    ops = main.global_block().ops
+    masks = [op.outputs["Mask"][0] for op in ops if op.type == "dropout"]
+    terms = next(op.outputs["Loss"][0] for op in ops
+                 if op.type == "softmax_with_cross_entropy")
+    losses, steps = [], []
+    for k, feed in enumerate(feeds):
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        step, rec = exe._step, {"step": k}
+        fetch = [v["loss"]] + ([terms] + masks if k == 0 else [])
+        clock = _DpWatch(device)
+        with clock if k == 1 else contextlib.nullcontext():
+            _sync(device)
+            t0 = time.perf_counter()
+            got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                          return_numpy=False)
+            _sync(device)
+            rec["ms"] = (time.perf_counter() - t0) * 1e3
+        if k == 1:
+            rec.update(collective_ms=clock.seconds * 1e3,
+                       collective_calls=clock.calls,
+                       collective_bytes=clock.bytes)
+        rec["kind"] = ("checked", "watched", "untapped")[min(k, 2)]
+        losses.append(float(got[0]))
+        rec["loss"] = losses[-1]
+        if on_card:
+            rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if k == 0 and rank == 0:
+            rmain, _, rv = build(cfg, tagged=False)
+            ref = _pdp_one_rank(place, rmain, init, step, feed,
+                                [rv["loss"], terms] + masks)
+            rec["loss_bound"] = _pdp_loss_bound(got[1], ref[1], losses[-1],
+                                                float(ref[0]), world)
+            rec["masks"] = len(masks)
+            rec["masks_bit_for_bit"] = all(
+                _same_tensor_bits(a, b) for a, b in zip(got[2:], ref[2:]))
+            rec["mask_keep_share"] = float(got[2].float().mean())
+            rec["masks_global_shape"] = list(got[2].shape)
+            del ref
+        del got
+        steps.append(rec)
+    out["steps"] = steps
+    out["replicas_differ"] = _pdp_replicas_differ(scope, names)
+    final = _pdp_state(scope, params)
+    del exe, scope
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the gradient, at dropout 0 (a row permutation moves no dropout mask)
+    c0 = cfg._replace(dropout=0.0)
+    main0, startup0, v0 = build(c0)
+    exe0, scope0 = fluid.Executor(place), fluid.Scope()
+    exe0.run(startup0, scope=scope0)
+    for n in names:
+        scope0.set(n, init[n].clone())
+    gnames = [p + "@GRAD" for p in params]
+    step = exe0._step
+    g_dp = exe0.run(main0, feed=feeds[0], fetch_list=gnames, scope=scope0,
+                    return_numpy=False)
+    del exe0, scope0
+    if rank == 0:
+        rmain, _, _ = build(c0, tagged=False)
+        perm = np.random.RandomState(1).permutation(cfg.batch)
+        half = cfg.batch // world
+        g1 = _pdp_one_rank(place, rmain, init, step, feeds[0], gnames)
+        gp = _pdp_one_rank(place, rmain, init, step,
+                           {k: a[perm] for k, a in feeds[0].items()}, gnames)
+        # key biases: softmax ignores a shift along its axis, so their
+        # gradient is 0 up to rounding noise; compared, not held
+        held = [i for i, p in enumerate(params) if not p.endswith("_key_fc.b_0")]
+        pick = lambda gs: [gs[i] for i in held]
+        hn = [params[i] for i in held]
+        out["grad"] = _grad_gap(pick(g_dp), pick(g1), 1, hn)
+        out["yardstick_grad"] = _grad_gap(pick(gp), pick(g1), 1, hn)
+        del gp
+        # the ranks' row blocks run one after another on one rank, their
+        # gradients averaged: f32 products round differently at the ranks'
+        # shapes than at the global batch's, which no row permutation moves
+        parts = [_pdp_one_rank(place, rmain, init, step,
+                               {k: a[r * half:(r + 1) * half]
+                                for k, a in feeds[0].items()}, gnames)
+                 for r in range(world)]
+        g_split = [sum(gs) / world for gs in zip(*parts)]
+        out["split_yardstick_grad"] = _grad_gap(pick(g_split), pick(g1), 1,
+                                                hn)
+        out["dp_equals_split_bit_for_bit"] = all(
+            _same_tensor_bits(a, b) for a, b in zip(g_dp, g_split))
+        out["control_own_rows_grad"] = _grad_gap(pick(parts[0]), pick(g1), 1,
+                                                 hn)
+        out["control_n_times_grad"] = _grad_gap(
+            [g * world for g in pick(g_dp)], pick(g1), 1, hn)
+        del g1, parts, g_split
+    del g_dp
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # kReduce from the same state, on the same batches
+    strategy = fleet.DistributedStrategy()
+    strategy.reduce_strategy = fluid.BuildStrategy.ReduceStrategy.Reduce
+    main2, startup2, v2 = build(cfg, strategy)
+    exe2, scope2 = fluid.Executor(place), fluid.Scope()
+    exe2.run(startup2, scope=scope2)
+    for n in names:
+        scope2.set(n, init[n].clone())
+    del init
+    red = [float(exe2.run(main2, feed=f, fetch_list=[v2["loss"]],
+                          scope=scope2)[0]) for f in feeds]
+    moments = [x.name for x in main2.list_vars()
+               if getattr(x, "_is_optimizer_accumulator", False)
+               and "moment" in x.name]
+    held = sum(scope2.find_var(n).numel() * 4 for n in moments)
+    whole = sum(math.prod(main2.global_block().var(n).shape) * 4
+                for n in moments)
+    out["reduce"] = {
+        "losses": red, "losses_bit_for_bit": red == losses,
+        "params_bit_for_bit": all(_same_tensor_bits(scope2.find_var(p),
+                                                    final[p]) for p in params),
+        "moments": len(moments), "moment_bytes_a_rank": held,
+        "moment_bytes_whole": whole,
+        "row_shards": sorted({scope2.row_shards(n) for n in moments}),
+        "replicas_differ": _pdp_replicas_differ(
+            scope2, [n for n in names if scope2.row_shards(n) == 1])}
+    del exe2, scope2, final
+    out["losses"] = losses
+    return out
+
+
+def _pdp_bn_bound(x, mean, var, sync):
+    """Per channel, the distance of a batch norm's f32 mean and variance
+    from the float64 ones of its input ``x`` (NCHW), and the bound the
+    arithmetic gives: a mean of n values within gamma(n + 3) of their
+    absolute mean; the variance, as the data-parallel rule forms it
+    (``sync``: the mean of squares less the squared mean) or as one rank's
+    (the mean of the squared deviations), within gamma(n + 4) of its sums,
+    the mean's error carried through the square, and a rounding."""
+    from paddle_tpu_torch.tools import fp_bounds
+
+    xd = x.double().transpose(0, 1).reshape(x.shape[1], -1)
+    n = xd.shape[1]
+    g, u = fp_bounds.gamma, fp_bounds.U32
+    mu = xd.mean(1)
+    ex2 = (xd * xd).mean(1)
+    var64 = ex2 - mu * mu
+    e_m = g(n + 3) * xd.abs().mean(1) + n * 2.0 ** -52 * xd.abs().mean(1)
+    if sync:
+        e_v = (g(n + 4) * ex2 + e_m * (2 * mu.abs() + e_m)
+               + u * (mu * mu + var64.abs()))
+    else:
+        e_v = g(n + 4) * (var64 + e_m * e_m) + e_m * e_m
+    e_v = e_v + n * 2.0 ** -52 * ex2
+    return mu, var64, e_m, e_v
+
+
+def _pdp_resnet(rank, world, device, args):
+    """The book's ResNet-CIFAR (``tools/book_suite.py`` ``image_resnet``:
+    batch norms, ``accuracy``, Adam) under ``with_data_parallel``, PDP_RN_STEPS
+    checked steps and one untapped: every batch norm's global statistics
+    and the accuracy against the one-rank run's from the same state (rank
+    0), replicas after each step."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import datasets
+    from paddle_tpu_torch.models import book
+    from paddle_tpu_torch.tools import book_suite
+
+    place = _pdp_place(device)
+    on_card = torch.device(device).type == "cuda"
+    run = book_suite.build(fluid, book, datasets, "image_resnet",
+                           n=args["rn_batch"])
+    main = run.main
+    compiled = fluid.CompiledProgram(main).with_data_parallel(
+        loss_name=run.cost.name)
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    exe.run(run.startup, scope=scope)
+    names = sorted(x.name for x in run.startup.list_vars() if x.persistable)
+    ops = main.global_block().ops
+    bns = [(op.inputs["X"][0], op.outputs["SavedMean"][0],
+            op.outputs["SavedVariance"][0]) for op in ops
+           if op.type == "batch_norm"]
+    pred = next(op.inputs["X"][0] for op in ops if op.type == "top_k")
+    acc = run.fetch[1]
+    fetch = [run.cost, acc, pred] + [n for b in bns for n in b]
+    label = torch.from_numpy(run.feed["label"]).to(device).reshape(-1)
+    steps = []
+    for k in range(PDP_RN_STEPS + 1):
+        checked = k < PDP_RN_STEPS
+        state = _pdp_state(scope, names) if checked and rank == 0 else None
+        step = exe._step
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        _sync(device)
+        t0 = time.perf_counter()
+        got = exe.run(compiled, feed=run.feed,
+                      fetch_list=fetch if checked else [run.cost, acc],
+                      scope=scope, return_numpy=False)
+        _sync(device)
+        rec = {"step": k, "ms": (time.perf_counter() - t0) * 1e3,
+               "loss": float(got[0]), "accuracy": float(got[1]),
+               "kind": "checked" if checked else "untapped"}
+        if on_card:
+            rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if checked and rank == 0:
+            ref = _pdp_one_rank(place, main, state, step, run.feed, fetch)
+            del state
+            # accuracy: the data-parallel count is its own gathered
+            # predictions' count; it may differ from the one-rank one only
+            # on rows whose top-1 margin is within the two runs' distance
+            p_dp, p_one = got[2].double(), ref[2].double()
+            n_rows = p_dp.shape[0]
+            own = float((p_dp.argmax(1) == label).sum()) / n_rows
+            top2 = p_one.topk(2, dim=1).values
+            dist_row = (p_dp - p_one).abs().amax(1)
+            flips = int((top2[:, 0] - top2[:, 1] <= 2 * dist_row).sum())
+            rec.update(accuracy_one_rank=float(ref[1]), accuracy_own_count=own,
+                       accuracy_rows=n_rows, accuracy_rows_may_flip=flips,
+                       accuracy_ok=bool(float(got[1]) == own and abs(
+                           float(got[1]) - float(ref[1])) * n_rows <= flips))
+            worst = {"mean": 0.0, "var": 0.0}
+            for i in range(len(bns)):
+                x_dp, m_dp, v_dp = got[3 + 3 * i: 6 + 3 * i]
+                x_one, m_one, v_one = ref[3 + 3 * i: 6 + 3 * i]
+                mu_a, var_a, em_a, ev_a = _pdp_bn_bound(x_dp, m_dp, v_dp, True)
+                mu_b, var_b, em_b, ev_b = _pdp_bn_bound(x_one, m_one, v_one,
+                                                        False)
+                for what, got_v, one_v, bound in (
+                        ("mean", m_dp, m_one,
+                         em_a + em_b + (mu_a - mu_b).abs()),
+                        ("var", v_dp, v_one,
+                         ev_a + ev_b + (var_a - var_b).abs())):
+                    r = float(((got_v.double() - one_v.double()).abs()
+                               / bound).max())
+                    worst[what] = max(worst[what], r)
+                # the statistics are the global batch's: the local rows'
+                # mean lies outside the bound (the control)
+            rec["bn_layers"] = len(bns)
+            rec["bn_err_over_bound"] = worst
+            half = x_dp.shape[0] // world
+            mu_local = x_dp[:half].double().transpose(0, 1).reshape(
+                x_dp.shape[1], -1).mean(1)
+            rec["control_local_mean_err_over_bound"] = float(
+                ((mu_local - m_one.double()).abs()
+                 / (em_a + em_b + (mu_a - mu_b).abs())).max())
+            del ref
+        del got
+        rec["replicas_differ"] = _pdp_replicas_differ(scope, names)
+        steps.append(rec)
+    del exe, scope
+    return {"steps": steps, "batch": args["rn_batch"], "world": world}
+
+
+def _pdp_geo(rank, world, device, args):
+    """ResNet-CIFAR transpiled with ``geo_sgd_mode``, K = PDP_GEO_K: each
+    rank its own half of the batch, PDP_GEO_STEPS local steps; at every
+    reconcile the replicas differ before and agree bit for bit after."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import datasets
+    from paddle_tpu_torch.distributed import Communicator, DistributeTranspiler
+    from paddle_tpu_torch.distributed.transpiler import (
+        DistributeTranspilerConfig)
+    from paddle_tpu_torch.models import book
+    from paddle_tpu_torch.tools import book_suite
+
+    place = _pdp_place(device)
+    run = book_suite.build(fluid, book, datasets, "image_resnet",
+                           n=args["rn_batch"])
+    cfg = DistributeTranspilerConfig()
+    cfg.geo_sgd_mode = True
+    cfg.geo_sgd_need_push_nums = PDP_GEO_K
+    DistributeTranspiler(cfg).transpile(rank, program=run.main, pservers="",
+                                        trainers=world)
+    comm = Communicator(run.main, geo_sgd_need_push_nums=PDP_GEO_K)
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    exe.run(run.startup, scope=scope)
+    names = sorted(x.name for x in run.startup.list_vars() if x.persistable
+                   and scope.find_var(x.name).is_floating_point())
+    average = comm._average_params
+    syncs = []
+
+    def checked(scope_=None):
+        before = _pdp_replicas_differ(scope, names)
+        average(scope_)
+        syncs.append({"differed_before": len(before),
+                      "differ_after": _pdp_replicas_differ(scope, names)})
+
+    comm._average_params = checked
+    comm.start()
+    half = args["rn_batch"] // world
+    feed = {k: a[rank * half:(rank + 1) * half] for k, a in run.feed.items()}
+    losses = []
+    for _ in range(PDP_GEO_STEPS):
+        losses.append(float(exe.run(run.main, feed=feed,
+                                    fetch_list=[run.cost], scope=scope)[0]))
+    with fluid.scope_guard(scope):
+        comm.stop()
+    return {"sync_count": comm.sync_count, "syncs": syncs, "losses": losses,
+            "vars": len(names)}
+
+
+def _pdp_rank(rank, world, endpoint, results, args):
+    """One rank of phase 52, in a spawned process: ``fleet.init()`` from a
+    launcher's PADDLE_* env with gloo (both ranks on card 0), then the
+    encoder, ResNet-CIFAR and GeoSGD; its records go on ``results``."""
+    import os
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.kernels import _common
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update({
+        "PADDLE_TRAINER_ID": str(rank), "PADDLE_TRAINERS_NUM": str(world),
+        "PADDLE_TRAINER_ENDPOINTS": endpoint,
+        "PADDLE_CURRENT_ENDPOINT": endpoint, "PADDLE_DISTRI_BACKEND": "gloo",
+        "FLAGS_selected_gpus": "0",
+        # two ranks' caching allocators share the card
+        "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    device = fleet.init(
+        device=None if args["device"] == "cuda" else args["device"]).device
+    try:
+        _common.reset_launches()
+        res = {"rank": rank, "backend": dist.get_backend(),
+               "encoder": _pdp_encoder(rank, world, device, args)}
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        res["resnet"] = _pdp_resnet(rank, world, device, args)
+        res["geo"] = _pdp_geo(rank, world, device, args)
+        res["launches"] = {k: n for k, n in _common.launches.items() if n}
+        results.put(res)
+    finally:
+        dist.destroy_process_group()
+
+
+def _pdp_verdict(got, world):
+    """The problems in the ranks' records."""
+    bad = []
+    for rank in range(world):
+        res = got[rank]
+        enc, rn, geo = res["encoder"], res["resnet"], res["geo"]
+        if res["launches"]:
+            bad.append("rank %d launched port kernels %s" % (rank,
+                                                             res["launches"]))
+        if enc["replicas_differ"] or enc["reduce"]["replicas_differ"]:
+            bad.append("rank %d encoder replicas %s / %s" % (
+                rank, enc["replicas_differ"][:3],
+                enc["reduce"]["replicas_differ"][:3]))
+        red = enc["reduce"]
+        if not (red["losses_bit_for_bit"] and red["params_bit_for_bit"]
+                and red["row_shards"] == [world]
+                and red["moment_bytes_a_rank"] * world
+                == red["moment_bytes_whole"]):
+            bad.append("rank %d kReduce %s" % (rank, red))
+        if not all(math.isfinite(x) for x in enc["losses"]):
+            bad.append("rank %d encoder losses %s" % (rank, enc["losses"]))
+        for st in rn["steps"]:
+            if st["replicas_differ"] or not math.isfinite(st["loss"]):
+                bad.append("rank %d resnet step %d %s" % (
+                    rank, st["step"], st["replicas_differ"][:3]))
+        if geo["sync_count"] != PDP_GEO_STEPS // PDP_GEO_K + 1 or any(
+                s["differ_after"] for s in geo["syncs"]) or not \
+                geo["syncs"][0]["differed_before"]:
+            bad.append("rank %d geo %s" % (rank, geo["syncs"]))
+    enc, rn = got[0]["encoder"], got[0]["resnet"]
+    st = enc["steps"][0]
+    if not st["masks_bit_for_bit"] or st["loss_bound"]["err_over_bound"] > 1:
+        bad.append("encoder masks %s, loss %s" % (st["masks_bit_for_bit"],
+                                                  st["loss_bound"]))
+    g, c = enc["grad"], enc["control_own_rows_grad"]
+    for what in ("grad_rel_l2_median", "grad_rel_l2_max"):
+        yard = max(enc["yardstick_grad"][what],
+                   enc["split_yardstick_grad"][what])
+        if not g[what] <= PDP_GRAD_LIMIT * yard:
+            bad.append("encoder gradient %s %s over %s x %s" % (
+                what, g[what], PDP_GRAD_LIMIT, yard))
+        for name, ctl in (("a rank's own rows", c),
+                          ("n times", enc["control_n_times_grad"])):
+            if not ctl["grad_rel_l2_median"] > PDP_GRAD_LIMIT * yard:
+                bad.append("encoder control (%s) %s within %s x %s" % (
+                    name, ctl["grad_rel_l2_median"], PDP_GRAD_LIMIT, yard))
+    for st in rn["steps"][:PDP_RN_STEPS]:
+        w = st["bn_err_over_bound"]
+        if not st["accuracy_ok"] or w["mean"] > 1 or w["var"] > 1 or not \
+                st["control_local_mean_err_over_bound"] > 1:
+            bad.append("resnet step %d: accuracy %s, BN %s, control %s" % (
+                st["step"], st["accuracy_ok"], w,
+                st["control_local_mean_err_over_bound"]))
+    return bad
+
+
+def phase_program_dp_two_ranks(device_name, card, device="cuda", enc_cfg=None,
+                               rn_batch=PDP_RN_BATCH):
+    """Phase 52, second part: two ranks on the one card over gloo, each a
+    spawned process joining through ``fleet.init()``.  The Fluid-layers
+    BERT-base encoder under ``fleet.distributed_optimizer`` (global B = 16,
+    8 sequences a rank, dropout 0.1, Adam): the replicas bit for bit, the
+    gathered dropout masks bit for bit the one-rank run's, the loss within
+    the derived bound of the one-rank step's (``_pdp_loss_bound``), the
+    gradient (at dropout 0) within PDP_GRAD_LIMIT yardsticks of the
+    one-rank gradient (the larger of a row permutation's distance and the
+    distance of the one-rank program run on the ranks' row blocks in turn,
+    since f32 products round differently at the ranks' shapes) while a
+    rank's own rows' gradient and n times the gradient land outside; then
+    kReduce, whose losses and parameters equal
+    AllReduce's bit for bit with Adam's moments at half their bytes a rank.
+    The book's ResNet-CIFAR under ``with_data_parallel``, 32 a rank: every
+    batch norm's global statistics within the derived bound of the one-rank
+    run's (the local rows' mean outside it), the accuracy its own gathered
+    count and within the rows a rounding may flip of the one-rank one; then
+    GeoSGD at K = 2, the replicas differing before each reconcile and equal
+    after.  ms a step a rank, collective ms, calls and bytes of a watched
+    step, peak GB a rank; no port kernel launched."""
+    import multiprocessing as mp
+    import queue
+
+    from paddle_tpu_torch.tools.programs import BERT_BASE_ENCODER
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    endpoint = "127.0.0.1:%d" % _free_port()
+    enc_cfg = enc_cfg or BERT_BASE_ENCODER
+    args = {"device": device, "enc_cfg": enc_cfg, "rn_batch": rn_batch}
+    procs = [ctx.Process(target=_pdp_rank, args=(r, DP_WORLD, endpoint,
+                                                 results, args))
+             for r in range(DP_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        deadline = time.monotonic() + PDP_TIMEOUT_S
+        while len(got) < DP_WORLD:
+            try:
+                res = results.get(timeout=5)
+                got[res["rank"]] = res
+            except queue.Empty:
+                codes = [p.exitcode for p in procs]
+                if any(c not in (None, 0) for c in codes):
+                    raise AssertionError("phase 52: a rank failed, exit codes "
+                                         "%s" % codes)
+                if time.monotonic() > deadline:
+                    raise AssertionError("phase 52: no result in %d s"
+                                         % PDP_TIMEOUT_S)
+        for p in procs:
+            p.join(120)
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * DP_WORLD:
+            raise AssertionError("phase 52: exit codes %s" % codes)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(30)
+    bad = _pdp_verdict(got, DP_WORLD)
+    for rank in range(DP_WORLD):
+        emit({"phase": "program_dp_two_ranks", "rank": rank,
+              "world": DP_WORLD, "backend": got[rank]["backend"],
+              "model": "Fluid-layers BERT-base encoder (fleet)",
+              "batch_global": enc_cfg.batch, "seq": enc_cfg.seq,
+              **got[rank]["encoder"]})
+        emit({"phase": "program_dp_two_ranks", "rank": rank,
+              "model": "ResNet-CIFAR (book, with_data_parallel)",
+              **got[rank]["resnet"]})
+        emit({"phase": "program_dp_two_ranks", "rank": rank,
+              "model": "ResNet-CIFAR GeoSGD K=%d" % PDP_GEO_K,
+              **got[rank]["geo"]})
+    ok = not bad
+    emit({"phase": "program_dp_two_ranks", "nvidia_smi": card, "ok": ok,
+          "seconds": time.perf_counter() - t0, "problems": bad[:20]})
+    if not ok:
+        raise AssertionError("phase 52: %s" % bad[:20])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -6596,6 +7269,13 @@ def main():
             rec["dp2_launches_per_rank_step"] = dp_launches["bert"][key]
         if key in RN_PER_STEP:
             rec["sync_bn_dp2_launches_per_rank_step"] = dp_launches["resnet"][key]
+    torch.cuda.empty_cache()
+    _common.reset_launches()
+    phase_program_dp_nccl(name, card)
+    assert_no_launches("program-mode data parallelism (one-rank NCCL)")
+    phase_program_dp_two_ranks(name, card)
+    for rec in kernels:
+        rec["program_dp_launches_per_step"] = 0
     for rec in kernels:
         if rec["name"] == "segment_sum":
             rec["ctr_dataset_launches_per_step"] = ctr_per_step

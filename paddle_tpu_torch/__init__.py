@@ -14,14 +14,15 @@ module names so each counterpart is easy to find:
 - ``kernels``: the hand-written CUDA kernels (LayerNorm, flash attention,
   fused batch norm, the segment sum of sparse rows, the conv filter
   gradient) with their launch counters and plain PyTorch versions;
-- ``parallel``: transformer blocks, optimizers and the train step at one
-  device;
+- ``parallel``: transformer blocks, optimizers, the train step, the mesh
+  and collectives over a ``torch.distributed`` world, ZeRO, and the
+  batch-axis table of program-mode data parallelism (``batch_axes``);
 - the deployment path: ``io`` (``save_inference_model`` and the other
   savers and loaders, in the JAX package's file format), ``inference``
   (``Predictor``, ``create_predictor``, and ``export_inference_model`` /
   ``ExportedPredictor``, a ``torch.export`` program served by one CUDA
-  graph per feed signature), ``metrics``, ``compiler`` (``CompiledProgram``
-  at one device) and ``serving.lattice``;
+  graph per feed signature), ``metrics``, ``compiler`` (``CompiledProgram``,
+  ``with_data_parallel`` over the world's ranks) and ``serving.lattice``;
 - ``models.bert``, ``models.resnet``, ``models.deepfm``,
   ``models.transformer_nmt``, ``models.lenet``: the trainers and builders of
   the five BASELINE configs; ``models.book`` the Fluid book suite;
@@ -40,9 +41,10 @@ module names so each counterpart is easy to find:
 - ``lod`` (``LoDTensor``, ``LoDTensorArray``, ``Tensor``) and
   ``learning_rate_decay``, the compat names the JAX package exports;
 - ``ir`` (the ``Pass`` registry and ``PassManager``), ``transpiler`` and
-  ``distributed`` (the ``DistributeTranspiler``, whose tagged programs the
-  executor refuses until the multi-GPU engine), ``install_check``
-  (``run_check``) and ``contrib.layers``;
+  ``distributed`` (``fleet``, the launcher, the ``DistributeTranspiler``,
+  whose tagged programs the executor runs data-parallel, the GeoSGD
+  ``Communicator`` and the heartbeats), ``install_check`` (``run_check``)
+  and ``contrib.layers``;
 - ``dygraph`` (the imperative mode: ``guard``, ``VarBase`` and its tape,
   ``Layer``, the ``nn`` layers, ``TracedLayer``, ``DataParallel`` at one
   rank, ``save_dygraph`` / ``load_dygraph``, the schedulers) and

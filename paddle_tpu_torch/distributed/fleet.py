@@ -16,10 +16,12 @@ launcher's worker, one rank or more); a plain process with no endpoints in
 its env runs alone, as in the reference.  A failed bootstrap raises.
 
 ``distributed_optimizer(opt).minimize(loss)`` tags the program as the
-reference does; the port's executor refuses a tagged program until
-program-mode data parallelism lands (ROADMAP Queue 1 item 5-B).  The
-functional engine (``parallel/``: ``build_bert_trainer(cfg,
-MeshSpec(dp=...))`` and its kin) runs over the world ``init`` made.
+reference does, and the executor runs a tagged program data-parallel over
+the world ``init`` made (``compiler.py``, ``parallel/batch_axes.py``): each
+rank is fed the global batch and keeps its rows, and the program computes
+what the one-device program computes on it.  The functional engine
+(``parallel/``: ``build_bert_trainer(cfg, MeshSpec(dp=...))`` and its kin)
+runs over the same world.
 """
 
 import os
@@ -151,8 +153,8 @@ class DistributedOptimizer:
     """Parity: fleet_base.py:240 / collective CollectiveOptimizer :325.
 
     minimize() runs the base optimizer's minimize, then marks the program
-    with the fleet strategy, as the reference does (its executor shards a
-    tagged program over the mesh; the port's refuses one until item 5-B).
+    with the fleet strategy, as the reference does: the executor runs a
+    tagged program data-parallel with the strategy as its BuildStrategy.
     """
 
     def __init__(self, optimizer, strategy, fleet_):
@@ -176,8 +178,9 @@ class DistributedOptimizer:
             warnings.warn(
                 "DistributedStrategy.use_local_sgd: the program-mode fleet "
                 "path runs synchronous DP (per-step gradient all-reduce); "
-                "Local SGD (periodic replica averaging) waits (ROADMAP.md "
-                "Queue 1 item 5-C)", stacklevel=2)
+                "Local SGD (periodic replica averaging) lives in the "
+                "functional engine, parallel/local_sgd.py, which waits "
+                "(ROADMAP.md Queue 1 item 5-C)", stacklevel=2)
             DistributedOptimizer._warned_local_sgd = True
         if getattr(self._strategy, "forward_recompute", False):
             self._optimizer._use_remat = True

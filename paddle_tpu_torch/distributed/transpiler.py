@@ -9,11 +9,11 @@ As in the JAX package, every mode folds into one data-parallel program
 whose gradients are all-reduced (SURVEY.md §2.9: parameter servers fold
 into all-reduce data parallelism for dense models).  ``transpile()``
 records the cluster spec (trainer_id, trainers, endpoints) and tags the
-program for data-parallel execution; in "pserver" mode the server
-programs are empty, so that launcher scripts written for the reference
-keep working with every rank a trainer.  The port's executor refuses a
-tagged program until program-mode data parallelism lands (ROADMAP Queue 1
-item 5-B).
+program, which the executor then runs data-parallel over the world
+(``fleet.init()``); in "pserver" mode the server programs are empty, so
+that launcher scripts written for the reference keep working with every
+rank a trainer.  ``geo_sgd_mode`` tags the program "geo": it runs locally,
+and a started ``Communicator`` averages the parameters every K runs.
 """
 
 import warnings
@@ -21,10 +21,6 @@ import warnings
 from ..framework import Program, default_main_program
 
 __all__ = ["DistributeTranspiler", "DistributeTranspilerConfig"]
-
-_REFUSED = ("the port's Executor refuses the transpiled program until its "
-            "data-parallel execution lands (ROADMAP Queue 1 item 5-B)")
-
 
 class DistributeTranspilerConfig:
     """Parity: distribute_transpiler.py:131."""
@@ -69,7 +65,7 @@ class DistributeTranspiler:
         if mode == "pserver" and self.pserver_endpoints:
             warnings.warn(
                 "pserver mode: pserver processes get empty programs and "
-                "every rank is a trainer; " + _REFUSED)
+                "every rank is a trainer (all-reduce data parallelism)")
         if getattr(self.config, "geo_sgd_mode", False):
             # GeoSGD (communicator.h:332): K local steps, then the
             # parameters are averaged across the group every
@@ -82,7 +78,7 @@ class DistributeTranspiler:
                 "sync_mode=False: asynchronous parameter-server updates "
                 "have no counterpart (the tag asks for synchronous "
                 "all-reduce; geo_sgd_mode=True for periodic-sync local "
-                "steps); " + _REFUSED)
+                "steps)")
         # the tag for data-parallel execution (the c_allreduce insertion
         # point, transpiler/collective.py:178)
         program._dist_info = {

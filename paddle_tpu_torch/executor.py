@@ -28,8 +28,22 @@ fetch names.
 Sub-blocks (``while``, ``conditional_block``, ``cond``, ``scan``) run
 through ``OpLoweringContext.interpret_block``: each block's op rules are
 looked up once, when the plan is made, and a control-flow rule runs its
-sub-block's list on a copy of the env as often as it needs.  A one-device
-``CompiledProgram`` runs as the program it wraps.
+sub-block's list on a copy of the env as often as it needs.
+
+Data parallelism (a ``with_data_parallel`` CompiledProgram, or a program
+``fleet.distributed_optimizer`` or the transpiler tagged, as the JAX
+executor's ``:942-956`` wraps one): every rank is fed the global batch and
+keeps its rows (``compiler._ShardingInfo``); each op runs through the
+batch-axis table (``parallel/batch_axes.py``), so every reduction over the
+batch is global; the backward seeds a replicated loss's cotangent with 1/n
+and the dense gradients are summed over the ranks (a ``SelectedRows``
+gradient gathers every rank's ids and rows), so the optimizer section runs
+on the one-device gradients, on identical values on every rank.
+Batch-shaped fetches are gathered to the global value.  Under kReduce the
+marked accumulators stay 1/n of their rows a rank in the scope.  A
+GeoSGD-tagged program runs locally, and its started ``Communicator`` ticks
+after each run.  ``py_reader`` and dataset feeding of a data-parallel
+program raise (ROADMAP item 5-B).
 
 The monitor's hooks sit where the JAX executor's sit in its ``_run``
 (``monitor/``): the spans ``executor.run``, ``executor.feed_convert``,
@@ -54,11 +68,12 @@ the end, as the JAX executor's does; ``train_from_dataset`` and
 with lazy fetches, and the executor's ``InFlightWindow`` bounds how many
 lazily fetched steps may be outstanding (``drain`` waits for them all).
 
-The JAX executor's other branches (pipeline, recompute, data-parallel
-CompiledProgram/fleet, the warm store) raise ``NotImplementedError`` naming
-the ROADMAP item that brings them; none quietly runs another path.
+The JAX executor's other branches (pipeline, recompute, the warm store)
+raise ``NotImplementedError`` naming the ROADMAP item that brings them;
+none quietly runs another path.
 """
 
+import contextlib
 import os
 import time
 import warnings
@@ -76,8 +91,10 @@ from .monitor import memscope as _memscope
 from .monitor import sentinel as _sentinel
 from .monitor import trace as _trace
 from .framework import Parameter, Program, Variable, default_main_program
-from .compiler import CompiledProgram
+from .compiler import CompiledProgram, is_data_parallel
 from .kernels._common import resolve_device
+from .parallel import batch_axes as _batch_axes
+from .parallel.collectives import backend_all_reduce
 from .registry import OpLoweringContext, get_lowering
 from .scope import global_scope
 from .sparse import SelectedRows
@@ -115,11 +132,6 @@ def _refuse_unported(program):
         raise NotImplementedError(
             "PipelineOptimizer programs: the microbatched pipeline path "
             "waits (ROADMAP Queue 1 item 5-C, pipeline)")
-    if (getattr(program, "_fleet_strategy", None) is not None
-            or getattr(program, "_dist_info", None) is not None):
-        raise NotImplementedError(
-            "fleet/transpiler-tagged programs: program-mode data-parallel "
-            "execution waits (ROADMAP Queue 1 item 5-B)")
     for op in program.global_block().ops:
         if op.type == "backward_meta" and op.attrs.get("use_remat"):
             raise NotImplementedError(
@@ -288,6 +300,66 @@ def refuse_warm_dir():
 _MONITOR_IDENT_SEQ = [0]
 
 
+def _resolve_parallel(program, device):
+    """``(program, data-parallel layout or None, GeoSGD communicator or
+    None)`` for a run (JAX ``executor.py:922-960``): a CompiledProgram
+    unwraps to its program and layout; a fleet- or transpiler-tagged program
+    runs data-parallel through a CompiledProgram made once from its
+    strategy; a GeoSGD-tagged one runs locally and ticks its started
+    communicator."""
+    if isinstance(program, CompiledProgram):
+        return (program._program_for_run(), program._sharding_info(device),
+                None)
+    if not isinstance(program, Program):
+        raise TypeError("Executor.run takes a Program or a CompiledProgram, "
+                        "not %s" % type(program).__name__)
+    dist_info = getattr(program, "_dist_info", None)
+    if dist_info is not None and dist_info.get("mode") == "geo":
+        comm = getattr(program, "_communicator", None)
+        if comm is None and not getattr(program, "_geo_warned", False):
+            program._geo_warned = True
+            warnings.warn(
+                "geo_sgd_mode program running WITHOUT a started "
+                "Communicator: training is purely local (replicas never "
+                "reconcile) — create distributed.Communicator(program) and "
+                "call start()")
+        return program, None, comm
+    if not is_data_parallel(program):
+        return program, None, None
+    compiled = getattr(program, "_fleet_compiled", None)
+    if compiled is None:
+        compiled = CompiledProgram(program).with_data_parallel(
+            build_strategy=getattr(program, "_fleet_strategy", None))
+        program._fleet_compiled = compiled
+    return program, compiled._sharding_info(device), None
+
+
+def _shard_rows(dp, scope, block, env):
+    """kReduce: the marked accumulators whose rows divide over the ranks, in
+    ``env`` as this rank's rows (cut from a whole value a startup program or
+    a load left in the scope).  Returns their names."""
+    rows = set()
+    for n in dp.shard_state_names:
+        var = block._find_var_recursive(n)
+        if n not in env or var is None or not dp.row_sharded(var.shape):
+            continue
+        rows.add(n)
+        if scope.row_shards(n) != dp.n:
+            lo, hi = dp.rows(env[n].shape[0])
+            env[n] = env[n][lo:hi].clone()
+    return rows
+
+
+def _dp_global(dp, run, name, t, whole_rows):
+    """A data-parallel run's value of ``name`` as the one-device run has it:
+    a batch-sharded one gathered on its axis; a kReduce accumulator gathered
+    when ``whole_rows`` (a fetch), else kept as this rank's rows."""
+    if name in run.rows:
+        return dp.gather(t, 0) if whole_rows else t
+    axis = run.axes.get(name)
+    return t if axis is None else dp.gather(t, axis)
+
+
 def _monitor_ident(obj, prefix):
     """Stable telemetry identity for a Program/Executor, stored on the
     object (a dead object's recycled id must not make a fresh object's
@@ -392,6 +464,16 @@ class _Plan:
                 self.sparse[w].append(
                     (leaf, ids_name, attrs, [by_op[id(c)] for c in chain]))
 
+    def distribute(self):
+        """Every rule behind the batch-axis table, for a data-parallel run
+        (a sub-block's op may read no batch-sharded value)."""
+        for c in self.fwd + self.rest:
+            c.rule = _batch_axes.wrap(c)
+        for calls in self.sub.values():
+            for c in calls:
+                c.rule = _batch_axes.wrap(c, in_sub_block=True)
+        return self
+
     def context(self, generator):
         """The rules' context for one run: sub-blocks run from this plan."""
         ctx = OpLoweringContext(self.program, generator)
@@ -420,15 +502,18 @@ class _Plan:
                 leaves[leaf] = rows.detach().requires_grad_(True)
         return leaves
 
-    def _sparse_grad(self, env, w, grads):
+    def _sparse_grad(self, env, w, grads, dp=None):
         """``w@GRAD`` as a SelectedRows of the lookups' ids and row
         gradients; a ``padding_idx`` id points at the out-of-range
-        sentinel, so its row does not train (JAX executor.py:824-845)."""
+        sentinel, so its row does not train (JAX executor.py:824-845).
+        Data-parallel, the ids and rows of every rank, in rank order."""
         height = env[w].shape[0]
         ids_parts, val_parts = [], []
         for leaf, ids_name, attrs, _ in self.sparse[w]:
             g = grads[leaf]
             ids = env[ids_name]
+            if dp is not None and dp.group is not None:
+                ids, g = _gather_rows(dp, ids_name, ids, g)
             if ids.ndim > 1 and ids.shape[-1] == 1:
                 ids = ids[..., 0]
             ids = ids.reshape(-1)
@@ -460,11 +545,20 @@ class _Plan:
             # forward's boundary, ints stay as they are
             fwd_env = {k: _amp_cast(v, amp) for k, v in env.items()}
             fwd_env.update({k: _amp_cast(v, amp) for k, v in leaves.items()})
+        dp = ctx.dp
         with torch.enable_grad():
             _run_calls(self.fwd, fwd_env, ctx)
             loss = fwd_env[self.loss_name].float().sum()
+        seed = None
+        if (dp is not None and dp.group is not None
+                and self.loss_name not in dp.axes):
+            # a replicated loss: each rank seeds 1/n of its cotangent, the
+            # batch collectives' backward sums the ranks' cotangents, and
+            # the gradients below are summed over the ranks
+            seed = torch.full_like(loss, 1.0 / dp.n)
         grads = dict(zip(leaves, torch.autograd.grad(
-            loss, list(leaves.values()), allow_unused=True)))
+            loss, list(leaves.values()), grad_outputs=seed,
+            allow_unused=True)))
         if amp is not None:
             # the optimizer section sees the f32 masters, moments and LR
             # state; state the forward wrote (batch_norm's running stats)
@@ -480,15 +574,34 @@ class _Plan:
             env[name] = leaf.detach()
             # a parameter the loss does not reach has a zero gradient, as
             # jax.grad gives it
-            env[name + "@GRAD"] = torch.zeros_like(env[name]) if g is None else g
+            g = torch.zeros_like(env[name]) if g is None else g
+            if dp is not None and dp.group is not None:
+                g = backend_all_reduce(g, dp.group)
+            env[name + "@GRAD"] = g
         for w in self.sparse:
             for leaf, *_ in self.sparse[w]:
                 env.pop(leaf, None)
                 if grads[leaf] is None:
                     grads[leaf] = torch.zeros_like(leaves[leaf])
-            env[w + "@GRAD"] = self._sparse_grad(env, w, grads)
+            env[w + "@GRAD"] = self._sparse_grad(env, w, grads, dp)
         with torch.no_grad():
             _run_calls(self.rest, env, ctx)
+
+
+def _gather_rows(dp, ids_name, ids, g):
+    """A sparse lookup's ids and row gradients from every rank: gathered in
+    rank order where the ids carry the batch on axis 0, summed where they
+    are replicated (each rank then holds a part of every row's gradient)."""
+    from .parallel.collectives import backend_all_gather
+
+    axis = dp.axes.get(ids_name)
+    if axis is None:
+        return ids, backend_all_reduce(g, dp.group)
+    if axis != 0:
+        raise _batch_axes.refuse("a sparse lookup whose ids carry the batch "
+                                 "on axis %d" % axis)
+    return (backend_all_gather(ids.contiguous(), dp.group, 0),
+            backend_all_gather(g.contiguous(), dp.group, 0))
 
 
 def _amp_cast(v, dtype):
@@ -518,10 +631,15 @@ class Executor:
         self.inflight.drain()
 
     def close(self):
-        """Parity: executor.cc Executor::Close — waits for outstanding runs
-        and drops the cached plans."""
+        """Parity: executor.cc:110-118 Executor::Close -> SendComplete —
+        waits for outstanding runs, drops the cached plans, and marks this
+        worker complete for the failure monitor
+        (``distributed/heartbeat.py``)."""
+        from .distributed import heartbeat as _hb
+
         self.drain()
         self._cache.clear()
+        _hb.notify_complete()
 
     def feed_converter(self, program=None):
         """The feed-conversion closure ``feed_dict -> staged feed`` for use
@@ -530,6 +648,10 @@ class Executor:
         a side stream, so the copy of batch k+1 overlaps step k.  ``run``
         takes the staged tensors as they are."""
         program = program if program is not None else default_main_program()
+        if is_data_parallel(program):
+            raise NotImplementedError(
+                "a staged feed for a data-parallel program: the data path "
+                "under data parallelism waits (ROADMAP Queue 1 item 5-B)")
         if isinstance(program, CompiledProgram):
             program = program._program_for_run()
         block = program.global_block()
@@ -586,13 +708,14 @@ class Executor:
         t_start = time.perf_counter() if mon is not None else 0.0
         sent = getattr(mon, "sentinel", None) if mon is not None else None
         program = program if program is not None else default_main_program()
-        if isinstance(program, CompiledProgram):
-            program = program._program_for_run()
-        if not isinstance(program, Program):
-            raise TypeError("Executor.run takes a Program or a "
-                            "CompiledProgram, not %s" % type(program).__name__)
+        program, dp, geo = _resolve_parallel(program, self.device)
         refuse_warm_dir()
         feed = feed or {}
+        if dp is not None and getattr(program, "_py_readers", ()):
+            raise NotImplementedError(
+                "a py_reader or DataLoader feeding a data-parallel program: "
+                "the data path under data parallelism waits (ROADMAP Queue 1 "
+                "item 5-B); feed each rank the global batch")
         # py_reader-fed programs (layers/io.py py_reader): a started reader
         # injects its next staged batch as the feed; exhaustion raises
         # EOFException, as the reference's read_file does at the end of an
@@ -611,8 +734,10 @@ class Executor:
             _memscope.note_scope(scope)
         t_feed = time.perf_counter()
         with _trace.span("executor.feed_convert"):
-            feed_tensors = {n: self._feed_tensor(block, n, v)
-                            for n, v in feed.items()}
+            # data-parallel: this rank's rows of the global batch
+            feed_tensors = {n: self._feed_tensor(
+                block, n, v if dp is None else dp.shard_feed(n, v))
+                for n, v in feed.items()}
         if mon is not None:
             mon.phase_add("feed_stall", (time.perf_counter() - t_feed) * 1e3)
         if _chaos.maybe_fire("nan_batch"):
@@ -622,13 +747,15 @@ class Executor:
         key = (id(program), program._version,
                tuple(sorted((n, tuple(t.shape), t.dtype)
                             for n, t in feed_tensors.items())),
-               tuple(fetch_names))
+               tuple(fetch_names), None if dp is None else dp.key)
         # a cached plan holds its program, so the program's id stays its own
         plan = self._cache.get(key) if use_program_cache else None
         first_run = plan is None
         if first_run:
             with _trace.span("executor.compile"):
                 plan = _Plan(program, feed_tensors)
+                if dp is not None:
+                    plan.distribute()
             if use_program_cache:
                 self._cache[key] = plan
             if mon is not None:
@@ -641,6 +768,7 @@ class Executor:
                 "startup program first (parity: executor.cc CreateVariables)"
                 % missing)
         env = {n: scope.find_var(n).to(self.device) for n in plan.state_in}
+        rows = () if dp is None else _shard_rows(dp, scope, block, env)
         env.update(feed_tensors)
         step = self._step
         seed = (program.random_seed * 1000003 + step) % (2 ** 32)
@@ -667,8 +795,11 @@ class Executor:
                         "RESOURCE_EXHAUSTED: injected oom_step fault "
                         "dispatching %s" % (ident or "program"))
                 ctx = plan.context(torch.Generator(self.device).manual_seed(seed))
+                if dp is not None:
+                    ctx.dp = _batch_axes.Run(dp, feed_tensors, rows)
                 try:
-                    plan.run(env, ctx)
+                    with dp.mesh if dp is not None else contextlib.nullcontext():
+                        plan.run(env, ctx)
                 finally:
                     # the context and its sub-block closure form a cycle: a
                     # reference to the run's tensors kept there would keep
@@ -693,6 +824,16 @@ class Executor:
                 "lookups; fetch the updated tables instead" % sparse)
         fetches = [env[n].detach() for n in fetch_names]
         state_out = {n: env[n].detach() for n in plan.state_out if n in env}
+        if dp is not None:
+            # the global values of batch-shaped fetches (and of state a
+            # batch-shaped value wrote); kReduce's rows fetched whole and
+            # kept as rows in the scope
+            run = ctx.dp
+            fetches = [_dp_global(dp, run, n, t, True)
+                       for n, t in zip(fetch_names, fetches)]
+            state_out = {n: _dp_global(dp, run, n, t, False)
+                         for n, t in state_out.items()}
+            rows = run.rows
         vec = names = None
         if health:
             vec, names = _health(plan, env, state_in)
@@ -746,13 +887,15 @@ class Executor:
 
         for n, v in state_out.items():
             scope.var(n)
-            scope.set(n, v)
+            scope.set(n, v, row_shards=dp.n if n in rows else 1)
         if mon is not None:
             # the time-sampled memory watermark, after the commit, so the
             # owner walk sees the new state in the scope
             mon.maybe_sample_memory()
             if return_numpy and fetches:
                 mon.registry.counter("monitor.fetch.inline_sync").incr()
+        if geo is not None:
+            geo.tick(scope)         # GeoSGD: every K-th run reconciles
         if return_numpy:
             return [(f.float() if f.dtype == torch.bfloat16 else f).cpu().numpy()
                     for f in fetches]

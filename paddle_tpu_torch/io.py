@@ -17,6 +17,10 @@ value as its raw 16-bit patterns, numpy dtype ``|V2`` (what ``np.save``
 writes for an ml_dtypes bfloat16 array); the port writes the same bytes,
 and reads them back as ``torch.bfloat16`` for a var declared bfloat16, so
 each package loads the other's directories.
+
+An optimizer accumulator that kReduce holds as 1/n of its rows a rank is
+saved as its global array (``Scope.find_global``, a collective: under
+kReduce every rank calls the save).
 """
 
 import os
@@ -95,13 +99,13 @@ def save_vars(executor, dirname, main_program=None, vars=None, predicate=None,
     if filename is not None:
         arrays = {}
         for v in vars:
-            val = scope.find_var(v.name)
+            val = scope.find_global(v.name)
             if val is not None:
                 arrays[v.name] = _to_numpy(v.name, val)
         np.savez(os.path.join(dirname, filename), **arrays)
     else:
         for v in vars:
-            val = scope.find_var(v.name)
+            val = scope.find_global(v.name)
             if val is None:
                 continue
             np.save(os.path.join(dirname, v.name + ".npy"),
@@ -308,7 +312,8 @@ def save(program, model_path):
     arrays = {}
     for var in program.list_vars():
         if var.persistable and scope.find_var(var.name) is not None:
-            arrays[var.name] = _to_numpy(var.name, scope.find_var(var.name))
+            # kReduce's row-sharded accumulators as their global arrays
+            arrays[var.name] = _to_numpy(var.name, scope.find_global(var.name))
     path = model_path + ".pdparams"
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "wb") as f:

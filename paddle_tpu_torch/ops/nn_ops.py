@@ -145,11 +145,22 @@ def _dropout(ins, attrs, ctx):
         if impl == "downgrade_in_infer":
             return out(Out=v * (1.0 - p) if p else v, Mask=torch.ones_like(v))
         return out(Out=v, Mask=torch.ones_like(v))
-    u = torch.rand(v.shape, generator=op_generator(ctx, attrs),
-                   device=v.device)
+    return dropout_apply(v, dropout_draw(v.shape, attrs, ctx, v.device), attrs)
+
+
+def dropout_draw(shape, attrs, ctx, device):
+    """The uniform draw behind a training dropout's mask."""
+    return torch.rand(shape, generator=op_generator(ctx, attrs), device=device)
+
+
+def dropout_apply(v, u, attrs):
+    """A training dropout of ``v`` given its draw ``u`` (a value is kept
+    where ``u < 1 - p``)."""
+    p = attrs.get("dropout_prob", 0.5)
     mask = u < 1.0 - p
     zero = torch.zeros((), dtype=v.dtype, device=v.device)
-    kept = v / (1.0 - p) if impl == "upscale_in_train" else v
+    kept = (v / (1.0 - p) if attrs.get("dropout_implementation")
+            == "upscale_in_train" else v)
     return out(Out=torch.where(mask, kept, zero).to(v.dtype),
                Mask=mask.to(v.dtype))
 

@@ -30,6 +30,8 @@ class OpLoweringContext:
         self.generator = generator
         self.interpret_block = None     # set by the executor's plan
         self.env = None
+        # a data-parallel run's state (parallel/batch_axes.py Run), or None
+        self.dp = None
 
     @property
     def device(self):

@@ -1,15 +1,19 @@
 """Data-parallel steps over one card a rank, NCCL: weak scaling of the
 port's dp trainers at a fixed batch a rank.
 
-    python -m paddle_tpu_torch.tools.dp_scaling [--model bert|resnet50]
-        [--nprocs 1 2 4] [--steps 5]
+    python -m paddle_tpu_torch.tools.dp_scaling
+        [--model bert|resnet50|encoder] [--nprocs 1 2 4] [--steps 5]
 
 For each world size it starts that many workers through
 ``python -m paddle_tpu_torch.distributed.launch --nproc_per_node N`` (NCCL,
 each rank on its own card); each worker joins through ``fleet.init()`` and
 trains BERT-base (bf16, S = 512, 32 sequences a rank, LAMB with
-``zero=True``) or ResNet-50 (bf16, 224, 64 images a rank, ``fuse_bn`` with
-``sync_bn``, momentum): a warm-up step, then ``--steps`` timed steps (the
+``zero=True``), ResNet-50 (bf16, 224, 64 images a rank, ``fuse_bn`` with
+``sync_bn``, momentum) or, in program mode, the Fluid-layers BERT-base
+encoder (``tools/programs.py`` ``BERT_BASE_ENCODER``: f32, S = 512, 16
+sequences a rank, dropout 0.1, Adam) under ``fleet.distributed_optimizer``
+through the ``Executor``, each rank fed the global batch: a warm-up step,
+then ``--steps`` timed steps (the
 host clock around them, ending in a sync).  After the timed steps every
 rank's parameters are gathered and compared, bit for bit.  Rank 0 prints
 one JSON line a world size: ms a step, items a second, the scaling
@@ -29,6 +33,7 @@ import torch
 
 BERT_PER_RANK, SEQ = 32, 512
 RESNET_PER_RANK, IMAGE = 64, 224
+ENCODER_PER_RANK = 16
 
 
 def _free_port():
@@ -50,6 +55,8 @@ def _worker(model, steps):
     torch.backends.cudnn.allow_tf32 = False
     f = fleet.init()
     world, rank = f.worker_num(), f.worker_index()
+    if model == "encoder":
+        return _encoder_worker(f, world, rank, steps)
     if model == "bert":
         cfg = bert.bert_base_config()
         tr = bert.build_bert_trainer(cfg, MeshSpec(dp=world, zero=True),
@@ -79,8 +86,20 @@ def _worker(model, steps):
     losses = [tr.step(b, lr) for b in batches[1:]]
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / steps
+    _report(model, world, rank, BERT_PER_RANK if model == "bert"
+            else RESNET_PER_RANK, dt, items, losses,
+            tree_leaves(tr.state["params"]))
+
+
+def _report(model, world, rank, per_rank, dt, items, losses, params):
+    """Every rank's parameters against the others' (gathered); rank 0
+    prints the line."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.parallel import collectives as col
+
     differ = 0
-    for t in tree_leaves(tr.state["params"]):
+    for t in params:
         both = col.backend_all_gather(t.reshape(1, -1), dist.group.WORLD, 0)
         differ += not all(torch.equal(both[0], both[r]) for r in range(world))
     if rank == 0:
@@ -90,8 +109,7 @@ def _worker(model, steps):
             check=True).stdout.strip().splitlines()[0]
         print("DP_SCALING " + json.dumps({
             "model": model, "world": world, "backend": dist.get_backend(),
-            "per_rank_batch": BERT_PER_RANK if model == "bert"
-            else RESNET_PER_RANK, "ms_per_step": dt * 1e3,
+            "per_rank_batch": per_rank, "ms_per_step": dt * 1e3,
             "items_per_sec": items / dt,
             "peak_memory_allocated": torch.cuda.max_memory_allocated(),
             "losses": [float(l) for l in losses],
@@ -100,9 +118,41 @@ def _worker(model, steps):
     dist.destroy_process_group()
 
 
+def _encoder_worker(f, world, rank, steps):
+    """The program-mode line: the Fluid-layers encoder under fleet."""
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.tools.programs import (BERT_BASE_ENCODER,
+                                                 bert_encoder_program,
+                                                 encoder_feed)
+
+    cfg = BERT_BASE_ENCODER._replace(batch=ENCODER_PER_RANK * world)
+    main, startup, v = bert_encoder_program(
+        fluid, cfg, wrap_optimizer=fleet.distributed_optimizer)
+    exe = fluid.Executor(fluid.CUDAPlace(f.device.index))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feeds = [encoder_feed(cfg, 700 + k) for k in range(steps + 1)]
+    exe.run(main, feed=feeds[0], fetch_list=[v["loss"]], scope=scope)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    losses = [exe.run(main, feed=fd, fetch_list=[v["loss"]], scope=scope,
+                      return_numpy=False)[0] for fd in feeds[1:]]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    _report("encoder", world, rank, ENCODER_PER_RANK, dt,
+            cfg.batch * cfg.seq, losses,
+            [scope.find_var(p.name)
+             for p in main.global_block().all_parameters()])
+
+
 def main(argv=None):
     p = argparse.ArgumentParser("paddle_tpu_torch.tools.dp_scaling")
-    p.add_argument("--model", choices=("bert", "resnet50"), default="bert")
+    p.add_argument("--model", choices=("bert", "resnet50", "encoder"),
+                   default="bert")
     p.add_argument("--nprocs", type=int, nargs="+", default=[1, 2, 4])
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)

@@ -163,7 +163,7 @@ BERT_BASE_ENCODER = EncoderConfig(vocab=30528, hidden=768, layers=12, heads=12,
                                   lr=1e-4, optimizer="adam")
 
 
-def bert_encoder_program(fluid, cfg):
+def bert_encoder_program(fluid, cfg, wrap_optimizer=None):
     """Feeds (all [B, S, 1]): "src_ids" and "pos_ids" int64, "input_mask"
     f32 (1 for a real token), "labels" int64.  Per layer: q, k and v from
     ``fc(num_flatten_dims=2)``, reshaped and transposed into heads;
@@ -174,7 +174,9 @@ def bert_encoder_program(fluid, cfg):
     and ``layer_norm``.  A vocabulary fc, ``softmax_with_cross_entropy``
     and ``mean`` give vars["loss"].  Dropout is upscale_in_train, as
     Paddle's BERT; weights start from a normal truncated at 2 std (0.02),
-    as its initializer."""
+    as its initializer.  ``wrap_optimizer(opt)`` (for example
+    ``fleet.distributed_optimizer``) wraps the optimizer before its
+    ``minimize``."""
     B, S, H, nh = cfg.batch, cfg.seq, cfg.hidden, cfg.heads
     dh = H // nh
     main, startup = fluid.Program(), fluid.Program()
@@ -235,6 +237,8 @@ def bert_encoder_program(fluid, cfg):
         loss = L.mean(L.softmax_with_cross_entropy(logits, feeds["labels"]))
         opt = (fluid.optimizer.Adam(cfg.lr) if cfg.optimizer == "adam"
                else fluid.optimizer.SGD(cfg.lr))
+        if wrap_optimizer is not None:
+            opt = wrap_optimizer(opt)
         opt.minimize(loss)
     return main, startup, dict(feeds, loss=loss, logits=logits)
 

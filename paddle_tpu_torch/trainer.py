@@ -109,12 +109,19 @@ def _run_from_dataset(executor, program=None, dataset=None, scope=None, thread=0
                       debug=False, fetch_list=None, fetch_info=None,
                       print_period=100, fetch_handler=None, train=True,
                       checkpoint=None):
+    from .compiler import is_data_parallel
     from .framework import default_main_program
     from .scope import global_scope
 
     program = program or default_main_program()
     if dataset is None:
         raise ValueError("train_from_dataset requires a dataset")
+    if is_data_parallel(program):
+        raise NotImplementedError(
+            "train_from_dataset / infer_from_dataset of a data-parallel "
+            "program: the data path under data parallelism waits (ROADMAP "
+            "Queue 1 item 5-B); feed each rank the global batch through "
+            "Executor.run")
     fetch_list = fetch_list or []
     if checkpoint is not None and not train:
         raise ValueError(

@@ -24,6 +24,8 @@ import os
 import pickle
 import pickletools
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -674,6 +676,15 @@ def test_one_device_compiled_program_matches_the_plain_program():
 @pytest.mark.parametrize("case", ["two_places", "mesh", "trainers",
                                   "tensor_parallel", "sync_bn", "changed_later"])
 def test_compiled_program_refuses_other_layouts(case):
+    """Since item 5-B, data parallelism runs over the ranks of the world, and
+    outside one on this process alone: more than one place (recorded, and a
+    warning that one process drives one card), a one-rank mesh, trainers
+    and sync-BN (recorded) all run one step equal to the plain program's,
+    bit for bit.  A tensor-parallel degree above 1 still raises, naming
+    item 5-C, when it is set and when it is set later; a mesh that is not
+    the port's raises."""
+    from paddle_tpu_torch.parallel.mesh import make_mesh
+
     main, startup, v = lenet(pfluid, "sgd")
     cp = pfluid.CompiledProgram(main)
     bs = pfluid.BuildStrategy()
@@ -681,21 +692,42 @@ def test_compiled_program_refuses_other_layouts(case):
     if case == "two_places":
         kw["places"] = [pfluid.CUDAPlace(0), pfluid.CUDAPlace(1)]
     if case == "mesh":
-        kw["mesh"] = object()
+        with pytest.raises(TypeError, match="parallel.mesh Mesh"):
+            pfluid.CompiledProgram(main).with_data_parallel(mesh=object())
+        kw["mesh"] = make_mesh(device="cpu")
     if case == "trainers":
-        bs.num_trainers = 2
-    if case == "tensor_parallel":
-        bs.tensor_parallel_degree = 2
+        bs.num_trainers, bs.trainer_id = 2, 1
     if case == "sync_bn":
         bs.sync_batch_norm = True
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        if case == "changed_later":
+    if case == "tensor_parallel":
+        bs.tensor_parallel_degree = 2
+        with pytest.raises(NotImplementedError, match="Queue 1 item 5-C"):
             cp.with_data_parallel(**kw)
-            bs.num_trainers = 4
-            exe, scope = pfluid.Executor(pfluid.CPUPlace()), pfluid.Scope()
-            exe.run(startup, scope=scope)
-            exe.run(cp, feed={"img": images(0, 2),
-                              "label": np.zeros((2, 1), "int64")},
-                    fetch_list=[v["loss"]], scope=scope)
-        else:
-            cp.with_data_parallel(**kw)
+        return
+    exe = pfluid.Executor(pfluid.CPUPlace())
+    feed = {"img": images(0, 4), "label": np.arange(4).reshape(4, 1) % 10}
+    if case == "changed_later":
+        cp.with_data_parallel(**kw)
+        bs.tensor_parallel_degree = 4
+        scope = pfluid.Scope()
+        exe.run(startup, scope=scope)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 5-C"):
+            exe.run(cp, feed=feed, fetch_list=[v["loss"]], scope=scope)
+        return
+    with warnings.catch_warnings(record=True) as said:
+        warnings.simplefilter("always")
+        cp.with_data_parallel(**kw)
+    texts = [str(w.message) for w in said]
+    assert (case == "two_places") == any(
+        "paddle_tpu_torch.distributed.launch" in t for t in texts), texts
+    init = pfluid.Scope()
+    exe.run(startup, scope=init)
+    names = [x.name for x in startup.list_vars() if x.persistable]
+    values = convert.scope_to_numpy(init, names)
+    runs = []
+    for prog in (main, cp):
+        scope = convert.scope_from_numpy(values, pfluid.Scope(), "cpu")
+        out = exe.run(prog, feed=feed, fetch_list=[v["loss"]], scope=scope)
+        runs.append(out + list(convert.scope_to_numpy(scope, names).values()))
+    for a, b in zip(*runs):
+        assert a.tobytes() == b.tobytes()

@@ -340,7 +340,7 @@ def _unported(case, monkeypatch):
             rois = fluid.layers.data("rois", shape=[4], dtype="float32")
             img = fluid.layers.prroi_pool(img, rois, pooled_height=28,
                                           pooled_width=28)
-        if case == "py_reader":
+        if case in ("py_reader", "fleet"):
             reader = fluid.layers.create_py_reader_by_data(
                 capacity=2, feed_list=[img, label])
         _, loss, _ = plenet.build_mlp(img, label)
@@ -351,8 +351,10 @@ def _unported(case, monkeypatch):
             opt = fluid.optimizer.RecomputeOptimizer(opt)
         opt.minimize(loss)
     if case == "fleet":
-        main._fleet_strategy = object()
-    if case == "py_reader":
+        # a fleet-tagged program runs data-parallel since item 5-B; fed by
+        # a py_reader (the data path under data parallelism) it waits
+        main._fleet_strategy = fluid.distributed.fleet.DistributedStrategy()
+    if case in ("py_reader", "fleet"):
         # item 4 is ported: the program reads its feed from a started
         # reader, here one over an empty source
         reader.decorate_batch_generator(lambda: iter([]),
@@ -361,9 +363,11 @@ def _unported(case, monkeypatch):
     if case == "warm_store":
         monkeypatch.setenv("PADDLE_TPU_WARM_DIR", "/nonexistent")
     if case == "compiled_program":
-        # a one-device CompiledProgram runs; one asked to span trainers waits
+        # a data-parallel CompiledProgram runs (trainers recorded, since
+        # item 5-B); one asked for tensor parallelism waits (item 5-C)
         main = fluid.CompiledProgram(main).with_data_parallel(loss_name=loss.name)
         main._build_strategy.num_trainers = 2
+        main._build_strategy.tensor_parallel_degree = 2
     return main, loss
 
 

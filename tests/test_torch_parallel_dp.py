@@ -549,20 +549,37 @@ def test_backend_follows_the_device_unless_named(monkeypatch):
 
 
 def test_fleet_tagged_programs_wait_for_item_5b():
+    """Since item 5-B a fleet-tagged program runs data-parallel: outside a
+    world, on this process alone, equal to the untagged program bit for
+    bit (``tests/test_torch_program_dp.py`` runs it over worlds of 2 and
+    4).  The host sparse table still waits."""
     import paddle_tpu_torch as pfluid
+    from paddle_tpu_torch import convert
     from paddle_tpu_torch.distributed import fleet as pfleet
 
-    main, startup = pfluid.Program(), pfluid.Program()
-    with pfluid.program_guard(main, startup):
-        x = pfluid.layers.data("x", shape=[4], dtype="float32")
-        loss = pfluid.layers.mean(pfluid.layers.fc(x, size=1))
-        opt = pfleet._Fleet().distributed_optimizer(pfluid.optimizer.SGD(0.1))
-        opt.minimize(loss)
-    assert main._fleet_strategy is not None
-    exe = pfluid.Executor(pfluid.CPUPlace())
-    exe.run(startup)
-    with pytest.raises(NotImplementedError, match="item 5-B"):
-        exe.run(main, feed={"x": np.ones((2, 4), "f4")}, fetch_list=[loss])
+    runs = []
+    for tagged in (False, True):
+        main, startup = pfluid.Program(), pfluid.Program()
+        with pfluid.unique_name.guard(), pfluid.program_guard(main, startup):
+            x = pfluid.layers.data("x", shape=[4], dtype="float32")
+            loss = pfluid.layers.mean(pfluid.layers.fc(x, size=1))
+            opt = pfluid.optimizer.SGD(0.1)
+            if tagged:
+                opt = pfleet._Fleet().distributed_optimizer(opt)
+            opt.minimize(loss)
+        assert (getattr(main, "_fleet_strategy", None) is not None) == tagged
+        exe = pfluid.Executor(pfluid.CPUPlace())
+        if not runs:
+            init = pfluid.Scope()
+            exe.run(startup, scope=init)
+            names = [v.name for v in startup.list_vars() if v.persistable]
+            values = convert.scope_to_numpy(init, names)
+        scope = convert.scope_from_numpy(values, pfluid.Scope(), "cpu")
+        feed = {"x": np.arange(8, dtype="f4").reshape(2, 4)}
+        runs.append([exe.run(main, feed=feed, fetch_list=[loss],
+                             scope=scope)[0].tobytes() for _ in range(2)]
+                    + [scope.find_tensor_as_numpy(n).tobytes() for n in names])
+    assert runs[0] == runs[1]
     strategy = pfleet.DistributedStrategy()
     strategy.use_host_sparse_table = True
     with pytest.raises(NotImplementedError, match="5-C and 7"):

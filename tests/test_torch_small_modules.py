@@ -9,12 +9,15 @@ whose ops wait raising the registry's error), ``layers.py_func`` and
 
 import re
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
 
 import paddle_tpu as jfluid
 import paddle_tpu_torch as pfluid
+from paddle_tpu_torch import convert
 from test_torch_fluid_ops import _both_programs, _data, _programs_match
 
 
@@ -71,7 +74,7 @@ def _tiny(fluid):
 
 @pytest.mark.parametrize("geo", [False, True])
 def test_the_transpiler_tags_as_jax_and_the_executor_refuses(geo):
-    tags = []
+    tags, progs = [], []
     for fluid in (jfluid, pfluid):
         main, startup, loss = _tiny(fluid)
         config = fluid.transpiler.DistributeTranspilerConfig()
@@ -84,17 +87,35 @@ def test_the_transpiler_tags_as_jax_and_the_executor_refuses(geo):
         assert t.get_startup_program() is startup
         assert not t.get_pserver_program("127.0.0.1:6174").global_block().ops
         tags.append(main._dist_info)
+        progs.append((main, startup, loss))
     assert tags[0] == tags[1]
     assert tags[1]["mode"] == ("geo" if geo else "pserver")
-    exe = pfluid.Executor(pfluid.CPUPlace())
-    exe.run(startup, scope=pfluid.Scope())
-    with pytest.raises(NotImplementedError, match="item 5"):
-        exe.run(main, feed={"x": np.ones((2, 4), np.float32)},
-                fetch_list=[loss], scope=pfluid.Scope())
+    # since item 5-B the executor runs the tagged program: data-parallel
+    # (the JAX package over its 8 CPU devices, the port over its world of
+    # one), or locally in geo mode (warning that no Communicator started)
+    (jmain, jstart, jloss), (pmain, _, ploss) = progs
+    jexe, jscope = jfluid.Executor(jfluid.CPUPlace()), jfluid.Scope()
+    jexe.run(jstart, scope=jscope)
+    names = sorted(v.name for v in jstart.list_vars() if v.persistable)
+    pscope = convert.scope_from_numpy(convert.scope_to_numpy(jscope, names),
+                                      pfluid.Scope(), "cpu")
+    feed = {"x": np.arange(32, dtype=np.float32).reshape(8, 4) / 10}
+    with warnings.catch_warnings(record=True) as said:
+        warnings.simplefilter("always")
+        for _ in range(2):
+            want = jexe.run(jmain, feed=feed, fetch_list=[jloss], scope=jscope)
+            got = pfluid.Executor(pfluid.CPUPlace()).run(
+                pmain, feed=feed, fetch_list=[ploss], scope=pscope)
+            np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-6)
+    assert geo == any("WITHOUT a started Communicator" in str(w.message)
+                      for w in said)
 
 
 @pytest.mark.parametrize("sync", [True, False])
 def test_the_ports_transpiler_warns_that_the_executor_refuses(sync):
+    """Since item 5-B the executor runs the transpiled program: the
+    warnings say what pserver mode and sync_mode=False fold into, and no
+    longer that the executor refuses."""
     main, startup, _ = _tiny(pfluid)
     t = pfluid.transpiler.DistributeTranspiler()
     with pytest.warns(UserWarning) as said:
@@ -102,21 +123,20 @@ def test_the_ports_transpiler_warns_that_the_executor_refuses(sync):
                     trainers=2, sync_mode=sync, startup_program=startup)
     texts = [str(w.message) for w in said]
     assert len(texts) == (1 if sync else 2)
-    assert all("refuses the transpiled program" in x and "item 5" in x
-               for x in texts)
+    assert not any("refuses" in x or "item 5" in x for x in texts)
+    assert any("every rank is a trainer" in x for x in texts)
     assert sync or any("sync_mode=False" in x for x in texts)
 
 
 def test_the_distributed_package_exports_only_the_transpiler():
-    """The transpiler and, since item 5-A, fleet and the role makers: the
-    JAX package's exports but the GeoSGD Communicator (item 5-B)."""
+    """The transpiler, since item 5-A fleet and the role makers, and since
+    item 5-B the GeoSGD Communicator: the JAX package's exports."""
     assert pfluid.distributed.__all__ == [
         "fleet", "PaddleCloudRoleMaker", "UserDefinedRoleMaker", "Role",
-        "DistributeTranspiler", "DistributeTranspilerConfig"]
+        "DistributeTranspiler", "DistributeTranspilerConfig", "Communicator"]
     jnames = {n for n in dir(jfluid.distributed) if not n.startswith("_")}
     assert set(pfluid.distributed.__all__) == jnames - {
-        "Communicator", "communicator", "heartbeat", "launch", "role_maker",
-        "transpiler"}
+        "communicator", "heartbeat", "launch", "role_maker", "transpiler"}
     assert (pfluid.distributed.DistributeTranspiler
             is pfluid.transpiler.DistributeTranspiler)
     assert jfluid.transpiler.__all__ == pfluid.transpiler.__all__

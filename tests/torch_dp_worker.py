@@ -242,9 +242,10 @@ ROOT = Path(__file__).resolve().parent.parent
 TIMEOUT_S = 240
 
 
-def spawn_world(tmp, world, inputs, scenarios):
-    """Start ``world`` ranks of this script on ``scenarios`` (a fresh
-    interpreter each); returns (the output dir, the processes)."""
+def spawn_world(tmp, world, inputs, scenarios, script=__file__):
+    """Start ``world`` ranks of ``script`` (this one, or another worker
+    whose ``main`` is this one's) on ``scenarios``, a fresh interpreter
+    each; returns (the output dir, the processes)."""
     inp = tmp / ("inputs%d.pkl" % world)
     with open(inp, "wb") as f:
         pickle.dump(inputs, f)
@@ -253,7 +254,7 @@ def spawn_world(tmp, world, inputs, scenarios):
     env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep
                + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
-        [sys.executable, __file__, str(r), str(world),
+        [sys.executable, str(script), str(r), str(world),
          str(tmp / ("store%d" % world)), str(inp), str(out)] + list(scenarios),
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
@@ -275,7 +276,7 @@ def join_world(out, procs, scenarios):
     return res
 
 
-def main(argv):
+def main(argv, scenarios=SCENARIOS):
     rank, world, store, in_path, out_dir = argv[:5]
     rank, world = int(rank), int(world)
     torch.set_num_threads(1)
@@ -284,7 +285,7 @@ def main(argv):
     with open(in_path, "rb") as f:
         inp = pickle.load(f)
     for name in argv[5:]:
-        res = SCENARIOS[name](inp, world)
+        res = scenarios[name](inp, world)
         with open(os.path.join(out_dir, "%s.r%d.pkl" % (name, rank)), "wb") as f:
             pickle.dump(res, f)
     dist.barrier()
