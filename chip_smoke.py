@@ -378,10 +378,26 @@ Builds the port's CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
     sync-BN, its per-image loss terms and reduced gradient held to the
     one-rank step's within DP_F32_LIMIT times the distance a row
     permutation of the global batch makes, and a control without sync-BN
-    that must exceed that limit.
+    that must exceed that limit;
+52. ``program_dp_nccl`` / ``program_dp_two_ranks``: the Fluid-layers
+    BERT-base encoder under ``fleet`` at one NCCL rank (bit for bit the
+    untagged program) and over two gloo ranks (masks, loss bound,
+    gradient yardsticks, kReduce with Adam), ResNet-CIFAR's global batch
+    norms, GeoSGD;
+53. ``program_dp_more_nccl`` / ``program_dp_more_two_ranks``: under
+    ``fleet``, DeepFM's CTR program at ``DeepFMConfig()``'s widths through
+    ``train_from_dataset`` with the feed pipe (a rank's host-to-device
+    bytes half the one-rank run's, the AUC's counts its), a py_reader
+    program, the CRNN-CTC (B = 32), LAC (B = 300) and the LAMB encoder
+    (kReduce against AllReduce within the bound of the trust ratio's
+    reassociated norms): bit for bit the untagged programs at one NCCL
+    rank; at two gloo ranks the replicas bit for bit, the first losses in
+    their derived bounds, the edit-distance and chunk counts equal to one
+    rank's, the gradients against their yardsticks, the segment kernel's
+    launches on the sparse merges.
 
 Phases 30-33 and 36 write their monitor directories under
-``build/monitor``, phases 35-36 their data files under
+``build/monitor``, phases 35-36 and 53 their data files under
 ``build/data_path``, phase 49 its checkpoint and traced program under
 ``build/dygraph``.
 TF32 is switched off for matrix products and convolutions, so the f32
@@ -7164,6 +7180,836 @@ def phase_program_dp_two_ranks(device_name, card, device="cuda", enc_cfg=None,
           "seconds": time.perf_counter() - t0, "problems": bad[:20]})
     if not ok:
         raise AssertionError("phase 52: %s" % bad[:20])
+    return {rank: got[rank]["launches"] for rank in got}
+
+
+# Phase 53 (program_dp_more): item 5-B' at full width under fleet: the data
+# path (DeepFM's CTR program through train_from_dataset with the feed pipe,
+# and a py_reader), the LoD / CRF / CTC ops and scan bodies (the CRNN-CTC and
+# LAC), and LAMB under kReduce (the Fluid-layers BERT-base encoder).
+PDM_STEPS = 2
+PDM_FEED_SEED = 800
+PDM_READER_B, PDM_READER_W = 1024, 64    # the py_reader program's batch, width
+PDM_TIMEOUT_S = 600
+PDM_MODELS = ("ctr", "crnn", "lac", "enc")
+
+
+def _pdm_args(small=False):
+    """Phase 53's configurations: the CTR program at DeepFMConfig()'s widths
+    (B = CTR_B), CRNN_CTC (B = 32), LAC (B = 300) and BERT_BASE_ENCODER with
+    LAMB at B = 16; ``small`` gives tiny ones for a rehearsal on the CPU."""
+    from paddle_tpu_torch.models import deepfm
+    from paddle_tpu_torch.tools import programs as P
+
+    d = deepfm.DeepFMConfig()
+    ctr = dict(n_fields=d.num_fields, vocab=d.num_features, embed=d.embed_dim,
+               mlp=tuple(d.mlp_dims), batch=CTR_B)
+    crnn, lac = P.CRNN_CTC, P.LAC
+    enc = P.BERT_BASE_ENCODER._replace(optimizer="lamb", dropout=0.0)
+    if small:
+        ctr = dict(n_fields=4, vocab=64, embed=4, mlp=(8,), batch=16)
+        crnn = crnn._replace(batch=4, height=16, width=32, channels=(2, 2, 2, 4),
+                             hidden=4, classes=9, label_min=1, label_max=3)
+        lac = lac._replace(batch=4, seq_len=6, vocab=50, emb=4, hidden=4,
+                           tags=7, len_min=2, len_max=6)
+        enc = enc._replace(vocab=64, hidden=16, layers=1, heads=2, ffn=32,
+                           seq=8, batch=4)
+    return {"ctr": ctr, "crnn": crnn, "lac": lac, "enc": enc,
+            "reader_b": 8 if small else PDM_READER_B,
+            "reader_w": 4 if small else PDM_READER_W}
+
+
+class _PdmModel:
+    """One of phase 53's programs, untagged or under fleet: its programs,
+    loss, per-example loss terms, metric vars, feeds and parameters."""
+
+    def __init__(self, kind, args, tagged, strategy=None):
+        import paddle_tpu_torch as fluid
+        from paddle_tpu_torch.distributed import fleet
+        from paddle_tpu_torch.tools import ctr_program as cp
+        from paddle_tpu_torch.tools import programs as P
+
+        wrap = ((lambda opt: fleet.distributed_optimizer(opt, strategy))
+                if tagged else None)
+        self.kind, self.args, self.metrics = kind, args, []
+        if kind == "ctr":
+            c = args["ctr"]
+            prog = cp.build_ctr_program(
+                fluid, n_fields=c["n_fields"], vocab=c["vocab"],
+                embed=c["embed"], mlp=c["mlp"], lr=CTR_LR,
+                wrap_optimizer=wrap, auc=True)
+            self.main, self.startup, self.loss = (prog.main, prog.startup,
+                                                  prog.loss)
+            self.prog, self.terms = prog, prog.auc["terms"]
+            self.metrics = [prog.auc[k] for k in ("stat_pos", "stat_neg",
+                                                  "prob")]
+            self.feeds = None               # read from the dataset
+        elif kind in ("crnn", "lac"):
+            cfg = args[kind]
+            build = P.crnn_ctc_program if kind == "crnn" else P.lac_program
+            feed = P.crnn_feed if kind == "crnn" else P.lac_feed
+            self.main, self.startup, _, v = build(fluid, cfg, wrap)
+            self.loss = v["loss"]
+            ops = self.main.global_block().ops
+            if kind == "crnn":
+                self.terms = next(op.outputs["Loss"][0] for op in ops
+                                  if op.type == "warpctc")
+                self.metrics = [v["distance"], next(
+                    op.outputs["SequenceNum"][0] for op in ops
+                    if op.type == "edit_distance")]
+            else:
+                self.terms = next(op.outputs["LogLikelihood"][0] for op in ops
+                                  if op.type == "linear_chain_crf")
+                self.metrics = [v["num_infer"], v["num_label"],
+                                v["num_correct"]]
+            self.feeds = [feed(cfg, PDM_FEED_SEED + k)
+                          for k in range(PDM_STEPS)]
+        else:
+            cfg = args["enc"]
+            self.main, self.startup, v = P.bert_encoder_program(fluid, cfg,
+                                                                wrap)
+            self.loss = v["loss"]
+            self.terms = next(op.outputs["Loss"][0] for op in
+                              self.main.global_block().ops
+                              if op.type == "softmax_with_cross_entropy")
+            self.feeds = [P.encoder_feed(cfg, PDM_FEED_SEED + k)
+                          for k in range(PDM_STEPS)]
+        self.names = sorted(x.name for x in self.startup.list_vars()
+                            if x.persistable)
+        # dense parameters (an is_sparse table's gradient is not fetched)
+        sparse = {op.inputs["W"][0] for op in self.main.global_block().ops
+                  if op.type in ("lookup_table", "lookup_table_v2")
+                  and op.attrs.get("is_sparse")}
+        self.params = [p.name for p in self.main.global_block().all_parameters()
+                       if p.name not in sparse]
+
+    def dataset(self, files, batch):
+        import paddle_tpu_torch as fluid
+        from paddle_tpu_torch.tools import ctr_program as cp
+
+        ds = cp.make_dataset(fluid, "InMemoryDataset", files, self.prog,
+                             batch, 1)
+        ds.load_into_memory()
+        return ds
+
+
+def _pdm_deterministic():
+    """Phase 53's bit-for-bit checks compare two runs of one step (and the
+    replicas of two ranks): cuDNN's deterministic algorithms, and PyTorch's
+    deterministic scatter-adds (the gathers' backward, the sparse rows'
+    plain merge).  Returns cuDNN's settings before."""
+    saved = _deterministic_cudnn()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    return saved
+
+
+def _pdm_float64(model):
+    """``model``'s untagged program again, every f32 var declared float64
+    (its rules compute in their inputs' dtype)."""
+    m = _PdmModel(model.kind, model.args, tagged=False)
+    for block in m.main.blocks:
+        for var in block.vars.values():
+            if str(var.dtype) == "float32":
+                var.dtype = "float64"
+    return m.main
+
+
+def _pdm_files(args):
+    """The CTR program's MultiSlot file: PDM_STEPS global batches."""
+    import os
+
+    from paddle_tpu_torch.tools import ctr_program as cp
+
+    c = args["ctr"]
+    return cp.write_ctr_files(os.path.join(DATA_DIR, "program_dp"), n_files=1,
+                              rows_per_file=PDM_STEPS * c["batch"],
+                              n_fields=c["n_fields"], vocab=c["vocab"],
+                              seed=CTR_SEED, zipf=CTR_ZIPF)
+
+
+def _pdm_train(m, exe, scope, args, device, files, fetch):
+    """PDM_STEPS steps of ``m`` from the state in ``scope``: the CTR
+    program through ``train_from_dataset`` over an InMemoryDataset (the
+    feed pipe on, its staged bytes counted), the others through
+    ``Executor.run``.  Returns (each step's fetches on the device, ms a
+    step, host-to-device bytes a step, the global batches)."""
+    if m.kind != "ctr":
+        out, ms = [], []
+        for f in m.feeds:
+            _sync(device)
+            t0 = time.perf_counter()
+            out.append(exe.run(m.main, feed=f, fetch_list=fetch, scope=scope,
+                               return_numpy=False))
+            _sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return out, ms, None, m.feeds
+    ds = m.dataset(files, args["ctr"]["batch"])
+    batches = list(ds._iter_batches())
+    out, staged = [], []
+    run, convert = exe.run, exe.feed_converter
+
+    def recorded(*a, **kw):
+        res = run(*a, **kw)
+        out.append(res)
+        return res
+
+    def converter(program=None):
+        conv = convert(program)
+
+        def counted(feed):
+            got = conv(feed)
+            vals = getattr(got, "feed", got).values()
+            staged.append(sum(v.numel() * v.element_size() for v in vals))
+            return got
+
+        return counted
+
+    exe.run, exe.feed_converter = recorded, converter
+    _set_env(PADDLE_TPU_FEED_PIPE="1")
+    try:
+        _sync(device)
+        t0 = time.perf_counter()
+        exe.train_from_dataset(m.main, ds, scope=scope, fetch_list=fetch)
+        _sync(device)
+        dt = time.perf_counter() - t0
+    finally:
+        exe.run, exe.feed_converter = run, convert
+        _set_env(PADDLE_TPU_FEED_PIPE=None)
+    return out, [dt * 1e3 / len(out)] * len(out), staged, batches
+
+
+def phase_program_dp_more_nccl(device_name, card, device=None, args=None):
+    """Phase 53, first part: a one-rank NCCL world (``fleet.init()``), each
+    of the CTR program (train_from_dataset, the feed pipe on), the
+    CRNN-CTC, LAC and the LAMB encoder under ``fleet.distributed_optimizer``
+    for PDM_STEPS steps from the state and on the batches the untagged
+    program runs: losses and every persistable bit for bit the untagged
+    program's.  Returns the port kernels' launches a step, by program."""
+    import os
+
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.kernels import _common
+
+    args = args or _pdm_args()
+    endpoint = "127.0.0.1:%d" % _free_port()
+    env = {"PADDLE_TRAINER_ID": "0", "PADDLE_TRAINERS_NUM": "1",
+           "PADDLE_TRAINER_ENDPOINTS": endpoint,
+           "PADDLE_CURRENT_ENDPOINT": endpoint}
+    env["PADDLE_TPU_SEGMENT_KERNEL"] = "1"
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    recs, launches = [], {}
+    t0 = time.perf_counter()
+    saved_cudnn = _pdm_deterministic()
+    try:
+        dev = fleet.init(device=device).device
+        backend, world = dist.get_backend(), dist.get_world_size()
+        place = _pdp_place(dev)
+        files = _pdm_files(args)
+        for kind in PDM_MODELS:
+            runs, init = {}, None
+            for tagged in (False, True):
+                m = _PdmModel(kind, args, tagged)
+                exe, scope = fluid.Executor(place), fluid.Scope()
+                exe.run(m.startup, scope=scope)
+                if init is None:
+                    init = _pdp_state(scope, m.names)
+                else:
+                    for n in m.names:
+                        scope.set(n, init[n].clone())
+                _common.reset_launches()
+                out, ms, staged, _ = _pdm_train(m, exe, scope, args, dev,
+                                                files, [m.loss])
+                counts = {k: c / len(out) for k, c in _common.launches.items()
+                          if c}
+                runs[tagged] = ([float(o[0]) for o in out], ms, staged,
+                                {n: scope.find_var(n) for n in m.names}, counts)
+                del exe, scope, out
+            (l0, ms0, st0, s0, c0), (l1, ms1, st1, s1, c1) = runs[False], runs[True]
+            differ = [n for n in s0 if not _same_tensor_bits(s0[n], s1[n])]
+            same = bool(l0 == l1 and not differ)
+            launches[kind] = c1
+            recs.append({"model": kind, "losses": l1, "ms_each_step_fleet": ms1,
+                         "ms_each_step_plain": ms0, "bit_for_bit": same,
+                         "persistables_differ": differ[:5],
+                         "h2d_bytes_each_step": st1,
+                         "launches_per_step": c1,
+                         "launches_per_step_plain": c0})
+            del runs, init, s0, s1
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, val in saved.items():
+            if val is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = val
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            saved_cudnn
+    ok = world == 1 and all(r["bit_for_bit"] and all(
+        math.isfinite(x) for x in r["losses"]) for r in recs)
+    for r in recs:
+        emit({"phase": "program_dp_more_nccl", "backend": backend,
+              "world": world, **r})
+    emit({"phase": "program_dp_more_nccl", "nvidia_smi": card, "ok": ok,
+          "seconds": time.perf_counter() - t0})
+    if not ok:
+        raise AssertionError("phase 53 (one-rank NCCL world): %s" % recs)
+    ctr_bytes = next(r["h2d_bytes_each_step"][0] for r in recs
+                     if r["model"] == "ctr")
+    return launches, ctr_bytes
+
+
+def _pdm_sum_bound(t_dp, t_one, l_dp, l_one, world, mean):
+    """|l_dp - l_one| against the bound the arithmetic gives for a sum (or,
+    ``mean``, a mean) of each run's own f32 terms: the data-parallel one a
+    sum of each rank's n/world terms, then of the ranks, the one-rank one
+    in one order, each within gamma(k) of its terms' absolute sum (and a
+    division's rounding for a mean), plus the distance of the two runs'
+    exact sums (float64)."""
+    if mean:
+        return _pdp_loss_bound(t_dp, t_one, l_dp, l_one, world)
+    from paddle_tpu_torch.tools import fp_bounds
+
+    a, b = t_dp.double().flatten(), t_one.double().flatten()
+    n, g = a.numel(), fp_bounds.gamma
+    bound = (g(n // world + world) * float(a.abs().sum())
+             + g(n) * float(b.abs().sum())
+             + abs(float(a.sum()) - float(b.sum()))
+             + 2 * n * 2.0 ** -53 * float(a.abs().sum() + b.abs().sum()))
+    err = abs(l_dp - l_one)
+    return {"terms": n, "loss_dp": l_dp, "loss_one_rank": l_one, "err": err,
+            "bound": bound, "err_over_bound": err / bound,
+            "terms_bit_for_bit": _same_tensor_bits(t_dp, t_one)}
+
+
+def _pdm_model(kind, rank, world, device, args, files):
+    """One program of phase 53 on this rank under fleet, PDM_STEPS steps:
+    the losses, ms a step, host-to-device bytes a step (the CTR program),
+    kernel launches a step, the replicas; rank 0 holds the first step to
+    the untagged program's on one rank from the same state: the loss
+    within its derived bound, the metrics' counts equal as integers, and
+    (the CRNN and LAC) the gradient against its yardsticks."""
+    import numpy as np
+
+    from paddle_tpu_torch.kernels import _common
+
+    import paddle_tpu_torch as fluid
+
+    place = _pdp_place(device)
+    m = _PdmModel(kind, args, tagged=True)
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    exe.run(m.startup, scope=scope)
+    init = _pdp_state(scope, m.names)
+    grads = ([p + "@GRAD" for p in m.params] if kind in ("crnn", "lac")
+             else [])
+    fetch = [m.loss, m.terms] + m.metrics
+    step0 = exe._step
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    _common.reset_launches()
+    clock = _DpWatch(device)
+    if kind == "ctr":
+        # both steps watched (train_from_dataset runs them together)
+        with clock:
+            out, ms, staged, feeds = _pdm_train(m, exe, scope, args, device,
+                                                files, fetch)
+        watched = len(out)
+    else:
+        # the first step fetches the gradient (the one-device one); the
+        # second is watched
+        out, ms = [], []
+        for k, f in enumerate(m.feeds):
+            with clock if k == 1 else contextlib.nullcontext():
+                _sync(device)
+                t0 = time.perf_counter()
+                out.append(exe.run(m.main, feed=f, scope=scope,
+                                   fetch_list=fetch + (grads if k == 0
+                                                       else []),
+                                   return_numpy=False))
+                _sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        staged, feeds, watched = None, m.feeds, 1
+    rec = {"model": kind, "losses": [float(o[0]) for o in out], "ms": ms,
+           "collective_ms_a_step": clock.seconds * 1e3 / watched,
+           "collective_calls_a_step": clock.calls / watched,
+           "collective_bytes_a_step": clock.bytes / watched,
+           "peak_gb": (torch.cuda.max_memory_allocated() / 1e9 if on_card
+                       else None),
+           "h2d_bytes_each_step": staged,
+           "launches_per_step": {k: c / len(out) for k, c in
+                                 _common.launches.items() if c},
+           "replicas_differ": _pdp_replicas_differ(scope, m.names)}
+    del exe, scope
+    if rank != 0:
+        return rec
+    plain = _PdmModel(kind, args, tagged=False)
+    ref = _pdp_one_rank(place, plain.main, init, step0, feeds[0],
+                        [plain.loss, plain.terms] + plain.metrics
+                        + grads)
+    got = out[0]
+    rec["loss_bound"] = _pdm_sum_bound(got[1], ref[1], rec["losses"][0],
+                                       float(ref[0]), world, kind != "crnn")
+    if kind == "ctr":
+        rec["auc_stats_equal"] = all(torch.equal(a, b) for a, b in
+                                     zip(got[2:4], ref[2:4]))
+        rec["auc_positives"] = int(got[2].sum())
+        rec["auc_negatives"] = int(got[3].sum())
+        rec["prob_max_abs_diff"] = float((got[4] - ref[4]).abs().max())
+    elif kind == "crnn":
+        n = np.maximum(feeds[0]["label_length"], 1).reshape(-1, 1)
+        e_dp = np.rint(got[2].cpu().double().numpy() * n).astype(np.int64)
+        e_one = np.rint(ref[2].cpu().double().numpy() * n).astype(np.int64)
+        rec["edit_counts_equal"] = bool(np.array_equal(e_dp, e_one))
+        rec["edit_count_sum"] = int(e_dp.sum())
+        rec["sequence_num"] = [int(got[3]), int(ref[3])]
+    else:
+        rec["chunk_counts"] = [[int(x) for x in got[2:5]],
+                               [int(x) for x in ref[2:5]]]
+    if grads:
+        # a convolution's bias before a batch norm: its gradient is 0 up to
+        # rounding noise (the norm takes the mean out); compared, not held
+        held = [i for i, p in enumerate(m.params)
+                if not (kind == "crnn" and p.startswith("conv2d_")
+                        and ".b_" in p)]
+        hn = [m.params[i] for i in held]
+        pick = lambda gs: [gs[i] for i in held]
+        k0 = 2 + len(m.metrics)
+        g_dp, g1 = pick(got[k0:]), pick(ref[k0:])
+        rec["grad"] = _grad_gap(g_dp, g1, 1, hn)
+        rec["grad_leaves_held"] = len(hn)
+        perm = np.random.RandomState(1).permutation(len(feeds[0][next(iter(
+            feeds[0]))]))
+        gp = pick(_pdp_one_rank(place, plain.main, init, step0,
+                                {k: a[perm] for k, a in feeds[0].items()},
+                                grads))
+        rec["yardstick_grad"] = _grad_gap(gp, g1, 1, hn)
+        half = len(perm) // world
+
+        def at_batch(b):
+            # the CRNN's program spells its batch in a reshape
+            if kind != "crnn":
+                return plain.main
+            return _PdmModel(kind, dict(args, crnn=args["crnn"]._replace(
+                batch=b)), tagged=False).main
+
+        own = pick(_pdp_one_rank(place, at_batch(half), init, step0,
+                                 {k: a[:half] for k, a in feeds[0].items()},
+                                 grads))
+        # a control: rank 0's rows alone (times world for the CRNN's sum)
+        scale = world if kind == "crnn" else 1
+        rec["control_own_rows_grad"] = _grad_gap([g * scale for g in own],
+                                                 g1, 1, hn)
+        del own
+        if kind == "crnn":
+            # two more evaluations of the same function in f32: the batch
+            # norms' variance as the data-parallel rule forms it (the mean
+            # square less the squared mean; no mesh, so no collective), and
+            # the global batch twice over (the same statistics, every sum
+            # of the CTC loss doubled exactly), its gradient halved: f32
+            # products at another batch size, which a permutation keeps
+            sync = _PdmModel(kind, args, tagged=False)
+            for op in sync.main.global_block().ops:
+                if op.type == "batch_norm":
+                    op.attrs["_sync_axis"] = "dp"
+            gs = pick(_pdp_one_rank(place, sync.main, init, step0, feeds[0],
+                                    grads))
+            rec["formula_yardstick_grad"] = _grad_gap(gs, g1, 1, hn)
+            twice = {k: np.concatenate([a, a]) for k, a in feeds[0].items()}
+            gt = pick(_pdp_one_rank(place, at_batch(2 * len(perm)), init,
+                                    step0, twice, grads))
+            rec["batch_yardstick_grad"] = _grad_gap([g / 2 for g in gt], g1,
+                                                    1, hn)
+            # the same step in float64: the conv-BN stack is ill-conditioned
+            # at f32 (the first convolution's gradient is a small residue of
+            # large sums), so the largest leaf is held to what f32 costs the
+            # one-rank run against float64, not to a permutation
+            g64 = pick(_pdp_one_rank(place, _pdm_float64(plain),
+                                     {n: t.double() if t.is_floating_point()
+                                      else t for n, t in init.items()},
+                                     step0, feeds[0], grads))
+            rec["f64_grad"] = _grad_gap(g_dp, g64, 1, hn)
+            rec["f64_yardstick_grad"] = _grad_gap(g1, g64, 1, hn)
+            del gs, gt, g64
+        if kind == "lac":
+            # the ranks' row blocks in turn, their gradients averaged (the
+            # loss is a mean; the CRNN's batch norms would see other
+            # statistics on a block, so it takes the yardsticks above)
+            parts = [_pdp_one_rank(place, plain.main, init, step0,
+                                   {k: a[r * half:(r + 1) * half]
+                                    for k, a in feeds[0].items()}, grads)
+                     for r in range(world)]
+            rec["split_yardstick_grad"] = _grad_gap(
+                pick([sum(gs) / world for gs in zip(*parts)]), g1, 1, hn)
+            del parts
+        del gp
+    del ref, out
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _pdm_reader(rank, world, device, args):
+    """A fleet-tagged MLP fed by a started ``py_reader`` (two global
+    batches, then its end) against the same program fed each batch by a
+    dict from the same state: losses and parameters bit for bit."""
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.distributed import fleet
+
+    B, w = args["reader_b"], args["reader_w"]
+    rng = np.random.RandomState(PDM_FEED_SEED)
+    batches = [(rng.randn(B, w).astype("f4"), rng.randn(B, 1).astype("f4"))
+               for _ in range(PDM_STEPS)]
+    place = _pdp_place(device)
+    runs, init = [], None
+    for with_reader in (True, False):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            L = fluid.layers
+            x = L.data("x", shape=[w], dtype="float32")
+            y = L.data("y", shape=[1], dtype="float32")
+            reader = (L.create_py_reader_by_data(capacity=2, feed_list=[x, y])
+                      if with_reader else None)
+            loss = L.mean(L.square_error_cost(L.fc(L.fc(x, w, act="relu"), 1),
+                                              y))
+            fleet.distributed_optimizer(
+                fluid.optimizer.Momentum(0.01, 0.9)).minimize(loss)
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        exe.run(startup, scope=scope)
+        names = sorted(v.name for v in startup.list_vars() if v.persistable)
+        if init is None:
+            init = _pdp_state(scope, names)
+        else:
+            for n in names:
+                scope.set(n, init[n].clone())
+        losses = []
+        if with_reader:
+            reader.decorate_batch_generator(lambda: iter(batches),
+                                            places=place)
+            reader.start()
+            try:
+                while True:
+                    losses.append(float(exe.run(main, fetch_list=[loss],
+                                                scope=scope)[0]))
+            except fluid.EOFException:
+                pass
+        else:
+            for bx, by in batches:
+                losses.append(float(exe.run(main, feed={"x": bx, "y": by},
+                                            fetch_list=[loss],
+                                            scope=scope)[0]))
+        runs.append((losses, scope))
+    (l_r, s_r), (l_f, s_f) = runs
+    return {"losses": l_r, "steps": len(l_r),
+            "bit_for_bit": bool(l_r == l_f and all(
+                _same_tensor_bits(s_r.find_var(n), s_f.find_var(n))
+                for n in names)),
+            "replicas_differ": _pdp_replicas_differ(s_r, names)}
+
+
+def _pdm_lamb_bound(p0, p_ar, p_kr, m, v, b1p, b2p, lr, wd=0.01, eps=1e-6):
+    """Per leaf, the largest |p_kr - p_ar| over the bound derived for the
+    Fluid ``lamb`` update when its two trust-ratio norms are sums of squares
+    reassociated (kReduce: each rank's rows summed, then the ranks; AllReduce:
+    one sum over the leaf), from the same moments: each norm within
+    gamma(n) / 2 + u, the ratio of each run within gamma(n) + 3u of the
+    exact one, so the two within delta = 2 (gamma(n) + 3u); the update
+    lr * trust * r (two roundings a run) within delta + 4u of |lr trust r|;
+    then each run's subtraction, half an ulp of its result."""
+    from paddle_tpu_torch.tools import fp_bounds
+
+    u, worst = fp_bounds.U32, 0.0
+    for p, pa, pk, mm, vv, b1, b2 in zip(p0, p_ar, p_kr, m, v, b1p, b2p):
+        n = p.numel()
+        r = ((mm.double() / (1 - float(b1))) /
+             ((vv.double() / (1 - float(b2))).sqrt() + eps) + wd * p.double())
+        pn, rn = float(p.double().norm()), float(r.norm())
+        trust = pn / rn if pn > 0 and rn > 0 else 1.0
+        upd = (lr * trust * r).abs()
+        delta = 2 * (float(fp_bounds.gamma(n)) + 3 * u)
+        bound = (upd * (delta + 4 * u) * (1 + delta)
+                 + u * (pa.double().abs() + pk.double().abs()) + 1e-30)
+        worst = max(worst, float(((pk.double() - pa.double()).abs()
+                                  / bound).max()))
+    return worst
+
+
+def _pdm_lamb(rank, world, device, args):
+    """The encoder with LAMB under fleet, AllReduce against kReduce from one
+    state on one batch: the parameters within ``_pdm_lamb_bound`` (the
+    trust ratio's norms reassociated, nothing else differs), the kReduce
+    moments at 1/world of their bytes a rank; then kReduce's second step."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.distributed import fleet
+
+    place = _pdp_place(device)
+    init, runs = None, {}
+    for red in (False, True):
+        strategy = fleet.DistributedStrategy()
+        if red:
+            strategy.reduce_strategy = fluid.BuildStrategy.ReduceStrategy.Reduce
+        m = _PdmModel("enc", args, True, strategy)
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        exe.run(m.startup, scope=scope)
+        if init is None:
+            init = _pdp_state(scope, m.names)
+        else:
+            for n in m.names:
+                scope.set(n, init[n].clone())
+        params = [p.name for p in m.main.global_block().all_parameters()]
+        acc = lambda kind: ["%s_%s_0" % (p, kind) for p in params]
+        moments = acc("moment1") + acc("moment2")
+        ms, outs = [], []
+        clock = _DpWatch(device)
+        if torch.device(device).type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        for k, f in enumerate(m.feeds if red else m.feeds[:1]):
+            with clock if k == 1 else contextlib.nullcontext():
+                _sync(device)
+                t0 = time.perf_counter()
+                outs.append(exe.run(m.main, feed=f, scope=scope,
+                                    fetch_list=[m.loss] + (moments if k == 0
+                                                           else []),
+                                    return_numpy=False))
+                _sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if k == 0:
+                after = {p: scope.find_var(p).clone() for p in params}
+        watch = {"collective_ms": getattr(clock, "seconds", 0.0) * 1e3,
+                 "collective_calls": getattr(clock, "calls", 0),
+                 "collective_bytes": getattr(clock, "bytes", 0),
+                 "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                             if torch.device(device).type == "cuda" else None)}
+        held = sum(scope.find_var(n).numel() * 4 for n in moments)
+        runs[red] = {"after": after, "moments": outs[0][1:], "held": held,
+                     "watch": watch,
+                     "ms": ms, "losses": [float(o[0]) for o in outs],
+                     "shards": sorted({scope.row_shards(n) for n in moments}),
+                     "replicas_differ": _pdp_replicas_differ(
+                         scope, [n for n in m.names
+                                 if scope.row_shards(n) == 1])}
+        del exe, scope, outs
+    ar, kr = runs[False], runs[True]
+    n_p = len(params)
+    whole = sum(t.numel() * 4 for t in ar["moments"])
+    ratio = _pdm_lamb_bound(
+        [init[p] for p in params], [ar["after"][p] for p in params],
+        [kr["after"][p] for p in params], ar["moments"][:n_p],
+        ar["moments"][n_p:], [init[p + "_beta1_pow_acc_0"] for p in params],
+        [init[p + "_beta2_pow_acc_0"] for p in params], args["enc"].lr)
+    bits = sum(not _same_tensor_bits(ar["after"][p], kr["after"][p])
+               for p in params)
+    return {"model": "enc_lamb", "losses_allreduce": ar["losses"],
+            "losses_kreduce": kr["losses"], "ms_allreduce": ar["ms"],
+            "ms_kreduce": kr["ms"], "kreduce_second_step_watched":
+                kr["watch"], "peak_gb_allreduce": ar["watch"]["peak_gb"],
+            "params_max_err_over_bound": ratio,
+            "params_not_bit_for_bit": bits, "params": len(params),
+            "moment_bytes_a_rank_kreduce": kr["held"],
+            "moment_bytes_a_rank_allreduce": ar["held"],
+            "moment_bytes_whole": whole, "row_shards": kr["shards"],
+            "replicas_differ": ar["replicas_differ"] + kr["replicas_differ"]}
+
+
+def _pdm_rank(rank, world, endpoint, results, args):
+    """One rank of phase 53, in a spawned process: ``fleet.init()`` with
+    gloo (both ranks on card 0), then the CTR program, the CRNN-CTC, LAC,
+    the py_reader program and the LAMB encoder."""
+    import os
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import fleet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update({
+        "PADDLE_TRAINER_ID": str(rank), "PADDLE_TRAINERS_NUM": str(world),
+        "PADDLE_TRAINER_ENDPOINTS": endpoint,
+        "PADDLE_CURRENT_ENDPOINT": endpoint, "PADDLE_DISTRI_BACKEND": "gloo",
+        "FLAGS_selected_gpus": "0", "PADDLE_TPU_SEGMENT_KERNEL": "1",
+        "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    _pdm_deterministic()
+    device = fleet.init(
+        device=None if args["device"] == "cuda" else args["device"]).device
+    try:
+        res = {"rank": rank, "backend": dist.get_backend(), "models": []}
+        for kind in ("ctr", "crnn", "lac"):
+            res["models"].append(_pdm_model(kind, rank, world, device, args,
+                                            args["files"]))
+        res["reader"] = _pdm_reader(rank, world, device, args)
+        res["lamb"] = _pdm_lamb(rank, world, device, args)
+        results.put(res)
+    finally:
+        dist.destroy_process_group()
+
+
+def _pdm_verdict(got, world, one_rank_bytes, on_card):
+    """The problems in the ranks' records (the segment kernel launches only
+    on the card)."""
+    bad = []
+    for rank in range(world):
+        res = got[rank]
+        for rec in res["models"]:
+            if rec["replicas_differ"]:
+                bad.append("rank %d %s replicas %s" % (
+                    rank, rec["model"], rec["replicas_differ"][:3]))
+            if not all(math.isfinite(x) for x in rec["losses"]):
+                bad.append("rank %d %s losses %s" % (rank, rec["model"],
+                                                     rec["losses"]))
+            # the CTR program and LAC merge their is_sparse tables' rows
+            # through the segment kernel; nothing else launches a port kernel
+            sparse = rec["model"] in ("ctr", "lac")
+            moved = {k: c for k, c in rec["launches_per_step"].items()
+                     if not (sparse and k == "segment_sum")}
+            if moved or (on_card and sparse and rec["launches_per_step"].get(
+                    "segment_sum", 0) < 1):
+                bad.append("rank %d %s launches %s" % (
+                    rank, rec["model"], rec["launches_per_step"]))
+            if rec["model"] == "ctr" and any(
+                    b * world != one_rank_bytes
+                    for b in rec["h2d_bytes_each_step"]):
+                bad.append("rank %d staged %s bytes a step, one rank %s"
+                           % (rank, rec["h2d_bytes_each_step"],
+                              one_rank_bytes))
+        rd, lb = res["reader"], res["lamb"]
+        if not rd["bit_for_bit"] or rd["steps"] != PDM_STEPS or \
+                rd["replicas_differ"]:
+            bad.append("rank %d py_reader %s" % (rank, rd))
+        if not (lb["params_max_err_over_bound"] <= 1
+                and lb["moment_bytes_a_rank_kreduce"] * world
+                == lb["moment_bytes_whole"] == lb["moment_bytes_a_rank_allreduce"]
+                and lb["row_shards"] == [world] and not lb["replicas_differ"]):
+            bad.append("rank %d LAMB kReduce %s" % (rank, lb))
+    for rec in got[0]["models"]:
+        kind = rec["model"]
+        if rec["loss_bound"]["err_over_bound"] > 1:
+            bad.append("%s loss %s" % (kind, rec["loss_bound"]))
+        if kind == "ctr" and not rec["auc_stats_equal"]:
+            bad.append("ctr AUC counts differ from one rank's")
+        if kind == "crnn" and not (rec["edit_counts_equal"] and
+                                   rec["sequence_num"][0]
+                                   == rec["sequence_num"][1]):
+            bad.append("crnn edit counts %s %s" % (rec["edit_counts_equal"],
+                                                   rec["sequence_num"]))
+        if kind == "lac" and rec["chunk_counts"][0] != rec["chunk_counts"][1]:
+            bad.append("lac chunk counts %s" % rec["chunk_counts"])
+        if "grad" in rec:
+            sticks = [rec[k] for k in ("yardstick_grad", "split_yardstick_grad",
+                                       "formula_yardstick_grad",
+                                       "batch_yardstick_grad") if k in rec]
+            yard = {w: max(y[w] for y in sticks)
+                    for w in ("grad_rel_l2_median", "grad_rel_l2_max")}
+            held = [("grad", w, yard[w]) for w in yard]
+            if "f64_grad" in rec:
+                # the CRNN's largest leaf against float64 (see _pdm_model)
+                held = [("grad", "grad_rel_l2_median",
+                         yard["grad_rel_l2_median"])] + [
+                    ("f64_grad", w, rec["f64_yardstick_grad"][w])
+                    for w in ("grad_rel_l2_median", "grad_rel_l2_max")]
+            for key, w, y in held:
+                if not rec[key][w] <= PDP_GRAD_LIMIT * y:
+                    bad.append("%s %s %s %s over %s x %s" % (
+                        kind, key, w, rec[key][w], PDP_GRAD_LIMIT, y))
+            ctl = rec["control_own_rows_grad"]["grad_rel_l2_median"]
+            if not ctl > PDP_GRAD_LIMIT * yard["grad_rel_l2_median"]:
+                bad.append("%s control (a rank's own rows) %s within %s x %s"
+                           % (kind, ctl, PDP_GRAD_LIMIT,
+                              yard["grad_rel_l2_median"]))
+    return bad
+
+
+def phase_program_dp_more_two_ranks(device_name, card, one_rank_bytes,
+                                    device="cuda", args=None):
+    """Phase 53, second part: two ranks on the one card over gloo, each a
+    spawned process joining through ``fleet.init()``, every program under
+    ``fleet.distributed_optimizer`` for PDM_STEPS steps:
+
+    - the CTR program through ``train_from_dataset`` (the feed pipe on):
+      each rank stages half the batch's bytes (``one_rank_bytes`` a step at
+      one rank); the first step's loss within the derived bound of the
+      one-rank step's, the AUC's counts equal to the one-rank run's; the
+      segment kernel launched on the sparse merge;
+    - the CRNN-CTC (16 a rank) and LAC (150 a rank): the first loss within
+      its derived bound, the edit distances' integer counts and
+      ``SequenceNum`` / ``chunk_eval``'s three counts equal to the one-rank
+      run's, the gradient within PDP_GRAD_LIMIT of the largest yardstick (a
+      row permutation; for LAC the ranks' row blocks run in turn; for the
+      CRNN, whose batch norms a block would change, the data-parallel
+      variance formula and the batch twice over) while rank 0's own rows'
+      gradient lands outside;
+    - a py_reader-fed MLP bit for bit the same program fed by dicts;
+    - the LAMB encoder (8 a rank): kReduce's parameters after one step
+      within the bound of the trust ratio's reassociated norms of
+      AllReduce's, its moments at half their bytes a rank;
+
+    every replica bit for bit, no port kernel launched but the segment
+    kernel (the CTR program's and LAC's sparse merges).  Returns each
+    rank's launches a step, by program."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    endpoint = "127.0.0.1:%d" % _free_port()
+    args = dict(args or _pdm_args(), device=device)
+    args["files"] = _pdm_files(args)
+    procs = [ctx.Process(target=_pdm_rank, args=(r, DP_WORLD, endpoint,
+                                                 results, args))
+             for r in range(DP_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        deadline = time.monotonic() + PDM_TIMEOUT_S
+        while len(got) < DP_WORLD:
+            try:
+                res = results.get(timeout=5)
+                got[res["rank"]] = res
+            except queue.Empty:
+                codes = [p.exitcode for p in procs]
+                if any(c not in (None, 0) for c in codes):
+                    raise AssertionError("phase 53: a rank failed, exit codes "
+                                         "%s" % codes)
+                if time.monotonic() > deadline:
+                    raise AssertionError("phase 53: no result in %d s"
+                                         % PDM_TIMEOUT_S)
+        for p in procs:
+            p.join(120)
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * DP_WORLD:
+            raise AssertionError("phase 53: exit codes %s" % codes)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(30)
+    bad = _pdm_verdict(got, DP_WORLD, one_rank_bytes, device == "cuda")
+    for rank in range(DP_WORLD):
+        for rec in got[rank]["models"]:
+            emit({"phase": "program_dp_more_two_ranks", "rank": rank,
+                  "world": DP_WORLD, "backend": got[rank]["backend"], **rec})
+        emit({"phase": "program_dp_more_two_ranks", "rank": rank,
+              "model": "py_reader MLP", **got[rank]["reader"]})
+        emit({"phase": "program_dp_more_two_ranks", "rank": rank,
+              **got[rank]["lamb"]})
+    ok = not bad
+    emit({"phase": "program_dp_more_two_ranks", "nvidia_smi": card, "ok": ok,
+          "seconds": time.perf_counter() - t0, "problems": bad[:20]})
+    if not ok:
+        raise AssertionError("phase 53: %s" % bad[:20])
+    return {rank: {r["model"]: r["launches_per_step"]
+                   for r in got[rank]["models"]} for rank in got}
 
 
 def main():
@@ -7272,10 +8118,25 @@ def main():
     torch.cuda.empty_cache()
     _common.reset_launches()
     phase_program_dp_nccl(name, card)
+    pdp_nccl = dict(_common.launches)
     assert_no_launches("program-mode data parallelism (one-rank NCCL)")
-    phase_program_dp_two_ranks(name, card)
+    pdp_launches = phase_program_dp_two_ranks(name, card)
+    torch.cuda.empty_cache()
+    _common.reset_launches()
+    more_nccl, ctr_bytes = phase_program_dp_more_nccl(name, card)
+    more_dp = phase_program_dp_more_two_ranks(name, card, ctr_bytes)
     for rec in kernels:
-        rec["program_dp_launches_per_step"] = 0
+        key = {"flash_attention_bwd_dq": "flash_attention_bwd",
+               "flash_attention_bwd_dkv": "flash_attention_bwd"}.get(
+                   rec["name"], rec["name"])
+        rec["program_dp_launches_per_step"] = {
+            "phase52_nccl_encoder": pdp_nccl.get(key, 0) / PDP_STEPS,
+            "phase52_two_ranks_per_rank": {
+                r: pdp_launches[r].get(key, 0) for r in pdp_launches},
+            "phase53_nccl": {m: c.get(key, 0) for m, c in more_nccl.items()},
+            "phase53_two_ranks_per_rank": {
+                r: {m: c.get(key, 0) for m, c in more_dp[r].items()}
+                for r in more_dp}}
     for rec in kernels:
         if rec["name"] == "segment_sum":
             rec["ctr_dataset_launches_per_step"] = ctr_per_step

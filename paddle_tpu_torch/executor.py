@@ -42,8 +42,10 @@ on the one-device gradients, on identical values on every rank.
 Batch-shaped fetches are gathered to the global value.  Under kReduce the
 marked accumulators stay 1/n of their rows a rank in the scope.  A
 GeoSGD-tagged program runs locally, and its started ``Communicator`` ticks
-after each run.  ``py_reader`` and dataset feeding of a data-parallel
-program raise (ROADMAP item 5-B).
+after each run.  A started ``py_reader`` injects the global batch, which
+the run slices like any feed; ``feed_converter`` of a data-parallel program
+stages only this rank's rows (cut on the host before the copy), which the
+run takes as they are.
 
 The monitor's hooks sit where the JAX executor's sit in its ``_run``
 (``monitor/``): the spans ``executor.run``, ``executor.feed_convert``,
@@ -360,6 +362,36 @@ def _dp_global(dp, run, name, t, whole_rows):
     return t if axis is None else dp.gather(t, axis)
 
 
+class _LocalRows(dict):
+    """A feed ``Executor.feed_converter`` staged for a data-parallel
+    program: this rank's rows of each value, with each feed's global row
+    count (``global_rows``)."""
+
+    def __init__(self, feed, global_rows):
+        super().__init__(feed)
+        self.global_rows = global_rows
+
+
+def _dp_rows(dp, feed, name, value):
+    """This rank's rows of a feed value: a value the feed converter staged
+    is taken as it is when it holds the local rows of its global batch,
+    cut when it holds the global batch, and refused otherwise; any other
+    value is the global batch (``_ShardingInfo.shard_feed``)."""
+    total = (feed.global_rows.get(name) if isinstance(feed, _LocalRows)
+             else None)
+    if total is None:
+        return dp.shard_feed(name, value)
+    rows = int(value.shape[0]) if value.ndim else None
+    if total % dp.n == 0 and rows == total // dp.n:
+        return value
+    if rows == total:
+        return dp.shard_feed(name, value)
+    raise ValueError(
+        "feed %r was staged with %s rows of a global batch of %d, which is "
+        "neither the global batch nor its 1/%d a rank"
+        % (name, rows, total, dp.n))
+
+
 def _monitor_ident(obj, prefix):
     """Stable telemetry identity for a Program/Executor, stored on the
     object (a dead object's recycled id must not make a fresh object's
@@ -465,13 +497,29 @@ class _Plan:
                     (leaf, ids_name, attrs, [by_op[id(c)] for c in chain]))
 
     def distribute(self):
-        """Every rule behind the batch-axis table, for a data-parallel run
-        (a sub-block's op may read no batch-sharded value)."""
+        """Every rule behind the batch-axis table, for a data-parallel run:
+        a ``scan`` body's ops go through the table; an op of any other
+        sub-block (a ``while``, ``conditional_block`` or ``cond`` body, or
+        a block inside one) may read no batch-sharded value."""
+        owner = {}
+        for block in self.program.blocks:
+            for op in block.ops:
+                for key in ("sub_block_index", "true_block_index",
+                            "false_block_index"):
+                    if key in op.attrs:
+                        owner[int(op.attrs[key])] = (op.type, block.idx)
+
+        def closed(idx):
+            if idx == 0:
+                return False
+            kind, parent = owner.get(idx, (None, 0))
+            return kind != "scan" or closed(parent)
+
         for c in self.fwd + self.rest:
             c.rule = _batch_axes.wrap(c)
-        for calls in self.sub.values():
+        for idx, calls in self.sub.items():
             for c in calls:
-                c.rule = _batch_axes.wrap(c, in_sub_block=True)
+                c.rule = _batch_axes.wrap(c, in_sub_block=closed(idx))
         return self
 
     def context(self, generator):
@@ -646,14 +694,12 @@ class Executor:
         OFF the training thread (the DeviceFeedPipe stage): declared dtypes
         applied, and on a card the copy through a pinned buffer started on
         a side stream, so the copy of batch k+1 overlaps step k.  ``run``
-        takes the staged tensors as they are."""
+        takes the staged tensors as they are.  For a data-parallel program
+        the closure stages this rank's rows of the global batch (cut on the
+        host, so a rank copies 1/n of the batch), marked so that ``run``
+        does not cut them again."""
         program = program if program is not None else default_main_program()
-        if is_data_parallel(program):
-            raise NotImplementedError(
-                "a staged feed for a data-parallel program: the data path "
-                "under data parallelism waits (ROADMAP Queue 1 item 5-B)")
-        if isinstance(program, CompiledProgram):
-            program = program._program_for_run()
+        program, dp, _ = _resolve_parallel(program, self.device)
         block = program.global_block()
 
         def dtype_of(name):
@@ -665,7 +711,23 @@ class Executor:
             except ValueError:
                 return None          # bfloat16: run() casts the tensor
 
-        return make_feed_convert(dtype_of, make_placer(self.device))
+        placer = make_placer(self.device)
+        if dp is None:
+            return make_feed_convert(dtype_of, placer)
+
+        def local_placer(arrays):
+            # data-parallel: this rank's rows, cut on the host before the
+            # copy, marked with each feed's global row count
+            rows = {n: int(v.shape[0]) if len(getattr(v, "shape", ()))
+                    else None for n, v in arrays.items()}
+            staged = placer({n: dp.shard_feed(n, v)
+                             for n, v in arrays.items()})
+            if isinstance(staged, dict):
+                return _LocalRows(staged, rows)
+            staged.feed = _LocalRows(staged.feed, rows)
+            return staged
+
+        return make_feed_convert(dtype_of, local_placer)
 
     def infer_from_dataset(self, *args, **kwargs):
         from .trainer import _run_from_dataset
@@ -711,15 +773,10 @@ class Executor:
         program, dp, geo = _resolve_parallel(program, self.device)
         refuse_warm_dir()
         feed = feed or {}
-        if dp is not None and getattr(program, "_py_readers", ()):
-            raise NotImplementedError(
-                "a py_reader or DataLoader feeding a data-parallel program: "
-                "the data path under data parallelism waits (ROADMAP Queue 1 "
-                "item 5-B); feed each rank the global batch")
         # py_reader-fed programs (layers/io.py py_reader): a started reader
-        # injects its next staged batch as the feed; exhaustion raises
-        # EOFException, as the reference's read_file does at the end of an
-        # epoch
+        # injects its next staged batch as the feed (data-parallel: the
+        # global batch, sliced below); exhaustion raises EOFException, as the
+        # reference's read_file does at the end of an epoch
         for rdr in getattr(program, "_py_readers", ()):
             feed = rdr._inject_feed(feed)
         fetch_names = [_as_fetch_name(f) for f in (fetch_list or [])]
@@ -734,9 +791,10 @@ class Executor:
             _memscope.note_scope(scope)
         t_feed = time.perf_counter()
         with _trace.span("executor.feed_convert"):
-            # data-parallel: this rank's rows of the global batch
+            # data-parallel: this rank's rows of the global batch (a feed
+            # the feed converter staged holds them already)
             feed_tensors = {n: self._feed_tensor(
-                block, n, v if dp is None else dp.shard_feed(n, v))
+                block, n, v if dp is None else _dp_rows(dp, feed, n, v))
                 for n, v in feed.items()}
         if mon is not None:
             mon.phase_add("feed_stall", (time.perf_counter() - t_feed) * 1e3)

@@ -176,7 +176,13 @@ def _chunk_eval(ins, attrs, ctx):
     num_label = (bl & _kept(tyl, excluded)).sum().to(torch.int32)
     num_correct = (bi & bl & (ei == el) & (tyi == tyl) & keep_i).sum().to(
         torch.int32)
-    one = torch.ones((), dtype=torch.int32, device=dev)
+    return chunk_scores(num_infer, num_label, num_correct)
+
+
+def chunk_scores(num_infer, num_label, num_correct):
+    """chunk_eval's outputs from its three int32 counts (data parallelism
+    passes the counts summed over the ranks)."""
+    one = torch.ones((), dtype=torch.int32, device=num_infer.device)
     p = torch.where(num_infer > 0, num_correct / torch.maximum(num_infer, one),
                     0.0)
     r = torch.where(num_label > 0, num_correct / torch.maximum(num_label, one),

@@ -143,6 +143,19 @@ def _adagrad(ins, attrs, ctx):
     return out(ParamOut=p_new.to(p.dtype), MomentOut=m_new)
 
 
+def _norm(t, attrs):
+    """The L2 norm of ``t``; under kReduce (``_norm_group``, set by the
+    data-parallel table) each rank holds rows of ``t`` and the squares are
+    summed over the ranks."""
+    s = torch.sum(torch.square(t))
+    group = attrs.get("_norm_group")
+    if group is not None:
+        from ..parallel.collectives import backend_all_reduce
+
+        s = backend_all_reduce(s.reshape(1), group).reshape(())
+    return torch.sqrt(s)
+
+
 @register_op("lars_momentum")
 def _lars_momentum(ins, attrs, ctx):
     """LARS: a layer-wise local learning rate from the norms of the
@@ -153,8 +166,7 @@ def _lars_momentum(ins, attrs, ctx):
     wd = attrs.get("lars_weight_decay", 0.0005)
     eps = attrs.get("epsilon", 0.0)
     lr = _lr(ins)
-    p_norm = torch.sqrt(torch.sum(torch.square(p)))
-    g_norm = torch.sqrt(torch.sum(torch.square(g)))
+    p_norm, g_norm = _norm(p, attrs), _norm(g, attrs)
     local_lr = torch.where((p_norm > 0) & (g_norm > 0),
                            lr * coeff * p_norm / (g_norm + wd * p_norm + eps),
                            lr)
@@ -257,8 +269,7 @@ def _lamb(ins, attrs, ctx):
     m_hat = m_new / (1 - b1p.reshape(()))
     v_hat = v_new / (1 - b2p.reshape(()))
     r = m_hat / (torch.sqrt(v_hat) + eps) + wd * p
-    p_norm = torch.sqrt(torch.sum(torch.square(p)))
-    r_norm = torch.sqrt(torch.sum(torch.square(r)))
+    p_norm, r_norm = _norm(p, attrs), _norm(r, attrs)
     trust = torch.where((p_norm > 0) & (r_norm > 0), p_norm / r_norm, 1.0)
     p_new = p - _lr(ins) * trust * r
     return out(ParamOut=p_new.to(p.dtype), Moment1Out=m_new, Moment2Out=v_new,

@@ -43,11 +43,20 @@ def _sample_neg(gen, sampler, n, num_total, probs, device):
                              replacement=True, generator=gen)
 
 
-@register_op("nce")
-def _nce(ins, attrs, ctx):
+def nce_negatives(rows, attrs, ctx, device, probs=None):
+    """``num_neg_samples`` negative class ids for each of ``rows`` rows,
+    [rows, num_neg], from the op's generator (data parallelism draws them
+    for the global batch and keeps its rows)."""
+    num_neg = int(attrs.get("num_neg_samples", 10))
+    return _sample_neg(op_generator(ctx, attrs), int(attrs.get("sampler", 0)),
+                       rows * num_neg, int(attrs["num_total_classes"]), probs,
+                       device).reshape(rows, num_neg)
+
+
+def nce_apply(ins, attrs, negs):
     """Per-row cost: -log(o / (o + b)) over the true labels plus
-    -log(b / (o + b)) over the negatives, where o = sigmoid(x . W[c] +
-    bias[c]) and b = P(c) * num_neg_samples."""
+    -log(b / (o + b)) over the negatives ``negs`` [B, num_neg], where
+    o = sigmoid(x . W[c] + bias[c]) and b = P(c) * num_neg_samples."""
     inp = x(ins, "Input")                       # [B, D]
     label = x(ins, "Label").long()              # [B, T]
     weight = x(ins, "Weight")                   # [C, D]
@@ -58,16 +67,8 @@ def _nce(ins, attrs, ctx):
     T = label.shape[1] if label.ndim == 2 else 1
     label = label.reshape(B, T)
     num_total = int(attrs["num_total_classes"])
-    num_neg = int(attrs.get("num_neg_samples", 10))
+    num_neg = negs.shape[1]
     sampler = int(attrs.get("sampler", 0))
-    custom_neg = attrs.get("custom_neg_classes") or []
-    if custom_neg:
-        num_neg = len(custom_neg)
-        negs = torch.tensor(custom_neg, dtype=torch.long,
-                            device=inp.device).expand(B, num_neg)
-    else:
-        negs = _sample_neg(op_generator(ctx, attrs), sampler, B * num_neg,
-                           num_total, dist_probs, inp.device).reshape(B, num_neg)
     sample_labels = torch.cat([label, negs], dim=1)          # [B, T + neg]
 
     # a label outside [0, num_total) reads as JAX's gather reads it
@@ -90,6 +91,22 @@ def _nce(ins, attrs, ctx):
         cost = cost * sample_weight.reshape(B, 1)
     return out(Cost=cost.sum(dim=1, keepdim=True), SampleLogits=o,
                SampleLabels=sample_labels)
+
+
+@register_op("nce")
+def _nce(ins, attrs, ctx):
+    """``nce_apply`` with ``custom_neg_classes`` for every row, or with
+    ``nce_negatives`` drawn for each row."""
+    inp = x(ins, "Input")
+    custom_neg = attrs.get("custom_neg_classes") or []
+    if custom_neg:
+        negs = torch.tensor(custom_neg, dtype=torch.long,
+                            device=inp.device).expand(inp.shape[0],
+                                                      len(custom_neg))
+    else:
+        negs = nce_negatives(inp.shape[0], attrs, ctx, inp.device,
+                             x(ins, "CustomDistProbs"))
+    return nce_apply(ins, attrs, negs)
 
 
 @register_op("hierarchical_sigmoid")

@@ -1,4 +1,5 @@
-"""The batch-axis table of program-mode data parallelism (ROADMAP item 5-B).
+"""The batch-axis table of program-mode data parallelism (ROADMAP items
+5-B and 5-B').
 
 The JAX package runs a data-parallel Fluid program as one GSPMD ``jit``
 with every feed's dimension 0 split over the mesh's data axis
@@ -11,25 +12,33 @@ op: for each op type, which axis of each output carries the batch, and how
 the op runs when it reads a batch-sharded value:
 
 - on its local rows as its rule is (the elementwise and row-wise ops, the
-  products, convolutions, pools, lookups, normalisations over other axes);
+  products, convolutions, pools, lookups, normalisations over other axes,
+  ``arg_max`` over another axis, the CTC and CRF ops, ``im2sequence``,
+  ``hierarchical_sigmoid``, ``cos_sim``, and the LoD ops, whose lengths are
+  feeds sharded with their rows);
 - with attributes rewritten from the global to the local batch (``reshape2``
   resolves its shape against the global input, ``squeeze2`` the axes it
-  drops);
+  drops), or on the global value, gathered, of which it keeps its rows
+  (``expand`` tiling the batch axis, ``arg_max`` over it);
 - with a collective over the batch: ``mean`` and ``reduce_*`` whose axes
-  include the batch (sum, max or min over the ranks), ``batch_norm`` in
-  training (the global mean and mean square, through the rule's
-  ``_sync_axis``), ``accuracy`` and ``auc`` (their counts);
+  include the batch (sum, max or min over the ranks; a tied extreme's
+  cotangent splits over every tied element of every rank, as ``jnp.max``'s),
+  ``batch_norm`` in training (the global mean and mean square, through the
+  rule's ``_sync_axis``), ``accuracy``, ``auc``, ``chunk_eval`` and
+  ``edit_distance`` (their counts);
 - drawing what the one-rank run draws for the global batch and keeping its
-  rows (``dropout``, ``uniform_random_batch_size_like``,
+  rows (``dropout``, ``nce``'s negatives, ``uniform_random_batch_size_like``,
   ``gaussian_random_batch_size_like``), so a program at world n equals the
-  port's world-1 run.
+  port's world-1 run;
+- ``scan``: its body's ops run through the table, one step's slice carrying
+  the batch one axis lower than the time-major scanned input.
 
 The table starts from every feed's dimension 0 (the reference shards every
 feed; a ``-1`` in a var's shape does not mark the batch).  There is no
 default: an op type that is not in the table and reads a batch-sharded value
-raises, naming the op and item 5-B, as does an op of a sub-block that reads
-one.  An op whose inputs are all replicated runs as it is, and its outputs
-are replicated.
+raises, naming the op and item 5-B, as does an op of a ``while``,
+``conditional_block`` or ``cond`` body that reads one.  An op whose inputs
+are all replicated runs as it is, and its outputs are replicated.
 
 The gradients come out as the one-device ones (``executor.py``): the
 backward seeds a replicated loss's cotangent with 1/n on each rank, every
@@ -38,8 +47,11 @@ collective above differentiates as a sum of the ranks' cotangents
 ``@GRAD``s are summed over the ranks.  Under kReduce (``ReduceStrategy.
 Reduce``) the optimizer accumulators hold 1/n of their rows a rank; the
 optimizer ops that update a row from that row alone (``ROW_SEPARABLE``)
-update their rows of the parameter, which is then gathered; any other op
-that reads such an accumulator raises.
+update their rows of the parameter, which is then gathered, a SelectedRows
+gradient keeping the ids of those rows; LAMB and LARS (``NORM_SUMMED``) do
+so with their norms summed over the ranks; any other op that reads such an
+accumulator runs on whole tensors, the accumulators gathered, and keeps
+this rank's rows of what it writes.
 
 At one rank every entry runs the plain rule, so the data-parallel run of a
 world of one is the plain run, bit for bit.
@@ -49,10 +61,12 @@ import math
 
 import torch
 
+from ..sparse import SelectedRows
 from . import collectives as col
 from .mesh import DP
 
-__all__ = ["TABLE", "ROW_SEPARABLE", "Run", "wrap", "refuse"]
+__all__ = ["TABLE", "ROW_SEPARABLE", "NORM_SUMMED", "Run", "wrap",
+           "refuse"]
 
 _ITEM = "ROADMAP Queue 1 item 5-B"
 
@@ -82,6 +96,9 @@ TABLE = {}
 # under kReduce each rank updates its rows of the parameter
 ROW_SEPARABLE = {"sgd", "momentum", "adam", "adamax", "adagrad",
                  "decayed_adagrad", "adadelta", "rmsprop", "ftrl"}
+# optimizer ops whose update reads whole-parameter norms: under kReduce each
+# rank updates its rows with the norms summed over the ranks
+NORM_SUMMED = {"lamb", "lars_momentum"}
 
 
 def _register(*types):
@@ -102,7 +119,10 @@ def _slot_axes(op, env, axes):
 
 def wrap(call, in_sub_block=False):
     """``call.rule`` wrapped for a data-parallel run (``ctx.dp`` holds the
-    run's ``Run``)."""
+    run's ``Run``).  ``in_sub_block``: the op lies in a ``while``,
+    ``conditional_block`` or ``cond`` body (or a block inside one), where
+    reading a batch-sharded value raises; a ``scan`` body's ops run through
+    the table as the global block's do."""
     rule, op = call.rule, call.op
 
     def dp_rule(ins, attrs, ctx):
@@ -110,25 +130,27 @@ def wrap(call, in_sub_block=False):
         in_axes = _slot_axes(op, ctx.env, run.axes)
         rows_in = [n for names in op.inputs.values() for n in names
                    if n in run.rows and n in ctx.env]
-        sharded = any(a is not None for v in in_axes.values() for a in v)
+        sharded = [n for names in op.inputs.values() for n in names
+                   if run.axes.get(n) is not None and n in ctx.env]
         if rows_in:
-            if op.type not in ROW_SEPARABLE or sharded or in_sub_block:
+            if sharded or in_sub_block:
                 raise refuse("op %r reading the kReduce-sharded accumulator "
-                             "%s" % (op.type, rows_in[0]))
-            outs = _row_update(rule, op, ins, attrs, ctx, run)
+                             "%s%s" % (op.type, rows_in[0], " in a sub-block"
+                                       if in_sub_block else ""))
+            outs = _kreduce_update(rule, op, ins, attrs, ctx, run)
             _record(op, run, None)
             return outs
-        if not sharded:
+        if in_sub_block or not (sharded or op.type == "scan"):
+            if sharded:
+                raise refuse("op %r in a sub-block, which reads the "
+                             "batch-sharded %r," % (op.type, sharded[0]))
             outs = rule(ins, attrs, ctx)
             _record(op, run, None)
             return outs
-        name = next(n for names in op.inputs.values() for n in names
-                    if run.axes.get(n) is not None and n in ctx.env)
         handler = TABLE.get(op.type)
-        if handler is None or in_sub_block:
-            raise refuse("op %r%s, which reads the batch-sharded %r,"
-                         % (op.type, " in a sub-block" if in_sub_block else "",
-                            name))
+        if handler is None:
+            raise refuse("op %r, which reads the batch-sharded %r,"
+                         % (op.type, sharded[0]))
         outs, out_axes = handler(rule, ins, in_axes, attrs, ctx, run, op.type)
         _record(op, run, out_axes)
         return outs
@@ -136,16 +158,20 @@ def wrap(call, in_sub_block=False):
     return dp_rule
 
 
+def _set_axis(run, name, axis):
+    if axis is None:
+        run.axes.pop(name, None)
+    else:
+        run.axes[name] = axis
+
+
 def _record(op, run, out_axes):
     """Each output's batch axis: ``out_axes`` is one axis (or None) for
-    every output, or {slot: axis}."""
+    every output, or {slot: axis, or a list of one axis a name}."""
     for slot, names in op.outputs.items():
         a = out_axes.get(slot) if isinstance(out_axes, dict) else out_axes
-        for n in names:
-            if a is None:
-                run.axes.pop(n, None)
-            else:
-                run.axes[n] = a
+        for n, ax in zip(names, a if isinstance(a, list) else [a] * len(names)):
+            _set_axis(run, n, ax)
 
 
 def _only_axis(op_type, in_axes, slots=None):
@@ -467,6 +493,122 @@ def _one_hot(rule, ins, in_axes, attrs, ctx, run, op_type):
     return rule(ins, attrs, ctx), a
 
 
+@_register("arg_max", "arg_min")
+def _arg_extreme(rule, ins, in_axes, attrs, ctx, run, op_type):
+    """Row by row over another axis; over the batch axis, the rule on the
+    global X (gathered), whose index is then the global row's."""
+    v = ins["X"][0]
+    a = _only_axis(op_type, in_axes)
+    axis = _norm(int(attrs.get("axis", -1)), v.ndim)
+    if axis != a:
+        return rule(ins, attrs, ctx), a if a < axis else a - 1
+    if run.group is None:
+        return rule(ins, attrs, ctx), None
+    whole = col.backend_all_gather(v.detach(), run.group, a)
+    return rule(dict(ins, X=[whole]), attrs, ctx), None
+
+
+def _check_rows(op_type, in_axes, weights=()):
+    """Row by row over axis 0: the ``weights`` slots replicated, every other
+    input sharded on axis 0 (lengths and labels are fed with their rows)."""
+    _replicated(op_type, in_axes, weights)
+    for slot, axes in in_axes.items():
+        if slot not in weights and any(ax != 0 for ax in axes):
+            raise refuse("op %r with its %s %s" % (
+                op_type, slot, "replicated" if None in axes
+                else "sharded on axis %s" % axes))
+
+
+def _batch_rows(rule, ins, in_axes, attrs, ctx, op_type, weights=(),
+                out_axes=0):
+    _check_rows(op_type, in_axes, weights)
+    return rule(ins, attrs, ctx), out_axes
+
+
+@_register("im2sequence", "warpctc", "ctc_align", "crf_decoding",
+           "linear_chain_crf", "hierarchical_sigmoid")
+def _row_ops(rule, ins, in_axes, attrs, ctx, run, op_type):
+    """Each row's image, sequence or tag path alone; the CRF's transition and
+    the tree's weights replicated (``W_Out`` is the weight, replicated).
+    ``ctc_align`` pads its output to the input's static length, so every
+    rank's rows have one shape."""
+    weights = {"linear_chain_crf": ("Transition",),
+               "crf_decoding": ("Transition",),
+               "hierarchical_sigmoid": ("W", "Bias")}.get(op_type, ())
+    out_axes = ({"Out": 0, "PreOut": 0} if op_type == "hierarchical_sigmoid"
+                else 0)
+    return _batch_rows(rule, ins, in_axes, attrs, ctx, op_type, weights,
+                       out_axes)
+
+
+@_register("cos_sim")
+def _cos_sim(rule, ins, in_axes, attrs, ctx, run, op_type):
+    """Row cosines; a replicated Y of one row broadcasts over the rows."""
+    ax, ay = in_axes["X"][0], in_axes["Y"][0]
+    if ax != 0 or ay not in (0, None) or (ay is None
+                                          and ins["Y"][0].shape[0] != 1):
+        raise refuse("cos_sim with X on axis %s and Y on axis %s" % (ax, ay))
+    return rule(ins, attrs, ctx), {"Out": 0, "XNorm": 0, "YNorm": ay}
+
+
+@_register("expand")
+def _expand(rule, ins, in_axes, attrs, ctx, run, op_type):
+    """``jnp.tile``: a batch axis tiled once stays row by row; tiled more
+    often, the global X is tiled (gathered, differentiably) and this rank
+    keeps its rows of the global result."""
+    v = ins["X"][0]
+    a = _only_axis(op_type, in_axes)
+    times = [int(t) for t in attrs["expand_times"]]
+    lead = max(len(times) - v.ndim, 0)
+    full = [1] * (v.ndim - len(times)) + times
+    p = a + lead
+    if full[p] == 1 or run.group is None:
+        return rule(ins, attrs, ctx), p
+    r = rule(dict(ins, X=[col.all_gather(v, DP, a)]), attrs, ctx)["Out"][0]
+    lo, hi = run.local(r.shape[p])
+    return {"Out": [r.narrow(p, lo, hi - lo)]}, p
+
+
+# -- LoD ops: the padded rows with their lengths --------------------------------
+
+@_register("sequence_pool", "sequence_conv", "sequence_reverse",
+           "sequence_mask")
+def _sequence(rule, ins, in_axes, attrs, ctx, run, op_type):
+    """Padded rows [B, T, ...] with their lengths [B] (a feed, sharded with
+    its rows): each row alone.  ``sequence_mask``'s static ``maxlen`` gives
+    every rank one width."""
+    return _batch_rows(rule, ins, in_axes, attrs, ctx, op_type,
+                       ("Filter", "PaddingData"))
+
+
+# -- scan bodies ------------------------------------------------------------------
+
+@_register("scan")
+def _scan(rule, ins, in_axes, attrs, ctx, run, op_type):
+    """The body runs through the table: the scanned inputs are time-major,
+    so one step's slice carries the batch one axis lower than ``Xs``; the
+    carries keep the axes of their initial values (a body that moves one
+    raises); ``Ys`` stack the steps on axis 0, the batch one axis higher
+    than in the body."""
+    carry_names, xs_names = attrs["carry_names"], attrs["xs_names"]
+    carry_axes = list(in_axes.get("Carry", []))
+    for n, ax in zip(carry_names, carry_axes):
+        _set_axis(run, n, ax)
+    for n, ax in zip(xs_names, in_axes.get("Xs", [])):
+        if ax == 0:
+            raise refuse("scan over its batch axis")
+        _set_axis(run, n, None if ax is None else ax - 1)
+    outs = rule(ins, attrs, ctx)
+    moved = [n for n, ax in zip(carry_names, carry_axes)
+             if run.axes.get(n) != ax]
+    if moved:
+        raise refuse("scan whose body moves the batch axis of its carry %r"
+                     % moved[0])
+    ys = [run.axes.get(n) for n in attrs["ys_names"]]
+    return outs, {"CarryOut": carry_axes,
+                  "Ys": [None if ax is None else ax + 1 for ax in ys]}
+
+
 # -- reductions over the batch: a collective -----------------------------------
 
 @_register("mean")
@@ -481,20 +623,47 @@ def _mean(rule, ins, in_axes, attrs, ctx, run, op_type):
 
 
 _REDUCE_GATHERED = {
-    "reduce_max": lambda g: g.amax(dim=0),
-    "reduce_min": lambda g: g.amin(dim=0),
     "reduce_prod": lambda g: g.prod(dim=0),
     "reduce_all": lambda g: g.all(dim=0),
     "reduce_any": lambda g: g.any(dim=0),
 }
 
 
-@_register("reduce_sum", "reduce_mean", *_REDUCE_GATHERED)
+class _Extreme(torch.autograd.Function):
+    """``reduce_max`` / ``reduce_min`` over ``dims``, which hold the batch:
+    the extreme of the ranks' local extremes (gathered, so that a NaN wins
+    as in ``amax``), with ``jnp.max``'s cotangent rule over the global
+    batch: the cotangent (the ranks' cotangents summed) splits evenly over
+    every element of every rank that equals the extreme."""
+
+    @staticmethod
+    def forward(ctx, v, dims, shape, group, op):
+        local = (v.amax if op == "max" else v.amin)(dim=dims, keepdim=True)
+        gathered = col.backend_all_gather(local.unsqueeze(0), group, 0)
+        m = gathered.amax(dim=0) if op == "max" else gathered.amin(dim=0)
+        tie = v == m
+        count = col.backend_all_reduce(tie.sum(dim=dims, keepdim=True), group)
+        ctx.save_for_backward(tie, count)
+        ctx.group = group
+        return m.reshape(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        tie, count = ctx.saved_tensors
+        g = col.backend_all_reduce(g, ctx.group).reshape(count.shape)
+        share = g / count.to(g.dtype)
+        return (torch.where(tie, share, torch.zeros_like(share)),
+                None, None, None, None)
+
+
+@_register("reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
+           *_REDUCE_GATHERED)
 def _reduce(rule, ins, in_axes, attrs, ctx, run, op_type):
     """Over axes without the batch, row by row; over the batch, the local
     reduction, then a sum over the ranks (``reduce_sum``; ``reduce_mean``
-    divides by the global count) or the reduction of the ranks' results
-    gathered (max, min, prod, all, any)."""
+    divides by the global count), the global extreme with its ties counted
+    over the ranks (``_Extreme``), or the reduction of the ranks' results
+    gathered (prod, all, any)."""
     v = ins["X"][0]
     a = _only_axis(op_type, in_axes)
     keep = bool(attrs.get("keep_dim", False))
@@ -512,6 +681,11 @@ def _reduce(rule, ins, in_axes, attrs, ctx, run, op_type):
                                                             keepdim=keep)
         count = math.prod(v.shape[d] for d in set(dims)) * run.n
         return {"Out": [col.psum(r, DP) / count]}, None
+    if op_type in ("reduce_max", "reduce_min"):
+        with torch.no_grad():
+            shape = rule(ins, attrs, ctx)["Out"][0].shape
+        return {"Out": [_Extreme.apply(v, tuple(sorted(set(dims))), shape,
+                                       run.group, op_type[-3:])]}, None
     r = rule(ins, attrs, ctx)["Out"][0]
     if op_type == "reduce_sum":
         return {"Out": [col.psum(r, DP)]}, None
@@ -552,6 +726,31 @@ def _auc(rule, ins, in_axes, attrs, ctx, run, op_type):
     return rule(dict(ins, **empty, **stats), attrs, ctx), None
 
 
+@_register("chunk_eval")
+def _chunk_eval(rule, ins, in_axes, attrs, ctx, run, op_type):
+    """The three chunk counts summed over the ranks; precision, recall and
+    F1 computed from the sums as the rule computes them."""
+    from ..ops import misc_ops3
+
+    outs, _ = _batch_rows(rule, ins, in_axes, attrs, ctx, op_type)
+    if run.group is None:
+        return outs, None
+    counts = [col.backend_all_reduce(outs[k][0], run.group)
+              for k in ("NumInferChunks", "NumLabelChunks",
+                        "NumCorrectChunks")]
+    return misc_ops3.chunk_scores(*counts), None
+
+
+@_register("edit_distance")
+def _edit_distance(rule, ins, in_axes, attrs, ctx, run, op_type):
+    """Each row's distance; ``SequenceNum`` the ranks' counts summed."""
+    outs, _ = _batch_rows(rule, ins, in_axes, attrs, ctx, op_type)
+    if run.group is not None:
+        outs = dict(outs, SequenceNum=[col.backend_all_reduce(
+            outs["SequenceNum"][0], run.group)])
+    return outs, {"Out": 0}
+
+
 # -- random ops: the global batch's draws, this rank's rows ---------------------
 
 @_register("dropout")
@@ -569,6 +768,25 @@ def _dropout(rule, ins, in_axes, attrs, ctx, run, op_type):
     lo, hi = run.local(u.shape[a])
     return nn_ops.dropout_apply(v, u.narrow(a, lo, hi - lo).contiguous(),
                                 attrs), a
+
+
+@_register("nce")
+def _nce(rule, ins, in_axes, attrs, ctx, run, op_type):
+    """The negatives the one-rank run draws for the global batch (one draw
+    a row, ``ops/sampling_ops.py`` ``nce_negatives``), cut to this rank's
+    rows; fixed ``custom_neg_classes`` are every row's."""
+    from ..ops import sampling_ops
+
+    weights = ("Weight", "Bias", "CustomDistProbs")
+    if run.group is None or attrs.get("custom_neg_classes"):
+        return _batch_rows(rule, ins, in_axes, attrs, ctx, op_type, weights)
+    _check_rows(op_type, in_axes, weights)
+    inp = ins["Input"][0]
+    g = inp.shape[0] * run.n
+    probs = ins.get("CustomDistProbs") or [None]
+    negs = sampling_ops.nce_negatives(g, attrs, ctx, inp.device, probs[0])
+    lo, hi = run.local(g)
+    return sampling_ops.nce_apply(ins, attrs, negs[lo:hi]), 0
 
 
 @_register("fill_constant_batch_size_like", "uniform_random_batch_size_like",
@@ -595,21 +813,65 @@ def _batch_size_like(rule, ins, in_axes, attrs, ctx, run, op_type):
 
 # -- kReduce: the optimizer on this rank's rows ----------------------------------
 
+def _kreduce_update(rule, op, ins, attrs, ctx, run):
+    """An optimizer op that reads a kReduce accumulator: a row-separable one
+    on this rank's rows; LAMB and LARS on this rank's rows with their norms
+    summed over the ranks (the rule's ``_norm_group``); any other on whole
+    tensors (``_whole_update``)."""
+    if op.type in NORM_SUMMED:
+        if run.group is not None:
+            attrs = dict(attrs, _norm_group=run.group)
+        return _row_update(rule, op, ins, attrs, ctx, run)
+    if op.type in ROW_SEPARABLE:
+        return _row_update(rule, op, ins, attrs, ctx, run)
+    return _whole_update(rule, op, ins, attrs, ctx, run)
+
+
+def _local_rows(g, lo, hi):
+    """A SelectedRows gradient on this rank's rows [lo, hi) of the table:
+    an id in [-height, 0) counts from the end, as JAX indexing does, and
+    an id outside the rank's rows points past them, where drop-mode writes
+    drop it."""
+    ids = torch.where(g.rows < 0, g.rows + g.height, g.rows) - lo
+    ids = torch.where((ids >= 0) & (ids < hi - lo), ids, hi - lo)
+    return SelectedRows(ids, g.values, hi - lo)
+
+
 def _row_update(rule, op, ins, attrs, ctx, run):
-    """A row-separable optimizer op under kReduce: its Param and Grad cut to
-    this rank's rows (the accumulators already are), the rule on those, and
-    ParamOut gathered back to the whole parameter."""
-    if not all(isinstance(v, torch.Tensor) for vs in ins.values() for v in vs):
-        raise refuse("op %r with a SelectedRows gradient under kReduce"
-                     % op.type)
+    """Under kReduce: Param and Grad cut to this rank's rows (the
+    accumulators already are; a SelectedRows gradient keeps the ids of
+    those rows), the rule on those, and ParamOut gathered back to the whole
+    parameter."""
     local = dict(ins)
-    for slot in ("Param", "Grad"):
-        if slot in ins:
-            t = ins[slot][0]
-            lo, hi = run.local(t.shape[0])
-            local[slot] = [t[lo:hi]]
+    lo, hi = run.local(ins["Param"][0].shape[0])
+    local["Param"] = [ins["Param"][0][lo:hi]]
+    if "Grad" in ins:
+        g = ins["Grad"][0]
+        local["Grad"] = [_local_rows(g, lo, hi) if isinstance(g, SelectedRows)
+                         else g[lo:hi]]
     outs = rule(local, attrs, ctx)
     if run.group is not None and "ParamOut" in outs:
         outs = dict(outs, ParamOut=[col.backend_all_gather(
             outs["ParamOut"][0].contiguous(), run.group, 0)])
+    return outs
+
+
+def _whole_update(rule, op, ins, attrs, ctx, run):
+    """Under kReduce, an op that needs whole tensors: the accumulators' rows
+    gathered, the rule on the whole parameter (its draws and its top-k are
+    the one-rank run's), and this rank's rows kept of each accumulator it
+    writes, so the state stays 1/n a rank at rest."""
+    whole = {}
+    for slot, vals in ins.items():
+        names = [n for n in op.inputs[slot] if n in ctx.env]
+        whole[slot] = [col.backend_all_gather(v.contiguous(), run.group, 0)
+                       if n in run.rows and run.group is not None else v
+                       for n, v in zip(names, vals)]
+    outs = rule(whole, attrs, ctx)
+    for slot, names in op.outputs.items():
+        vals = outs.get(slot) or []
+        for i, (n, v) in enumerate(zip(names, vals)):
+            if n in run.rows:
+                lo, hi = run.local(v.shape[0])
+                vals[i] = v[lo:hi].contiguous()
     return outs

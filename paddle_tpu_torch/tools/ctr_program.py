@@ -27,7 +27,8 @@ __all__ = ["CtrProgram", "write_ctr_files", "build_ctr_program",
            "make_dataset", "persistable_names"]
 
 CtrProgram = collections.namedtuple(
-    "CtrProgram", "main startup loss ids label tables")
+    "CtrProgram", "main startup loss ids label tables auc",
+    defaults=(None,))
 
 
 def _zipf_ids(rng, vocab, shape, a):
@@ -70,9 +71,14 @@ def write_ctr_files(dirname, n_files=3, rows_per_file=64, n_fields=8,
 
 
 def build_ctr_program(fluid, n_fields=8, vocab=200, embed=8, mlp=(32,),
-                      lr=5e-3):
+                      lr=5e-3, wrap_optimizer=None, auc=False):
     """The CTR program under a fresh ``unique_name`` guard, so that both
-    packages name its variables alike."""
+    packages name its variables alike.  ``wrap_optimizer(opt)`` (for
+    example ``fleet.distributed_optimizer``) wraps Adam before its
+    ``minimize``.  With ``auc``, the program also computes the click
+    probability's AUC (``layers.auc``); ``CtrProgram.auc`` is then a dict of
+    its vars: "auc", "stat_pos", "stat_neg", "prob" and "terms" (the
+    per-example losses)."""
     main, startup = fluid.Program(), fluid.Program()
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
         ids = fluid.layers.data("feat_ids", shape=[n_fields], dtype="int64")
@@ -94,12 +100,24 @@ def build_ctr_program(fluid, n_fields=8, vocab=200, embed=8, mlp=(32,),
         logit = fluid.layers.elementwise_add(
             fluid.layers.elementwise_add(fluid.layers.fc(deep, 1), lin),
             fluid.layers.scale(fm, 0.5))
-        loss = fluid.layers.mean(
-            fluid.layers.sigmoid_cross_entropy_with_logits(logit, label))
-        fluid.optimizer.Adam(lr).minimize(loss)
+        terms = fluid.layers.sigmoid_cross_entropy_with_logits(logit, label)
+        loss = fluid.layers.mean(terms)
+        metric = None
+        if auc:
+            prob = fluid.layers.sigmoid(logit)
+            two = fluid.layers.concat(
+                [fluid.layers.scale(prob, -1.0, bias=1.0), prob], axis=1)
+            value, (stat_pos, stat_neg) = fluid.layers.auc(
+                two, fluid.layers.cast(label, "int64"))
+            metric = {"auc": value, "stat_pos": stat_pos,
+                      "stat_neg": stat_neg, "prob": prob, "terms": terms}
+        opt = fluid.optimizer.Adam(lr)
+        if wrap_optimizer is not None:
+            opt = wrap_optimizer(opt)
+        opt.minimize(loss)
     tables = sorted(op.inputs["W"][0] for op in main.global_block().ops
                     if op.type in ("lookup_table", "lookup_table_v2"))
-    return CtrProgram(main, startup, loss, ids, label, tables)
+    return CtrProgram(main, startup, loss, ids, label, tables, metric)
 
 
 def make_dataset(fluid, kind, files, prog, batch, thread=1):

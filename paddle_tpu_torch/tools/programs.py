@@ -152,7 +152,7 @@ def switch_program(fluid):
 
 
 # vocab, hidden, layers, heads, FFN width, sequence length, batch, dropout
-# rate, learning rate and optimizer ("adam" or "sgd")
+# rate, learning rate and optimizer ("adam", "sgd" or "lamb")
 EncoderConfig = collections.namedtuple(
     "EncoderConfig", "vocab hidden layers heads ffn seq batch dropout lr "
                      "optimizer")
@@ -235,8 +235,8 @@ def bert_encoder_program(fluid, cfg, wrap_optimizer=None):
             x = norm(L.elementwise_add(drop(ffn), x), p + "_post_ffn_layer_norm")
         logits = fc(x, cfg.vocab, "mask_lm_out_fc")
         loss = L.mean(L.softmax_with_cross_entropy(logits, feeds["labels"]))
-        opt = (fluid.optimizer.Adam(cfg.lr) if cfg.optimizer == "adam"
-               else fluid.optimizer.SGD(cfg.lr))
+        opt = {"adam": fluid.optimizer.Adam, "sgd": fluid.optimizer.SGD,
+               "lamb": fluid.optimizer.Lamb}[cfg.optimizer](cfg.lr)
         if wrap_optimizer is not None:
             opt = wrap_optimizer(opt)
         opt.minimize(loss)
@@ -279,7 +279,7 @@ CRNN_CTC = CRNNConfig(batch=32, height=48, width=512, classes=95,
                       label_max=24, lr=1e-3, momentum=0.9, l2=4e-4)
 
 
-def crnn_ctc_program(fluid, cfg):
+def crnn_ctc_program(fluid, cfg, wrap_optimizer=None):
     """Feeds: "pixel" [B, 1, H, W] f32, "label" [B, L] int32 padded ids in
     [0, classes), "label_length" [B] int64 (L = cfg.label_max).
 
@@ -298,6 +298,9 @@ def crnn_ctc_program(fluid, cfg):
     0.01) after; biases 0; fc and GRU weights N(0, 0.02), the GRU biases
     at learning rate 2).  The published ``candidate_activation="relu"``
     is passed; both packages' ``dynamic_gru`` ignore it and run tanh.
+
+    ``wrap_optimizer(opt)`` (for example ``fleet.distributed_optimizer``)
+    wraps the optimizer before its ``minimize``.
 
     Returns (main, startup, test, vars): ``test`` is main cloned for test
     before the optimizer, with the evaluation: ``ctc_greedy_decoder``
@@ -351,7 +354,10 @@ def crnn_ctc_program(fluid, cfg):
                                       input_length=decoded_length,
                                       label_length=label_length)
         test = main.clone(for_test=True)
-        fluid.optimizer.Momentum(cfg.lr, cfg.momentum).minimize(loss)
+        opt = fluid.optimizer.Momentum(cfg.lr, cfg.momentum)
+        if wrap_optimizer is not None:
+            opt = wrap_optimizer(opt)
+        opt.minimize(loss)
     return main, startup, test, dict(
         pixel=pixel, label=label, label_length=label_length, loss=loss,
         logits=logits, decoded=decoded, decoded_length=decoded_length,
@@ -408,7 +414,7 @@ LAC = LACConfig(batch=300, seq_len=64, vocab=20940, emb=128, hidden=128,
                 tags=57, len_min=8, len_max=64, lr=1e-3)
 
 
-def lac_program(fluid, cfg):
+def lac_program(fluid, cfg, wrap_optimizer=None):
     """Feeds: "word" [B, T] int64 word ids, "target" [B, T] int64 IOB tag
     ids (chunk type k: B-k = 2 k, I-k = 2 k + 1; O = tags - 1), "length"
     [B] int64 (T = cfg.seq_len; padded, not LoD).
@@ -423,6 +429,8 @@ def lac_program(fluid, cfg):
     ``crf_decoding`` with ``crfw`` and ``chunk_eval`` (IOB,
     ceil((tags - 1) / 2) chunk types, the lengths), as ``creator.py``
     builds them into the training program.
+
+    ``wrap_optimizer(opt)`` wraps Adam before its ``minimize``.
 
     Returns (main, startup, test, vars): ``test`` is main cloned for test
     before Adam; vars "loss", "emission", "decoded", "precision",
@@ -468,7 +476,10 @@ def lac_program(fluid, cfg):
             decoded, target, "IOB", int(np.ceil((cfg.tags - 1) / 2.0)),
             seq_length=length)
         test = main.clone(for_test=True)
-        fluid.optimizer.Adam(cfg.lr).minimize(loss)
+        opt = fluid.optimizer.Adam(cfg.lr)
+        if wrap_optimizer is not None:
+            opt = wrap_optimizer(opt)
+        opt.minimize(loss)
     return main, startup, test, dict(
         word=word, target=target, length=length, loss=loss,
         emission=emission, decoded=decoded, precision=p, recall=r, f1=f1,

@@ -10,6 +10,13 @@ thread, and one executor step on the card consumes them — N reader threads
 feed one device pipe.  Fetches stay lazy (tensors on the card); the
 executor's in-flight window bounds how far the host runs ahead.
 
+A data-parallel program (fleet- or transpiler-tagged, or a
+``with_data_parallel`` CompiledProgram) runs through ``Executor.run`` as the
+reference's trainer passes it: every rank reads the global batch from the
+dataset, the pipe stages this rank's rows (``Executor.feed_converter``),
+and fetches come back gathered to the global batch, so ``fetch_list``,
+``debug`` printing and the fetch handler see what one device would.
+
 Two hooks of the reference wait for later items and raise, naming them:
 ``checkpoint=`` (FaultGuard's auto-checkpoint and exact-batch resume,
 ROADMAP Queue 1 item 6) and the HostPS prefetch hooks (item 7).
@@ -109,19 +116,12 @@ def _run_from_dataset(executor, program=None, dataset=None, scope=None, thread=0
                       debug=False, fetch_list=None, fetch_info=None,
                       print_period=100, fetch_handler=None, train=True,
                       checkpoint=None):
-    from .compiler import is_data_parallel
     from .framework import default_main_program
     from .scope import global_scope
 
     program = program or default_main_program()
     if dataset is None:
         raise ValueError("train_from_dataset requires a dataset")
-    if is_data_parallel(program):
-        raise NotImplementedError(
-            "train_from_dataset / infer_from_dataset of a data-parallel "
-            "program: the data path under data parallelism waits (ROADMAP "
-            "Queue 1 item 5-B); feed each rank the global batch through "
-            "Executor.run")
     fetch_list = fetch_list or []
     if checkpoint is not None and not train:
         raise ValueError(

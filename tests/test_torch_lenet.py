@@ -351,13 +351,16 @@ def _unported(case, monkeypatch):
             opt = fluid.optimizer.RecomputeOptimizer(opt)
         opt.minimize(loss)
     if case == "fleet":
-        # a fleet-tagged program runs data-parallel since item 5-B; fed by
-        # a py_reader (the data path under data parallelism) it waits
+        # a fleet-tagged program runs data-parallel since item 5-B, and fed
+        # by a py_reader (the data path under data parallelism) since 5-B'
         main._fleet_strategy = fluid.distributed.fleet.DistributedStrategy()
     if case in ("py_reader", "fleet"):
         # item 4 is ported: the program reads its feed from a started
-        # reader, here one over an empty source
-        reader.decorate_batch_generator(lambda: iter([]),
+        # reader, here one over an empty source (the fleet program's: one
+        # batch, then the end)
+        batches = ([(lambda f: (f["img"], f["label"]))(digits(0, n=2))]
+                   if case == "fleet" else [])
+        reader.decorate_batch_generator(lambda: iter(batches),
                                         places=fluid.CPUPlace())
         reader.start()
     if case == "warm_store":
@@ -368,7 +371,7 @@ def _unported(case, monkeypatch):
         main = fluid.CompiledProgram(main).with_data_parallel(loss_name=loss.name)
         main._build_strategy.num_trainers = 2
         main._build_strategy.tensor_parallel_degree = 2
-    return main, loss
+    return main, loss, startup
 
 
 @pytest.mark.parametrize("case,item", [
@@ -378,8 +381,18 @@ def _unported(case, monkeypatch):
     ("compiled_program", "item 5"), ("unported_op", None),
 ])
 def test_unported_branches_raise(case, item, monkeypatch):
-    main, loss = _unported(case, monkeypatch)
+    main, loss, startup = _unported(case, monkeypatch)
     exe = pfluid.Executor(pfluid.CPUPlace())
+    if case == "fleet":
+        # no longer refused (ROADMAP Queue 1 item 5-B'): the run slices the
+        # reader's global batch, then its end raises EOFException
+        scope = pfluid.Scope()
+        exe.run(startup, scope=scope)
+        (lv,) = exe.run(main, fetch_list=[loss], scope=scope)
+        assert np.isfinite(lv).all()
+        with pytest.raises(pfluid.EOFException):
+            exe.run(main, fetch_list=[loss], scope=scope)
+        return
     if case == "py_reader":
         # no longer refused (ROADMAP Queue 1 item 4, the data path): the
         # run reads the reader, whose end raises EOFException

@@ -18,6 +18,7 @@ parameters (carried to the ranks as numpy) and the same seeded feeds:
   (the reference's own raises, pinned below);
 - kReduce (Momentum): the velocity held as 1/n of its bytes a rank, the
   losses equal to AllReduce's bit for bit, the fetched velocity equal to
+  JAX's; LAMB under kReduce (its norms summed over the ranks) against
   JAX's;
 - an ``is_sparse`` embedding (SGD) and a narrow Fluid-layers BERT encoder
   (dropout 0, SGD);
@@ -123,6 +124,17 @@ def _jax_references(starts):
     ref["kreduce"] = {"losses": [float(o[0]) for o in out],
                       "velocity": np.asarray(out[-1][1]),
                       "params": _np(scope, ["w", "b"])}
+    main, v, scope, exe, _ = starts["lamb"]
+    moments = sorted(x.name for x in main.list_vars()
+                     if getattr(x, "_is_optimizer_accumulator", False)
+                     and "moment" in x.name and x.name.startswith("w"))
+    prog = _dp(main, v, bs)
+    out = [exe.run(prog, feed=PW.lr_feed(), fetch_list=[v["loss"]] + moments,
+                   scope=scope) for _ in range(PW.KREDUCE_STEPS)]
+    ref["kreduce_lamb"] = {"losses": [float(o[0]) for o in out],
+                           "moments": dict(zip(moments, [
+                               np.asarray(m) for m in out[-1][1:]])),
+                           "params": _np(scope, ["w", "b"])}
     for key, feeds in (("sparse_embedding", [PW.sparse_feed(s) for s in
                                              range(PW.SPARSE_STEPS)]),
                        ("encoder", [encoder_feed(PW.encoder_cfg(), s)
@@ -281,12 +293,23 @@ def test_kreduce_holds_a_rank_s_rows_of_the_velocity(worlds, world):
     _close(red["velocity"], want["velocity"], "the fetched velocity")
 
 
-def test_kreduce_refuses_an_optimizer_that_needs_whole_rows(worlds):
+def test_kreduce_lamb_matches_jax(worlds):
     """LAMB's trust ratio reads the whole parameter's norms: under kReduce
-    the run raises, naming the op and item 5-B (no quiet fallback)."""
-    for res in worlds[0][2]["kreduce_lamb"]:
-        assert res["raised"] and "'lamb'" in res["raised"] \
-            and "item 5-B" in res["raised"], res
+    each rank sums its rows' squares with the other ranks', updates its
+    rows, and holds half of each moment; JAX's kReduce is the one-device
+    function."""
+    got, ref, _ = worlds
+    res = got[2]["kreduce_lamb"]
+    _replicas_alike(res)
+    want, res = ref["kreduce_lamb"], res[0]
+    _close(res["losses"], want["losses"], "losses")
+    for n in ("w", "b"):
+        _close(res["params"][n], want["params"][n], n)
+    assert sorted(res["moments"]) == sorted(want["moments"]) and \
+        len(want["moments"]) == 2
+    for n, whole in want["moments"].items():
+        _close(res["moments"][n], whole, n)
+        assert res["held_shapes"][n] == (whole.shape[0] // 2,) + whole.shape[1:]
 
 
 @pytest.mark.parametrize("key", ["sparse_embedding", "encoder"])
@@ -404,12 +427,40 @@ def test_replicated_ops_run_outside_the_table():
     assert np.isfinite(l)
 
 
-def test_the_data_path_under_data_parallelism_waits():
-    cp, loss, exe, scope = _dp_program(lambda L, x: L.fc(x, 1))
-    with pytest.raises(NotImplementedError, match="item 5-B"):
-        exe.train_from_dataset(cp, dataset=object(), scope=scope)
-    with pytest.raises(NotImplementedError, match="item 5-B"):
-        exe.feed_converter(cp)
+def test_the_data_path_under_data_parallelism_runs(tmp_path):
+    """At one rank, train_from_dataset of a with_data_parallel program (the
+    feed pipe staging through ``feed_converter``) is the plain program's
+    run bit for bit; the converter marks its staged rows."""
+    from paddle_tpu_torch.executor import _LocalRows
+    from paddle_tpu_torch.tools import ctr_program as cp
+
+    files = cp.write_ctr_files(str(tmp_path), n_files=1, rows_per_file=64)
+    runs = []
+    for dp in (False, True):
+        prog = cp.build_ctr_program(pfluid)
+        exe, scope = pfluid.Executor(pfluid.CPUPlace()), pfluid.Scope()
+        exe.run(prog.startup, scope=scope)
+        if runs:
+            for n, val in runs[0][1].items():
+                scope.set(n, torch.from_numpy(val.copy()))
+        init = {n: scope.find_tensor_as_numpy(n).copy()
+                for n in cp.persistable_names(prog.main)}
+        program = (pfluid.CompiledProgram(prog.main).with_data_parallel(
+            loss_name=prog.loss.name) if dp else prog.main)
+        ds = cp.make_dataset(pfluid, "QueueDataset", files, prog, 16)
+        exe.train_from_dataset(program, ds, scope=scope,
+                               fetch_list=[prog.loss])
+        runs.append((dp, init, {n: scope.find_tensor_as_numpy(n)
+                                for n in init}))
+        if dp:
+            staged = exe.feed_converter(program)(next(ds._iter_batches()))
+            assert isinstance(staged, _LocalRows)
+            assert staged.global_rows == {"feat_ids": 16, "label": 16}
+            assert staged["feat_ids"].shape[0] == 16
+    for n, val in runs[0][2].items():
+        assert val.tobytes() == runs[1][2][n].tobytes(), n
+    assert any(not np.array_equal(runs[0][1][n], runs[0][2][n])
+               for n in runs[0][1])
 
 
 def _fake_run(n=2, rank=1):

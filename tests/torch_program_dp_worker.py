@@ -273,22 +273,26 @@ def kreduce(inp, world):
 
 
 def kreduce_lamb(inp, world):
-    """LAMB's update of a row reads the whole parameter's norms: under
-    kReduce its rows cannot update alone, and the run raises."""
+    """LAMB under kReduce: its moments held as 1/n of their rows a rank,
+    its trust ratio from the norms summed over the ranks."""
     import paddle_tpu_torch as fluid
 
     main, _, v = lr_program(fluid, lambda f: f.optimizer.Lamb(0.01))
+    moments = sorted(x.name for x in main.list_vars()
+                     if getattr(x, "_is_optimizer_accumulator", False)
+                     and "moment" in x.name and x.name.startswith("w"))
     bs = fluid.BuildStrategy()
     bs.reduce_strategy = fluid.BuildStrategy.ReduceStrategy.Reduce
     compiled = fluid.CompiledProgram(main).with_data_parallel(
         loss_name=v["loss"].name, build_strategy=bs)
-    exe = fluid.Executor(fluid.CPUPlace())
-    try:
-        exe.run(compiled, feed=lr_feed(), fetch_list=[v["loss"]],
-                scope=_scope(inp, "lr_lamb"))
-    except Exception as e:           # the rule's error, as the executor names it
-        return {"raised": "%s: %s" % (type(e).__name__, e)}
-    return {"raised": None}
+    scope = _scope(inp, "lr_lamb")
+    out = _train(main, scope, [lr_feed()] * KREDUCE_STEPS,
+                 [v["loss"]] + moments, program=compiled)
+    return {"losses": [float(o[0]) for o in out],
+            "moments": dict(zip(moments, out[-1][1:])),
+            "held_shapes": {n: tuple(scope.find_var(n).shape)
+                            for n in moments},
+            "params": _state(scope, ["w", "b"])}
 
 
 def sparse_embedding(inp, world):
