@@ -395,6 +395,18 @@ Builds the port's CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
     their derived bounds, the edit-distance and chunk counts equal to one
     rank's, the gradients against their yardsticks, the segment kernel's
     launches on the sparse merges.
+54. ``model_parallel_one_rank`` / ``model_parallel_two_ranks``: BERT-base
+    (bf16, S = 512, global B = 16, LAMB) with ``use_flash=False``
+    (``ring_attention(axis=None)``) against the flash step, both
+    attentions at every layer within a derived bound of the float64 one,
+    and a ``PipelineOptimizer`` MLP (4 microbatches, 3 sections) against
+    the unpipelined program within ``BoundMode``'s bound; then two gloo
+    ranks: BERT-base at tp = 2 heads (Megatron-SP), tp = 2 ring and pp = 2
+    (4 microbatches), each with the replicated leaves and every reduced
+    value bit for bit, LAMB bit for bit its replay, the loss and the
+    gathered gradient over 2 within 4 yardsticks of the one-rank step's; MoE at ep = 2 (8 experts,
+    8192 tokens a rank) against one rank holding all 8 within a derived
+    bound; the LN / flash launches a rank a step and the shift's route.
 
 Phases 30-33 and 36 write their monitor directories under
 ``build/monitor``, phases 35-36 and 53 their data files under
@@ -811,8 +823,11 @@ def phase_compare():
     fwd_err = bwd_err = 0.0
     # the kernel wrappers on the main path's packed case and a causal case
     # (bf16: the tensor-core forward, whose lse feeds the backward)
+    # and phase 54's tp = 2 heads mode: 6 heads a rank, packed width 384
     for label, shape, H, causal in (("packed", (B, S, 768), 12, False),
-                                    ("packed_causal", (8, S, 768), 12, True)):
+                                    ("packed_causal", (8, S, 768), 12, True),
+                                    ("packed_tp2", (MP_BATCH, S, 384), 6,
+                                     False)):
         q, k, v, do = _qkv(gen, shape)
         scale_ = (shape[-1] // H) ** -0.5
         o, lse = fa.flash_fwd(q, k, v, H, scale_, causal)
@@ -8012,6 +8027,841 @@ def phase_program_dp_more_two_ranks(device_name, card, one_rank_bytes,
                    for r in got[rank]["models"]} for rank in got}
 
 
+# -- item 5-C part 1: tensor, ring and pipeline parallelism, MoE (phase 54) ---
+
+MP_WORLD = 2                  # two gloo ranks sharing the one card
+MP_BATCH = 16                 # BERT-base's global batch (bench.py's 64, cut)
+MP_STEPS = 2
+MP_LR = 1e-4
+MP_MICROBATCHES = 4
+MP_TIMEOUT_S = 900
+MP_GRAD_LIMIT = DP_F32_LIMIT  # yardsticks, as phases 51-52
+# each mode's config and the LN / flash launches a rank a step (rows 1-6):
+# at pp every stage runs its 6 layers at each of T = M + S - 1 = 5 ticks,
+# the bubble ticks included, forward and backward
+MP_MODES = {
+    "tp_heads": (dict(tp=2), PER_STEP),
+    "tp_ring": (dict(tp=2, attn_mode="ring"),
+                {"layer_norm_fwd": 24, "layer_norm_bwd": 24}),
+    "pp": (dict(pp=2), {"layer_norm_fwd": 60, "layer_norm_bwd": 60,
+                        "flash_attention_fwd": 30, "flash_attention_bwd": 30}),
+}
+# phase 54's MoE: E, F, experts, tokens a rank (bf16), capacity factor 1.25
+MOE = dict(hidden=768, ffn=3072, experts=8, tokens=8192)
+# the program pipelined at one rank: an MLP (784 -> 512 -> 512 -> 1) of B
+# rows, cut after each hidden layer
+PIPE = dict(width=784, hidden=512, batch=256, microbatches=4, steps=2)
+GELU_D1, GELU_D2 = 1.13, 0.80     # max |gelu'| and |gelu''| (tanh form)
+
+
+def _mesh_specs_replicated(specs, axis):
+    """Per leaf, whether its spec leaves ``axis`` unsplit."""
+    from paddle_tpu_torch._tree import tree_leaves
+    from paddle_tpu_torch.parallel.train import _spec_axes
+
+    return [axis not in {a for _, a in _spec_axes(s)}
+            for s in tree_leaves(specs)]
+
+
+def _attention_bound(q, k, v, n_heads):
+    """The float64 attention of packed q, k, v ([B, S, H*D], bf16) and a
+    bound on the distance from it of any computation that takes the scores
+    in f32 from the bf16 operands (an f32 sum of D products), the
+    probabilities exp(s - m) in f32 (a subtraction and an exp of 2 ulps, a
+    rescale of 4 roundings for each of the S/64 key blocks of an online
+    softmax), rounds them to bf16 for the product with v (f32 sums of S
+    terms), divides by the f32 sum of the unrounded ones and rounds the
+    result to bf16: the flash kernels' and ``ring_attention``'s
+    arithmetic.  Returns (the float64 output, the bound), [B, S, H*D]."""
+    from paddle_tpu_torch.tools import fp_bounds
+
+    B, S, HD = q.shape
+    D = HD // n_heads
+    u32, ub = fp_bounds.U32, U_BF16
+
+    def heads(t):
+        return t.double().reshape(B, S, n_heads, D).transpose(1, 2)
+
+    qh, kh, vh = heads(q), heads(k), heads(v)
+    scale = 1.0 / math.sqrt(D)
+    s = qh @ kh.transpose(-1, -2) * scale
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    del s
+    delta = (float(fp_bounds.gamma(D)) * scale) * (
+        qh.abs() @ kh.abs().transpose(-1, -2))
+    eps = (torch.expm1(delta) + 3 * u32 * (1 + torch.log(
+        p.clamp_min(1e-300)).abs()) + (S / 64) * 4 * u32)
+    del delta
+    l = p.sum(-1, keepdim=True)
+    o = (p @ vh) / l
+    pv = (p @ vh.abs()) / l
+    pev = ((p * eps) @ vh.abs()) / l
+    pe = (p * eps).sum(-1, keepdim=True) / l
+    del p, eps
+    gs = float(fp_bounds.gamma(S))
+    num = (ub * pv + (1 + ub) * pev + gs * (1 + ub) * (pv + pev)
+           + o.abs() * (pe + gs * (1 + pe)))
+    bound = num / (1 - pe - gs) + (ub + 2 * u32) * (o.abs() + num)
+
+    def packed(t):
+        return t.transpose(1, 2).reshape(B, S, HD)
+
+    return packed(o), packed(bound)
+
+
+class _FlashCapture:
+    """Records the packed q, k, v, head count and output of every
+    ``flash_attention_packed`` call the transformer makes in the block."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.parallel import transformer as T
+
+        self.calls, self._flash = [], T.flash_attention_packed
+
+        def site(q, k, v, n_heads, causal=False, scale=None):
+            o = self._flash(q, k, v, n_heads, causal=causal, scale=scale)
+            self.calls.append((q.detach(), k.detach(), v.detach(), n_heads,
+                               o.detach()))
+            return o
+
+        T.flash_attention_packed = site
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.parallel import transformer as T
+
+        T.flash_attention_packed = self._flash
+        return False
+
+
+def _loss_yardstick(loss, loss_perm, loss_f32):
+    """The loss's yardstick, as the gradients': the larger of how far the
+    same step moves on the batch's rows permuted and in f32."""
+    return max(abs(loss_perm - loss), abs(loss_f32 - loss))
+
+
+def _mp_bert_one_rank(params, batch, cfg1):
+    """The one-rank step's loss and gradients (bf16, tp = pp = 1) from the
+    global params, and the yardsticks of both: the same step on the batch's
+    rows reversed (a row permutation) and in f32 from the same values (the
+    arithmetic's precision)."""
+    import dataclasses
+
+    from paddle_tpu_torch._tree import tree_leaves, tree_map
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.parallel.train import grads_of
+
+    loss_fn = bert.make_loss_fn(cfg1)
+    loss, g1 = grads_of(loss_fn, _clone(params), batch)
+    out = {"loss": float(loss.detach()), "grads": tree_leaves(g1)}
+    perm = {k: v.flip(0) for k, v in batch.items()}
+    lp, gp = grads_of(loss_fn, _clone(params), perm)
+    out["perm"], out["loss_perm"] = tree_leaves(gp), float(lp.detach())
+    del gp
+    cfg32 = dataclasses.replace(cfg1, dtype="float32")
+    l32, g32 = grads_of(bert.make_loss_fn(cfg32),
+                        tree_map(lambda t: t.detach().float(), params), batch)
+    out["f32"], out["loss_f32"] = tree_leaves(g32), float(l32.detach())
+    return out
+
+
+def _mp_bert(rank, world, device, args, mode):
+    """BERT-base at one of ``MP_MODES`` over the two ranks: MP_STEPS checked
+    steps and one untapped."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch._tree import tree_leaves
+    from paddle_tpu_torch.kernels import _common
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.parallel import MeshSpec, optim
+    from paddle_tpu_torch.parallel import collectives as col
+    from paddle_tpu_torch.parallel.rules import leaf_paths
+    from paddle_tpu_torch.parallel.train import gather_pytree
+    from paddle_tpu_torch.parallel.transformer import transformer_param_specs
+
+    kw, _ = MP_MODES[mode]
+    cfg = bert.bert_base_config(**{**args["bert_kw"], **kw})
+    mb = MP_MICROBATCHES if cfg.pp > 1 else 1
+    init, update = optim.lamb()
+    seen = []
+
+    def recording(grads, state, params, lr):       # the reduced gradients
+        seen.append([g.detach().clone() for g in tree_leaves(grads)])
+        return update(grads, state, params, lr)
+
+    tr = bert.build_bert_trainer(cfg, MeshSpec(tp=cfg.tp, pp=cfg.pp),
+                                 optimizer=(init, recording),
+                                 n_microbatches=mb, seed=0, device=device)
+    axis = "tp" if cfg.tp > 1 else "pp"
+    group = tr.mesh.groups[axis]
+    pspecs = transformer_param_specs(cfg)
+    replicated = _mesh_specs_replicated(pspecs, axis)
+    params = tr.state["params"]
+    batches = [{k: torch.from_numpy(v).to(device) for k, v in b.items()}
+               for b in bert.synthetic_batches(cfg, MP_STEPS + 1,
+                                               args["batch"], args["seq"])]
+    probe = tree_leaves(params)[0]
+    steps, peak = [], 0
+    for i, b in enumerate(batches[:MP_STEPS]):
+        p0 = [t.detach().clone() for t in tree_leaves(params)]
+        m0 = [t.detach().clone() for t in tree_leaves(tr.state["opt"]["m"])]
+        v0 = [t.detach().clone() for t in tree_leaves(tr.state["opt"]["v"])]
+        step0 = int(tr.state["opt"]["step"])
+        seen.clear()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        _common.reset_launches()
+        with _DpWatch(device) as w:
+            _sync(device)
+            t0 = time.perf_counter()
+            loss = tr.step(b, MP_LR)
+            _sync(device)
+            dt = time.perf_counter() - t0
+        rec = {"step": i, "loss": float(loss), "ms": dt * 1e3,
+               "collective_ms": w.seconds * 1e3, "collective_calls": w.calls,
+               "collective_bytes": w.bytes, "launches": dict(_common.launches)}
+        if device.type == "cuda":
+            peak = max(peak, torch.cuda.max_memory_allocated())
+        rec["taps"] = _check_taps(w.taps, rank, world)
+        del w
+        # the leaves the axis replicates, and their moments, alike bit for bit
+        trees = (params, tr.state["opt"]["m"], tr.state["opt"]["v"])
+        leaves = [t for tree in trees
+                  for t, r in zip(tree_leaves(tree), replicated) if r]
+        rec["replicas_differ"] = sum(
+            not _same_tensor_bits(*col.backend_all_gather(
+                t.reshape(1, -1), group, 0).unbind(0)) for t in leaves)
+        # LAMB replayed on the reduced gradient: the moments and parameters
+        pr = [t.clone() for t in p0]
+        st = {"m": [t.clone() for t in m0], "v": [t.clone() for t in v0],
+              "step": torch.tensor(step0, dtype=torch.int32, device=device)}
+        update(seen[0], st, pr, MP_LR)
+        rec["moments_bit_for_bit"] = all(
+            _same_tensor_bits(a, c) for a, c in zip(
+                st["m"] + st["v"], tree_leaves(tr.state["opt"]["m"])
+                + tree_leaves(tr.state["opt"]["v"])))
+        rec["params_bit_for_bit"] = all(
+            _same_tensor_bits(a, c) for a, c in zip(pr, tree_leaves(params)))
+        del pr, st, m0, v0
+        if i == 0:
+            g_glob = tree_leaves(gather_pytree(_like(params, seen[0]), pspecs,
+                                               tr.mesh))
+            p_glob = gather_pytree(_like(params, p0), pspecs, tr.mesh)
+            if rank == 0:
+                cfg1 = bert.bert_base_config(**args["bert_kw"])
+                p1 = dict(p_glob)
+                p1["params_layers"] = {     # [pp, L/pp, ...] -> [L, ...]
+                    k: v.reshape((cfg1.n_layers,) + tuple(
+                        v.shape[2:] if cfg.pp > 1 else v.shape[1:]))
+                    for k, v in p_glob["params_layers"].items()}
+                one = _mp_bert_one_rank(p1, b, cfg1)
+                names = leaf_paths(p1)[0]
+                g_glob = [g.reshape(o.shape)
+                          for g, o in zip(g_glob, one["grads"])]
+                rec["loss_one_rank"] = one["loss"]
+                rec["loss_err"] = abs(float(loss) - one["loss"])
+                rec["loss_yardstick"] = _loss_yardstick(
+                    one["loss"], one["loss_perm"], one["loss_f32"])
+                rec["loss_yardstick_perm"] = abs(one["loss_perm"]
+                                                 - one["loss"])
+                rec["loss_yardstick_f32"] = abs(one["loss_f32"] - one["loss"])
+                rec["grad"] = _grad_gap(g_glob, one["grads"], world, names)
+                for k in ("perm", "f32"):
+                    rec["yardstick_" + k] = _grad_gap(one[k], one["grads"], 1,
+                                                      names)
+                del one, p1
+            del g_glob, p_glob
+        del p0
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        dist.barrier()
+        steps.append(rec)
+    seen.clear()
+    untapped = _untapped_steps(tr, batches[MP_STEPS:], MP_LR, device)
+    route = col.permute_route(probe, group)
+    del tr
+    return {"steps": steps, "peak_memory_allocated": peak,
+            "untapped": untapped, "permute_route": route}
+
+
+def _moe_routing(x, router, n_experts, cf=1.25):
+    """moe_ffn's routing of ``x``: each token's expert, gate and whether it
+    is kept (the capacity's queue), as ``parallel/moe.py`` computes them."""
+    import torch.nn.functional as F
+
+    T = x.shape[0]
+    probs = torch.softmax(x.float() @ router, dim=-1)
+    gate, expert = probs.amax(-1), probs.argmax(-1)
+    cap = int(max(1, round(T * cf / n_experts)))
+    onehot = F.one_hot(expert, n_experts)
+    pos = (torch.cumsum(onehot, 0) * onehot).sum(-1) - 1
+    return expert, gate, probs, (pos >= 0) & (pos < cap)
+
+
+def _moe_bounds(x, params, cot, ref):
+    """Per element, bounds on the distance between two computations of
+    ``moe_ffn`` of the same tokens and experts whose bf16 matrix products
+    (f32 sums) split their sums another way: each product within u |C| +
+    gamma(k) |A| |B| of the exact one, GELU within u |g| + 16 u32 (|g| +
+    |h|) after a Lipschitz step of max |gelu'| (1.13; its gradient's
+    max |gelu''| 0.80), the gate's f32 product exact-shaped (the router's
+    product has the same shape both ways).  ``ref``: the reference run's
+    outputs and gradients, where the bound is applied.  Returns bounds on
+    y, dx, dw1, dw2 and drouter, shaped like them."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.tools import fp_bounds
+
+    ub, u32 = U_BF16, fp_bounds.U32
+    g_ = lambda k: float(fp_bounds.gamma(k))          # noqa: E731
+    w1, w2, router = params["w1"], params["w2"], params["router"]
+    nE, E, Fh = w1.shape
+    T = x.shape[0]
+    expert, gate, probs, keep = _moe_routing(x, router, nE)
+    by = torch.zeros(T, E, device=x.device)
+    bdx = torch.zeros(T, E, device=x.device)
+    bw1 = torch.zeros(nE, E, Fh, device=x.device)
+    bw2 = torch.zeros(nE, Fh, E, device=x.device)
+    bgate = torch.zeros(T, device=x.device)
+    gmag = torch.zeros(T, device=x.device)
+    rows_max = 2 * int(max(1, round(T * 1.25 / nE)))
+    for e in range(nE):
+        idx = torch.nonzero((expert == e) & keep)[:, 0]
+        if not idx.numel():
+            continue
+        xe = x[idx].float()
+        h = torch.bmm(x[idx][None], w1[e][None])[0].float()
+        g = F.gelu(h, approximate="tanh").to(torch.bfloat16).float()
+        y = (torch.bmm(g.to(torch.bfloat16)[None], w2[e][None])[0]).float()
+        a1 = xe.abs() @ w1[e].float().abs()
+        eh = (2 * g_(E) * a1 + 2 * ub * h.abs()) / (1 - ub)
+        eg = GELU_D1 * eh + (2 * ub * g.abs()
+                             + 16 * u32 * (g.abs() + h.abs())) / (1 - ub)
+        a2 = (g.abs() + eg) @ w2[e].float().abs()
+        ey = eg @ w2[e].float().abs() + (
+            2 * g_(Fh) * a2 + 2 * ub * y.abs()) / (1 - ub)
+        ge = gate[idx][:, None]
+        out = (y * ge).to(torch.bfloat16).float()
+        by[idx] = ge * ey + (2 * ub * out.abs()) / (1 - ub)
+        c = cot[idx].float()
+        bgate[idx] = (c.abs() * ey).sum(-1)
+        gmag[idx] = (c.abs() * y.abs()).sum(-1)
+        dy = (c * ge).to(torch.bfloat16).float()        # the same both ways
+        dg = (dy @ w2[e].float().t()).to(torch.bfloat16).float()
+        edg = (2 * g_(E) * (dy.abs() @ w2[e].float().abs().t())
+               + 2 * ub * dg.abs()) / (1 - ub)
+        d1 = torch.autograd.functional.vjp(
+            lambda t: F.gelu(t, approximate="tanh"), h, dg)[1]
+        edh = GELU_D2 * eh * (dg.abs() + edg) + GELU_D1 * edg + (
+            2 * ub * d1.abs() + 16 * u32 * (d1.abs() + dg.abs())) / (1 - ub)
+        dh = d1
+        dxe = dh @ w1[e].float().t()
+        bdx[idx] = edh @ w1[e].float().abs().t() + (
+            2 * g_(Fh) * ((dh.abs() + edh) @ w1[e].float().abs().t())
+            + 2 * ub * dxe.abs()) / (1 - ub)
+        xt = xe.abs().t()
+        bw1[e] = xt @ edh + (2 * g_(rows_max) * (xt @ (dh.abs() + edh))
+                             + 3 * ub * (xt @ dh.abs())) / (1 - ub)
+        bw2[e] = eg.t() @ dy.abs() + (
+            2 * g_(rows_max) * ((g.abs() + eg).t() @ dy.abs())
+            + 3 * ub * (g.abs().t() @ dy.abs())) / (1 - ub)
+    # the router: the gate's gradient through amax and softmax (d_logits =
+    # p (onehot - p_e) dgate, within p (onehot + p_e) of it per unit of
+    # dgate), then an f32 product over the tokens, the ranks' added
+    spread = probs * (F.one_hot(expert, nE) + probs.gather(1, expert[:, None]))
+    blog, mlog = spread * bgate[:, None], spread * gmag[:, None]
+    xa = x.float().abs().t()
+    brouter = xa @ blog + 2 * g_(T) * (xa @ (mlog + blog)) \
+        + 2 * u32 * ref["drouter"].abs()
+    return {"y": by, "dx": bdx, "dw1": bw1, "dw2": bw2, "drouter": brouter}
+
+
+def _mp_moe(rank, world, device, args):
+    """``moe_ffn`` with its 8 experts over dp = 2 (4 a rank), 8192 bf16
+    tokens a rank, forward and backward of a seeded cotangent, the
+    router's gradient psum'd over the ranks; against the same tokens
+    through one rank holding all 8 experts (each rank's tokens in a call of
+    their own, which routes them as the rank did), bit for bit where the
+    products split their sums alike and otherwise within ``_moe_bounds``."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.kernels import _common
+    from paddle_tpu_torch.parallel import collectives as col
+    from paddle_tpu_torch.parallel.mesh import make_mesh
+    from paddle_tpu_torch.parallel.moe import init_moe_params, moe_ffn
+
+    m = args["moe"]
+    nE, E, Fh, T = m["experts"], m["hidden"], m["ffn"], m["tokens"]
+    full = init_moe_params(torch.Generator().manual_seed(0), nE, E, Fh,
+                           dtype=torch.bfloat16, device=device)
+    gen = torch.Generator().manual_seed(1)
+    xs = torch.randn(world, T, E, generator=gen).to(torch.bfloat16).to(device)
+    cots = torch.randn(world, T, E, generator=gen).to(torch.bfloat16).to(
+        device)
+    nl = nE // world
+    local = {"router": full["router"].clone(),
+             "w1": full["w1"][rank * nl:(rank + 1) * nl].clone(),
+             "w2": full["w2"][rank * nl:(rank + 1) * nl].clone()}
+    x = xs[rank].clone()
+    leaves = [x] + [local[k] for k in ("router", "w1", "w2")]
+    for t in leaves:
+        t.requires_grad_(True)
+    _common.reset_launches()
+    with make_mesh(dp=world, device=device) as mesh, _DpWatch(device) as w:
+        _sync(device)
+        t0 = time.perf_counter()
+        y = moe_ffn(local, x)
+        grads = torch.autograd.grad((y.float() * cots[rank].float()).sum(),
+                                    leaves)
+        drouter = col.psum(grads[1], "dp")
+        _sync(device)
+        dt = time.perf_counter() - t0
+    rec = {"ms_fwd_bwd": dt * 1e3, "collective_ms": w.seconds * 1e3,
+           "collective_calls": w.calls, "collective_bytes": w.bytes,
+           "launches": {k: n for k, n in _common.launches.items() if n},
+           "dropped_tokens": int((~y.detach().any(-1)).sum())}
+    del w
+    group = mesh.groups["dp"]
+    got = {"y": col.backend_all_gather(y.detach()[None], group, 0),
+           "dx": col.backend_all_gather(grads[0][None], group, 0),
+           "dw1": col.backend_all_gather(grads[2], group, 0),
+           "dw2": col.backend_all_gather(grads[3], group, 0),
+           "drouter": drouter}
+    if rank == 0:
+        ref_leaves = [full[k].detach().clone().requires_grad_(True)
+                      for k in ("router", "w1", "w2")]
+        ref_p = dict(zip(("router", "w1", "w2"), ref_leaves))
+        ys, dxs, acc = [], [], None
+        for r in range(world):
+            xr = xs[r].clone().requires_grad_(True)
+            yr = moe_ffn(ref_p, xr)
+            gr = torch.autograd.grad((yr.float() * cots[r].float()).sum(),
+                                     [xr] + ref_leaves)
+            ys.append(yr.detach())
+            dxs.append(gr[0])
+            acc = (list(gr[1:]) if acc is None
+                   else [a + b for a, b in zip(acc, gr[1:])])
+        want = {"y": torch.stack(ys), "dx": torch.stack(dxs),
+                "drouter": acc[0], "dw1": acc[1], "dw2": acc[2]}
+        rec["bit_for_bit"] = {k: _same_tensor_bits(got[k], want[k])
+                              for k in want}
+        bounds = {}
+        for r in range(world):
+            bd = _moe_bounds(xs[r], full, cots[r],
+                             {"drouter": want["drouter"]})
+            for k, v in bd.items():
+                if k in ("y", "dx"):
+                    bounds.setdefault(k, []).append(v)
+                else:
+                    bounds[k] = v if k not in bounds else bounds[k] + v
+        for k in ("y", "dx"):
+            bounds[k] = torch.stack(bounds[k])
+        rec["err_over_bound"] = {}
+        for k in want:
+            err = (got[k].double() - want[k].double()).abs()
+            b_ = bounds[k].double()
+            zero = b_ == 0
+            bad_exact = int((zero & (err > 0)).sum())
+            ratio = float(torch.where(zero, torch.zeros_like(err),
+                                      err / b_).max())
+            rec["err_over_bound"][k] = ratio if not bad_exact else float("inf")
+            rec.setdefault("max_abs_err", {})[k] = float(err.max())
+        del bounds, want
+    del got, grads, y, xs, cots, full, local
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return rec
+
+
+def _mp_rank(rank, world, endpoint, results, args):
+    """One rank of phase 54, in a spawned process: ``fleet.init()`` from a
+    launcher's PADDLE_* env with ``PADDLE_DISTRI_BACKEND=gloo`` (both ranks
+    on card 0), then BERT-base at each of ``MP_MODES`` and the MoE; its
+    records go on ``results``.  An exception fails the process, whose exit
+    code the parent reads."""
+    import os
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import fleet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update({
+        "PADDLE_TRAINER_ID": str(rank), "PADDLE_TRAINERS_NUM": str(world),
+        "PADDLE_TRAINER_ENDPOINTS": endpoint,
+        "PADDLE_CURRENT_ENDPOINT": endpoint, "PADDLE_DISTRI_BACKEND": "gloo",
+        "FLAGS_selected_gpus": "0"})
+    device = fleet.init(
+        device=None if args["device"] == "cuda" else args["device"]).device
+    try:
+        res = {"rank": rank, "backend": dist.get_backend()}
+        for mode in MP_MODES:
+            res[mode] = _mp_bert(rank, world, device, args, mode)
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+        res["moe"] = _mp_moe(rank, world, device, args)
+        results.put(res)
+    finally:
+        dist.destroy_process_group()
+
+
+def _mp_verdict(got, world, on_card):
+    """The problems in the ranks' records."""
+    bad = []
+    for rank in range(world):
+        res = got[rank]
+        for mode, (_, want) in MP_MODES.items():
+            for st in res[mode]["steps"]:
+                where = "rank %d %s step %d" % (rank, mode, st["step"])
+                if st["taps"]["differ"] or st["replicas_differ"]:
+                    bad.append("%s: taps %s, replicas %s" % (
+                        where, st["taps"], st["replicas_differ"]))
+                if not (st["moments_bit_for_bit"]
+                        and st["params_bit_for_bit"]):
+                    bad.append("%s: LAMB replay" % where)
+                if on_card and st["launches"] != {
+                        k: want.get(k, 0) for k in st["launches"]}:
+                    bad.append("%s launches %s" % (where, st["launches"]))
+                if not math.isfinite(st["loss"]):
+                    bad.append("%s loss %s" % (where, st["loss"]))
+                if "loss_yardstick" in st:
+                    if not st["loss_err"] <= MP_GRAD_LIMIT * st[
+                            "loss_yardstick"]:
+                        bad.append("%s loss %s over %s x %s against one "
+                                   "rank's" % (where, st["loss_err"],
+                                               MP_GRAD_LIMIT,
+                                               st["loss_yardstick"]))
+                    for what in ("grad_rel_l2_median", "grad_rel_l2_max"):
+                        yard = max(st["yardstick_perm"][what],
+                                   st["yardstick_f32"][what])
+                        if not st["grad"][what] <= MP_GRAD_LIMIT * yard:
+                            bad.append("%s gradient %s %s over %s x %s" % (
+                                where, what, st["grad"][what], MP_GRAD_LIMIT,
+                                yard))
+                    scale = st["grad"]["grad_norm_ratio_median"]
+                    if abs(scale - world) > 0.05 * world:
+                        bad.append("%s gradient scale %s, not %d" % (
+                            where, scale, world))
+            for un in res[mode]["untapped"]:
+                if (on_card and un["launches"] != {
+                        k: want.get(k, 0) for k in un["launches"]}) \
+                        or not math.isfinite(un["loss"]):
+                    bad.append("rank %d %s untapped step %s"
+                               % (rank, mode, un))
+        moe = res["moe"]
+        if on_card and moe["launches"]:
+            bad.append("rank %d MoE launched %s" % (rank, moe["launches"]))
+        if rank == 0:
+            for k, r in moe["err_over_bound"].items():
+                if not (moe["bit_for_bit"][k] or r <= 1):
+                    bad.append("MoE %s: err/bound %s" % (k, r))
+    return bad
+
+
+def phase_model_parallel_two_ranks(device_name, card, device="cuda",
+                                   args=None):
+    """Phase 54: tensor, ring and pipeline parallelism and expert-parallel
+    MoE over two ranks on the one card, gloo over CUDA tensors (NCCL
+    refuses two ranks on one device), each a spawned process that joins
+    through ``fleet.init()``.  BERT-base (bf16, 12 x 768, S = 512, LAMB,
+    global B = 16) MP_STEPS steps at each of ``MP_MODES``: tp = 2 heads
+    (Megatron-SP: 6 heads and S/2 = 256 a rank, vocab 15264 a rank), tp = 2
+    ring (K/V shifted around the two ranks, attention on eager ops) and
+    pp = 2 (6 layers a stage, 4 microbatches, 5 ticks).  After every step:
+    the leaves the axis replicates (and their moments) bit for bit alike on
+    both ranks; every reduced value (each psum and reduce-scatter the
+    backend ran) the card's sum of the ranks' values, bit for bit; LAMB's
+    moments and parameters bit for bit a replay of the optimizer on the
+    reduced gradient.  After the first: the loss within MP_GRAD_LIMIT
+    yardsticks (``_loss_yardstick``) of the one-rank step's loss on the
+    same batch and state, and the gathered gradient over 2 (the reference's factor:
+    psum's transpose is psum) within MP_GRAD_LIMIT yardsticks of the
+    one-rank gradient (the larger of a row permutation's distance and of
+    the f32 step's), its scale 2.  Then one untapped step.  Then MoE
+    (``_mp_moe``).  Reports ms a step, collective ms, calls and bytes, peak
+    memory and LN / flash launches a rank a step (``MP_MODES``' counts on
+    the card), and the shift's route.  Returns the launches a rank a step,
+    by mode."""
+    import multiprocessing as mp
+    import queue
+
+    args = args or _mp_args()
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    endpoint = "127.0.0.1:%d" % _free_port()
+    args = dict(args, device=device)
+    procs = [ctx.Process(target=_mp_rank,
+                         args=(r, MP_WORLD, endpoint, results, args))
+             for r in range(MP_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        deadline = time.monotonic() + MP_TIMEOUT_S
+        while len(got) < MP_WORLD:
+            try:
+                res = results.get(timeout=5)
+                got[res["rank"]] = res
+            except queue.Empty:
+                codes = [p.exitcode for p in procs]
+                if any(c not in (None, 0) for c in codes):
+                    raise AssertionError("phase 54: a rank failed, exit codes "
+                                         "%s" % codes)
+                if time.monotonic() > deadline:
+                    raise AssertionError("phase 54: no result in %d s"
+                                         % MP_TIMEOUT_S)
+        for p in procs:
+            p.join(120)
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * MP_WORLD:
+            raise AssertionError("phase 54: exit codes %s" % codes)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(30)
+    on_card = torch.device(device).type == "cuda"
+    bad = _mp_verdict(got, MP_WORLD, on_card)
+    for rank in range(MP_WORLD):
+        for mode in MP_MODES:
+            r = got[rank][mode]
+            emit({"phase": "model_parallel_two_ranks", "mode": mode,
+                  "rank": rank, "world": MP_WORLD,
+                  "backend": got[rank]["backend"],
+                  "permute_route": r["permute_route"],
+                  "peak_memory_allocated": r["peak_memory_allocated"],
+                  "steps": r["steps"], "untapped_steps": r["untapped"]})
+        emit({"phase": "model_parallel_two_ranks", "mode": "moe_ep2",
+              "rank": rank, **got[rank]["moe"]})
+    ok = not bad
+    emit({"phase": "model_parallel_two_ranks", "nvidia_smi": card, "ok": ok,
+          "seconds": time.perf_counter() - t0, "problems": bad[:20]})
+    if not ok:
+        raise AssertionError("phase 54: %s" % bad[:20])
+    return {m: got[0][m]["steps"][-1]["launches"] for m in MP_MODES}
+
+
+def _mp_args(small=False):
+    """Phase 54's sizes: BERT-base at S = 512, global B = 16, and MoE as
+    ``MOE``; ``small`` for a rehearsal on the CPU."""
+    if small:
+        return {"bert_kw": dict(vocab_size=512, hidden=64, n_layers=4,
+                                n_heads=4, ffn_hidden=128, max_seq=32,
+                                dtype="float32"),
+                "batch": 4, "seq": 32,
+                "moe": dict(hidden=16, ffn=32, experts=8, tokens=64)}
+    return {"bert_kw": {}, "batch": MP_BATCH, "seq": S, "moe": dict(MOE)}
+
+
+def _pipe_program(fluid, pipelined):
+    """The MLP ``PIPE`` names (tanh, so that no selection depends on a
+    rounding), a mean squared error, SGD; pipelined, cut after each hidden
+    layer into 3 sections over PIPE["microbatches"]."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        L = fluid.layers
+        x = L.data("x", shape=[PIPE["width"]], dtype="float32")
+        y = L.data("y", shape=[1], dtype="float32")
+        h1 = L.fc(x, PIPE["hidden"], act="tanh",
+                  param_attr=fluid.ParamAttr(name="w1"))
+        h2 = L.fc(h1, PIPE["hidden"], act="tanh",
+                  param_attr=fluid.ParamAttr(name="w2"))
+        pred = L.fc(h2, 1, param_attr=fluid.ParamAttr(name="w3"))
+        loss = L.mean(L.square_error_cost(pred, y))
+        opt = fluid.optimizer.SGD(1e-3)
+        if pipelined:
+            opt = fluid.optimizer.PipelineOptimizer(
+                opt, cut_list=[[h1], [h2]],
+                num_microbatches=PIPE["microbatches"])
+        opt.minimize(loss)
+    params = sorted(p.name for p in main.global_block().all_parameters())
+    return main, startup, loss, params
+
+
+def _pipe_bounds(main, state, feed, loss_name, params):
+    """The unpipelined program's forward section run by its own op rules in
+    float64 on the CPU under ``BoundMode``, and the gradient of its loss
+    into each parameter: (float64 reference, bound) by name.  A bound of a
+    sum covers any order of its terms, so it holds the pipelined run too
+    (microbatch sums added in turn, scaled by 1/M = 1/4, exactly)."""
+    from paddle_tpu_torch.executor import _Plan, _run_calls
+    from paddle_tpu_torch.tools.fp_bounds import BoundMode
+
+    plan = _Plan(main, feed)
+    env = {n: torch.as_tensor(v).double()
+           for n, v in {**state, **feed}.items()}
+    leaves = {p: env[p].requires_grad_(True) for p in params}
+    mode = BoundMode()
+    with mode:
+        for v in env.values():
+            if v.is_floating_point():
+                mode.set_exact(v.detach())
+        ctx = plan.context(torch.Generator().manual_seed(0))
+        _run_calls(plan.fwd, env, ctx)
+        ctx.env = None
+        loss = env[loss_name].sum()
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        out = {p: (g.detach(), mode.bound(g).detach())
+               for p, g in zip(leaves, grads)}
+    return out, mode.ambiguous
+
+
+def _pipe_run(fluid, place, pipelined, state, feeds, device):
+    """The program on ``place`` from ``state``: per step the loss, the
+    fetched gradients and ms."""
+    from paddle_tpu_torch import convert
+
+    main, _, loss, params = _pipe_program(fluid, pipelined)
+    scope = convert.scope_from_numpy(state, fluid.Scope(), device)
+    exe = fluid.Executor(place)
+    out = []
+    for f in feeds:
+        _sync(device)
+        t0 = time.perf_counter()
+        got = exe.run(main, feed=f,
+                      fetch_list=[loss] + [p + "@GRAD" for p in params],
+                      scope=scope)
+        _sync(device)
+        out.append({"ms": (time.perf_counter() - t0) * 1e3,
+                    "loss": float(got[0]),
+                    "grads": dict(zip(params, got[1:]))})
+    return out
+
+
+def phase_model_parallel_one_rank(device_name, card, device="cuda", args=None):
+    """Phase 54's one-rank part.  (a) BERT-base (bf16, S = 512, global
+    B = 16, LAMB) with ``use_flash=False``: attention through
+    ``ring_attention(axis=None)`` on eager ops, one step through
+    ``build_bert_trainer`` against the flash step from the same seed: at
+    every layer both attentions of the flash step's q, k, v within
+    ``_attention_bound`` of the float64 one, the loss within MP_GRAD_LIMIT
+    yardsticks of the flash step's (``_loss_yardstick``), LN / flash launches
+    24 / 24 / 0 / 0.  (b) A ``PipelineOptimizer`` program (``PIPE``: an
+    MLP, as the Fluid-layers encoder's float64 bound would not fit the
+    card) over 4 microbatches and 3 sections against the unpipelined
+    program: each one's fetched gradients within ``BoundMode``'s bound of
+    the float64 gradient (``_pipe_bounds``), and ms a step."""
+    import dataclasses
+
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch._tree import tree_map
+    from paddle_tpu_torch.kernels import _common
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.parallel.ring_attention import ring_attention
+    from paddle_tpu_torch.tools import fp_bounds
+
+    args = args or _mp_args()
+    device = torch.device(device)
+    t_start = time.perf_counter()
+    cfg = bert.bert_base_config(**args["bert_kw"])
+    host = bert.synthetic_batches(cfg, 1, args["batch"], args["seq"], seed=54)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in host[0].items()}
+    rec = {"phase": "model_parallel_one_rank", "nvidia_smi": card}
+    tr = bert.build_bert_trainer(cfg, optimizer=None, seed=0, device=device)
+    p0 = _clone(tr.state["params"])
+    with _FlashCapture() as fo:
+        loss_f = float(tr.step(batch, MP_LR))
+    del tr
+    # the loss's yardsticks: the flash loss on the rows reversed and in f32
+    with torch.no_grad():
+        loss_fn = bert.make_loss_fn(cfg)
+        loss_perm = float(loss_fn(p0, {k: v.flip(0)
+                                       for k, v in batch.items()}))
+        loss_f32 = float(bert.make_loss_fn(dataclasses.replace(
+            cfg, dtype="float32"))(tree_map(lambda t: t.float(), p0), batch))
+    del p0
+    nf = bert.build_bert_trainer(dataclasses.replace(cfg, use_flash=False),
+                                 seed=0, device=device)
+    _common.reset_launches()
+    _sync(device)
+    t0 = time.perf_counter()
+    loss_n = float(nf.step(batch, MP_LR))
+    _sync(device)
+    rec["no_flash"] = {"ms": (time.perf_counter() - t0) * 1e3,
+                       "launches": dict(_common.launches), "loss": loss_n,
+                       "loss_flash": loss_f, "loss_err": abs(loss_n - loss_f),
+                       "loss_yardstick": _loss_yardstick(loss_f, loss_perm,
+                                                         loss_f32),
+                       "loss_yardstick_perm": abs(loss_perm - loss_f),
+                       "loss_yardstick_f32": abs(loss_f32 - loss_f)}
+    del nf
+
+    worst = {"flash": 0.0, "ring": 0.0}
+    for q, k, v, H, o_flash in fo.calls:
+        o64, bound = _attention_bound(q, k, v, H)
+        B, S_, HD = q.shape
+        o_ring = ring_attention(
+            *(t.reshape(B, S_, H, HD // H) for t in (q, k, v)),
+            axis=None).reshape(B, S_, HD)
+        for name, o in (("flash", o_flash), ("ring", o_ring)):
+            worst[name] = max(worst[name], float(
+                ((o.double() - o64).abs() / bound).max()))
+        del o64, bound, o_ring
+    rec["no_flash"]["attention_err_over_bound"] = worst
+    rec["no_flash"]["layers_held"] = len(fo.calls)
+    del fo
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    # (b) the pipelined program
+    main, startup, loss, params = _pipe_program(fluid, False)
+    place = fluid.CUDAPlace(0) if device.type == "cuda" else fluid.CPUPlace()
+    scope = fluid.Scope()
+    fluid.Executor(place).run(startup, scope=scope)
+    names = sorted(v.name for v in startup.list_vars() if v.persistable)
+    state = convert.scope_to_numpy(scope, names)
+    rng = np.random.RandomState(54)
+    feeds = []
+    for _ in range(PIPE["steps"]):
+        xv = rng.rand(PIPE["batch"], PIPE["width"]).astype("f4")
+        w = rng.rand(PIPE["width"], 1).astype("f4")
+        feeds.append({"x": xv, "y": (xv @ w / PIPE["width"]).astype("f4")})
+    pipe = _pipe_run(fluid, place, True, state, feeds, device)
+    plain = _pipe_run(fluid, place, False, state, feeds, device)
+    ref, ambiguous = _pipe_bounds(main, state, feeds[0], loss.name, params)
+    held = {}
+    for run_name, run in (("pipelined", pipe), ("unpipelined", plain)):
+        for p in params:
+            r, b = ref[p]
+            h = fp_bounds.hold_to_bound(
+                torch.as_tensor(run[0]["grads"][p]), r, b)
+            held["%s %s" % (run_name, p)] = h
+    rec["pipeline"] = {
+        "program": "MLP %d -> %d -> %d -> 1 (tanh), B = %d, %d "
+                   "microbatches, 3 sections" % (
+                       PIPE["width"], PIPE["hidden"], PIPE["hidden"],
+                       PIPE["batch"], PIPE["microbatches"]),
+        "ms_pipelined": [s["ms"] for s in pipe],
+        "ms_unpipelined": [s["ms"] for s in plain],
+        "losses_pipelined": [s["loss"] for s in pipe],
+        "losses_unpipelined": [s["loss"] for s in plain],
+        "grad_err_over_bound": {k: h["ratio"] for k, h in held.items()},
+        "exact_mismatches": sum(h["exact_mismatches"] for h in held.values()),
+        "ambiguous": len(ambiguous)}
+    bad = []
+    nf_ = rec["no_flash"]
+    on_card = device.type == "cuda"
+    if not nf_["loss_err"] <= MP_GRAD_LIMIT * nf_["loss_yardstick"] or any(
+            r > 1 for r in nf_["attention_err_over_bound"].values()):
+        bad.append("no-flash: %s" % nf_)
+    if on_card and nf_["launches"] != {k: PER_STEP.get(k, 0) if k.startswith(
+            "layer_norm") else 0 for k in nf_["launches"]}:
+        bad.append("no-flash launches %s" % nf_["launches"])
+    if not all(h["ok"] for h in held.values()) or ambiguous:
+        bad.append("pipeline %s" % rec["pipeline"])
+    rec.update(ok=not bad, problems=bad, seconds=time.perf_counter() - t_start)
+    emit(rec)
+    if bad:
+        raise AssertionError("phase 54 (one rank): %s" % bad)
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -8137,6 +8987,19 @@ def main():
             "phase53_two_ranks_per_rank": {
                 r: {m: c.get(key, 0) for m, c in more_dp[r].items()}
                 for r in more_dp}}
+    torch.cuda.empty_cache()
+    _common.reset_launches()
+    mp_one = phase_model_parallel_one_rank(name, card)
+    torch.cuda.empty_cache()
+    mp_launches = phase_model_parallel_two_ranks(name, card)
+    for rec in kernels:
+        key = {"flash_attention_bwd_dq": "flash_attention_bwd",
+               "flash_attention_bwd_dkv": "flash_attention_bwd"}.get(
+                   rec["name"], rec["name"])
+        rec["model_parallel_launches_per_rank_step"] = {
+            mode: mp_launches[mode].get(key, 0) for mode in MP_MODES}
+        rec["no_flash_launches_per_step"] = mp_one["no_flash"]["launches"].get(
+            key, 0)
     for rec in kernels:
         if rec["name"] == "segment_sum":
             rec["ctr_dataset_launches_per_step"] = ctr_per_step

@@ -24,6 +24,8 @@ tensor-parallel degree above 1 raises, naming item 5-C.
 
 import warnings
 
+import numpy as np
+import torch
 import torch.distributed as dist
 
 __all__ = ["CompiledProgram", "BuildStrategy", "ExecutionStrategy",
@@ -92,23 +94,37 @@ class _ShardingInfo:
         per = size // self.n
         return self.rank * per, (self.rank + 1) * per
 
-    def shard_feed(self, name, value):
+    def shard_feed(self, name, value, microbatches=1):
         """This rank's rows of a feed: the feed's dimension the batch spec
         splits over the data axis (0) must divide by the world's size, as
-        the reference's ``device_put`` requires."""
+        the reference's ``device_put`` requires.  A PipelineOptimizer
+        program's batch-major feed splits into ``microbatches`` of the
+        global batch first, and the rank keeps its rows of each (so that
+        every global microbatch is the one-device run's); its size must
+        then divide by both."""
         from .parallel import rules as shard_rules
 
         dim = list(shard_rules.batch_spec(self.data_axis)).index(self.data_axis)
         shape = tuple(getattr(value, "shape", ()))
-        if len(shape) <= dim or shape[dim] % self.n:
+        if len(shape) <= dim or shape[dim] % (self.n * microbatches):
             raise ValueError(
                 "feed %r: the global size of its dimension %d should be "
-                "divisible by %d ranks, but the full shape is %s"
-                % (name, dim, self.n, shape))
+                "divisible by %d ranks%s, but the full shape is %s"
+                % (name, dim, self.n, "" if microbatches == 1 else
+                   " times %d microbatches" % microbatches, shape))
         if self.n == 1:
             return value
-        lo, hi = self.rows(shape[dim])
-        return value[(slice(None),) * dim + (slice(lo, hi),)]
+        if microbatches == 1:
+            lo, hi = self.rows(shape[dim])
+            return value[(slice(None),) * dim + (slice(lo, hi),)]
+        per = shape[dim] // microbatches
+        lo, hi = self.rows(per)
+        parts = [value[(slice(None),) * dim + (slice(k * per + lo,
+                                                     k * per + hi),)]
+                 for k in range(microbatches)]
+        if isinstance(value, torch.Tensor):
+            return torch.cat(parts, dim)
+        return np.concatenate(parts, dim)
 
     def row_sharded(self, shape):
         """Whether an accumulator of ``shape`` (named in

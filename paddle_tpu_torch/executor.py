@@ -70,9 +70,17 @@ the end, as the JAX executor's does; ``train_from_dataset`` and
 with lazy fetches, and the executor's ``InFlightWindow`` bounds how many
 lazily fetched steps may be outstanding (``drain`` waits for them all).
 
-The JAX executor's other branches (pipeline, recompute, the warm store)
-raise ``NotImplementedError`` naming the ROADMAP item that brings them;
-none quietly runs another path.
+A ``PipelineOptimizer`` program runs as the JAX executor's pipeline
+branch (``:617-748``): the forward split at the cut vars into sections,
+run in turn on each microbatch of the batch-major feeds with the forward's
+persistable outputs carried over, the gradients accumulated and scaled
+(1/M for a mean or unknown loss, 1 for a sum), the optimizer section once.
+Data-parallel, each rank holds its rows of every global microbatch
+(``_ShardingInfo.shard_feed``), so each microbatch is the one-device run's.
+
+The JAX executor's other branches (recompute, the warm store) raise
+``NotImplementedError`` naming the ROADMAP item that brings them; none
+quietly runs another path.
 """
 
 import contextlib
@@ -130,15 +138,61 @@ def _collect_state_names(program):
 def _refuse_unported(program):
     """Raise for a program that asks for a branch of the JAX executor the
     port does not have yet."""
-    if getattr(program, "_pipeline", None) is not None:
-        raise NotImplementedError(
-            "PipelineOptimizer programs: the microbatched pipeline path "
-            "waits (ROADMAP Queue 1 item 5-C, pipeline)")
     for op in program.global_block().ops:
         if op.type == "backward_meta" and op.attrs.get("use_remat"):
             raise NotImplementedError(
                 "recompute (RecomputeOptimizer / use_remat) waits (ROADMAP "
                 "Queue 1 item 3)")
+
+
+def _loss_reduction(fwd_ops, loss_name):
+    """'mean' / 'sum' / 'unknown' by the op producing the loss: decides the
+    microbatch gradient scale of a PipelineOptimizer program (JAX
+    ``executor.py:391``)."""
+    producer = None
+    for op in fwd_ops:
+        if loss_name in op.output_arg_names:
+            producer = op
+    if producer is None:
+        return "unknown"
+    if producer.type in ("mean", "reduce_mean"):
+        return "mean"
+    if producer.type in ("sum", "reduce_sum"):
+        return "sum"
+    return "unknown"
+
+
+def _split_sections(fwd_ops, cut_names):
+    """Partition the forward ops at the cut variables (the PipelineOptimizer
+    contract, ref optimizer.py:3020; JAX ``executor.py:510``): section k
+    ends with the op producing cut_names[k]; K cuts -> K+1 sections."""
+    sections, cur = [], []
+    remaining = list(cut_names)
+    for op in fwd_ops:
+        cur.append(op)
+        if remaining and remaining[0] in op.output_arg_names:
+            sections.append(cur)
+            cur = []
+            remaining.pop(0)
+    if remaining:
+        raise ValueError(
+            "pipeline cut vars %r are not produced by the forward section "
+            "in order" % (remaining,))
+    sections.append(cur)
+    return sections
+
+
+def _feed_microbatches(program, name):
+    """The microbatches a feed splits into: a PipelineOptimizer program's
+    batch-major feeds (declared with a -1 leading dim) split into
+    ``num_microbatches``; every other feed stays whole (1)."""
+    pipeline = getattr(program, "_pipeline", None)
+    if pipeline is None:
+        return 1
+    var = program.global_block()._find_var_recursive(name)
+    if var is None or not var.shape or var.shape[0] != -1:
+        return 1
+    return int(pipeline["num_microbatches"])
 
 
 # optimizer ops with a SelectedRows branch (ops/optimizer_ops.py); any other
@@ -372,20 +426,21 @@ class _LocalRows(dict):
         self.global_rows = global_rows
 
 
-def _dp_rows(dp, feed, name, value):
+def _dp_rows(dp, feed, name, value, microbatches=1):
     """This rank's rows of a feed value: a value the feed converter staged
     is taken as it is when it holds the local rows of its global batch,
     cut when it holds the global batch, and refused otherwise; any other
-    value is the global batch (``_ShardingInfo.shard_feed``)."""
+    value is the global batch (``_ShardingInfo.shard_feed``, this rank's
+    part of each of ``microbatches`` microbatches)."""
     total = (feed.global_rows.get(name) if isinstance(feed, _LocalRows)
              else None)
     if total is None:
-        return dp.shard_feed(name, value)
+        return dp.shard_feed(name, value, microbatches)
     rows = int(value.shape[0]) if value.ndim else None
     if total % dp.n == 0 and rows == total // dp.n:
         return value
     if rows == total:
-        return dp.shard_feed(name, value)
+        return dp.shard_feed(name, value, microbatches)
     raise ValueError(
         "feed %r was staged with %s rows of a global batch of %d, which is "
         "neither the global batch nor its 1/%d a rank"
@@ -452,6 +507,7 @@ class _Plan:
     def __init__(self, program, feed_names=()):
         _refuse_unported(program)
         self.program = program
+        self.feed_names = list(feed_names)
         block = program.global_block()
         self.state_in, self.state_out = _collect_state_names(program)
         self.sub = {b.idx: [_OpCall(op, b) for op in b.ops]
@@ -466,6 +522,7 @@ class _Plan:
                 "gradients() alone" % len(bwd_idxs))
         self.sparse = {}
         self.written_in_fwd = set()
+        self.pipeline = None
         if not bwd_idxs:
             self.fwd, self.rest = [_OpCall(op, block) for op in ops], []
             self.loss_name, self.param_names = None, []
@@ -480,6 +537,10 @@ class _Plan:
         amp = getattr(program, "_amp", None)
         self.amp_dtype = (torch.bfloat16 if amp and amp.get("enabled")
                           else None)
+        pipeline = getattr(program, "_pipeline", None)
+        if pipeline is not None:
+            self._plan_pipeline(pipeline, fwd_ops)
+            return
         # sparse tables: each lookup's output is its gathered rows, a leaf
         # of its own, so autograd yields row gradients (JAX executor.py
         # :747-767)
@@ -495,6 +556,33 @@ class _Plan:
                     {"Out": [ctx.env[leaf]]})
                 self.sparse[w].append(
                     (leaf, ids_name, attrs, [by_op[id(c)] for c in chain]))
+
+    def _plan_pipeline(self, pipeline, fwd_ops):
+        """A PipelineOptimizer program (JAX ``executor.py:617-748``): the
+        forward split at the cut vars into sections (run in turn on each
+        microbatch), the gradient scale from the loss's reduction (1/M for
+        a mean or an unknown one, which warns; 1 for a sum), the forward's
+        persistable outputs carried from microbatch to microbatch, and the
+        dense gradient for ``is_sparse`` lookups, which warn."""
+        self.pipeline = dict(pipeline)
+        by_op = {id(c.op): c for c in self.fwd}
+        self.sections = [[by_op[id(op)] for op in sec] for sec in
+                         _split_sections(fwd_ops, pipeline["cut_vars"])]
+        for op in fwd_ops:
+            if (op.type in ("lookup_table", "lookup_table_v2")
+                    and op.attrs.get("is_sparse")):
+                _warn_sparse_fallback(
+                    self.program, op.inputs.get("W", ["?"])[0],
+                    "PipelineOptimizer accumulates dense grads")
+        reduction = _loss_reduction(fwd_ops, pipeline["loss_name"])
+        if reduction == "unknown":
+            warnings.warn(
+                "PipelineOptimizer: cannot tell whether loss %r is mean- or "
+                "sum-reduced; assuming mean (grads and loss divided by "
+                "num_microbatches)" % pipeline["loss_name"], stacklevel=4)
+        M = int(pipeline["num_microbatches"])
+        self.pipeline_scale = 1.0 / M if reduction != "sum" else 1.0
+        self.pers_written = sorted(self.written_in_fwd & set(self.state_out))
 
     def distribute(self):
         """Every rule behind the batch-axis table, for a data-parallel run:
@@ -573,43 +661,109 @@ class _Plan:
         return SelectedRows(torch.cat(ids_parts), torch.cat(val_parts),
                             height)
 
+    def _fwd_bwd(self, env, leaves, calls, ctx):
+        """``calls`` run on ``env`` with ``leaves`` as the parameters, and
+        the loss's gradients into the leaves (zero for a leaf the loss does
+        not reach, as jax.grad gives it).  AMP: bf16 compute with f32
+        masters, float32 values cast at the forward's boundary, ints as they
+        are.  Returns (the forward's env, the loss, the gradients by name);
+        the forward's env is ``env`` itself without AMP."""
+        amp = self.amp_dtype
+        if amp is None:
+            env.update(leaves)
+        else:
+            env = {k: _amp_cast(v, amp) for k, v in env.items()}
+            env.update({k: _amp_cast(v, amp) for k, v in leaves.items()})
+        dp = ctx.dp
+        with torch.enable_grad():
+            _run_calls(calls, env, ctx)
+            loss = env[self.loss_name].float().sum()
+        seed = None
+        if (dp is not None and dp.group is not None
+                and self.loss_name not in dp.axes):
+            # a replicated loss: each rank seeds 1/n of its cotangent, the
+            # batch collectives' backward sums the ranks' cotangents, and
+            # the gradients are summed over the ranks (``_update``)
+            seed = torch.full_like(loss, 1.0 / dp.n)
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    grad_outputs=seed, allow_unused=True)
+        return env, loss, {
+            n: torch.zeros_like(leaves[n]) if g is None else g
+            for n, g in zip(leaves, grads)}
+
+    def _update(self, env, ctx, grads):
+        """The dense gradients (data-parallel: summed over the ranks) into
+        ``env`` as ``p@GRAD``, then the optimizer section."""
+        dp = ctx.dp
+        for name, g in grads.items():
+            if dp is not None and dp.group is not None:
+                g = backend_all_reduce(g, dp.group)
+            env[name + "@GRAD"] = g
+        with torch.no_grad():
+            _run_calls(self.rest, env, ctx)
+
+    def _run_pipeline(self, env, ctx):
+        """The microbatch loop: each microbatch of the batch-major feeds
+        through the sections, with the forward's persistables carried over
+        and its gradients accumulated; then the loss and the gradients
+        scaled, and the optimizer section run once (AMP: f32 gradients for
+        the f32 masters, written persistables back in their own dtype).
+        Data-parallel, each rank holds its rows of every global microbatch,
+        and the gradients are summed over the ranks."""
+        M = int(self.pipeline["num_microbatches"])
+        feed_mb = {}
+        for n in self.feed_names:
+            if _feed_microbatches(self.program, n) == 1:
+                continue
+            a = env[n]
+            if a.shape[0] % M:
+                raise ValueError(
+                    "batch dim %d of feed %r does not divide into %d "
+                    "microbatches" % (a.shape[0], n, M))
+            feed_mb[n] = a.reshape((M, a.shape[0] // M) + tuple(a.shape[1:]))
+        if not feed_mb:
+            raise ValueError(
+                "PipelineOptimizer: no batch-major feeds to microbatch "
+                "(declare inputs via layers.data with append_batch_size=True)")
+        params = {p: env[p] for p in self.param_names if p in env}
+        base = {k: v for k, v in env.items() if k not in params}
+        carry = {n: env[n] for n in self.pers_written if n in env}
+        acc = {p: torch.zeros_like(v) for p, v in params.items()}
+        acc_loss = torch.zeros((), device=next(iter(feed_mb.values())).device)
+        sections = [c for sec in self.sections for c in sec]
+        for m in range(M):
+            leaves = {p: v.detach().requires_grad_(True)
+                      for p, v in params.items()}
+            e = dict(base)
+            e.update(carry)       # the previous microbatch's written state
+            e.update({n: v[m] for n, v in feed_mb.items()})
+            e, loss, grads = self._fwd_bwd(e, leaves, sections, ctx)
+            for p, g in grads.items():
+                acc[p] += g
+            acc_loss = acc_loss + loss.detach()
+            carry = {n: e[n].detach().to(env[n].dtype) for n in carry}
+        env.update(carry)           # the last microbatch's written state
+        env[self.loss_name] = acc_loss * self.pipeline_scale
+        self._update(env, ctx, {p: g * self.pipeline_scale
+                                for p, g in acc.items()})
+
     def run(self, env, ctx):
         if self.loss_name is None:
             with torch.no_grad():
                 _run_calls(self.fwd, env, ctx)
             return
+        if self.pipeline is not None:
+            return self._run_pipeline(env, ctx)
         dense = [p for p in self.param_names
                  if p in env and p not in self.sparse]
         with torch.no_grad():
             leaves = self._sparse_rows(env, ctx)
         leaves.update({p: env[p].detach().requires_grad_(True)
                        for p in dense})
-        amp = self.amp_dtype
-        if amp is None:
-            env.update(leaves)
-            fwd_env = env
-        else:
-            # bf16 compute with f32 masters: float32 values are cast at the
-            # forward's boundary, ints stay as they are
-            fwd_env = {k: _amp_cast(v, amp) for k, v in env.items()}
-            fwd_env.update({k: _amp_cast(v, amp) for k, v in leaves.items()})
-        dp = ctx.dp
-        with torch.enable_grad():
-            _run_calls(self.fwd, fwd_env, ctx)
-            loss = fwd_env[self.loss_name].float().sum()
-        seed = None
-        if (dp is not None and dp.group is not None
-                and self.loss_name not in dp.axes):
-            # a replicated loss: each rank seeds 1/n of its cotangent, the
-            # batch collectives' backward sums the ranks' cotangents, and
-            # the gradients below are summed over the ranks
-            seed = torch.full_like(loss, 1.0 / dp.n)
-        grads = dict(zip(leaves, torch.autograd.grad(
-            loss, list(leaves.values()), grad_outputs=seed,
-            allow_unused=True)))
-        if amp is not None:
-            # the optimizer section sees the f32 masters, moments and LR
-            # state; state the forward wrote (batch_norm's running stats)
+        fwd_env, _, grads = self._fwd_bwd(env, leaves, self.fwd, ctx)
+        if fwd_env is not env:
+            # AMP: the optimizer section sees the f32 masters, moments and
+            # LR state; state the forward wrote (batch_norm's running stats)
             # comes back in its own dtype
             for k, v in fwd_env.items():
                 orig = env.get(k)
@@ -618,22 +772,12 @@ class _Plan:
                 elif k in self.written_in_fwd:
                     env[k] = v.to(orig.dtype)
         for name in dense:
-            leaf, g = leaves[name], grads[name]
-            env[name] = leaf.detach()
-            # a parameter the loss does not reach has a zero gradient, as
-            # jax.grad gives it
-            g = torch.zeros_like(env[name]) if g is None else g
-            if dp is not None and dp.group is not None:
-                g = backend_all_reduce(g, dp.group)
-            env[name + "@GRAD"] = g
+            env[name] = leaves[name].detach()
         for w in self.sparse:
             for leaf, *_ in self.sparse[w]:
                 env.pop(leaf, None)
-                if grads[leaf] is None:
-                    grads[leaf] = torch.zeros_like(leaves[leaf])
-            env[w + "@GRAD"] = self._sparse_grad(env, w, grads, dp)
-        with torch.no_grad():
-            _run_calls(self.rest, env, ctx)
+            env[w + "@GRAD"] = self._sparse_grad(env, w, grads, ctx.dp)
+        self._update(env, ctx, {p: grads[p] for p in dense})
 
 
 def _gather_rows(dp, ids_name, ids, g):
@@ -720,8 +864,9 @@ class Executor:
             # copy, marked with each feed's global row count
             rows = {n: int(v.shape[0]) if len(getattr(v, "shape", ()))
                     else None for n, v in arrays.items()}
-            staged = placer({n: dp.shard_feed(n, v)
-                             for n, v in arrays.items()})
+            staged = placer({n: dp.shard_feed(
+                n, v, _feed_microbatches(program, n))
+                for n, v in arrays.items()})
             if isinstance(staged, dict):
                 return _LocalRows(staged, rows)
             staged.feed = _LocalRows(staged.feed, rows)
@@ -794,7 +939,8 @@ class Executor:
             # data-parallel: this rank's rows of the global batch (a feed
             # the feed converter staged holds them already)
             feed_tensors = {n: self._feed_tensor(
-                block, n, v if dp is None else _dp_rows(dp, feed, n, v))
+                block, n, v if dp is None else _dp_rows(
+                    dp, feed, n, v, _feed_microbatches(program, n)))
                 for n, v in feed.items()}
         if mon is not None:
             mon.phase_add("feed_stall", (time.perf_counter() - t_feed) * 1e3)
@@ -872,6 +1018,11 @@ class Executor:
             raise
 
         missing = [n for n in fetch_names if n not in env]
+        if missing and plan.pipeline is not None:
+            raise NotImplementedError(
+                "PipelineOptimizer programs expose the loss and persistable "
+                "state; fetches %r are per-microbatch forward intermediates "
+                "that do not survive the microbatch loop" % missing)
         if missing:
             raise KeyError("fetch targets %s are neither fed nor computed by "
                            "the program" % missing)

@@ -1,7 +1,8 @@
 """BERT-style transformer LM pretraining (counterpart of
-``paddle_tpu/models/bert.py``): embedding, pre-LN blocks through the flash
-attention and LayerNorm kernels, the streaming vocab loss, and LAMB, on a
-mesh of data-parallel ranks (``MeshSpec(dp=...)``, with ``zero=True`` the
+``paddle_tpu/models/bert.py``): the vocab-parallel embedding, pre-LN blocks
+through the flash attention and LayerNorm kernels in the Megatron-SP (or
+ring, context-parallel) layout, the GPipe pipeline, the vocab loss, and
+LAMB, on a mesh of ranks (``MeshSpec(dp, pp, tp)``; with ``zero=True`` the
 optimizer state sharded over dp) or one device.
 
 batch dict: ids/labels int32 [B, S], mask float32 [B, S] (1 where the label
@@ -14,8 +15,10 @@ import numpy as np
 import torch
 
 from ..convert import params_from_numpy
+from ..parallel import collectives as col
 from ..parallel import optim
-from ..parallel.mesh import DP, MeshSpec
+from ..parallel.mesh import DP, PP, MeshSpec
+from ..parallel.pipeline import gpipe, split_microbatches
 from ..parallel.rules import PartitionSpec as P
 from ..parallel.train import (TrainState, make_train_step, shard_pytree,
                               state_specs)
@@ -27,10 +30,6 @@ from ..parallel.transformer import (TransformerConfig, embed,
 __all__ = ["bert_base_config", "bert_tiny_config", "make_loss_fn",
            "batch_specs", "batch_dtypes", "synthetic_batches", "BertTrainer",
            "build_bert_trainer"]
-
-_UNSUPPORTED = ("%s=%d: tensor and pipeline parallelism wait (ROADMAP.md "
-                "Queue 1 item 5-C); the port runs the data-parallel axis")
-
 
 def bert_base_config(**kw):
     d = dict(vocab_size=30528, hidden=768, n_layers=12, n_heads=12,
@@ -47,27 +46,28 @@ def bert_tiny_config(**kw):
     return TransformerConfig(**d)
 
 
-def _check_supported(cfg):
-    for name, deg in (("tp", cfg.tp), ("pp", cfg.pp)):
-        if deg > 1:
-            raise NotImplementedError(_UNSUPPORTED % (name, deg))
-    if cfg.attn_mode != "heads":
-        raise NotImplementedError(
-            "attn_mode=%r: ring attention waits (ROADMAP.md Queue 1 item 5-C)"
-            % cfg.attn_mode)
-
-
-def make_loss_fn(cfg: TransformerConfig):
-    """Per-rank loss: embed, run the stack, the MLM loss over the dp-split
-    global batch (pp = 1)."""
-    _check_supported(cfg)
+def make_loss_fn(cfg: TransformerConfig, n_microbatches=1):
+    """Per-rank loss: embed, run the stack (at pp > 1 this stage's layers
+    through ``gpipe`` over ``n_microbatches``), the vocab-parallel MLM loss
+    over the dp-split global batch; at pp > 1 every rank computes the loss
+    and the last stage's is psum'd over pp."""
 
     def loss_fn(params, batch):
+        labels, positions = batch["labels"], batch.get("positions")
         mask = batch["mask"].float()
-        x = embed(params, batch["ids"], cfg)
-        x = run_layers(params["params_layers"], x, cfg)
-        return final_logits_loss(params, x, batch["labels"], mask, cfg,
-                                 positions=batch.get("positions"))
+        x_sp = embed(params, batch["ids"], cfg)             # [b, S/tp, E]
+        if cfg.pp > 1:
+            lp = {k: v[0] for k, v in params["params_layers"].items()}
+            outs = gpipe(lambda p, x: run_layers(p, x, cfg), lp,
+                         split_microbatches(x_sp, n_microbatches), axis=PP)
+            x_sp = outs.reshape((-1,) + tuple(outs.shape[2:]))
+            loss = final_logits_loss(params, x_sp, labels, mask, cfg,
+                                     positions=positions)
+            is_last = float(col.axis_index(PP) == col.axis_size_in(PP) - 1)
+            return col.psum(loss * is_last, PP)
+        x_sp = run_layers(params["params_layers"], x_sp, cfg)
+        return final_logits_loss(params, x_sp, labels, mask, cfg,
+                                 positions=positions)
 
     return loss_fn
 
@@ -119,17 +119,19 @@ class BertTrainer:
 
 
 def build_bert_trainer(cfg, mesh_spec: MeshSpec = None, optimizer=None,
-                       seed=0, device=None, params=None,
+                       n_microbatches=1, seed=0, device=None, params=None,
                        batch_keys=("ids", "labels", "mask")):
-    """The mesh of this rank's world (``mesh_spec``, one rank by default),
-    params on ``device`` (``cuda`` unless named) placed by their specs (rank
-    0's values on every rank), optimizer state (sharded over dp with
-    ``MeshSpec(zero=True)``), and the train step — the
-    ParallelExecutor-constructor analogue (parallel_executor.cc:393).
-    ``params``: a tree to start from instead of a seeded init — torch
-    tensors, or numpy arrays as ``jax.tree.map(np.asarray, params)`` gives
-    them from the JAX package."""
-    _check_supported(cfg)
+    """The mesh of this rank's world (``mesh_spec``, one rank by default;
+    its pp and tp must be the config's), params on ``device`` (``cuda``
+    unless named) placed by their specs (this rank's shard of a leaf split
+    over tp or pp, rank 0's values of a replicated one), optimizer state
+    (sharded over dp with ``MeshSpec(zero=True)``), and the train step over
+    ``n_microbatches`` at pp > 1 — the ParallelExecutor-constructor
+    analogue (parallel_executor.cc:393).  ``params``: the GLOBAL tree to
+    start from instead of a seeded init — torch tensors, or numpy arrays as
+    ``jax.tree.map(np.asarray, params)`` gives them from the JAX package's
+    trainer (its layer leaves ``[pp, L/pp, ...]`` at pp > 1); each rank
+    keeps its shard."""
     mesh_spec = mesh_spec or MeshSpec(dp=1, pp=cfg.pp, tp=cfg.tp)
     if mesh_spec.pp != cfg.pp or mesh_spec.tp != cfg.tp:
         raise ValueError("mesh %s against cfg pp=%d tp=%d"
@@ -145,7 +147,7 @@ def build_bert_trainer(cfg, mesh_spec: MeshSpec = None, optimizer=None,
     pspecs = transformer_param_specs(cfg)
     state = TrainState.create(params, optimizer)
     syncs = grad_sync_axes(cfg)
-    loss_fn = make_loss_fn(cfg)
+    loss_fn = make_loss_fn(cfg, n_microbatches=n_microbatches)
     bspecs = batch_specs(batch_keys)
     if mesh_spec.zero:
         from ..parallel.zero import make_zero_train_step

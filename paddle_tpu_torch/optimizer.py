@@ -751,10 +751,10 @@ class PipelineOptimizer:
 
     The reference splits the program at `cut_list` variables into sections
     run by SectionWorker threads on different devices, with microbatches
-    flowing through scope queues (device_worker.h:274-330).  The JAX
-    package's executor runs the sections over `num_microbatches`
-    microbatches; the port's executor does not run such a program yet (it
-    raises; ROADMAP Queue 1 item 5-C).
+    flowing through scope queues (device_worker.h:274-330).  The executor
+    runs the sections over `num_microbatches` microbatches, accumulating
+    the gradients, and the optimizer ops once a batch (executor.py
+    ``_Plan._run_pipeline``).
 
     cut_list: list of cut-point Variables (or [Variable] lists, reference
     style); K cuts -> K+1 sections.

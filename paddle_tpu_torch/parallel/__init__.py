@@ -1,9 +1,10 @@
 """The distributed engine (counterpart of ``paddle_tpu/parallel``): the
-mesh of data-parallel ranks over ``torch.distributed`` (one process per
-rank), named-axis collectives, the sharding rules, transformer blocks,
-optimizers, the train step and its ZeRO form.  Tensor, sequence, ring and
-pipeline parallelism, MoE, the sharded embedding, local SGD and the
-checkpoint wait (ROADMAP.md Queue 1 items 5-C and 5-D)."""
+mesh of ranks (dp, pp, tp) over ``torch.distributed`` (one process per
+rank), named-axis collectives, the sharding rules, transformer blocks in
+the Megatron-SP and ring layouts, the GPipe pipeline, ring attention,
+expert-parallel MoE, optimizers, the train step and its ZeRO form.  The
+sharded embedding, local SGD and the checkpoint wait (ROADMAP.md Queue 1
+items 5-C′ and 5-D)."""
 
 from .mesh import MeshSpec, make_mesh, axis_size  # noqa: F401
 from . import rules  # noqa: F401  (the sharding authority)
@@ -11,4 +12,7 @@ from .rules import match_partition_rules, ShardingAuthority  # noqa: F401
 from . import collectives  # noqa: F401
 from .optim import sgd, momentum, adam, lamb, adamw  # noqa: F401
 from .transformer import TransformerConfig  # noqa: F401
+from .pipeline import gpipe  # noqa: F401
+from .ring_attention import ring_attention  # noqa: F401
+from . import moe  # noqa: F401
 from .train import make_train_step, TrainState  # noqa: F401

@@ -18,7 +18,11 @@ Under the wrappers sits one backend layer (``backend_*``), each function a
 collective over a process group on whole tensors.  It never stages through
 host memory: gloo takes CUDA tensors for every collective used here in the
 installed torch (two gloo ranks on one card run them on the card's tensors),
-and NCCL takes nothing else.  A collective that fails raises.
+and NCCL takes nothing else.  The shift (``backend_permute``) sends one
+tensor a rank point to point where the backend takes point-to-point calls
+on the tensor's device, and runs as an all-gather where it does not
+(``permute_route``, decided before the call).  A collective that fails
+raises.
 """
 
 import torch
@@ -32,6 +36,7 @@ __all__ = [
     "reduce_scatter", "ppermute_shift", "all_to_all",
     "backend_all_reduce", "backend_all_gather", "backend_reduce_scatter",
     "backend_permute", "backend_all_to_all", "backend_broadcast",
+    "permute_route",
 ]
 
 
@@ -75,12 +80,35 @@ def backend_reduce_scatter(x, group, dim=0):
     return out.movedim(0, dim)
 
 
+def permute_route(x, group):
+    """The route ``backend_permute`` takes for ``x`` over ``group``:
+    ``"p2p"`` (``batch_isend_irecv``, each rank sends its tensor to one
+    rank and receives one) on NCCL, and on gloo for CPU tensors;
+    ``"all_gather"`` (every rank's tensor, then the source's slice) on gloo
+    for CUDA tensors, whose point-to-point calls gloo does not take."""
+    if dist.get_backend(group) == "gloo" and x.device.type != "cpu":
+        return "all_gather"
+    return "p2p"
+
+
 def backend_permute(x, group, shift):
-    """Rank i's ``x`` lands on rank (i + shift) mod n: an all-gather, then
-    the source's slice (ppermute is off the data-parallel path)."""
+    """Rank i's ``x`` lands on rank (i + shift) mod n, by the route
+    ``permute_route`` picks before the call."""
     n = _n(group)
-    src = (dist.get_rank(group) - shift) % n
-    return backend_all_gather(x.unsqueeze(0), group, 0)[src]
+    me = dist.get_rank(group)
+    src, dst = (me - shift) % n, (me + shift) % n
+    if src == me:
+        return x.clone(memory_format=torch.contiguous_format)
+    if permute_route(x, group) == "all_gather":
+        return backend_all_gather(x.unsqueeze(0), group, 0)[src]
+    send = x.contiguous()
+    out = torch.empty_like(send)
+    reqs = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, send, dist.get_global_rank(group, dst), group),
+        dist.P2POp(dist.irecv, out, dist.get_global_rank(group, src), group)])
+    for r in reqs:
+        r.wait()
+    return out
 
 
 def backend_all_to_all(x, group, split_dim, concat_dim):

@@ -6,13 +6,13 @@ The JAX package lays its devices out as a ``jax.sharding.Mesh`` with axes
 runs one process per rank: each JAX device of the mesh becomes one rank of
 a ``torch.distributed`` world, laid out with the reference's axis order (tp
 innermost, dp outermost), and each axis of size above one gets a process
-group.  ``with mesh:`` makes the mesh active, as ``shard_map`` binds its
-axes; the collective wrappers (``collectives.py``) look their axis up in the
-active mesh and are no-ops outside one.  ``local_shard_map`` has no
-counterpart: each rank's process is the body.
-
-Only the data-parallel axis runs so far (ROADMAP Queue 1 item 5-A); a mesh
-with pp or tp above one raises naming item 5-C.
+group: the ranks that share the other two coordinates.  ``groups[WORLD]``
+is the whole world's group, for what every rank must take part in (the
+broadcast of replicated parameters).  ``with mesh:`` makes the mesh active,
+as ``shard_map`` binds its axes; the collective wrappers
+(``collectives.py``) look their axis up in the active mesh and are no-ops
+outside one.  ``local_shard_map`` has no counterpart: each rank's process
+is the body.
 """
 
 import dataclasses
@@ -24,15 +24,15 @@ import torch.distributed as dist
 
 from ..kernels._common import resolve_device
 
-__all__ = ["DP", "PP", "TP", "MeshSpec", "Mesh", "make_mesh", "axis_size",
-           "active_mesh", "batch_spec", "backend_for", "init_world"]
+__all__ = ["DP", "PP", "TP", "WORLD", "MeshSpec", "Mesh", "make_mesh",
+           "axis_size", "active_mesh", "axis_groups", "batch_spec",
+           "backend_for", "init_world"]
 
 # Canonical axis names.  dp = data parallel (batch), pp = pipeline stages,
 # tp = tensor parallel.
 DP, PP, TP = "dp", "pp", "tp"
 AXES = (DP, PP, TP)
-
-_LATER = "ROADMAP.md Queue 1 item 5-C"
+WORLD = "world"        # the key of the whole world's group in Mesh.groups
 _ACTIVE = []           # the meshes entered with ``with mesh:``, innermost last
 
 
@@ -58,8 +58,9 @@ class MeshSpec:
 class Mesh:
     """This rank's view of the world laid out as (dp, pp, tp): the axis
     sizes (``shape``), this rank's coordinate on each axis (``coords``),
-    the process group of each axis above size one (``groups``) and the
-    rank's ``device``."""
+    the process group of each axis above size one and of the whole world
+    above one rank (``groups``, the world's under ``WORLD``) and the rank's
+    ``device``."""
 
     def __init__(self, shape, coords, groups, device):
         self.shape = dict(shape)
@@ -92,12 +93,11 @@ def make_mesh(dp=1, pp=1, tp=1, device=None):
     dp-major as the reference orders its devices (``mesh.py:46-67``: rank =
     (d * pp + p) * tp + t).  A one-rank mesh needs no world (a process
     outside one, or one rank of a larger world running alone); a larger one
-    needs a world of exactly ``dp * pp * tp`` ranks.  ``device``: this
-    rank's device (``cuda`` unless named)."""
-    if pp > 1 or tp > 1:
-        raise NotImplementedError(
-            "mesh dp=%d pp=%d tp=%d: pipeline and tensor parallelism wait "
-            "(%s); the port runs the data-parallel axis" % (dp, pp, tp, _LATER))
+    needs a world of exactly ``dp * pp * tp`` ranks, every one of which
+    calls this with the same sizes: each makes the process group of every
+    axis above size one, for every value of the other two coordinates, in
+    one fixed order (``dist.new_group`` is collective), and keeps its own.
+    ``device``: this rank's device (``cuda`` unless named)."""
     device = resolve_device(device)
     need = dp * pp * tp
     shape = {DP: dp, PP: pp, TP: tp}
@@ -114,7 +114,32 @@ def make_mesh(dp=1, pp=1, tp=1, device=None):
                          % (dp, pp, tp, need, world))
     rank = dist.get_rank()
     coords = {DP: rank // (pp * tp), PP: (rank // tp) % pp, TP: rank % tp}
-    return Mesh(shape, coords, {DP: dist.group.WORLD}, device)
+    groups = {WORLD: dist.group.WORLD}
+    for axis in AXES:
+        for ranks in axis_groups(shape, axis):
+            # an axis spanning the world uses the world's group
+            group = (dist.group.WORLD if len(ranks) == world
+                     else dist.new_group(ranks))
+            if rank in ranks:
+                groups[axis] = group
+    return Mesh(shape, coords, groups, device)
+
+
+def axis_groups(shape, axis):
+    """The global ranks of each group of ``axis`` (none at size one): the
+    ranks whose other two coordinates are equal, in the order every rank
+    makes them."""
+    if shape[axis] == 1:
+        return []
+    others = [a for a in AXES if a != axis]
+    out = []
+    for i in range(shape[others[0]]):
+        for j in range(shape[others[1]]):
+            c = {others[0]: i, others[1]: j}
+            out.append([(c2[DP] * shape[PP] + c2[PP]) * shape[TP] + c2[TP]
+                        for c2 in ({**c, axis: k}
+                                   for k in range(shape[axis]))])
+    return out
 
 
 def axis_size(mesh, name):

@@ -10,7 +10,9 @@ axes through ``collectives.py``, and the optimizer's in-place update.  At
 one rank every psum is a no-op and the step is the one-device step.
 
 ``shard_pytree`` is BCastParamsToDevices (parallel_executor.cc:630): rank 0's
-value of a replicated leaf on every rank, this rank's slice of a sharded one.
+value of a replicated leaf on every rank, this rank's slice of a leaf split
+over tp or pp (or, under ZeRO, a moment split over dp); ``gather_pytree``
+is its inverse, the global tree back from the ranks' shards.
 """
 
 import numpy as np
@@ -18,11 +20,12 @@ import torch
 
 from .._tree import tree_leaves, tree_map
 from . import collectives as col
-from .mesh import DP
+from .mesh import WORLD
 from .rules import PartitionSpec as P
 
 __all__ = ["TrainState", "grads_of", "make_train_step", "state_specs",
-           "shard_pytree", "shard_batch", "stack_batches", "sync_grads"]
+           "shard_pytree", "gather_pytree", "shard_batch", "stack_batches",
+           "sync_grads"]
 
 
 class TrainState(dict):
@@ -98,20 +101,38 @@ def _local_slice(x, spec, mesh):
 
 
 def shard_pytree(tree, specs, mesh):
-    """Place a tree on this rank per spec: a leaf split over an axis keeps
-    this rank's slice (a copy, so the whole leaf can be freed); a leaf
-    replicated over a mesh of more than one rank takes rank 0's value
-    (BCastParamsToDevices parity, parallel_executor.cc:630).  On a one-rank
-    mesh the tree comes back as it is."""
+    """Place a global tree on this rank per spec: a leaf split over an axis
+    keeps this rank's slice (a copy, so the whole leaf can be freed; every
+    rank must hold the same global tree); a leaf replicated over a mesh of
+    more than one rank takes world rank 0's value (BCastParamsToDevices
+    parity, parallel_executor.cc:630).  On a one-rank mesh the tree comes
+    back as it is."""
     if mesh.size == 1:
         return tree
 
     def place(x, spec):
         if any(mesh.shape[a] > 1 for _, a in _spec_axes(spec)):
             return _local_slice(x, spec, mesh).clone()
-        return col.backend_broadcast(x, mesh.groups[DP], 0)
+        return col.backend_broadcast(x, mesh.groups[WORLD], 0)
 
     return tree_map(place, tree, specs)
+
+
+def gather_pytree(tree, specs, mesh):
+    """The global tree from this rank's shards (the inverse of
+    ``shard_pytree``): each split dim all-gathered over its axes, the last
+    split first; replicated leaves as they are.  Every rank of each
+    gathering axis must call it."""
+    def gather(x, spec):
+        for d, a in reversed(_spec_axes(spec)):
+            group = mesh.groups.get(a)
+            if group is not None:
+                x = col.backend_all_gather(x.contiguous(), group, d)
+        return x
+
+    if mesh.size == 1:
+        return tree
+    return tree_map(gather, tree, specs)
 
 
 def shard_batch(mesh, batch_specs, batch):
@@ -150,15 +171,6 @@ def sync_grads(grads, grad_syncs):
         return tree_map(sync, grads, grad_syncs)
 
 
-def _check_replicated(param_specs, mesh):
-    for spec in tree_leaves(param_specs):
-        for _, a in _spec_axes(spec):
-            if mesh.shape[a] > 1:
-                raise NotImplementedError(
-                    "a parameter split over %s=%d: sharded parameters wait "
-                    "(ROADMAP.md Queue 1 item 5-C)" % (a, mesh.shape[a]))
-
-
 def make_train_step(loss_fn, mesh, param_specs, grad_syncs, optimizer,
                     batch_specs):
     """The training step over ``mesh``.
@@ -171,8 +183,8 @@ def make_train_step(loss_fn, mesh, param_specs, grad_syncs, optimizer,
     ``step(state, batch, lr) -> (state, loss)`` over a global batch (each
     rank takes its slice), and ``build.multi(state)`` gives
     ``multi(state, batches, lr) -> (state, losses[N])`` over batches staged
-    by ``stack_batches`` (already this rank's)."""
-    _check_replicated(param_specs, mesh)
+    by ``stack_batches`` (already this rank's).  Parameters split over tp
+    or pp are this rank's shards (``shard_pytree``)."""
     _, opt_update = optimizer
 
     def local_step(state, batch, lr):

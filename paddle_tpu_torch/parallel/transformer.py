@@ -1,20 +1,35 @@
 """Transformer building blocks (counterpart of
-``paddle_tpu/parallel/transformer.py`` at tp = pp = 1, ``attn_mode="heads"``):
-per-rank code whose loss sums over the dp axis (``collectives.psum``), with
-the reference's param specs and gradient sync axes.  Tensor, sequence and
-ring parallelism wait for ROADMAP.md Queue 1 item 5-C.
+``paddle_tpu/parallel/transformer.py``): per-rank code over the mesh of
+``mesh.py``, in the reference's Megatron-SP layout.
+
+- ``attn_mode="heads"`` (Megatron-SP): activations live sequence-sharded
+  over the tp axis between blocks, [b, S/tp, E]; each block all-gathers
+  the sequence, computes with heads and the FFN split over tp (column-
+  parallel in, row-parallel out) and reduce-scatters back to the sequence
+  shard: 2 all-gathers and 2 reduce-scatters a block.
+- ``attn_mode="ring"`` (context parallel): activations stay
+  sequence-sharded through attention; K/V go round the ring
+  (``ring_attention.py``); the weights are replicated over tp.
+- The embedding is vocab-parallel (each tp rank holds a vocab slice and
+  masks the ids outside it; the vocab partial sums and the sequence scatter
+  are one reduce-scatter), and at tp > 1 the LM loss is a vocab-parallel
+  softmax cross-entropy over [b, *, V/tp] logits.
 
 Parameters keep the JAX package's tree and layout: per-layer leaves are
-stacked ``[L, ...]`` and matrices are ``[in, out]``, so a tree converted
-from the JAX package (``convert.params_from_numpy``) drops in unchanged.
+stacked ``[L, ...]`` (``[pp, L/pp, ...]`` at pp > 1) and matrices are
+``[in, out]``, so a tree converted from the JAX package
+(``convert.params_from_numpy``) drops in unchanged, and each rank keeps its
+shard (``train.shard_pytree``).
 
 Behaviours kept from the reference:
 - GELU is the tanh form (``jax.nn.gelu``'s default);
 - LayerNorm eps is 1e-6; the final LN runs unfused;
 - attention has no key-padding mask (``batch["mask"]`` only weights the loss);
 - ``bqkv`` is ``[L, 3, E]`` and the LM head is tied to ``tok_emb``;
-- the vocab loss streams over 4 chunks and its backward rounds the softmax
-  gradient to bf16 even in f32 configs.
+- at tp = 1 the vocab loss streams over 4 chunks and its backward rounds
+  the softmax gradient to bf16 even in f32 configs;
+- the position embedding enters the reduce-scatter as ``pos / tp``,
+  rounded in the model's dtype.
 """
 
 import dataclasses
@@ -27,9 +42,10 @@ from torch.utils.checkpoint import checkpoint
 from .._tree import tree_map
 from . import collectives as col
 from .mesh import DP, PP, TP
-from ..kernels.flash_attention import attention_reference, flash_attention_packed
+from ..kernels.flash_attention import flash_attention_packed
 from ..kernels.layer_norm import fused_layer_norm, layer_norm_reference
 from ..kernels._common import resolve_device
+from .ring_attention import ring_attention
 
 __all__ = ["TransformerConfig", "init_transformer_params",
            "transformer_param_specs", "grad_sync_axes", "embed",
@@ -47,10 +63,10 @@ class TransformerConfig:
     max_seq: int = 512
     dtype: str = "bfloat16"          # compute/param dtype
     causal: bool = False             # False = BERT (bidirectional), True = GPT
-    attn_mode: str = "heads"         # "heads"; "ring" waits for item 5-C
+    attn_mode: str = "heads"         # "heads" (Megatron-SP) or "ring"
     remat: bool = False              # torch.utils.checkpoint per layer
-    tp: int = 1                      # tensor-parallel degree (1; item 5-C)
-    pp: int = 1                      # pipeline stages (1; item 5-C)
+    tp: int = 1                      # tensor-parallel degree (mesh tp size)
+    pp: int = 1                      # pipeline stages (mesh pp axis size)
     use_flash: bool = True           # the flash-attention kernel
     flash_block_q: int = 512         # TPU kernel block sizes: accepted, unused
     flash_block_k: int = 512
@@ -64,6 +80,13 @@ class TransformerConfig:
     def tdtype(self):
         return getattr(torch, self.dtype)
 
+    @property
+    def layers_per_stage(self):
+        if self.n_layers % self.pp:
+            raise ValueError("n_layers=%d does not divide over pp=%d"
+                             % (self.n_layers, self.pp))
+        return self.n_layers // self.pp
+
 
 # ---------------------------------------------------------------------------
 # Parameter init: the reference's tree; values come from a torch.Generator
@@ -76,7 +99,8 @@ def _dense_init(gen, fan_in, shape, dtype):
 
 
 def init_transformer_params(generator, cfg: TransformerConfig, device=None):
-    """The init_transformer_params tree of the JAX package, on ``device``."""
+    """The init_transformer_params tree of the JAX package, on ``device``
+    (the layer leaves ``[pp, L/pp, ...]`` at pp > 1)."""
     device = resolve_device(device)
     E, Fh, L, V = cfg.hidden, cfg.ffn_hidden, cfg.n_layers, cfg.vocab_size
     dt = cfg.tdtype
@@ -101,6 +125,10 @@ def init_transformer_params(generator, cfg: TransformerConfig, device=None):
         "w2": stack(Fh, (Fh, E)),
         "b2": torch.zeros(L, E, dtype=dt),
     }
+    if cfg.pp > 1:
+        lps = cfg.layers_per_stage
+        layer = {k: v.reshape((cfg.pp, lps) + tuple(v.shape[1:]))
+                 for k, v in layer.items()}
     params = {
         "tok_emb": _dense_init(generator, E, (V, E), dt),
         "pos_emb": _dense_init(generator, E, (cfg.max_seq, E), dt),
@@ -172,47 +200,86 @@ def layer_norm(x, scale, bias, eps=1e-6, fused=True):
 
 
 def embed(params, ids, cfg: TransformerConfig):
-    """Token + position embedding: [b, S] ids -> [b, S, E].  An id outside
-    ``[0, vocab)`` gets a zero token row and sends no gradient into
-    ``tok_emb``, as the reference's vocab-shard mask does at tp = 1."""
-    V, S = params["tok_emb"].shape[0], ids.shape[1]
+    """Vocab-parallel embedding lookup plus the position embedding: [b, S]
+    ids -> the sequence-sharded activation [b, S/tp, E].  Each tp rank
+    holds the vocab rows [lo, lo + V/tp) and zeroes the ids outside them,
+    so an id outside ``[0, vocab)`` gets a zero token row and sends no
+    gradient into ``tok_emb``; at tp > 1 the vocab partial sums and the
+    sequence scatter are one reduce-scatter."""
+    V, S = cfg.vocab_size, ids.shape[1]
+    ntp = col.axis_size_in(TP)
+    vshard = V // ntp if ntp > 1 else V
+    lo = col.axis_index(TP) * vshard
     ids = ids.long()
-    hit = (ids >= 0) & (ids < V)
-    tok = params["tok_emb"][ids.clamp(0, V - 1)]
-    return tok * hit[..., None].to(tok.dtype) + params["pos_emb"][:S][None]
+    hit = (ids >= lo) & (ids < lo + vshard)
+    tok = params["tok_emb"][(ids - lo).clamp(0, vshard - 1)]
+    emb = tok * hit[..., None].to(tok.dtype)
+    pos = params["pos_emb"][:S][None]
+    if ntp > 1:
+        return col.reduce_scatter(emb + pos / ntp, TP, dim=1)
+    return emb + pos
 
 
-def _attention_heads_mode(pl, h, cfg):
-    """q/k/v projections, attention on the packed [b, S, H*D] layout, and
-    the output projection.  use_flash=False (the reference's XLA softmax
-    path) runs the plain attention, on CPU tensors only."""
-    q2 = h @ pl["wq"] + pl["bqkv"][0]
-    k2 = h @ pl["wk"] + pl["bqkv"][1]
-    v2 = h @ pl["wv"] + pl["bqkv"][2]
+def _attention_heads_mode(pl, h_full, cfg):
+    """Megatron attention: the full sequence [b, S, E] in, the heads split
+    over tp (wq/wk/wv/bqkv hold this rank's E/tp columns, wo its rows), the
+    output projection's partial sums reduce-scattered back to the sequence
+    shard.  Attention runs on the packed [b, S, hl*D] layout through the
+    flash kernels (which take any S), or at ``use_flash=False`` through
+    ``ring_attention(axis=None)``."""
+    b, S, _ = h_full.shape
+    ntp = col.axis_size_in(TP)
+    hl = cfg.n_heads // ntp if ntp > 1 else cfg.n_heads
+    q2 = h_full @ pl["wq"] + pl["bqkv"][0]                 # [b, S, hl*dh]
+    k2 = h_full @ pl["wk"] + pl["bqkv"][1]
+    v2 = h_full @ pl["wv"] + pl["bqkv"][2]
     if cfg.use_flash:
-        o = flash_attention_packed(q2, k2, v2, cfg.n_heads, causal=cfg.causal)
-    elif q2.device.type == "cpu":
-        o = attention_reference(q2, k2, v2, cfg.n_heads, causal=cfg.causal)
+        o = flash_attention_packed(q2, k2, v2, hl, causal=cfg.causal)
     else:
-        raise NotImplementedError(
-            "use_flash=False on %s: on the card attention runs only through "
-            "the flash kernels; a non-flash attention kernel (the reference's "
-            "ring_attention at axis=None) is ROADMAP.md Queue 1 item 5-C"
-            % q2.device)
-    return o @ pl["wo"] + pl["bo"]
+        dh = cfg.head_dim
+        o = ring_attention(q2.reshape(b, S, hl, dh), k2.reshape(b, S, hl, dh),
+                           v2.reshape(b, S, hl, dh), axis=None,
+                           causal=cfg.causal).reshape(b, S, hl * dh)
+    out = col.reduce_scatter(o @ pl["wo"], TP, dim=1)      # sum + seq scatter
+    return out + pl["bo"]
 
 
-def transformer_layer(pl, x, cfg: TransformerConfig):
-    """One pre-LN transformer block on [b, S, E]."""
-    h = layer_norm(x, pl["ln1_scale"], pl["ln1_bias"])
-    x = x + _attention_heads_mode(pl, h, cfg)
-    h = layer_norm(x, pl["ln2_scale"], pl["ln2_bias"])
-    y = gelu(h @ pl["w1"] + pl["b1"]) @ pl["w2"]
-    return x + y + pl["b2"]
+def _attention_ring_mode(pl, h_sp, cfg):
+    """Context-parallel attention: the sequence stays sharded; K/V go
+    round the tp ring."""
+    b, Sl, _ = h_sp.shape
+    H, dh = cfg.n_heads, cfg.head_dim
+
+    def proj(w, bias):
+        return (h_sp @ w + bias).reshape(b, Sl, H, dh)
+
+    o = ring_attention(proj(pl["wq"], pl["bqkv"][0]),
+                       proj(pl["wk"], pl["bqkv"][1]),
+                       proj(pl["wv"], pl["bqkv"][2]), axis=TP,
+                       causal=cfg.causal)
+    return o.reshape(b, Sl, H * dh) @ pl["wo"] + pl["bo"]
+
+
+def transformer_layer(pl, x_sp, cfg: TransformerConfig):
+    """One pre-LN transformer block on the sequence-sharded [b, S/tp, E]."""
+    heads_mode = cfg.attn_mode == "heads"
+    h = layer_norm(x_sp, pl["ln1_scale"], pl["ln1_bias"])
+    if heads_mode:
+        attn = _attention_heads_mode(pl, col.all_gather(h, TP, dim=1), cfg)
+    else:
+        attn = _attention_ring_mode(pl, h, cfg)
+    x_sp = x_sp + attn
+    h = layer_norm(x_sp, pl["ln2_scale"], pl["ln2_bias"])
+    if heads_mode:
+        h = col.all_gather(h, TP, dim=1)
+    y = gelu(h @ pl["w1"] + pl["b1"]) @ pl["w2"]          # partial if heads
+    if heads_mode:
+        y = col.reduce_scatter(y, TP, dim=1)
+    return x_sp + y + pl["b2"]
 
 
 def run_layers(layer_params, x, cfg: TransformerConfig):
-    """The stacked layers in order; remat checkpoints each layer."""
+    """The (local) stacked layers in order; remat checkpoints each layer."""
     n = next(iter(layer_params.values())).shape[0]
 
     def layer(x, i):
@@ -301,17 +368,36 @@ class _ChunkedVocabNLL(torch.autograd.Function):
                 None, None)
 
 
-def final_logits_loss(params, x, labels, mask, cfg: TransformerConfig,
+def final_logits_loss(params, x_sp, labels, mask, cfg: TransformerConfig,
                       positions=None):
     """Softmax cross-entropy with the tied embedding head: the token mean
     over the dp-split global batch (the sum of the NLL and the count each
-    psum'd over dp, as the reference's ``:433-434``).  ``positions`` [b, P]
-    selects the MLM label positions, and then labels/mask are [b, P]."""
-    x = layer_norm(x, params["lnf_scale"], params["lnf_bias"], fused=False)
+    psum'd over dp, as the reference's).  ``x_sp`` is sequence-sharded over
+    tp; labels/mask are the full [b, S] (or [b, P] when ``positions`` [b, P]
+    selects the MLM label positions).  The head gathers the sequence; at
+    tp = 1 the vocab loss streams over chunks (no [b, S, V] tensor), at
+    tp > 1 the logits stay vocab-sharded [b, *, V/tp] in f32, with the max
+    (without a gradient) pmax'd and the exp-sum and the picked logit
+    psum'd over tp."""
+    x = layer_norm(x_sp, params["lnf_scale"], params["lnf_bias"], fused=False)
+    x = col.all_gather(x, TP, dim=1)                           # [b, S, E]
     if positions is not None:
         idx = positions.long()[..., None].expand(-1, -1, x.shape[-1])
         x = torch.gather(x, 1, idx)                               # [b, P, E]
-    nll = _ChunkedVocabNLL.apply(x, params["tok_emb"], labels, 4) * mask
+    emb = params["tok_emb"]                                    # [V/tp, E]
+    if col.axis_size_in(TP) == 1:
+        nll = _ChunkedVocabNLL.apply(x, emb, labels, 4) * mask
+    else:
+        logits = (x @ emb.t()).float()                         # [b, S, V/tp]
+        vshard = logits.shape[-1]
+        lo = col.axis_index(TP) * vshard
+        mx = col.pmax(logits.amax(dim=-1).detach(), TP)
+        lse = torch.log(col.psum(torch.exp(logits - mx[..., None]).sum(
+            dim=-1), TP)) + mx
+        local, hit = _label_slot(labels.long(), lo, vshard)
+        picked = logits.gather(-1, local[..., None])[..., 0]
+        picked = col.psum(torch.where(hit, picked, 0.0), TP)
+        nll = (lse - picked) * mask
     total = col.psum(nll.sum(), DP)
     count = col.psum(mask.float().sum(), DP)
     return total / count.clamp_min(1.0)

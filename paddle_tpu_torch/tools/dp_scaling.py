@@ -1,8 +1,16 @@
-"""Data-parallel steps over one card a rank, NCCL: weak scaling of the
-port's dp trainers at a fixed batch a rank.
+"""Steps over one card a rank, NCCL: weak scaling of the port's dp
+trainers at a fixed batch a rank, and strong scaling of BERT-base over the
+tp or pp axis at a fixed global batch.
 
     python -m paddle_tpu_torch.tools.dp_scaling
         [--model bert|resnet50|encoder] [--nprocs 1 2 4] [--steps 5]
+        [--tp | --pp [--microbatches 4]] [--attn heads|ring]
+
+With ``--tp`` (``--pp``) the world's ranks lie on the tp (pp) axis of
+BERT-base's mesh, which trains the one-card batch (32 sequences) in the
+Megatron-SP layout (``--attn ring``: ring attention) or as a GPipe pipeline
+of ``--microbatches``, and the line's efficiency is the one-rank ms over n
+times the world's.
 
 For each world size it starts that many workers through
 ``python -m paddle_tpu_torch.distributed.launch --nproc_per_node N`` (NCCL,
@@ -42,14 +50,14 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _worker(model, steps):
+def _worker(model, steps, axis="dp", attn="heads", microbatches=4):
     import torch.distributed as dist
 
     from paddle_tpu_torch._tree import tree_leaves
     from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.models import bert, resnet
     from paddle_tpu_torch.parallel import MeshSpec, optim
-    from paddle_tpu_torch.parallel import collectives as col
+    from paddle_tpu_torch.parallel.train import gather_pytree
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -58,13 +66,15 @@ def _worker(model, steps):
     if model == "encoder":
         return _encoder_worker(f, world, rank, steps)
     if model == "bert":
-        cfg = bert.bert_base_config()
-        tr = bert.build_bert_trainer(cfg, MeshSpec(dp=world, zero=True),
-                                     optimizer=optim.lamb(), seed=0,
-                                     device=f.device)
-        host = bert.synthetic_batches(cfg, steps + 1, BERT_PER_RANK * world,
-                                      SEQ)
-        items, lr = BERT_PER_RANK * world * SEQ, 1e-4
+        deg = {"dp": 1, "pp": 1, "tp": 1, axis: world}
+        cfg = bert.bert_base_config(tp=deg["tp"], pp=deg["pp"], attn_mode=attn)
+        tr = bert.build_bert_trainer(
+            cfg, MeshSpec(dp=deg["dp"], pp=deg["pp"], tp=deg["tp"], zero=True),
+            optimizer=optim.lamb(), seed=0, device=f.device,
+            n_microbatches=microbatches if deg["pp"] > 1 else 1)
+        per = BERT_PER_RANK * deg["dp"]
+        host = bert.synthetic_batches(cfg, steps + 1, per, SEQ)
+        items, lr = per * SEQ, 1e-4
     else:
         cfg = resnet.resnet50_config(dtype="bfloat16", fuse_bn=True,
                                      sync_bn=True, image_size=IMAGE)
@@ -86,13 +96,19 @@ def _worker(model, steps):
     losses = [tr.step(b, lr) for b in batches[1:]]
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / steps
+    params = tr.state["params"]
+    if model == "bert":            # the global tree from the ranks' shards
+        params = gather_pytree(params, tr.specs["params"], tr.mesh)
     _report(model, world, rank, BERT_PER_RANK if model == "bert"
-            else RESNET_PER_RANK, dt, items, losses,
-            tree_leaves(tr.state["params"]))
+            else RESNET_PER_RANK, dt, items, losses, tree_leaves(params),
+            extra={"axis": axis, "attn": attn,
+                   "microbatches": microbatches if axis == "pp" else 1}
+            if model == "bert" else None)
 
 
-def _report(model, world, rank, per_rank, dt, items, losses, params):
-    """Every rank's parameters against the others' (gathered); rank 0
+def _report(model, world, rank, per_rank, dt, items, losses, params,
+            extra=None):
+    """Every rank's (gathered) parameters against the others'; rank 0
     prints the line."""
     import torch.distributed as dist
 
@@ -113,8 +129,8 @@ def _report(model, world, rank, per_rank, dt, items, losses, params):
             "items_per_sec": items / dt,
             "peak_memory_allocated": torch.cuda.max_memory_allocated(),
             "losses": [float(l) for l in losses],
-            "replica_leaves_differ": differ, "nvidia_smi": smi}),
-            flush=True)
+            "replica_leaves_differ": differ, "nvidia_smi": smi,
+            **(extra or {})}), flush=True)
     dist.destroy_process_group()
 
 
@@ -155,10 +171,20 @@ def main(argv=None):
                    default="bert")
     p.add_argument("--nprocs", type=int, nargs="+", default=[1, 2, 4])
     p.add_argument("--steps", type=int, default=5)
+    axes = p.add_mutually_exclusive_group()
+    axes.add_argument("--tp", action="store_true",
+                      help="the ranks on BERT-base's tp axis")
+    axes.add_argument("--pp", action="store_true",
+                      help="the ranks on BERT-base's pp axis")
+    p.add_argument("--attn", choices=("heads", "ring"), default="heads")
+    p.add_argument("--microbatches", type=int, default=4)
     p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
+    axis = "tp" if args.tp else "pp" if args.pp else "dp"
+    if axis != "dp" and args.model != "bert":
+        raise SystemExit("--tp and --pp train BERT-base (--model bert)")
     if args.worker:
-        _worker(args.model, args.steps)
+        _worker(args.model, args.steps, axis, args.attn, args.microbatches)
         return 0
     from paddle_tpu_torch.kernels import _common
 
@@ -176,7 +202,9 @@ def main(argv=None):
             [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
              "--nproc_per_node", str(n), "--started_port", str(_free_port()),
              os.path.abspath(__file__), "--worker", "--model", args.model,
-             "--steps", str(args.steps)],
+             "--steps", str(args.steps), "--attn", args.attn,
+             "--microbatches", str(args.microbatches)]
+            + (["--" + axis] if axis != "dp" else []),
             capture_output=True, text=True, env=env, cwd=root)
         if out.returncode != 0:
             raise RuntimeError("world %d failed (rc %d):\n%s" % (
@@ -185,8 +213,12 @@ def main(argv=None):
                 if ln.startswith("DP_SCALING ")][-1]
         rec = json.loads(line[len("DP_SCALING "):])
         base = base or rec
-        rec["scaling_efficiency"] = (base["ms_per_step"] / rec["ms_per_step"]
-                                     if base["world"] == 1 else None)
+        # weak scaling over dp (the batch grows with the world), strong
+        # over tp or pp (the same batch on n cards)
+        rec["scaling_efficiency"] = (
+            base["ms_per_step"] / rec["ms_per_step"]
+            / (1 if axis == "dp" else rec["world"])
+            if base["world"] == 1 else None)
         print(json.dumps(rec), flush=True)
         if rec["replica_leaves_differ"]:
             raise RuntimeError("world %d: replicas differ" % n)

@@ -79,8 +79,8 @@ def _torch_loss_grads(cfg, params, batch):
 @pytest.mark.parametrize("positions,use_flash", [
     pytest.param(None, True, id="None"),
     pytest.param(8, True, id="8"),
-    # the reference's XLA softmax path: the plain attention on CPU tensors
-    # (on the card it raises)
+    # the reference's XLA softmax path: ring_attention(axis=None) on eager
+    # ops (on the card too)
     pytest.param(None, False, id="no_flash"),
 ])
 def test_loss_and_grads_match_jax(positions, use_flash):
@@ -306,17 +306,32 @@ def test_convert_roundtrip_keeps_bf16_bits():
 
 
 def test_parallel_degrees_raise():
-    """tp, pp and ring attention wait for item 5-C; dp above one needs a
-    world of that many ranks (tests/test_torch_parallel_dp.py runs one)."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5-C"):
-        pbert.build_bert_trainer(pbert.bert_tiny_config(tp=2),
-                                 MeshSpec(tp=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5-C"):
-        pbert.build_bert_trainer(pbert.bert_tiny_config(pp=2),
-                                 MeshSpec(pp=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5-C"):
-        pbert.build_bert_trainer(pbert.bert_tiny_config(attn_mode="ring"),
+    """dp, tp and pp above one need a world of that many ranks
+    (tests/test_torch_parallel_dp.py and tests/test_torch_model_parallel.py
+    run them); a mesh's pp and tp must be the config's."""
+    for cfg_kw, spec in (({"tp": 2}, MeshSpec(tp=2)),
+                         ({"pp": 2}, MeshSpec(pp=2)), ({}, MeshSpec(dp=2))):
+        with pytest.raises(ValueError, match="needs 2 ranks"):
+            pbert.build_bert_trainer(pbert.bert_tiny_config(**cfg_kw), spec,
+                                     device="cpu")
+    with pytest.raises(ValueError, match="against cfg"):
+        pbert.build_bert_trainer(pbert.bert_tiny_config(), MeshSpec(tp=2),
                                  device="cpu")
-    with pytest.raises(ValueError, match="needs 2 ranks"):
-        pbert.build_bert_trainer(pbert.bert_tiny_config(), MeshSpec(dp=2),
-                                 device="cpu")
+
+
+def test_ring_mode_at_one_rank_matches_jax():
+    """attn_mode="ring" at one rank (no tp axis) runs plain attention
+    through ring_attention, as the reference does: the loss and gradients
+    match JAX's."""
+    params = _jax_params(jbert.bert_tiny_config())
+    rng = np.random.RandomState(3)
+    batch = {"ids": rng.randint(0, 128, (4, 32)).astype(np.int32),
+             "labels": rng.randint(0, 128, (4, 32)).astype(np.int32),
+             "mask": (rng.rand(4, 32) < 0.5).astype(np.float32)}
+    lt, gt = _torch_loss_grads(pbert.bert_tiny_config(attn_mode="ring"),
+                               params, batch)
+    lj, gj = _jax_loss_grads(jbert.bert_tiny_config(attn_mode="ring"),
+                             params, batch)
+    np.testing.assert_allclose(lt, lj, rtol=1e-5, atol=1e-6)
+    for a, b in zip(gt, gj):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6)

@@ -447,12 +447,12 @@ def test_resnet_tiny_steps_on_card_match_cpu(cuda_device):
 
 
 def test_resnet_trainer_refuses_sync_bn_and_dp(cuda_device):
-    """tp and pp wait for item 5-C; dp above one needs a world of that many
-    ranks (chip_smoke.py phase 51 runs two)."""
+    """dp, tp and pp above one need a world of that many ranks
+    (chip_smoke.py phases 51 and 54 run two)."""
     from paddle_tpu_torch.models import resnet
     from paddle_tpu_torch.parallel.mesh import MeshSpec
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5-C"):
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         resnet.build_resnet_trainer(resnet.resnet_tiny_config(sync_bn=True),
                                     MeshSpec(tp=2), device=cuda_device)
     with pytest.raises(ValueError, match="needs 2 ranks"):
@@ -461,17 +461,39 @@ def test_resnet_trainer_refuses_sync_bn_and_dp(cuda_device):
 
 
 def test_non_flash_attention_raises_on_card(cuda_device):
-    """use_flash=False has no kernel of its own: on the card it raises
-    rather than run the plain attention in place of the flash kernels."""
+    """use_flash=False has no kernel of its own: since item 5-C it runs the
+    reference's eager attention (``ring_attention`` at ``axis=None``) on
+    the card instead of raising, launches no flash kernel, and its step's
+    loss is the CPU's (f32, TF32 off)."""
+    from paddle_tpu_torch.convert import params_to_numpy
     from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.parallel.transformer import init_transformer_params
 
-    trainer = bert.build_bert_trainer(bert.bert_tiny_config(use_flash=False),
-                                      device=cuda_device)
-    batch = {"ids": torch.zeros(2, 32, dtype=torch.int32, device=cuda_device),
-             "labels": torch.zeros(2, 32, dtype=torch.int32, device=cuda_device),
-             "mask": torch.ones(2, 32, device=cuda_device)}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        trainer.step(batch, 1e-3)
+    cfg = bert.bert_tiny_config(use_flash=False)
+    params = params_to_numpy(init_transformer_params(
+        torch.Generator().manual_seed(0), cfg, device="cpu"))
+    rng = np.random.RandomState(1)
+    batch = {"ids": rng.randint(0, 128, (2, 32)).astype(np.int32),
+             "labels": rng.randint(0, 128, (2, 32)).astype(np.int32),
+             "mask": np.ones((2, 32), np.float32)}
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        losses = []
+        for device in (cuda_device, "cpu"):
+            trainer = bert.build_bert_trainer(cfg, device=device, params=params)
+            before = dict(_common.launches)
+            losses.append(float(trainer.step(
+                {k: torch.from_numpy(v).to(device) for k, v in batch.items()},
+                1e-3)))
+            if device == cuda_device:
+                assert _common.launches["flash_attention_fwd"] == \
+                    before["flash_attention_fwd"]
+                assert _common.launches["layer_norm_fwd"] - \
+                    before["layer_norm_fwd"] == 2 * cfg.n_layers
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
 
 
 def test_bert_tiny_steps_on_card_match_cpu(cuda_device):

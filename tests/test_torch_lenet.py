@@ -393,6 +393,25 @@ def test_unported_branches_raise(case, item, monkeypatch):
         with pytest.raises(pfluid.EOFException):
             exe.run(main, fetch_list=[loss], scope=scope)
         return
+    if case == "pipeline":
+        # no longer refused (ROADMAP Queue 1 item 5-C): the microbatched
+        # run's loss and update are the unpipelined program's
+        from paddle_tpu_torch import convert
+
+        plain, plain_loss, _ = _unported("plain", monkeypatch)
+        scope = pfluid.Scope()
+        exe.run(startup, scope=scope)
+        names = sorted(v.name for v in startup.list_vars() if v.persistable)
+        twin = convert.scope_from_numpy(convert.scope_to_numpy(scope, names),
+                                        pfluid.Scope(), "cpu")
+        feed = digits(0, n=2)
+        for _ in range(2):
+            (lp,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            (lu,) = exe.run(plain, feed=feed, fetch_list=[plain_loss],
+                            scope=twin)
+            np.testing.assert_allclose(lp, np.reshape(lu, ()), rtol=1e-5,
+                                       atol=1e-6)
+        return
     if case == "py_reader":
         # no longer refused (ROADMAP Queue 1 item 4, the data path): the
         # run reads the reader, whose end raises EOFException

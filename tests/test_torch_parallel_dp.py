@@ -508,12 +508,12 @@ def test_zero_specs_match_jax(dp):
 
 
 def test_make_mesh_refuses_tp_pp_and_a_missing_world(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 5-C"):
-        pmesh.make_mesh(dp=1, tp=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5-C"):
-        pmesh.make_mesh(pp=2, device="cpu")
-    with pytest.raises(ValueError, match="no process group"):
-        pmesh.make_mesh(dp=2, device="cpu")
+    """tp and pp above one run over a world of ranks since item 5-C
+    (tests/test_torch_model_parallel.py); outside one, any mesh above one
+    rank is refused."""
+    for kw in ({"tp": 2}, {"pp": 2}, {"dp": 2}, {"dp": 2, "pp": 2, "tp": 2}):
+        with pytest.raises(ValueError, match="no process group"):
+            pmesh.make_mesh(device="cpu", **kw)
     one = pmesh.make_mesh(device="cpu")
     assert one.size == 1 and one.groups == {} and pmesh.active_mesh() is None
     with one:

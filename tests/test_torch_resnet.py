@@ -312,12 +312,14 @@ def test_synthetic_batches_are_bench_batches():
 
 
 def test_unsupported_settings_raise():
-    """tp and pp wait for item 5-C; dp above one needs a world of that many
-    ranks (tests/test_torch_parallel_dp.py runs one)."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5-C"):
+    """dp, tp and pp above one need a world of that many ranks
+    (tests/test_torch_parallel_dp.py runs dp;
+    tests/test_torch_model_parallel.py trains on tp and pp meshes,
+    replicated as the reference does)."""
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         pres.build_resnet_trainer(pres.resnet_tiny_config(sync_bn=True),
                                   MeshSpec(tp=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5-C"):
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         pres.build_resnet_trainer(pres.resnet_tiny_config(), MeshSpec(pp=2),
                                   device="cpu")
     with pytest.raises(ValueError, match="needs 2 ranks"):
