@@ -407,6 +407,17 @@ Builds the port's CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
     gathered gradient over 2 within 4 yardsticks of the one-rank step's; MoE at ep = 2 (8 experts,
     8192 tokens a rank) against one rank holding all 8 within a derived
     bound; the LN / flash launches a rank a step and the shift's route.
+55. ``tp_tables_two_ranks``: two gloo ranks: the Fluid-layers BERT-base
+    encoder with the Megatron marks at tp = 2 (f32, dropout 0.1, global
+    B = 8) with no fallback gather, its dropout masks bit for bit the
+    one-rank run's and, at dropout 0, its loss and gathered gradient within
+    4 yardsticks of the one-rank step's; DeepFM at config 5 with its tables
+    row-sharded (2 segment-sum launches a rank a step, each call within its
+    derived bound of the plain version; losses and table updates in
+    yardsticks of the one-rank segment trainer's); Local SGD on BERT-base
+    (LAMB, k = 2: replicas apart after steps 1 and 3, bit for bit after 2
+    and 4; k = 1 SGD in yardsticks of the sync dp step); then the dryrun at
+    N = 2 on the card and the embedding router's capacity guard.
 
 Phases 30-33 and 36 write their monitor directories under
 ``build/monitor``, phases 35-36 and 53 their data files under
@@ -8862,6 +8873,832 @@ def phase_model_parallel_one_rank(device_name, card, device="cuda", args=None):
     return rec
 
 
+# -- item 5-C′: program-mode tp, the row-sharded DeepFM, Local SGD, the dryrun
+# and the capacity guard (phase 55) ---------------------------------------------
+
+P55_WORLD = 2                 # two gloo ranks sharing the one card
+P55_ENC_BATCH = 8             # the Fluid encoder's global batch (cut from 16)
+P55_FEED_SEED = 900
+P55_DFM_STEPS, P55_DFM_LR = 3, 1.0
+P55_LSGD = dict(batch=16, k=2, steps=4, lr=1e-4, sgd_lr=1.0)
+P55_LIMIT = DP_F32_LIMIT      # yardsticks, as phases 51-54
+P55_TIMEOUT_S = 600
+
+
+def _p55_args(small=False):
+    """Phase 55's sizes: the Fluid BERT-base encoder (``phase_encoder``'s
+    program and widths, f32, Adam 1e-4, dropout 0.1) at global B =
+    P55_ENC_BATCH, DeepFM at BASELINE config 5 (B = 8192), BERT-base bf16
+    at its published widths for Local SGD; ``small`` for a rehearsal on the
+    CPU."""
+    from paddle_tpu_torch.models import deepfm
+    from paddle_tpu_torch.tools.programs import BERT_BASE_ENCODER
+
+    if small:
+        return {"enc_cfg": BERT_BASE_ENCODER._replace(
+                    vocab=96, hidden=32, layers=2, heads=4, ffn=64, seq=16,
+                    batch=4),
+                "dfm_cfg": deepfm.deepfm_tiny_config(num_features=2000),
+                "dfm_batch": 64,
+                "bert_kw": dict(vocab_size=512, hidden=64, n_layers=2,
+                                n_heads=4, ffn_hidden=128, max_seq=32),
+                "seq": 32}
+    return {"enc_cfg": BERT_BASE_ENCODER._replace(batch=P55_ENC_BATCH),
+            "dfm_cfg": deepfm.DeepFMConfig(), "dfm_batch": DFM_B,
+            "bert_kw": {}, "seq": S}
+
+
+def _p55_loss_yardstick(loss, loss_perm):
+    """A loss's yardstick: how far the one-rank step's loss moves on the
+    batch's rows permuted, and at least one unit in the last place of the
+    f32 loss (a permuted mean may round to the same bits)."""
+    import numpy as np
+
+    return max(abs(loss_perm - loss), float(np.spacing(np.float32(loss))))
+
+
+def _p55_flip_units(name, t, cfg):
+    """``t`` (the value or gradient of encoder var ``name``) with every
+    axis a tp split cuts in reverse order: each layer's FFN units and
+    attention heads, and the vocabulary's classes (with the labels mapped
+    to ``vocab - 1 - label``, ``_p55_flip_labels``).  The same function,
+    its products over those axes contracting in another order (the
+    row-parallel fcs forward, the vocabulary fc's input gradient backward:
+    the orders a tp split changes).  Other vars as they are."""
+    nh, dh = cfg.heads, cfg.hidden // cfg.heads
+    if not name.endswith((".w_0", ".b_0")):
+        return t
+    if name.startswith("mask_lm_out_fc."):
+        return t.flip(-1)
+    if "_ffn_fc_0." in name:
+        return t.flip(-1)
+    if "_ffn_fc_1.w_0" in name:
+        return t.flip(0)
+    if "_output_fc.w_0" in name:
+        return t.reshape(nh, dh, -1).flip(0).reshape(t.shape)
+    if any("_%s_fc." % k in name for k in ("query", "key", "value")):
+        return t.reshape(*t.shape[:-1], nh, dh).flip(-2).reshape(t.shape)
+    return t
+
+
+def _rel_l2(a, b):
+    """||a - b|| / ||b|| in float64 (0 where both are 0)."""
+    a, b = a.double(), b.double()
+    nb = float(b.norm())
+    d = float((a - b).norm())
+    return d / nb if nb > 0 else (0.0 if d == 0 else math.inf)
+
+
+def _ulp_rel_l2(t):
+    """One unit in the last place of ``t``'s largest element, as a
+    relative L2 distance from ``t``: the least gap two roundings of it can
+    show (a twin may round to the same bits)."""
+    import numpy as np
+
+    a = t.detach().float().abs().max().cpu().numpy()
+    nb = float(t.detach().double().norm())
+    return float(np.spacing(a)) / nb if nb > 0 else 0.0
+
+
+def _p55_leaf_yardsticks(got, want, twins, names):
+    """Each leaf's gap (relative L2 from ``want``) over its own yardstick:
+    the largest gap of any of the one-rank ``twins`` ({kind: leaves}, the
+    same function computed in another order) from ``want``, and at least
+    one unit in the last place of the leaf.  The worst leaves first."""
+    rows = []
+    for i, name in enumerate(names):
+        gap = _rel_l2(got[i], want[i])
+        yards = {k: _rel_l2(t[i], want[i]) for k, t in twins.items()}
+        yard = max(max(yards.values()), _ulp_rel_l2(want[i]))
+        rows.append({"leaf": name, "gap": gap, "yardstick": yard,
+                     "ratio": gap / yard if yard > 0 else math.inf,
+                     **{"yardstick_" + k: v for k, v in yards.items()}})
+    rows.sort(key=lambda r: -r["ratio"])
+    ratios = sorted(r["ratio"] for r in rows)
+    return {"leaves": len(rows), "ratio_max": rows[0]["ratio"],
+            "ratio_median": ratios[len(ratios) // 2],
+            "ratio_min": ratios[0], "worst": rows[:4]}
+
+
+def _p55_flip_labels(feed, cfg):
+    """The feed for ``_p55_flip_units``' parameters: each label's class
+    reversed."""
+    return dict(feed, labels=cfg.vocab - 1 - feed["labels"])
+
+
+def _p55_whole_differ(scope, names):
+    """The whole (not tp-split) persistables that differ from rank 0's."""
+    return _pdp_replicas_differ(scope, [n for n in names
+                                        if scope.split(n) is None])
+
+
+def _p55_tp_encoder(rank, world, device, args):
+    """(a) The Fluid-layers BERT-base encoder with the Megatron marks at
+    tp = ``world``: a watched step at dropout 0.1 (collectives, the masks
+    gathered) and a timed one; the fallback's gathers; the whole leaves
+    bit for bit on both ranks.  Rank 0 runs the one-rank (tp = 1) program
+    from the same state on the same batch: the masks bit for bit, the loss
+    terms.  Then at dropout 0 the first loss against the one-rank step's
+    in yardsticks (its own gap on the rows permuted), and every gathered
+    gradient, the yardstick the larger of that gap and of the one-rank
+    step's with every split axis reversed (``_p55_flip_units``: the FFN
+    units, heads and classes, so the contraction order of the products the
+    split cuts, which a row permutation does not change), each leaf
+    against its own yardstick."""
+    import numpy as np
+
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.kernels import _common
+    from paddle_tpu_torch.parallel import model_axes
+    from paddle_tpu_torch.tools.programs import (bert_encoder_program,
+                                                 encoder_feed)
+
+    cfg = args["enc_cfg"]
+    place = _pdp_place(device)
+    on_card = torch.device(device).type == "cuda"
+    feeds = [encoder_feed(cfg, P55_FEED_SEED + k) for k in range(2)]
+
+    def build(c):
+        main, startup, v = bert_encoder_program(fluid, c, tp_split=True)
+        bs = fluid.BuildStrategy()
+        bs.tensor_parallel_degree = world
+        return main, startup, v, fluid.CompiledProgram(
+            main).with_data_parallel(loss_name=v["loss"].name,
+                                     build_strategy=bs)
+
+    out = {}
+    main, startup, v, prog = build(cfg)
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    exe.run(startup, scope=scope)
+    names = sorted(x.name for x in startup.list_vars() if x.persistable)
+    params = [p.name for p in main.global_block().all_parameters()]
+    init = _pdp_state(scope, names)
+    ops = main.global_block().ops
+    masks = [op.outputs["Mask"][0] for op in ops if op.type == "dropout"]
+    terms = next(op.outputs["Loss"][0] for op in ops
+                 if op.type == "softmax_with_cross_entropy")
+    model_axes.reset_counts()
+    steps = []
+    for k, feed in enumerate(feeds):
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        step = exe._step
+        fetch = [v["loss"]] + ([terms] + masks if k == 0 else [])
+        w = _DpWatch(device)
+        _common.reset_launches()
+        with w if k == 0 else contextlib.nullcontext():
+            _sync(device)
+            t0 = time.perf_counter()
+            got = exe.run(prog, feed=feed, fetch_list=fetch, scope=scope,
+                          return_numpy=False)
+            _sync(device)
+            rec = {"step": k, "kind": ("watched", "timed")[k],
+                   "ms": (time.perf_counter() - t0) * 1e3,
+                   "loss": float(got[0]),
+                   "launches": {n: c for n, c in _common.launches.items()
+                                if c}}
+        if k == 0:
+            rec.update(collective_ms=w.seconds * 1e3,
+                       collective_calls=w.calls, collective_bytes=w.bytes)
+        if on_card:
+            rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if k == 0 and rank == 0:
+            rmain, _, rv = bert_encoder_program(fluid, cfg, tp_split=True)
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            ref = _pdp_one_rank(place, rmain, init, step, feed,
+                                [rv["loss"], terms] + masks)
+            if on_card:
+                out["one_rank_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            rec["masks"] = len(masks)
+            rec["masks_bit_for_bit"] = all(
+                _same_tensor_bits(a, b) for a, b in zip(got[2:], ref[2:]))
+            rec["mask_keep_share"] = float(got[2].float().mean())
+            rec["loss_one_rank"] = float(ref[0])
+            rec["loss_err"] = abs(rec["loss"] - rec["loss_one_rank"])
+            rec["loss_bound"] = _pdp_loss_bound(got[1], ref[1], rec["loss"],
+                                                float(ref[0]), 1)
+            del ref
+        del got
+        dist.barrier()
+        steps.append(rec)
+    out["steps"] = steps
+    out["counts"] = model_axes.counts()
+    out["split_leaf_bytes"] = {
+        n: scope.find_var(n).numel() * scope.find_var(n).element_size()
+        for n in names if scope.split(n) is not None}
+    out["split_leaves"] = len(out["split_leaf_bytes"])
+    out["whole_differ"] = _p55_whole_differ(scope, names)
+    del exe, scope
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the first loss and the gradient at dropout 0 (a row permutation
+    # moves no mask), gathered whole
+    c0 = cfg._replace(dropout=0.0)
+    main0, startup0, v0, prog0 = build(c0)
+    exe0, scope0 = fluid.Executor(place), fluid.Scope()
+    for n in names:
+        scope0.var(n)
+        scope0.set(n, init[n].clone())
+    gnames = [p + "@GRAD" for p in params]
+    step = exe0._step
+    model_axes.reset_counts()
+    _common.reset_launches()
+    got = exe0.run(prog0, feed=feeds[0], fetch_list=[v0["loss"]] + gnames,
+                   scope=scope0, return_numpy=False)
+    out["grad_step_counts"] = model_axes.counts()
+    out["grad_step_launches"] = {n: c for n, c in _common.launches.items()
+                                 if c}
+    del exe0, scope0
+    if rank == 0:
+        rmain, _, rv = bert_encoder_program(fluid, c0, tp_split=True)
+        perm = np.random.RandomState(1).permutation(cfg.batch)
+        one = _pdp_one_rank(place, rmain, init, step, feeds[0],
+                            [rv["loss"]] + gnames)
+        onep = _pdp_one_rank(place, rmain, init, step,
+                             {k: a[perm] for k, a in feeds[0].items()},
+                             [rv["loss"]] + gnames)
+        held = [i for i, p in enumerate(params)
+                if not p.endswith("_key_fc.b_0")]
+        pick = lambda gs: [gs[i] for i in held]
+        hn = [params[i] for i in held]
+        loss, loss_one, loss_perm = (float(got[0]), float(one[0]),
+                                     float(onep[0]))
+        out["loss0"] = {"loss": loss, "loss_one_rank": loss_one,
+                        "loss_rows_permuted": loss_perm,
+                        "err": abs(loss - loss_one),
+                        "yardstick": _p55_loss_yardstick(loss_one,
+                                                         loss_perm)}
+        # the contraction order: the FFN units and heads reversed
+        flipped = {n: _p55_flip_units(n, t, cfg) for n, t in init.items()}
+        oneu = _pdp_one_rank(place, rmain, flipped, step,
+                             _p55_flip_labels(feeds[0], cfg),
+                             [rv["loss"]] + gnames)
+        del flipped
+        unflip = [float(oneu[0])] + [_p55_flip_units(p, g, cfg)
+                                     for p, g in zip(params, oneu[1:])]
+        out["grad"] = _grad_gap(pick(got[1:]), pick(one[1:]), 1, hn)
+        out["grad_by_leaf"] = _p55_leaf_yardsticks(
+            pick(got[1:]), pick(one[1:]),
+            {"rows": pick(onep[1:]), "reversed": pick(unflip[1:])}, hn)
+        out["loss0"]["loss_reversed"] = unflip[0]
+        out["control_tp_times_grad"] = _p55_leaf_yardsticks(
+            [g * world for g in pick(got[1:])], pick(one[1:]),
+            {"rows": pick(onep[1:]), "reversed": pick(unflip[1:])}, hn)
+        del oneu, unflip, one, onep
+    del got, init
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _p55_segment_bound(ids, vals, height, rows, out):
+    """The kernel's merged rows against ``segsum_plain``'s on the same
+    inputs: the row ids equal, each merged value within the bound of two
+    f32 sums of its run in any order (2 gamma(run length) times the run's
+    absolute sum, from float64): (rows equal, max err over bound)."""
+    from paddle_tpu_torch.kernels.segment_update import segsum_plain
+
+    p_rows, p_out = segsum_plain(ids, vals, height)
+    ones = torch.ones(ids.shape[0], 1, dtype=torch.float64, device=ids.device)
+    _, count = segsum_plain(ids, ones, height)
+    _, absum = segsum_plain(ids, vals.double().abs(), height)
+    u = 2.0 ** -24
+    g = count * u / (1 - count * u)
+    bound = 2 * g * absum + 2.0 ** -149
+    ratio = float(((out.double() - p_out.double()).abs() / bound).max())
+    return bool(torch.equal(rows, p_rows)), ratio
+
+
+def _p55_deepfm(rank, world, device, args):
+    """(b) DeepFM at config 5 with both tables row-sharded over the two
+    ranks (``build_deepfm_trainer(mesh=...)``: 500,000 rows of each table
+    and 4096 rows of the batch a rank), P55_DFM_STEPS SGD steps at lr 1:
+    each step's segment-sum launches a rank, every call held against its
+    plain version.  Before each step the ranks take the sharded loss's
+    table gradients from the same state (``deepfm_loss_sharded``), and the
+    step's table update must be that gradient's SGD update bit for bit.
+    Rank 0 gathers the state and the gradients: the loss against the
+    one-rank segment trainer's, in yardsticks (the larger of its gap on
+    the batch's rows permuted and of its float64 twin's), and each table's
+    gradient against the one-rank loss's (``deepfm_loss``), in yardsticks:
+    the larger of that gradient's gap on the batch's rows permuted and of
+    its gap when taken as the mean of the batch's two halves (its products
+    at the 4096 rows a rank runs, the shapes the sharding changes).  The
+    gradient, not the update: an f32 update of a 0.01-sized weight keeps
+    few bits of a ~1e-6 step, so gradients a unit in their last place
+    apart round to updates far more apart.  Reported, not held: the
+    sharded gradient against the two-halves one and against the float64
+    twin's."""
+    import dataclasses
+
+    import numpy as np
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch._tree import tree_map
+    from paddle_tpu_torch.kernels import _common
+    from paddle_tpu_torch.models import deepfm
+    from paddle_tpu_torch.parallel import collectives as col
+    from paddle_tpu_torch.parallel import embedding as pemb
+    from paddle_tpu_torch.parallel.mesh import DP, make_mesh
+    from paddle_tpu_torch.parallel.rules import P
+    from paddle_tpu_torch.parallel.train import (gather_pytree, grads_of,
+                                                 shard_batch)
+
+    cfg, B = args["dfm_cfg"], args["dfm_batch"]
+    cfg64 = dataclasses.replace(cfg, dtype="float64")
+    tables = ("embed", "w_linear")
+    mesh = make_mesh(dp=world, device=device)
+    specs = deepfm.deepfm_param_specs(cfg, DP)
+    tr = deepfm.build_deepfm_trainer(
+        cfg, device=device, mesh=mesh, params=deepfm.init_deepfm_params(
+            torch.Generator().manual_seed(0), cfg, device))
+    segment = deepfm.make_step_variants(cfg, P55_DFM_LR)["segment"]
+    calls = []
+    plain_call = pemb.dedup_segment_sum
+
+    def recorded(ids, vals, height):
+        r, o = plain_call(ids, vals, height)
+        calls.append((ids.clone(), vals.clone(), height, r.clone(),
+                      o.clone()))
+        return r, o
+
+    def sharded_grads(batch):
+        local = shard_batch(mesh, {n: P(DP) for n in batch}, batch)
+        with mesh:
+            _, g = grads_of(lambda p: deepfm.deepfm_loss_sharded(
+                p, local, cfg, DP), tr.state["params"])
+        return {t: g[t] for t in tables}
+
+    def one_rank_grads(params, batch, c=cfg):
+        loss, g = grads_of(lambda p: deepfm.deepfm_loss(p, batch, c), params)
+        return float(loss), {t: g[t] for t in tables}
+
+    def halves_grads(params, batch):
+        """The mean of the two halves' mean losses (the global mean): its
+        products at a rank's rows."""
+        h = [{n: a[i * (B // 2):(i + 1) * (B // 2)] for n, a in batch.items()}
+             for i in range(2)]
+        _, g = grads_of(lambda p: 0.5 * (deepfm.deepfm_loss(p, h[0], cfg)
+                                         + deepfm.deepfm_loss(p, h[1], cfg)),
+                        params)
+        return {t: g[t] for t in tables}
+
+    steps = []
+    for k in range(P55_DFM_STEPS):
+        b = deepfm.synthetic_batch(cfg, B, seed=P55_FEED_SEED + k)
+        batch = {n: torch.from_numpy(a).to(device) for n, a in b.items()}
+        whole = gather_pytree(_clone(tr.state["params"]), specs, mesh)
+        old = {t: tr.state["params"][t].clone() for t in tables}
+        g_s = sharded_grads(batch)
+        calls.clear()
+        _common.reset_launches()
+        pemb.dedup_segment_sum = recorded
+        try:
+            _sync(device)
+            t0 = time.perf_counter()
+            loss = float(tr.step(batch, P55_DFM_LR))
+            _sync(device)
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            pemb.dedup_segment_sum = plain_call
+        rec = {"step": k, "ms": ms, "loss": loss,
+               "launches": {n: c for n, c in _common.launches.items() if c},
+               "segment_calls": len(calls),
+               "segment_shapes": [list(c[1].shape) for c in calls]}
+        held = [_p55_segment_bound(*c) for c in calls]
+        rec["segment_rows_equal"] = all(h[0] for h in held)
+        rec["segment_err_over_bound"] = max(h[1] for h in held)
+        calls.clear()
+        rec["update_is_the_gradients"] = all(torch.equal(
+            tr.state["params"][t], old[t] - P55_DFM_LR * g_s[t])
+            for t in tables)
+        g_whole = {t: col.backend_all_gather(g_s[t].contiguous(),
+                                             mesh.groups[DP], 0)
+                   for t in tables}
+        del old, g_s
+        if rank == 0:
+            _, l_one = segment(whole, batch)
+            perm = torch.from_numpy(np.random.RandomState(k).permutation(
+                B)).to(device)
+            pbatch = {n: a[perm] for n, a in batch.items()}
+            _, l_perm = segment(whole, pbatch)
+            g_half = halves_grads(whole, batch)
+            _, g_one = one_rank_grads(whole, batch)
+            _, g_perm = one_rank_grads(whole, pbatch)
+            w64 = tree_map(lambda t: t.double(), whole)
+            l64, g64 = one_rank_grads(w64, batch, cfg64)
+            del w64
+            rec["loss_one_rank"] = float(l_one)
+            rec["loss_err"] = abs(loss - float(l_one))
+            rec["loss_yardstick"] = max(
+                _p55_loss_yardstick(float(l_one), float(l_perm)),
+                abs(l64 - float(l_one)))
+            for t in tables:
+                rec[t + "_grad"] = _p55_leaf_yardsticks(
+                    [g_whole[t]], [g_one[t]],
+                    {"rows": [g_perm[t]], "halves": [g_half[t]]}, [t])
+                rec[t + "_grad_from_halves"] = _rel_l2(g_whole[t], g_half[t])
+                rec[t + "_grad_from_f64"] = _rel_l2(g_whole[t], g64[t])
+                rec[t + "_one_rank_from_f64"] = _rel_l2(g_one[t], g64[t])
+            del g_one, g_perm, g64, g_half, perm, pbatch
+        del g_whole, whole
+        dist.barrier()
+        steps.append(rec)
+    return {"steps": steps,
+            "table_rows_a_rank": tr.state["params"]["embed"].shape[0],
+            "batch_rows_a_rank": B // world}
+
+
+def _p55_local_sgd(rank, world, device, args):
+    """(c) Local SGD on BERT-base (bf16, published widths) at dp = 2, 8 rows
+    a rank: LAMB at k = 2 for four steps, the replicas (every parameter,
+    gathered) different after steps 1 and 3 and equal bit for bit after 2
+    and 4; then at k = 1 with SGD one step against ``make_train_step``'s
+    sync dp step (its loss the exact-gradient global mean) from the same
+    state: each parameter's update in yardsticks (the sync step's own gap on
+    the batch's rows permuted)."""
+    import numpy as np
+
+    from paddle_tpu_torch._tree import tree_leaves
+    from paddle_tpu_torch.kernels import _common
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.parallel import MeshSpec, optim
+    from paddle_tpu_torch.parallel import collectives as col
+    from paddle_tpu_torch.parallel.local_sgd import (
+        make_local_sgd_train_step, stack_local_state)
+    from paddle_tpu_torch.parallel.mesh import DP, make_mesh
+    from paddle_tpu_torch.parallel.rules import leaf_paths
+    from paddle_tpu_torch.parallel.train import TrainState, make_train_step
+    from paddle_tpu_torch.parallel.transformer import (
+        grad_sync_axes, init_transformer_params, transformer_param_specs)
+
+    cfg = bert.bert_base_config(**args["bert_kw"])
+    mesh = MeshSpec(dp=world).build(device=device)
+    alone = make_mesh(device=device)
+    bert_loss = bert.make_loss_fn(cfg)
+
+    def local_loss(p, b):           # this replica's own mean: no collective
+        with alone:
+            return bert_loss(p, b)
+
+    def sync_loss(p, b):            # the global mean, exact gradients
+        n = b["mask"].float().sum()
+        return col.global_mean_loss(local_loss(p, b) * n,
+                                    col.psum(n.detach(), DP), DP)
+
+    start = init_transformer_params(torch.Generator().manual_seed(0), cfg,
+                                    device=device)
+    pspecs = transformer_param_specs(cfg)
+    syncs = grad_sync_axes(cfg)
+    bspecs = bert.batch_specs()
+    batches = [{k: torch.from_numpy(v).to(device) for k, v in b.items()}
+               for b in bert.synthetic_batches(cfg, P55_LSGD["steps"],
+                                               P55_LSGD["batch"],
+                                               args["seq"])]
+
+    def replicas_equal(params):
+        return all(_same_tensor_bits(*col.backend_all_gather(
+            t.reshape(1, -1), mesh.groups[DP], 0).unbind(0))
+            for t in tree_leaves(params))
+
+    out = {"lamb": []}
+    opt = optim.lamb()
+    build = make_local_sgd_train_step(local_loss, mesh, pspecs, syncs, opt,
+                                      bspecs, local_steps=P55_LSGD["k"])
+    state = stack_local_state(TrainState.create(_clone(start), opt), world)
+    step_fn, _ = build(state)
+    for i, b in enumerate(batches):
+        _common.reset_launches()
+        _sync(device)
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, b, P55_LSGD["lr"])
+        _sync(device)
+        out["lamb"].append({
+            "step": i + 1, "ms": (time.perf_counter() - t0) * 1e3,
+            "loss": float(loss),
+            "launches": {n: c for n, c in _common.launches.items() if c},
+            "replicas_equal": replicas_equal(state["params"])})
+    del state, step_fn
+    # k = 1, SGD, in f32 (the replicas' bf16 roundings before the average
+    # would swamp an update): Local SGD against the sync dp step, each
+    # parameter's update held to the larger of the sync step's own gap on
+    # the batch's rows permuted and one unit in the last place of the
+    # parameters it writes
+    cfg32 = bert.bert_base_config(**{**args["bert_kw"], "dtype": "float32"})
+    bert32 = bert.make_loss_fn(cfg32)
+
+    def local32(p, b):
+        with alone:
+            return bert32(p, b)
+
+    def sync32(p, b):
+        n = b["mask"].float().sum()
+        return col.global_mean_loss(local32(p, b) * n,
+                                    col.psum(n.detach(), DP), DP)
+
+    start = init_transformer_params(torch.Generator().manual_seed(0), cfg32,
+                                    device=device)
+    sgd, lr, b = optim.sgd(), P55_LSGD["sgd_lr"], batches[0]
+    state = stack_local_state(TrainState.create(_clone(start), sgd), world)
+    step_fn, _ = make_local_sgd_train_step(
+        local32, mesh, pspecs, syncs, sgd, bspecs, local_steps=1)(state)
+    local, _ = step_fn(state, b, lr)
+    sync_step = make_train_step(sync32, mesh, pspecs, syncs, sgd,
+                                bspecs)(None)
+    synced, _ = sync_step(TrainState.create(_clone(start), sgd), b, lr)
+    perm = torch.from_numpy(np.random.RandomState(3).permutation(
+        P55_LSGD["batch"])).to(device)
+    permuted, _ = sync_step(TrainState.create(_clone(start), sgd),
+                            {k: v[perm] for k, v in b.items()}, lr)
+    leaves = []
+    for name, p0, a, c, q in zip(
+            leaf_paths(start)[0], tree_leaves(start),
+            tree_leaves(local["params"]), tree_leaves(synced["params"]),
+            tree_leaves(permuted["params"])):
+        want = (c.double() - p0.double())
+        nw = float(want.norm())
+        ulp = float(torch.from_numpy(np.spacing(np.abs(
+            c.detach().cpu().numpy()))).double().norm()) / nw
+        gap = float((a.double() - c.double()).norm()) / nw
+        yard = max(float((q.double() - c.double()).norm()) / nw, ulp)
+        leaves.append((gap / yard, name, gap, yard))
+    leaves.sort()
+    out["k1_sgd"] = {
+        "leaves": len(leaves), "ratio_max": leaves[-1][0],
+        "ratio_max_leaf": leaves[-1][1], "gap_at_max": leaves[-1][2],
+        "yardstick_at_max": leaves[-1][3],
+        "ratio_median": leaves[len(leaves) // 2][0],
+        "replicas_equal": replicas_equal(local["params"])}
+    return out
+
+
+def _p55_rank(rank, world, endpoint, results, args):
+    """One rank of phase 55, in a spawned process: ``fleet.init()`` from a
+    launcher's PADDLE_* env with gloo (both ranks on card 0), then (a), (b)
+    and (c); its records go on ``results``."""
+    import os
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import fleet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update({
+        "PADDLE_TRAINER_ID": str(rank), "PADDLE_TRAINERS_NUM": str(world),
+        "PADDLE_TRAINER_ENDPOINTS": endpoint,
+        "PADDLE_CURRENT_ENDPOINT": endpoint, "PADDLE_DISTRI_BACKEND": "gloo",
+        "FLAGS_selected_gpus": "0",
+        "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    device = fleet.init(
+        device=None if args["device"] == "cuda" else args["device"]).device
+    try:
+        res = {"rank": rank, "backend": dist.get_backend()}
+        t0 = time.perf_counter()
+        res["tp_encoder"] = _p55_tp_encoder(rank, world, device, args)
+        res["tp_encoder"]["seconds"] = time.perf_counter() - t0
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res["sharded_deepfm"] = _p55_deepfm(rank, world, device, args)
+        res["sharded_deepfm"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["local_sgd"] = _p55_local_sgd(rank, world, device, args)
+        res["local_sgd"]["seconds"] = time.perf_counter() - t0
+        results.put(res)
+    finally:
+        dist.destroy_process_group()
+
+
+def _p55_verdict(got, world, on_card):
+    """The problems in the ranks' records."""
+    bad = []
+    seg = {"segment_sum": 2}
+    for rank in range(world):
+        enc, dfm, ls = (got[rank][k] for k in
+                        ("tp_encoder", "sharded_deepfm", "local_sgd"))
+        where = "rank %d" % rank
+        if enc["whole_differ"]:
+            bad.append("%s encoder whole leaves differ %s"
+                       % (where, enc["whole_differ"][:3]))
+        for key in ("counts", "grad_step_counts"):
+            if enc[key]["activation_gathers"] or enc[key]["fallback_gathers"]:
+                bad.append("%s encoder fallback gathers %s" % (where,
+                                                               enc[key]))
+        # program mode runs no LN or flash kernel: nothing launches
+        for launched in [st["launches"] for st in enc["steps"]] + [
+                enc["grad_step_launches"]]:
+            if launched:
+                bad.append("%s encoder launches %s" % (where, launched))
+        if not all(math.isfinite(s["loss"]) for s in enc["steps"]):
+            bad.append("%s encoder losses %s" % (where, enc["steps"]))
+        for st in dfm["steps"]:
+            if on_card and st["launches"] != seg:
+                bad.append("%s deepfm step %d launches %s" % (
+                    where, st["step"], st["launches"]))
+            if not st["update_is_the_gradients"]:
+                bad.append("%s deepfm step %d table update is not the "
+                           "sharded gradients'" % (where, st["step"]))
+            if st["segment_calls"] != 2 or not st["segment_rows_equal"] or \
+                    st["segment_err_over_bound"] > 1:
+                bad.append("%s deepfm step %d segment calls %d, rows %s, "
+                           "err/bound %s" % (where, st["step"],
+                                             st["segment_calls"],
+                                             st["segment_rows_equal"],
+                                             st["segment_err_over_bound"]))
+        for st in ls["lamb"]:
+            want = st["step"] % P55_LSGD["k"] == 0
+            if st["replicas_equal"] != want or not math.isfinite(st["loss"]):
+                bad.append("%s local SGD step %d replicas equal %s" % (
+                    where, st["step"], st["replicas_equal"]))
+            if on_card and st["launches"] != PER_STEP:
+                bad.append("%s local SGD step %d launches %s" % (
+                    where, st["step"], st["launches"]))
+        if not ls["k1_sgd"]["replicas_equal"]:
+            bad.append("%s local SGD k=1 replicas differ" % where)
+    enc = got[0]["tp_encoder"]
+    st = enc["steps"][0]
+    if not st["masks_bit_for_bit"] or st["loss_bound"]["err_over_bound"] > 1:
+        bad.append("encoder masks %s, loss %s" % (st["masks_bit_for_bit"],
+                                                  st["loss_bound"]))
+    l0 = enc["loss0"]
+    if not l0["err"] <= P55_LIMIT * l0["yardstick"]:
+        bad.append("encoder first loss %s over %s x %s" % (
+            l0["err"], P55_LIMIT, l0["yardstick"]))
+    by_leaf = enc["grad_by_leaf"]
+    if not by_leaf["ratio_max"] <= P55_LIMIT:
+        bad.append("encoder gradient leaves over %s yardsticks: %s" % (
+            P55_LIMIT, by_leaf["worst"]))
+    if not enc["control_tp_times_grad"]["ratio_median"] > P55_LIMIT:
+        bad.append("encoder control (tp times) within %s yardsticks: %s"
+                   % (P55_LIMIT, enc["control_tp_times_grad"]))
+    for st in got[0]["sharded_deepfm"]["steps"]:
+        if not st["loss_err"] <= P55_LIMIT * st["loss_yardstick"]:
+            bad.append("deepfm step %d loss %s over %s x %s" % (
+                st["step"], st["loss_err"], P55_LIMIT, st["loss_yardstick"]))
+        for t in ("embed", "w_linear"):
+            if not st[t + "_grad"]["ratio_max"] <= P55_LIMIT:
+                bad.append("deepfm step %d %s gradient over %s yardsticks: "
+                           "%s" % (st["step"], t, P55_LIMIT,
+                                   st[t + "_grad"]["worst"]))
+    k1 = got[0]["local_sgd"]["k1_sgd"]
+    if not k1["ratio_max"] <= P55_LIMIT:
+        bad.append("local SGD k=1 update of %s at %s yardsticks" % (
+            k1["ratio_max_leaf"], k1["ratio_max"]))
+    return bad
+
+
+def phase_p55_dryrun(device="cuda", n=P55_WORLD):
+    """(d) ``python -m paddle_tpu_torch.tools.dryrun N --device cuda``: exit
+    0 and the reference's lines (the mesh, the BERT step, the MoE step and
+    the tp_split program with kReduce; ZeRO needs dp > 1)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "paddle_tpu_torch.tools.dryrun",
+                        str(n), "--device", device], capture_output=True,
+                       text=True, timeout=400)
+    lines = r.stdout.splitlines()
+    want = ["dryrun mesh:", "dp/pp/tp/sp train step OK",
+            "ep (MoE all_to_all) step OK", "program-path dp="]
+    ok = r.returncode == 0 and all(any(ln.startswith(w) for ln in lines)
+                                   for w in want)
+    emit({"phase": "tp_tables_dryrun", "n": n, "device": device,
+          "rc": r.returncode, "lines": lines, "ok": ok,
+          "seconds": time.perf_counter() - t0})
+    if not ok:
+        raise AssertionError("phase 55 (d): dryrun rc %d\n%s" % (
+            r.returncode, (r.stdout + r.stderr)[-4000:]))
+
+
+def phase_p55_capacity(device="cuda"):
+    """(e) The embedding router's capacity guard reads the card's total
+    memory (unless a budget is configured); past it, with
+    ``use_host_sparse_table`` on, the table raises naming item 7, and with
+    it off the capacity error naming the host parameter server."""
+    from paddle_tpu_torch.monitor import memscope
+    from paddle_tpu_torch.parallel import embedding as pemb
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    configured = memscope._configured_limit()
+    budget = pemb._hbm_bytes_per_chip()
+    rows = int(budget * 0.6 / (16 * 4)) * 2          # twice the table budget
+    gen = torch.Generator().manual_seed(0)
+    raised = {}
+    for on in (False, True):
+        pemb.enable_host_sparse_table(on)
+        try:
+            pemb.init_embedding_table(gen, rows, 16, 1, device=device)
+            raised[on] = None
+        except (ValueError, NotImplementedError) as e:
+            raised[on] = (type(e).__name__, str(e))
+        finally:
+            pemb.enable_host_sparse_table(False)
+    ok = ((configured is not None or budget == total)
+          and raised[False] is not None and raised[False][0] == "ValueError"
+          and "host-RAM parameter-server" in raised[False][1]
+          and raised[True] is not None
+          and raised[True][0] == "NotImplementedError"
+          and "item 7" in raised[True][1])
+    emit({"phase": "tp_tables_capacity", "card_total_memory": total,
+          "configured_limit": configured, "budget_per_card": budget,
+          "table_rows_tried": rows, "dim": 16,
+          "flag_off": raised[False], "flag_on": raised[True], "ok": ok})
+    if not ok:
+        raise AssertionError("phase 55 (e): %s" % raised)
+
+
+def phase_tp_tables_two_ranks(device_name, card, device="cuda", args=None):
+    """Phase 55: item 5-C′ over two gloo ranks sharing the one card, each a
+    spawned process joining through ``fleet.init()``.  (a) The Fluid-layers
+    BERT-base encoder with the Megatron marks (``bert_encoder_program(
+    tp_split=True)``: 12 x 768, 12 heads, FFN 3072, S = 512, vocab 30528,
+    f32, Adam 1e-4, dropout 0.1, global B = P55_ENC_BATCH) at tp = 2 through
+    ``CompiledProgram(...).with_data_parallel`` (``tensor_parallel_degree
+    = 2``): zero fallback gathers, the whole leaves bit for bit on both
+    ranks, the dropout masks bit for bit the one-rank (tp = 1) run's, the
+    loss within its derived bound; at dropout 0 the first loss and every
+    gathered gradient within P55_LIMIT yardsticks of the one-rank step's (a
+    row permutation's gap), tp times the gradient outside.  (b) DeepFM at
+    config 5 with its tables row-sharded (``_p55_deepfm``): 2 segment-sum
+    launches a rank a step, each call within its derived bound of the plain
+    version; losses and table updates in yardsticks of the one-rank
+    segment trainer's.  (c) Local SGD on BERT-base (``_p55_local_sgd``).
+    Then (d) the dryrun at N = 2 on the card and (e) the capacity guard.
+    Reports ms a step, collective ms, calls and bytes, peak GB a rank
+    against the one-rank peak, each split leaf's bytes.  Returns the port
+    kernels' launches a rank a step by part."""
+    import multiprocessing as mp
+    import queue
+
+    args = dict(args or _p55_args(), device=device)
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    endpoint = "127.0.0.1:%d" % _free_port()
+    procs = [ctx.Process(target=_p55_rank,
+                         args=(r, P55_WORLD, endpoint, results, args))
+             for r in range(P55_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        deadline = time.monotonic() + P55_TIMEOUT_S
+        while len(got) < P55_WORLD:
+            try:
+                res = results.get(timeout=5)
+                got[res["rank"]] = res
+            except queue.Empty:
+                codes = [p.exitcode for p in procs]
+                if any(c not in (None, 0) for c in codes):
+                    raise AssertionError("phase 55: a rank failed, exit codes "
+                                         "%s" % codes)
+                if time.monotonic() > deadline:
+                    raise AssertionError("phase 55: no result in %d s"
+                                         % P55_TIMEOUT_S)
+        for p in procs:
+            p.join(120)
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * P55_WORLD:
+            raise AssertionError("phase 55: exit codes %s" % codes)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(30)
+    on_card = torch.device(device).type == "cuda"
+    bad = _p55_verdict(got, P55_WORLD, on_card)
+    enc_cfg = args["enc_cfg"]
+    for rank in range(P55_WORLD):
+        emit({"phase": "tp_tables_two_ranks", "part": "a_tp_encoder",
+              "rank": rank, "world": P55_WORLD, "tp": P55_WORLD,
+              "backend": got[rank]["backend"],
+              "batch_global": enc_cfg.batch, "seq": enc_cfg.seq,
+              **got[rank]["tp_encoder"]})
+        emit({"phase": "tp_tables_two_ranks", "part": "b_sharded_deepfm",
+              "rank": rank, **got[rank]["sharded_deepfm"]})
+        emit({"phase": "tp_tables_two_ranks", "part": "c_local_sgd",
+              "rank": rank, **got[rank]["local_sgd"]})
+    seconds = time.perf_counter() - t0
+    ok = not bad
+    emit({"phase": "tp_tables_two_ranks", "nvidia_smi": card, "ok": ok,
+          "seconds": seconds, "problems": bad[:20]})
+    if not ok:
+        raise AssertionError("phase 55: %s" % bad[:20])
+    if on_card:
+        phase_p55_dryrun(device)
+        phase_p55_capacity(device)
+    emit({"phase": "tp_tables", "nvidia_smi": card,
+          "seconds": time.perf_counter() - t0})
+    return {"tp_encoder": got[0]["tp_encoder"]["steps"][-1]["launches"],
+            "sharded_deepfm": got[0]["sharded_deepfm"]["steps"][-1][
+                "launches"],
+            "local_sgd": got[0]["local_sgd"]["lamb"][-1]["launches"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -9000,6 +9837,18 @@ def main():
             mode: mp_launches[mode].get(key, 0) for mode in MP_MODES}
         rec["no_flash_launches_per_step"] = mp_one["no_flash"]["launches"].get(
             key, 0)
+    torch.cuda.empty_cache()
+    _common.reset_launches()
+    p55 = phase_tp_tables_two_ranks(name, card)
+    assert_no_launches("phase 55's parent process")
+    for rec in kernels:
+        key = {"flash_attention_bwd_dq": "flash_attention_bwd",
+               "flash_attention_bwd_dkv": "flash_attention_bwd"}.get(
+                   rec["name"], rec["name"])
+        rec["phase55_launches_per_rank_step"] = {
+            "tp_encoder": p55["tp_encoder"].get(key, 0),
+            "sharded_deepfm": p55["sharded_deepfm"].get(key, 0),
+            "local_sgd": p55["local_sgd"].get(key, 0)}
     for rec in kernels:
         if rec["name"] == "segment_sum":
             rec["ctr_dataset_launches_per_step"] = ctr_per_step

@@ -18,8 +18,19 @@ As in the reference, ``places`` is recorded and not used (more than one
 place in a process outside a world warns once: one process drives one
 card); ``num_trainers``, ``trainer_id``, ``gradient_scale_strategy`` and
 ``sync_batch_norm`` are recorded and change nothing (every batch reduction
-is already global), nor do the knobs that name fusions or memory passes.  A
-tensor-parallel degree above 1 raises, naming item 5-C.
+is already global), nor do the knobs that name fusions or memory passes.
+
+Tensor parallelism (``tensor_parallel_degree = tp``, in a BuildStrategy or a
+fleet ``DistributedStrategy``) lays the world out as the reference lays its
+devices, ``reshape(-1, tp)`` over (data, model): the mesh is
+``make_mesh(dp=world // tp, tp=tp)``, rank = d * tp + t.  The weights that
+``layers.fc`` / ``layers.embedding(tp_split=...)`` marked, and the optimizer
+accumulators that carry the mark, are held as this rank's block of their
+split dim (``_tp_specs``, through ``rules.tp_split_specs``: "col" the last
+dim, "row" the first; a dim that does not divide stays whole, and a split
+accumulator ignores kReduce), and the executor runs the program through the
+model-axis table (``parallel/model_axes.py``) behind the batch-axis one;
+the data axis is the mesh's dp group.
 """
 
 import warnings
@@ -30,8 +41,6 @@ import torch.distributed as dist
 
 __all__ = ["CompiledProgram", "BuildStrategy", "ExecutionStrategy",
            "is_data_parallel"]
-
-_TENSOR_PARALLEL = "ROADMAP Queue 1 item 5-C, tensor parallelism"
 
 
 class BuildStrategy:
@@ -61,6 +70,8 @@ class BuildStrategy:
         self.nccl_comm_num = 1
         self.use_hierarchical_allreduce = False
         self.hierarchical_allreduce_inter_nranks = 0
+        # tensor parallelism over the mesh's model axis: layers.fc /
+        # layers.embedding mark their weights with tp_split
         self.tensor_parallel_degree = 1
 
 
@@ -74,21 +85,47 @@ class ExecutionStrategy:
 
 
 class _ShardingInfo:
-    """One data-parallel run's layout over the mesh's data axis: this rank's
-    rows of the global batch, the fetch gather and the kReduce state set
-    (the JAX ``_ShardingInfo``'s in_shardings, ``shard_feed`` and
-    ``shard_state_names``)."""
+    """One data-parallel run's layout over the mesh: this rank's rows of
+    the global batch over the data axis, the fetch gather and the kReduce
+    state set (the JAX ``_ShardingInfo``'s in_shardings, ``shard_feed`` and
+    ``shard_state_names``), and the tensor-parallel split of the marked
+    vars over the model axis (``tp_specs``: var name -> split dim)."""
 
-    def __init__(self, mesh, data_axis=None, shard_state_names=()):
-        from .parallel.mesh import DP
+    def __init__(self, mesh, data_axis=None, shard_state_names=(),
+                 tp_specs=None):
+        from .parallel.mesh import DP, PP, TP, WORLD
 
         self.mesh = mesh
         self.data_axis = data_axis or DP
         self.n = mesh.shape[self.data_axis]
         self.rank = mesh.coords[self.data_axis]
         self.group = mesh.groups.get(self.data_axis)      # None at one rank
+        self.tp = mesh.shape[TP]
+        self.tp_rank = mesh.coords[TP]
+        self.tp_group = mesh.groups.get(TP)
+        # the ranks a whole parameter's gradient sums over: the data group
+        # times the model group, those of this rank's pipeline coordinate
+        # (the world's group when the mesh has no pp axis)
+        self.world = self.n * self.tp
+        if mesh.shape[PP] == 1:
+            groups = (mesh.groups.get(WORLD),)
+        else:
+            groups = (self.group, self.tp_group)
+        self.world_groups = tuple(g for g in groups if g is not None)
+        self.tp_specs = dict(tp_specs or {})
         self.shard_state_names = frozenset(shard_state_names)
-        self.key = (self.n, self.rank, self.shard_state_names)
+        self.key = (self.n, self.rank, self.tp, self.tp_rank,
+                    self.shard_state_names,
+                    tuple(sorted(self.tp_specs.items())))
+
+    def tp_dim(self, name, shape):
+        """The dim a marked var of ``shape`` is split at over the model
+        axis, or None: unmarked, or its dim does not divide (it stays
+        whole, as the reference's guard keeps it replicated)."""
+        d = self.tp_specs.get(name)
+        if d is None or self.tp == 1 or d >= len(shape):
+            return None
+        return d if shape[d] % self.tp == 0 else None
 
     def rows(self, size):
         per = size // self.n
@@ -172,7 +209,6 @@ class CompiledProgram:
         self._places = None if places is None else list(places)
         self._mesh = mesh
         self._is_data_parallel = True
-        self._check_layout()
         if (self._places is not None and len(self._places) > 1
                 and not dist.is_initialized()):
             # the default warning filter shows it once
@@ -184,16 +220,8 @@ class CompiledProgram:
                 "fleet.init() in the script" % len(self._places), stacklevel=2)
         return self
 
-    def _check_layout(self):
-        bs = self._build_strategy
-        if int(getattr(bs, "tensor_parallel_degree", 1)) > 1:
-            raise NotImplementedError(
-                "BuildStrategy.tensor_parallel_degree = %d waits (%s)"
-                % (bs.tensor_parallel_degree, _TENSOR_PARALLEL))
-
     def _program_for_run(self):
         """The program the executor runs."""
-        self._check_layout()
         return self._program
 
     def _accumulator_names(self):
@@ -204,27 +232,66 @@ class CompiledProgram:
             cached = self._acc_cache = (self._program._version, names)
         return cached[1]
 
+    def _tp_specs(self):
+        """var name -> split dim of the ``_tp_split``-marked vars, through
+        the sharding authority (``rules.tp_split_specs`` owns the col/row
+        translation); cached per program version."""
+        from .parallel import rules as shard_rules
+        from .parallel.mesh import TP
+
+        cached = getattr(self, "_tp_specs_cache", None)
+        if cached is not None and cached[0] == self._program._version:
+            return cached[1]
+        marks = {}
+        for v in self._program.list_vars():
+            spl = getattr(v, "_tp_split", None)
+            shape = getattr(v, "shape", None)
+            if spl is None or not shape:
+                continue
+            marks[v.name] = (spl, len(shape))
+        specs = {name: list(spec).index(TP) for name, spec
+                 in shard_rules.tp_split_specs(marks, model_axis=TP).items()}
+        self._tp_specs_cache = (self._program._version, specs)
+        return specs
+
     def _sharding_info(self, device):
         """The data-parallel layout for a run on ``device``, or None for a
         program that was not made data-parallel."""
-        from .parallel.mesh import make_mesh
+        from .parallel.mesh import TP, make_mesh
 
         if not self._is_data_parallel:
             return None
-        self._check_layout()
+        tp = int(getattr(self._build_strategy, "tensor_parallel_degree", 1))
+        tp_specs = self._tp_specs() if tp > 1 else {}
         shard = ()
         if (self._build_strategy.reduce_strategy
                 == BuildStrategy.ReduceStrategy.Reduce):
             shard = self._accumulator_names()
         mesh = self._mesh
-        if mesh is None:
+        if mesh is not None:
+            if tp_specs and mesh.shape[TP] == 1:
+                if not getattr(self, "_tp_warned", False):
+                    self._tp_warned = True
+                    warnings.warn(
+                        "tensor_parallel_degree=%d with an explicit mesh "
+                        "that has no tp axis (%r): the tensor-parallel "
+                        "splits are dropped; make the mesh with make_mesh("
+                        "dp=..., tp=...) or drop the explicit mesh"
+                        % (tp, mesh), stacklevel=4)
+                tp_specs = {}
+        else:
             world = dist.get_world_size() if dist.is_initialized() else 1
-            key = (str(device), world)
+            if world % tp:
+                raise ValueError(
+                    "tensor_parallel_degree=%d does not divide the %d ranks "
+                    "of the world" % (tp, world))
+            key = (str(device), world, tp)
             mesh = self._mesh_cache.get(key)
             if mesh is None:
-                mesh = self._mesh_cache[key] = make_mesh(dp=world,
-                                                         device=device)
-        return _ShardingInfo(mesh, shard_state_names=shard)
+                mesh = self._mesh_cache[key] = make_mesh(
+                    dp=world // tp, tp=tp, device=device)
+        return _ShardingInfo(mesh, shard_state_names=shard,
+                             tp_specs=tp_specs)
 
 
 def is_data_parallel(program):

@@ -52,9 +52,9 @@ class DistributedStrategy(BuildStrategy):
         self.use_amp = False
         self.amp_loss_scale = 1.0  # kept for API parity; bf16 needs no scaling
         self.nccl_comm_num = 1
-        # PSLib parity: route beyond-budget embedding tables to the
-        # host-RAM sparse service; the port has neither the sharded
-        # embedding nor HostPS yet (items 5-C and 7), so True raises
+        # PSLib parity: route embedding tables past the devices' budget to
+        # the host-RAM sparse service (parallel/embedding.py's router, whose
+        # host route waits for item 7, HostPS)
         self.use_host_sparse_table = False
         self.host_sparse_cache_slots = 0
 
@@ -158,14 +158,18 @@ class DistributedOptimizer:
     """
 
     def __init__(self, optimizer, strategy, fleet_):
-        if getattr(strategy, "use_host_sparse_table", False):
-            raise NotImplementedError(
-                "DistributedStrategy.use_host_sparse_table: the sharded "
-                "embedding and the host sparse table wait (ROADMAP.md Queue "
-                "1 items 5-C and 7)")
         self._optimizer = optimizer
         self._strategy = strategy
         self._fleet = fleet_
+        # the routing knob applies now (tables are usually made before
+        # minimize), and the newest strategy decides whether tables past
+        # the budget go to the host-RAM sparse service or raise the
+        # capacity error
+        from ..parallel import embedding as _embedding
+
+        _embedding.enable_host_sparse_table(
+            bool(getattr(strategy, "use_host_sparse_table", False)),
+            cache_slots=getattr(strategy, "host_sparse_cache_slots", None))
 
     _warned_local_sgd = False
 
@@ -178,9 +182,9 @@ class DistributedOptimizer:
             warnings.warn(
                 "DistributedStrategy.use_local_sgd: the program-mode fleet "
                 "path runs synchronous DP (per-step gradient all-reduce); "
-                "Local SGD (periodic replica averaging) lives in the "
-                "functional engine, parallel/local_sgd.py, which waits "
-                "(ROADMAP.md Queue 1 item 5-C)", stacklevel=2)
+                "real Local SGD (periodic replica averaging) lives in the "
+                "functional engine — parallel/local_sgd.py "
+                "make_local_sgd_train_step", stacklevel=2)
             DistributedOptimizer._warned_local_sgd = True
         if getattr(self._strategy, "forward_recompute", False):
             self._optimizer._use_remat = True

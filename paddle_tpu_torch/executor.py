@@ -40,7 +40,14 @@ and the dense gradients are summed over the ranks (a ``SelectedRows``
 gradient gathers every rank's ids and rows), so the optimizer section runs
 on the one-device gradients, on identical values on every rank.
 Batch-shaped fetches are gathered to the global value.  Under kReduce the
-marked accumulators stay 1/n of their rows a rank in the scope.  A
+marked accumulators stay 1/n of their rows a rank in the scope.  With
+``tensor_parallel_degree`` = tp > 1 the world is a (data, model) mesh:
+each rank holds its block of every ``tp_split``-marked var (``Scope``
+records the split), every rule runs behind the model-axis table
+(``parallel/model_axes.py``) outside the batch-axis one, a replicated
+loss's cotangent is seeded with 1/(dp * tp), a whole parameter's gradient
+is summed over the world and a split one's over the data group, and a
+fetch of a split value or a partial sum is gathered whole.  A
 GeoSGD-tagged program runs locally, and its started ``Communicator`` ticks
 after each run.  A started ``py_reader`` injects the global batch, which
 the run slices like any feed; ``feed_converter`` of a data-parallel program
@@ -104,7 +111,8 @@ from .framework import Parameter, Program, Variable, default_main_program
 from .compiler import CompiledProgram, is_data_parallel
 from .kernels._common import resolve_device
 from .parallel import batch_axes as _batch_axes
-from .parallel.collectives import backend_all_reduce
+from .parallel import model_axes as _model_axes
+from .parallel.collectives import backend_all_gather, backend_all_reduce
 from .registry import OpLoweringContext, get_lowering
 from .scope import global_scope
 from .sparse import SelectedRows
@@ -397,13 +405,47 @@ def _shard_rows(dp, scope, block, env):
     rows = set()
     for n in dp.shard_state_names:
         var = block._find_var_recursive(n)
-        if n not in env or var is None or not dp.row_sharded(var.shape):
-            continue
+        if (n not in env or var is None or not dp.row_sharded(var.shape)
+                or dp.tp_dim(n, var.shape) is not None):
+            continue        # a tensor-parallel split wins over kReduce
         rows.add(n)
         if scope.row_shards(n) != dp.n:
             lo, hi = dp.rows(env[n].shape[0])
             env[n] = env[n][lo:hi].clone()
     return rows
+
+
+def _split_model(dp, scope, block, env):
+    """Tensor parallelism: the marked state vars whose split dim divides,
+    in ``env`` as this rank's block of that dim (cut from a whole value a
+    startup program or a load left in the scope).  Returns {name: dim}."""
+    dims = {}
+    for n in dp.tp_specs:
+        var = block._find_var_recursive(n)
+        if n not in env or var is None:
+            continue
+        d = dp.tp_dim(n, tuple(var.shape))
+        if d is None:
+            continue
+        dims[n] = d
+        if scope.split(n) != (d, dp.tp):
+            k = env[n].shape[d] // dp.tp
+            env[n] = env[n].narrow(d, dp.tp_rank * k, k).clone()
+    return dims
+
+
+def _tp_global(dp, tp, name, t, whole):
+    """A value's whole value over the model axis: a split one gathered, a
+    partial sum reduced (a fetch, ``whole``), or kept as this rank's block
+    where it stays split at rest (state)."""
+    if tp is None:
+        return t
+    lay = tp.layout.get(name)
+    if lay is None or (not whole and name in tp.dims):
+        return t
+    if lay == _model_axes.PARTIAL:
+        return backend_all_reduce(t, dp.tp_group)
+    return backend_all_gather(t.contiguous(), dp.tp_group, lay)
 
 
 def _dp_global(dp, run, name, t, whole_rows):
@@ -504,7 +546,7 @@ class _Plan:
     block's ops split at the backward section and each sub-block's ops, each
     op with its rule, and the tables whose gradient is sparse."""
 
-    def __init__(self, program, feed_names=()):
+    def __init__(self, program, feed_names=(), dense=()):
         _refuse_unported(program)
         self.program = program
         self.feed_names = list(feed_names)
@@ -546,6 +588,10 @@ class _Plan:
         # :747-767)
         specs = _find_sparse_lookups(program, fwd_ops, rest_ops,
                                      set(self.param_names), set(feed_names))
+        for w in set(specs) & set(dense):
+            _warn_sparse_fallback(program, w, "a tensor-parallel split table "
+                                  "takes the dense gradient")
+            del specs[w]
         by_op = {id(c.op): c for c in self.fwd}
         for w, lookups in specs.items():
             self.sparse[w] = []
@@ -584,11 +630,13 @@ class _Plan:
         self.pipeline_scale = 1.0 / M if reduction != "sum" else 1.0
         self.pers_written = sorted(self.written_in_fwd & set(self.state_out))
 
-    def distribute(self):
+    def distribute(self, model=False):
         """Every rule behind the batch-axis table, for a data-parallel run:
         a ``scan`` body's ops go through the table; an op of any other
         sub-block (a ``while``, ``conditional_block`` or ``cond`` body, or
-        a block inside one) may read no batch-sharded value."""
+        a block inside one) may read no batch-sharded value.  ``model``
+        (tp > 1): every rule behind the model-axis table too, outside the
+        batch-axis one."""
         owner = {}
         for block in self.program.blocks:
             for op in block.ops:
@@ -608,6 +656,10 @@ class _Plan:
         for idx, calls in self.sub.items():
             for c in calls:
                 c.rule = _batch_axes.wrap(c, in_sub_block=closed(idx))
+        if model:
+            for c in self.fwd + self.rest + [c for calls in self.sub.values()
+                                             for c in calls]:
+                c.rule = _model_axes.wrap(c)
         return self
 
     def context(self, generator):
@@ -638,16 +690,21 @@ class _Plan:
                 leaves[leaf] = rows.detach().requires_grad_(True)
         return leaves
 
-    def _sparse_grad(self, env, w, grads, dp=None):
+    def _sparse_grad(self, env, w, grads, dp=None, ctx=None):
         """``w@GRAD`` as a SelectedRows of the lookups' ids and row
         gradients; a ``padding_idx`` id points at the out-of-range
         sentinel, so its row does not train (JAX executor.py:824-845).
         Data-parallel, the ids and rows of every rank, in rank order."""
         height = env[w].shape[0]
         ids_parts, val_parts = [], []
+        tp = getattr(ctx, "tp", None) if ctx is not None else None
         for leaf, ids_name, attrs, _ in self.sparse[w]:
             g = grads[leaf]
             ids = env[ids_name]
+            if tp is not None and tp.group is not None:
+                # each rank of the model group holds a summand of the rows'
+                # gradient (a whole table's convention)
+                g = backend_all_reduce(g, tp.group)
             if dp is not None and dp.group is not None:
                 ids, g = _gather_rows(dp, ids_name, ids, g)
             if ids.ndim > 1 and ids.shape[-1] == 1:
@@ -679,12 +736,13 @@ class _Plan:
             _run_calls(calls, env, ctx)
             loss = env[self.loss_name].float().sum()
         seed = None
-        if (dp is not None and dp.group is not None
+        if (dp is not None and dp.world > 1
                 and self.loss_name not in dp.axes):
-            # a replicated loss: each rank seeds 1/n of its cotangent, the
-            # batch collectives' backward sums the ranks' cotangents, and
-            # the gradients are summed over the ranks (``_update``)
-            seed = torch.full_like(loss, 1.0 / dp.n)
+            # a replicated loss: each rank seeds 1/world of its cotangent
+            # (the world: the data group times the model group), every
+            # collective's backward sums the ranks' cotangents, and the
+            # gradients are summed over the ranks (``_update``)
+            seed = torch.full_like(loss, 1.0 / dp.world)
         grads = torch.autograd.grad(loss, list(leaves.values()),
                                     grad_outputs=seed, allow_unused=True)
         return env, loss, {
@@ -692,12 +750,20 @@ class _Plan:
             for n, g in zip(leaves, grads)}
 
     def _update(self, env, ctx, grads):
-        """The dense gradients (data-parallel: summed over the ranks) into
-        ``env`` as ``p@GRAD``, then the optimizer section."""
-        dp = ctx.dp
+        """The dense gradients (data-parallel: a whole parameter's summed
+        over the data and model groups, a tensor-parallel split one's over
+        the data group) into ``env`` as ``p@GRAD``, then the optimizer
+        section."""
+        dp, tp = ctx.dp, getattr(ctx, "tp", None)
         for name, g in grads.items():
-            if dp is not None and dp.group is not None:
-                g = backend_all_reduce(g, dp.group)
+            if dp is not None:
+                d = None if tp is None else tp.dims.get(name)
+                groups = dp.world_groups if d is None else (dp.group,)
+                for group in groups:
+                    if group is not None:
+                        g = backend_all_reduce(g, group)
+                if d is not None:
+                    tp.set(name + "@GRAD", d)
             env[name + "@GRAD"] = g
         with torch.no_grad():
             _run_calls(self.rest, env, ctx)
@@ -776,7 +842,7 @@ class _Plan:
         for w in self.sparse:
             for leaf, *_ in self.sparse[w]:
                 env.pop(leaf, None)
-            env[w + "@GRAD"] = self._sparse_grad(env, w, grads, ctx.dp)
+            env[w + "@GRAD"] = self._sparse_grad(env, w, grads, ctx.dp, ctx)
         self._update(env, ctx, {p: grads[p] for p in dense})
 
 
@@ -957,9 +1023,10 @@ class Executor:
         first_run = plan is None
         if first_run:
             with _trace.span("executor.compile"):
-                plan = _Plan(program, feed_tensors)
+                plan = _Plan(program, feed_tensors,
+                             dense=() if dp is None else dp.tp_specs)
                 if dp is not None:
-                    plan.distribute()
+                    plan.distribute(model=dp.tp > 1)
             if use_program_cache:
                 self._cache[key] = plan
             if mon is not None:
@@ -973,6 +1040,8 @@ class Executor:
                 % missing)
         env = {n: scope.find_var(n).to(self.device) for n in plan.state_in}
         rows = () if dp is None else _shard_rows(dp, scope, block, env)
+        dims = ({} if dp is None or dp.tp == 1
+                else _split_model(dp, scope, block, env))
         env.update(feed_tensors)
         step = self._step
         seed = (program.random_seed * 1000003 + step) % (2 ** 32)
@@ -1001,6 +1070,8 @@ class Executor:
                 ctx = plan.context(torch.Generator(self.device).manual_seed(seed))
                 if dp is not None:
                     ctx.dp = _batch_axes.Run(dp, feed_tensors, rows)
+                    if dp.tp > 1:
+                        ctx.tp = _model_axes.Run(dp, dims)
                 try:
                     with dp.mesh if dp is not None else contextlib.nullcontext():
                         plan.run(env, ctx)
@@ -1037,10 +1108,12 @@ class Executor:
             # the global values of batch-shaped fetches (and of state a
             # batch-shaped value wrote); kReduce's rows fetched whole and
             # kept as rows in the scope
-            run = ctx.dp
-            fetches = [_dp_global(dp, run, n, t, True)
+            run, tp = ctx.dp, getattr(ctx, "tp", None)
+            fetches = [_dp_global(dp, run, n, _tp_global(dp, tp, n, t, True),
+                                  True)
                        for n, t in zip(fetch_names, fetches)]
-            state_out = {n: _dp_global(dp, run, n, t, False)
+            state_out = {n: _dp_global(dp, run, n,
+                                       _tp_global(dp, tp, n, t, False), False)
                          for n, t in state_out.items()}
             rows = run.rows
         vec = names = None
@@ -1096,7 +1169,13 @@ class Executor:
 
         for n, v in state_out.items():
             scope.var(n)
-            scope.set(n, v, row_shards=dp.n if n in rows else 1)
+            if dp is None:
+                scope.set(n, v)
+            else:
+                scope.set(n, v, row_shards=dp.n if n in rows else 1,
+                          rows_group=dp.group,
+                          split=(dims[n], dp.tp, dp.tp_group)
+                          if n in dims else None)
         if mon is not None:
             # the time-sampled memory watermark, after the commit, so the
             # owner walk sees the new state in the scope

@@ -21,6 +21,12 @@ update through four table-update plumbings:
   (``kernels/segment_update.py``; unique rows at their first sorted
   position) — the trainer's default and the slice's main path.
 
+``build_deepfm_trainer(cfg, mesh=make_mesh(dp=n))`` row-shards both
+tables over the mesh's dp ranks (``deepfm_param_specs``, the reference's
+``deepfm_loss_sharded`` through ``parallel/embedding.py``'s lookups, whose
+backward merges duplicate ids with the segment-sum kernel) and psums the
+MLP's gradients (``make_sharded_step``).
+
 The steps are functional, as the reference's are: they return a new
 parameter tree and leave the values they were given untouched, so the
 autotune can time every variant from the same parameters.  Table gathers
@@ -47,12 +53,8 @@ __all__ = ["DeepFMConfig", "deepfm_tiny_config", "init_deepfm_params",
            "deepfm_forward", "deepfm_loss", "take_rows", "fuse_tables", "split_tables",
            "deepfm_loss_from_rows", "deepfm_loss_fused", "deepfm_param_specs",
            "deepfm_forward_sharded", "deepfm_loss_sharded",
-           "make_step_variants", "autotune_step", "synthetic_batch",
+           "make_sharded_step", "make_step_variants", "autotune_step", "synthetic_batch",
            "mlp_train_flops", "DeepFMTrainer", "build_deepfm_trainer"]
-
-_SHARDED = ("%s: row-sharded tables wait (ROADMAP.md Queue 1 item 5-C); "
-            "the port's DeepFM runs at one device")
-
 
 @dataclasses.dataclass
 class DeepFMConfig:
@@ -173,15 +175,74 @@ def deepfm_loss_fused(params, fused, batch, cfg):
 
 
 def deepfm_param_specs(cfg, axis="dp"):
-    raise NotImplementedError(_SHARDED % "deepfm_param_specs")
+    """PartitionSpecs matching ``init_deepfm_params``' tree: the tables
+    row-sharded over ``axis`` (``rules.row_sharded_table_spec``, the layout
+    the host parameter server's router shares), everything else
+    replicated; derived from the rule tree (``parallel/rules.py``
+    ``deepfm_rules``), not spec literals."""
+    from ..parallel import rules as shard_rules
+
+    leaf = shard_rules.SkeletonLeaf
+    skeleton = {
+        "w_linear": leaf(),
+        "embed": leaf(),
+        "bias": leaf(),
+        "mlp": [{"w": leaf(), "b": leaf()}
+                for _ in range(len(cfg.mlp_dims) + 1)],
+    }
+    return shard_rules.match_partition_rules(
+        shard_rules.deepfm_rules(axis), skeleton)
 
 
 def deepfm_forward_sharded(params, feat_ids_local, cfg, axis="dp"):
-    raise NotImplementedError(_SHARDED % "deepfm_forward_sharded")
+    """``deepfm_forward`` with row-sharded tables (this rank's row blocks)
+    and a batch-sharded feed (this rank's rows): each gather is
+    ``sharded_embedding_lookup_dp`` (the ids gathered over ``axis``, the
+    owned rows gathered, each rank's slot summed back to it)."""
+    from ..parallel.embedding import sharded_embedding_lookup_dp
+
+    emb = sharded_embedding_lookup_dp(params["embed"], feat_ids_local, axis)
+    lin = sharded_embedding_lookup_dp(
+        params["w_linear"], feat_ids_local, axis)[..., 0]
+    return _deepfm_head(params, emb, lin)
 
 
 def deepfm_loss_sharded(params, batch, cfg, axis="dp"):
-    raise NotImplementedError(_SHARDED % "deepfm_loss_sharded")
+    """The global batch's mean loss through ``collectives.global_mean_loss``,
+    so the row-sharded tables' gradients come out 1x on their owner rank.
+    The replicated MLP's and bias's gradients are this rank's partials, to
+    be psum'd by the train step (standard data parallelism)."""
+    from ..parallel import collectives as col
+
+    logits = deepfm_forward_sharded(params, batch["feat_ids"], cfg, axis)
+    y = batch["label"].float()
+    loss = (torch.clamp_min(logits, 0) - logits * y
+            + torch.log1p(torch.exp(-logits.abs())))
+    n = col.axis_size_in(axis)
+    return col.global_mean_loss(loss.sum(), loss.numel() * n, axis)
+
+
+def make_sharded_step(cfg, lr, mesh, axis="dp"):
+    """The SGD step over ``mesh`` with the tables row-sharded over
+    ``axis``: ``step(params, batch_local) -> (new_params, loss)``, where
+    ``params`` holds this rank's table blocks and the replicated MLP and
+    bias, and ``batch_local`` this rank's rows.  The MLP's and bias's
+    gradients are psum'd over ``axis`` (``tests/test_sparse.py``'s step);
+    each table block's gradient is its own rows' (``_OwnedRows``, which
+    merges duplicate ids with the segment-sum kernel)."""
+    from ..parallel import collectives as col
+
+    def step(params, batch):
+        with mesh:
+            loss, g = grads_of(
+                lambda p: deepfm_loss_sharded(p, batch, cfg, axis), params)
+            with torch.no_grad():
+                g["mlp"] = tree_map(lambda a: col.psum(a, axis), g["mlp"])
+                g["bias"] = col.psum(g["bias"], axis)
+        new = tree_map(lambda p, d: p - lr * d.to(p.dtype), params, g)
+        return new, loss.detach()
+
+    return step
 
 
 # -- the step variants (bench.py _deepfm_step_variants) ------------------------
@@ -291,12 +352,17 @@ def mlp_train_flops(cfg, batch):
 @dataclasses.dataclass
 class DeepFMTrainer:
     """``state``: ``{"params": tree}`` for a step variant (plain SGD), or
-    ``{"params", "opt"}`` for a dense step with an optimizer."""
+    ``{"params", "opt"}`` for a dense step with an optimizer.  With a
+    ``mesh`` whose ``axis`` spans more than one rank, ``params`` holds this
+    rank's table blocks and the replicated MLP, and ``step`` takes the
+    global batch and trains on this rank's rows (``make_sharded_step``)."""
     cfg: DeepFMConfig
     device: torch.device
     variant: str
     state: dict
     optimizer: object = None
+    mesh: object = None
+    axis: str = "dp"
     _steps: dict = dataclasses.field(default_factory=dict)
 
     def step(self, batch, lr):
@@ -308,33 +374,56 @@ class DeepFMTrainer:
                 grads, self.state["opt"], self.state["params"], lr)
             return loss.detach()
         if lr not in self._steps:
-            self._steps[lr] = make_step_variants(self.cfg, lr)[self.variant]
+            self._steps[lr] = (
+                make_sharded_step(self.cfg, lr, self.mesh, self.axis)
+                if self.mesh is not None
+                else make_step_variants(self.cfg, lr)[self.variant])
+        if self.mesh is not None:
+            from ..parallel.rules import P
+            from ..parallel.train import shard_batch
+
+            batch = shard_batch(self.mesh, {k: P(self.axis) for k in batch},
+                                batch)
         self.state["params"], loss = self._steps[lr](self.state["params"],
                                                      batch)
         return loss
 
 
 def build_deepfm_trainer(cfg, variant="segment", optimizer=None, seed=0,
-                         device=None, params=None):
+                         device=None, params=None, mesh=None, axis="dp"):
     """Params on ``device`` (``cuda`` unless named) and the train step.
     Without ``optimizer`` each step is the bench's SGD step ``variant``
     (``segment`` runs the segment-sum kernel); with one (``adam`` ...) it is
     the dense step through that optimizer, and ``variant`` must be
     ``dense``.  ``params``: a tree to start from instead of a seeded init —
     torch tensors, or numpy arrays as ``jax.tree.map(np.asarray, tree)``
-    gives them from the JAX package."""
+    gives them from the JAX package.  ``mesh``: a mesh whose ``axis`` spans
+    several ranks row-shards the tables over it (``deepfm_param_specs``;
+    the vocabulary must divide) and trains each rank's rows of the global
+    batch with the psum'd MLP (``make_sharded_step``, SGD, the ``segment``
+    variant's merge); every rank must start from the same tree.  At one
+    rank the mesh changes nothing."""
     if variant not in ("dense", "fused", "rows", "segment"):
         raise ValueError("unknown DeepFM step variant %r" % (variant,))
     if optimizer is not None and variant != "dense":
         raise ValueError("an optimizer runs the dense step; the %r variant "
                          "is plain SGD" % variant)
+    if mesh is not None and mesh.shape.get(axis, 1) == 1:
+        mesh = None
+    if mesh is not None and (optimizer is not None or variant != "segment"):
+        raise ValueError("row-sharded DeepFM trains with the segment "
+                         "variant's SGD step")
     device = resolve_device(device)
     if params is None:
         params = init_deepfm_params(torch.Generator().manual_seed(seed), cfg,
                                     device)
     else:
         params = params_from_numpy(params, device)
+    if mesh is not None:
+        from ..parallel.train import shard_pytree
+
+        params = shard_pytree(params, deepfm_param_specs(cfg, axis), mesh)
     state = (TrainState.create(params, optimizer) if optimizer is not None
              else {"params": params})
     return DeepFMTrainer(cfg=cfg, device=device, variant=variant, state=state,
-                         optimizer=optimizer)
+                         optimizer=optimizer, mesh=mesh, axis=axis)

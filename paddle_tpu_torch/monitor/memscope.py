@@ -53,7 +53,8 @@ __all__ = [
     "MemoryBudgetError", "InjectedOOMError", "LedgerProbe",
     "configure", "reset", "refuse_enabled",
     "register_owner", "unregister_owner", "track", "note_scope",
-    "attribution", "headroom", "hbm_frac", "host_accounting",
+    "attribution", "headroom", "hbm_frac", "min_device_bytes_limit",
+    "host_accounting",
     "record_program", "ledgers", "model_bytes", "predict_dispatch",
     "is_resource_exhausted", "oom_extra", "note_oom",
 ]
@@ -164,9 +165,8 @@ def _iter_owned():
     """(owner, tensor) pairs from every registration plus the scopes.
     Every leg is best-effort: attribution must never take a run down.  The
     HostPS cache and shard-router owners of the reference wait for the
-    HostPS port (ROADMAP Queue 1 item 7), as does the capacity number the
-    embedding router reads (``min_device_bytes_limit``), and its warm twins
-    for the warm store (item 8)."""
+    HostPS port (ROADMAP Queue 1 item 7), and its warm twins for the warm
+    store (item 8)."""
     with _LOCK:
         owners = list(_OWNERS.items())
         tracked = list(_TRACKED)
@@ -291,6 +291,25 @@ def hbm_frac(live=None):
         if h.get("bytes_limit") and h.get("bytes_in_use") is not None:
             out[dev] = round(h["bytes_in_use"] / h["bytes_limit"], 4)
     return out
+
+
+def min_device_bytes_limit(fallback=None):
+    """The tightest per-device byte limit over every visible card: the
+    capacity number the embedding table router (``parallel/embedding.py``)
+    and the admission math agree on.  The configured override first
+    (``configure`` or ``PADDLE_TPU_MEMSCOPE_LIMIT``), then the smallest
+    ``total_memory`` of the visible cards, then ``fallback``."""
+    import torch
+
+    cfg = _configured_limit()
+    if cfg is not None:
+        return cfg
+    if torch.cuda.is_available():
+        limits = [torch.cuda.get_device_properties(i).total_memory
+                  for i in range(torch.cuda.device_count())]
+        if limits:
+            return int(min(limits))
+    return fallback
 
 
 # -------------------------------------------------- host-side accounting --

@@ -2,9 +2,9 @@
 mesh of ranks (dp, pp, tp) over ``torch.distributed`` (one process per
 rank), named-axis collectives, the sharding rules, transformer blocks in
 the Megatron-SP and ring layouts, the GPipe pipeline, ring attention,
-expert-parallel MoE, optimizers, the train step and its ZeRO form.  The
-sharded embedding, local SGD and the checkpoint wait (ROADMAP.md Queue 1
-items 5-C′ and 5-D)."""
+expert-parallel MoE, optimizers, the train step and its ZeRO form, the
+row-sharded embedding tables and Local SGD.  The sharded checkpoint waits
+(ROADMAP.md Queue 1 item 5-D)."""
 
 from .mesh import MeshSpec, make_mesh, axis_size  # noqa: F401
 from . import rules  # noqa: F401  (the sharding authority)
@@ -16,3 +16,7 @@ from .pipeline import gpipe  # noqa: F401
 from .ring_attention import ring_attention  # noqa: F401
 from . import moe  # noqa: F401
 from .train import make_train_step, TrainState  # noqa: F401
+from .embedding import (  # noqa: F401
+    sharded_embedding_lookup, init_sharded_table, init_embedding_table,
+    embedding_spec, enable_host_sparse_table)
+from . import local_sgd  # noqa: F401

@@ -41,7 +41,8 @@ raises, naming the op and item 5-B, as does an op of a ``while``,
 are all replicated runs as it is, and its outputs are replicated.
 
 The gradients come out as the one-device ones (``executor.py``): the
-backward seeds a replicated loss's cotangent with 1/n on each rank, every
+backward seeds a replicated loss's cotangent with 1/n on each rank (1/(n
+tp) under tensor parallelism, ``model_axes.py``), every
 collective above differentiates as a sum of the ranks' cotangents
 (``collectives.py``'s ``_Psum`` and ``_AllGather``), and the dense
 ``@GRAD``s are summed over the ranks.  Under kReduce (``ReduceStrategy.
@@ -78,13 +79,19 @@ def refuse(what):
 
 
 class Run:
-    """One data-parallel run's state: the world's size ``n`` and this
-    rank's ``rank``, the collective group (None at one rank), the batch axis
-    of every batch-sharded var (``axes``; a replicated var is absent) and
-    the kReduce accumulators held as 1/n of their rows (``rows``)."""
+    """One data-parallel run's state: the data group's size ``n`` and this
+    rank's ``rank`` in it, its collective group (None at one rank), the
+    world's size (``world``: the data group times the model group of
+    tensor parallelism, ``model_axes.py``), the batch axis of every
+    batch-sharded var (``axes``; a replicated var is absent) and the
+    kReduce accumulators held as 1/n of their rows (``rows``)."""
 
     def __init__(self, info, feed_names, rows=()):
         self.n, self.rank, self.group = info.n, info.rank, info.group
+        # a layout without a model axis: the world is the data group
+        self.world = getattr(info, "world", info.n)
+        self.world_groups = getattr(
+            info, "world_groups", () if info.group is None else (info.group,))
         self.local = info.rows          # this rank's [lo, hi) of an axis
         self.axes = dict.fromkeys(feed_names, 0)
         self.rows = set(rows)

@@ -48,6 +48,10 @@ class PartitionSpec(tuple):
     def __new__(cls, *parts):
         return super().__new__(cls, parts)
 
+    def __getnewargs__(self):
+        # pickle rebuilds a tuple subclass from these: the parts, unpacked
+        return tuple(self)
+
     def __repr__(self):
         return "PartitionSpec%s" % (tuple.__repr__(self),)
 

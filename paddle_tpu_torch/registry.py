@@ -32,6 +32,8 @@ class OpLoweringContext:
         self.env = None
         # a data-parallel run's state (parallel/batch_axes.py Run), or None
         self.dp = None
+        # a tensor-parallel run's (parallel/model_axes.py Run), or None
+        self.tp = None
 
     @property
     def device(self):

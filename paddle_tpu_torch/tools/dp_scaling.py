@@ -10,7 +10,10 @@ With ``--tp`` (``--pp``) the world's ranks lie on the tp (pp) axis of
 BERT-base's mesh, which trains the one-card batch (32 sequences) in the
 Megatron-SP layout (``--attn ring``: ring attention) or as a GPipe pipeline
 of ``--microbatches``, and the line's efficiency is the one-rank ms over n
-times the world's.
+times the world's.  ``--model encoder --tp`` trains the Fluid-layers
+encoder with its Megatron marks (``bert_encoder_program(tp_split=True)``)
+at ``tensor_parallel_degree`` = the world's size, the global batch fixed
+at 16 sequences.
 
 For each world size it starts that many workers through
 ``python -m paddle_tpu_torch.distributed.launch --nproc_per_node N`` (NCCL,
@@ -64,7 +67,7 @@ def _worker(model, steps, axis="dp", attn="heads", microbatches=4):
     f = fleet.init()
     world, rank = f.worker_num(), f.worker_index()
     if model == "encoder":
-        return _encoder_worker(f, world, rank, steps)
+        return _encoder_worker(f, world, rank, steps, tp=axis == "tp")
     if model == "bert":
         deg = {"dp": 1, "pp": 1, "tp": 1, axis: world}
         cfg = bert.bert_base_config(tp=deg["tp"], pp=deg["pp"], attn_mode=attn)
@@ -134,8 +137,10 @@ def _report(model, world, rank, per_rank, dt, items, losses, params,
     dist.destroy_process_group()
 
 
-def _encoder_worker(f, world, rank, steps):
-    """The program-mode line: the Fluid-layers encoder under fleet."""
+def _encoder_worker(f, world, rank, steps, tp=False):
+    """The program-mode line: the Fluid-layers encoder under fleet, data
+    parallel (16 sequences a rank) or, with ``tp``, at
+    ``tensor_parallel_degree`` = the world (16 sequences in all)."""
     import torch.distributed as dist
 
     import paddle_tpu_torch as fluid
@@ -144,9 +149,13 @@ def _encoder_worker(f, world, rank, steps):
                                                  bert_encoder_program,
                                                  encoder_feed)
 
-    cfg = BERT_BASE_ENCODER._replace(batch=ENCODER_PER_RANK * world)
+    strategy = fleet.DistributedStrategy()
+    strategy.tensor_parallel_degree = world if tp else 1
+    cfg = BERT_BASE_ENCODER._replace(
+        batch=ENCODER_PER_RANK * (1 if tp else world))
     main, startup, v = bert_encoder_program(
-        fluid, cfg, wrap_optimizer=fleet.distributed_optimizer)
+        fluid, cfg, tp_split=tp,
+        wrap_optimizer=lambda opt: fleet.distributed_optimizer(opt, strategy))
     exe = fluid.Executor(fluid.CUDAPlace(f.device.index))
     scope = fluid.Scope()
     exe.run(startup, scope=scope)
@@ -159,10 +168,14 @@ def _encoder_worker(f, world, rank, steps):
                       return_numpy=False)[0] for fd in feeds[1:]]
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / steps
-    _report("encoder", world, rank, ENCODER_PER_RANK, dt,
+    # each parameter whole (a tp split's blocks gathered, a collective)
+    _report("encoder", world, rank, cfg.batch // (1 if tp else world), dt,
             cfg.batch * cfg.seq, losses,
-            [scope.find_var(p.name)
-             for p in main.global_block().all_parameters()])
+            [scope.find_global(p.name)
+             for p in main.global_block().all_parameters()],
+            extra={"axis": "tp" if tp else "dp",
+                   "split_leaves": sum(scope.split(p.name) is not None for p
+                                       in main.global_block().all_parameters())})
 
 
 def main(argv=None):
@@ -173,7 +186,7 @@ def main(argv=None):
     p.add_argument("--steps", type=int, default=5)
     axes = p.add_mutually_exclusive_group()
     axes.add_argument("--tp", action="store_true",
-                      help="the ranks on BERT-base's tp axis")
+                      help="the ranks on the tp axis")
     axes.add_argument("--pp", action="store_true",
                       help="the ranks on BERT-base's pp axis")
     p.add_argument("--attn", choices=("heads", "ring"), default="heads")
@@ -181,8 +194,10 @@ def main(argv=None):
     p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     axis = "tp" if args.tp else "pp" if args.pp else "dp"
-    if axis != "dp" and args.model != "bert":
-        raise SystemExit("--tp and --pp train BERT-base (--model bert)")
+    if axis == "pp" and args.model != "bert":
+        raise SystemExit("--pp trains BERT-base (--model bert)")
+    if axis == "tp" and args.model == "resnet50":
+        raise SystemExit("--tp trains BERT-base or the Fluid encoder")
     if args.worker:
         _worker(args.model, args.steps, axis, args.attn, args.microbatches)
         return 0

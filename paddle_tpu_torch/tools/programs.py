@@ -163,7 +163,7 @@ BERT_BASE_ENCODER = EncoderConfig(vocab=30528, hidden=768, layers=12, heads=12,
                                   lr=1e-4, optimizer="adam")
 
 
-def bert_encoder_program(fluid, cfg, wrap_optimizer=None):
+def bert_encoder_program(fluid, cfg, wrap_optimizer=None, tp_split=False):
     """Feeds (all [B, S, 1]): "src_ids" and "pos_ids" int64, "input_mask"
     f32 (1 for a real token), "labels" int64.  Per layer: q, k and v from
     ``fc(num_flatten_dims=2)``, reshaped and transposed into heads;
@@ -176,7 +176,10 @@ def bert_encoder_program(fluid, cfg, wrap_optimizer=None):
     Paddle's BERT; weights start from a normal truncated at 2 std (0.02),
     as its initializer.  ``wrap_optimizer(opt)`` (for example
     ``fleet.distributed_optimizer``) wraps the optimizer before its
-    ``minimize``."""
+    ``minimize``.  ``tp_split``: the fcs carry the Megatron marks for
+    ``tensor_parallel_degree`` > 1, q, k, v and the first FFN fc "col", the
+    attention output and the second FFN fc "row", the vocabulary fc "col"
+    (the vocab-parallel loss)."""
     B, S, H, nh = cfg.batch, cfg.seq, cfg.hidden, cfg.heads
     dh = H // nh
     main, startup = fluid.Program(), fluid.Program()
@@ -187,10 +190,11 @@ def bert_encoder_program(fluid, cfg, wrap_optimizer=None):
         def attr(name):
             return fluid.ParamAttr(name=name, initializer=init)
 
-        def fc(x, size, name, act=None):
+        def fc(x, size, name, act=None, split=None):
             return L.fc(x, size, num_flatten_dims=2, act=act,
                         param_attr=attr(name + ".w_0"),
-                        bias_attr=fluid.ParamAttr(name=name + ".b_0"))
+                        bias_attr=fluid.ParamAttr(name=name + ".b_0"),
+                        tp_split=split if tp_split else None)
 
         def drop(x):
             if not cfg.dropout:
@@ -222,18 +226,20 @@ def bert_encoder_program(fluid, cfg, wrap_optimizer=None):
         bias.stop_gradient = True
         for i in range(cfg.layers):
             p = "encoder_layer_%d" % i
-            q, k, v = (heads(fc(x, H, "%s_multi_head_att_%s_fc" % (p, n)))
+            q, k, v = (heads(fc(x, H, "%s_multi_head_att_%s_fc" % (p, n),
+                                split="col"))
                        for n in ("query", "key", "value"))
             s = L.elementwise_add(
                 L.matmul(q, k, transpose_y=True, alpha=dh ** -0.5), bias)
             ctxt = L.matmul(drop(L.softmax(s)), v)
             ctxt = L.reshape(L.transpose(ctxt, [0, 2, 1, 3]), [0, 0, H])
-            att = drop(fc(ctxt, H, p + "_multi_head_att_output_fc"))
+            att = drop(fc(ctxt, H, p + "_multi_head_att_output_fc",
+                          split="row"))
             x = norm(L.elementwise_add(att, x), p + "_post_att_layer_norm")
-            ffn = fc(fc(x, cfg.ffn, p + "_ffn_fc_0", act="gelu"), H,
-                     p + "_ffn_fc_1")
+            ffn = fc(fc(x, cfg.ffn, p + "_ffn_fc_0", act="gelu", split="col"),
+                     H, p + "_ffn_fc_1", split="row")
             x = norm(L.elementwise_add(drop(ffn), x), p + "_post_ffn_layer_norm")
-        logits = fc(x, cfg.vocab, "mask_lm_out_fc")
+        logits = fc(x, cfg.vocab, "mask_lm_out_fc", split="col")
         loss = L.mean(L.softmax_with_cross_entropy(logits, feeds["labels"]))
         opt = {"adam": fluid.optimizer.Adam, "sgd": fluid.optimizer.SGD,
                "lamb": fluid.optimizer.Lamb}[cfg.optimizer](cfg.lr)

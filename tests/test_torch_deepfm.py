@@ -246,10 +246,13 @@ def test_autotune_times_every_variant(np_params):
 
 
 def test_unsupported_settings_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        pdeepfm.deepfm_loss_sharded(None, None, PCFG)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        pdeepfm.deepfm_param_specs(PCFG)
+    """The sharded functions run since item 5-C′
+    (``tests/test_torch_sharded_embedding.py``); a sharded trainer takes
+    the segment variant's SGD step only."""
+    from paddle_tpu_torch.parallel.rules import P
+
+    specs = pdeepfm.deepfm_param_specs(PCFG)
+    assert specs["embed"] == P("dp", None) and specs["bias"] == P()
     with pytest.raises(ValueError, match="variant"):
         pdeepfm.build_deepfm_trainer(PCFG, variant="nope", device="cpu")
     with pytest.raises(ValueError, match="dense"):

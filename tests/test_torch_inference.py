@@ -680,9 +680,11 @@ def test_compiled_program_refuses_other_layouts(case):
     outside one on this process alone: more than one place (recorded, and a
     warning that one process drives one card), a one-rank mesh, trainers
     and sync-BN (recorded) all run one step equal to the plain program's,
-    bit for bit.  A tensor-parallel degree above 1 still raises, naming
-    item 5-C, when it is set and when it is set later; a mesh that is not
-    the port's raises."""
+    bit for bit.  Since item 5-C′ a tensor-parallel degree above 1 runs over
+    a world it divides; this process alone (one rank) raises the reference's
+    ``ValueError`` when the run starts, whether the degree was set before
+    ``with_data_parallel`` or later; a mesh that is not the port's
+    raises."""
     from paddle_tpu_torch.parallel.mesh import make_mesh
 
     main, startup, v = lenet(pfluid, "sgd")
@@ -699,19 +701,19 @@ def test_compiled_program_refuses_other_layouts(case):
         bs.num_trainers, bs.trainer_id = 2, 1
     if case == "sync_bn":
         bs.sync_batch_norm = True
-    if case == "tensor_parallel":
-        bs.tensor_parallel_degree = 2
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5-C"):
-            cp.with_data_parallel(**kw)
-        return
     exe = pfluid.Executor(pfluid.CPUPlace())
     feed = {"img": images(0, 4), "label": np.arange(4).reshape(4, 1) % 10}
-    if case == "changed_later":
+    if case in ("tensor_parallel", "changed_later"):
+        if case == "tensor_parallel":
+            bs.tensor_parallel_degree = 2
         cp.with_data_parallel(**kw)
-        bs.tensor_parallel_degree = 4
+        if case == "changed_later":
+            bs.tensor_parallel_degree = 4
         scope = pfluid.Scope()
         exe.run(startup, scope=scope)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5-C"):
+        with pytest.raises(ValueError, match="tensor_parallel_degree=%d "
+                           "does not divide the 1 ranks"
+                           % bs.tensor_parallel_degree):
             exe.run(cp, feed=feed, fetch_list=[v["loss"]], scope=scope)
         return
     with warnings.catch_warnings(record=True) as said:

@@ -367,7 +367,8 @@ def _unported(case, monkeypatch):
         monkeypatch.setenv("PADDLE_TPU_WARM_DIR", "/nonexistent")
     if case == "compiled_program":
         # a data-parallel CompiledProgram runs (trainers recorded, since
-        # item 5-B); one asked for tensor parallelism waits (item 5-C)
+        # item 5-B); one asked for tensor parallelism runs over a world it
+        # divides (item 5-C′), which this one process is not
         main = fluid.CompiledProgram(main).with_data_parallel(loss_name=loss.name)
         main._build_strategy.num_trainers = 2
         main._build_strategy.tensor_parallel_degree = 2
@@ -419,6 +420,12 @@ def test_unported_branches_raise(case, item, monkeypatch):
             exe.run(main, fetch_list=[loss], scope=pfluid.Scope())
         return
     feed = digits(0, n=2)
+    if case == "compiled_program":
+        # no longer refused (ROADMAP Queue 1 item 5-C′): tensor parallelism
+        # needs a world the degree divides, as the reference needs devices
+        with pytest.raises(ValueError, match="does not divide the 1 ranks"):
+            exe.run(main, feed=feed, fetch_list=[loss], scope=pfluid.Scope())
+        return
     match = ("ROADMAP Queue 1 " + item) if item else "no lowering registered"
     with pytest.raises(NotImplementedError, match=match):
         exe.run(main, feed=feed, fetch_list=[loss], scope=pfluid.Scope())

@@ -552,7 +552,8 @@ def test_fleet_tagged_programs_wait_for_item_5b():
     """Since item 5-B a fleet-tagged program runs data-parallel: outside a
     world, on this process alone, equal to the untagged program bit for
     bit (``tests/test_torch_program_dp.py`` runs it over worlds of 2 and
-    4).  The host sparse table still waits."""
+    4).  The host sparse table knob sets the table router's flag (its host
+    route waits for item 7)."""
     import paddle_tpu_torch as pfluid
     from paddle_tpu_torch import convert
     from paddle_tpu_torch.distributed import fleet as pfleet
@@ -580,8 +581,16 @@ def test_fleet_tagged_programs_wait_for_item_5b():
                              scope=scope)[0].tobytes() for _ in range(2)]
                     + [scope.find_tensor_as_numpy(n).tobytes() for n in names])
     assert runs[0] == runs[1]
+    # the host sparse table knob sets the table router's flag (item 5-C′);
+    # the host route itself waits for item 7 (tests/
+    # test_torch_sharded_embedding.py)
+    from paddle_tpu_torch.parallel import embedding
+
     strategy = pfleet.DistributedStrategy()
     strategy.use_host_sparse_table = True
-    with pytest.raises(NotImplementedError, match="5-C and 7"):
+    try:
         pfleet._Fleet().distributed_optimizer(pfluid.optimizer.SGD(0.1),
                                               strategy)
+        assert embedding.host_sparse_table_enabled()
+    finally:
+        embedding.enable_host_sparse_table(False)

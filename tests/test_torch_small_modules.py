@@ -391,3 +391,26 @@ def test_data_norm_update_stats_threads_its_accumulators_in_both_executors():
         np.testing.assert_allclose(pv[n], jv[n], rtol=1e-6)
     assert pv[pst[0]].tolist() == [10.0] * 3          # 2 + 4 + 4 rows
     assert re.match(r"data_norm", pst[0])
+
+
+# -- monitor/memscope.min_device_bytes_limit -------------------------------------
+
+def test_min_device_bytes_limit_prefers_the_configured_limit(monkeypatch):
+    """The configured override first; with none, on a host without a card,
+    the caller's fallback (the JAX helper's order: override, devices,
+    fallback)."""
+    from paddle_tpu_torch.monitor import memscope
+
+    monkeypatch.delenv("PADDLE_TPU_MEMSCOPE_LIMIT", raising=False)
+    memscope.reset()
+    try:
+        assert not torch.cuda.is_available()
+        assert memscope.min_device_bytes_limit() is None
+        assert memscope.min_device_bytes_limit(fallback=123) == 123
+        memscope.configure(bytes_limit=4 << 20)
+        assert memscope.min_device_bytes_limit(fallback=123) == 4 << 20
+        memscope.reset()
+        monkeypatch.setenv("PADDLE_TPU_MEMSCOPE_LIMIT", "2048")
+        assert memscope.min_device_bytes_limit(fallback=123) == 2048
+    finally:
+        memscope.reset()
