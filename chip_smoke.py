@@ -418,6 +418,31 @@ Builds the port's CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
     (LAMB, k = 2: replicas apart after steps 1 and 3, bit for bit after 2
     and 4; k = 1 SGD in yardsticks of the sync dp step); then the dryrun at
     N = 2 on the card and the embedding router's capacity guard.
+56. ``fault_tolerance``: checkpoints and fault tolerance (ROADMAP items 5-D
+    and 6), each killed run a subprocess of the port, its checkpoints in a
+    temporary directory removed at the end.  (a) BERT-base (bf16, S = 512,
+    B = 64, LAMB) under ``TrainLoop`` (``tools/loop_drill.py``) with
+    ``CheckpointPolicy(every_steps=2, asynchronous=True, keep=2,
+    resume=True)``: the never-stopped control twice, bit for bit alike,
+    beside a run the drill SIGTERM stops at step 3 (rc 120, a committed
+    ``ckpt-3``); a second process resuming to step 6, its losses, params and LAMB state bit for
+    bit the control's; the checkpoint's bytes, the train thread's blocked
+    ms against the async write's, the restore ms, the first resumed step's
+    ms, the LN / flash launches a step.  (b) The CTR program at config 5's
+    widths (B = 8192) through ``train_from_dataset(checkpoint=...)`` under
+    the port's ``launch --elastic_retries 1``: the control twice, bit for
+    bit alike; a drill SIGTERM and a free restart resuming to the end, bit
+    for bit the control (the three side by side); the segment kernel's
+    launches a step, every call held against its plain version.  (c) The
+    BERT-base ZeRO state of two gloo ranks on the card saved after one
+    step, restored at two (each rank's blocks, and one more step bit for
+    bit the never-saved one's) and at one rank (the gathered state, bit
+    for bit).  (d) A ``nan_batch``
+    drill under ``sentinel.enable(policy="quarantine")`` on the CTR
+    program: a committed ``ckpt-<step>-quarantine`` whose restore and one
+    step give the nonfinite loss again.  (e) ``tools/chaos_drill.py
+    --smoke --check --device cuda`` exits 0.  (b) and (e) run in the
+    background from the start, beside (a).
 
 Phases 30-33 and 36 write their monitor directories under
 ``build/monitor``, phases 35-36 and 53 their data files under
@@ -9699,6 +9724,500 @@ def phase_tp_tables_two_ranks(device_name, card, device="cuda", args=None):
             "local_sgd": got[0]["local_sgd"]["lamb"][-1]["launches"]}
 
 
+# -- phase 56: checkpoints and fault tolerance (ROADMAP items 5-D, 6) ----------
+P56_STEPS, P56_EVERY, P56_SIGTERM = 6, 2, 3   # (a): saves at 2, preempt at 3
+P56_CTR_FILES, P56_CTR_BATCHES = 2, 4         # (b): 8 steps of CTR_B rows
+P56_CTR_EVERY, P56_CTR_SIGTERM = 3, 4
+P56_RESHARD_B = 16                            # (c): global B, 8 a rank
+P56_TIMEOUT_S = 600
+P56_ROW11_TOL = TOL_F32                       # each held segment call
+
+
+def _p56_env():
+    from paddle_tpu_torch.tools import chaos_drill
+
+    return chaos_drill.worker_env("cuda")
+
+
+def _p56_wait(procs, what):
+    outs = []
+    for p in procs:
+        try:
+            out = p.communicate(timeout=P56_TIMEOUT_S)[0]
+        finally:
+            if p.poll() is None:
+                p.kill()
+        outs.append(out)
+        if p.returncode != 0:
+            raise AssertionError("%s exited rc=%s:\n%s"
+                                 % (what, p.returncode, out[-4000:]))
+    return outs
+
+
+def _p56_popen(cmd, env):
+    return subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _p56_load(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def phase_p56_loop(device_name, card, tmp):
+    """(a): BERT-base under TrainLoop, killed at step 3 and resumed."""
+    import os
+
+    from paddle_tpu_torch.parallel.checkpoint import latest_checkpoint
+
+    env = _p56_env()
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.tools.loop_drill",
+           "--size", "base", "--device", "cuda", "--steps", str(P56_STEPS),
+           "--every", str(P56_EVERY)]
+    ck = os.path.join(tmp, "bert_ckpt")
+    outs = {k: os.path.join(tmp, "bert_%s.json" % k)
+            for k in ("control1", "control2", "killed", "resumed")}
+    t0 = time.perf_counter()
+    # the two controls and the run to be killed side by side (~15 GB each)
+    killed = _p56_popen(cmd + ["--ckpt", ck, "--sigterm-at", str(P56_SIGTERM),
+                               "--out", outs["killed"]], env)
+    try:
+        _p56_wait([_p56_popen(cmd + ["--no-checkpoint", "--out", outs[k]],
+                              env) for k in ("control1", "control2")],
+                  "the BERT-base controls")
+        out = killed.communicate(timeout=P56_TIMEOUT_S)[0]
+    finally:
+        if killed.poll() is None:
+            killed.kill()
+    if killed.returncode != 120:
+        raise AssertionError("the killed BERT-base run exited rc=%d, not "
+                             "120:\n%s" % (killed.returncode, out[-4000:]))
+    committed = latest_checkpoint(ck)
+    if not committed or not committed.endswith("ckpt-%d" % P56_SIGTERM):
+        raise AssertionError("after the SIGTERM at step %d the latest "
+                             "committed checkpoint is %s"
+                             % (P56_SIGTERM, committed))
+    _p56_wait([_p56_popen(cmd + ["--ckpt", ck, "--init-seed", "7", "--out",
+                                 outs["resumed"]], env)],
+              "the resumed BERT-base run")
+    rec = {k: _p56_load(v) for k, v in outs.items()}
+    c1, c2, k, r = (rec[x] for x in ("control1", "control2", "killed",
+                                      "resumed"))
+    twice = c1["digests"] == c2["digests"] and c1["losses"] == c2["losses"]
+    before = {s: c1["losses"][s] for s in k["losses"]}
+    after = {s: c1["losses"][s] for s in r["losses"]}
+    resumed = (r["resumed_step"] == P56_SIGTERM
+               and r["digests"] == c1["digests"] and r["losses"] == after
+               and k["losses"] == before)
+    differ = sorted(p for p in c1["digests"]
+                    if r["digests"].get(p) != c1["digests"][p])
+    per_step = {x: rec[x]["launches"] for x in ("control1", "resumed")}
+    out = {"phase": "p56_loop", "nvidia_smi": card, "device": device_name,
+           "control_bit_identical_twice": twice,
+           "resumed_bit_identical": resumed, "leaves": len(c1["digests"]),
+           "leaves_differing": differ[:8], "ckpts": k["ckpt_events"]
+           + r["ckpt_events"], "restore_ms": r["restore_ms"],
+           "first_resumed_step_ms": r["step_ms"][str(P56_SIGTERM + 1)],
+           "control_step_ms": c1["step_ms"], "resumed_step_ms": r["step_ms"],
+           "launches_per_step": per_step,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    if not twice:
+        raise AssertionError("phase 56 (a): the never-stopped BERT-base "
+                             "control is not bit for bit alike twice")
+    if not resumed:
+        raise AssertionError("phase 56 (a): the resumed run is not bit for "
+                             "bit the control (leaves %s)" % differ[:8])
+    for x, counts in per_step.items():
+        if any(counts.get(kk) != n for kk, n in PER_STEP.items()):
+            raise AssertionError("phase 56 (a) %s: LN / flash launches a "
+                                 "step %s, expected %s" % (x, counts,
+                                                           PER_STEP))
+    return per_step
+
+
+def phase_p56_ctr_start(tmp):
+    """(b): the CTR program at config 5's widths under the launcher: writes
+    the files and starts the two controls and the launcher's drill, side
+    by side (and beside (a))."""
+    import os
+
+    from paddle_tpu_torch.models import deepfm
+    from paddle_tpu_torch.tools import chaos_drill
+    from paddle_tpu_torch.tools import ctr_program as cp
+
+    d = deepfm.DeepFMConfig()
+    widths = [d.num_fields, d.num_features, d.embed_dim] + list(d.mlp_dims)
+    data = os.path.join(tmp, "ctr_data")
+    t0 = time.perf_counter()
+    cp.write_ctr_files(data, n_files=P56_CTR_FILES,
+                       rows_per_file=P56_CTR_BATCHES * CTR_B,
+                       n_fields=d.num_fields, vocab=d.num_features,
+                       seed=CTR_SEED, zipf=CTR_ZIPF)
+    env = _p56_env()
+    shape = {"every": P56_CTR_EVERY, "sigterm_at": P56_CTR_SIGTERM}
+    runs, procs = {}, {}
+    for k in ("control1", "control2"):
+        runs[k] = os.path.join(tmp, "ctr_" + k)
+        os.makedirs(runs[k])
+        procs[k] = _p56_popen([sys.executable] + chaos_drill.worker_cmd(
+            "none", data, runs[k] + "_ckpt", runs[k], shape, "cuda",
+            ctr=widths, batch=CTR_B), env)
+    runs["drill"] = os.path.join(tmp, "ctr_drill")
+    os.makedirs(runs["drill"])
+    procs["drill"] = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node", "1", "--started_port", str(_free_port()),
+         "--elastic_retries", "1", "--elastic_reset_secs", "0",
+         "--log_dir", os.path.join(tmp, "ctr_logs")]
+        + chaos_drill.worker_cmd("smoke", data, runs["drill"] + "_ckpt",
+                                 runs["drill"], shape, "cuda", ctr=widths,
+                                 batch=CTR_B),
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return {"t0": t0, "data": data, "widths": widths, "runs": runs,
+            "procs": procs}
+
+
+def phase_p56_ctr_finish(device_name, card, ctr):
+    """(b)'s checks: the controls alike, the drill's free restart bit for
+    bit the control, 2 segment launches a step, every call held."""
+    import os
+
+    import numpy as np
+
+    runs, procs = ctr["runs"], ctr["procs"]
+    drill = procs["drill"]
+    try:
+        _p56_wait([procs["control1"], procs["control2"]],
+                  "the CTR controls")
+        _, err = drill.communicate(timeout=P56_TIMEOUT_S)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+    free = "preempted (rc=120); free elastic restart, budget kept 0/1"
+    if drill.returncode != 0 or free not in err:
+        raise AssertionError("phase 56 (b): the launcher drill exited rc=%d "
+                             "(free restart taken: %s):\n%s"
+                             % (drill.returncode, free in err, err[-4000:]))
+    params = {k: np.load(os.path.join(v, "final_params.npz"))
+              for k, v in runs.items()}
+
+    def same(a, b):
+        return sorted(a.files) == sorted(b.files) and all(
+            a[n].tobytes() == b[n].tobytes() for n in a.files)
+
+    twice = same(params["control1"], params["control2"])
+    resumed = same(params["control1"], params["drill"])
+    recs = {"control1": _p56_load(os.path.join(runs["control1"],
+                                               "record-a0-r0.json"))}
+    for a in (0, 1):
+        recs["drill_a%d" % a] = _p56_load(os.path.join(
+            runs["drill"], "record-a%d-r0.json" % a))
+    per_step = {k: r["launches"].get("segment_sum", 0) / max(r["steps"], 1)
+                for k, r in recs.items()}
+    out = {"phase": "p56_ctr", "nvidia_smi": card, "device": device_name,
+           "widths": ctr["widths"], "batch": CTR_B,
+           "control_bit_identical_twice": twice,
+           "resumed_bit_identical": resumed, "records": recs,
+           "segment_launches_per_step": per_step,
+           "seconds": time.perf_counter() - ctr["t0"]}
+    emit(out)
+    if not twice:
+        raise AssertionError("phase 56 (b): the CTR control is not bit for "
+                             "bit alike twice")
+    if not resumed:
+        raise AssertionError("phase 56 (b): the resumed CTR run is not bit "
+                             "for bit the control")
+    for k, r in recs.items():
+        if r["segment_calls"] == 0 or r["segment_max_rel_err"] > P56_ROW11_TOL:
+            raise AssertionError("phase 56 (b) %s: %d segment calls held, "
+                                 "worst %g" % (k, r["segment_calls"],
+                                               r["segment_max_rel_err"]))
+    if any(v != CTR_PER_STEP["segment_sum"] for v in per_step.values()):
+        raise AssertionError("phase 56 (b): segment launches a step %s, "
+                             "expected %d" % (per_step,
+                                              CTR_PER_STEP["segment_sum"]))
+    return per_step
+
+
+def _p56_rank(rank, world, endpoint, results, args):
+    """One rank of phase 56 (c), spawned: the BERT-base ZeRO trainer over
+    two gloo ranks on the card.  One step, the state's digests (this rank's
+    blocks and the gathered whole), the save, one more step (the
+    never-saved continuation); then a fresh trainer (another init)
+    restores the checkpoint (the 2 -> 2 re-slice through the files) and
+    takes that step."""
+    import os
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.parallel import MeshSpec
+    from paddle_tpu_torch.parallel import checkpoint as ck
+    from paddle_tpu_torch.parallel.train import gather_pytree
+    from paddle_tpu_torch.tools.chaos_drill import deterministic_card
+    from paddle_tpu_torch.tools.loop_drill import state_digests
+
+    deterministic_card()
+    os.environ.update({
+        "PADDLE_TRAINER_ID": str(rank), "PADDLE_TRAINERS_NUM": str(world),
+        "PADDLE_TRAINER_ENDPOINTS": endpoint,
+        "PADDLE_CURRENT_ENDPOINT": endpoint, "PADDLE_DISTRI_BACKEND": "gloo",
+        "FLAGS_selected_gpus": "0"})
+    device = fleet.init().device
+    try:
+        cfg = bert.bert_base_config()
+        batches = [{k: torch.from_numpy(v).to(device) for k, v in b.items()}
+                   for b in bert.synthetic_batches(cfg, 2, P56_RESHARD_B, S,
+                                                   seed=5)]
+        spec = MeshSpec(dp=world, zero=True)
+        res = {"rank": rank}
+        tr = bert.build_bert_trainer(cfg, spec, seed=0, device=device)
+        tr.step(batches[0], DP_LR_BERT)
+        res["blocks"] = state_digests(tr.state)
+        res["gathered"] = state_digests(gather_pytree(tr.state, tr.specs,
+                                                      tr.mesh))
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        ck.save_checkpoint(args["dir"], tr.state, step=1, specs=tr.specs,
+                           mesh=tr.mesh)
+        res["save_ms"] = (time.perf_counter() - t0) * 1e3
+        res["bytes"] = ck.written_nbytes(tr.state, tr.specs, tr.mesh)
+        tr.step(batches[1], DP_LR_BERT)
+        res["continued"] = state_digests(tr.state)
+        del tr
+        torch.cuda.empty_cache()
+        dist.barrier()                     # rank 0's COMMIT has landed
+        tr = bert.build_bert_trainer(cfg, spec, seed=1, device=device)
+        path = ck.latest_checkpoint(args["dir"])
+        t0 = time.perf_counter()
+        state, step = ck.restore_checkpoint(path, tr.state, specs=tr.specs,
+                                            mesh=tr.mesh)
+        torch.cuda.synchronize(device)
+        res.update(step=step, restore_ms=(time.perf_counter() - t0) * 1e3,
+                   restored=state_digests(state))
+        tr.state = state
+        tr.step(batches[1], DP_LR_BERT)
+        res["regrown"] = state_digests(tr.state)
+        dist.barrier()
+        results.put(res)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_p56_reshard(device_name, card, tmp):
+    """(c): save at two ranks, restore back at two, shrink to one."""
+    import multiprocessing as mp
+    import os
+    import queue
+
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.parallel import checkpoint as ck
+    from paddle_tpu_torch.tools.loop_drill import state_digests
+
+    d = os.path.join(tmp, "zero_ckpt")
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    endpoint = "127.0.0.1:%d" % _free_port()
+    procs = [ctx.Process(target=_p56_rank, args=(r, DP_WORLD, endpoint,
+                                                 results, {"dir": d}))
+             for r in range(DP_WORLD)]
+    for p in procs:
+        p.start()
+    ranks = {}
+    try:
+        deadline = time.monotonic() + P56_TIMEOUT_S
+        while len(ranks) < DP_WORLD:
+            try:
+                res = results.get(timeout=5)
+                ranks[res["rank"]] = res
+            except queue.Empty:
+                dead = [p.exitcode for p in procs
+                        if p.exitcode not in (None, 0)]
+                if dead or time.monotonic() > deadline:
+                    raise AssertionError("phase 56 (c): a rank failed "
+                                         "(exit codes %s)" % dead)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    path = ck.latest_checkpoint(d)
+    tr = bert.build_bert_trainer(bert.bert_base_config(), seed=2,
+                                 device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, step = ck.restore_checkpoint(path, tr.state)
+    torch.cuda.synchronize()
+    shrink_ms = (time.perf_counter() - t1) * 1e3
+    shrunk = state_digests(state)
+    del tr, state
+    torch.cuda.empty_cache()
+    shrink_ok = shrunk == ranks[0]["gathered"] == ranks[1]["gathered"]
+    grow_ok = all(ranks[r]["restored"] == ranks[r]["blocks"]
+                  for r in range(DP_WORLD))
+    step_ok = all(ranks[r]["regrown"] == ranks[r]["continued"]
+                  for r in range(DP_WORLD))
+    out = {"phase": "p56_reshard", "nvidia_smi": card, "device": device_name,
+           "ckpt": os.path.basename(path), "step": step,
+           "leaves": len(shrunk), "shrink_bit_identical": shrink_ok,
+           "grow_blocks_bit_identical": grow_ok,
+           "grow_step_bit_identical": step_ok,
+           "bytes_per_rank": [ranks[r]["bytes"] for r in range(DP_WORLD)],
+           "save_ms": [ranks[r]["save_ms"] for r in range(DP_WORLD)],
+           "restore_ms_one_rank": shrink_ms,
+           "restore_ms_two_ranks": [ranks[r]["restore_ms"]
+                                    for r in range(DP_WORLD)],
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    if not (shrink_ok and grow_ok and step_ok):
+        raise AssertionError("phase 56 (c): the re-shard is not bit for bit "
+                             "(shrink %s, grow %s, step %s)"
+                             % (shrink_ok, grow_ok, step_ok))
+
+
+def phase_p56_quarantine(card, tmp, data):
+    """(d): the quarantine policy's debug checkpoint and its repro."""
+    import json as _json
+    import os
+
+    import numpy as np
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.ft import chaos
+    from paddle_tpu_torch.models import deepfm
+    from paddle_tpu_torch.parallel import checkpoint as ck
+    from paddle_tpu_torch.tools import ctr_program as cp
+
+    d = deepfm.DeepFMConfig()
+    prog = cp.build_ctr_program(fluid, n_fields=d.num_fields,
+                                vocab=d.num_features, embed=d.embed_dim,
+                                mlp=tuple(d.mlp_dims))
+    files = sorted(os.path.join(data, n) for n in os.listdir(data))
+    ds = cp.make_dataset(fluid, "QueueDataset", files, prog, CTR_B)
+    feeds = []
+    for feed in ds._iter_batches(with_cursor=False):
+        feeds.append(feed)
+        if len(feeds) == 3:
+            break
+    place = fluid.CUDAPlace(0)
+    exe = fluid.Executor(place)
+    scope = fluid.Scope()
+    exe.run(prog.startup, scope=scope)
+    qdir = os.path.join(tmp, "quarantine")
+    t0 = time.perf_counter()
+    mon = monitor.enable(os.path.join(tmp, "quarantine_mon"))
+    try:
+        # the registry outlives sessions: count this drill's increments
+        def counts_now():
+            return {k: mon.registry.counter("monitor.health." + k).value
+                    for k in ("quarantines", "skipped_batches")}
+
+        before = counts_now()
+        monitor.sentinel.enable(policy="quarantine", sample_every=1,
+                                quarantine_dir=qdir)
+        chaos.arm("nan_batch", at=3)
+        losses = [float(exe.run(prog.main, feed=f, fetch_list=[prog.loss],
+                                scope=scope)[0]) for f in feeds]
+        counts = {k: v - before[k] for k, v in counts_now().items()}
+    finally:
+        chaos.disarm()
+        monitor.disable()
+    names = sorted(os.listdir(qdir))
+    if names != ["ckpt-3-quarantine"]:
+        raise AssertionError("phase 56 (d): quarantine directory holds %s"
+                             % names)
+    qpath = os.path.join(qdir, names[0])
+    with open(os.path.join(qpath, "index-p0.json")) as f:
+        leaves = _json.load(f)["leaves"]
+    target = {"scope": {}, "feed": {}, "meta": {"step": np.int64(0)}}
+    for path, meta in leaves.items():
+        head, _, name = path.partition("/")
+        if head in ("scope", "feed"):
+            target[head][name] = torch.zeros(
+                meta["shape"], dtype=getattr(torch, meta["dtype"]),
+                device="cuda")
+    st, step = ck.restore_checkpoint(qpath, target)
+    scope2 = fluid.Scope()
+    exe2 = fluid.Executor(place)
+    exe2.run(prog.startup, scope=scope2)
+    for n, v in st["scope"].items():
+        scope2.var(n)
+        scope2.set(n, v)
+    exe2._step = int(step)
+    (repro,) = exe2.run(prog.main, feed=st["feed"], fetch_list=[prog.loss],
+                        scope=scope2)
+    out = {"phase": "p56_quarantine", "nvidia_smi": card, "ckpt": names[0],
+           "losses": losses, "counters": counts,
+           "latest_checkpoint": ck.latest_checkpoint(qdir),
+           "repro_loss_finite": bool(np.isfinite(repro).all()),
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    if counts != {"quarantines": 1, "skipped_batches": 1} \
+            or out["latest_checkpoint"] is not None \
+            or out["repro_loss_finite"]:
+        raise AssertionError("phase 56 (d): the quarantine drill failed: %s"
+                             % out)
+
+
+def phase_p56_drill_start():
+    """(e): the port's drill on the card, started in the background (it
+    runs beside (b) to (d))."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.tools.chaos_drill",
+         "--smoke", "--check", "--device", "cuda"], env=_p56_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter()
+
+
+def phase_p56_drill_finish(card, started):
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=P56_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    emit({"phase": "p56_drill", "nvidia_smi": card, "rc": proc.returncode,
+          "tail": out[-1500:], "seconds": time.perf_counter() - t0})
+    if proc.returncode != 0:
+        raise AssertionError("phase 56 (e): chaos_drill --smoke --check "
+                             "--device cuda exited rc=%d:\n%s%s"
+                             % (proc.returncode, out[-3000:], err[-3000:]))
+
+
+def phase_fault_tolerance(device_name, card):
+    """Phase 56, (a) to (e); returns the launches a step of its paths."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase56_")
+    drill = ctr = None
+    try:
+        # (e) and (b) run in the background beside (a): each subprocess
+        # spends most of its life starting up
+        drill = phase_p56_drill_start()
+        ctr = phase_p56_ctr_start(tmp)
+        loop = phase_p56_loop(device_name, card, tmp)
+        ctr_per_step = phase_p56_ctr_finish(device_name, card, ctr)
+        phase_p56_reshard(device_name, card, tmp)
+        torch.cuda.empty_cache()
+        phase_p56_quarantine(card, tmp, ctr["data"])
+        torch.cuda.empty_cache()
+        phase_p56_drill_finish(card, drill)
+    finally:
+        for p in ([drill[0]] if drill else []) + \
+                (list(ctr["procs"].values()) if ctr else []):
+            if p.poll() is None:
+                p.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "fault_tolerance", "seconds": time.perf_counter() - t0})
+    return {"bert_loop": loop, "ctr_segment": ctr_per_step}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -9849,6 +10368,18 @@ def main():
             "tp_encoder": p55["tp_encoder"].get(key, 0),
             "sharded_deepfm": p55["sharded_deepfm"].get(key, 0),
             "local_sgd": p55["local_sgd"].get(key, 0)}
+    torch.cuda.empty_cache()
+    _common.reset_launches()
+    p56 = phase_fault_tolerance(name, card)
+    for rec in kernels:
+        key = {"flash_attention_bwd_dq": "flash_attention_bwd",
+               "flash_attention_bwd_dkv": "flash_attention_bwd"}.get(
+                   rec["name"], rec["name"])
+        rec["phase56_launches_per_step"] = {
+            "bert_loop_control": p56["bert_loop"]["control1"].get(key, 0),
+            "bert_loop_resumed": p56["bert_loop"]["resumed"].get(key, 0),
+            "ctr_segment": ({k: v for k, v in p56["ctr_segment"].items()}
+                            if key == "segment_sum" else 0)}
     for rec in kernels:
         if rec["name"] == "segment_sum":
             rec["ctr_dataset_launches_per_step"] = ctr_per_step

@@ -31,7 +31,9 @@ module names so each counterpart is easy to find:
 - ``monitor`` (run telemetry: timeline, spans, Prometheus, recompiles,
   MemScope, the TrainSentinel), ``profiler`` (``torch.profiler`` behind
   the Fluid profiler API), ``flags`` (``FLAGS_check_nan_inf``) and
-  ``ft.chaos`` (the executor's fault drills);
+  ``ft`` (``CheckpointPolicy``, the sharded checkpoint and TrainGuard
+  behind ``train_from_dataset(checkpoint=...)`` and ``TrainLoop``, the
+  preemption agreement, the fault drills of ``ft.chaos``);
 - the data path: ``dataset`` (``DatasetFactory``, ``QueueDataset``,
   ``InMemoryDataset`` over the native MultiSlot parser of ``runtime``),
   ``feed_pipe`` (``DeviceFeedPipe``, ``InFlightWindow``), ``reader``
@@ -103,6 +105,7 @@ from .flags import set_flags, get_flags
 from . import monitor
 from . import profiler
 from . import ft
+from .ft import CheckpointPolicy  # noqa: F401
 from .param_attr import WeightNormParamAttr
 from .trainer import FetchHandler
 from .reader import DataLoader
@@ -129,7 +132,8 @@ __all__ = [
     "unique_name", "resolve_device", "metrics", "io", "inference",
     "compiler", "CompiledProgram", "BuildStrategy", "ExecutionStrategy",
     "load", "save", "amp", "amp_guard", "contrib", "flags", "set_flags",
-    "get_flags", "monitor", "profiler", "ft", "WeightNormParamAttr",
+    "get_flags", "monitor", "profiler", "ft", "CheckpointPolicy",
+    "WeightNormParamAttr",
     "FetchHandler", "DataLoader", "dataset", "DatasetFactory",
     "AsyncExecutor", "EOFException", "learning_rate_decay", "LoDTensor",
     "LoDTensorArray", "Tensor", "transpiler", "install_check", "ir",

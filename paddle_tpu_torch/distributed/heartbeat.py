@@ -82,17 +82,11 @@ class WorkerHeartbeat:
     thread; complete() writes done-<rank> and stops (clean exit).
 
     agree_dir: the checkpoint directory whose preemption agreement rounds
-    (the JAX package's ``ft/agree.py``) this worker would join; the port
-    has no ``ft/agree.py`` yet, so a directory raises (ROADMAP Queue 1
-    item 6)."""
+    (``ft/agree.py``) this worker joins; a (re)start aborts the rounds a
+    previous incarnation left there."""
 
     def __init__(self, dirname, rank, interval=1.0, agree_dir=None,
                  world=None):
-        if agree_dir is not None:
-            raise NotImplementedError(
-                "WorkerHeartbeat(agree_dir=...): the preemption agreement "
-                "rounds of ft/agree.py wait (ROADMAP Queue 1 item 6, fault "
-                "tolerance)")
         self.dirname = dirname
         self.rank = int(rank)
         self.interval = interval
@@ -137,6 +131,17 @@ class WorkerHeartbeat:
                     "[heartbeat] elastic shrink to world=%d: cleared stale "
                     "beat/done files for removed ranks %s\n"
                     % (world, cleared))
+        if self.agree_dir is not None:
+            # the preemption-agreement analogue of the stale-mark sweep: a
+            # round left by the previous incarnation must die, not be
+            # joined with a stale step (ft/agree.py abort_stale_rounds; it
+            # also restores the ft.preempt.agreed_step gauge)
+            try:
+                from ..ft import agree as _agree
+
+                _agree.abort_stale_rounds(self.agree_dir, rank=self.rank)
+            except OSError:
+                pass     # heartbeats must start even on a sick ckpt mount
         self._beat()
 
         def run():

@@ -12,8 +12,10 @@ head (the gen_nccl_id replacement).  ``--backend`` names the process
 group's backend: ``auto`` is NCCL on a card and gloo on the CPU; ``gloo``
 runs ranks that share one card (NCCL refuses two ranks on one device).
 The workers are started with subprocess (a fresh interpreter each, never a
-fork of a process that holds CUDA state), and the elastic retries are the
-reference's.
+fork of a process that holds CUDA state), and the elastic retries, the
+elastic shrink and the guard-derived SIGTERM grace are the reference's.
+``--solo_respawn_ranks`` is accepted, but a rank listed there (a HostPS
+shard owner in the reference) raises: ROADMAP Queue 1 item 7.
 """
 
 import argparse
@@ -44,35 +46,96 @@ def _parse_args(argv=None):
                         "share one card")
     p.add_argument("--log_dir", type=str, default=None)
     p.add_argument("--elastic_retries", type=int, default=0,
-                   help="restart a crashed worker up to N times.  The budget "
-                        "is GLOBAL across the job, not per worker: a crash "
-                        "restarts EVERY worker (collective jobs wedge "
-                        "otherwise).  A restarted worker starts its script "
-                        "again; the port has no checkpoint to resume from "
-                        "until ROADMAP item 5-D.  --elastic_reset_secs "
-                        "refills the budget after a healthy stretch; a "
-                        "worker that exits with rc=%d (ft.PREEMPTED_RC) is "
-                        "restarted without burning it." % PREEMPTED_RC)
+                   help="restart a crashed worker up to N times (elastic "
+                        "recovery: the worker resumes from its latest "
+                        "checkpoint — ft.CheckpointPolicy(resume=True), "
+                        "parallel/checkpoint.py).  The budget is GLOBAL "
+                        "across the job, not per worker: a crash restarts "
+                        "EVERY worker (collective jobs wedge otherwise).  "
+                        "--elastic_reset_secs refills the budget after a "
+                        "healthy stretch; a worker that exits with rc=%d "
+                        "(ft.PREEMPTED_RC) is restarted without burning it."
+                        % PREEMPTED_RC)
+    p.add_argument("--elastic_shrink", type=int, default=0,
+                   help="when a crash exhausts the retry budget, relaunch "
+                        "the fleet at the SURVIVING world size (one fewer "
+                        "process) up to N times instead of failing the "
+                        "job.  The shrunken fleet resumes from the last "
+                        "committed checkpoint — topology-portable "
+                        "(parallel/checkpoint.py layout manifests): every "
+                        "leaf reassembles from the old world's blocks and "
+                        "re-slices for the new one.  Each shrink refills "
+                        "the retry budget (a smaller fleet is a NEW "
+                        "fleet).  Single-node only")
+    p.add_argument("--solo_respawn_ranks", type=str, default="",
+                   help="comma-separated ranks that respawn ALONE on a "
+                        "crash: the reference's HostPS shard owners, which "
+                        "wait for ROADMAP Queue 1 item 7 — a non-empty "
+                        "value raises")
     p.add_argument("--elastic_reset_secs", type=float, default=600.0,
                    help="refill the elastic retry budget after this many "
                         "seconds without a crash (0 disables: the budget "
                         "then covers the job's whole lifetime)")
-    p.add_argument("--term_grace_secs", type=float, default=60.0,
+    p.add_argument("--term_grace_secs", type=float, default=None,
                    help="on a fleet restart/shutdown, how long a worker "
-                        "gets to act on SIGTERM before it is SIGKILLed, so "
-                        "a restart is never hostage to a wedged worker")
+                        "gets to act on SIGTERM (checkpoint-and-exit, "
+                        "ft/guard.py) before it is SIGKILLed.  Bounds "
+                        "restart latency even when a worker's preemption "
+                        "save is itself wedged.  Default: the degraded "
+                        "preemption path's own worst case (agreement "
+                        "budget + COMMIT-barrier budget + slack), so a "
+                        "surviving rank always reaches its BarrierTimeout "
+                        "degradation bookkeeping before the launcher "
+                        "SIGKILLs it")
     p.add_argument("training_script", type=str)
     p.add_argument("training_script_args", nargs=argparse.REMAINDER)
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.term_grace_secs is None:
+        args.term_grace_secs = _default_term_grace()
+    if args.solo_respawn_ranks.strip():
+        raise NotImplementedError(
+            "--solo_respawn_ranks %r: a rank that respawns alone is a HostPS "
+            "shard owner, which waits for ROADMAP Queue 1 item 7"
+            % args.solo_respawn_ranks)
+    return args
+
+
+def _env_secs(name, default):
+    try:
+        return float(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
+def _default_term_grace():
+    """Grace must outlast the guard's WORST degraded preemption path: a
+    surviving rank blocks a full agreement budget on a dead peer
+    (ft/agree.py agree_secs), trains to the fallback boundary, stages its
+    save, then waits out the whole COMMIT barrier
+    (parallel/checkpoint.py barrier_secs) before the BarrierTimeout
+    degradation bookkeeping runs and it exits rc=120.  SIGKILLing earlier
+    loses the fleet_lost evidence AND leaves an uncommitted ckpt corpse.
+    The knobs' env defaults are read here directly (same knobs, same
+    defaults), so the launcher loads none of the checkpoint modules."""
+    return (_env_secs("PADDLE_TPU_PREEMPT_AGREE_SECS", 30.0)
+            + _env_secs("PADDLE_TPU_CKPT_BARRIER_SECS", 120.0) + 30.0)
 
 
 def start_procs(args):
     """Parity: launch.py:147 start_procs."""
     node_ips = args.cluster_node_ips.split(",")
     node_id = node_ips.index(args.node_ip)
-    nproc = args.nproc_per_node
-    world = ["%s:%d" % (ip, args.started_port + i)
-             for ip in node_ips for i in range(nproc)]
+    # topology is MUTABLE state: an elastic shrink relaunches the fleet at
+    # a smaller world size, so everything derived from nproc lives here and
+    # is recomputed by _set_world
+    topo = {}
+
+    def _set_world(nproc):
+        topo["nproc"] = nproc
+        topo["world"] = ["%s:%d" % (ip, args.started_port + i)
+                         for ip in node_ips for i in range(nproc)]
+
+    _set_world(args.nproc_per_node)
 
     if args.log_dir:
         os.makedirs(args.log_dir, exist_ok=True)
@@ -80,13 +143,13 @@ def start_procs(args):
     log_handles = {}
 
     def spawn(local_rank, attempt=0):
-        rank = node_id * nproc + local_rank
+        rank = node_id * topo["nproc"] + local_rank
         env = dict(os.environ)
         env.update({
             "PADDLE_TRAINER_ID": str(rank),
-            "PADDLE_TRAINERS_NUM": str(len(world)),
-            "PADDLE_TRAINER_ENDPOINTS": ",".join(world),
-            "PADDLE_CURRENT_ENDPOINT": world[rank],
+            "PADDLE_TRAINERS_NUM": str(len(topo["world"])),
+            "PADDLE_TRAINER_ENDPOINTS": ",".join(topo["world"]),
+            "PADDLE_CURRENT_ENDPOINT": topo["world"][rank],
             "PADDLE_RESTART_ATTEMPT": str(attempt),
         })
         if args.backend != "auto":
@@ -104,14 +167,15 @@ def start_procs(args):
             return subprocess.Popen(cmd, env=env, stdout=logf, stderr=logf)
         return subprocess.Popen(cmd, env=env)
 
-    procs = [spawn(i) for i in range(nproc)]
+    procs = [spawn(i) for i in range(topo["nproc"])]
     retries = 0
+    shrinks = 0
     shutting_down = [False]
 
     def stop_workers(targets):
-        """SIGTERM the targets, grant --term_grace_secs, then SIGKILL
-        stragglers.  Every restart and shutdown path funnels here so no
-        wedged worker can hang the job."""
+        """SIGTERM the targets, grant --term_grace_secs for the guard's
+        checkpoint-and-exit, then SIGKILL stragglers.  Every restart and
+        shutdown path funnels here so no wedged worker can hang the job."""
         for p in targets:
             if p.poll() is None:
                 p.terminate()
@@ -134,14 +198,14 @@ def start_procs(args):
     signal.signal(signal.SIGTERM, _terminate)
     rc = 0
     try:
-        if args.elastic_retries > 0:
-            # Elastic mode (restart elasticity, SURVEY.md §5):
+        if args.elastic_retries > 0 or args.elastic_shrink > 0:
+            # Elastic mode (checkpoint-restart elasticity, SURVEY.md §5):
             # any crashed worker triggers a WHOLE-JOB restart — in a
             # collective job the surviving ranks are wedged in collectives
             # and a lone rejoiner cannot re-initialize against the running
             # coordinator, so all workers stop and respawn, each resuming
-            # from the start of its script.  Clean exits (rc=0) are final.
-            pending = set(range(nproc))
+            # from its latest checkpoint.  Clean exits (rc=0) are final.
+            pending = set(range(topo["nproc"]))
             completed = set()          # clean exits are final, never respawn
             attempt = 0                # spawn-generation counter (env +
                                        # log-append marker; monotonic even
@@ -174,15 +238,15 @@ def start_procs(args):
                 if crashed is not None and not shutting_down[0]:
                     i, r = crashed
                     last_crash = time.monotonic()
-                    # a preemption exit (rc PREEMPTED_RC) is routine on
-                    # preemptible pools: restart it for free, the budget is
-                    # for crashes
+                    # a preemption exit (the worker checkpointed and left on
+                    # SIGTERM — ft/guard.py) is ROUTINE on preemptible
+                    # pools: restart it for free, the budget is for crashes
                     preempted = (r == PREEMPTED_RC)
                     if preempted or retries < args.elastic_retries:
                         if not preempted:
                             retries += 1
                         attempt += 1
-                        restart = [j for j in range(nproc)
+                        restart = [j for j in range(topo["nproc"])
                                    if j not in completed]
                         if preempted:
                             sys.stderr.write(
@@ -201,6 +265,34 @@ def start_procs(args):
                         for j in restart:
                             procs[j] = spawn(j, attempt=attempt)
                         pending = set(restart)
+                    elif shrinks < args.elastic_shrink \
+                            and topo["nproc"] > 1 and len(node_ips) == 1:
+                        # out of retries but a smaller fleet is still
+                        # viable: relaunch at the SURVIVING world size
+                        # rather than wedging the job.  The checkpoint is
+                        # topology-portable (layout manifests +
+                        # re-sharder), so world-(N-1) resumes from the
+                        # world-N save; rank 0's heartbeat re-arm sweeps
+                        # the removed rank's beat/done corpses
+                        # (distributed/heartbeat.py clear_stale_ranks).
+                        shrinks += 1
+                        attempt += 1
+                        stop_workers(procs)
+                        _set_world(topo["nproc"] - 1)
+                        sys.stderr.write(
+                            "[launch] worker %d exited rc=%d with the "
+                            "retry budget exhausted; elastic shrink %d/%d:"
+                            " relaunching fleet at world size %d (resumes "
+                            "re-shard the last committed checkpoint)\n"
+                            % (i, r, shrinks, args.elastic_shrink,
+                               topo["nproc"]))
+                        # a shrunken fleet is a NEW fleet: fresh retry
+                        # budget, fresh completion tracking
+                        retries = 0
+                        completed = set()
+                        procs[:] = [spawn(j, attempt=attempt)
+                                    for j in range(topo["nproc"])]
+                        pending = set(range(topo["nproc"]))
                     else:
                         # out of retries: reap the survivors too — a
                         # collective job's remaining ranks are wedged

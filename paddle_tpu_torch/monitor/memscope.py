@@ -360,6 +360,10 @@ class LedgerProbe:
         self.argument_bytes = _nbytes(arguments)
         self.base = None
         if self.device.type == "cuda":
+            # the first plan of a fresh process (a startup program) may run
+            # before anything touched the card: the allocator's statistics
+            # exist only once CUDA is initialised
+            torch.cuda.init()
             torch.cuda.reset_peak_memory_stats(self.device)
             self.base = torch.cuda.memory_allocated(self.device)
 

@@ -21,17 +21,20 @@ sentinel watches the MODEL beside the monitor's watch of the system:
   the pre-step value of every state tensor the step read and wrote
   (``traced_guard``: a ``torch.where`` per tensor, on the device, every
   step) and counts the skip (``monitor.health.skipped_batches``), reading
-  the vector back every step; ``quarantine`` also commits a debug
-  checkpoint through ``parallel/checkpoint.py``, which the port does not
-  have yet: it raises ``NotImplementedError`` (ROADMAP Queue 1 item 5-D).
+  the vector back every step; ``quarantine`` is ``skip_batch`` plus a
+  committed debug checkpoint ``ckpt-<step>-quarantine`` (the shard/COMMIT
+  protocol, ``parallel/checkpoint.py`` ``tag=``) holding the pre-step
+  state and the offending feed batch — restore it and re-run the step for
+  an offline repro.  Invisible to ``latest_checkpoint``/retention/GC, so
+  resume never picks up a quarantined artifact.
 - **divergence detectors** (copies): rolling robust z-score loss spikes,
   grad-norm explosion against the rolling median, loss plateaus, as
   ``monitor.health.{loss_spike,grad_explosion,plateau}`` counters and
   ``health_alert`` events.
 
 Deterministic drills: the ``nan_batch`` chaos point (ft/chaos.py) poisons
-the k-th executor feed with a NaN (``poison_feed``).  ``TrainLoop``'s
-``observe_loop`` waits for ``TrainLoop`` (ROADMAP Queue 1 item 6).
+the k-th executor feed with a NaN (``poison_feed``).  ``TrainLoop``
+(``parallel/train.py``) feeds ``observe_loop`` its sampled loss.
 
 Enable: ``sentinel.enable(policy=..., sample_every=...)`` or
 ``PADDLE_TPU_SENTINEL=1`` with ``PADDLE_TPU_SENTINEL_POLICY`` / ``_EVERY``;
@@ -333,18 +336,15 @@ class Sentinel:
     before the state commits to the scope."""
 
     def __init__(self, monitor, policy=None, sample_every=None,
-                 spike_window=64, spike_z=8.0, spike_min=16,
-                 explode_factor=50.0, plateau_window=200, plateau_eps=1e-3,
-                 export_every_secs=5.0, max_postmortems=3):
+                 quarantine_dir=None, spike_window=64, spike_z=8.0,
+                 spike_min=16, explode_factor=50.0, plateau_window=200,
+                 plateau_eps=1e-3, export_every_secs=5.0,
+                 max_postmortems=3, max_quarantines=2):
         policy = policy or os.environ.get(
             "PADDLE_TPU_SENTINEL_POLICY", "halt").strip() or "halt"
         if policy not in POLICIES:
             raise ValueError("sentinel policy %r (known: %s)"
                              % (policy, ", ".join(POLICIES)))
-        if policy == "quarantine":
-            raise NotImplementedError(
-                "sentinel policy 'quarantine': its debug checkpoint needs "
-                "parallel/checkpoint.py, which waits (ROADMAP Queue 1 item 5-D)")
         self.monitor = monitor
         self.policy = policy
         every = max(
@@ -353,23 +353,29 @@ class Sentinel:
         # rounded UP to a power of two, the reference's cadence (its gate
         # on the step seed needs a divisor of 2**32)
         self.sample_every = 1 << (every - 1).bit_length()
+        self.quarantine_dir = (quarantine_dir
+                               or os.environ.get("PADDLE_TPU_SENTINEL_QDIR")
+                               or os.path.join(monitor.out_dir, "quarantine"))
         self.export_every_secs = float(export_every_secs)
         self.max_postmortems = int(max_postmortems)
+        self.max_quarantines = int(max_quarantines)
         self.detectors = [
             LossSpikeDetector(spike_window, spike_z, spike_min),
             GradExplodeDetector(spike_window, explode_factor, spike_min),
         ]
         self._plateau = PlateauDetector(plateau_window, plateau_eps)
         self._seen = 0
+        self._loop_seen = 0
         self._trips = 0
         self._postmortems = 0
+        self._quarantines = 0
         self._rate_ref = None          # (step, perf_counter) of last sample
         self._export_next = 0.0
 
     # -- executor contract -------------------------------------------------
     @property
     def guard_on_device(self):
-        return self.policy == "skip_batch"
+        return self.policy in ("skip_batch", "quarantine")
 
     def wants_health(self, step):
         """Whether the executor computes the bundle for ``step``: every
@@ -402,9 +408,36 @@ class Sentinel:
                        fetches=fetches, fetch_names=fetch_names,
                        feed=feed, ident=ident)
 
+    # -- TrainLoop / raw-loop contract -------------------------------------
+    def observe_loop(self, step, aux):
+        """Sampled loss observation for step loops (parallel/train.py
+        TrainLoop): every ``sample_every``-th step the scalar aux is read
+        back (a sync — same sampling discipline as the executor path) and
+        feeds the gauges + divergence detectors.  A nonfinite loss trips:
+        ``halt`` raises; the skip policies cannot un-apply an update the
+        step already made in place, so they count the hit and keep going."""
+        self._loop_seen += 1
+        if (self._loop_seen - 1) % self.sample_every != 0:
+            return
+        if aux is None or not hasattr(aux, "dtype") \
+                or int(np.prod(getattr(aux, "shape", ()) or (1,))) != 1:
+            return
+        if hasattr(aux, "detach"):
+            aux = aux.detach().double().cpu().numpy()
+        loss = float(np.asarray(aux).reshape(()))
+        vec = np.zeros(N_FIXED)
+        vec[IDX_LOSS] = loss
+        vec[IDX_GRAD_NORM] = np.nan
+        vec[IDX_NONFINITE] = 0.0 if np.isfinite(loss) else 1.0
+        self._record_sample(step, vec, [])
+        if not np.isfinite(loss):
+            self._trip(step, vec, [], state_out=None, fetches=None,
+                       fetch_names=None, feed=None, ident="loop")
+
     def on_run_start(self, train=True):
-        """train_from_dataset's run bracket: restart the steps/s window so
-        a back-to-back run does not report rates across the gap."""
+        """train_from_dataset / TrainLoop run bracket: restart the steps/s
+        window so a resumed or back-to-back run does not report rates
+        across the gap."""
         self._rate_ref = None
 
     # -- sampling ----------------------------------------------------------
@@ -488,6 +521,17 @@ class Sentinel:
             "first_bad": first, "bundle": self.decode(vec, names),
             "bad_subtrees": bad_subtrees, "localization": bad,
         }
+        quarantine_path = None
+        if self.policy == "quarantine" \
+                and self._quarantines < self.max_quarantines:
+            self._quarantines += 1
+            try:
+                quarantine_path = self._commit_quarantine(
+                    step, state_out, feed)
+                health_rec["quarantine"] = quarantine_path
+                reg.counter("monitor.health.quarantines").incr()
+            except Exception as e:       # evidence is best-effort
+                health_rec["quarantine_error"] = str(e)[:200]
         post_path = None
         if self._postmortems < self.max_postmortems:
             self._postmortems += 1
@@ -503,7 +547,7 @@ class Sentinel:
             "health_trip", step=int(step), policy=self.policy, first=first,
             nonfinite=int(vec[IDX_NONFINITE]) or None,
             skipped=int(vec[IDX_SKIPPED]),
-            postmortem=post_path, quarantine=None)
+            postmortem=post_path, quarantine=quarantine_path)
         self.monitor.timeline.flush()
         if self.guard_on_device:
             reg.counter("monitor.health.skipped_batches").incr()
@@ -516,7 +560,22 @@ class Sentinel:
                    or "loss nonfinite",
                    "; postmortem %s" % post_path if post_path else ""))
         raise NonFiniteError(msg, step=int(step), first=first,
-                             postmortem=post_path)
+                             postmortem=post_path,
+                             quarantine=quarantine_path)
+
+    def _commit_quarantine(self, step, state_out, feed):
+        """Commit ``ckpt-<step>-quarantine`` (shard/COMMIT, tagged): the
+        PRE-step state (the on-device guard already reverted state_out) plus
+        the offending feed batch — restore + one step = the repro."""
+        from ..parallel import checkpoint as _ckpt
+
+        tree = {"scope": dict(state_out or {}),
+                "feed": dict(feed or {}),
+                "meta": {"step": np.int64(step)}}
+        _ckpt.save_checkpoint(self.quarantine_dir, tree, step=int(step),
+                              asynchronous=False, tag="quarantine")
+        return os.path.join(self.quarantine_dir,
+                            "ckpt-%d-quarantine" % int(step))
 
     # -- misc --------------------------------------------------------------
     @staticmethod

@@ -3,8 +3,8 @@ mesh of ranks (dp, pp, tp) over ``torch.distributed`` (one process per
 rank), named-axis collectives, the sharding rules, transformer blocks in
 the Megatron-SP and ring layouts, the GPipe pipeline, ring attention,
 expert-parallel MoE, optimizers, the train step and its ZeRO form, the
-row-sharded embedding tables and Local SGD.  The sharded checkpoint waits
-(ROADMAP.md Queue 1 item 5-D)."""
+row-sharded embedding tables, Local SGD, and the sharded,
+topology-portable checkpoint (``checkpoint``)."""
 
 from .mesh import MeshSpec, make_mesh, axis_size  # noqa: F401
 from . import rules  # noqa: F401  (the sharding authority)
@@ -15,7 +15,8 @@ from .transformer import TransformerConfig  # noqa: F401
 from .pipeline import gpipe  # noqa: F401
 from .ring_attention import ring_attention  # noqa: F401
 from . import moe  # noqa: F401
-from .train import make_train_step, TrainState  # noqa: F401
+from .train import make_train_step, TrainState, TrainLoop  # noqa: F401
+from . import checkpoint  # noqa: F401
 from .embedding import (  # noqa: F401
     sharded_embedding_lookup, init_sharded_table, init_embedding_table,
     embedding_spec, enable_host_sparse_table)

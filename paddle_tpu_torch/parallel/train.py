@@ -12,7 +12,9 @@ one rank every psum is a no-op and the step is the one-device step.
 ``shard_pytree`` is BCastParamsToDevices (parallel_executor.cc:630): rank 0's
 value of a replicated leaf on every rank, this rank's slice of a leaf split
 over tp or pp (or, under ZeRO, a moment split over dp); ``gather_pytree``
-is its inverse, the global tree back from the ranks' shards.
+is its inverse, the global tree back from the ranks' shards.  ``TrainLoop``
+drives a step function under a ``CheckpointPolicy`` (ft/guard.py
+``LoopGuard``): boundary saves of the state's blocks, resume, preemption.
 """
 
 import numpy as np
@@ -25,7 +27,7 @@ from .rules import PartitionSpec as P
 
 __all__ = ["TrainState", "grads_of", "make_train_step", "state_specs",
            "shard_pytree", "gather_pytree", "shard_batch", "stack_batches",
-           "sync_grads"]
+           "sync_grads", "TrainLoop"]
 
 
 class TrainState(dict):
@@ -218,3 +220,145 @@ def make_train_step(loss_fn, mesh, param_specs, grad_syncs, optimizer,
 
     build.multi = build_multi
     return build
+
+
+def _state_tensors(tree):
+    return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+class TrainLoop:
+    """Fault-tolerant host-side step loop over a step function and a state
+    tree — CheckpointPolicy coverage for the training entry points that do
+    NOT go through ``Executor.train_from_dataset`` (raw ``make_train_step``
+    loops, ``build_bert_trainer``'s step).
+
+    Contract (same as the trainer-side guard, ft/guard.py):
+
+    - ``checkpoint=ft.CheckpointPolicy(...)`` turns on boundary saves (the
+      async shard/COMMIT protocol of parallel/checkpoint.py), resume, and
+      SIGTERM handling — including the multi-rank agreed-boundary
+      preemption protocol, so a fleet of step loops stages ONE agreed
+      ``ckpt-<step>`` on preemption;
+    - ``specs``/``mesh``: the state's placement (``state_specs``, the ZeRO
+      step's specs), so each rank saves only its blocks and a resume at
+      another world re-slices them;
+    - the in-flight window (feed_pipe.InFlightWindow, if the caller uses
+      one) is DRAINED, and on a card the current stream synchronized,
+      before every snapshot — no update mid-flight;
+    - ``resume=True`` restores the latest committed state and fast-forwards
+      the batch stream by CONSUMING the already-trained prefix (the stream
+      replays deterministically from its seed, so skipped draws keep host
+      RNG state exactly where the uninterrupted run would have it).
+
+    Usage::
+
+        loop = TrainLoop(step_fn, checkpoint=policy, window=window,
+                         specs=trainer.specs, mesh=trainer.mesh)
+        state, steps = loop.run(state, batches)
+
+    ``step_fn(state, batch) -> (state, aux)``; aux is admitted into the
+    window (bounded async dispatch) when one is given.
+    """
+
+    def __init__(self, step_fn, checkpoint=None, window=None,
+                 on_step=None, sentinel=None, specs=None, mesh=None):
+        from ..monitor import memscope as _memscope
+
+        self.step_fn = step_fn
+        self.window = window
+        self.on_step = on_step
+        # model-health watcher (monitor/sentinel.py): None = the active
+        # session's sentinel (if any); False = off for this loop.  The loop
+        # feeds it the SAMPLED aux — loss gauges, divergence detectors
+        # (loss-spike z-score / plateau), and the nonfinite-loss tripwire
+        # (halt raises; the skip policies cannot un-apply an update already
+        # made in place, so here they count and continue).
+        self._sentinel = sentinel
+        self._guard = None
+        if checkpoint is not None:
+            from ..ft.guard import LoopGuard
+
+            self._guard = LoopGuard(checkpoint, self._current_state,
+                                    drain=self._drain, specs=specs,
+                                    mesh=mesh)
+        self._state = None
+        self.last_aux = None
+        self.resumed_step = 0
+        # MemScope owner registration (weakref — dies with the loop): the
+        # params + optimizer slots this loop carries classify as
+        # "train_state" in the live-tensor attribution
+        _memscope.track("train_state", self,
+                        lambda lp: (_state_tensors(lp._state)
+                                    if lp._state is not None else ()))
+
+    def _current_state(self):
+        return self._state
+
+    def _drain(self):
+        if self.window is not None:
+            self.window.drain()
+        for t in _state_tensors(self._state)[:1]:
+            if t.is_cuda:
+                torch.cuda.current_stream(t.device).synchronize()
+
+    @property
+    def guard(self):
+        return self._guard
+
+    def run(self, state, batches):
+        """Drive `batches` through the step function.  Returns
+        (final_state, steps_trained_total) — steps include the fast-forward
+        prefix on resume, so the count matches the uninterrupted run's."""
+        from ..monitor import memscope as _memscope
+
+        self._state = state
+        step = 0
+        sent = self._sentinel
+        if sent is None:
+            from ..monitor import sentinel as _sentinel_mod
+
+            sent = _sentinel_mod.active_sentinel()
+        elif sent is False:
+            sent = None
+        if sent is not None:
+            sent.on_run_start()
+        if self._guard is not None:
+            self._state, step = self._guard.maybe_resume(state)
+            self.resumed_step = step
+            self._guard.install_signal()
+        try:
+            skip = step
+            for k, batch in enumerate(batches):
+                if k < skip:
+                    continue      # consumed, not trained: exact-batch resume
+                self._state, self.last_aux = self.step_fn(self._state, batch)
+                if self.window is not None:
+                    self.window.admit(self.last_aux)
+                step = k + 1
+                if self.on_step is not None:
+                    self.on_step(step, self.last_aux)
+                if sent is not None:
+                    # sampled: materializing aux is a sync, paid every
+                    # sentinel.sample_every-th step only
+                    sent.observe_loop(step, self.last_aux)
+                if self._guard is not None:
+                    self._guard.after_step(step)
+            self._drain()
+            if self._guard is not None:
+                self._guard.finish()
+        except BaseException as e:
+            # MemScope OOM postmortem for raw step loops: an out-of-memory
+            # error surfacing here dumps the flight record with the memory
+            # section — dedup makes a later excepthook dump a no-op
+            if not isinstance(e, SystemExit) \
+                    and _memscope.is_resource_exhausted(e):
+                from ..monitor import session as _session
+
+                mon = _session.active()
+                if mon is not None:
+                    _memscope.note_oom(mon, None, e)
+            raise
+        finally:
+            if self._guard is not None:
+                self._guard.restore_signal()
+        return self._state, step

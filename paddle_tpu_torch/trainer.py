@@ -17,9 +17,12 @@ dataset, the pipe stages this rank's rows (``Executor.feed_converter``),
 and fetches come back gathered to the global batch, so ``fetch_list``,
 ``debug`` printing and the fetch handler see what one device would.
 
-Two hooks of the reference wait for later items and raise, naming them:
-``checkpoint=`` (FaultGuard's auto-checkpoint and exact-batch resume,
-ROADMAP Queue 1 item 6) and the HostPS prefetch hooks (item 7).
+``checkpoint=ft.CheckpointPolicy(...)`` runs the loop under FaultGuard
+(``ft/guard.py`` TrainGuard): auto-checkpoints at step boundaries, exact-
+batch resume through the dataset's cursor mode, SIGTERM → checkpoint and
+``PREEMPTED_RC``.  Under data parallelism every rank reads the global
+batch, so the cursor is the global one.  The HostPS prefetch hooks wait
+for ROADMAP Queue 1 item 7 and raise, naming it.
 """
 
 import sys
@@ -123,15 +126,30 @@ def _run_from_dataset(executor, program=None, dataset=None, scope=None, thread=0
     if dataset is None:
         raise ValueError("train_from_dataset requires a dataset")
     fetch_list = fetch_list or []
+
+    # FaultGuard (ft/guard.py): auto-checkpoint + exact-batch resume +
+    # SIGTERM preemption handling, driven by a ft.CheckpointPolicy.  Resume
+    # happens BEFORE the iterator is built so the dataset fast-forwards to
+    # the saved (file_idx, batch_idx) cursor.  On a fleet (world > 1) the
+    # boundary hook runs the agreed-boundary preemption protocol
+    # (ft/agree.py): ranks SIGTERM'd at skewed boundaries converge on ONE
+    # max-step ckpt-<step> before exiting, and maybe_resume() aborts any
+    # stale agreement round a previous incarnation left behind.
+    guard = None
+    start_cursor = None
+    resumed_step = 0
     if checkpoint is not None and not train:
         raise ValueError(
             "checkpoint= (ft.CheckpointPolicy) applies to training only — "
             "infer_from_dataset has no state to checkpoint or resume")
     if checkpoint is not None:
-        raise NotImplementedError(
-            "train_from_dataset(checkpoint=...): FaultGuard's auto-checkpoint "
-            "and exact-batch resume wait for ROADMAP Queue 1 item 6 (fault "
-            "tolerance)")
+        from .ft.guard import TrainGuard
+
+        guard = TrainGuard(checkpoint, executor,
+                           scope if scope is not None else global_scope(),
+                           program=program)
+        start_cursor, resumed_step = guard.maybe_resume()
+        guard.install_signal()
     monitor = None
     if fetch_handler is not None:
         monitor = _FetchMonitor(fetch_handler,
@@ -144,19 +162,41 @@ def _run_from_dataset(executor, program=None, dataset=None, scope=None, thread=0
     if mon is not None:
         mon.timeline.emit("run_start", train=train)
         # model-health run bracket (monitor/sentinel.py): the sentinel's
-        # steps/s window restarts so a back-to-back run never rates across
-        # the gap; detection itself rides Executor.run
+        # steps/s window restarts so a resumed or back-to-back run never
+        # rates across the gap; detection itself rides Executor.run
         if train and getattr(mon, "sentinel", None) is not None:
             mon.sentinel.on_run_start(train=train)
-    step = 0
+    step = resumed_step
+    steps_this_run = 0
     ok = False
     pipe = None
+    cursors = None
     try:
         with _trace.span("trainer.run_from_dataset", train=train):
             # thread<=0 falls back to the dataset's set_thread()
             # (executor.py:1093 contract: "thread ... if not set, use
             # dataset thread_num")
-            batches = dataset._iter_batches(num_threads=thread or None)
+            if guard is not None:
+                import collections
+
+                # cursor-tracked source: the dataset yields (cursor, feed);
+                # cursors ride a FIFO beside the (order-preserving) feed
+                # pipe so the training thread can pair each consumed batch
+                # with its (file_idx, batch_idx) without teaching the pipe
+                # about cursors
+                raw_batches = dataset._iter_batches(
+                    num_threads=thread or None, skip_to=start_cursor,
+                    with_cursor=True)
+                cursors = collections.deque()
+
+                def _cursor_tap(it=raw_batches, q=cursors):
+                    for cur, feed in it:
+                        q.append(cur)
+                        yield feed
+
+                batches = _cursor_tap()
+            else:
+                batches = dataset._iter_batches(num_threads=thread or None)
             if feed_pipe.pipe_enabled():
                 # Pipelined device feed (feed_pipe.DeviceFeedPipe): a
                 # background stage converts batch k+1 and starts its copy
@@ -168,6 +208,7 @@ def _run_from_dataset(executor, program=None, dataset=None, scope=None, thread=0
                     name="train_feed_pipe")
                 batches = pipe
             for feed in batches:
+                cur = cursors.popleft() if cursors is not None else None
                 # lazy fetches: the tensors stay on the card, so steady-state
                 # steps never block on their own results — the executor's
                 # in-flight window (K steps) bounds host run-ahead
@@ -182,14 +223,25 @@ def _run_from_dataset(executor, program=None, dataset=None, scope=None, thread=0
                         k: r.detach().cpu().numpy().tolist()
                         for k, r in zip(info, res)}))
                 step += 1
+                steps_this_run += 1
+                if guard is not None:
+                    # boundary hook: preemption exit and cadence saves both
+                    # happen HERE — after step `step` retired its dispatch,
+                    # with `cur` the cursor of the batch it trained
+                    guard.after_step(step, cur)
             executor.drain()   # run seconds below measure COMPLETED steps
+            if guard is not None:
+                guard.finish()
             ok = True
-    except BaseException:
+    except BaseException as e:
         # crash flight recorder: a run dying mid-step dumps its evidence
         # (recent spans incl. the pipe thread, timeline tail, registry)
         # BEFORE the exception propagates — the caller may catch it and the
-        # process may live on, but the postmortem persists
-        if mon is not None and getattr(mon, "flight", None) is not None:
+        # process may live on, but the postmortem persists.  SystemExit is
+        # a deliberate departure, not a crash — the guard's preemption path
+        # already dumped its own `preempted` postmortem
+        if mon is not None and getattr(mon, "flight", None) is not None \
+                and not isinstance(e, SystemExit):
             try:
                 mon.flight.dump(exc=sys.exc_info(),
                                 reason="train_from_dataset")
@@ -197,10 +249,13 @@ def _run_from_dataset(executor, program=None, dataset=None, scope=None, thread=0
                 pass
         raise
     finally:
+        if guard is not None:
+            guard.restore_signal()   # idempotent; finish() ran on ok paths
         if pipe is not None:
             pipe.close()
         if mon is not None:
-            mon.timeline.emit("run_end", train=train, steps=step, ok=ok,
+            mon.timeline.emit("run_end", train=train, steps=steps_this_run,
+                              ok=ok,
                               seconds=round(time.perf_counter() - t_run, 4))
             mon.timeline.flush()
         if monitor is not None:

@@ -44,6 +44,15 @@ from paddle_tpu_torch.tools.rule_cases import COLLECTIVE_CASES
 
 import torch_dp_worker as W
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 WORLDS = (2, 4)
 # the reference's wrappers, with lax.pmin beside them (its c_allreduce_min
 # rule calls lax.pmin directly; the port has a pmin wrapper for that rule)

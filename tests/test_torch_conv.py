@@ -15,6 +15,14 @@ from paddle_tpu_torch.kernels import _common
 from paddle_tpu_torch.kernels import conv as pconv
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(B, H, W, C, K, k, seed=0):
     rng = np.random.RandomState(seed)
     x = rng.randn(B, H, W, C).astype("f4")

@@ -268,11 +268,8 @@ def test_fetch_handler_and_async_executor(tmp_path):
         aexe.run(pp.main, pds, pds.filelist, 1, [pp.loss])
 
 
-def test_checkpoint_raises_naming_item_6(tmp_path):
+def test_infer_rejects_checkpoint_and_prefetch_waits_for_item_7(tmp_path):
     _, (pexe, pscope, pp, pds), _ = _ctr_pair(tmp_path, "QueueDataset")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        pexe.train_from_dataset(pp.main, pds, scope=pscope,
-                                checkpoint=object())
     with pytest.raises(ValueError, match="training only"):
         pexe.infer_from_dataset(pp.main, pds, scope=pscope,
                                 checkpoint=object())

@@ -9,9 +9,19 @@ import warnings
 
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu.datasets as jds
 import paddle_tpu_torch.datasets as pds
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 N = 6
 

@@ -28,6 +28,15 @@ from paddle_tpu_torch.models.parity import deepfm_synthetic_auc
 from paddle_tpu_torch.parallel import optim as poptim
 from paddle_tpu_torch.parallel.train import grads_of
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CFG = jdeepfm.deepfm_tiny_config()
 PCFG = pdeepfm.deepfm_tiny_config()
 LR = 1.0

@@ -16,6 +16,15 @@ import torch
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch.models import transformer_nmt as nmt
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 NO_CARD = "no CUDA device"
 
 

@@ -18,7 +18,17 @@ from pathlib import Path
 
 import jax
 import numpy as np
+import pytest
 import torch
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ROOT = Path(__file__).resolve().parent.parent
 

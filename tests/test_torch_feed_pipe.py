@@ -33,6 +33,15 @@ from paddle_tpu_torch.feed_pipe import (DeviceFeedPipe, InFlightWindow,
 from paddle_tpu_torch.reader import DataLoader
 from paddle_tpu_torch.tools import ctr_program as cp
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = pfluid.CPUPlace()
 
 

@@ -18,6 +18,15 @@ from paddle_tpu.kernels.flash_attention import (
     flash_attention as jax_flash, flash_attention_packed as jax_flash_packed)
 from paddle_tpu_torch.kernels import flash_attention as pfa
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FWD_TOL = dict(atol=2e-6, rtol=1e-5)
 GRAD_TOL = dict(atol=5e-5, rtol=1e-4)
 

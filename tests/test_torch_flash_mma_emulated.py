@@ -29,6 +29,15 @@ import torch
 
 from paddle_tpu_torch.kernels import flash_attention as fa
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 EMU = Path(__file__).resolve().parent / "cuda_emu"
 CSRC = Path(fa.__file__).resolve().parent / "csrc"
 TOL_BF16 = 2e-2

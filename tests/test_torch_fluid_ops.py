@@ -29,6 +29,15 @@ from paddle_tpu_torch.registry import OpLoweringContext as PortContext
 from paddle_tpu_torch.registry import get_lowering as port_rule
 from paddle_tpu_torch.sparse import SelectedRows
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FWD_TOL, GRAD_TOL = 1e-6, 1e-5
 
 

@@ -21,6 +21,15 @@ from paddle_tpu_torch.sparse import merge_rows
 from paddle_tpu_torch.tools import ctr_program as cp
 from paddle_tpu_torch.tools import fp_bounds as fb
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 U = 2.0 ** -24
 
 

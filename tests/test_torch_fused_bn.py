@@ -15,6 +15,15 @@ from paddle_tpu.kernels import fused_bn as jfbn
 from paddle_tpu_torch.kernels import _common
 from paddle_tpu_torch.kernels import fused_bn as pfbn
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F32 = dict(atol=1e-5, rtol=1e-5)
 GRAD = dict(atol=1e-4, rtol=1e-4)
 BF16 = dict(atol=1e-2, rtol=1e-2)

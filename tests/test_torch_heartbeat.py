@@ -3,19 +3,30 @@ the JAX package's: ``tests/test_failure_detection.py``'s scenarios run on
 both packages side by side, each on its own temporary directory, and the
 states read at the same moments must agree.  ``Executor.close()`` marks the
 worker complete (the reference's Close -> SendComplete), and
-``WorkerHeartbeat(agree_dir=...)`` raises until the port has ``ft/agree.py``
-(item 6).
+``WorkerHeartbeat(agree_dir=...)`` aborts a previous incarnation's
+preemption agreement rounds (``ft/agree.py``, item 6) as the JAX package's
+does.
 """
 
 import os
 import time
 
 import pytest
+import torch
 
 import paddle_tpu as jfluid
 import paddle_tpu_torch as pfluid
 from paddle_tpu.distributed import heartbeat as jhb
 from paddle_tpu_torch.distributed import heartbeat as phb
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 PACKAGES = {"jax": jhb, "port": phb}
 
@@ -100,6 +111,28 @@ def test_a_restarted_worker_clears_its_done_mark(tmp_path):
     w.complete()
 
 
-def test_agree_dir_waits_for_item_6(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        phb.WorkerHeartbeat(str(tmp_path), 0, agree_dir=str(tmp_path))
+def test_heartbeat_rearm_aborts_stale_agreement(tmp_path, monkeypatch):
+    """WorkerHeartbeat(agree_dir=...) start() kills the agreement rounds a
+    previous incarnation left (a respawn must never join with a stale
+    step) and re-exports the last agreed step as the
+    ft.preempt.agreed_step gauge — in both packages alike."""
+    from paddle_tpu.ft import agree as jagree
+    from paddle_tpu.monitor import default_registry as jreg
+    from paddle_tpu_torch.ft import agree as pagree
+    from paddle_tpu_torch.monitor import default_registry as preg
+
+    got = {}
+    for name, hb, agree, reg in (("jax", jhb, jagree, jreg),
+                                 ("port", phb, pagree, preg)):
+        hb_dir, ck_dir = str(tmp_path / name / "hb"), str(tmp_path / name / "ck")
+        agree.StepAgreement(ck_dir, rank=0, world=2).publish(11)
+        agree.StepAgreement(ck_dir, rank=1, world=2).publish(12)
+        monkeypatch.setenv("PADDLE_RESTART_ATTEMPT", "1")
+        w = hb.WorkerHeartbeat(hb_dir, 0, interval=5.0,
+                               agree_dir=ck_dir).start()
+        w.complete()
+        monkeypatch.delenv("PADDLE_RESTART_ATTEMPT")
+        gauge = [r["value"] for r in reg().snapshot()
+                 if r["name"] == "ft.preempt.agreed_step"]
+        got[name] = (agree.round_open(ck_dir, attempt=0), gauge)
+    assert got["port"] == got["jax"] == (False, [12])

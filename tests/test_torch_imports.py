@@ -12,6 +12,15 @@ import numpy as np
 import pytest
 import torch
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 
@@ -353,3 +362,39 @@ def test_the_small_modules_are_exported_as_the_jax_package_exports_them(name):
 
     assert hasattr(paddle_tpu, name) and hasattr(paddle_tpu_torch, name)
     assert getattr(paddle_tpu_torch, name).__name__ == "paddle_tpu_torch." + name
+
+
+FAULT_TOLERANCE = ["ft.agree", "ft.policy", "ft.ckpt", "ft.guard",
+                   "parallel.checkpoint", "tools.chaos_drill",
+                   "tools.loop_drill"]
+
+
+def test_the_fault_tolerance_layer_is_checked_and_loads_alone():
+    """Every module of items 5-D and 6 is among the files checked above,
+    and importing all of them in a fresh interpreter loads neither JAX nor
+    the JAX package."""
+    checked = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for mod in FAULT_TOLERANCE:
+        assert "paddle_tpu_torch/%s.py" % mod.replace(".", "/") in checked, mod
+    code = ("import sys\n" + "".join("import paddle_tpu_torch.%s\n" % m
+                                      for m in FAULT_TOLERANCE)
+            + "print(sorted({m.split('.')[0] for m in sys.modules} & "
+              "{'jax', 'jaxlib', 'paddle_tpu'}))")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_the_drills_run_on_the_card_unless_asked_for_the_cpu(monkeypatch,
+                                                             tmp_path):
+    """The port's drills default to the card: without one the chaos drill
+    refuses (rc 2) and the loop drill's trainer raises, before either
+    trains anything."""
+    from paddle_tpu_torch.tools import chaos_drill, loop_drill
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chaos_drill.main(["--smoke", "--check"]) == 2
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loop_drill.run("tiny", checkpoint=False)

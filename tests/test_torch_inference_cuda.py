@@ -20,6 +20,15 @@ import paddle_tpu_torch as fluid
 from paddle_tpu_torch.ops import control_flow_ops
 from paddle_tpu_torch.tools import programs
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 pytestmark = pytest.mark.cuda
 TOL = 1e-5
 

@@ -30,6 +30,15 @@ from paddle_tpu_torch.kernels import layer_norm as ln
 from paddle_tpu_torch.kernels import segment_update as seg
 from paddle_tpu_torch.tools.profile_step import cuda_kernels_per_call
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 pytestmark = pytest.mark.cuda
 
 

@@ -11,7 +11,10 @@ mesh (rtol 1e-5, f32 in another summation order) and to the port's
 one-process run at one device on the same global batch, within the
 reference's own bar, 2e-3 (tests/test_parallel.py:70: Adam hides the dp
 gradient scale up to eps).  An elastic retry restarts both workers after
-rank 1 fails its first attempt.
+rank 1 fails its first attempt; a restarted worker resumes from its
+persisted state, and ``--elastic_shrink`` relaunches the fleet at the
+surviving world size (the JAX package's ``test_failure_detection.py`` and
+``test_ft.py`` launcher tests).
 """
 
 import os
@@ -33,6 +36,15 @@ from paddle_tpu_torch.distributed import launch as plaunch
 from paddle_tpu_torch.distributed.role_maker import PaddleCloudRoleMaker
 from paddle_tpu_torch.models import bert as pbert
 from paddle_tpu_torch.parallel import optim as poptim
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ROOT = Path(__file__).resolve().parent.parent
 WORKER = Path(__file__).with_name("torch_dist_worker.py")
@@ -142,3 +154,81 @@ def test_role_maker_reads_the_env(monkeypatch):
     assert (rm.worker_index(), rm.worker_num()) == (1, 4)
     assert not rm.is_first_worker()
     assert rm.get_trainer_endpoints() == ["a:1", "b:2", "c:3", "d:4"]
+
+
+_ELASTIC_WORKER = r"""
+import os, sys
+import numpy as np
+
+attempt = int(os.environ.get("PADDLE_RESTART_ATTEMPT", "0"))
+state_dir = sys.argv[1]
+progress = os.path.join(state_dir, "progress.npy")
+
+# resume from "checkpoint" (step counter)
+step = int(np.load(progress)) if os.path.exists(progress) else 0
+target = 6
+while step < target:
+    step += 1
+    np.save(progress, np.asarray(step))
+    if step == 3 and attempt == 0:
+        sys.stderr.write("worker: simulated crash at step 3\n")
+        os._exit(17)      # hard crash, no cleanup
+print("FINISHED step=%d attempt=%d" % (step, attempt))
+"""
+
+
+def test_elastic_launcher_restarts_and_resumes(tmp_path):
+    """--elastic_retries restarts a crashed worker; the restarted process
+    resumes from its persisted state (the JAX package's
+    ``tests/test_failure_detection.py`` drill, on the port's launcher)."""
+    script = tmp_path / "worker.py"
+    script.write_text(_ELASTIC_WORKER)
+    out = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node", "1", "--started_port", "6241",
+         "--elastic_retries", "2", str(script), str(tmp_path)],
+        capture_output=True, text=True, timeout=120,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert out.returncode == 0, (out.stdout, out.stderr)
+    assert "simulated crash" in out.stderr
+    assert "elastic restart 1/2" in out.stderr
+    assert "FINISHED step=6 attempt=1" in out.stdout
+    assert int(np.load(tmp_path / "progress.npy")) == 6
+
+
+def test_launch_elastic_shrink_relaunches_at_surviving_world(tmp_path,
+                                                             capfd):
+    """A worker that exhausts the retry budget with --elastic_shrink left
+    relaunches the WHOLE fleet at world-1 — the respawn sees the smaller
+    PADDLE_TRAINERS_NUM — instead of wedging the job."""
+    import signal
+
+    marker = tmp_path / "worlds.txt"
+    script = tmp_path / "worker.py"
+    script.write_text(
+        "import os, sys, time\n"
+        "rank = os.environ['PADDLE_TRAINER_ID']\n"
+        "world = os.environ['PADDLE_TRAINERS_NUM']\n"
+        "with open(%r, 'a') as f:\n"
+        "    f.write('%%s:%%s\\n' %% (rank, world))\n"
+        # rank 1 crashes only after rank 0 has written its line: the
+        # launcher stops the survivors when rank 1 exits, and a loaded
+        # host may not have started rank 0 by then
+        "deadline = time.time() + 60\n"
+        "while rank == '1' and time.time() < deadline:\n"
+        "    if '0:2' in open(%r).read().split():\n"
+        "        break\n"
+        "    time.sleep(0.05)\n"
+        "sys.exit(3 if rank == '1' else 0)\n" % (str(marker), str(marker)))
+    prev = signal.getsignal(signal.SIGTERM)
+    try:
+        rc = plaunch.launch([
+            "--nproc_per_node", "2", "--started_port", "6401",
+            "--elastic_retries", "0", "--elastic_shrink", "1",
+            "--term_grace_secs", "5", str(script)])
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    assert rc == 0
+    err = capfd.readouterr().err
+    assert "elastic shrink 1/1: relaunching fleet at world size 1" in err
+    assert sorted(marker.read_text().split()) == ["0:1", "0:2", "1:2"]

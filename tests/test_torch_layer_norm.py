@@ -15,6 +15,14 @@ from paddle_tpu.kernels.layer_norm import fused_layer_norm as jax_ln
 from paddle_tpu_torch.kernels import layer_norm as ptln
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(seed, shape):
     rng = np.random.RandomState(seed)
     E = shape[-1]

@@ -27,10 +27,20 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from jax.sharding import PartitionSpec as JP
 
 import torch_dp_worker as W
 import torch_sharded_worker as SW
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 WORLD = 4
 SCENARIOS = ["local_sgd_k1", "local_sgd_k3"]

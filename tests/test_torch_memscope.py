@@ -19,6 +19,14 @@ from paddle_tpu_torch.monitor import memscope
 
 
 @pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
 def _clean():
     pmon.disable()
     memscope.reset()

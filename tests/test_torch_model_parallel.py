@@ -57,6 +57,15 @@ from paddle_tpu.parallel.ring_attention import (local_attention as jlocal,
 import torch_dp_worker as W
 import torch_model_parallel_worker as MW
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 WORLD2 = ["bert_tp2_heads", "bert_tp2_ring", "bert_pp2", "ring_attention",
           "gpipe", "moe", "resnet_tp", "resnet_pp"]
 WORLD4 = ["bert_tp4_ring", "bert_pp2_tp2", "bert_dp2_tp2", "bert_dp2_tp2_zero",

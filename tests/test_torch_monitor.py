@@ -14,11 +14,21 @@ import warnings
 
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as jfluid
 import paddle_tpu_torch as pfluid
 from paddle_tpu import monitor as jmon
 from paddle_tpu_torch import monitor as pmon
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -15,6 +15,15 @@ import paddle_tpu_torch as fluid
 from paddle_tpu_torch import monitor
 from paddle_tpu_torch.monitor import memscope
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 pytestmark = pytest.mark.cuda
 
 
@@ -75,3 +84,34 @@ def test_snapshot_ledger_and_refusal_on_the_card(cuda_device, tmp_path):
 
 def test_an_out_of_memory_error_is_recognised(cuda_device):
     assert memscope.is_resource_exhausted(torch.cuda.OutOfMemoryError("x"))
+
+
+_FRESH = r"""
+import sys, tempfile
+import paddle_tpu_torch as fluid
+from paddle_tpu_torch import monitor
+monitor.enable(tempfile.mkdtemp())
+main, startup = fluid.Program(), fluid.Program()
+with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+    x = fluid.layers.data("x", shape=[4], dtype="float32")
+    fluid.layers.fc(x, 2)
+exe = fluid.Executor(fluid.CUDAPlace(0))
+exe.run(startup, scope=fluid.Scope())    # the process's first CUDA work
+monitor.disable()
+print("FRESH OK")
+"""
+
+
+def test_ledger_probe_in_a_fresh_process(cuda_device):
+    """A monitored startup program that is a fresh process's first work on
+    the card: the plan's ledger probe initialises CUDA before it reads the
+    allocator's statistics."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", _FRESH], capture_output=True,
+                       text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=root))
+    assert r.returncode == 0 and "FRESH OK" in r.stdout, r.stderr[-3000:]

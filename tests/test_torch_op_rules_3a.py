@@ -28,6 +28,15 @@ from paddle_tpu_torch.registry import registered_ops
 from paddle_tpu_torch.sparse import SelectedRows
 from test_torch_fluid_ops import FWD_TOL, _close, _randn, _rule_matches, _run
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RULES_3A = """clip clip_by_norm squared_l2_norm sqrt elementwise_max sign
 truncated_gaussian_random weight_norm dgc_momentum lars_momentum adamax dpsgd
 decayed_adagrad adadelta rmsprop ftrl lamb elementwise_mod""".split()

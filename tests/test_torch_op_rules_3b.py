@@ -36,6 +36,14 @@ from paddle_tpu_torch.tools.rule_cases import REFUSALS, RULE_CASES
 from test_torch_fluid_ops import _randn, _run
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("ignore_index", [-100, -1])
 @pytest.mark.parametrize("normalize", [False, True])
 def test_sigmoid_cross_entropy_with_logits(normalize, ignore_index):

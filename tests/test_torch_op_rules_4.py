@@ -51,6 +51,15 @@ from paddle_tpu_torch.tools.rule_cases import RULE_CASES_4
 from test_torch_fluid_ops import (_close, _data, _programs_match, _randn, _run,
                                   FWD_TOL)
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TRANCHE_4 = """
 im2sequence sequence_softmax sequence_expand_as sequence_concat sequence_pad
 sequence_unpad sequence_slice sequence_erase sequence_enumerate

@@ -47,6 +47,15 @@ from paddle_tpu_torch.tools.rule_cases_5 import RULE_CASES_5, TRANCHE_5
 from test_torch_fluid_ops import (FWD_TOL, _close, _data, _programs_match,
                                   _randn, _rule_matches, _run)
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 NOT_ROWS = {"random_crop", "uniform_random_batch_size_like",
             "gaussian_random_batch_size_like", "py_func"}
 

@@ -30,6 +30,14 @@ from paddle_tpu_torch.tools.rule_cases_5 import REFUSALS_5, RULE_CASES_5
 from test_torch_fluid_ops import FWD_TOL, _close, _rule_matches, _run
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # -- the probes ------------------------------------------------------------------
 
 _CAST_ROWS = cast_rows(RULE_CASES_5)

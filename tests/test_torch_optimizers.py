@@ -19,10 +19,20 @@ its support.
 
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as jfluid
 import paddle_tpu_torch as pfluid
 from paddle_tpu_torch import convert
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 TOL = 1e-5
 STEPS = 3

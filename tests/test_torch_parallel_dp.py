@@ -54,6 +54,15 @@ from paddle_tpu_torch.parallel import zero as pzero
 
 import torch_dp_worker as W
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 WORLD2 = ["bert_dp2_adam", "bert_dp2_sgd", "resnet_dp2_sync_fused",
           "resnet_dp2_sync_unfused", "batch_norm_rule_sync", "dygraph_dp"]
 WORLD4 = ["bert_dp4_zero_lamb"]

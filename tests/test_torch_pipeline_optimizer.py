@@ -18,6 +18,7 @@ import warnings
 
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as jfluid
 import paddle_tpu_torch as pfluid
@@ -27,6 +28,15 @@ from paddle_tpu_torch.executor import _split_sections as psplit
 
 import torch_dp_worker as W
 import torch_model_parallel_worker as MW
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -15,6 +15,14 @@ import paddle_tpu_torch as fluid
 from paddle_tpu_torch import profiler as prof
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_profiler_table_and_timeline(tmp_path):
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):

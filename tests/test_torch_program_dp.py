@@ -48,6 +48,15 @@ from paddle_tpu_torch.tools.programs import (bert_encoder_program,
 import torch_dp_worker as W
 import torch_program_dp_worker as PW
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 WORLD2 = ["fleet_lr", "transpiler_collective", "transpiler_pserver",
           "conv_bn", "conv_sync_bn", "kreduce", "kreduce_lamb",
           "sparse_embedding", "encoder",

@@ -48,6 +48,7 @@ import warnings
 import jax
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as jfluid
 import paddle_tpu_torch as pfluid
@@ -60,6 +61,15 @@ from paddle_tpu_torch.tools.programs import (crnn_ctc_program, crnn_feed,
 import torch_dp_worker as W
 import torch_program_dp_worker as PW
 import torch_program_dp_more_worker as MW
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 WORLD2 = ["probes", "data_path", "crnn", "lac", "books", "nce_draw",
           "kreduce"]

@@ -44,6 +44,7 @@ import warnings
 
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as jfluid
 import paddle_tpu_torch as pfluid
@@ -54,6 +55,15 @@ from paddle_tpu_torch.tools.programs import (bert_encoder_program,
 
 import torch_dp_worker as W
 import torch_program_tp_worker as TW
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 WORLD2 = ["tp_adam", "tp_sgd_one_step", "tp_lamb", "fleet_tp", "encoder_tp",
           "kreduce_tp", "indivisible", "row_table"]

@@ -37,6 +37,15 @@ from paddle_tpu_torch.registry import get_lowering as port_rule
 from paddle_tpu_torch.tools.rule_cases import cast_rows
 from test_torch_fluid_ops import _data, _programs_match, _rule_matches, _run
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 NAN, INF = float("nan"), float("inf")
 
 

@@ -38,6 +38,15 @@ from paddle_tpu_torch.kernels import fused_bn as fbn
 from paddle_tpu_torch.kernels import layer_norm as ln
 from paddle_tpu_torch.kernels import segment_update as seg
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 EMU = Path(__file__).resolve().parent / "cuda_emu"
 CSRC = Path(seg.__file__).resolve().parent / "csrc"
 TOL_F32, TOL_BF16 = 1e-4, 2e-2

@@ -46,6 +46,15 @@ from paddle_tpu_torch.parallel.mesh import DP, MeshSpec
 from paddle_tpu_torch.parallel.rules import P
 from paddle_tpu_torch.parallel.train import stack_batches
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LOSS_TOL = dict(rtol=1e-5, atol=0)
 GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
 STATE_TOL = dict(atol=1e-5, rtol=1e-5)

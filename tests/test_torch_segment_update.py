@@ -15,6 +15,15 @@ from paddle_tpu_torch import sparse as psparse
 from paddle_tpu_torch.kernels import _common
 from paddle_tpu_torch.kernels import segment_update as pseg
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CASES = [
     (1000, 100, 5, 256),        # duplicate-heavy
     (1000, 100000, 5, 256),     # almost no duplicates

@@ -3,8 +3,8 @@ against the JAX package's on the CPU: the health vector on the same grads
 and parameters at 1e-6, the localizer and the divergence detectors' outputs,
 and through the port's executor on a small MLP: ``nan_batch`` under
 ``halt``, ``skip_batch`` bit for bit against a clean run that never saw the
-batch, sentinel-off and monitor-off bit for bit, ``quarantine``'s refusal
-and ``FLAGS_check_nan_inf``."""
+batch, sentinel-off and monitor-off bit for bit, ``quarantine``'s committed
+debug checkpoint and its repro, and ``FLAGS_check_nan_inf``."""
 
 import json
 import os
@@ -20,6 +20,14 @@ from paddle_tpu.monitor import sentinel as jsent
 from paddle_tpu_torch import monitor as pmon
 from paddle_tpu_torch.ft import chaos
 from paddle_tpu_torch.monitor import sentinel as psent
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
@@ -196,10 +204,64 @@ def test_sentinel_off_and_on_are_bit_identical_to_monitor_off(tmp_path):
         == [l.tobytes() for l in loss_sentinel]
 
 
-def test_quarantine_raises_the_item_5_error(tmp_path):
-    pmon.enable(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        pmon.sentinel.enable(policy="quarantine")
+def test_quarantine_policy_commits_debug_ckpt(tmp_path):
+    """``quarantine``: skip_batch semantics (training goes on, the NaN
+    batch's update reverted) plus one committed ``ckpt-<step>-quarantine``
+    holding the pre-step state and the poisoned feed — invisible to
+    ``latest_checkpoint``, CRC-verifiable, and a repro: restored and run
+    once, the step's loss is nonfinite again."""
+    from paddle_tpu_torch.parallel import checkpoint as pc
+
+    qdir = str(tmp_path / "q")
+    mon = []
+
+    def setup():
+        mon.append(pmon.enable(str(tmp_path / "mon")))
+        pmon.sentinel.enable(policy="quarantine", sample_every=1,
+                             quarantine_dir=qdir)
+        chaos.arm("nan_batch", at=3)
+
+    batches = _batches(5)
+    _train(batches, setup)                  # never raises
+    reg = mon[0].registry
+    assert reg.counter("monitor.health.quarantines").value == 1
+    assert reg.counter("monitor.health.skipped_batches").value == 1
+    pmon.disable()
+    chaos.disarm()
+    names = os.listdir(qdir)
+    assert names == ["ckpt-3-quarantine"]   # startup is step 0
+    qpath = os.path.join(qdir, names[0])
+    assert os.path.exists(os.path.join(qpath, "COMMIT"))
+    assert pc.latest_checkpoint(qdir) is None
+    z = np.load(os.path.join(qpath, "shards-p0.npz"))
+    feed_keys = [k for k in z.files if k.startswith("feed/")]
+    assert feed_keys and any(np.isnan(z[k]).any() for k in feed_keys
+                             if z[k].dtype.kind == "f")
+    for k in z.files:
+        if k.startswith("scope/") and z[k].dtype.kind == "f":
+            assert np.isfinite(z[k]).all(), "%s not pre-step state" % k
+    z.close()
+    pc.verify_checkpoint_files(qpath)
+    # the repro: the quarantined state and feed, one step, the NaN again
+    main, startup, loss = _mlp()
+    exe = pfluid.Executor(pfluid.CPUPlace())
+    scope = pfluid.Scope()
+    exe.run(startup, scope=scope)
+    with open(os.path.join(qpath, "index-p0.json")) as f:
+        leaves = json.load(f)["leaves"]
+    target = {"scope": {}, "feed": {}, "meta": {"step": np.int64(0)}}
+    for path, meta in leaves.items():
+        head, _, name = path.partition("/")
+        if head in ("scope", "feed"):
+            target[head][name] = torch.zeros(meta["shape"],
+                                             dtype=getattr(torch, meta["dtype"]))
+    st, step = pc.restore_checkpoint(qpath, target)
+    assert step == 3 and st["meta"]["step"] == 3
+    for n, v in st["scope"].items():
+        scope.var(n)
+        scope.set(n, v)
+    (got,) = exe.run(main, feed=st["feed"], fetch_list=[loss], scope=scope)
+    assert not np.isfinite(got).all()
 
 
 def _nan_program(fluid):

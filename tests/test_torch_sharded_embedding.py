@@ -43,6 +43,15 @@ from paddle_tpu_torch.parallel import embedding as pemb
 import torch_dp_worker as W
 import torch_sharded_worker as SW
 
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SCENARIOS = ["sharded_lookup", "deepfm_sharded", "deepfm_trainer"]
 N_JAX = 8
 

@@ -21,6 +21,14 @@ from paddle_tpu_torch import convert
 from test_torch_fluid_ops import _both_programs, _data, _programs_match
 
 
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # -- ir ------------------------------------------------------------------------
 
 def test_the_pass_registry_and_pass_manager_match_jax():
