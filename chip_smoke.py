@@ -457,12 +457,14 @@ without them.  Nothing here imports JAX or the JAX package.
 import contextlib
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # published peaks by card name: (bf16 dense tensor-core FLOP/s, device
@@ -9602,38 +9604,47 @@ def phase_p55_dryrun(device="cuda", n=P55_WORLD):
 def phase_p55_capacity(device="cuda"):
     """(e) The embedding router's capacity guard reads the card's total
     memory (unless a budget is configured); past it, with
-    ``use_host_sparse_table`` on, the table raises naming item 7, and with
-    it off the capacity error naming the host parameter server."""
+    ``use_host_sparse_table`` off, the capacity error names the host
+    parameter server, and with it on the table is a ``HostPSEmbedding``
+    (its host table only virtual: calloc'd, nothing touched but the rows
+    pulled here) whose pull lands on the card."""
+    from paddle_tpu_torch.hostps import service
     from paddle_tpu_torch.monitor import memscope
     from paddle_tpu_torch.parallel import embedding as pemb
 
     total = torch.cuda.get_device_properties(0).total_memory
     configured = memscope._configured_limit()
     budget = pemb._hbm_bytes_per_chip()
-    rows = int(budget * 0.6 / (16 * 4)) * 2          # twice the table budget
+    rows = int(budget * 0.6 / (16 * 4)) + 1024       # just past the budget
     gen = torch.Generator().manual_seed(0)
-    raised = {}
-    for on in (False, True):
-        pemb.enable_host_sparse_table(on)
-        try:
-            pemb.init_embedding_table(gen, rows, 16, 1, device=device)
-            raised[on] = None
-        except (ValueError, NotImplementedError) as e:
-            raised[on] = (type(e).__name__, str(e))
-        finally:
-            pemb.enable_host_sparse_table(False)
+    raised, routed = None, None
+    try:
+        pemb.init_embedding_table(gen, rows, 16, 1, device=device)
+    except ValueError as e:
+        raised = str(e)
+    pemb.enable_host_sparse_table(True)
+    try:
+        h = pemb.init_embedding_table(gen, rows, 16, 1, device=device,
+                                      cache_slots=64)
+        got = h.pull(np.array([0, rows - 1]))
+        routed = {"type": type(h).__name__, "vocab": h.vocab_size,
+                  "pull_device": str(got.device),
+                  "rows_initialized": h.table.rows_initialized}
+        service._LIVE_EMBEDDINGS.discard(h)
+        del h, got
+    finally:
+        pemb.enable_host_sparse_table(False)
     ok = ((configured is not None or budget == total)
-          and raised[False] is not None and raised[False][0] == "ValueError"
-          and "host-RAM parameter-server" in raised[False][1]
-          and raised[True] is not None
-          and raised[True][0] == "NotImplementedError"
-          and "item 7" in raised[True][1])
+          and raised is not None and "host-RAM parameter-server" in raised
+          and routed is not None and routed["type"] == "HostPSEmbedding"
+          and routed["pull_device"].startswith("cuda")
+          and routed["rows_initialized"] == 2)
     emit({"phase": "tp_tables_capacity", "card_total_memory": total,
           "configured_limit": configured, "budget_per_card": budget,
           "table_rows_tried": rows, "dim": 16,
-          "flag_off": raised[False], "flag_on": raised[True], "ok": ok})
+          "flag_off": raised, "flag_on": routed, "ok": ok})
     if not ok:
-        raise AssertionError("phase 55 (e): %s" % raised)
+        raise AssertionError("phase 55 (e): %s %s" % (raised, routed))
 
 
 def phase_tp_tables_two_ranks(device_name, card, device="cuda", args=None):
@@ -10218,6 +10229,612 @@ def phase_fault_tolerance(device_name, card):
     return {"bert_loop": loop, "ctr_segment": ctr_per_step}
 
 
+# -- phase 57: item 7, HostPS / ShardPS ----------------------------------------
+
+P57_WARM, P57_TIMED, P57_PROFILED = 3, 30, 5     # (a)
+P57_ROUTE_STEPS = 8                               # (b) and (c)
+P57_HBM_VOCAB = 1_000_000                         # (c): config 5's vocabulary
+P57_SHARD_OWNERS, P57_SHARD_STEPS = 2, 8          # (d)
+P57_LOOP_STEPS, P57_LOOP_SIGTERM = 6, 3           # (e): saves every 2
+P57_TIMEOUT_S = 600
+
+
+def _p57_args(small=False):
+    """(a)'s configuration: ``bench.py`` ``bench_deepfm_hostps`` at its
+    widths (``tools/deepfm_hostps.BENCH``); ``small`` shrinks it for a
+    rehearsal on the CPU."""
+    from paddle_tpu_torch.tools import deepfm_hostps as dh
+
+    a = dict(dh.BENCH, hbm_vocab=P57_HBM_VOCAB)
+    if small:
+        a.update(vocab=200_000, batch=64, fields=8, dim=4, mlp=(16, 16),
+                 cache_slots=512, hbm_vocab=5000)
+    return a
+
+
+def _p57_batches(a, n, seed=0):
+    from paddle_tpu_torch.tools import deepfm_hostps as dh
+
+    rng = np.random.RandomState(seed)
+    return [dh.zipf_ids(rng, a["batch"], a["fields"], a["vocab"])
+            for _ in range(n)]
+
+
+def _p57_sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _p57_free(*embs):
+    import gc
+
+    from paddle_tpu_torch.hostps import service
+
+    for e in embs:
+        service._LIVE_EMBEDDINGS.discard(e)
+    gc.collect()
+
+
+def phase_p57_throughput(device_name, card, device="cuda", a=None):
+    """(a) The ``"host"`` route, prefetching one batch ahead: warm-up, 30
+    timed steps, then 5 more under ``torch.profiler`` for the device's busy
+    and idle time; cache hit rate, prefetch hits, pull / push ms, the
+    table's resident bytes and the cache's device bytes (MemScope)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import profiler as pprof
+    from paddle_tpu_torch.kernels import _common
+    from paddle_tpu_torch.monitor import memscope
+    from paddle_tpu_torch.tools import deepfm_hostps as dh
+
+    a = a or _p57_args()
+    gen = torch.Generator().manual_seed(0)
+    rss0 = memscope.host_accounting().get("rss_bytes")
+    emb = dh.make_embedding(a["vocab"], a["dim"], a["cache_slots"],
+                            device=device)
+    dense = dh.init_dense(gen, a["fields"], a["dim"], a["mlp"], device)
+    n = P57_WARM + P57_TIMED + P57_PROFILED
+    batches = _p57_batches(a, n + 1)
+    losses = []
+
+    def steps(lo, hi):
+        nonlocal dense
+        for k in range(lo, hi):
+            loss, dense = dh.train_step(emb, dense, batches[k],
+                                        dh.labels(batches[k]), a["lr"],
+                                        "host", next_ids=batches[k + 1])
+            losses.append(loss)
+
+    steps(0, P57_WARM)
+    _p57_sync(device)
+    pprof.reset_profiler()
+    _common.reset_launches()
+    t0 = time.perf_counter()
+    steps(P57_WARM, P57_WARM + P57_TIMED)
+    _p57_sync(device)
+    dt = time.perf_counter() - t0
+    launches = dict(_common.launches)
+    c, obs = pprof.counters(), pprof.observations()
+    busy_ms = idle = None
+    if torch.device(device).type == "cuda":
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            steps(P57_WARM + P57_TIMED, n)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        busy_ms, idle = busy / P57_PROFILED, max(0.0, 1 - busy / wall)
+    else:
+        steps(P57_WARM + P57_TIMED, n)
+    hits, misses = c.get("hostps.cache.hit", 0), c.get("hostps.cache.miss", 0)
+    owners = memscope.attribution()["owners"]
+    host = memscope.host_accounting()
+    lv = torch.stack([l.float() for l in losses]).cpu().numpy()
+    rec = {"phase": "p57_throughput", "nvidia_smi": card, "device": device,
+           "vocab": a["vocab"], "batch": a["batch"], "fields": a["fields"],
+           "dim": a["dim"], "mlp": list(a["mlp"]),
+           "cache_slots": a["cache_slots"], "steps_timed": P57_TIMED,
+           "examples_per_s": a["batch"] * P57_TIMED / dt,
+           "ms_per_step": dt * 1e3 / P57_TIMED,
+           "device_busy_ms_per_step": busy_ms,
+           "device_idle_share": idle,
+           "profiled_note": "busy/idle from 5 more steps under torch.profiler",
+           "cache_hit_rate": hits / max(hits + misses, 1),
+           "prefetch_hits": c.get("hostps.prefetch.hit", 0),
+           "prefetch_stale": c.get("hostps.prefetch.stale", 0),
+           "pull_ms_avg": obs.get("hostps.pull_ms", {}).get("avg"),
+           "push_ms_avg": obs.get("hostps.push_ms", {}).get("avg"),
+           "prefetch_wait_ms_avg": obs.get("hostps.prefetch.wait_ms",
+                                           {}).get("avg"),
+           "table_rows_initialized": emb.table.rows_initialized,
+           "table_nbytes_resident": emb.table.nbytes_resident,
+           "table_nbytes_virtual": emb.table.nbytes_virtual,
+           "memscope_hostps_cache_bytes": owners.get("hostps_cache", 0),
+           "cache_nbytes": emb.cache.nbytes,
+           "host_accounting": host,
+           "rss_growth_bytes": (host.get("rss_bytes", 0) - rss0
+                                if rss0 is not None else None),
+           "launches_in_timed_steps": {k: v for k, v in launches.items()
+                                       if v},
+           "loss_first": float(lv[0]), "loss_last": float(lv[-1])}
+    emit(rec)
+    ok = (bool(np.isfinite(lv).all())
+          and rec["prefetch_hits"] == P57_TIMED
+          and rec["memscope_hostps_cache_bytes"] == emb.cache.nbytes
+          and not any(launches.values()))
+    _p57_free(emb)
+    if not ok:
+        raise AssertionError("phase 57 (a): %s" % rec)
+    return rec
+
+
+def _p57_record_segments(pending):
+    """Wrap ``dedup_segment_sum`` so that each CUDA call's inputs and
+    outputs are kept in ``pending`` (copies, so the timed step pays no
+    check) for ``_p57_hold_segments``.  Returns the restore."""
+    from paddle_tpu_torch.kernels import segment_update as seg
+
+    real = seg.dedup_segment_sum
+
+    def recorded(rows, vals, height):
+        out_rows, out = real(rows, vals, height)
+        if rows.is_cuda:
+            pending.append((rows.clone(), vals.clone(), out_rows, out,
+                            height))
+        return out_rows, out
+
+    seg.dedup_segment_sum = recorded
+    return lambda: setattr(seg, "dedup_segment_sum", real)
+
+
+def _p57_hold_segments(pending, calls):
+    """Hold each recorded kernel call against its plain version on the
+    same inputs (rows exactly, sums within TOL_F32 of the largest) and
+    against the exact sums within ``tools/fp_bounds.py``'s derived
+    bound."""
+    from paddle_tpu_torch.kernels import segment_update as seg
+    from paddle_tpu_torch.tools import fp_bounds
+
+    while pending:
+        rows, vals, out_rows, out, height = pending.pop(0)
+        pr, pv = seg.segsum_plain(rows, vals, height)
+        err, rel = rel_err(out, pv)
+        chk = fp_bounds.merge_check(
+            rows.cpu().numpy(), vals.cpu().numpy(), out_rows.cpu().numpy(),
+            out.cpu().numpy(), height)
+        rec = {"n": int(rows.shape[0]), "d": int(vals.shape[1]),
+               "rows_equal_plain": bool(torch.equal(out_rows, pr)),
+               "max_abs_err": err, "max_rel_err": rel,
+               "max_err_over_bound": chk.get("max_err_over_bound"),
+               "short_runs_exact": chk.get("short_runs_exact"),
+               "within_bound": chk["within_bound"]}
+        calls.append(rec)
+        if not (rec["rows_equal_plain"] and rel <= TOL_F32
+                and chk["within_bound"] and chk["short_runs_exact"]):
+            raise AssertionError("segment_sum on HostPS's merged push "
+                                 "against its plain version: %s" % rec)
+
+
+class _P57Rows:
+    """Rows of ``{row: values}`` indexed by an id array."""
+
+    def __init__(self, rows, values):
+        self.rows = dict(zip(np.asarray(rows).tolist(), values))
+
+    def __getitem__(self, ids):
+        return np.stack([self.rows[int(r)] for r in ids])
+
+
+def _p57_hold_update(label, tables, p0, flat, occ, lr, vocab):
+    """Each table's rows after one SGD push of the per-occurrence
+    gradients ``occ`` against the float64 update of ``p0`` within
+    ``fp_bounds.host_sgd_update``'s derived bound."""
+    from paddle_tpu_torch.tools import fp_bounds
+
+    uniq, ref, bound = fp_bounds.host_sgd_update(p0, lr, flat, occ, vocab)
+    worst = 0.0
+    for t in tables:
+        r, _ = fp_bounds.ratio(t(uniq), ref, bound)
+        worst = max(worst, r)
+    if worst > 1.0:
+        raise AssertionError("phase 57 %s: rows %g of their derived bound"
+                             % (label, worst))
+    return worst, uniq
+
+
+def phase_p57_routes(device_name, card, device="cuda", a=None):
+    """(b) The ``"merge"`` route (per-occurrence gradients through
+    ``push_in_jit(merge=True)``: row 11's kernel, then one copy down) beside
+    the ``"host"`` route on twin tables with the same ids, 8 steps, each
+    from one state: the same loss bit for bit, the same per-occurrence
+    gradient, both tables' touched rows within the derived bound of the
+    float64 update (the sums run in other orders), then the host twin
+    adopts the merge twin's rows.  Every kernel call is held against its
+    plain version after the step (outside its timing); launches a step
+    are counted on the merge route.  The routes' ms, step by step, are
+    synchronous pulls (no prefetch) of fresh twin tables under
+    deterministic algorithms; the first step of each is cold."""
+    from paddle_tpu_torch.kernels import _common
+    from paddle_tpu_torch.kernels import segment_update as seg
+    from paddle_tpu_torch.tools import deepfm_hostps as dh
+
+    a = a or _p57_args()
+    gen = torch.Generator().manual_seed(0)
+    host = dh.make_embedding(a["vocab"], a["dim"], a["cache_slots"],
+                             device=device, name="p57_host")
+    merge = dh.make_embedding(a["vocab"], a["dim"], a["cache_slots"],
+                              device=device, name="p57_merge")
+    dense = dh.init_dense(gen, a["fields"], a["dim"], a["mlp"], device)
+    batches = _p57_batches(a, P57_ROUTE_STEPS, seed=1)
+    calls, pending = [], []
+    restore = _p57_record_segments(pending)
+    worst, launches, ms = 0.0, 0, {"host": [], "merge": []}
+    try:
+        for ids in batches:
+            flat = ids.reshape(-1)
+            uniq = np.unique(flat)
+            p0 = _P57Rows(uniq, merge.table.pull(uniq))
+            rh, rm = {}, {}
+            _p57_sync(device)
+            t0 = time.perf_counter()
+            lh, _ = dh.train_step(host, dense, ids, dh.labels(ids), a["lr"],
+                                  "host", record=rh)
+            _p57_sync(device)
+            t1 = time.perf_counter()
+            before = _common.launches["segment_sum"]
+            lm, dense = dh.train_step(merge, dense, ids, dh.labels(ids),
+                                      a["lr"], "merge", record=rm)
+            _p57_sync(device)
+            ms["host"].append((t1 - t0) * 1e3)
+            ms["merge"].append((time.perf_counter() - t1) * 1e3)
+            launches += _common.launches["segment_sum"] - before
+            _p57_hold_segments(pending, calls)
+            if float(lh) != float(lm) or not torch.equal(rh["occ_grads"],
+                                                         rm["occ_grads"]):
+                raise AssertionError("phase 57 (b): the routes' losses %r / "
+                                     "%r or gradients differ from one state"
+                                     % (float(lh), float(lm)))
+            r, uniq = _p57_hold_update(
+                "(b)", (host.table.pull, merge.table.pull), p0, flat,
+                rm["occ_grads"].cpu().numpy(), a["lr"], a["vocab"])
+            worst = max(worst, r)
+            host.install_rows(uniq, {"param": merge.table.pull(uniq)})
+    finally:
+        restore()
+    # row 11 at this path's shape, timed on the card
+    timing = {}
+    if torch.device(device).type == "cuda":
+        n = a["batch"] * a["fields"]
+        rows = torch.from_numpy(batches[0].reshape(-1)).to(device)
+        vals = torch.randn(n, a["dim"] + 1, device=device)
+        height = a["vocab"]
+        keys, order = torch.sort(rows, stable=True)
+        timing = {
+            "ms": cuda_time(lambda: seg._segsum_sorted(keys, order, vals,
+                                                       height)),
+            "plain_ms": cuda_time(lambda: seg.segsum_plain(rows, vals,
+                                                           height)),
+            "bound_ms": (n * 8 * 2 + 2 * vals.numel() * 4)
+            / card_peaks(device_name)[1] * 1e3}
+        _common.reset_launches()
+    steps = len(batches)
+    rec = {"phase": "p57_routes", "nvidia_smi": card, "steps": steps,
+           "segment_sum_launches_per_step": launches / steps,
+           "segment_calls_held": len(calls), "calls": calls,
+           "rows_worst_err_over_bound": worst,
+           "host_route_ms": ms["host"], "merge_route_ms": ms["merge"],
+           "host_route_ms_median": float(np.median(ms["host"])),
+           "merge_route_ms_median": float(np.median(ms["merge"])),
+           "segment_sum_at_this_shape": timing}
+    emit(rec)
+    _p57_free(host, merge)
+    cuda = torch.device(device).type == "cuda"
+    if cuda and (launches != steps or len(calls) != steps):
+        raise AssertionError("phase 57 (b): %d segment_sum launches and %d "
+                             "held calls in %d merge steps (expected one a "
+                             "step)" % (launches, len(calls), steps))
+    return rec
+
+
+def phase_p57_vs_hbm(card, device="cuda", a=None):
+    """(c) Config 5's vocabulary (1M) at (a)'s B, F and D, 8 steps: the
+    table routed by ``init_embedding_table`` under ``use_host_sparse_table``
+    with a budget configured below it (a ``HostPSEmbedding``), against the
+    same rows held as one [V, D + 1] tensor on the device (gathered and
+    updated there), each step from one state: the same loss bit for bit,
+    each table's rows within the derived bound of the float64 update, then
+    the device table takes the host table's rows."""
+    from paddle_tpu_torch.hostps import HostPSEmbedding, HostSGD
+    from paddle_tpu_torch.hostps.cache import bucket_size, host_to_device
+    from paddle_tpu_torch.parallel import embedding as pemb
+    from paddle_tpu_torch.tools import deepfm_hostps as dh
+
+    a = a or _p57_args()
+    V, D = a["hbm_vocab"], a["dim"]
+    old = (pemb._HBM_BYTES_PER_CHIP, pemb._HBM_TABLE_FRACTION)
+    pemb.configure_hbm_budget(V * (D + 1) * 4 // 2)   # half the table
+    pemb.enable_host_sparse_table(True)
+    try:
+        fits = pemb.table_fits(V, D + 1)
+        svc = pemb.init_embedding_table(
+            torch.Generator().manual_seed(3), V, D + 1, device=device,
+            host_optimizer=HostSGD(), cache_slots=a["cache_slots"],
+            name="p57_routed")
+    finally:
+        pemb._HBM_BYTES_PER_CHIP, pemb._HBM_TABLE_FRACTION = old
+        pemb.enable_host_sparse_table(False)
+    if fits or not isinstance(svc, HostPSEmbedding):
+        raise AssertionError("phase 57 (c): the router did not route to "
+                             "HostPS (fits %s, %s)" % (fits, type(svc)))
+    table = host_to_device(svc.table.initializer(np.arange(V)),
+                           torch.device(device))
+    gen = torch.Generator().manual_seed(0)
+    dense = dh.init_dense(gen, a["fields"], D, a["mlp"], device)
+    ahbm = dict(a, vocab=V)
+    batches = _p57_batches(ahbm, P57_ROUTE_STEPS, seed=2)
+    worst = 0.0
+    losses = []
+    for ids in batches:
+        flat = ids.reshape(-1)
+        uniq = np.unique(flat)
+        p0 = _P57Rows(uniq, table[host_to_device(uniq, table.device)]
+                      .cpu().numpy())
+        rec = {}
+        lh, new_dense = dh.train_step(svc, dense, ids, dh.labels(ids),
+                                      a["lr"], "host", record=rec)
+        # the device table: the same bucketed rows, gathered on the card
+        rows_t = host_to_device(uniq, table.device)
+        values = torch.zeros(bucket_size(uniq.size) + 1, D + 1,
+                             device=table.device)
+        values[:uniq.size] = table[rows_t]
+        inv = np.searchsorted(uniq, flat).reshape(ids.shape)
+        values.requires_grad_()
+        dd = {"mlp": [{k: t.detach().requires_grad_() for k, t in l.items()}
+                      for l in dense["mlp"]],
+              "bias": dense["bias"].detach().requires_grad_()}
+        lm = dh.loss_fn(torch.nn.functional.embedding(
+            host_to_device(inv, table.device), values), dd,
+            host_to_device(dh.labels(ids), table.device))
+        (g,) = torch.autograd.grad(lm, [values])
+        with torch.no_grad():
+            table[rows_t] = table[rows_t] - a["lr"] * g[:uniq.size]
+        if float(lh) != float(lm.detach()):
+            raise AssertionError("phase 57 (c): losses %r / %r from one "
+                                 "state" % (float(lh), float(lm)))
+        r, _ = _p57_hold_update(
+            "(c)", (svc.table.pull,
+                    lambda u: table[host_to_device(u, table.device)]
+                    .cpu().numpy()),
+            p0, flat, rec["occ_grads"].cpu().numpy(), a["lr"], V)
+        worst = max(worst, r)
+        table[rows_t] = host_to_device(svc.table.pull(uniq), table.device)
+        dense = new_dense
+        losses.append(float(lh))
+    rec = {"phase": "p57_vs_hbm", "nvidia_smi": card, "vocab": V,
+           "steps": len(batches), "routed": type(svc).__name__,
+           "losses": losses, "rows_worst_err_over_bound": worst}
+    emit(rec)
+    _p57_free(svc)
+    del table
+    return rec
+
+
+def _p57_owner_procs(wire, world, a):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.getcwd() + os.pathsep + env.get("PYTHONPATH", "")
+    env["CUDA_VISIBLE_DEVICES"] = ""            # owners touch no card
+    return [subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.tools.deepfm_hostps",
+         "--owner", "--wire", wire, "--rank", str(r), "--world", str(world),
+         "--vocab", str(a["vocab"]), "--dim", str(a["dim"])],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(1, world)]
+
+
+def _p57_run_steps(emb, dense, batches, lr):
+    """Losses (float hex) and each step's pulled rows' bytes digest."""
+    import hashlib
+
+    from paddle_tpu_torch.tools import deepfm_hostps as dh
+
+    losses, digests = [], []
+    real = emb.pull_unique
+
+    def pull(ids, use_cache=True):
+        out = real(ids, use_cache)
+        digests.append(hashlib.sha256(
+            out[1].detach().cpu().numpy().tobytes()).hexdigest())
+        return out
+
+    emb.pull_unique = pull
+    try:
+        for ids in batches:
+            loss, dense = dh.train_step(emb, dense, ids, dh.labels(ids), lr,
+                                        "host")
+            losses.append(float(loss).hex())
+    finally:
+        del emb.pull_unique
+    return losses, digests, dense
+
+
+def phase_p57_shardps(card, tmp, device="cuda", a=None):
+    """(d) (a)'s configuration with the table split over the trainer (its
+    row range, in-process) and two shard-owner processes on the CPU (the
+    wire in a temporary directory), staleness 0: 8 steps give the
+    single-host run's losses and pulled rows bit for bit."""
+    from paddle_tpu_torch.hostps import ShardRouter, ShardedHostPSEmbedding
+    from paddle_tpu_torch.parallel.rules import hostps_row_ranges
+    from paddle_tpu_torch.tools import deepfm_hostps as dh
+
+    a = a or _p57_args()
+    world = 1 + P57_SHARD_OWNERS
+    wire = os.path.join(tmp, "p57_wire")
+    procs = _p57_owner_procs(wire, world, a)
+    t0 = time.perf_counter()
+    try:
+        batches = _p57_batches(a, P57_SHARD_STEPS, seed=4)
+        ref_emb = dh.make_embedding(a["vocab"], a["dim"], a["cache_slots"],
+                                    device=device, name="p57_single")
+        gen = torch.Generator().manual_seed(0)
+        dense0 = dh.init_dense(gen, a["fields"], a["dim"], a["mlp"], device)
+        ref = _p57_run_steps(ref_emb, dense0, batches, a["lr"])
+        _p57_free(ref_emb)
+        del ref_emb
+        rr = hostps_row_ranges(world, a["vocab"])[0]
+        router = ShardRouter(dh.make_table(a["vocab"], a["dim"],
+                                           row_range=rr),
+                             world=world, rank=0, wire_dir=wire,
+                             client_id="p57", staleness=0)
+        router.connect(timeout=P57_TIMEOUT_S)
+        t_conn = time.perf_counter() - t0
+        emb = ShardedHostPSEmbedding(router, cache_slots=a["cache_slots"],
+                                     device=device)
+        t1 = time.perf_counter()
+        got = _p57_run_steps(emb, dense0, batches, a["lr"])
+        t_steps = time.perf_counter() - t1
+        for s in range(1, world):
+            router.shutdown_shard(s)
+        _p57_free(emb)
+    finally:
+        outs = []
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=60)[0][-400:])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outs.append(p.communicate()[0][-400:])
+    ok = (got[0] == ref[0] and got[1] == ref[1]
+          and all(p.returncode == 0 for p in procs))
+    rec = {"phase": "p57_shardps", "nvidia_smi": card, "world": world,
+           "owners": P57_SHARD_OWNERS, "steps": len(batches),
+           "connect_s": t_conn, "ms_per_step": t_steps * 1e3 / len(batches),
+           "losses_equal": got[0] == ref[0], "rows_equal": got[1] == ref[1],
+           "owner_rcs": [p.returncode for p in procs], "owner_tails": outs,
+           "ok": ok}
+    emit(rec)
+    if not ok:
+        raise AssertionError("phase 57 (d): %s" % rec)
+    return rec
+
+
+def phase_p57_trainstate(card, tmp, device="cuda", a=None):
+    """(e) (a)'s widths under ``TrainLoop`` with ``CheckpointPolicy(
+    every_steps=2, hostps=[emb])`` (``tools/deepfm_hostps.run_loop``): a
+    never-stopped run of 6 steps; a run SIGTERMed at step 3 (rc 120); a
+    fresh table and head (another seed) that resume from ``ckpt-3``: its
+    losses, dense leaves and the table's touched rows bit for bit the
+    never-stopped run's."""
+    from paddle_tpu_torch.ft.guard import PREEMPTED_RC
+    from paddle_tpu_torch.tools import deepfm_hostps as dh
+
+    a = a or _p57_args()
+    batches = [(ids, dh.labels(ids))
+               for ids in _p57_batches(a, P57_LOOP_STEPS, seed=5)]
+
+    def fresh(seed, name):
+        gen = torch.Generator().manual_seed(seed)
+        return (dh.make_embedding(a["vocab"], a["dim"], a["cache_slots"],
+                                  device=device, name=name),
+                dh.init_dense(gen, a["fields"], a["dim"], a["mlp"], device))
+
+    t0 = time.perf_counter()
+    emb, dense = fresh(0, "p57_loop")
+    ref_dense, ref_losses, _ = dh.run_loop(emb, dense, batches, a["lr"])
+    ref_rows = emb.table.snapshot()
+    _p57_free(emb)
+    ck = os.path.join(tmp, "p57_ckpt")
+    emb, dense = fresh(0, "p57_loop")
+    killed, rc = {}, None
+    try:
+        dh.run_loop(emb, dense, batches, a["lr"], ckpt=ck,
+                    sigterm_at=P57_LOOP_SIGTERM, losses=killed)
+    except SystemExit as e:
+        rc = e.code
+    _p57_free(emb)
+    emb, dense = fresh(7, "p57_loop")
+    t1 = time.perf_counter()
+    got_dense, got_losses, resumed = dh.run_loop(
+        emb, dense, batches, a["lr"], ckpt=ck)
+    resume_s = time.perf_counter() - t1
+    rows = emb.table.snapshot()
+    flat = lambda d: [l[k] for l in d["mlp"] for k in ("w", "b")] \
+        + [d["bias"]]                                  # noqa: E731
+    dense_equal = all(torch.equal(x, y)
+                      for x, y in zip(flat(got_dense), flat(ref_dense)))
+    rows_equal = (np.array_equal(rows[0], ref_rows[0])
+                  and all(np.array_equal(rows[1][k], ref_rows[1][k])
+                          for k in ref_rows[1]))
+    ok = (rc == PREEMPTED_RC and resumed == P57_LOOP_SIGTERM
+          and killed == {s: ref_losses[s] for s in range(1, 4)}
+          and got_losses == {s: ref_losses[s]
+                             for s in range(4, P57_LOOP_STEPS + 1)}
+          and dense_equal and rows_equal)
+    rec = {"phase": "p57_trainstate", "nvidia_smi": card, "rc": rc,
+           "resumed_step": resumed, "touched_rows": int(rows[0].size),
+           "dense_equal": dense_equal, "rows_equal": rows_equal,
+           "losses": ref_losses, "resume_and_3_steps_s": resume_s,
+           "seconds": time.perf_counter() - t0, "ok": ok}
+    emit(rec)
+    _p57_free(emb)
+    if not ok:
+        raise AssertionError("phase 57 (e): %s" % rec)
+    return rec
+
+
+def phase_p57_drill_start():
+    """The ShardPS drill on the card (``tools/chaos_drill.py --hostps
+    --smoke --check --device cuda``), started in the background."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.tools.chaos_drill",
+         "--hostps", "--smoke", "--check", "--device", "cuda"],
+        env=_p56_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    return proc, time.perf_counter()
+
+
+def phase_p57_drill_finish(card, started):
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=P57_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    emit({"phase": "p57_drill", "nvidia_smi": card, "rc": proc.returncode,
+          "tail": out[-1500:], "seconds": time.perf_counter() - t0})
+    if proc.returncode != 0:
+        raise AssertionError("phase 57 (d): chaos_drill --hostps --smoke "
+                             "--check --device cuda exited rc=%d:\n%s%s"
+                             % (proc.returncode, out[-3000:], err[-3000:]))
+
+
+def phase_hostps(device_name, card, drill):
+    """Phase 57, (a) to (e); returns (a)'s record and (b)'s.  ``drill`` is
+    ``phase_p57_drill_start()``'s, started before phase 56 so that its
+    processes' start-up overlaps that phase."""
+    import tempfile
+
+    from paddle_tpu_torch.tools.chaos_drill import deterministic_card
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase57_")
+    try:
+        thr = phase_p57_throughput(device_name, card)
+        deterministic_card()        # (b) to (e): two runs alike bit for bit
+        routes = phase_p57_routes(device_name, card)
+        phase_p57_vs_hbm(card)
+        phase_p57_shardps(card, tmp)
+        phase_p57_trainstate(card, tmp)
+        phase_p57_drill_finish(card, drill)
+    finally:
+        if drill[0].poll() is None:
+            drill[0].kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "hostps", "seconds": time.perf_counter() - t0})
+    return thr, routes
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -10370,7 +10987,12 @@ def main():
             "local_sgd": p55["local_sgd"].get(key, 0)}
     torch.cuda.empty_cache()
     _common.reset_launches()
-    p56 = phase_fault_tolerance(name, card)
+    p57_drill = phase_p57_drill_start()
+    try:
+        p56 = phase_fault_tolerance(name, card)
+    except BaseException:
+        p57_drill[0].kill()
+        raise
     for rec in kernels:
         key = {"flash_attention_bwd_dq": "flash_attention_bwd",
                "flash_attention_bwd_dkv": "flash_attention_bwd"}.get(
@@ -10380,6 +11002,18 @@ def main():
             "bert_loop_resumed": p56["bert_loop"]["resumed"].get(key, 0),
             "ctr_segment": ({k: v for k, v in p56["ctr_segment"].items()}
                             if key == "segment_sum" else 0)}
+    torch.cuda.empty_cache()
+    _common.reset_launches()
+    p57_thr, p57_routes = phase_hostps(name, card, p57_drill)
+    for rec in kernels:
+        rec["phase57_launches_per_step"] = {
+            "host_route": p57_thr["launches_in_timed_steps"].get(
+                rec["name"], 0) / P57_TIMED,
+            "merge_route": (p57_routes["segment_sum_launches_per_step"]
+                            if rec["name"] == "segment_sum" else 0)}
+        if rec["name"] == "segment_sum":
+            rec["phase57_merge_shape"] = p57_routes[
+                "segment_sum_at_this_shape"]
     for rec in kernels:
         if rec["name"] == "segment_sum":
             rec["ctr_dataset_launches_per_step"] = ctr_per_step

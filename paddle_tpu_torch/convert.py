@@ -12,6 +12,13 @@ For Fluid programs, ``scope_from_numpy(values, scope, device)`` loads
 with ``scope.find_tensor_as_numpy``) into a port ``Scope``, and
 ``scope_to_numpy(scope, names)`` reads them back, so both executors start
 from the same weights.
+
+For host-RAM sparse tables, ``table_from_snapshot(snapshot, table)`` installs
+a ``HostSparseTable.snapshot()`` of either package (``(rows, {"param",
+"slot_*"}, meta)``, all numpy) into the other's table through
+``adopt_rows``, and ``table_snapshot(table)`` takes one: a JAX table's
+snapshot adopted by a port table (or back) leaves both holding the same
+live rows and moment slots, bit for bit.
 """
 
 import numpy as np
@@ -20,7 +27,7 @@ import torch
 from ._tree import tree_map
 
 __all__ = ["params_from_numpy", "params_to_numpy", "scope_from_numpy",
-           "scope_to_numpy"]
+           "scope_to_numpy", "table_snapshot", "table_from_snapshot"]
 
 
 def _leaf_from_numpy(a, device):
@@ -60,3 +67,29 @@ def scope_from_numpy(values, scope, device):
 def scope_to_numpy(scope, names):
     """``{name: numpy array}`` of the named values in ``scope``."""
     return {n: scope.find_tensor_as_numpy(n) for n in names}
+
+
+def table_snapshot(table):
+    """``(rows, arrays, meta)`` of a host-RAM sparse table of either
+    package (a ``HostPSEmbedding`` hands over its table)."""
+    return getattr(table, "table", table).snapshot()
+
+
+def table_from_snapshot(snapshot, table):
+    """Install a ``table_snapshot`` into ``table`` (either package's
+    ``HostSparseTable``, or an embedding over one) verbatim: the rows
+    become live with their values and moment slots.  The two tables must
+    have the same vocabulary, width and optimizer slots.  Returns the
+    number of rows installed."""
+    rows, arrays, meta = snapshot
+    t = getattr(table, "table", table)
+    if (int(meta["vocab_size"]), int(meta["dim"])) != (t.vocab_size, t.dim):
+        raise ValueError(
+            "table_from_snapshot: snapshot is [%s x %s], table %r is "
+            "[%d x %d]" % (meta["vocab_size"], meta["dim"], t.name,
+                           t.vocab_size, t.dim))
+    arrays = {k: np.asarray(v) for k, v in arrays.items()}
+    install = getattr(table, "install_rows", None)
+    if install is not None:
+        return install(np.asarray(rows, np.int64), arrays)
+    return t.adopt_rows(np.asarray(rows, np.int64), arrays)

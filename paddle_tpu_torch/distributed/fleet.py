@@ -53,8 +53,8 @@ class DistributedStrategy(BuildStrategy):
         self.amp_loss_scale = 1.0  # kept for API parity; bf16 needs no scaling
         self.nccl_comm_num = 1
         # PSLib parity: route embedding tables past the devices' budget to
-        # the host-RAM sparse service (parallel/embedding.py's router, whose
-        # host route waits for item 7, HostPS)
+        # the host-RAM sparse service (parallel/embedding.py's router hands
+        # them to hostps.HostPSEmbedding)
         self.use_host_sparse_table = False
         self.host_sparse_cache_slots = 0
 

@@ -13,9 +13,9 @@ group's backend: ``auto`` is NCCL on a card and gloo on the CPU; ``gloo``
 runs ranks that share one card (NCCL refuses two ranks on one device).
 The workers are started with subprocess (a fresh interpreter each, never a
 fork of a process that holds CUDA state), and the elastic retries, the
-elastic shrink and the guard-derived SIGTERM grace are the reference's.
-``--solo_respawn_ranks`` is accepted, but a rank listed there (a HostPS
-shard owner in the reference) raises: ROADMAP Queue 1 item 7.
+elastic shrink, the solo respawn of ShardPS shard owners
+(``--solo_respawn_ranks``) and the guard-derived SIGTERM grace are the
+reference's.
 """
 
 import argparse
@@ -69,9 +69,18 @@ def _parse_args(argv=None):
                         "fleet).  Single-node only")
     p.add_argument("--solo_respawn_ranks", type=str, default="",
                    help="comma-separated ranks that respawn ALONE on a "
-                        "crash: the reference's HostPS shard owners, which "
-                        "wait for ROADMAP Queue 1 item 7 — a non-empty "
-                        "value raises")
+                        "crash instead of restarting the whole fleet.  "
+                        "For ranks whose entire state is restorable from "
+                        "the last committed checkpoint and whose peers "
+                        "degrade gracefully while they are gone — the "
+                        "ShardPS shard owners (hostps/shard_router.py): "
+                        "clients cache-serve and buffer pushes, the "
+                        "respawned owner restores its row range via "
+                        "restore_resharded and the clients replay the "
+                        "staleness window.  Each solo respawn burns one "
+                        "elastic retry (a crash is a crash); collective "
+                        "training ranks must NOT be listed here (their "
+                        "peers wedge in collectives)")
     p.add_argument("--elastic_reset_secs", type=float, default=600.0,
                    help="refill the elastic retry budget after this many "
                         "seconds without a crash (0 disables: the budget "
@@ -92,11 +101,8 @@ def _parse_args(argv=None):
     args = p.parse_args(argv)
     if args.term_grace_secs is None:
         args.term_grace_secs = _default_term_grace()
-    if args.solo_respawn_ranks.strip():
-        raise NotImplementedError(
-            "--solo_respawn_ranks %r: a rank that respawns alone is a HostPS "
-            "shard owner, which waits for ROADMAP Queue 1 item 7"
-            % args.solo_respawn_ranks)
+    args.solo_ranks = {int(x) for x in args.solo_respawn_ranks.split(",")
+                       if x.strip()}
     return args
 
 
@@ -242,7 +248,22 @@ def start_procs(args):
                     # SIGTERM — ft/guard.py) is ROUTINE on preemptible
                     # pools: restart it for free, the budget is for crashes
                     preempted = (r == PREEMPTED_RC)
-                    if preempted or retries < args.elastic_retries:
+                    if not preempted and i in args.solo_ranks \
+                            and retries < args.elastic_retries:
+                        # a ShardPS shard owner died: its state is the last
+                        # committed checkpoint + the clients' replay logs,
+                        # and the trainers are DEGRADING, not wedging — so
+                        # only the corpse respawns; the fleet keeps running
+                        retries += 1
+                        attempt += 1
+                        sys.stderr.write(
+                            "[launch] worker %d exited rc=%d; solo respawn "
+                            "%d/%d (ps shard owner restored from the last "
+                            "committed checkpoint; fleet kept running)\n"
+                            % (i, r, retries, args.elastic_retries))
+                        procs[i] = spawn(i, attempt=attempt)
+                        pending.add(i)
+                    elif preempted or retries < args.elastic_retries:
                         if not preempted:
                             retries += 1
                         attempt += 1

@@ -2,9 +2,9 @@
 ``ft``:
 
 - ``ft.ckpt``    unified TrainState checkpoint (dense params + optimizer
-                 slots + dataset cursor + RNG streams + step counter), one
-                 committed ``ckpt-<step>`` directory; HostPS sparse shards
-                 wait for ROADMAP Queue 1 item 7;
+                 slots + HostPS sparse shards + dataset cursor + RNG
+                 streams + step counter), one committed ``ckpt-<step>``
+                 directory;
 - ``ft.policy``  CheckpointPolicy — the ``train_from_dataset(checkpoint=…)``
                  and ``TrainLoop`` cadence/resume knobs;
 - ``ft.guard``   TrainGuard / LoopGuard — boundary saves, exact-batch

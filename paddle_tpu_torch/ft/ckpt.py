@@ -34,8 +34,10 @@ with its global slice (``scope_blocks``), never gathered; on restore the
 blocks are re-sliced for the scope's CURRENT layout (``restore_into_scope``).
 The executor derives each run's dropout generator from the program's seed
 and its run counter (``exec_step``), so restoring the counter replays the
-draws and no torch generator state is saved.  HostPS tables wait for
-ROADMAP Queue 1 item 7: ``hostps=`` with a table raises.
+draws and no torch generator state is saved.  HostPS tables
+(``hostps.HostPSEmbedding``, ``ShardedHostPSEmbedding`` or a bare
+``HostSparseTable``) are written in the reference's sparse-shard format, so
+either package restores a TrainState the other wrote.
 """
 
 import os
@@ -45,7 +47,10 @@ import time
 import numpy as np
 import torch
 
+from . import retry as _retry
+
 __all__ = ["save_train_state", "restore_train_state", "latest_checkpoint",
+           "hostps_extras", "restore_hostps",
            "RestoredState", "TrainStateWriter", "pack_rng", "apply_rng",
            "rng_template", "scope_blocks", "scope_targets",
            "restore_into_scope"]
@@ -119,15 +124,54 @@ def _leaf_cursor(arr):
 
 
 def _hostps_list(hostps):
-    """The HostPS tables to checkpoint: the port has no HostPS (ROADMAP
-    Queue 1 item 7), so None or an empty list means none and a table
-    raises."""
-    if hostps:
-        raise NotImplementedError(
-            "unified checkpoint hostps=%r: HostPS tables in a TrainState "
-            "wait for ROADMAP Queue 1 item 7 (the port has no HostPS)"
-            % (list(hostps),))
-    return []
+    """Normalize to a name->embedding/table list; None = every live
+    HostPSEmbedding (hostps/service.py weak registry)."""
+    if hostps is None:
+        from ..hostps import service as _svc
+
+        hostps = _svc.live_embeddings()
+    out = []
+    seen = set()
+    for h in hostps:
+        name = getattr(h, "name", None) or "host_table"
+        if name in seen:
+            raise ValueError(
+                "unified checkpoint: two HostPS tables named %r — give "
+                "tables distinct names" % name)
+        seen.add(name)
+        out.append((name, h))
+    return sorted(out, key=lambda nh: nh[0])
+
+
+def hostps_extras(hostps, proc):
+    """Snapshot the HostPS tables NOW (under each table's lock, at this
+    step boundary) and return ``(extras, nbytes)``: ``extras(stage_dir)``
+    writes them under ``hostps/p<proc>/`` on the checkpoint writer (None
+    when there is no table).  Shared by the unified TrainState save and
+    ``LoopGuard``'s loop checkpoints."""
+    snaps = []
+    nbytes = 0
+    for name, h in _hostps_list(hostps):
+        table = getattr(h, "table", h)
+        rows, arrays, meta = table.snapshot()
+        snaps.append((name, rows, arrays, meta))
+        nbytes += rows.nbytes + sum(a.nbytes for a in arrays.values())
+    if not snaps:
+        return None, 0
+
+    def extras(stage_dir):
+        from .. import io as _io
+
+        # per-process subdir: each rank's host-RAM tables are its own
+        # state; a shared relpath would collide in the published dir
+        # (last os.replace wins) and fail every other rank's CRC
+        sub = os.path.join(stage_dir, "hostps", "p%d" % proc)
+        for name, rows, arrays, meta in snaps:
+            _retry.io_retry(_io.save_sparse_shards, sub, name, rows,
+                            arrays, meta=meta, what="hostps shards",
+                            surface="hostps_shard")
+
+    return extras, nbytes
 
 
 def _leaf_nbytes(v):
@@ -276,7 +320,9 @@ def save_train_state(directory, step, scope_state=None, cursor=None,
     rank's block of the var, ``scope_blocks``).
     cursor: (file_idx, batch_idx) of the LAST TRAINED batch, or None.
     exec_step: the executor's per-run seed counter (Executor._step).
-    hostps: None or empty (a table raises: ROADMAP Queue 1 item 7).
+    hostps: tables to include (None = all live HostPSEmbeddings).  Their
+    rows/slots are copied out under the table lock NOW; only file IO runs
+    on the writer thread.
 
     Returns a TrainStateWriter (call .wait()/.finish() for durability +
     telemetry; sync saves may still call it — idempotent)."""
@@ -284,7 +330,6 @@ def save_train_state(directory, step, scope_state=None, cursor=None,
     from . import agree as _agree
 
     t0 = time.perf_counter()
-    _hostps_list(hostps)
     proc = _agree.fleet_rank()
     tree = {
         "scope": dict(scope_state or {}),
@@ -299,8 +344,12 @@ def save_train_state(directory, step, scope_state=None, cursor=None,
         },
     }
     nbytes = sum(_leaf_nbytes(v) for v in tree["scope"].values())
+
+    extras, hp_bytes = hostps_extras(hostps, proc)
+    nbytes += hp_bytes
     writer = _base.save_checkpoint(directory, tree, step=int(step),
-                                   asynchronous=asynchronous, keep=keep)
+                                   asynchronous=asynchronous, keep=keep,
+                                   extras=extras)
     out = TrainStateWriter(writer, step, nbytes, t0, asynchronous)
     if not asynchronous:
         # surface IO errors NOW, but leave the telemetry emit to finish():
@@ -336,9 +385,12 @@ def restore_train_state(directory, scope_target, hostps=None, verify=True,
     TOPOLOGY-PORTABLE: the checkpoint may have been saved by a DIFFERENT
     fleet size (elastic shrink/grow).  Dense leaves reassemble from every
     saver's layout manifest and re-slice for the current placement
-    (parallel/checkpoint.py restore_checkpoint); a rank whose per-process
-    RNG stream was never saved (grown past the saver world) keeps its
-    fresh streams — the one documented non-bit-exact residue of a grow.
+    (parallel/checkpoint.py restore_checkpoint); HostPS sparse tables merge
+    every saver rank's row shards and repartition them by the current
+    world's row ranges (parallel/rules.hostps_row_range via
+    HostSparseTable.restore_resharded); a rank whose per-process RNG stream
+    was never saved (grown past the saver world) keeps its fresh streams —
+    the one documented non-bit-exact residue of a grow.
     ``RestoredState.resharded`` + the ``ft.ckpt.reshards`` counter record
     that a cross-topology resume happened.
 
@@ -346,7 +398,8 @@ def restore_train_state(directory, scope_target, hostps=None, verify=True,
     layout (a tensor comes back on its device and dtype, a ``LocalBlock``
     as that block of the saved var).  Must cover exactly the names that
     were saved — a drifted program fails loudly.
-    hostps: None or empty (a table raises: ROADMAP Queue 1 item 7).
+    hostps: tables to restore into (None = all live HostPSEmbeddings; each
+    must carry the same name it was saved under).
 
     Returns RestoredState (None when no committed checkpoint exists)."""
     import warnings
@@ -354,7 +407,6 @@ def restore_train_state(directory, scope_target, hostps=None, verify=True,
     from ..parallel import checkpoint as _base
     from . import agree as _agree
 
-    _hostps_list(hostps)
     path = directory
     if not os.path.exists(os.path.join(str(directory), "COMMIT")):
         path = _base.latest_checkpoint(str(directory))
@@ -416,6 +468,7 @@ def restore_train_state(directory, scope_target, hostps=None, verify=True,
             from ..monitor.registry import stat_add
 
             stat_add("ft.ckpt.rng_reseeded")
+    restore_hostps(path, indexes, hostps, resharded, rng_key)
     if resharded:
         from ..monitor.registry import stat_add
 
@@ -428,3 +481,68 @@ def restore_train_state(directory, scope_target, hostps=None, verify=True,
         exec_step=None if exec_step < 0 else exec_step,
         path=path,
         saver_world=saver_world, world=world, resharded=resharded)
+
+
+def restore_hostps(path, indexes, hostps, resharded, rng_key):
+    """Load the ``hostps/p<K>/`` subtree of the committed checkpoint
+    ``path`` (manifests ``indexes``) into the offered tables: same
+    topology, each rank (``rng_key`` = ``p<rank>``) its own saver's tables;
+    across a ``fleet_world`` change, every saver's shards merged and
+    re-sliced by each table's row range."""
+    tables = _hostps_list(hostps)
+    hp_root = os.path.join(path, "hostps")
+    # every saver rank's sparse-shard subdir, ascending rank (the merge
+    # order restore_resharded's last-writer-wins contract depends on).
+    # Ranks come from the LOADED MANIFESTS, never a directory glob: an
+    # unindexed hostps/p<K>/ left by some other incarnation is not part of
+    # this checkpoint (its files were never CRC'd into any index) and must
+    # not leak rows into the merge.
+    saver_dirs = []
+    for r in sorted(int(i.get("process", 0)) for i in indexes):
+        d = os.path.join(hp_root, "p%d" % r)
+        if os.path.isdir(d):
+            saver_dirs.append(d)
+
+    def _names_in(d):
+        try:
+            return {n[:-len(".sparse.meta")] for n in os.listdir(d)
+                    if n.endswith(".sparse.meta")}
+        except OSError:
+            return set()
+
+    if not resharded:
+        # same topology: each rank restores exactly ITS OWN saver's tables
+        hp_dir = os.path.join(hp_root, rng_key)
+        per_table_dirs = {name: [hp_dir] for name in _names_in(hp_dir)}
+    else:
+        # elastic reshard: merge EVERY saver rank's shards; the table's
+        # row_range (rules.hostps_row_range for sharded fleets, full for
+        # replicas) decides which merged rows this rank keeps
+        per_table_dirs = {}
+        for d in saver_dirs:
+            for name in _names_in(d):
+                per_table_dirs.setdefault(name, []).append(d)
+    uncovered = set(per_table_dirs) - {name for name, _ in tables}
+    if uncovered:
+        raise RuntimeError(
+            "unified checkpoint %s holds HostPS tables %s but no live "
+            "table/embedding with those names was offered for restore — "
+            "create the HostPS embeddings (same names) before resuming"
+            % (path, sorted(uncovered)))
+    for name, h in tables:
+        dirs = per_table_dirs.get(name)
+        if not dirs:
+            continue         # table created after the save: nothing to load
+        if not resharded:
+            if hasattr(h, "table"):
+                h.restore(dirs[0], name)   # HostPSEmbedding retries inside
+            else:
+                _retry.io_retry(h.restore, dirs[0], name,
+                                what="hostps restore",
+                                surface="hostps_shard")
+        elif hasattr(h, "table"):
+            h.restore_resharded(dirs, name)
+        else:
+            _retry.io_retry(h.restore_resharded, dirs, name,
+                            what="hostps resharded restore",
+                            surface="hostps_shard")

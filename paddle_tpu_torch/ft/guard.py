@@ -467,7 +467,11 @@ class LoopGuard(BoundaryGuard):
     placement (this rank's blocks of a ZeRO, tp or pp state).  No dataset
     cursor / scope / RNG capture — functional loops re-derive their input
     stream deterministically and fast-forward by step count (TrainLoop.run
-    does exactly that)."""
+    does exactly that).  A HostPS step loop names its tables in
+    ``policy.hostps``: they are snapshotted at the same boundary into the
+    checkpoint's ``hostps/p<K>/`` subtree (``ft.ckpt.hostps_extras``, CRC'd
+    with the manifest) and restored with the state.  The reference's loop
+    checkpoint carries no HostPS table; ``hostps=None`` keeps that."""
 
     def __init__(self, policy, state_fn, drain=None, specs=None, mesh=None):
         super().__init__(policy)
@@ -496,16 +500,19 @@ class LoopGuard(BoundaryGuard):
         tree = {"state": self._state_fn(),
                 "meta": {"step": np.int64(self._step)}}
         specs, mesh = self._tree_specs()
+        extras, hp_bytes = (None, 0) if self.policy.hostps is None else \
+            _ckpt.hostps_extras(self.policy.hostps, self.rank)
         writer = _base.save_checkpoint(
             self.policy.dirname, tree, step=self._step,
             asynchronous=asynchronous, keep=self.policy.keep,
-            specs=specs, mesh=mesh)
+            specs=specs, mesh=mesh, extras=extras)
         # same telemetry contract as the trainer-side saves: wrapping in
         # TrainStateWriter gives loop checkpoints the ft.ckpt.{saves,bytes,
         # secs} counters and per-save `ckpt` timeline events
-        out = _ckpt.TrainStateWriter(writer, self._step,
-                                     _base.written_nbytes(tree, specs, mesh),
-                                     t0, asynchronous)
+        out = _ckpt.TrainStateWriter(
+            writer, self._step,
+            _base.written_nbytes(tree, specs, mesh) + hp_bytes, t0,
+            asynchronous)
         if not asynchronous:
             writer.wait()
         return out
@@ -537,6 +544,11 @@ class LoopGuard(BoundaryGuard):
         tree, step = _base.restore_checkpoint(
             path, {"state": state_template, "meta": {"step": np.int64(0)}},
             indexes=indexes, specs=specs, mesh=mesh)
+        if self.policy.hostps is not None:
+            _base.verify_checkpoint_files(
+                path, only=lambda rel: rel.startswith("hostps/"))
+            _ckpt.restore_hostps(path, indexes, self.policy.hostps,
+                                 resharded, "p%d" % self.rank)
         if resharded:
             from ..monitor.registry import stat_add
 

@@ -34,9 +34,8 @@ class CheckpointPolicy:
                    (params, optimizer slots, HostPS rows, RNG streams,
                    batch order).
     hostps         HostPS embeddings/tables to include in the unified
-                   TrainState.  The port has no HostPS yet (ROADMAP Queue 1
-                   item 7): None or an empty list means none, and a table
-                   raises.
+                   TrainState (None = every live HostPSEmbedding,
+                   hostps/service.py registry).
     save_on_preempt  SIGTERM triggers a final synchronous checkpoint before
                    the preemption exit (default True).
     """

@@ -164,9 +164,8 @@ def note_scope(scope):
 def _iter_owned():
     """(owner, tensor) pairs from every registration plus the scopes.
     Every leg is best-effort: attribution must never take a run down.  The
-    HostPS cache and shard-router owners of the reference wait for the
-    HostPS port (ROADMAP Queue 1 item 7), and its warm twins for the warm
-    store (item 8)."""
+    HostPS hot-row caches are owner ``hostps_cache``; the reference's warm
+    twins wait for the warm store (ROADMAP Queue 1 item 8)."""
     with _LOCK:
         owners = list(_OWNERS.items())
         tracked = list(_TRACKED)
@@ -200,6 +199,14 @@ def _iter_owned():
         for v in list(scope._vars.values()):
             if v is not None:
                 yield "scope", v
+    # HostPS hot-row cache slot buffers (one [slots, dim] tensor per cached
+    # table)
+    from ..hostps import service as _svc
+
+    for emb in _svc.live_embeddings():
+        cache = getattr(emb, "cache", None)
+        if cache is not None:
+            yield "hostps_cache", cache._values
 
 
 def _cuda_devices():
@@ -315,8 +322,8 @@ def min_device_bytes_limit(fallback=None):
 # -------------------------------------------------- host-side accounting --
 
 def host_accounting():
-    """The process RSS.  The reference's HostPS table and ShardPS replay
-    bytes wait for the HostPS port (ROADMAP Queue 1 item 7)."""
+    """Host-RAM side of the story: process RSS, HostPS table resident bytes
+    (initialized rows x row footprint), ShardPS wire replay-log bytes."""
     out = {}
     try:
         with open("/proc/self/statm") as f:
@@ -324,6 +331,25 @@ def host_accounting():
         out["rss_bytes"] = rss_pages * os.sysconf("SC_PAGE_SIZE")
     except Exception:
         pass
+    from ..hostps import service as _svc
+    from ..hostps import shard_router as _sr
+
+    total = 0
+    for emb in _svc.live_embeddings():
+        t = getattr(emb.table, "local_table", emb.table)
+        total += int(getattr(t, "nbytes_resident", 0) or 0)
+    if total:
+        out["hostps_tables_bytes"] = total
+    total = 0
+    for router in list(getattr(_sr, "_LIVE_ROUTERS", ())):
+        for st in router._shards.values():
+            with st.cond:
+                entries = list(st.log)
+            for _seq, rows, values, _lr in entries:
+                total += int(getattr(rows, "nbytes", 0) or 0)
+                total += int(getattr(values, "nbytes", 0) or 0)
+    if total:
+        out["ps_replay_bytes"] = total
     return out
 
 

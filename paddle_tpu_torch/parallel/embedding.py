@@ -25,8 +25,9 @@ The capacity guard reads the device's own memory: a configured budget
 (``configure_hbm_budget``, or ``monitor.memscope.configure``), else the
 smallest total memory of the visible cards.  With neither (a host without a
 card and nothing configured) it raises and asks for one; it never guesses a
-size.  A table past the budget is the host-RAM parameter server's, which
-waits for ROADMAP Queue 1 item 7 (HostPS) in this port.
+size.  A table past the budget is the host-RAM parameter server's
+(``paddle_tpu_torch.hostps``): with ``use_host_sparse_table`` on,
+``init_embedding_table`` returns a ``HostPSEmbedding`` for it.
 """
 
 import torch
@@ -46,9 +47,6 @@ __all__ = [
     "enable_host_sparse_table",
     "host_sparse_table_enabled",
 ]
-
-_HOSTPS = "ROADMAP Queue 1 item 7, HostPS"
-
 
 def embedding_spec(axis=DP):
     """PartitionSpec of a row-sharded [V, D] table, from the sharding
@@ -146,18 +144,19 @@ def _check_table_fits(vocab_size, dim, n_shards, dtype):
         "embedding table [%d x %d] (%s) needs %.1f GiB but the %d-shard "
         "mesh has only ~%.1f GiB of device memory budgeted for tables "
         "(%.0f%% of %d x %.1f GiB). Tables past the devices' aggregate "
-        "memory are served by the host-RAM parameter-server (the "
-        "reference's PSLib/Downpour design), which waits for %s in this "
-        "port: DistributedStrategy.use_host_sparse_table = True "
-        "(distributed/fleet.py) or parallel.embedding."
-        "enable_host_sparse_table() selects that route. Otherwise shard "
+        "memory are served by the host-RAM parameter-server "
+        "(paddle_tpu_torch.hostps, the reference's PSLib/Downpour design): "
+        "set DistributedStrategy.use_host_sparse_table = True "
+        "(distributed/fleet.py) or call parallel.embedding."
+        "enable_host_sparse_table(), then build the table through "
+        "init_embedding_table() to get a HostPSEmbedding handle. Otherwise "
+        "shard "
         "over more devices, shrink dim, use a smaller dtype, or hash the "
         "vocabulary. The budget is set by parallel.embedding."
         "configure_hbm_budget()."
         % (vocab_size, dim, str(dtype).replace("torch.", ""),
            table_bytes / 1024 ** 3, n_shards, budget / 1024 ** 3,
-           _HBM_TABLE_FRACTION * 100, n_shards, per_chip / 1024 ** 3,
-           _HOSTPS))
+           _HBM_TABLE_FRACTION * 100, n_shards, per_chip / 1024 ** 3))
 
 
 def init_sharded_table(gen, vocab_size, dim, n_shards, scale=None,
@@ -183,15 +182,26 @@ def init_sharded_table(gen, vocab_size, dim, n_shards, scale=None,
 def init_embedding_table(gen, vocab_size, dim, n_shards=1, scale=None,
                          dtype=torch.float32, host_optimizer=None,
                          host_initializer=None, cache_slots=0, device=None,
-                         name="embedding"):
+                         name="embedding", host_seed=None):
     """The capacity router for sparse tables (the fleet_wrapper.h:55
     decision point): a vocabulary that fits the mesh's aggregate budget
-    gets the row-sharded table (``init_sharded_table``); one past it
-    raises the capacity error, naming the host route, unless
-    ``use_host_sparse_table`` is on, where the reference hands the table to
-    its host-RAM parameter server; that server waits for item 7 here.
-    ``host_optimizer``, ``host_initializer`` and ``cache_slots`` belong to
-    that route."""
+    gets the row-sharded table (``init_sharded_table``); one past it routes
+    to the host-RAM sparse service (``paddle_tpu_torch.hostps``) when
+    ``use_host_sparse_table`` is on, returning a ``HostPSEmbedding``
+    pull/push handle on ``device``, and raises the capacity error, naming
+    that route, otherwise.
+
+    ``host_optimizer``, ``host_initializer``, ``cache_slots`` and
+    ``host_seed`` apply only to the HostPS route: the server-side applier
+    (``hostps.optimizer``), the init-on-first-pull row initializer, the
+    hot-row cache size, and the initializer's seed.  The default
+    initializer is ``hostps.table.default_row_initializer`` (N(0, scale^2),
+    scale 1/sqrt(D)) seeded with ``host_seed``, else with the low 32 bits
+    of ``gen.initial_seed()`` (0 without ``gen``).  The reference derives
+    the seed from its PRNG key's last word, and ``jax.random.PRNGKey(s)``'s
+    last word is the low 32 bits of ``s``, so a generator seeded with
+    ``manual_seed(s)`` gives the rows the reference gives for
+    ``PRNGKey(s)``, bit for bit."""
     pad = (-vocab_size) % n_shards
     v = vocab_size + pad
     if table_fits(v, dim, n_shards, dtype):
@@ -199,12 +209,20 @@ def init_embedding_table(gen, vocab_size, dim, n_shards=1, scale=None,
                                   dtype=dtype, device=device)
     if not host_sparse_table_enabled():
         _check_table_fits(v, dim, n_shards, dtype)      # raises
-    raise NotImplementedError(
-        "embedding table %r [%d x %d] is past the devices' budget and "
-        "use_host_sparse_table routes it to the host-RAM parameter-server "
-        "(HostPSEmbedding, %d hot-row cache slots), which waits (%s)"
-        % (name, vocab_size, dim, cache_slots or _HOST_SPARSE_CACHE_SLOTS,
-           _HOSTPS))
+    from ..hostps import HostPSEmbedding, HostSparseTable
+    from ..hostps.table import default_row_initializer
+
+    np_dtype = str(dtype).replace("torch.", "")
+    if host_seed is None:
+        host_seed = (gen.initial_seed() & 0xFFFFFFFF) if gen is not None \
+            else 0
+    init = host_initializer or default_row_initializer(
+        dim, scale=scale, seed=int(host_seed), dtype=np_dtype)
+    table = HostSparseTable(vocab_size, dim, optimizer=host_optimizer,
+                            initializer=init, dtype=np_dtype, name=name)
+    return HostPSEmbedding(table,
+                           cache_slots=cache_slots or _HOST_SPARSE_CACHE_SLOTS,
+                           device=device, name=name)
 
 
 class _OwnedRows(torch.autograd.Function):

@@ -34,9 +34,23 @@ card the workers run PyTorch's deterministic algorithms and the segment
 kernel's merge route (``PADDLE_TPU_SEGMENT_KERNEL=1``), so that two runs
 are bit for bit alike.
 
-The reference's HostPS, WarmStart, online, fleet-serving, overload and OOM
-drills print what they wait for (ROADMAP Queue 1 items 7, 8 and 10) and
-exit 2.
+``--hostps --check [--smoke]`` (ShardPS): a trainer (rank 0) trains a
+DeepFM-style model through a ``ShardedHostPSEmbedding`` while rank 1 is a
+pure shard owner serving its row range over the wire.  The trainer's wire
+drops one push (the resend absorbs it), duplicates another (the owner's
+sequence dedup applies it once) and delays a pull; the owner is SIGKILLed
+a few requests after ``ckpt-<2E>`` commits, the trainer degrades (cached
+reads, buffered pushes) while ``launch --solo_respawn_ranks 1`` respawns
+the owner alone, which restores its rows from the trainer's last commit,
+and the trainer replays the staleness window.  A live 2 -> 1 absorb ends
+the run.  The dense head and the whole table must equal a single-host
+HostPS run bit for bit, with no wire giveup, and the timeline must show the
+degradation, the recovery, the repartition and the ``ps_wait`` phase.  The
+shard owners touch no CUDA; on a card the trainer runs PyTorch's
+deterministic algorithms.
+
+The reference's WarmStart, online, fleet-serving, overload and OOM drills
+print what they wait for (ROADMAP Queue 1 items 8 and 10) and exit 2.
 
 Run: ``python -m paddle_tpu_torch.tools.chaos_drill --smoke --check
 --device cpu``.
@@ -71,6 +85,25 @@ MULTI = dict(n_files=6, rows=80, every=5, sigterm_at=8)
 # 3*every+2 (gated on ckpt-<3*every>) and the grow leg finishes the pass
 ELASTIC = dict(n_files=6, rows=80, every=5, sigterm_at=12)      # 30 steps
 ELASTIC_SMOKE = dict(n_files=4, rows=48, every=3, sigterm_at=8)  # 12 steps
+# ShardPS shapes: sigterm_at is the shard owner's SIGKILL point counted in
+# DEQUEUED WIRE REQUESTS (deterministic: same data, same seeds, same cache
+# behavior => same request stream), placed a few requests past ckpt-<2E>'s
+# snapshot so the staleness window holds real post-checkpoint pushes to
+# replay, and gated on ckpt-<2E>'s COMMIT (await_path) for ordering
+HOSTPS = dict(n_files=6, rows=80, every=5, sigterm_at=27)        # 30 steps
+HOSTPS_SMOKE = dict(n_files=3, rows=48, every=3, sigterm_at=17)  # 9 steps
+PS_VOCAB = 96
+PS_DIM = 8
+# wire budgets in drill seconds: short reply deadlines so the drop leg
+# resends fast, a heartbeat verdict well under the respawn time, and a
+# dead-wait budget that covers a fresh process's import + restore; the
+# respawn delay models a production respawn (a page-cache-warm one answers
+# in under a second and would short-circuit the degraded window)
+PS_ENV = {"PADDLE_TPU_PS_DEADLINE_SECS": "0.4",
+          "PADDLE_TPU_PS_HB_TIMEOUT": "1.5",
+          "PADDLE_TPU_PS_DEAD_WAIT_SECS": "240",
+          "PADDLE_TPU_PS_CHAOS_DELAY_SECS": "0.6",
+          "PADDLE_TPU_PS_DRILL_RESPAWN_DELAY": "4.0"}
 
 # degraded-path budgets in drill seconds, not the production defaults: a
 # dead peer must time the agreement round and the COMMIT barrier out in
@@ -82,15 +115,14 @@ FLEET_ENV = {"PADDLE_TPU_PREEMPT_AGREE_SECS": "4",
 TIMEOUT_S = 600
 
 UNPORTED = {
-    "hostps": "the ShardPS drill waits for ROADMAP Queue 1 item 7 (HostPS)",
     "warmstart": "the restart-storm drill waits for ROADMAP Queue 1 item 8 "
                  "(WarmStart)",
     "online": "the OnlineLoop drill waits for ROADMAP Queue 1 item 10 "
               "(online/)",
-    "fleet": "the FleetServe drill waits for ROADMAP Queue 1 items 7 and 10 "
-             "(its ShardPS tier and the serving fleet)",
-    "overload": "the LoadShield drill waits for ROADMAP Queue 1 items 7 and "
-                "10 (its ShardPS tier and the serving fleet)",
+    "fleet": "the FleetServe drill waits for ROADMAP Queue 1 item 10 (the "
+             "serving fleet)",
+    "overload": "the LoadShield drill waits for ROADMAP Queue 1 item 10 (the "
+                "serving fleet)",
     "oom": "the induced-OOM drill's launcher plan waits with the serving "
            "fleet (ROADMAP Queue 1 item 10); MemScope's drill runs in "
            "tests/test_torch_memscope.py",
@@ -312,6 +344,212 @@ def worker(args):
     return 0
 
 
+# --------------------------------------------------------- hostps worker --
+
+def _hostps_batches(data_dir):
+    """The drill's CTR text files as (ids [B, F] int64, label [B] f32)
+    batches: one deterministic stream the reference and the drill
+    consume."""
+    import numpy as np
+
+    ids_all, lab_all = [], []
+    for name in sorted(os.listdir(data_dir)):
+        with open(os.path.join(data_dir, name)) as f:
+            for line in f:
+                parts = line.split()
+                n = int(parts[0])
+                ids_all.append([int(x) for x in parts[1:1 + n]])
+                lab_all.append(float(parts[-1]))
+    batches = []
+    for k in range(0, len(ids_all) - len(ids_all) % BATCH, BATCH):
+        batches.append((np.asarray(ids_all[k:k + BATCH], np.int64),
+                        np.asarray(lab_all[k:k + BATCH], np.float32)))
+    return batches
+
+
+def _hostps_step(dense, values, inv, label, lr):
+    """The drill's DeepFM-style step (FM term, one ReLU tower, sigmoid
+    cross-entropy) with respect to the head and the pulled rows; returns
+    (loss, new head, the rows' gradient)."""
+    import torch
+
+    dense = {k: v.detach().requires_grad_() for k, v in dense.items()}
+    values.requires_grad_()
+    e = values[inv]                                   # [B, F, D]
+    s = e.sum(1)
+    fm = 0.5 * (s * s - (e * e).sum(1)).sum(-1)
+    h = torch.relu(e.reshape(e.shape[0], -1) @ dense["w1"] + dense["b1"])
+    logit = (h @ dense["w2"])[:, 0] + dense["b2"][0] + fm
+    loss = (torch.clamp_min(logit, 0) - logit * label
+            + torch.log1p(torch.exp(-logit.abs()))).mean()
+    names = sorted(dense)
+    grads = torch.autograd.grad(loss, [dense[k] for k in names] + [values])
+    with torch.no_grad():
+        new = {k: dense[k] - lr * g for k, g in zip(names, grads)}
+    return loss.detach(), new, grads[-1]
+
+
+def hostps_worker(args):
+    """ShardPS drill worker.  Rank 0 trains through a
+    ShardedHostPSEmbedding (owning row shard 0 locally); every other rank
+    is a pure shard owner serving its hostps_row_range over the wire — the
+    reference's trainer/pserver split.  The trainer checkpoints as a
+    world-1 saver (the merged snapshot covers every shard; owners never
+    join the COMMIT barrier), so a respawned owner restores its rows from
+    the trainer's last committed checkpoint.  Owners touch no CUDA."""
+    import numpy as np
+
+    rank = int(os.environ.get("PADDLE_TRAINER_ID", "0"))
+    world = int(os.environ.get("PADDLE_TRAINERS_NUM", "1"))
+    attempt = int(os.environ.get("PADDLE_RESTART_ATTEMPT", "0"))
+    every = args.every
+    V, D, LR = PS_VOCAB, PS_DIM, 0.1
+
+    from paddle_tpu_torch.distributed.heartbeat import WorkerHeartbeat
+    from paddle_tpu_torch.ft import chaos
+    from paddle_tpu_torch.hostps import (HostPSEmbedding, HostSGD,
+                                         HostSparseTable, ShardRouter,
+                                         ShardServer, ShardedHostPSEmbedding)
+    from paddle_tpu_torch.parallel.rules import hostps_row_ranges
+
+    ranges = hostps_row_ranges(max(world, 1), V)
+
+    def make_table(rr):
+        return HostSparseTable(V, D, optimizer=HostSGD(), seed=11,
+                               name="deepfm_emb", row_range=rr)
+
+    if world > 1 and rank > 0:
+        # ---------------- shard-owner role ----------------
+        if attempt > 0:
+            # a RESPAWN: model a production respawn's latency; heartbeats
+            # start AFTER the delay — a corpse does not beat while it boots
+            time.sleep(float(os.environ.get(
+                "PADDLE_TPU_PS_DRILL_RESPAWN_DELAY", "0")))
+        hb = WorkerHeartbeat(args.hb, rank, interval=0.25,
+                             world=world).start()
+        if args.plan == "hostps" and attempt == 0:
+            # SIGKILL mid-request at the shape's request count (a few
+            # requests past ckpt-<2E>'s snapshot, so committed state lags
+            # the pushes the client must replay), gated on its COMMIT
+            chaos.arm("ps_shard_kill", at=args.sigterm_at,
+                      await_path=os.path.join(
+                          args.ckpt, "ckpt-%d" % (2 * every), "COMMIT"))
+        srv = ShardServer(make_table(ranges[rank]), args.wire, rank,
+                          ckpt_dir=args.ckpt, budget_bytes=args.ps_budget)
+        srv.start(restore=True)
+        print("hostps worker %d: serving rows [%d, %d)%s" % (
+            rank, ranges[rank][0], ranges[rank][1],
+            " (restored from last committed ckpt)"
+            if attempt > 0 else ""), flush=True)
+        srv.serve_until_shutdown()
+        hb.complete()
+        return 0
+
+    # ---------------- trainer role (rank 0) ----------------
+    import torch
+
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.ft import ckpt as fckpt
+    from paddle_tpu_torch.hostps.cache import host_to_device
+
+    if args.device == "cuda":
+        deterministic_card()
+    device = torch.device(args.device)
+    # checkpoint + monitor as a WORLD-1 saver: owners serve state, they do
+    # not stage checkpoint shards (their rows ride the trainer's merged
+    # snapshot), so the COMMIT barrier must not wait on them
+    os.environ["PADDLE_TRAINERS_NUM"] = "1"
+    os.environ["PADDLE_TRAINER_ID"] = "0"
+    mon = monitor.enable(os.path.join(args.out, "attempt-%d" % attempt))
+    hb = WorkerHeartbeat(args.hb, 0, interval=0.25, world=world).start()
+    if args.plan == "hostps":
+        # client-side wire chaos: hits count physical send attempts (1 =
+        # the connect probe; the first steps run one cold-cache pull + one
+        # push each, so hits 2..7 are stable): drop step 1's push (the
+        # resend absorbs it), duplicate step 2's push (the owner's seq
+        # dedup must apply it once — PROVEN by the final bit-parity gate),
+        # delay step 3's pull (ps_wait grows)
+        chaos.arm("ps_drop", at=3)
+        chaos.arm("ps_dup", at=6)
+        chaos.arm("ps_delay", at=7)
+
+    if world > 1:
+        full_bytes = V * D * 4
+        shard_bytes = max(hi - lo for lo, hi in ranges) * D * 4
+        assert full_bytes > args.ps_budget >= shard_bytes
+        print("hostps: full table %dB exceeds the per-process budget %dB; "
+              "largest shard %dB fits — the combined footprint only "
+              "exists ACROSS %d processes" % (full_bytes, args.ps_budget,
+                                              shard_bytes, world),
+              flush=True)
+        router = ShardRouter(make_table(ranges[0]), world=world, rank=0,
+                             wire_dir=args.wire, client_id="trainer",
+                             hb_dir=args.hb)
+        router.connect(timeout=120)
+        emb = ShardedHostPSEmbedding(router, cache_slots=48, device=device)
+    else:
+        router = None
+        emb = HostPSEmbedding(make_table(None), cache_slots=48,
+                              device=device)
+
+    rng = np.random.RandomState(5)
+    dense = {
+        "w1": (rng.randn(FIELDS * D, 16) * 0.1).astype(np.float32),
+        "b1": np.zeros(16, np.float32),
+        "w2": (rng.randn(16, 1) * 0.1).astype(np.float32),
+        "b2": np.zeros(1, np.float32),
+    }
+    dense = {k: torch.from_numpy(v).to(device) for k, v in dense.items()}
+
+    start = 0
+    rs = fckpt.restore_train_state(args.ckpt, dense, hostps=[emb])
+    if rs is not None:
+        dense = dict(rs.scope_state)
+        start = rs.step
+        mon.timeline.emit("resume", step=start, ckpt=rs.path)
+
+    for k, (ids, label) in enumerate(_hostps_batches(args.data)):
+        if k < start:
+            continue                      # exact-batch resume
+        t0 = time.perf_counter()
+        rows, values, inv = emb.pull_unique(ids)
+        loss, dense, g = _hostps_step(
+            dense, values, host_to_device(inv, device),
+            host_to_device(label, device), LR)
+        emb.push(rows, g[: rows.shape[0]], LR)
+        stepno = k + 1
+        mon.record_step(stepno, (time.perf_counter() - t0) * 1e3,
+                        batch=label.shape[0])
+        if stepno % every == 0:
+            if router is not None:
+                router.flush()
+            fckpt.save_train_state(args.ckpt, stepno, scope_state=dense,
+                                   hostps=[emb], asynchronous=False,
+                                   keep=3).finish()
+
+    probe = np.arange(V)
+    if router is not None and args.plan == "hostps":
+        # live-shrink leg: repartition the LIVE table 2 -> 1 in-process;
+        # pulled values must be identical before and after the absorb
+        before = emb.pull(probe, use_cache=False).cpu().numpy()
+        moved = router.absorb(1)
+        after = emb.pull(probe, use_cache=False).cpu().numpy()
+        assert np.array_equal(before, after), "absorb changed row values"
+        print("hostps: live repartition OK (absorbed %d rows; table now "
+              "whole on the trainer)" % moved, flush=True)
+
+    np.savez(os.path.join(args.out, "final_params.npz"),
+             **{n: v.cpu().numpy() for n, v in dense.items()})
+    np.savez(os.path.join(args.out, "final_table.npz"),
+             table=emb.pull(probe, use_cache=False).cpu().numpy())
+    if router is not None:
+        for s in range(1, world):
+            router.shutdown_shard(s)
+    monitor.disable()
+    hb.complete()
+    return 0
+
+
 # ------------------------------------------------------------------ drills --
 
 def _read_events(path):
@@ -350,6 +588,26 @@ def _prom_sum(root, metric):
         if "metrics.prom" in names:
             total += _prom_value(
                 os.path.join(dirpath, "metrics.prom"), metric) or 0.0
+    return total
+
+
+def _prom_labeled_sum(root, metric, label=None):
+    """Sum ``metric`` over every metrics.prom under ``root``, optionally
+    only the samples whose label string contains ``label`` (e.g.
+    'surface="ps_wire"')."""
+    total = 0.0
+    pat = re.compile(r"^(\S+?)(\{[^}]*\})?\s+([-+0-9.eE]+)\s*$")
+    for dirpath, _dirs, names in os.walk(root):
+        if "metrics.prom" not in names:
+            continue
+        with open(os.path.join(dirpath, "metrics.prom")) as f:
+            for line in f:
+                m = pat.match(line)
+                if not m or metric not in m.group(1):
+                    continue
+                if label is not None and label not in (m.group(2) or ""):
+                    continue
+                total += float(m.group(3))
     return total
 
 
@@ -396,6 +654,15 @@ def worker_cmd(plan, data, ck, out, shape, device, ctr=None, batch=BATCH):
     if ctr:
         cmd += ["--ctr", ",".join(map(str, ctr)), "--batch", str(batch)]
     return cmd
+
+
+def _ps_cmd(plan, work, data, ck, out, shape, device):
+    """A ShardPS drill worker's command line (``worker_cmd`` plus the
+    wire, heartbeat and per-process budget arguments)."""
+    budget = PS_VOCAB * PS_DIM * 4 * 6 // 10     # < the table, >= a shard
+    return (worker_cmd(plan, data, ck, out, shape, device)
+            + ["--wire", os.path.join(work, "wire"),
+               "--hb", os.path.join(work, "hb"), "--ps-budget", str(budget)])
 
 
 
@@ -788,6 +1055,132 @@ def run_elastic(args):
     return 0
 
 
+def run_hostps(args):
+    """The ShardPS drill (see the module docstring's ``--hostps``)."""
+    import numpy as np
+
+    shape = HOSTPS_SMOKE if args.smoke else HOSTPS
+    every = shape["every"]
+    work = _workdir(args, "chaos_drill_ps_")
+    data = os.path.join(work, "data")
+    os.makedirs(data, exist_ok=True)
+    _write_files(data, shape["n_files"], shape["rows"])
+    env = worker_env(args.device)
+    env.update(PS_ENV)
+
+    print("chaos_drill[ps]: reference run (single-host HostPS, same "
+          "data)...")
+    ref_out = os.path.join(work, "ref")
+    os.makedirs(ref_out, exist_ok=True)
+    r = subprocess.run(
+        [sys.executable] + _ps_cmd("none", work, data,
+                                   os.path.join(work, "ckpt-ref"), ref_out,
+                                   shape, args.device),
+        env=env, cwd=REPO, timeout=TIMEOUT_S)
+    if r.returncode != 0:
+        return _fail("reference worker exited rc=%d" % r.returncode)
+
+    print("chaos_drill[ps]: n=2 drill — trainer + shard owner; wire chaos "
+          "(drop/delay/dup), owner SIGKILLed after ckpt-%d, solo respawn + "
+          "staleness-window replay, live 2->1 shrink..." % (2 * every))
+    out = os.path.join(work, "drill")
+    os.makedirs(out, exist_ok=True)
+    ck = os.path.join(work, "ckpt-drill")
+    logs = os.path.join(work, "logs")
+    res = _launch(2, 6351,
+                  _ps_cmd("hostps", work, data, ck, out, shape, args.device),
+                  env, ["--elastic_retries", "2", "--elastic_reset_secs",
+                        "0", "--solo_respawn_ranks", "1", "--log_dir", logs])
+    if res.returncode != 0:
+        sys.stderr.write(res.stderr or "")
+        _logs_tail(logs, [0, 1])
+        return _fail("hostps drill job exited rc=%d" % res.returncode)
+    if "solo respawn" not in res.stderr \
+            or "ps shard owner" not in res.stderr:
+        return _fail("launcher never took the solo-respawn path:\n%s"
+                     % res.stderr)
+    print("chaos_drill[ps]: solo respawn OK (fleet kept running)")
+    w0log = open(os.path.join(logs, "worker.0.log")).read()
+    if "live repartition OK" not in w0log:
+        return _fail("trainer never completed the live-shrink leg:\n%s"
+                     % w0log[-2000:])
+    if "exceeds the per-process budget" not in w0log:
+        return _fail("beyond-one-process footprint evidence missing")
+
+    err = _same_params(np.load(os.path.join(ref_out, "final_params.npz")),
+                       np.load(os.path.join(out, "final_params.npz")),
+                       "shardps")
+    if err:
+        return _fail(err)
+    tref = np.load(os.path.join(ref_out, "final_table.npz"))["table"]
+    tgot = np.load(os.path.join(out, "final_table.npz"))["table"]
+    if tref.tobytes() != tgot.tobytes():
+        return _fail("sharded table differs from single-host HostPS after "
+                     "kill+respawn+replay (max abs delta %g over %d rows)"
+                     % (np.abs(tref - tgot).max(),
+                        int((tref != tgot).any(1).sum())))
+    print("chaos_drill[ps]: bit-parity OK (dense params + full %d-row "
+          "table vs single-host HostPS)" % tref.shape[0])
+
+    a0 = os.path.join(out, "attempt-0")
+    for point in ("ps_drop", "ps_delay", "ps_dup"):
+        if _prom_labeled_sum(a0, "ft_chaos_fired",
+                             'point="%s"' % point) < 1:
+            return _fail("chaos point %s never fired" % point)
+    if _prom_labeled_sum(a0, "ft_retry_attempts_total",
+                         'surface="ps_wire"') < 1:
+        return _fail("the wire never exercised its resend path")
+    if _prom_labeled_sum(out, "ft_retry_giveups"):
+        return _fail("ft.retry.giveups != 0")
+    if _prom_labeled_sum(a0, "hostps_wire_dup_sent") < 1:
+        return _fail("the duplicate push was never sent")
+    if _prom_labeled_sum(a0, "hostps_wire_dead_waits") < 1:
+        return _fail("the trainer never entered the dead-shard wait")
+    if _prom_labeled_sum(a0, "hostps_wire_replayed") < 1:
+        return _fail("no staleness-window push was replayed to the "
+                     "respawned owner")
+    print("chaos_drill[ps]: wire faults absorbed (attempts>0, giveups=0, "
+          "dup deduped via parity) + degradation/replay counters OK")
+
+    ev = _read_events(os.path.join(a0, "timeline.jsonl"))
+    for kind in ("ps_degraded", "ps_recovered", "ps_repartition"):
+        if not [e for e in ev if e.get("ev") == kind]:
+            return _fail("timeline lacks the %s event" % kind)
+    ps_steps = [e for e in ev if e.get("ev") == "step"
+                and "ps_wait" in (e.get("phases") or {})]
+    if not ps_steps:
+        return _fail("no step event carries the ps_wait phase")
+    print("chaos_drill[ps]: timeline evidence OK (%d steps carry ps_wait)"
+          % len(ps_steps))
+
+    summary = os.path.join(REPO, "scripts", "trace_summary.py")
+    ts = subprocess.run(
+        [sys.executable, summary, "--check", "--max-ps-wait-frac", "0.05",
+         "--timeline", a0], env=env, cwd=REPO, timeout=120,
+        capture_output=True, text=True)
+    if ts.returncode == 0 or "ps_wait" not in ts.stderr \
+            or "FAILED" not in ts.stderr:
+        return _fail("--max-ps-wait-frac 0.05 should FAIL on the "
+                     "chaos-stalled attempt, naming the phase:\n%s"
+                     % ts.stderr)
+    ts2 = subprocess.run(
+        [sys.executable, summary, "--check", "--max-ps-wait-frac", "3.0",
+         "--timeline", a0], env=env, cwd=REPO, timeout=120,
+        capture_output=True, text=True)
+    if ts2.returncode != 0:
+        return _fail("generous ps_wait budget should pass:\n%s%s"
+                     % (ts2.stdout, ts2.stderr))
+    print("chaos_drill[ps]: ps_wait CI gate OK (tight budget fails naming "
+          "the phase, generous budget passes)")
+    corpse = _assert_no_corpses(ck)
+    if corpse:
+        return _fail("uncommitted checkpoint corpse survived: %s" % corpse)
+    if not args.keep and args.workdir is None:
+        shutil.rmtree(work, ignore_errors=True)
+    print("chaos_drill[ps]: PASS")
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--check", action="store_true",
@@ -801,6 +1194,10 @@ def main(argv=None):
     ap.add_argument("--elastic", action="store_true",
                     help="shrink/grow drill; combine with --smoke for the "
                          "tier-1 budget")
+    ap.add_argument("--hostps", action="store_true",
+                    help="ShardPS drill: trainer + shard owner, wire chaos, "
+                         "owner SIGKILL + solo respawn + replay, live "
+                         "shrink, bit-parity vs single-host HostPS")
     for mode in UNPORTED:
         ap.add_argument("--" + mode, action="store_true",
                         help="not ported: %s" % UNPORTED[mode])
@@ -809,7 +1206,7 @@ def main(argv=None):
     ap.add_argument("--worker", action="store_true")
     ap.add_argument("--plan", default="none",
                     choices=["none", "drill", "smoke", "multiproc",
-                             "elastic"])
+                             "elastic", "hostps"])
     ap.add_argument("--data")
     ap.add_argument("--ckpt")
     ap.add_argument("--out")
@@ -823,11 +1220,21 @@ def main(argv=None):
                          "instead of the drill model")
     ap.add_argument("--batch", type=int, default=BATCH,
                     help="(worker) the CTR program's batch")
+    ap.add_argument("--wire", default=None,
+                    help="(worker) the ShardPS wire directory")
+    ap.add_argument("--hb", default=None,
+                    help="(worker) the heartbeat directory")
+    ap.add_argument("--ps-budget", dest="ps_budget", type=int, default=None,
+                    help="(worker) per-process table byte budget")
     ap.add_argument("--workdir", default=None,
                     help="keep artifacts here instead of a temp dir")
     ap.add_argument("--keep", action="store_true")
     args = ap.parse_args(argv)
     if args.worker:
+        os.makedirs(args.out, exist_ok=True)
+        if args.plan == "hostps" or (args.plan == "none"
+                                     and args.wire is not None):
+            return hostps_worker(args)
         return worker(args)
     for mode, why in UNPORTED.items():
         if getattr(args, mode):
@@ -843,6 +1250,8 @@ def main(argv=None):
         return run_multiproc(args)
     if args.elastic:
         return run_elastic(args)
+    if args.hostps:
+        return run_hostps(args)
     return run_drill(args)
 
 

@@ -92,7 +92,7 @@ __all__ = ["U32", "U64", "UNIT", "TINY", "gamma", "Bounded",
            "segment_sums", "merge_check", "ratio", "sparse_adam_reference",
            "sparse_adam_check", "sparse_sgd_check", "capture_sparse_updates",
            "check_sparse_update", "CUDA_ULPS", "BoundMode", "rule_bounds",
-           "hold_to_bound"]
+           "hold_to_bound", "host_sgd_update"]
 
 U32 = 2.0 ** -24
 U64 = 2.0 ** -53
@@ -333,6 +333,27 @@ def sparse_adam_check(outs, **inputs):
                      "f32_replay_equal": bool(np.array_equal(
                          np.asarray(outs[name], np.float32), replay[name]))}
     return rec
+
+
+def host_sgd_update(param, lr, rows, values, height):
+    """HostPS's SGD push of per-occurrence gradients (``hostps.HostSGD``
+    over ``HostSparseTable.push``, or the segment kernel's merge before
+    it): each unique valid row's contributions summed in ANY order, then
+    ``param - f32(lr) * sum`` in f32.  Returns (unique rows, float64
+    reference [U, D], bound [U, D]): the sum carries gamma(n - 1) sum |x| +
+    (n - 1) 2^-149 (and the float64 reference's gamma_64), the product and
+    the subtraction one rounding each.  ``param`` is the table's rows
+    before the push, indexed by row id ([height, D] or a mapping that
+    takes an index array)."""
+    rows = np.asarray(rows)
+    values = np.asarray(values, np.float32).reshape(len(rows), -1)
+    valid = (rows >= 0) & (rows < height)
+    uniq, sums, abs_sums, n, _, _ = segment_sums(rows[valid], values[valid])
+    k = (n - 1)[:, None]
+    s = Bounded(sums, (gamma(k) + gamma(k, U64)) * abs_sums + k * TINY)
+    new = Bounded.exact(np.asarray(param[uniq], np.float32)) \
+        - Bounded.const(lr) * s
+    return uniq, new.r, new.e
 
 
 def sparse_sgd_check(out, param, lr, rows, values):

@@ -21,8 +21,13 @@ and fetches come back gathered to the global batch, so ``fetch_list``,
 (``ft/guard.py`` TrainGuard): auto-checkpoints at step boundaries, exact-
 batch resume through the dataset's cursor mode, SIGTERM → checkpoint and
 ``PREEMPTED_RC``.  Under data parallelism every rank reads the global
-batch, so the cursor is the global one.  The HostPS prefetch hooks wait
-for ROADMAP Queue 1 item 7 and raise, naming it.
+batch, so the cursor is the global one.
+
+HostPS prefetch hooks (``hostps/service.py`` ``register_prefetch_hook``):
+when any is registered, the NEXT batch's raw host feed is announced to them
+while the current step runs — by the feed pipe as it hands batch k over, or
+by the inline one-batch lookahead ``_iter_with_prefetch`` when the pipe is
+off — under ``checkpoint=`` and under data parallelism alike.
 """
 
 import sys
@@ -102,17 +107,24 @@ class _FetchMonitor:
             self._fire()
 
 
-def _hostps_unported():
-    return NotImplementedError(
-        "HostPS prefetch hooks (the one-batch lookahead that announces the "
-        "next feed to the host parameter server) wait for ROADMAP Queue 1 "
-        "item 7")
-
-
 def _iter_with_prefetch(batches):
-    """One-batch lookahead over a feed iterator for the HostPS prefetch
-    hooks (JAX ``trainer.py``); the port has no HostPS yet."""
-    raise _hostps_unported()
+    """One-batch lookahead over a feed iterator: batch k+1 is announced to
+    the HostPS prefetch hooks (hostps/service.py) BEFORE batch k is yielded
+    to the executor, so the prefetch thread pulls step k+1's host-RAM rows
+    while step k runs — the trainer-side half of the Downpour pipeline
+    (device_worker.h:180 DownpourWorker's PullSparse-ahead)."""
+    from .hostps import service as hostps_service
+
+    it = iter(batches)
+    try:
+        cur = next(it)
+    except StopIteration:
+        return
+    for nxt in it:
+        hostps_service.notify_next_batch(nxt)
+        yield cur
+        cur = nxt
+    yield cur
 
 
 def _run_from_dataset(executor, program=None, dataset=None, scope=None, thread=0,
@@ -197,16 +209,26 @@ def _run_from_dataset(executor, program=None, dataset=None, scope=None, thread=0
                 batches = _cursor_tap()
             else:
                 batches = dataset._iter_batches(num_threads=thread or None)
+            from .hostps import service as hostps_service
+
+            notify = (hostps_service.notify_next_batch
+                      if hostps_service.has_prefetch_hooks() else None)
             if feed_pipe.pipe_enabled():
                 # Pipelined device feed (feed_pipe.DeviceFeedPipe): a
                 # background stage converts batch k+1 and starts its copy
-                # to the card while step k runs.  PADDLE_TPU_FEED_PIPE=0
-                # restores the inline path.
+                # to the card while step k runs, and each take announces
+                # the NEXT staged batch's raw host feed to the HostPS
+                # prefetch hooks (one ahead, the inline lookahead's
+                # contract).  PADDLE_TPU_FEED_PIPE=0 restores the inline
+                # path.
                 pipe = feed_pipe.DeviceFeedPipe(
                     batches, convert=executor.feed_converter(program),
+                    notify=notify,
                     depth=getattr(dataset, "queue_num", None),
                     name="train_feed_pipe")
                 batches = pipe
+            elif notify is not None:
+                batches = _iter_with_prefetch(batches)
             for feed in batches:
                 cur = cursors.popleft() if cursors is not None else None
                 # lazy fetches: the tensors stay on the card, so steady-state

@@ -5,10 +5,14 @@ drill SIGTERM, a free restart under the port's launcher, resume, params
 bit for bit a never-stopped run's, no retry giveups) and ``--elastic
 --smoke --check`` (an n=2 fleet shrunk to 1 and grown back to 2 through
 the topology-portable checkpoint, params bit for bit a never-stopped n=2
-fleet's).  The two drills run side by side, started once for the module.
-The full-shape drills (``--check``, ``--elastic --check``) and the
-``--multiproc --check`` fleet drill are marked slow, as the reference's
-are.
+fleet's) and ``--hostps --smoke --check`` (a trainer and a ShardPS shard
+owner: wire drops, duplicates and delays, the owner SIGKILLed and
+respawned alone, the staleness window replayed, a live 2 -> 1 absorb; the
+head and the whole table bit for bit a single-host HostPS run's).  The
+three drills run side by side, started once for the module.  The
+full-shape drills (``--check``, ``--elastic --check``, ``--hostps
+--check``) and the ``--multiproc --check`` fleet drill are marked slow, as
+the reference's are.
 """
 
 import os
@@ -45,7 +49,8 @@ def _start(*flags):
 @pytest.fixture(scope="module")
 def drills():
     procs = {"smoke": _start("--smoke"),
-             "elastic": _start("--elastic", "--smoke")}
+             "elastic": _start("--elastic", "--smoke"),
+             "hostps": _start("--hostps", "--smoke")}
     yield procs
     for p in procs.values():
         if p.poll() is None:
@@ -68,6 +73,19 @@ def test_chaos_drill_elastic_smoke_gate(drills):
     assert "chaos_drill[el]: PASS" in out
 
 
+def test_chaos_drill_hostps_smoke_gate(drills):
+    out = _finish(drills["hostps"])
+    for line in ("solo respawn OK", "bit-parity OK", "ps_wait CI gate OK",
+                 "chaos_drill[ps]: PASS"):
+        assert line in out, out[-6000:]
+
+
+@pytest.mark.slow
+def test_chaos_drill_hostps_gate():
+    out = _finish(_start("--hostps"))
+    assert "chaos_drill[ps]: PASS" in out
+
+
 @pytest.mark.slow
 def test_chaos_drill_multiproc_gate():
     out = _finish(_start("--multiproc"))
@@ -77,8 +95,8 @@ def test_chaos_drill_multiproc_gate():
 def test_unported_drills_name_their_items(capsys):
     from paddle_tpu_torch.tools import chaos_drill
 
-    for mode, item in (("hostps", "item 7"), ("warmstart", "item 8"),
-                       ("online", "item 10")):
+    for mode, item in (("warmstart", "item 8"), ("online", "item 10"),
+                       ("fleet", "item 10"), ("overload", "item 10")):
         assert chaos_drill.main(["--" + mode, "--smoke", "--check",
                                  "--device", "cpu"]) == 2
         assert item in capsys.readouterr().out

@@ -268,11 +268,51 @@ def test_fetch_handler_and_async_executor(tmp_path):
         aexe.run(pp.main, pds, pds.filelist, 1, [pp.loss])
 
 
-def test_infer_rejects_checkpoint_and_prefetch_waits_for_item_7(tmp_path):
+@pytest.mark.parametrize("pipe", ["on", "off"])
+def test_infer_rejects_checkpoint_and_prefetch_waits_for_item_7(
+        tmp_path, pipe, monkeypatch):
+    """``infer_from_dataset`` refuses ``checkpoint=``; the one-batch
+    lookahead announces batch k+1 to the HostPS prefetch hooks before batch
+    k is consumed, as JAX's ``_iter_with_prefetch`` does, and
+    ``train_from_dataset`` announces each next batch's ids (through the feed
+    pipe, or the inline lookahead with the pipe off) to an attached
+    ``HostPSEmbedding``, whose prefetches stay pending: this program pulls
+    nothing through it."""
+    from paddle_tpu import trainer as jtrainer
+    from paddle_tpu.hostps import service as jservice
+    from paddle_tpu_torch import trainer
+    from paddle_tpu_torch.hostps import (HostPSEmbedding, HostSparseTable,
+                                         service)
+
+    if pipe == "off":
+        monkeypatch.setenv("PADDLE_TPU_FEED_PIPE", "0")
     _, (pexe, pscope, pp, pds), _ = _ctr_pair(tmp_path, "QueueDataset")
     with pytest.raises(ValueError, match="training only"):
         pexe.infer_from_dataset(pp.main, pds, scope=pscope,
                                 checkpoint=object())
-    from paddle_tpu_torch import trainer
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        next(trainer._iter_with_prefetch(iter([{}])))
+    feeds = [{"ids": np.array([i])} for i in range(4)]
+    orders = []
+    for mod, svc in ((trainer, service), (jtrainer, jservice)):
+        seen = []
+        hook = svc.register_prefetch_hook(
+            lambda feed, seen=seen: seen.append(int(feed["ids"][0])))
+        try:
+            orders.append([(int(f["ids"][0]), list(seen))
+                           for f in mod._iter_with_prefetch(iter(feeds))])
+        finally:
+            svc.unregister_prefetch_hook(hook)
+        assert seen == [1, 2, 3]
+    assert orders[0] == orders[1]
+    for cur, announced in orders[0]:
+        assert announced == list(range(1, min(cur + 2, 4)))
+    assert next(trainer._iter_with_prefetch(iter([{}]))) == {}
+
+    emb = HostPSEmbedding(HostSparseTable(200, 4, seed=0), device="cpu")
+    emb.attach_prefetch_slot("feat_ids")
+    try:
+        pexe.train_from_dataset(pp.main, pds, scope=pscope)
+    finally:
+        emb.detach_prefetch_hooks()
+    assert not service.has_prefetch_hooks()
+    assert emb._pending and emb.table.rows_initialized > 0
+    service._LIVE_EMBEDDINGS.discard(emb)

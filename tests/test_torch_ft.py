@@ -3,8 +3,8 @@ retry/backoff, preemption handling, the agreement, and the kill-at-step-k ->
 resume -> bit-parity acceptance, against the JAX package's
 ``tests/test_ft.py`` contract.
 
-Every test of ``tests/test_ft.py`` is here but the four that need HostPS
-(ROADMAP Queue 1 item 7); the heartbeat re-arm's agreement sweep and the
+Every test of ``tests/test_ft.py`` is here, the four HostPS ones with the
+port's ``hostps`` package; the heartbeat re-arm's agreement sweep and the
 launcher's elastic shrink are in ``test_torch_heartbeat.py`` and
 ``test_torch_launch.py``.  Added: kill -> resume with dropout on, for
 QueueDataset and InMemoryDataset; the port's never-stopped run against the
@@ -13,7 +13,10 @@ resume under program-mode data parallelism at world 2 (fleet-tagged and
 kReduce); a tensor-parallel TrainState saved at tp = 2 and restored at
 world 1 (``Scope._splits``); ``TrainLoop`` over the tiny BERT trainer,
 SIGTERM at step 3 -> rc 120 -> resume, at one rank and at world 2 with
-ZeRO; ``hostps=`` with a table raising, naming item 7.  The world-2
+ZeRO; a TrainState with a HostPS table saved by either package and
+restored by the other, bit for bit; ``hostps=`` through the guarded
+``train_from_dataset`` and through ``TrainLoop``; the launcher's solo
+respawn of a shard owner while its peer keeps running.  The world-2
 scenarios run in one gloo world started for the module
 (``tests/torch_ckpt_worker.py``).
 """
@@ -425,8 +428,53 @@ def test_launch_term_grace_default_and_solo_respawn_refusal(monkeypatch):
     assert args.term_grace_secs == 7 + 11 + 30.0
     assert launch_mod._parse_args(
         ["--term_grace_secs", "5", "w.py"]).term_grace_secs == 5.0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        launch_mod._parse_args(["--solo_respawn_ranks", "1", "w.py"])
+    assert args.solo_ranks == set()
+    assert launch_mod._parse_args(
+        ["--solo_respawn_ranks", "1", "w.py"]).solo_ranks == {1}
+    assert launch_mod._parse_args(
+        ["--solo_respawn_ranks", "1, 3", "w.py"]).solo_ranks == {1, 3}
+
+
+_SOLO_OWNER = r"""
+import os, sys, time
+rank = int(os.environ["PADDLE_TRAINER_ID"])
+attempt = int(os.environ.get("PADDLE_RESTART_ATTEMPT", "0"))
+d = os.path.dirname(os.path.abspath(__file__))
+with open(os.path.join(d, "starts"), "a") as f:
+    f.write("%d %d\n" % (rank, attempt))
+if rank == 1 and attempt == 0:
+    sys.exit(3)                      # the shard owner dies
+if rank == 1:
+    open(os.path.join(d, "respawned"), "w").close()
+    sys.exit(0)
+deadline = time.time() + 60          # the trainer outlives the owner
+while not os.path.exists(os.path.join(d, "respawned")):
+    if time.time() > deadline:
+        sys.exit(4)
+    time.sleep(0.05)
+"""
+
+
+def test_launch_solo_respawn_keeps_the_fleet_running(tmp_path, capfd):
+    """A rank listed in ``--solo_respawn_ranks`` that crashes is respawned
+    alone (one retry burnt); its peer is never restarted."""
+    from paddle_tpu_torch.distributed import launch as launch_mod
+
+    script = tmp_path / "w.py"
+    script.write_text(_SOLO_OWNER)
+    prev = signal.getsignal(signal.SIGTERM)
+    try:
+        rc = launch_mod.launch([
+            "--nproc_per_node", "2", "--started_port", "6413",
+            "--elastic_retries", "1", "--elastic_reset_secs", "0",
+            "--solo_respawn_ranks", "1", str(script)])
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    err = capfd.readouterr().err
+    assert rc == 0, err
+    assert "worker 1 exited rc=3; solo respawn 1/1" in err
+    starts = sorted((tmp_path / "starts").read_text().split("\n")[:-1])
+    assert starts == ["0 0", "1 0", "1 1"]
 
 
 # -- heartbeat re-arm --------------------------------------------------------
@@ -484,19 +532,57 @@ def test_infer_from_dataset_rejects_checkpoint(tmp_path):
 
 
 def test_hostps_tables_wait_for_item_7(tmp_path):
-    table = object()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        fckpt.save_train_state(str(tmp_path), 1, scope_state={},
-                               hostps=[table], asynchronous=False)
-    fckpt.save_train_state(str(tmp_path), 1, scope_state={},
+    """``hostps=[svc]`` rides the unified TrainState: saved by
+    ``save_train_state`` and by the guarded ``train_from_dataset`` (its
+    preemption save), restored into a fresh table bit for bit; ``None``
+    takes every live embedding."""
+    from paddle_tpu_torch.hostps import (HostAdagrad, HostPSEmbedding,
+                                         HostSparseTable, service)
+
+    def make(name="ft_tables"):
+        return HostPSEmbedding(
+            HostSparseTable(40, 3, optimizer=HostAdagrad(), seed=4,
+                            name=name), cache_slots=4, device="cpu")
+
+    svc = make()
+    ids = np.arange(0, 40, 3)
+    svc.pull(ids)
+    svc.push(ids, np.full((ids.size, 3), 0.5, np.float32), 0.1)
+    d = str(tmp_path / "direct")
+    fckpt.save_train_state(d, 1, scope_state={}, hostps=[svc],
                            asynchronous=False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        fckpt.restore_train_state(str(tmp_path), {}, hostps=[table])
+    fresh = make()
+    rs = fckpt.restore_train_state(d, {}, hostps=[fresh])
+    assert rs.step == 1
+    _same_table(fresh, svc)
+    # hostps=None: every live embedding (here the two above, one name)
+    with pytest.raises(ValueError, match="two HostPS tables named"):
+        fckpt.save_train_state(d, 2, scope_state={}, asynchronous=False)
+    service._LIVE_EMBEDDINGS.discard(fresh)
+    fckpt.save_train_state(d, 2, scope_state={}, asynchronous=False)
+    assert os.path.isdir(os.path.join(d, "ckpt-2", "hostps", "p0"))
+
     data = tmp_path / "data"
     data.mkdir()
-    files = _write_ctr_files(data, n_files=1, rows=16)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        _train_guarded(files, str(tmp_path / "ck"), hostps=[table])
+    files = _write_ctr_files(data, n_files=1, rows=64)
+    ck = str(tmp_path / "ck")
+    rc, _ = _train_guarded(files, ck, preempt_at=2, hostps=[svc])
+    assert rc == PREEMPTED_RC
+    svc.push(ids, np.ones((ids.size, 3), np.float32), 1.0)   # drift
+    again = make()
+    rc, _ = _train_guarded(files, ck, hostps=[again])
+    assert rc == 0
+    _same_table(again, fresh)
+    service._LIVE_EMBEDDINGS.clear()
+
+
+def _same_table(got, want):
+    gr, ga, gm = got.table.snapshot()
+    wr, wa, wm = want.table.snapshot()
+    np.testing.assert_array_equal(gr, wr)
+    assert sorted(ga) == sorted(wa) and gm == wm
+    for k in wa:
+        np.testing.assert_array_equal(ga[k], wa[k], err_msg=k)
 
 
 # -- knobs -------------------------------------------------------------------
@@ -894,3 +980,242 @@ def test_train_loop_zero_resume_bit_parity_at_world_2(world2):
         assert got["resumed_step"] == 3
         assert got["losses"] == {s: ref["losses"][s] for s in (4, 5, 6)}
         assert got["digests"] == ref["digests"]
+
+
+# -- HostPS (tests/test_ft.py's four, and across the packages) ----------------
+
+def _hostps_svc(name, vocab=30, dim=6, optimizer=None, cache_slots=0):
+    from paddle_tpu_torch.hostps import (HostAdagrad, HostPSEmbedding,
+                                         HostSparseTable)
+
+    return HostPSEmbedding(
+        HostSparseTable(vocab, dim, optimizer=optimizer
+                        or HostAdagrad(epsilon=1e-6), seed=11, name=name),
+        cache_slots=cache_slots, device="cpu")
+
+
+@pytest.fixture
+def _no_live_tables():
+    from paddle_tpu_torch.hostps import service
+
+    yield
+    service._LIVE_EMBEDDINGS.clear()
+
+
+def test_chaos_hostps_prefetch_surfaces_on_pull(_no_live_tables):
+    svc = _hostps_svc("chaos_pf", vocab=32, dim=4)
+    ids = np.array([[1, 2], [3, 4]])
+    chaos.arm("hostps_prefetch", at=1)
+    svc.prefetch(ids)
+    with pytest.raises(chaos.ChaosError):
+        svc.pull_unique(ids)
+    chaos.disarm()
+    rows, vals, inv = svc.pull_unique(ids)    # service healthy afterwards
+    assert rows.shape[0] >= 4
+
+
+def _hostps_train(svc, batches, w, lr=0.1):
+    losses = []
+    for ids, label in batches:
+        rows, values, inv = svc.pull_unique(ids)
+        values.requires_grad_()
+        pred = torch.einsum("bfd,d->b", values[torch.from_numpy(inv)], w)
+        loss = ((pred - torch.from_numpy(label)) ** 2).mean()
+        (g,) = torch.autograd.grad(loss, [values])
+        svc.push(rows, g[: rows.shape[0]], lr)
+        losses.append(float(loss.detach()))
+    return losses
+
+
+def test_kill_resume_bit_parity_hostps(tmp_path, _no_live_tables):
+    """A pull/push training loop over a host-RAM sparse table, crashed
+    mid-run and resumed through the unified TrainState checkpoint (dense
+    w + sparse rows + moments + RNG), finishes bit-equal to an
+    uninterrupted loop."""
+    rng = np.random.RandomState(3)
+    data = [(rng.randint(0, 30, (8, 3)), rng.rand(8).astype(np.float32))
+            for _ in range(8)]
+    w = torch.from_numpy(rng.randn(6).astype(np.float32))
+    ref_svc = _hostps_svc("ft_parity_ref")
+    ref_losses = _hostps_train(ref_svc, data, w)
+    d = str(tmp_path)
+    svc = _hostps_svc("ft_parity")
+    losses_a = _hostps_train(svc, data[:5], w)
+    fckpt.save_train_state(d, 5, scope_state={"w": w}, hostps=[svc],
+                           asynchronous=False)
+    del svc
+    svc2 = _hostps_svc("ft_parity")
+    rs = fckpt.restore_train_state(d, {"w": torch.zeros(6)}, hostps=[svc2])
+    assert rs is not None and rs.step == 5
+    assert torch.equal(rs.scope_state["w"], w)
+    losses_b = _hostps_train(svc2, data[5:], w)
+    assert losses_a + losses_b == ref_losses
+    touched = np.unique(np.concatenate([i.ravel() for i, _ in data]))
+    assert torch.equal(svc2.pull(touched, use_cache=False),
+                       ref_svc.pull(touched, use_cache=False))
+
+
+def test_unified_ckpt_verifies_hostps_crc(tmp_path, _no_live_tables):
+    svc = _hostps_svc("crc_t", vocab=16, dim=3)
+    svc.pull(np.arange(8))
+    d = str(tmp_path)
+    fckpt.save_train_state(d, 1, hostps=[svc], asynchronous=False)
+    hp = os.path.join(d, "ckpt-1", "hostps", "p0")
+    shard = next(os.path.join(hp, n) for n in os.listdir(hp)
+                 if n.endswith(".npz"))
+    blob = bytearray(open(shard, "rb").read())
+    blob[len(blob) // 2] ^= 0xFF
+    open(shard, "wb").write(bytes(blob))
+    with pytest.raises(RuntimeError, match="CRC"):
+        fckpt.restore_train_state(d, {}, hostps=[svc])
+
+
+def test_hostps_restore_resharded_matrix(tmp_path):
+    """HostPS rows + moments across 2->1, 1->2, 2->4: saver shards written
+    by the port AND by the JAX package, each loader keeping exactly its own
+    row range, bit for bit against a reference table."""
+    from paddle_tpu import hostps as jhostps
+    from paddle_tpu_torch import hostps as phostps
+    from paddle_tpu_torch.parallel.rules import hostps_row_range
+
+    V, D = 10, 3
+    rng = np.random.RandomState(5)
+    ref = phostps.HostSparseTable(V, D, optimizer=phostps.HostAdagrad(1e-6),
+                                  seed=7, name="el_t")
+    ref.pull(np.arange(V))
+    ref.push(np.arange(V), rng.randn(V, D).astype(np.float32), 0.1)
+    for pkg in (phostps, jhostps):
+        for n_save, n_load in ((2, 1), (1, 2), (2, 4)):
+            work = tmp_path / ("%s_m%dto%d" % (pkg.__name__, n_save, n_load))
+            dirs = []
+            for r in range(n_save):
+                lo, hi = hostps_row_range(r, n_save, V)
+                t = pkg.HostSparseTable(V, D,
+                                        optimizer=pkg.HostAdagrad(1e-6),
+                                        seed=7, name="el_t",
+                                        row_range=(lo, hi))
+                t._param[lo:hi] = ref._param[lo:hi]
+                t._live[lo:hi] = ref._live[lo:hi]
+                for s in t._slots:
+                    t._slots[s][lo:hi] = ref._slots[s][lo:hi]
+                d = str(work / ("p%d" % r))
+                os.makedirs(d)
+                t.save(d)
+                dirs.append(d)
+            for r in range(n_load):
+                lo, hi = hostps_row_range(r, n_load, V)
+                t2 = phostps.HostSparseTable(
+                    V, D, optimizer=phostps.HostAdagrad(1e-6), seed=7,
+                    name="el_t", row_range=(lo, hi))
+                t2.restore_resharded(dirs, "el_t")
+                np.testing.assert_array_equal(t2._param[lo:hi],
+                                              ref._param[lo:hi])
+                np.testing.assert_array_equal(t2._live[lo:hi],
+                                              ref._live[lo:hi])
+                for s in t2._slots:
+                    np.testing.assert_array_equal(t2._slots[s][lo:hi],
+                                                  ref._slots[s][lo:hi])
+                outside = np.ones(V, bool)
+                outside[lo:hi] = False
+                assert not t2._live[outside].any()
+                assert not t2._param[outside].any()
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_hostps_train_state_crosses_packages(tmp_path, writer,
+                                             _no_live_tables):
+    """A TrainState with a HostPS table written by one package restores in
+    the other: the dense leaf, the step, and the table's rows and moment
+    slots bit for bit."""
+    from paddle_tpu import hostps as jhostps
+    from paddle_tpu.ft import ckpt as jckpt
+    from paddle_tpu.hostps import service as jservice
+
+    rng = np.random.RandomState(9)
+    ids = rng.randint(0, 30, 12)
+    g = rng.randn(12, 6).astype(np.float32)
+    w = rng.randn(5).astype(np.float32)
+    jsvc = jhostps.HostPSEmbedding(jhostps.HostSparseTable(
+        30, 6, optimizer=jhostps.HostAdagrad(epsilon=1e-6), seed=11,
+        name="x_t"))
+    psvc = _hostps_svc("x_t")
+    d = str(tmp_path)
+    try:
+        if writer == "jax":
+            jsvc.pull(ids)
+            jsvc.push(ids, g, 0.1)
+            jckpt.save_train_state(d, 3, scope_state={"w": w},
+                                   hostps=[jsvc], asynchronous=False)
+            rs = fckpt.restore_train_state(d, {"w": torch.zeros(5)},
+                                           hostps=[psvc])
+            assert np.array_equal(rs.scope_state["w"].numpy(), w)
+        else:
+            psvc.pull(ids)
+            psvc.push(ids, g, 0.1)
+            fckpt.save_train_state(d, 3, scope_state={"w": torch.from_numpy(
+                w)}, hostps=[psvc], asynchronous=False)
+            rs = jckpt.restore_train_state(d, {"w": np.zeros(5, np.float32)},
+                                           hostps=[jsvc])
+            assert np.array_equal(np.asarray(rs.scope_state["w"]), w)
+        assert rs.step == 3
+        pr, pa, pm = psvc.table.snapshot()
+        jr, ja, jm = jsvc.table.snapshot()
+        np.testing.assert_array_equal(pr, jr)
+        assert pm == jm
+        for k in pa:
+            np.testing.assert_array_equal(pa[k], ja[k], err_msg=k)
+    finally:
+        jservice._LIVE_EMBEDDINGS.clear()
+
+
+def test_train_loop_hostps_sigterm_resume_bit_parity(tmp_path,
+                                                     _no_live_tables):
+    """``TrainLoop`` over DeepFM on a host table
+    (``tools/deepfm_hostps.run_loop``, saves every 2 steps with
+    ``hostps=[emb]``): the drill SIGTERM at step 3 exits rc 120; a fresh
+    process's table and head resume and end bit for bit on the
+    never-stopped run's losses, head and touched rows."""
+    from paddle_tpu_torch.tools import deepfm_hostps as dh
+
+    vocab, B, F, D, mlp, lr, steps = 3000, 16, 5, 4, (8,), 0.05, 6
+    rng = np.random.RandomState(2)
+    batches = []
+    for _ in range(steps):
+        ids = dh.zipf_ids(rng, B, F, vocab)
+        batches.append((ids, dh.labels(ids)))
+
+    def fresh(seed):
+        gen = torch.Generator().manual_seed(seed)
+        return (dh.make_embedding(vocab, D, 32, device="cpu"),
+                dh.init_dense(gen, F, D, mlp, "cpu"))
+
+    emb, dense = fresh(0)
+    ref_dense, ref_losses, _ = dh.run_loop(emb, dense, batches, lr)
+    ref_rows = emb.table.snapshot()
+    from paddle_tpu_torch.hostps import service
+    service._LIVE_EMBEDDINGS.clear()
+
+    ck = str(tmp_path / "ck")
+    emb, dense = fresh(0)
+    killed = {}
+    with pytest.raises(SystemExit) as e:
+        dh.run_loop(emb, dense, batches, lr, ckpt=ck, sigterm_at=3,
+                    losses=killed)
+    assert e.value.code == PREEMPTED_RC
+    assert killed == {s: ref_losses[s] for s in (1, 2, 3)}
+    service._LIVE_EMBEDDINGS.clear()
+    emb, dense = fresh(5)                       # another init: restored
+    got_dense, got_losses, resumed = dh.run_loop(emb, dense, batches, lr,
+                                                 ckpt=ck)
+    assert resumed == 3
+    assert got_losses == {s: ref_losses[s] for s in (4, 5, 6)}
+    for a, b in zip(_flat(got_dense), _flat(ref_dense)):
+        assert torch.equal(a, b)
+    got_rows = emb.table.snapshot()
+    np.testing.assert_array_equal(got_rows[0], ref_rows[0])
+    for k in ref_rows[1]:
+        np.testing.assert_array_equal(got_rows[1][k], ref_rows[1][k])
+
+
+def _flat(dense):
+    return [l[k] for l in dense["mlp"] for k in ("w", "b")] + [dense["bias"]]

@@ -398,3 +398,46 @@ def test_the_drills_run_on_the_card_unless_asked_for_the_cpu(monkeypatch,
     assert chaos_drill.main(["--smoke", "--check"]) == 2
     with pytest.raises(RuntimeError, match="no CUDA device"):
         loop_drill.run("tiny", checkpoint=False)
+
+
+HOSTPS = ["hostps", "hostps.table", "hostps.optimizer", "hostps.cache",
+          "hostps.service", "hostps.wire", "hostps.shard_router",
+          "tools.deepfm_hostps"]
+
+
+def test_hostps_is_checked_and_loads_alone():
+    """Every module of item 7 is among the files checked above, and
+    importing all of them in a fresh interpreter loads neither JAX nor the
+    JAX package, nor initialises CUDA (shard owners import them and must
+    never touch a card)."""
+    checked = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for mod in HOSTPS:
+        path = "paddle_tpu_torch/" + mod.replace(".", "/")
+        assert path + ".py" in checked or path + "/__init__.py" in checked, mod
+    code = ("import sys\n" + "".join("import paddle_tpu_torch.%s\n" % m
+                                      for m in HOSTPS)
+            + "import torch\nassert not torch.cuda.is_initialized()\n"
+            + "print(sorted({m.split('.')[0] for m in sys.modules} & "
+              "{'jax', 'jaxlib', 'paddle_tpu'}))")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_hostps_entry_points_raise_without_a_card(monkeypatch):
+    """``HostPSEmbedding`` and ``HotRowCache`` with no device named mean the
+    card; without one they raise, and run on the CPU only when asked."""
+    from paddle_tpu_torch.hostps import (HostPSEmbedding, HostSparseTable,
+                                         HotRowCache, service)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        HostPSEmbedding(HostSparseTable(10, 2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        HotRowCache(4, 2)
+    svc = HostPSEmbedding(HostSparseTable(10, 2), cache_slots=2,
+                          device="cpu")
+    assert svc.pull(np.array([1])).device.type == "cpu"
+    service._LIVE_EMBEDDINGS.discard(svc)

@@ -562,7 +562,7 @@ def test_fleet_tagged_programs_wait_for_item_5b():
     world, on this process alone, equal to the untagged program bit for
     bit (``tests/test_torch_program_dp.py`` runs it over worlds of 2 and
     4).  The host sparse table knob sets the table router's flag (its host
-    route waits for item 7)."""
+    route gives a HostPSEmbedding)."""
     import paddle_tpu_torch as pfluid
     from paddle_tpu_torch import convert
     from paddle_tpu_torch.distributed import fleet as pfleet
@@ -591,8 +591,8 @@ def test_fleet_tagged_programs_wait_for_item_5b():
                     + [scope.find_tensor_as_numpy(n).tobytes() for n in names])
     assert runs[0] == runs[1]
     # the host sparse table knob sets the table router's flag (item 5-C′);
-    # the host route itself waits for item 7 (tests/
-    # test_torch_sharded_embedding.py)
+    # the host route itself is tested in tests/
+    # test_torch_sharded_embedding.py
     from paddle_tpu_torch.parallel import embedding
 
     strategy = pfleet.DistributedStrategy()

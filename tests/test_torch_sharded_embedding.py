@@ -17,8 +17,8 @@ segment trainer over three steps at rtol 1e-5 and atol 1e-6.
 
 In this process: the capacity guard raising its "host-RAM
 parameter-server" error, ``init_embedding_table`` under
-``use_host_sparse_table`` raising item 7, the budget read from a
-configured limit (and, with none on a host without a card, a request for
+``use_host_sparse_table`` returning a ``HostPSEmbedding`` whose rows are
+the JAX route's bit for bit, the budget read from a configured limit (and, with none on a host without a card, a request for
 one rather than a guessed size), and the fleet knob setting the flag.
 """
 
@@ -227,7 +227,8 @@ def test_capacity_guard_names_the_host_parameter_server(budget):
     with pytest.raises(ValueError, match="host-RAM parameter-server") as e:
         pemb.init_sharded_table(gen, 100000, 16, 2, device="cpu")
     assert "use_host_sparse_table" in str(e.value)
-    assert "item 7" in str(e.value)
+    assert "paddle_tpu_torch.hostps" in str(e.value)
+    assert "HostPSEmbedding" in str(e.value)
     with pytest.raises(ValueError, match="host-RAM parameter-server"):
         pemb.init_embedding_table(gen, 100000, 16, 2, device="cpu")
     # a table that fits routes to the sharded table
@@ -236,12 +237,38 @@ def test_capacity_guard_names_the_host_parameter_server(budget):
 
 
 def test_host_sparse_table_route_waits_for_item_7(budget):
-    gen = torch.Generator().manual_seed(0)
+    """With the knob on, a table past the budget is a ``HostPSEmbedding``
+    with the knob's cache; its rows are the JAX route's for the same seed
+    (``manual_seed(s)`` against ``PRNGKey(s)``), bit for bit."""
+    from paddle_tpu.hostps import HostPSEmbedding as JHostPSEmbedding
+    from paddle_tpu.parallel import embedding as jemb
+    from paddle_tpu_torch.hostps import HostPSEmbedding, HostSGD
+
+    gen = torch.Generator().manual_seed(7)
     pemb.enable_host_sparse_table(True, cache_slots=128)
     assert pemb.host_sparse_table_enabled()
-    with pytest.raises(NotImplementedError,
-                       match="host-RAM parameter-server.*item 7"):
-        pemb.init_embedding_table(gen, 100000, 16, 2, device="cpu")
+    h = pemb.init_embedding_table(gen, 100000, 16, 2, device="cpu",
+                                  host_optimizer=HostSGD())
+    assert isinstance(h, HostPSEmbedding)
+    assert (h.vocab_size, h.dim, h.cache.num_slots) == (100000, 16, 128)
+    old = (jemb._HBM_BYTES_PER_CHIP, jemb._HBM_TABLE_FRACTION,
+           jemb.host_sparse_table_enabled())
+    jemb.configure_hbm_budget(1 << 20)
+    jemb.enable_host_sparse_table(True)
+    try:
+        j = jemb.init_embedding_table(jax.random.PRNGKey(7), 100000, 16,
+                                      n_shards=2)
+    finally:
+        jemb._HBM_BYTES_PER_CHIP, jemb._HBM_TABLE_FRACTION = old[:2]
+        jemb.enable_host_sparse_table(old[2])
+    assert isinstance(j, JHostPSEmbedding)
+    ids = np.array([0, 5, 99999, 31337, 5])
+    np.testing.assert_array_equal(h.pull(ids, use_cache=False).numpy(),
+                                  np.asarray(j.pull(ids, use_cache=False)))
+    # an explicit seed overrides the generator's
+    h2 = pemb.init_embedding_table(None, 100000, 16, 2, device="cpu",
+                                   host_seed=7, name="seeded")
+    np.testing.assert_array_equal(h2.table.pull(ids), h.table.pull(ids))
 
 
 def test_budget_is_the_configured_limit_never_a_guess():
