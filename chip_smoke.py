@@ -462,6 +462,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -10835,6 +10836,484 @@ def phase_hostps(device_name, card, drill):
     return thr, routes
 
 
+# -- phase 58: item 10-A and the online loop ------------------------------------
+
+P58_TIMEOUT_S = 300
+P58_TRAIN_STEPS, P58_PUBLISH_EVERY = 6, 2      # (c): base at 2, deltas at 4, 6
+P58_PROBES = (1, 2, 3, 4, 64, 256)             # (c): rows of the probe requests
+P58_CLIENT_WINDOW = 8                          # (c): the client's requests out
+
+
+def _p58_args(small=False):
+    """Phase 58's configuration: ``tools/serve_bench.FULL`` (the DeepFM of
+    ``deepfm_hostps.BENCH`` on a 200M x 11 host table, lattice [4 .. 64],
+    150 requests) and the trainer's batch and rate; ``small`` shrinks it
+    for a rehearsal on the CPU."""
+    from paddle_tpu_torch.tools import deepfm_hostps as dh
+    from paddle_tpu_torch.tools import serve_bench as sb
+
+    a = dict(sb.FULL, batch=dh.BENCH["batch"], lr=dh.BENCH["lr"])
+    if small:
+        a.update(vocab=200_000, fields=8, dim=4, mlp=(16, 16),
+                 cache_slots=512, requests=40, batch=64)
+    return a
+
+
+def _p58_rss():
+    from paddle_tpu_torch.monitor import memscope
+
+    return memscope.host_accounting().get("rss_bytes", 0)
+
+
+def _p58_feed_spec(a):
+    return {"emb": ((a["fields"] * (a["dim"] + 1),), "float32")}
+
+
+def _p58_stage_ms(events):
+    """p50 / p99 ms of each request stage of the ``serve_request`` events."""
+    out = {}
+    for stage in ("admit", "queue_wait", "assemble", "device", "reply"):
+        v = np.array([e["stages"][stage] for e in events])
+        out[stage] = {"p50": float(np.percentile(v, 50)),
+                      "p99": float(np.percentile(v, 99))}
+    return out
+
+
+def phase_p58_serving(card, tmp, device="cuda", a=None):
+    """(b) The DeepFM artifact (``serve_bench.build_deepfm_artifact``: one
+    feed ``emb`` [B, 429], weights ``deepfm_hostps.init_dense`` from seed 0)
+    served from a read-only 200M x 11 table through ``CTRLookup``, static
+    then continuous over the 150-request trace; the checks of the module
+    docstring; then once more under the monitor (the request stages) and
+    under ``torch.profiler`` (the device's busy and idle time a step).
+    Returns (artifact dir, dense tree, record)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.inference import load_exported_model
+    from paddle_tpu_torch.monitor import memscope
+    from paddle_tpu_torch.monitor.recompile import RecompileStorm
+    from paddle_tpu_torch.serving import (Backpressure, BucketLattice,
+                                          ServeEngine, ServeError)
+    from paddle_tpu_torch.tools import deepfm_hostps as dh
+    from paddle_tpu_torch.tools import serve_bench as sb
+
+    a = a or _p58_args()
+    F, D = a["fields"], a["dim"]
+    lattice = BucketLattice(a["lattice"])
+    B = lattice.max_batch
+    feed_spec = _p58_feed_spec(a)
+    dense = dh.init_dense(torch.Generator().manual_seed(0), F, D, a["mlp"],
+                          "cpu")
+    art = os.path.join(tmp, "artifact")
+    t0 = time.perf_counter()
+    sb.build_deepfm_artifact(fluid, art, sb.deepfm_params(dense), F, D,
+                             a["mlp"], device=device)
+    export_s = time.perf_counter() - t0
+    rss0 = _p58_rss()
+    table, emb, lookup = sb.make_deepfm_lookup(a["vocab"], D,
+                                               a["cache_slots"], device)
+    twin = dh.make_table(a["vocab"], D, name="p58_twin")
+    trace = sb.deepfm_trace(a["requests"], 4 * B, np.random.RandomState(58),
+                            F, a["vocab"])
+    n_rows = sum(len(t["ids"]) for t in trace)
+    # the first read of a fresh table's pages costs the host a page fault
+    # each; paid here, apart from the modes, by the read-only pulls of the
+    # trace's rows from the table and its twin (held bit for bit)
+    t0 = time.perf_counter()
+    twin_table = all(np.array_equal(table.pull(t["ids"], materialize=False),
+                                    twin.pull(t["ids"], materialize=False))
+                     for t in trace)
+    parts = {"first_touch": time.perf_counter() - t0}
+    rss_touch = _p58_rss() - rss0
+    results, reqs_of = {}, {}
+    t0 = time.perf_counter()
+    for mode in ("static", "continuous"):
+        results[mode], reqs_of[mode], _ep = sb.run_mode(
+            mode, art, lattice, lookup, trace, P58_TIMEOUT_S, feed_spec,
+            device=device, name="p58_%s" % mode)
+    parts["modes"] = time.perf_counter() - t0
+    fails = []
+    for mode, s in results.items():
+        src = s["precompile_sources"]
+        want_src = "compiled" if mode == "static" else "cached"
+        if src[want_src] != len(lattice) or s["points"] != len(lattice):
+            fails.append("%s: sources %s" % (mode, src))
+    fails += sb.gates(results, lattice, len(trace), table, 0)
+    # the pulled rows, bit for bit a twin table's read-only pull
+    rows_equal = all(np.array_equal(
+        lookup(dict(t))["emb"],
+        twin.pull(t["ids"], materialize=False).reshape(len(t["ids"]), -1))
+        for t in trace)
+    if not (rows_equal and twin_table) or table.rows_initialized \
+            or twin.rows_initialized:
+        fails.append("read-only rows: equal %s / %s, initialized %d / %d"
+                     % (rows_equal, twin_table, table.rows_initialized,
+                        twin.rows_initialized))
+    # the predictor and the model, on the sampled requests
+    t0 = time.perf_counter()
+    held, hol, memo = {}, {}, {}
+    picked = sb.sample_indices(trace)
+    heads = {i: sb.deepfm_head_bounds(
+        dense, lookup(dict(trace[i]))["emb"].reshape(-1, F, D + 1), D)
+        for i in picked}
+    for mode in ("static", "continuous"):
+        ok, recs = sb.verify_sample(reqs_of[mode], trace, art, lookup,
+                                    device, memo=memo)
+        worst_head = 0.0
+        for i in picked:
+            ref, bound = heads[i]
+            h = sb._hold(reqs_of[mode][i].result()[0], ref, bound)
+            ok &= h["ok"]
+            worst_head = max(worst_head, h["ratio"])
+        held[mode] = {"ok": bool(ok), "requests": len(recs),
+                      "sizes": sorted({r["rows"] for r in recs}),
+                      "worst_predictor_ratio": max(
+                          max(r["engine_ratio"], r["predictor_ratio"])
+                          for r in recs),
+                      "worst_head_ratio": worst_head}
+        if not ok:
+            fails.append("%s: results off their bound: %s"
+                         % (mode, [r for r in recs if not r["ok"]][:3]))
+        hol_ok, hol[mode] = sb.head_of_line(reqs_of[mode], B, mode)
+        if not hol_ok:
+            fails.append("%s: head-of-line %s" % (mode, hol[mode]))
+    parts["held"] = time.perf_counter() - t0
+    # the same graph: static requests served in one step, bit for bit
+    t0 = time.perf_counter()
+    ref_ep = load_exported_model(art, device=device)
+    ref_ep.declare_batch_buckets(lattice.batch_buckets)
+    one_step = [i for i, t in enumerate(trace) if len(t["ids"]) <= B]
+    same = all(np.array_equal(reqs_of["static"][i].result()[0],
+                              ref_ep.run(lookup(dict(trace[i])))[0])
+               for i in one_step)
+    if not same:
+        fails.append("static one-step requests differ from "
+                     "ExportedPredictor.run at their bucket")
+    caps = {}
+    for b in lattice.batch_buckets:
+        shapes = {n: ((b,) + tuple(sh), dt) for n, (sh, dt)
+                  in feed_spec.items()}
+        sig = ref_ep._sig(shapes)
+        caps[b] = {"capture_s": ref_ep.capture_seconds().get(sig),
+                   "ledger": ref_ep.signature_ledger(shapes)}
+    parts["same_graph"] = time.perf_counter() - t0
+    # the strict gate: one point off the lattice trips it
+    t0 = time.perf_counter()
+    eng = ServeEngine(load_exported_model(art, device=device), lattice,
+                      feed_spec=feed_spec, lookups=[lookup], name="p58_trip")
+    with eng:
+        eng._precompiled.discard((B, None))
+        futs = [eng.submit(dict(trace[1])), eng.submit(dict(trace[0]))]
+        tripped = 0
+        for f in futs:
+            try:
+                f.result(timeout=P58_TIMEOUT_S)
+            except RecompileStorm:
+                tripped += 1
+        try:
+            eng.submit(dict(trace[0]))
+            dead = False
+        except ServeError:
+            dead = True
+    if not (tripped == 2 and isinstance(eng.error, RecompileStorm) and dead):
+        fails.append("strict gate: tripped %d, error %r, dead %s"
+                     % (tripped, eng.error, dead))
+    # backpressure under a limit below the largest point's need, then
+    # serving again once the limit is cleared
+    eng = ServeEngine(load_exported_model(art, device=device), lattice,
+                      feed_spec=feed_spec, lookups=[lookup], name="p58_bp")
+    with eng:
+        need = eng._need_bytes
+        memscope.configure(bytes_limit=need - 1)
+        try:
+            eng.submit(dict(trace[0]))
+            refused = False
+        except Backpressure:
+            refused = True
+        finally:
+            memscope.reset()
+        time.sleep(0.3)
+        recovered = eng.submit(dict(trace[0])).result(
+            timeout=P58_TIMEOUT_S)[0].shape == (len(trace[0]["ids"]),)
+    bp = {"need_bytes": need, "refused": refused, "recovered": recovered,
+          "backpressure": eng.last_summary["backpressure"]}
+    if not (refused and recovered and bp["backpressure"] == 1):
+        fails.append("backpressure: %s" % bp)
+    parts["gates"] = time.perf_counter() - t0
+    # both modes once more under the monitor: the request stages
+    t0 = time.perf_counter()
+    stages = {}
+    for mode in ("static", "continuous"):
+        mon_dir = os.path.join(tmp, "monitor_%s" % mode)
+        monitor.enable(mon_dir)
+        try:
+            sb.run_mode(mode, art, lattice, lookup, trace, P58_TIMEOUT_S,
+                        feed_spec, device=device, name="p58_mon_%s" % mode)
+        finally:
+            monitor.disable()
+        events = monitor.read_events(os.path.join(mon_dir, "timeline.jsonl"))
+        stages[mode] = _p58_stage_ms([e for e in events
+                                      if e.get("ev") == "serve_request"])
+    parts["monitored"] = time.perf_counter() - t0
+    # and under torch.profiler: the device's busy and idle time a step
+    busy_ms = idle = None
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            prof_sum, _r, _e = sb.run_mode(
+                "continuous", art, lattice, lookup, trace, P58_TIMEOUT_S,
+                feed_spec, device=device, name="p58_profiled")
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        busy_ms = busy / prof_sum["steps"]
+        idle = max(0.0, 1 - busy / wall)
+        parts["profiled"] = time.perf_counter() - t1
+    rec = {"phase": "p58_serving", "nvidia_smi": card, "device": str(device),
+           "vocab": a["vocab"], "fields": F, "dim": D, "mlp": list(a["mlp"]),
+           "cache_slots": a["cache_slots"], "lattice": lattice.batch_buckets,
+           "requests": len(trace), "rows": n_rows, "export_s": export_s,
+           "modes": {m: sb._record(m, s, len(trace), device)
+                     for m, s in results.items()},
+           "captures": caps, "held": held, "head_of_line": hol,
+           "same_graph_requests": len(one_step), "same_graph_bitwise": same,
+           "rows_bitwise_twin": rows_equal,
+           "table_rows_initialized": table.rows_initialized,
+           "strict_gate_tripped": tripped, "backpressure": bp,
+           "stage_ms": stages, "device_busy_ms_per_step": busy_ms,
+           "device_idle_share": idle,
+           "profiled_note": "busy/idle from one more continuous run of the "
+                            "trace under torch.profiler",
+           "rss_growth_first_touch_bytes": rss_touch,
+           "rss_growth_two_tables_bytes": _p58_rss() - rss0,
+           "parts_s": parts}
+    emit(rec)
+    from paddle_tpu_torch.hostps import service
+
+    service._LIVE_EMBEDDINGS.discard(emb)
+    if fails:
+        raise AssertionError("phase 58 (b): %s" % fails)
+    return art, dense, rec
+
+
+def phase_p58_online(card, tmp, art, dense0, device="cuda", a=None):
+    """(c) Online on the card, in this process: a trainer runs
+    ``deepfm_hostps.train_step`` (the host route) for 6 steps on its own
+    writable table named as the serving one, a ``DeltaPublisher`` publishes
+    every 2 steps (a base, then two deltas) in the artifact's parameter
+    names, and a ``VersionSwapper`` flips a live continuous engine onto
+    each version while a client thread keeps submitting the trace, then
+    rolls back once.  After each flip the client pauses and the probe
+    requests (``P58_PROBES`` rows) are served alone and held against
+    ``_deepfm_head`` with that step's dense tree on the trainer's rows;
+    after the rollback they equal version 2's bit for bit."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.hostps import service
+    from paddle_tpu_torch.inference import load_exported_model
+    from paddle_tpu_torch.online import DeltaPublisher, VersionSwapper
+    from paddle_tpu_torch.serving import BucketLattice, ServeEngine
+    from paddle_tpu_torch.tools import deepfm_hostps as dh
+    from paddle_tpu_torch.tools import serve_bench as sb
+
+    a = a or _p58_args()
+    F, D = a["fields"], a["dim"]
+    lattice = BucketLattice(a["lattice"])
+    feed_spec = _p58_feed_spec(a)
+    rss0 = _p58_rss()
+    trainer = dh.make_embedding(a["vocab"], D, a["cache_slots"],
+                                device=device, name=sb.TABLE_NAME)
+    stable, semb, lookup = sb.make_deepfm_lookup(a["vocab"], D,
+                                                 a["cache_slots"], device)
+    dense = {"mlp": [{k: t.to(device) for k, t in l.items()}
+                     for l in dense0["mlp"]],
+             "bias": dense0["bias"].to(device)}
+    rng = np.random.RandomState(580)
+    load = sb.deepfm_trace(a["requests"], 4 * lattice.max_batch, rng, F,
+                           a["vocab"])
+    probes = [{"ids": dh.zipf_ids(rng, r, F, a["vocab"])} for r in P58_PROBES]
+    batches = [dh.zipf_ids(rng, a["batch"], F, a["vocab"])
+               for _ in range(P58_TRAIN_STEPS)]
+    pub_dir = os.path.join(tmp, "publish")
+    mon_dir = os.path.join(tmp, "monitor_online")
+    monitor.enable(mon_dir)
+    fails, flips, probe_outs, train_ms = [], [], {}, []
+    t_online = time.perf_counter()
+    go, stop, gate, futs = (threading.Event(), threading.Event(),
+                            threading.Lock(), [])
+    try:
+        publisher = DeltaPublisher(pub_dir, hostps=[trainer])
+        ep = load_exported_model(art, device=device)
+        eng = ServeEngine(ep, lattice, feed_spec=feed_spec, lookups=[lookup],
+                          queue_capacity=4 * len(load), name="p58_online")
+        eng.start()           # captures before any other thread runs
+        swapper = VersionSwapper(eng, ep, pub_dir, hostps=[semb])
+
+        def client():
+            # closed loop: at most P58_CLIENT_WINDOW requests out at once,
+            # so a flip's stall measures the drain of a window, not of a
+            # backlog an open loop would pile up past the engine's rate
+            k, out = 0, []
+            while not stop.is_set():
+                if not go.wait(0.01):
+                    continue
+                out = [f for f in out if not f.done()]
+                if len(out) >= P58_CLIENT_WINDOW:
+                    time.sleep(0.0005)
+                    continue
+                with gate:
+                    if go.is_set():
+                        futs.append(eng.submit(dict(load[k % len(load)])))
+                        out.append(futs[-1])
+                        k += 1
+
+        def serve_probes():
+            go.clear()
+            with gate:
+                pending = list(futs)
+            for f in pending:
+                f.result(timeout=P58_TIMEOUT_S)
+            out = [eng.submit(dict(p)).result(timeout=P58_TIMEOUT_S)[0]
+                   for p in probes]
+            go.set()
+            return out
+
+        t = threading.Thread(target=client, name="p58-client")
+        t.start()
+        go.set()
+        touched, chain_rows = set(), set()
+        for step in range(1, P58_TRAIN_STEPS + 1):
+            ids = batches[step - 1]
+            t0 = time.perf_counter()
+            _loss, dense = dh.train_step(trainer, dense, ids, dh.labels(ids),
+                                         a["lr"], "host")
+            train_ms.append((time.perf_counter() - t0) * 1e3)
+            touched |= set(np.unique(ids).tolist())
+            if step % P58_PUBLISH_EVERY:
+                continue
+            state = sb.deepfm_params(dense)
+            t0 = time.perf_counter()
+            version = publisher.publish(state, step=step)
+            publish_ms = (time.perf_counter() - t0) * 1e3
+            path = os.path.join(pub_dir, "publish-%d" % version)
+            nbytes = sum(os.path.getsize(os.path.join(r, f))
+                         for r, _d, fs in os.walk(path) for f in fs)
+            with open(os.path.join(path, "manifest.json")) as f:
+                shipped = json.load(f)["tables"][sb.TABLE_NAME]
+            ev = swapper.poll()
+            chain_rows |= touched
+            probe_outs[version] = serve_probes()
+            worst = 0.0
+            for p, got in zip(probes, probe_outs[version]):
+                rows = trainer.table.pull(p["ids"], materialize=False)
+                ref, bound = sb.deepfm_head_bounds(state, rows, D)
+                h = sb._hold(got, ref, bound)
+                worst = max(worst, h["ratio"])
+                if not h["ok"]:
+                    fails.append("version %d: a probe off its bound %s"
+                                 % (version, h))
+            flips.append({"version": version, "train_step": step,
+                          "kind": ev["kind"], "stall_ms": ev["stall_ms"],
+                          "apply_ms": ev["apply_ms"],
+                          "freshness_lag_s": ev["freshness_lag_s"],
+                          "rows_installed": ev["rows_installed"],
+                          "rows_forgotten": ev["rows_forgotten"],
+                          "rows_touched_interval": len(touched),
+                          "rows_shipped": shipped,
+                          "rows_in_chain": len(chain_rows),
+                          "preverified": ev["preverified"],
+                          "publish_ms": publish_ms, "publish_bytes": nbytes,
+                          "worst_probe_ratio": worst})
+            if (ev["version"] != version or shipped != len(touched)
+                    or ev["rows_installed"] != len(chain_rows)
+                    or ev["preverified"] != {"cached": len(lattice)}):
+                fails.append("flip %s" % flips[-1])
+            touched = set()
+        ev = swapper.rollback()
+        back = serve_probes()
+        flips.append({"version": ev["version"], "rollback": ev["rollback"],
+                      "stall_ms": ev["stall_ms"], "apply_ms": ev["apply_ms"],
+                      "freshness_lag_s": ev["freshness_lag_s"],
+                      "rows_installed": ev["rows_installed"],
+                      "rows_forgotten": ev["rows_forgotten"],
+                      "preverified": ev["preverified"]})
+        if not (ev["version"] == 2 and all(
+                np.array_equal(x, y) for x, y in zip(back, probe_outs[2]))):
+            fails.append("rollback: version %s, outputs equal version 2's: "
+                         "%s" % (ev["version"], [np.array_equal(x, y) for x, y
+                                                 in zip(back, probe_outs[2])]))
+        stop.set()
+        t.join()
+        errors = 0
+        for f in futs:
+            try:
+                f.result(timeout=P58_TIMEOUT_S)
+            except Exception:            # noqa: BLE001 - counted, then failed
+                errors += 1
+        summary = eng.stop()
+    finally:
+        stop.set()
+        monitor.disable()
+    events = monitor.read_events(os.path.join(mon_dir, "timeline.jsonl"))
+    n_flip = sum(1 for e in events if e.get("ev") == "serve_flip")
+    n_sum = sum(1 for e in events if e.get("ev") == "serve_summary"
+                and str(e.get("ident", "")).startswith("p58_online"))
+    submitted = len(futs) + len(probes) * (len(probe_outs) + 1)
+    rec = {"phase": "p58_online", "nvidia_smi": card, "device": str(device),
+           "train_steps": P58_TRAIN_STEPS, "batch": a["batch"],
+           "train_ms": train_ms, "client_window": P58_CLIENT_WINDOW,
+           "seconds": time.perf_counter() - t_online,
+           "flips": flips, "serve_flip_events": n_flip,
+           "serve_summary_events": n_sum, "client_requests": len(futs),
+           "failed_futures": errors, "completed": summary["completed"],
+           "recompiles": summary["recompiles"],
+           "new_compiled_sigs": summary.get("new_compiled_sigs"),
+           "p50_ms": summary["p50_ms"], "p99_ms": summary["p99_ms"],
+           "qps": summary["qps"],
+           "trainer_rows_initialized": trainer.table.rows_initialized,
+           "serving_rows_initialized": stable.rows_initialized,
+           "rss_growth_two_tables_bytes": _p58_rss() - rss0}
+    emit(rec)
+    service._LIVE_EMBEDDINGS.discard(trainer)
+    service._LIVE_EMBEDDINGS.discard(semb)
+    if not (n_flip == 4 and n_sum == 1 and errors == 0
+            and summary["completed"] == submitted
+            and summary["recompiles"] == 0
+            and summary.get("new_compiled_sigs") == 0):
+        fails.append("engine: %s" % {k: rec[k] for k in (
+            "serve_flip_events", "serve_summary_events", "failed_futures",
+            "completed", "recompiles", "new_compiled_sigs")})
+    if fails:
+        raise AssertionError("phase 58 (c): %s" % fails)
+    return rec
+
+
+def phase_serving_online(card):
+    """Phase 58: (b) ``phase_p58_serving``, (c) ``phase_p58_online``; no
+    port kernel launches (the DeepFM forward runs none; the trainer's host
+    route pushes on the host)."""
+    import tempfile
+
+    from paddle_tpu_torch.kernels import _common
+
+    _p57_free()
+    torch.cuda.empty_cache()
+    _common.reset_launches()
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase58_")
+    try:
+        art, dense, _rec = phase_p58_serving(card, tmp)
+        phase_p58_online(card, tmp, art, dense)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert_no_launches("serving and online")
+    emit({"phase": "serving_online", "seconds": time.perf_counter() - t0})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -11014,6 +11493,10 @@ def main():
         if rec["name"] == "segment_sum":
             rec["phase57_merge_shape"] = p57_routes[
                 "segment_sum_at_this_shape"]
+    torch.cuda.empty_cache()
+    phase_serving_online(card)
+    for rec in kernels:
+        rec["phase58_launches_per_step"] = 0
     for rec in kernels:
         if rec["name"] == "segment_sum":
             rec["ctr_dataset_launches_per_step"] = ctr_per_step

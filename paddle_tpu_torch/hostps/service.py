@@ -482,17 +482,21 @@ class HostPSEmbedding:
             self._refresh_cache()
         return self
 
-    def install_rows(self, rows, arrays):
+    def install_rows(self, rows, arrays, forget=None):
         """Install published rows VERBATIM (param + moment slots) — the
         online VersionSwapper's delta-apply surface.  Allowed in read-only
         serving mode: a version install replaces state wholesale from a
-        COMMITTED publish, it is not a training-side push.  Runs under the
-        embedding lock, bumps the push version so an in-flight prefetch's
-        result is not cached or served stale, and refreshes every cached
-        row."""
+        COMMITTED publish, it is not a training-side push.  ``forget``
+        names rows to return to the initializer first (``table.forget_rows``:
+        rows an earlier install put there that this version does not hold).
+        Runs under the embedding lock, bumps the push version so an
+        in-flight prefetch's result is not cached or served stale, and
+        refreshes every cached row."""
         rows = np.asarray(rows, np.int64).reshape(-1)
         with self._lock:
             self._push_version += 1
+            if forget is not None:
+                self.table.forget_rows(forget)
             n = self.table.adopt_rows(rows, arrays)
             self._refresh_cache()
         profiler.incr("hostps.install_rows", int(n))

@@ -426,6 +426,25 @@ class HostSparseTable:
                     a[rows] = arrays[key]
         return int(rows.size)
 
+    def forget_rows(self, rows):
+        """Return ``rows`` to the never-initialized state (param, moment
+        slots, liveness and touched flag cleared), so a pull serves them
+        from the initializer again.  The online rollback's undo of rows a
+        later version installed that the target version never held.
+        Returns how many of them were live."""
+        rows = np.asarray(rows, np.int64).reshape(-1)
+        if not rows.size:
+            return 0
+        with self._lock:
+            self._check_owned(rows, "forget")
+            n = int(np.count_nonzero(self._live[rows]))
+            self._param[rows] = 0
+            self._live[rows] = False
+            self._touched[rows] = False
+            for a in self._slots.values():
+                a[rows] = 0
+        return n
+
     def evict_rows(self, lo, hi):
         """Forget rows ``[lo, hi)`` (the giving half of a live
         repartition): their param/moments/liveness reset so a stale copy

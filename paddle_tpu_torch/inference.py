@@ -265,14 +265,15 @@ def export_inference_model(dirname, feed_shapes, exported_name="__exported__",
 
 
 class _Graph:
-    """One captured feed signature: the graph, its static feed buffers and
-    the outputs it writes."""
+    """One captured feed signature: the graph, its static feed buffers, the
+    outputs it writes, and the memory ledger of its capture."""
 
-    def __init__(self, graph, feeds, outputs, seconds):
+    def __init__(self, graph, feeds, outputs, seconds, ledger=None):
         self.graph = graph
         self.feeds = feeds
         self.outputs = outputs
         self.capture_seconds = seconds
+        self.ledger = ledger
 
 
 class _SharedCall:
@@ -307,10 +308,17 @@ class _SharedCall:
     def capture(self, sig):
         """Warm the module on a side stream, then capture one graph of it
         reading static feed buffers and the weight buffers."""
+        from .monitor import memscope
+
         t0 = time.perf_counter()
         feeds = {n: torch.zeros(shape, dtype=convert_dtype(dt),
                                 device=self.device)
                  for n, shape, dt in sig}
+        # the ledger counts the warm-up's transient allocations and the
+        # graph's private pool (its outputs included) as what the capture
+        # added on the card
+        probe = memscope.LedgerProbe(
+            self.device, list(self.weights.values()) + list(feeds.values()))
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side), torch.no_grad():
@@ -321,7 +329,8 @@ class _SharedCall:
         with torch.no_grad(), torch.cuda.graph(graph):
             outputs = self.module(self.weights, feeds)
         torch.cuda.synchronize(self.device)
-        g = _Graph(graph, feeds, list(outputs), time.perf_counter() - t0)
+        g = _Graph(graph, feeds, list(outputs), time.perf_counter() - t0,
+                   ledger=probe.finish(outputs))
         self.signatures[sig] = g
         return g
 
@@ -543,6 +552,16 @@ class ExportedPredictor:
                 return "compiled", None
             call.load(self)
             return "compiled", call.capture(sig).graph
+
+    def signature_ledger(self, feed_spec):
+        """The memory ledger of one captured signature (``memscope``
+        keys: argument, output and temp bytes), or None where nothing was
+        captured (the CPU, or a signature not captured yet)."""
+        sig = self._sig(feed_spec)
+        call = self._shared()
+        with call.lock:
+            g = call.signatures.get(sig)
+            return None if g is None else dict(g.ledger or {})
 
     def capture_seconds(self):
         """{feed signature: seconds its capture took, warm-up included}."""

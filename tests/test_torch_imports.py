@@ -139,6 +139,41 @@ def test_the_data_parallel_engine_is_checked_and_loads_alone():
     assert r.stdout.strip().splitlines()[-1] == "[]"
 
 
+SERVING_ONLINE = ["serving", "serving.queue", "serving.metrics",
+                  "serving.shield", "serving.engine", "serving.canary",
+                  "serving.lattice", "online", "online.stream",
+                  "online.publish", "online.swap", "tools.serve_bench"]
+
+
+def test_the_serving_tier_and_online_loop_are_checked_and_load_alone():
+    """Every module of item 10-A and the online loop is among the files
+    checked above, and importing all of them in a fresh interpreter loads
+    neither JAX nor the JAX package."""
+    checked = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for mod in SERVING_ONLINE:
+        path = "paddle_tpu_torch/" + mod.replace(".", "/")
+        assert path + ".py" in checked or path + "/__init__.py" in checked, mod
+    code = ("import sys\n" + "".join("import paddle_tpu_torch.%s\n" % m
+                                      for m in SERVING_ONLINE)
+            + "print(sorted({m.split('.')[0] for m in sys.modules} & "
+              "{'jax', 'jaxlib', 'paddle_tpu'}))")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_serving_entry_points_run_on_the_card_unless_asked(monkeypatch):
+    """Without a card, the exported predictor and the serve bench raise
+    unless the CPU is named."""
+    from paddle_tpu_torch.tools import serve_bench
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_bench.main(["--smoke"])
+
+
 def test_fleet_init_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     """fleet.init() picks the card (and raises without one); with
     device="cpu" and no PADDLE_* endpoints a process runs alone."""
