@@ -443,6 +443,31 @@ Builds the port's CUDA kernels from ``paddle_tpu_torch/kernels/csrc`` with
     step give the nonfinite loss again.  (e) ``tools/chaos_drill.py
     --smoke --check --device cuda`` exits 0.  (b) and (e) run in the
     background from the start, beside (a).
+57. ``hostps`` and 58. ``serving_online``: items 7 and 10-A (see
+    ``phase_hostps`` and ``phase_serving_online``).
+59. ``fleet_capi``: item 10-B on phase 58's DeepFM (39 fields, D = 10, MLP
+    400-400, the logit; lattice [4 .. 64]).  One ShardPS owner process
+    serves the read-only 200,000,000 x 11 table over a wire; three replica
+    processes (``FleetManager``, ``--device cuda``) each run a
+    ``ServeEngine`` with a ``FleetCTRView`` lookup; a ``FleetRouter`` here;
+    16 closed-loop clients cycle phase 58's trace.  (a) 1 replica, then 3;
+    (b) a replica SIGKILLed mid-drive, respawned on its inbox and adopted;
+    (c) a rolling swap to a second dense tree (seed 1) written as a state
+    file; (d) every replica retired.  Held: 5 captures a replica (sources
+    all ``compiled``), no recompile or new signature fleet-wide; no drop
+    and no giveup, at least one reroute with its ``fleet_reroute`` event,
+    every re-routed request within its derived bound
+    (``serving_drill.AttemptLog``); one ``fleet_replica_restart`` and the
+    respawned replica serving again; the view's rows bit for bit a twin
+    table's read-only pull and the owner's ``rows_initialized`` 0; every
+    large request and at least 12 others held to ``_deepfm_head`` on the
+    twin's rows within ``fp_bounds``' derived bound, before and after the
+    swap; the lone one-step requests bit for bit
+    ``ExportedPredictor.run`` at their bucket here; the autoscale signal
+    up under the clients and down idle.  Then the C API (``runtime.capi``)
+    at batch 64: on the card bit for bit ``create_predictor(...).run``,
+    after ``PD_DisableGpu`` within the program's derived bound; ms a call
+    beside ``Predictor.run``'s.
 
 Phases 30-33 and 36 write their monitor directories under
 ``build/monitor``, phases 35-36 and 53 their data files under
@@ -11314,6 +11339,384 @@ def phase_serving_online(card):
     emit({"phase": "serving_online", "seconds": time.perf_counter() - t0})
 
 
+# -- phase 59: item 10-B, the serving fleet and the C API ----------------------
+
+P59_REPLICAS = 3
+P59_CLIENTS = 16
+P59_LEG_S = 4.0            # each closed-loop drive, seconds
+P59_DEADLINE_S = 1.0       # the router's per-attempt reply budget
+P59_COOLOFF_S = 1.0        # a suspect's cool-off before its one probe
+P59_READY_S = 600          # a replica's start, its five captures included
+P59_CAPI_BATCH = 64
+P59_CAPI_RUNS = 20         # timed C API calls, and as many Predictor.run
+
+
+def _p59_args(small=False):
+    """Phase 59's configuration: phase 58's (``_p58_args``)."""
+    return _p58_args(small)
+
+
+def _p59_wait_ready(wire_dir, rid, t0, old=None, timeout=P59_READY_S):
+    """Seconds from ``t0`` (its spawn) until replica ``rid``'s READY file
+    names a process other than ``old``."""
+    from paddle_tpu_torch.hostps import wire as _w
+
+    rp = _w.ready_path(wire_dir, rid)
+    while True:
+        try:
+            with open(rp) as f:
+                got = f.read().strip()
+            if got and got != old:
+                return time.perf_counter() - t0
+        except OSError:
+            pass
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError("phase 59: replica %d not READY within "
+                                 "%ds" % (rid, timeout))
+        time.sleep(0.05)
+
+
+def phase_p59_fleet(card, tmp, device="cuda", a=None):
+    """(a)-(d) of the fleet, with the checks of the module docstring;
+    returns (artifact dir, dense tree, twin table, record)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.hostps import wire as _w
+    from paddle_tpu_torch.inference import load_exported_model
+    from paddle_tpu_torch.serving import (FleetCTRView, FleetManager,
+                                          FleetRouter, autoscale_signal)
+    from paddle_tpu_torch.tools import deepfm_hostps as dh
+    from paddle_tpu_torch.tools import serve_bench as sb
+    from paddle_tpu_torch.tools.serving_drill import AttemptLog
+
+    a = a or _p59_args()
+    F, D, V = a["fields"], a["dim"], a["vocab"]
+    W = D + 1
+    lattice = list(a["lattice"])
+    B = max(lattice)
+    fails, parts, ready = [], {}, {}
+    t0 = time.perf_counter()
+    dense1 = dh.init_dense(torch.Generator().manual_seed(0), F, D, a["mlp"],
+                           "cpu")
+    dense2 = dh.init_dense(torch.Generator().manual_seed(1), F, D, a["mlp"],
+                           "cpu")
+    art = os.path.join(tmp, "artifact")
+    sb.build_deepfm_artifact(fluid, art, sb.deepfm_params(dense1), F, D,
+                             a["mlp"], device=device)
+    state2 = os.path.join(tmp, "state2.npz")
+    np.savez(state2, **sb.deepfm_params(dense2))
+    trace = sb.deepfm_trace(a["requests"], 4 * B, np.random.RandomState(58),
+                            F, V)
+    picked = sb.sample_indices(trace)
+    parts["artifact"] = time.perf_counter() - t0
+    ps_wire = os.path.join(tmp, "ps-wire")
+    fleet_wire = os.path.join(tmp, "fleet-wire")
+    mon_root = os.path.join(tmp, "monitor")
+    router_mon = os.path.join(mon_root, "router")
+    t0 = time.perf_counter()
+    owner = sb.start_owner(ps_wire, "deepfm", V, W)
+    twin = sb.owner_table("deepfm", V, W, name="p59_twin")
+
+    def rows_of(ids):
+        return np.asarray(twin.pull(ids, materialize=False), np.float32)
+
+    mon = monitor.enable(router_mon)
+    mgr = FleetManager(
+        fleet_wire, art, mon_root, ["emb:%d:float32" % (F * W)],
+        buckets=",".join(map(str, lattice)), workers=16,
+        queue_capacity=1024, device=str(torch.device(device).type),
+        env=(dict(os.environ, OMP_NUM_THREADS="1")
+             if torch.device(device).type == "cpu" else None),
+        ctr={"wire_dir": ps_wire, "world": 1, "vocab": V, "dim": W})
+    router = None
+    owner_rec = None
+    try:
+        t1 = time.perf_counter()
+        mgr.spawn(0)
+        ready[0] = _p59_wait_ready(fleet_wire, 0, t1)
+        router = FleetRouter(fleet_wire, deadline=P59_DEADLINE_S, poll=0.002,
+                             suspect_cooloff=P59_COOLOFF_S,
+                             registry=mon.registry)
+        router.add_replica(0)
+        log = AttemptLog(router).install()
+
+        def next_feed(cid, k):
+            i = (cid + P59_CLIENTS * k) % len(trace)
+            return i, trace[i]
+
+        # the view's rows (and the owner's first touch of their pages)
+        t1 = time.perf_counter()
+        view = FleetCTRView(ps_wire, 1, V, W, deadline=120.0,
+                            registry=mon.registry).connect(timeout=120)
+        rows_equal = all(np.array_equal(view.pull(t["ids"]),
+                                        rows_of(t["ids"])) for t in trace)
+        parts["rows_first_touch"] = time.perf_counter() - t1
+
+        # -- (a) one replica, then three --------------------------------------
+        legs, sig = {}, {}
+        legs["1_replica"] = sb.fleet_drive(router, P59_CLIENTS, P59_LEG_S,
+                                           next_feed)
+        t1 = time.perf_counter()
+        mgr.spawn(1)
+        mgr.spawn(2)
+        for rid in (1, 2):
+            ready[rid] = _p59_wait_ready(fleet_wire, rid, t1)
+            router.add_replica(rid)
+
+        def signal_up():
+            sig["up"] = autoscale_signal(router.snapshot(), min_replicas=1,
+                                         max_replicas=4, high_load=3.0,
+                                         registry=mon.registry)
+
+        legs["3_replicas"] = sb.fleet_drive(router, P59_CLIENTS, P59_LEG_S,
+                                            next_feed, mid_hook=signal_up)
+        held1 = {i: router.submit(dict(trace[i]))[0] for i in picked}
+
+        # -- (b) SIGKILL a replica mid-drive, respawn it, adopt it ------------
+        log.requests = []
+        stop = threading.Event()
+        sleeper = threading.Thread(target=log.sleeper, args=(stop,),
+                                   daemon=True)
+        sleeper.start()
+        with open(_w.ready_path(fleet_wire, 1)) as f:
+            old_pid = f.read().strip()
+        legs["kill"] = sb.fleet_drive(router, P59_CLIENTS, P59_LEG_S,
+                                      next_feed, mid_hook=lambda: mgr.kill(1))
+        stop.set()
+        sleeper.join()
+        rerouted, per_fail, sib = log.rerouted(P59_DEADLINE_S)
+        served0 = router.snapshot()[1]["served"]
+        t1 = time.perf_counter()
+        mgr.spawn(1)
+        ready["1_respawn"] = _p59_wait_ready(fleet_wire, 1, t1,
+                                             old=old_pid)
+        t_ready = time.perf_counter()
+        adopted = {}
+
+        def watch():
+            while "t" not in adopted and time.perf_counter() - t1 < 120:
+                if router.snapshot()[1]["served"] > served0:
+                    adopted["t"] = time.perf_counter()
+                time.sleep(0.005)
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        legs["respawn"] = sb.fleet_drive(router, P59_CLIENTS, P59_LEG_S,
+                                         next_feed)
+        watcher.join(timeout=130)
+        adoption_s = adopted["t"] - t_ready if "t" in adopted else None
+        parts["kill_respawn"] = time.perf_counter() - t1
+
+        # -- (c) the rolling swap to the second tree --------------------------
+        t1 = time.perf_counter()
+        swap = router.rolling_swap(2, state2, deadline=120.0)
+        swap_s = time.perf_counter() - t1
+        held2 = {i: router.submit(dict(trace[i]))[0] for i in picked}
+        legs["after_swap"] = sb.fleet_drive(router, P59_CLIENTS, P59_LEG_S / 2,
+                                            next_feed)
+
+        # -- (d) the fleet's books, the idle signal, every replica retired ----
+        stats = router.stats_all()
+        sig["idle"] = autoscale_signal(router.snapshot(), min_replicas=1,
+                                       max_replicas=4, high_load=3.0,
+                                       registry=mon.registry)
+        retired = {rid: router.retire(rid)["summary"]
+                   for rid in router.replica_ids()}
+        rcs = {rid: mgr.wait(rid, timeout=120) for rid in retired}
+        mon.timeline.flush()
+        events = monitor.read_events(os.path.join(router_mon,
+                                                  "timeline.jsonl"))
+        owner_rec = sb.stop_owner(ps_wire, owner)
+        owner = None
+    finally:
+        monitor.disable()
+        mgr.stop_all(timeout=30)
+        if owner is not None:
+            try:
+                sb.stop_owner(ps_wire, owner, timeout=60)
+            except Exception:
+                owner.kill()
+
+    # -- the checks ------------------------------------------------------------
+    for rid, st in stats.items():
+        if st is None:
+            fails.append("replica %d gave no stats" % rid)
+            continue
+        src = st["precompile_sources"]
+        if src != {"cached": 0, "disk": 0, "compiled": len(lattice)} \
+                or st["recompiles"] or st.get("new_compiled_sigs"):
+            fails.append("replica %d: sources %s, recompiles %s, new "
+                         "signatures %s" % (rid, src, st["recompiles"],
+                                            st.get("new_compiled_sigs")))
+    for leg, r in legs.items():
+        if r["errors"] or not r["completed"]:
+            fails.append("%s: %d completed, errors %s"
+                         % (leg, r["completed"], r["errors"][:3]))
+    giveups = mon.registry.counter("fleet.retry_budget_denied").value
+    reroutes = [e for e in events if e.get("ev") == "fleet_reroute"]
+    restarts = [e for e in events if e.get("ev") == "fleet_replica_restart"]
+    if not rerouted or not reroutes:
+        fails.append("no re-routed request (%d) or no fleet_reroute event "
+                     "(%d)" % (len(rerouted), len(reroutes)))
+    past = [r for r in rerouted if r["ms"] > r["bound_ms"]]
+    if past:
+        fails.append("re-routed requests past their bound: %s" % past[:3])
+    if len(restarts) != 1 or restarts[0].get("replica") != 1 \
+            or adoption_s is None:
+        fails.append("restart events %s, adoption %s" % (restarts,
+                                                         adoption_s))
+    if not rows_equal or owner_rec["rows_initialized"] \
+            or owner_rec["rc"] != 0:
+        fails.append("rows equal %s, owner %s" % (rows_equal, owner_rec))
+    worst = {}
+    for tag, held, dense in (("v1", held1, dense1), ("v2", held2, dense2)):
+        worst[tag] = 0.0
+        for i, got in held.items():
+            ref, bound = sb.deepfm_head_bounds(
+                dense, rows_of(trace[i]["ids"]), D)
+            h = sb._hold(got, ref, bound)
+            worst[tag] = max(worst[tag], h["ratio"])
+            if not h["ok"] or got.shape != (len(trace[i]["ids"]),):
+                fails.append("%s request %d: %s" % (tag, i, h))
+    ref_ep = load_exported_model(art, device=device)
+    ref_ep.declare_batch_buckets(lattice)
+    one_step = [i for i in picked if len(trace[i]["ids"]) <= B]
+    same = all(np.array_equal(
+        held1[i], ref_ep.run({"emb": rows_of(trace[i]["ids"]).reshape(
+            len(trace[i]["ids"]), -1)})[0]) for i in one_step)
+    if not same:
+        fails.append("one-step requests differ from ExportedPredictor.run "
+                     "at their bucket")
+    up, idle = sig["up"], sig["idle"]
+    if not (up[0] > P59_REPLICAS and idle[0] < P59_REPLICAS):
+        fails.append("autoscale: under the clients %s, idle %s" % (up, idle))
+    if giveups or any(rc != 0 for rc in rcs.values()) \
+            or sorted(retired) != list(range(P59_REPLICAS)):
+        fails.append("giveups %d, retired %s with rcs %s"
+                     % (giveups, sorted(retired), rcs))
+    sizes = sorted({len(trace[i]["ids"]) for i in picked})
+    rec = {"phase": "p59_fleet", "nvidia_smi": card, "device": str(device),
+           "vocab": V, "fields": F, "dim": D, "mlp": list(a["mlp"]),
+           "lattice": lattice, "replicas": P59_REPLICAS,
+           "clients": P59_CLIENTS, "leg_s": P59_LEG_S,
+           "legs": {k: {x: v[x] for x in ("qps", "p50_ms", "p99_ms",
+                                          "completed")}
+                    for k, v in legs.items()},
+           "qps_ratio_3_to_1": (legs["3_replicas"]["qps"]
+                                / legs["1_replica"]["qps"]),
+           "ready_s": ready,
+           "precompile_s": {r: s and s["precompile_s"]
+                            for r, s in stats.items()},
+           "reroutes": len(reroutes),
+           "rerouted_requests": [{k: round(v, 3) for k, v in r.items()}
+                                 for r in rerouted],
+           "reroute_bound": {"deadline_ms": P59_DEADLINE_S * 1e3,
+                             "poll_ms": router.wire.poll * 1e3,
+                             "oversleep_ms": log.oversleep_ms,
+                             "per_failed_attempt_ms": per_fail,
+                             "longest_sibling_service_ms": sib},
+           "kill_p99_ms": legs["kill"]["p99_ms"],
+           "adoption_s": adoption_s, "restart_events": len(restarts),
+           "swap_s": swap_s, "swap_versions": {
+               r: (e.get("event") or {}).get("version")
+               for r, e in swap.items()},
+           "held_requests": len(picked), "held_sizes": sizes,
+           "worst_head_ratio": worst, "same_graph_requests": len(one_step),
+           "same_graph_bitwise": same, "rows_bitwise_twin": rows_equal,
+           "owner": owner_rec,
+           "owner_rss_growth_bytes": (owner_rec["rss_end_bytes"]
+                                      - owner_rec["rss_start_bytes"]),
+           "autoscale": {"up": up[:2], "idle": idle[:2]},
+           "retired_completed": {r: s["completed"]
+                                 for r, s in retired.items()},
+           "parts_s": parts}
+    emit(rec)
+    if fails:
+        raise AssertionError("phase 59 (fleet): %s" % fails)
+    return art, dense1, twin, rec
+
+
+def phase_p59_capi(card, art, dense, twin, device="cuda", a=None):
+    """The C API at batch 64 on the DeepFM artifact: the card's output bit
+    for bit ``create_predictor(AnalysisConfig(dir)).run``'s in this
+    process; after ``PD_DisableGpu`` within the program's derived bound
+    (``serve_bench.program_bounds``, as the card's); ms a call of each."""
+    from paddle_tpu_torch.inference import AnalysisConfig, create_predictor
+    from paddle_tpu_torch.runtime import capi
+    from paddle_tpu_torch.tools import deepfm_hostps as dh
+    from paddle_tpu_torch.tools import serve_bench as sb
+
+    a = a or _p59_args()
+    F = a["fields"]
+    on_card = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    capi.library()
+    build_s = time.perf_counter() - t0
+    ids = dh.zipf_ids(np.random.RandomState(59), P59_CAPI_BATCH, F,
+                      a["vocab"])
+    feed = {"emb": np.asarray(twin.pull(ids, materialize=False),
+                              np.float32).reshape(P59_CAPI_BATCH, -1)}
+    cp = capi.CPredictor(art, use_gpu=on_card)
+    cfg = AnalysisConfig(art)
+    if not on_card:
+        cfg.disable_gpu()
+    pred = create_predictor(cfg)
+    got = cp.run(feed)[0]
+    want = pred.run(dict(feed))[0]
+    bitwise = got.tobytes() == np.asarray(want).tobytes()
+    cpu = capi.CPredictor(art, use_gpu=False)
+    got_cpu = cpu.run(feed)[0]
+    (ref, bound), = sb.program_bounds(art, feed)
+    h_card, h_cpu = sb._hold(got, ref, bound), sb._hold(got_cpu, ref, bound)
+
+    def ms(fn):
+        fn()
+        t = time.perf_counter()
+        for _ in range(P59_CAPI_RUNS):
+            fn()
+        return (time.perf_counter() - t) * 1e3 / P59_CAPI_RUNS
+
+    capi_ms = ms(lambda: cp.run(feed))
+    pred_ms = ms(lambda: pred.run(dict(feed)))
+    cp.close()
+    cpu.close()
+    rec = {"phase": "p59_capi", "nvidia_smi": card, "device": str(device),
+           "batch": P59_CAPI_BATCH, "build_or_load_s": build_s,
+           "library": capi.library()._name, "card_bitwise_predictor": bitwise,
+           "card_ratio": h_card["ratio"], "cpu_ratio": h_cpu["ratio"],
+           "capi_ms_per_call": capi_ms, "predictor_ms_per_call": pred_ms,
+           "runs": P59_CAPI_RUNS}
+    emit(rec)
+    if not (bitwise and h_card["ok"] and h_cpu["ok"]):
+        raise AssertionError("phase 59 (C API): %s" % rec)
+    return rec
+
+
+def phase_fleet_capi(card):
+    """Phase 59: the serving fleet and the C API; no port kernel launches
+    (the DeepFM forward runs none)."""
+    import gc
+    import tempfile
+
+    from paddle_tpu_torch.hostps import service
+    from paddle_tpu_torch.kernels import _common
+
+    # phase 58's tables and embeddings go before this phase's two tables
+    service._LIVE_EMBEDDINGS.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    _common.reset_launches()
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase59_")
+    try:
+        art, dense, twin, _rec = phase_p59_fleet(card, tmp)
+        phase_p59_capi(card, art, dense, twin)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert_no_launches("the serving fleet and the C API")
+    emit({"phase": "fleet_capi", "seconds": time.perf_counter() - t0})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -11497,6 +11900,9 @@ def main():
     phase_serving_online(card)
     for rec in kernels:
         rec["phase58_launches_per_step"] = 0
+    phase_fleet_capi(card)
+    for rec in kernels:
+        rec["phase59_launches"] = 0
     for rec in kernels:
         if rec["name"] == "segment_sum":
             rec["ctr_dataset_launches_per_step"] = ctr_per_step

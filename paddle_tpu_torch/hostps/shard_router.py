@@ -254,7 +254,11 @@ class ShardServer:
         payload = payload or {}
         t = self.table
         if op == "pull":
-            return {"values": t.pull(np.asarray(payload["rows"], np.int64))}
+            # ``read_only``: a serving view's pull (serving/fleet.py
+            # FleetCTRView) leaves cold rows unwritten
+            return {"values": t.pull(np.asarray(payload["rows"], np.int64),
+                                     materialize=not payload.get(
+                                         "read_only"))}
         if op == "push":
             r, new = t.push(np.asarray(payload["rows"], np.int64),
                             np.asarray(payload["values"], np.float32),

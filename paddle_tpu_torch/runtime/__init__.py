@@ -1,12 +1,15 @@
 """Native runtime extensions (C++), loaded with ctypes: the port's own
-build of ``datafeed.cc``, the MultiSlot parser and bounded channel behind
-``dataset.py`` (counterpart of the JAX package's ``runtime/__init__.py``).
+builds of ``datafeed.cc``, the MultiSlot parser and bounded channel behind
+``dataset.py``, and ``capi.cc``, the C inference API over an embedded
+CPython (counterpart of the JAX package's ``runtime/__init__.py``).
 
 A library is compiled at first use with ``g++ -O3 -shared -fPIC -pthread``
+(``capi`` also with this interpreter's include and ``-lpython`` flags)
 into the ignored ``build/runtime/`` beside the kernels' ``build/kernels/``,
-under a name that carries a hash of its source and flags, so an edited
-source is rebuilt and an unchanged one is reused.  The source here is the
-port's copy; the JAX package's source and ``.so`` are never read.
+under a name that carries a hash of its source, its header and its flags,
+so an edited source is rebuilt and an unchanged one is reused.  The
+sources here are the port's copies; the JAX package's sources and ``.so``
+files are never read.
 
 ``PADDLE_TPU_NO_NATIVE=1`` selects the pure-Python parser (``load`` returns
 None), as in the reference.  Otherwise a failed build raises with the
@@ -36,11 +39,43 @@ _cache = {}
 build_info = {}
 
 
+def _python_flags():
+    """Include and link flags for a library that embeds CPython (capi.cc):
+    this interpreter's headers, and its shared ``libpython`` where it has
+    one (what a plain C program needs).  An interpreter built without one
+    exports the C API from its own executable, so inside a Python process
+    the library resolves against that and links nothing."""
+    import sysconfig
+
+    inc = sysconfig.get_paths()["include"]
+    libdir = sysconfig.get_config_var("LIBDIR") or ""
+    ver = (sysconfig.get_config_var("LDVERSION")
+           or sysconfig.get_config_var("VERSION"))
+    shared = os.path.join(libdir, "libpython%s.so" % ver)
+    if not (sysconfig.get_config_var("Py_ENABLE_SHARED")
+            and os.path.exists(shared)):
+        return ["-I" + inc], []
+    return (["-I" + inc],
+            ["-L" + libdir, "-Wl,-rpath," + libdir, "-lpython%s" % ver])
+
+
+def _flags(name):
+    """(compile flags, link flags) of ``name``."""
+    if name == "capi":
+        cflags, ldflags = _python_flags()
+        return CXX_FLAGS + cflags, ldflags
+    return list(CXX_FLAGS), []
+
+
 def library_path(name):
     """Where the build of ``name``'s current source lives."""
     src = HERE / (name + ".cc")
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    hdr = HERE / (name + ".h")
+    cflags, ldflags = _flags(name)
+    h = hashlib.sha256(" ".join(cflags + ldflags).encode())
     h.update(src.read_bytes())
+    if hdr.exists():
+        h.update(hdr.read_bytes())
     return BUILD_DIR / ("lib%s_%s.so" % (name, h.hexdigest()[:16]))
 
 
@@ -55,8 +90,10 @@ def _build(name):
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        r = subprocess.run(["g++", *CXX_FLAGS, str(HERE / (name + ".cc")),
-                            "-o", tmp], capture_output=True, text=True)
+        cflags, ldflags = _flags(name)
+        r = subprocess.run(["g++", *cflags, str(HERE / (name + ".cc")),
+                            "-o", tmp, *ldflags],
+                           capture_output=True, text=True)
         if r.returncode != 0:
             raise RuntimeError("building the native %s library failed:\n%s"
                                % (name, r.stderr))

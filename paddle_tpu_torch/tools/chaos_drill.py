@@ -49,8 +49,13 @@ degradation, the recovery, the repartition and the ``ps_wait`` phase.  The
 shard owners touch no CUDA; on a card the trainer runs PyTorch's
 deterministic algorithms.
 
-The reference's WarmStart, online, fleet-serving, overload and OOM drills
-print what they wait for (ROADMAP Queue 1 items 8 and 10) and exit 2.
+``--fleet [--smoke]``, ``--online [--smoke]`` and ``--oom`` (the serving
+fleet, the OnlineLoop and MemScope's induced OOM) live in
+``tools/serving_drill.py``: its docstring gives their legs and the derived
+bounds that stand in for the reference's fixed latency budgets.
+
+The reference's WarmStart and overload drills print what they wait for
+(ROADMAP Queue 1 items 8 and 10-C) and exit 2.
 
 Run: ``python -m paddle_tpu_torch.tools.chaos_drill --smoke --check
 --device cpu``.
@@ -117,15 +122,9 @@ TIMEOUT_S = 600
 UNPORTED = {
     "warmstart": "the restart-storm drill waits for ROADMAP Queue 1 item 8 "
                  "(WarmStart)",
-    "online": "the OnlineLoop drill waits for ROADMAP Queue 1 item 10 "
-              "(online/)",
-    "fleet": "the FleetServe drill waits for ROADMAP Queue 1 item 10 (the "
-             "serving fleet)",
-    "overload": "the LoadShield drill waits for ROADMAP Queue 1 item 10 (the "
-                "serving fleet)",
-    "oom": "the induced-OOM drill's launcher plan waits with the serving "
-           "fleet (ROADMAP Queue 1 item 10); MemScope's drill runs in "
-           "tests/test_torch_memscope.py",
+    "overload": "the LoadShield overload drill waits for ROADMAP Queue 1 "
+                "item 10-C (its goodput and shed-latency legs need bounds "
+                "derived for the port)",
 }
 
 
@@ -175,6 +174,10 @@ def _arm_plan(plan, attempt, args):
                           args.ckpt, "ckpt-%d" % committed_step, "COMMIT"))
         elif attempt == 2:
             chaos.arm("kill_step", at=3)               # whole-fleet loss
+    elif plan == "oom":
+        from paddle_tpu_torch.tools import serving_drill
+
+        serving_drill.arm_oom(args.device)
     elif plan == "elastic":
         world = int(os.environ.get("PADDLE_TRAINERS_NUM", "1"))
         every = args.every
@@ -1198,6 +1201,16 @@ def main(argv=None):
                     help="ShardPS drill: trainer + shard owner, wire chaos, "
                          "owner SIGKILL + solo respawn + replay, live "
                          "shrink, bit-parity vs single-host HostPS")
+    ap.add_argument("--fleet", action="store_true",
+                    help="FleetServe drill: a replica SIGKILLed mid-trace "
+                         "behind the router (tools/serving_drill.py)")
+    ap.add_argument("--online", action="store_true",
+                    help="OnlineLoop drill: streaming train -> delta "
+                         "publish -> zero-drop flips, torn publish, "
+                         "rollback, resume parity")
+    ap.add_argument("--oom", action="store_true",
+                    help="MemScope induced-OOM drill: one postmortem naming "
+                         "the planted ballast, the predictor's warning first")
     for mode in UNPORTED:
         ap.add_argument("--" + mode, action="store_true",
                         help="not ported: %s" % UNPORTED[mode])
@@ -1206,7 +1219,8 @@ def main(argv=None):
     ap.add_argument("--worker", action="store_true")
     ap.add_argument("--plan", default="none",
                     choices=["none", "drill", "smoke", "multiproc",
-                             "elastic", "hostps"])
+                             "elastic", "hostps", "online", "fleetps",
+                             "oom"])
     ap.add_argument("--data")
     ap.add_argument("--ckpt")
     ap.add_argument("--out")
@@ -1226,12 +1240,29 @@ def main(argv=None):
                     help="(worker) the heartbeat directory")
     ap.add_argument("--ps-budget", dest="ps_budget", type=int, default=None,
                     help="(worker) per-process table byte budget")
+    ap.add_argument("--model", default=None,
+                    help="(online worker) the serving artifact")
+    ap.add_argument("--publish", default=None,
+                    help="(online worker) the publish directory")
+    ap.add_argument("--pub-every", dest="pub_every", type=int, default=3,
+                    help="(online worker) publish every N steps")
+    ap.add_argument("--idle-secs", dest="idle_secs", type=float, default=6.0,
+                    help="(online worker) the stream's drain timeout")
+    ap.add_argument("--publish-kill-at", dest="publish_kill_at", type=int,
+                    default=None,
+                    help="(online worker) SIGKILL inside the Nth publish")
     ap.add_argument("--workdir", default=None,
                     help="keep artifacts here instead of a temp dir")
     ap.add_argument("--keep", action="store_true")
     args = ap.parse_args(argv)
     if args.worker:
         os.makedirs(args.out, exist_ok=True)
+        if args.plan in ("online", "fleetps"):
+            from paddle_tpu_torch.tools import serving_drill
+
+            return (serving_drill.online_worker(args)
+                    if args.plan == "online"
+                    else serving_drill.fleetps_worker(args))
         if args.plan == "hostps" or (args.plan == "none"
                                      and args.wire is not None):
             return hostps_worker(args)
@@ -1246,6 +1277,14 @@ def main(argv=None):
         if not torch.cuda.is_available():
             return _fail("--device cuda and no CUDA device (pass --device "
                          "cpu)")
+    if args.fleet or args.online or args.oom:
+        from paddle_tpu_torch.tools import serving_drill
+
+        if args.fleet:
+            return serving_drill.run_fleet(args)
+        if args.online:
+            return serving_drill.run_online(args)
+        return serving_drill.run_oom(args)
     if args.multiproc:
         return run_multiproc(args)
     if args.elastic:

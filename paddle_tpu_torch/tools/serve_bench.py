@@ -54,10 +54,29 @@ static mode takes them (each request alone, in chunks of the largest
 bucket) through a cold cache under ``cProfile``, then warm, after one
 read of the rows (the table's first-touch faults paid apart).
 
+``--fleet`` (the counterpart of the reference's ``fleet_leg``): the same
+model served by 1 and then 3 ``ServeEngine`` replica processes
+(``serving.FleetManager``) behind one ``FleetRouter``, the sparse rows
+pulled read-only from one ShardPS owner process (``--ctr-owner``) through
+each replica's ``FleetCTRView``.  Closed-loop clients (offered load rises
+only as the fleet absorbs it, so QPS is capacity) drive each leg; QPS, p50
+and p99 at 1 and 3 replicas and their ratio are printed, not gated: the
+replicas share one card (or this host's cores), so the reference's "0.8x
+linear" is no derived bound here.  Gated (``--check``): zero drops, every
+replica's lattice captured by itself (no warm store: ``compiled`` for
+every point) with zero recompiles and zero new signatures, a rolling swap
+to a second weight set (then served and held to the predictor on those
+weights), the owner's table never written (``rows_initialized`` 0), the
+autoscale signal up under the clients and down (a real retire) when idle,
+and sampled results held as gate 1 holds them.  ``--smoke`` uses the
+smoke model and a 512-row table; the full one the DeepFM on the
+200,000,000-row table, the phase-58 trace cycled by the clients.
+
 Usage (the card unless ``--device cpu``):
     python -m paddle_tpu_torch.tools.serve_bench --smoke --check [--device cpu]
     python -m paddle_tpu_torch.tools.serve_bench --check
     python -m paddle_tpu_torch.tools.serve_bench --profile-lookups
+    python -m paddle_tpu_torch.tools.serve_bench --fleet [--smoke] --check
 """
 
 import argparse
@@ -77,7 +96,8 @@ __all__ = ["SMOKE", "FULL", "build_program", "build_artifact",
            "write_params", "export", "request_trace", "deepfm_trace",
            "deepfm_head_bounds",
            "make_lookup", "make_deepfm_lookup", "run_mode", "program_bounds",
-           "verify_sample", "head_of_line", "main"]
+           "verify_sample", "head_of_line", "owner_table", "start_owner",
+           "stop_owner", "fleet_drive", "fleet_leg", "main"]
 
 SMOKE = dict(lattice=[2, 4, 8], requests=30, vocab=512, dim=4,
              cache_slots=64)
@@ -282,6 +302,386 @@ def make_deepfm_lookup(vocab, dim, cache_slots, device=None,
     emb = HostPSEmbedding(table, cache_slots=cache_slots, read_only=True,
                           device=device)
     return table, emb, CTRLookup(emb, "ids", out_name="emb")
+
+
+# ----------------------------------------------------------------- fleet --
+
+OWNER_DONE = "OWNER_DONE"
+
+
+def owner_table(kind, vocab, width, name=TABLE_NAME):
+    """The read-only CTR table an owner serves, and its twin anywhere else,
+    with rows ``width`` wide: ``make_lookup``'s (``kind`` "smoke", seed 7)
+    or ``make_deepfm_lookup``'s (``kind`` "deepfm": each row an embedding
+    of ``width - 1`` and its first-order weight)."""
+    from ..hostps import HostSparseTable
+    from . import deepfm_hostps as dh
+
+    if kind == "smoke":
+        return HostSparseTable(vocab, width, seed=7, name=name)
+    return dh.make_table(vocab, width - 1, name=name)
+
+
+def _rss():
+    from ..monitor import memscope
+
+    return memscope.host_accounting().get("rss_bytes", 0)
+
+
+def owner_main(args):
+    """``--ctr-owner``: one ShardPS owner process serving ``owner_table``'s
+    rows over ``--wire-dir`` until an ``OWNER_DONE`` file appears there;
+    then it writes ``owner-0.json`` (rows initialized, RSS at start and
+    end) beside it.  It touches no card."""
+    from ..hostps import ShardServer
+
+    rss0 = _rss()
+    table = owner_table(args.kind, args.vocab, args.width)
+    srv = ShardServer(table, args.wire_dir, 0, poll=args.poll).start()
+    done = os.path.join(args.wire_dir, OWNER_DONE)
+    while not os.path.exists(done):
+        time.sleep(0.05)
+    srv.stop()
+    rec = {"rows_initialized": int(table.rows_initialized),
+           "rss_start_bytes": rss0, "rss_end_bytes": _rss(),
+           "pid": os.getpid()}
+    with open(os.path.join(args.wire_dir, "owner-0.json"), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def start_owner(wire_dir, kind, vocab, width, poll=0.002, env=None):
+    """Start ``owner_main`` as a fresh interpreter that sees no card."""
+    os.makedirs(wire_dir, exist_ok=True)
+    env = dict(os.environ if env is None else env, CUDA_VISIBLE_DEVICES="")
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    import subprocess
+
+    return subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.tools.serve_bench",
+         "--ctr-owner", "--wire-dir", wire_dir, "--kind", kind,
+         "--vocab", str(vocab), "--width", str(width), "--poll",
+         str(poll)],
+        env=env, cwd=repo)
+
+
+def stop_owner(wire_dir, proc, timeout=120):
+    """Ask the owner to stop; returns its ``owner-0.json`` record."""
+    open(os.path.join(wire_dir, OWNER_DONE), "w").close()
+    rc = proc.wait(timeout=timeout)
+    with open(os.path.join(wire_dir, "owner-0.json")) as f:
+        rec = json.load(f)
+    rec["rc"] = rc
+    return rec
+
+
+def fleet_drive(router, clients, seconds, next_feed, samples=None,
+                mid_hook=None, keep=8):
+    """Closed-loop fleet load: ``clients`` threads each submit-and-wait in
+    a loop for ``seconds``; client c's k-th request is ``next_feed(c, k)``
+    (a dict with a ``"key"`` the samples carry, and the feed).  Closed-loop
+    is the honest shape for a scaling measurement: offered load rises only
+    when the fleet absorbs it, so QPS is capacity, not an arrival-rate
+    echo.  ``samples`` (a list) collects up to ``keep`` ``(key, feed,
+    outputs)`` per client."""
+    import threading
+
+    lock = threading.Lock()
+    lats, errors = [], []
+    stop_at = [float("inf")]
+
+    def one(cid):
+        k, kept = 0, 0
+        while time.perf_counter() < stop_at[0]:
+            key, feed = next_feed(cid, k)
+            k += 1
+            t0 = time.perf_counter()
+            try:
+                outs = router.submit(dict(feed))
+            except Exception as e:                  # a drop: gate trips
+                with lock:
+                    errors.append("client %d: %r" % (cid, e))
+                return
+            ms = (time.perf_counter() - t0) * 1e3
+            with lock:
+                lats.append(ms)
+                if samples is not None and kept < keep:
+                    samples.append((key, feed, outs))
+                    kept += 1
+
+    threads = [threading.Thread(target=one, args=(c,), daemon=True)
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    stop_at[0] = t0 + seconds
+    for t in threads:
+        t.start()
+    if mid_hook is not None:
+        time.sleep(seconds * 0.5)
+        try:
+            mid_hook()
+        except Exception as e:
+            with lock:
+                errors.append("mid_hook: %r" % (e,))
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    arr = np.asarray(lats) if lats else np.zeros(1)
+    return {"completed": len(lats), "errors": errors,
+            "wall_s": round(wall, 3),
+            "qps": round(len(lats) / wall, 2),
+            "p50_ms": round(float(np.percentile(arr, 50)), 3),
+            "p99_ms": round(float(np.percentile(arr, 99)), 3)}
+
+
+def _fleet_model(cfg_name, workdir, device):
+    """(feeds, dense params or None, kind, vocab, dim, feed factory) of
+    the fleet bench's model, its artifact written to ``workdir``."""
+    import paddle_tpu_torch as fluid
+
+    rng = np.random.RandomState(0)
+    if cfg_name == "smoke":
+        c = SMOKE
+        build_artifact(fluid, workdir, rng, device=device)
+
+        def feed(cid, k):
+            crng = np.random.RandomState(1000 + 7919 * cid + k)
+            rows = int(crng.choice((2, 4)))
+            return (cid, k), {
+                "x": crng.rand(rows, 12).astype("f4"),
+                "ids": crng.randint(0, c["vocab"], (rows, 4)).astype("i8")}
+        return (["x:12:float32", "emb:16:float32"], None, "smoke",
+                c["vocab"], c["dim"], feed, c["lattice"])
+    from . import deepfm_hostps as dh
+
+    c = FULL
+    dense = dh.init_dense(torch.Generator().manual_seed(0), c["fields"],
+                          c["dim"], c["mlp"], "cpu")
+    build_deepfm_artifact(fluid, workdir, deepfm_params(dense), c["fields"],
+                          c["dim"], c["mlp"], device=device)
+    trace = deepfm_trace(c["requests"], 4 * max(c["lattice"]),
+                         np.random.RandomState(58), c["fields"], c["vocab"])
+
+    def feed(cid, k):
+        i = (cid + 16 * k) % len(trace)
+        return i, trace[i]
+    return (["emb:%d:float32" % (c["fields"] * (c["dim"] + 1))], dense,
+            "deepfm", c["vocab"], c["dim"] + 1, feed, c["lattice"])
+
+
+def fleet_leg(args):
+    """The fleet receipts (module docstring, ``--fleet``).  Returns the
+    exit code."""
+    from .. import monitor
+    from ..inference import AnalysisConfig, create_predictor
+    from ..kernels._common import resolve_device
+    from ..serving import FleetManager, FleetRouter, autoscale_signal
+
+    device = resolve_device(args.device)
+    cfg_name = "smoke" if args.smoke else "full"
+    leg_s = args.leg_secs or (4.0 if args.smoke else 10.0)
+    clients = args.fleet_clients
+    workdir = tempfile.mkdtemp(prefix="serve_bench_fleet_")
+    fleet_wire = os.path.join(workdir, "fleet-wire")
+    ps_wire = os.path.join(workdir, "ps-wire")
+    mon_root = os.path.join(workdir, "monitor")
+    art = os.path.join(workdir, "artifact")
+    failures, samples, load_sig, stats = [], [], {}, {}
+    res1 = res3 = post = None
+    owner = mgr = None
+    d_idle = action = rc_retired = owner_rec = None
+    versions = {}
+    mon = monitor.enable(os.path.join(mon_root, "router"))
+    try:
+        (feeds, _dense, kind, vocab, dim, next_feed,
+         lattice) = _fleet_model(cfg_name, art, str(device))
+        say("serve_bench[fleet]: config=%s device=%s clients=%d leg=%.0fs "
+            "lattice=%s" % (cfg_name, device, clients, leg_s, lattice))
+        owner = start_owner(ps_wire, kind, vocab, dim)
+        say("serve_bench[fleet]: ShardPS owner pid %d serves the whole "
+            "%d-row table read-only; the replicas hold no table"
+            % (owner.pid, vocab))
+        mgr = FleetManager(
+            fleet_wire, art, mon_root, feeds,
+            buckets=",".join(map(str, lattice)), workers=8,
+            queue_capacity=512, device=str(device.type),
+            env=(dict(os.environ, OMP_NUM_THREADS="1")
+                 if device.type == "cpu" else None),
+            ctr={"wire_dir": ps_wire, "world": 1, "vocab": vocab,
+                 "dim": dim, "ids": "ids", "out": "emb"})
+        router = FleetRouter(fleet_wire, poll=0.002, registry=mon.registry)
+        t0 = time.perf_counter()
+        mgr.spawn(0)
+        mgr.wait_ready([0], timeout=args.timeout)
+        router.add_replica(0)
+        say("serve_bench[fleet]: replica 0 READY in %.1fs"
+            % (time.perf_counter() - t0))
+        res1 = fleet_drive(router, clients, leg_s, next_feed)
+        say(json.dumps({"metric": "fleet_1", "serve": True, "unit": "ms",
+                        "device": str(device), "replicas": 1,
+                        "clients": clients, **{k: res1[k] for k in
+                        ("qps", "p50_ms", "p99_ms", "completed")}}))
+        t1 = time.perf_counter()
+        mgr.spawn(1)
+        mgr.spawn(2)
+        mgr.wait_ready([1, 2], timeout=args.timeout)
+        router.add_replica(1)
+        router.add_replica(2)
+        say("serve_bench[fleet]: replicas 1+2 READY in %.1fs (each captures "
+            "its own lattice: no warm store)" % (time.perf_counter() - t1))
+
+        def _mid():
+            router.publish_gauges()
+            d, why, ml = autoscale_signal(router.snapshot(), min_replicas=1,
+                                          max_replicas=4, high_load=3.0,
+                                          registry=mon.registry)
+            load_sig.update(desired=d, reason=why, mean_load=round(ml, 2))
+
+        res3 = fleet_drive(router, clients, leg_s, next_feed,
+                           samples=samples, mid_hook=_mid)
+        say(json.dumps({"metric": "fleet_3", "serve": True, "unit": "ms",
+                        "device": str(device), "replicas": 3,
+                        "clients": clients, **{k: res3[k] for k in
+                        ("qps", "p50_ms", "p99_ms", "completed")}}))
+        for rid in (0, 1, 2):
+            try:
+                stats[rid] = router.stats(rid)
+            except Exception as e:
+                failures.append("stats(%d) failed: %r" % (rid, e))
+
+        # rolling deploy: every replica to a second weight set (the saved
+        # weights halved — call-compatible by construction)
+        with np.load(os.path.join(art, "__params__.npz")) as z:
+            state2 = {k: (z[k] * np.float32(0.5)).astype(z[k].dtype)
+                      for k in z.files}
+        art2 = os.path.join(workdir, "artifact2")
+        shutil.copytree(art, art2)
+        write_params(art2, state2)
+        router.rolling_swap(2, os.path.join(art2, "__params__.npz"),
+                            deadline=max(30.0, args.timeout / 4))
+        post_samples = []
+        post = fleet_drive(router, 4, 1.5, next_feed, samples=post_samples,
+                           keep=2)
+        for rid in (0, 1, 2):
+            try:
+                versions[rid] = router.stats(rid).get("version")
+            except Exception as e:
+                failures.append("post-swap stats(%d): %r" % (rid, e))
+        say("serve_bench[fleet]: rolling swap -> versions %s, %d requests "
+            "served post-swap" % (versions, post["completed"]))
+        shield = router.shield_snapshot()
+        if (shield["sheds"] or shield["budget"]["spent"]
+                or shield["degraded"]):
+            failures.append("the inert shield acted on a clean run: %r"
+                            % shield)
+
+        # autoscale, both directions: the scale-up signal was sampled
+        # under the clients; idle -> scale-down, actuated as a real retire
+        router.stats_all()
+        d_idle, why_idle, _ml = autoscale_signal(
+            router.snapshot(), min_replicas=1, max_replicas=4,
+            high_load=3.0, registry=mon.registry)
+        action, rid_r = mgr.apply_autoscale(router, d_idle)
+        rc_retired = (mgr.procs[rid_r].returncode
+                      if action == "retire" else None)
+        say("serve_bench[fleet]: autoscale under load -> %s; idle -> "
+            "desired=%d (%s) -> %s replica %s (rc=%s)"
+            % (load_sig, d_idle, why_idle, action, rid_r, rc_retired))
+        for rid in list(router.replica_ids()):
+            router.retire(rid)
+            mgr.wait(rid, timeout=30.0)
+        owner_rec = stop_owner(ps_wire, owner)
+        owner = None
+
+        # sampled correctness: the fleet's answers against the predictor
+        # on a twin of the owner's table (gate 1's bounds)
+        twin = owner_table(kind, vocab, dim)
+
+        def lookup(feed):
+            feed = dict(feed)
+            ids = feed.pop("ids")
+            feed["emb"] = twin.pull(ids, materialize=False).reshape(
+                len(ids), -1)
+            return feed
+
+        for tag, d, got_samples in (("v1", art, samples[:6]),
+                                    ("v2", art2, post_samples[:4])):
+            pcfg = AnalysisConfig(d)
+            if device.type == "cpu":
+                pcfg.disable_gpu()
+            pred = create_predictor(pcfg)
+            loaded = _load_program(d)
+            for key, feed, outs in got_samples:
+                fed = lookup(feed)
+                (ref, bound), = program_bounds(d, fed, _loaded=loaded)
+                (want,) = pred.run(fed)
+                h_f, h_p = _hold(outs[0], ref, bound), _hold(want, ref, bound)
+                if not (h_f["ok"] and h_p["ok"]):
+                    failures.append("%s sample %r: fleet %s, predictor %s"
+                                    % (tag, key, h_f, h_p))
+    finally:
+        monitor.disable()
+        if mgr is not None:
+            mgr.stop_all()
+        if owner is not None:
+            try:
+                stop_owner(ps_wire, owner, timeout=30)
+            except Exception:
+                owner.kill()
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    if len(stats) < 3:
+        failures.append("only %d/3 replicas answered stats" % len(stats))
+    for rid, st in stats.items():
+        src = st.get("precompile_sources", {})
+        if src.get("compiled") != len(lattice) or src.get("disk"):
+            failures.append("replica %d sources %s" % (rid, src))
+        if st["recompiles"] or st.get("new_compiled_sigs"):
+            failures.append("replica %d: recompiles %s, new signatures %s"
+                            % (rid, st["recompiles"],
+                               st.get("new_compiled_sigs")))
+    for leg, r in (("1-replica", res1), ("3-replica", res3),
+                   ("post-swap", post)):
+        for err in r["errors"]:
+            failures.append("%s leg dropped a request: %s" % (leg, err))
+        if not r["completed"]:
+            failures.append("%s leg completed zero requests" % leg)
+    if set(versions.values()) != {2}:
+        failures.append("rolling swap incomplete: versions %s" % versions)
+    if load_sig.get("desired", 0) <= 3:
+        failures.append("the fleet under its clients did not signal "
+                        "scale-up: %s" % load_sig)
+    if d_idle is None or d_idle >= 3:
+        failures.append("idle fleet still wants %s replicas" % d_idle)
+    if action != "retire" or rc_retired != 0:
+        failures.append("autoscale retire did not happen cleanly: action=%s "
+                        "rc=%s" % (action, rc_retired))
+    if owner_rec is None or owner_rec["rc"] != 0 \
+            or owner_rec["rows_initialized"]:
+        failures.append("owner: %s" % owner_rec)
+    qps1, qps3 = res1["qps"], res3["qps"]
+    ratio = round(qps3 / qps1, 3) if qps1 else 0.0
+    say("serve_bench[fleet]: qps 1-replica=%.1f 3-replica=%.1f -> ratio "
+        "%.2fx (reported, not gated: the replicas share %s); p99 %.1fms -> "
+        "%.1fms" % (qps1, qps3, ratio, "one card" if device.type == "cuda"
+                    else "this host's cores", res1["p99_ms"],
+                    res3["p99_ms"]))
+    say(json.dumps({"metric": "fleet", "serve": True, "fleet": True,
+                    "device": str(device), "config": cfg_name,
+                    "replicas": 3, "clients": clients, "qps_1": qps1,
+                    "qps_3": qps3, "ratio": ratio,
+                    "p99_1_ms": res1["p99_ms"], "p99_3_ms": res3["p99_ms"],
+                    "precompile_s": {r: s.get("precompile_s")
+                                     for r, s in stats.items()},
+                    "owner": owner_rec, "autoscale_up": load_sig,
+                    "autoscale_idle": d_idle}))
+    for f in failures:
+        say("serve_bench[fleet]: FAIL %s" % f)
+    if args.check and failures:
+        return 1
+    say("serve_bench[fleet]: %s" % ("PASS" if not failures else "done"))
+    return 0
 
 
 # ------------------------------------------------------------------ runs --
@@ -590,7 +990,23 @@ def main(argv=None):
                     help="the card unless 'cpu' is named")
     ap.add_argument("--profile-lookups", action="store_true",
                     help="profile the full trace's cold and warm lookups")
+    ap.add_argument("--fleet", action="store_true",
+                    help="1 then 3 replica processes behind a FleetRouter")
+    ap.add_argument("--fleet-clients", type=int, default=16)
+    ap.add_argument("--leg-secs", type=float, default=None)
+    ap.add_argument("--ctr-owner", action="store_true",
+                    help="(internal) run one read-only ShardPS owner")
+    ap.add_argument("--wire-dir", default=None)
+    ap.add_argument("--kind", default="smoke", choices=("smoke", "deepfm"))
+    ap.add_argument("--vocab", type=int, default=SMOKE["vocab"])
+    ap.add_argument("--width", type=int, default=SMOKE["dim"],
+                    help="(owner) the table's row width")
+    ap.add_argument("--poll", type=float, default=0.002)
     args = ap.parse_args(argv)
+    if args.ctr_owner:
+        return owner_main(args)
+    if args.fleet:
+        return fleet_leg(args)
 
     from ..hostps.service import _LIVE_EMBEDDINGS
     from ..kernels._common import resolve_device

@@ -95,8 +95,7 @@ def test_chaos_drill_multiproc_gate():
 def test_unported_drills_name_their_items(capsys):
     from paddle_tpu_torch.tools import chaos_drill
 
-    for mode, item in (("warmstart", "item 8"), ("online", "item 10"),
-                       ("fleet", "item 10"), ("overload", "item 10")):
+    for mode, item in (("warmstart", "item 8"), ("overload", "item 10-C")):
         assert chaos_drill.main(["--" + mode, "--smoke", "--check",
                                  "--device", "cpu"]) == 2
         assert item in capsys.readouterr().out

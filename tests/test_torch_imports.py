@@ -476,3 +476,68 @@ def test_hostps_entry_points_raise_without_a_card(monkeypatch):
                           device="cpu")
     assert svc.pull(np.array([1])).device.type == "cpu"
     service._LIVE_EMBEDDINGS.discard(svc)
+
+
+FLEET = ["serving.router", "serving.fleet", "runtime", "tools.chaos_drill",
+         "tools.serve_bench"]
+
+
+def test_the_fleet_and_the_c_api_are_checked_and_load_alone():
+    """The router, the fleet, the C API's loader and the drills of item
+    10-B are among the files checked above (and the C API's source embeds
+    the port's inference module, not the JAX package's); importing them
+    in a fresh interpreter loads neither JAX nor the JAX package, nor
+    initialises CUDA."""
+    checked = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for mod in FLEET:
+        path = "paddle_tpu_torch/" + mod.replace(".", "/")
+        assert path + ".py" in checked or path + "/__init__.py" in checked, mod
+    src = (ROOT / "paddle_tpu_torch" / "runtime" / "capi.cc").read_text()
+    assert '"paddle_tpu_torch.inference"' in src
+    assert '"paddle_tpu.inference"' not in src
+    code = ("import sys\n" + "".join("import paddle_tpu_torch.%s\n" % m
+                                      for m in FLEET)
+            + "import torch\nassert not torch.cuda.is_initialized()\n"
+            + "print(sorted({m.split('.')[0] for m in sys.modules} & "
+              "{'jax', 'jaxlib', 'paddle_tpu'}))")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_a_replica_refuses_to_serve_without_a_card_unless_asked(
+        monkeypatch, tmp_path):
+    """``python -m paddle_tpu_torch.serving.fleet`` means the card: without
+    one it raises before it loads anything or marks its inbox READY, and
+    ``FleetManager`` passes the device it was given to every replica."""
+    from paddle_tpu_torch.serving import FleetManager
+    from paddle_tpu_torch.serving.fleet import replica_main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--wire-dir", str(tmp_path / "w"), "--replica", "0",
+            "--artifact", str(tmp_path / "missing"),
+            "--mon-dir", str(tmp_path / "m"), "--feed", "x:4:float32"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        replica_main(argv)
+    assert not (tmp_path / "w").exists()
+    # asked for the CPU, it gets past the device check (and fails on the
+    # missing artifact instead)
+    with pytest.raises(Exception) as exc:
+        replica_main(argv + ["--device", "cpu"])
+    assert "CUDA" not in str(exc.value)
+    seen = []
+
+    class _Proc:
+        pid = 1
+
+        def __init__(self, cmd, **kw):
+            seen.append(cmd)
+
+    monkeypatch.setattr("subprocess.Popen", _Proc)
+    for device in ("cuda", "cpu"):
+        FleetManager(str(tmp_path), "a", str(tmp_path), ["x:4:float32"],
+                     device=device).spawn(0)
+    assert [c[c.index("--device") + 1] for c in seen] == ["cuda", "cpu"]
+    assert all(c[2] == "paddle_tpu_torch.serving.fleet" for c in seen)

@@ -185,11 +185,19 @@ def test_ctr_lookup_rows_bit_for_bit_with_the_jax_package():
 
 
 def test_fleet_names_raise_naming_item_10b():
-    for name in serving.FLEET_NAMES:
-        with pytest.raises(NotImplementedError, match="item 10-B"):
-            getattr(serving, name)
-    with pytest.raises(NotImplementedError, match="item 10-B"):
-        from paddle_tpu_torch.serving import FleetRouter  # noqa: F401
+    """Item 10-B is in: the six fleet names are exported as the JAX
+    package exports them, and none of them raises any more."""
+    names = ("FleetRouter", "FleetGiveUp", "ReplicaInfo", "FleetCTRView",
+             "FleetManager", "autoscale_signal")
+    from paddle_tpu_torch.serving import FleetRouter
+    from paddle_tpu_torch.serving.router import FleetRouter as Direct
+
+    assert FleetRouter is Direct
+    for name in names:
+        assert name in serving.__all__ and name in jfluid.serving.__all__
+        assert callable(getattr(serving, name))
+    assert set(jfluid.serving.__all__) <= set(serving.__all__)
+    assert not hasattr(serving, "FLEET_NAMES")
     with pytest.raises(AttributeError):
         serving.NoSuchName  # noqa: B018
 

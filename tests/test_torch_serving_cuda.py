@@ -136,3 +136,54 @@ def test_swap_under_load_never_tears_a_replay(served):
                         for o in outs)
     assert eng.last_summary["recompiles"] == 0
     assert eng.last_summary["new_compiled_sigs"] == 0
+
+
+def test_a_two_replica_fleet_serves_the_predictors_bits(cuda_device,
+                                                        tmp_path):
+    """Two replica processes on the card (``FleetManager``, ``--device
+    cuda``) behind a ``FleetRouter``, their rows from a ShardPS owner
+    process through ``FleetCTRView``: each request sent alone is served in
+    one step, bit for bit ``ExportedPredictor.run`` at its bucket in this
+    process on a twin table's rows; every lattice point captured by each
+    replica, none while serving; the owner's table never written."""
+    from paddle_tpu_torch.serving import FleetManager, FleetRouter
+
+    d = serve_bench.build_artifact(fluid, str(tmp_path / "m"),
+                                   np.random.RandomState(0),
+                                   device=cuda_device)
+    ps, fw = str(tmp_path / "ps"), str(tmp_path / "fw")
+    owner = serve_bench.start_owner(ps, "smoke", 512, 4)
+    twin = serve_bench.owner_table("smoke", 512, 4)
+    mgr = FleetManager(fw, d, str(tmp_path / "mon"),
+                       ["x:12:float32", "emb:16:float32"], buckets="2,4,8",
+                       device="cuda", ctr={"wire_dir": ps, "world": 1,
+                                           "vocab": 512, "dim": 4})
+    try:
+        for rid in (0, 1):
+            mgr.spawn(rid)
+        mgr.wait_ready([0, 1], timeout=300)
+        router = FleetRouter(fw, replicas=[0, 1], deadline=30.0,
+                             poll=0.002).connect(timeout=60)
+        ref = load_exported_model(d, device=cuda_device)
+        ref.declare_batch_buckets([2, 4, 8])
+        rng = np.random.RandomState(3)
+        for rows in (1, 2, 3, 4, 5, 8, 2, 7):
+            feed = {"x": rng.rand(rows, 12).astype("f4"),
+                    "ids": rng.randint(0, 512, (rows, 4)).astype("i8")}
+            (got,) = router.submit(dict(feed))
+            emb = twin.pull(feed["ids"], materialize=False).reshape(rows, -1)
+            (want,) = ref.run({"x": feed["x"], "emb": emb})
+            assert got.tobytes() == np.asarray(want).tobytes()
+        for rid in (0, 1):
+            st = router.stats(rid)
+            assert st["precompile_sources"]["compiled"] == 3
+            assert st["recompiles"] == 0 and st["new_compiled_sigs"] == 0
+            assert router.retire(rid)["replica"] == rid
+            assert mgr.wait(rid, timeout=60) == 0
+        rec = serve_bench.stop_owner(ps, owner)
+        owner = None
+        assert rec["rows_initialized"] == 0 and rec["rc"] == 0
+    finally:
+        mgr.stop_all(timeout=30)
+        if owner is not None:
+            owner.kill()

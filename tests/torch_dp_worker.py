@@ -13,6 +13,7 @@ import os
 import pickle
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -289,7 +290,31 @@ def main(argv, scenarios=SCENARIOS):
         with open(os.path.join(out_dir, "%s.r%d.pkl" % (name, rank)), "wb") as f:
             pickle.dump(res, f)
     dist.barrier()
-    dist.destroy_process_group()
+    _exit_after_peers(out_dir, rank, world)
+
+
+EXIT_WAIT_S = 60
+
+
+def _exit_after_peers(out_dir, rank, world):
+    """End the rank once every rank has passed the final barrier: each
+    writes ``done.r<rank>`` and waits for all the others' (files, not
+    sockets, so no rank is still inside a collective when a peer goes),
+    then leaves through ``os._exit(0)``.  The gloo teardown —
+    ``destroy_process_group`` and the interpreter's exit destroying the
+    process groups' threads — is skipped: under a loaded host it now and
+    then aborted a rank whose results were already written ("terminate
+    called without an active exception"), failing a world that had
+    finished its work.  Every result file is written before the barrier."""
+    open(os.path.join(out_dir, "done.r%d" % rank), "w").close()
+    deadline = time.monotonic() + EXIT_WAIT_S
+    while time.monotonic() < deadline and not all(
+            os.path.exists(os.path.join(out_dir, "done.r%d" % r))
+            for r in range(world)):
+        time.sleep(0.05)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 if __name__ == "__main__":
